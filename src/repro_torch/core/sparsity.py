@@ -1,0 +1,462 @@
+"""Two-sided sparsity: the plan layer (FlexNN §III-D), ported from the JAX
+package's ``core/sparsity.py``.
+
+1. **Block-sparse metadata** — per-tile bitmaps for A (M×K) and B (K×N),
+   the combined sparsity bitmap (CSB) per (m, n) output tile = AND across
+   the K blocks, compressed into the K-index lists the block-sparse kernel
+   walks (``BlockSparseMeta``; the CAG unit analogue).
+
+2. **Precompiled weight-sparsity plans** — weights are static at serving
+   time, so their block bitmaps and per-output-column live-K index lists
+   are compiled *once* at engine bring-up (``compile_weight_plan``) with a
+   tight ``max_nnz``.  In the decode step only the activation bitmap is
+   derived; ``combine_with_activation_meta`` ANDs it into the precomputed
+   weight metadata without re-deriving the weight side.
+
+Bitmaps and live counts are computed with torch on the weights' own device
+(at full width the weights never round-trip through the host); the small
+index lists are built on the host.  The plan keeps element counts for its
+ZVC byte model instead of packed value arrays.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+SITE_KEYS: Dict[str, Dict[str, str]] = {
+    "mlp": {"w_in": "mlp.in", "w_gate": "mlp.gate", "w_out": "mlp.out"},
+    "attn": {"wq": "attn.q", "wkv": "attn.kv", "wo": "attn.out"},
+}
+# top-level leaves (no parent key); ``embed`` is deliberately absent — a
+# tied head *is* the embedding table and is never planned
+TOP_SITE_KEYS: Dict[str, str] = {"lm_head": "lm_head"}
+# sites whose leaf is stored (N, K): planned on the transposed view
+TRANSPOSED_SITES = frozenset({"lm_head"})
+
+
+def zvc_weight_bytes(n_elems: float, nnz: float, *,
+                     elem_bytes: float = 2) -> float:
+    """Weight storage under ZVC (§IV): packed non-zeros + 1 bit/element."""
+    return nnz * float(elem_bytes) + n_elems / 8.0
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse metadata
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BlockSparseMeta:
+    """Metadata for the two-sided block-sparse matmul.
+
+    For each output tile (mi, ni): ``kidx[mi, ni, :]`` lists the K-block
+    indices where *both* A[mi, k] and B[k, ni] blocks are non-zero (the
+    CSB), ascending, zero-padded up to ``max_nnz``; ``kcnt[mi, ni]`` is the
+    live count."""
+    kidx: torch.Tensor      # (tm, tn, max_nnz) int32
+    kcnt: torch.Tensor      # (tm, tn) int32
+    a_bitmap: torch.Tensor  # (tm, tk) bool
+    b_bitmap: torch.Tensor  # (tk, tn) bool
+    max_nnz: int
+
+
+def block_bitmap(x: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
+    """(..., M, K) -> (..., ceil(M/bm), ceil(K/bk)) bool: True where the
+    block holds any non-zero (ragged edges zero-padded)."""
+    m, k = x.shape[-2:]
+    tm, tk = -(-m // bm), -(-k // bk)
+    if tm * bm != m or tk * bk != k:
+        x = torch.nn.functional.pad(x, (0, tk * bk - k, 0, tm * bm - m))
+    blocks = x.reshape(*x.shape[:-2], tm, bm, tk, bk)
+    return blocks.abs().amax(dim=(-3, -1)) > 0
+
+
+def _live_first(dead: torch.Tensor) -> torch.Tensor:
+    """Indices that put live entries first, each group in ascending order:
+    a *stable* sort of an integer key (0 = live, 1 = dead)."""
+    return torch.sort(dead.to(torch.int32), dim=-1, stable=True).indices
+
+
+def build_block_sparse_meta(a_bitmap: torch.Tensor, b_bitmap: torch.Tensor,
+                            max_nnz: Optional[int] = None, *,
+                            site: str = "") -> BlockSparseMeta:
+    """CSB → compressed K-index lists (the JAX package's
+    ``build_block_sparse_meta_jnp`` semantics).  ``max_nnz`` defaults to
+    the K-block count tk (the safe bound); a smaller value is checked
+    against every tile's live count and raises ``ValueError`` when it would
+    drop live blocks (the check reads the counts on the host)."""
+    tm, tk = a_bitmap.shape
+    tk2, tn = b_bitmap.shape
+    if tk != tk2:
+        raise ValueError(f"bitmap K-blocks differ: {tk} vs {tk2}")
+    max_nnz = tk if max_nnz is None else int(max_nnz)
+    csb = a_bitmap[:, None, :] & b_bitmap.t()[None, :, :]     # (tm, tn, tk)
+    kcnt = csb.sum(-1, dtype=torch.int32)
+    if max_nnz < tk:
+        worst = int(kcnt.max())
+        if worst > max_nnz:
+            mi, ni = np.unravel_index(int(kcnt.argmax()), tuple(kcnt.shape))
+            raise ValueError(
+                f"{site + ': ' if site else ''}max_nnz={max_nnz} < live "
+                f"K-blocks ({worst}) at output tile (mi={int(mi)}, "
+                f"ni={int(ni)}) — a truncated kidx would silently drop "
+                f"live MACs")
+    kidx = _live_first(~csb)[..., :max_nnz]
+    pad = torch.arange(max_nnz, device=kcnt.device) < kcnt[..., None]
+    kidx = torch.where(pad, kidx, 0).to(torch.int32).contiguous()
+    return BlockSparseMeta(kidx=kidx, kcnt=kcnt.contiguous(),
+                           a_bitmap=a_bitmap, b_bitmap=b_bitmap,
+                           max_nnz=max_nnz)
+
+
+def weight_side_lists(b_bitmap: np.ndarray,
+                      max_nnz: Optional[int] = None, *,
+                      site: str = "") -> Tuple[np.ndarray, np.ndarray]:
+    """Per-output-column live-K index lists from a (tk, tn) weight block
+    bitmap: ``wkidx[ni, :wkcnt[ni]]`` ascending, zero-padded.  ``max_nnz``
+    below the tightest bound raises ``ValueError``."""
+    b = np.asarray(b_bitmap, bool)
+    wkcnt = b.sum(axis=0).astype(np.int32)
+    tight = max(int(wkcnt.max()), 1)
+    if max_nnz is None:
+        max_nnz = tight
+    elif max_nnz < tight:
+        ni = int(wkcnt.argmax())
+        raise ValueError(
+            f"{site + ': ' if site else ''}max_nnz={max_nnz} < live K-blocks "
+            f"({tight}) at output column ni={ni} — a truncated kidx would "
+            f"silently drop live MACs")
+    order = np.argsort(~b, axis=0, kind="stable")[:max_nnz].T     # (tn, s)
+    live = np.arange(max_nnz)[None, :] < wkcnt[:, None]
+    if order.shape[1] < max_nnz:                    # max_nnz > tk: pad
+        order = np.pad(order, ((0, 0), (0, max_nnz - order.shape[1])))
+    wkidx = np.where(live, order, 0).astype(np.int32)
+    return wkidx, wkcnt
+
+
+def weight_plan_meta(wkidx: torch.Tensor, wkcnt: torch.Tensor,
+                     b_bitmap: torch.Tensor, tm: int) -> BlockSparseMeta:
+    """Weight-mode metadata from a plan: a broadcast, no sort (the
+    activation bitmap is all ones)."""
+    tn, max_nnz = wkidx.shape
+    tk = b_bitmap.shape[0]
+    kidx = wkidx[None].expand(tm, tn, max_nnz).contiguous()
+    kcnt = wkcnt[None].expand(tm, tn).contiguous()
+    return BlockSparseMeta(kidx=kidx, kcnt=kcnt,
+                           a_bitmap=torch.ones((tm, tk), dtype=torch.bool,
+                                               device=wkidx.device),
+                           b_bitmap=b_bitmap, max_nnz=int(max_nnz))
+
+
+def combine_with_activation_meta(a_bitmap: torch.Tensor, wkidx: torch.Tensor,
+                                 wkcnt: torch.Tensor, b_bitmap: torch.Tensor
+                                 ) -> BlockSparseMeta:
+    """AND a fresh activation bitmap into precomputed weight metadata.
+
+    Only the activation bits at each column's live weight K-blocks are
+    gathered and compacted (a stable live-first sort over ``max_nnz``
+    slots); the weight side is never re-derived.  Produces entry for entry
+    ``build_block_sparse_meta(a_bitmap, b_bitmap, max_nnz)``."""
+    tn, max_nnz = wkidx.shape
+    dev = wkidx.device
+    slot_live = torch.arange(max_nnz, device=dev)[None, :] < wkcnt[:, None]
+    alive = a_bitmap[:, wkidx.long()] & slot_live[None]       # (tm, tn, s)
+    kcnt = alive.sum(-1, dtype=torch.int32)
+    order = _live_first(~alive)
+    kidx = torch.gather(wkidx[None].expand(alive.shape), -1, order)
+    pad = torch.arange(max_nnz, device=dev) < kcnt[..., None]
+    kidx = torch.where(pad, kidx, 0).to(torch.int32).contiguous()
+    return BlockSparseMeta(kidx=kidx, kcnt=kcnt.contiguous(),
+                           a_bitmap=a_bitmap, b_bitmap=b_bitmap,
+                           max_nnz=int(max_nnz))
+
+
+# ---------------------------------------------------------------------------
+# Pruning (gives the planner real zeros to skip)
+# ---------------------------------------------------------------------------
+
+def prune_magnitude(w: torch.Tensor, sparsity: float,
+                    block: Tuple[int, int]) -> torch.Tensor:
+    """Block-magnitude pruning of the trailing (K, N) matrices of ``w``:
+    per matrix, zero every (bk, bn) block whose L2 norm is at or below the
+    ``sparsity`` quantile of the matrix's block norms."""
+    if sparsity <= 0:
+        return w
+    bk, bn = block
+    k, n = w.shape[-2:]
+    tk, tn = -(-k // bk), -(-n // bn)
+    flat = w.reshape(-1, k, n)
+    pad = torch.nn.functional.pad(flat.float(), (0, tn * bn - n,
+                                                 0, tk * bk - k))
+    norms = pad.reshape(-1, tk, bk, tn, bn).square().sum((2, 4)).sqrt()
+    thr = torch.quantile(norms.reshape(norms.shape[0], -1).double(),
+                         sparsity, dim=1)
+    keep = norms.double() > thr[:, None, None]                # (P, tk, tn)
+    mask = keep.repeat_interleave(bk, 1).repeat_interleave(bn, 2)
+    out = torch.where(mask[:, :k, :n], flat, torch.zeros((), dtype=w.dtype,
+                                                         device=w.device))
+    return out.reshape(w.shape)
+
+
+def prune_stacked_magnitude(leaf, sparsity: float,
+                            block: Tuple[int, int] = (16, 16)):
+    """Prune every (K, N) slice of a stacked (L, K, N) weight leaf; leaves
+    with fewer than three dims (embeddings, norms, the lm_head) are
+    returned untouched."""
+    if not isinstance(leaf, torch.Tensor) or leaf.dim() < 3:
+        return leaf
+    return prune_magnitude(leaf, sparsity, block)
+
+
+# ---------------------------------------------------------------------------
+# Precompiled weight-sparsity plans
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PlannedWeight:
+    """A weight bundled with its precompiled weight-side CSB metadata.
+
+    It rides inside the params tree in place of the weight leaf; the model
+    slices it per layer like any other leaf (``index``), and
+    ``kernels.ops.flex_matmul`` / ``head_matmul`` dispatch it through the
+    block-sparse kernel.  ``transpose`` marks the (N, K)-stored
+    ``lm_head``: its metadata was compiled on the transposed view and
+    ``w_kn`` is that view — the kernel reads the stored matrix in place, so
+    no (K, N) copy is ever made."""
+    w: torch.Tensor          # (..., K, N) weight ((..., N, K) if transpose)
+    wkidx: torch.Tensor      # (..., tn, max_nnz) int32
+    wkcnt: torch.Tensor      # (..., tn) int32
+    b_bitmap: torch.Tensor   # (..., tk, tn) bool
+    site: str = ""
+    mode: str = "weight"     # weight | two_sided
+    bm: int = 128
+    bk: int = 128
+    bn: int = 128
+    max_nnz: int = 1
+    tk: int = 1
+    transpose: bool = False
+
+    @property
+    def w_kn(self) -> torch.Tensor:
+        """Dense weight in the (..., K, N) contraction orientation (a view
+        for transposed leaves)."""
+        return self.w.transpose(-1, -2) if self.transpose else self.w
+
+    def index(self, i: int) -> "PlannedWeight":
+        """The slice of a stacked leaf at leading index ``i``."""
+        return PlannedWeight(
+            w=self.w[i], wkidx=self.wkidx[i], wkcnt=self.wkcnt[i],
+            b_bitmap=self.b_bitmap[i], site=self.site, mode=self.mode,
+            bm=self.bm, bk=self.bk, bn=self.bn, max_nnz=self.max_nnz,
+            tk=self.tk, transpose=self.transpose)
+
+    @property
+    def shape(self):
+        return self.w.shape
+
+    @property
+    def dtype(self):
+        return self.w.dtype
+
+
+def iter_leaves(tree, path: Tuple[str, ...] = ()
+                ) -> Iterator[Tuple[Tuple[str, ...], object]]:
+    """(key path, leaf) for every leaf of a nested-dict params tree."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from iter_leaves(sub, path + (str(key),))
+    else:
+        yield path, tree
+
+
+def map_leaves(fn, tree, path: Tuple[str, ...] = ()):
+    """Rebuild a nested-dict tree with ``fn(path, leaf)`` at every leaf."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def site_for_path(keys: Tuple[str, ...]) -> Optional[str]:
+    if len(keys) == 1:
+        return TOP_SITE_KEYS.get(keys[0])
+    if len(keys) < 2:
+        return None
+    return SITE_KEYS.get(keys[-2], {}).get(keys[-1])
+
+
+def plannable_kn(leaf, site: str) -> Optional[torch.Tensor]:
+    """Leaf → (P, K, N) stack (a view) for planning, or None: stacked
+    (L, K, N) matmul leaves, or the bare (N, K) lm_head transposed."""
+    if not isinstance(leaf, torch.Tensor):
+        return None
+    if site in TRANSPOSED_SITES:
+        return leaf.t()[None] if leaf.dim() == 2 else None
+    if leaf.dim() != 3:
+        return None
+    return leaf
+
+
+@dataclass
+class SitePlan:
+    """Precompiled weight-side metadata for one stacked weight leaf (host
+    numpy arrays); ``WeightSparsityPlan.attach`` materialises it as a
+    :class:`PlannedWeight` on the leaf's device."""
+    path: Tuple[str, ...]
+    site: str
+    mode: str
+    bm: int
+    bk: int
+    bn: int
+    tk: int
+    tn: int
+    max_nnz: int              # tight: max live K-blocks over slices/columns
+    lead: Tuple[int, ...]     # leading stack shape ((L,) or ())
+    transpose: bool
+    wkidx: np.ndarray         # lead + (tn, max_nnz) int32
+    wkcnt: np.ndarray         # lead + (tn,) int32
+    b_bitmap: np.ndarray      # lead + (tk, tn) bool
+    nnz: int                  # non-zero elements of the stored weight
+    size: int                 # elements of the stored weight
+    wt_density: float         # element-level non-zero fraction
+    block_density: float      # live weight-block fraction
+    dense_bytes: int
+    zvc_bytes: float
+
+
+@dataclass
+class WeightSparsityPlan:
+    """Per-site precompiled weight metadata for a whole network: compiled
+    once at engine bring-up (``compile_weight_plan``) and attached into the
+    params tree (``attach``)."""
+    arch: str = ""
+    shape: str = ""
+    entries: Dict[str, SitePlan] = field(default_factory=dict)
+
+    def attach(self, params):
+        """Wrap every planned weight leaf of ``params`` as a
+        ``PlannedWeight`` (metadata moved to the leaf's device; the weight
+        itself is referenced, not copied).
+
+        Each leaf's block bitmap is recomputed and checked to be covered by
+        the plan — a plan compiled from different
+        tensors of the same shape would otherwise silently skip live MACs.
+        """
+        def wrap(path, leaf):
+            key = "/".join(path)
+            e = self.entries.get(key)
+            if e is None:
+                return leaf
+            kn = plannable_kn(leaf, e.site)
+            if kn is None:
+                raise ValueError(
+                    f"{key} [{e.site}]: attached leaf (shape "
+                    f"{tuple(getattr(leaf, 'shape', ()))}) is not a "
+                    f"plannable weight for this site — rebuild with "
+                    f"compile_weight_plan on these params")
+            dev = leaf.device
+            planned = torch.as_tensor(e.b_bitmap, device=dev)
+            live = block_bitmap(kn, e.bk, e.bn).reshape(planned.shape)
+            if bool((live & ~planned).any()):
+                raise ValueError(
+                    f"{key} [{e.site}]: plan does not cover the attached "
+                    f"weight's live blocks — it was compiled from different "
+                    f"tensors; rebuild with compile_weight_plan on these "
+                    f"params")
+            return PlannedWeight(
+                w=leaf, wkidx=torch.as_tensor(e.wkidx, device=dev),
+                wkcnt=torch.as_tensor(e.wkcnt, device=dev), b_bitmap=planned,
+                site=e.site, mode=e.mode, bm=e.bm, bk=e.bk, bn=e.bn,
+                max_nnz=e.max_nnz, tk=e.tk, transpose=e.transpose)
+        return map_leaves(wrap, params)
+
+    def wt_densities(self) -> Dict[str, float]:
+        """Measured per-site element density (size-weighted over entries)."""
+        nnz: Dict[str, float] = {}
+        size: Dict[str, float] = {}
+        for e in self.entries.values():
+            nnz[e.site] = nnz.get(e.site, 0.0) + e.nnz
+            size[e.site] = size.get(e.site, 0.0) + e.size
+        return {s: nnz[s] / size[s] for s in size if size[s]}
+
+    def block_skip_fraction(self) -> float:
+        """Fraction of all planned weight blocks that are dead (skipped by
+        the kernel whatever the activations)."""
+        live = sum(int(e.b_bitmap.sum()) for e in self.entries.values())
+        total = sum(e.b_bitmap.size for e in self.entries.values())
+        return 1.0 - live / max(total, 1)
+
+
+def _planned_leaves(params, schedules):
+    """(path, site, descriptor, (P, K, N) stack, lead) of every leaf a
+    sparse site of ``schedules`` plans."""
+    for path, leaf in iter_leaves(params):
+        site = site_for_path(path)
+        if site is None or site not in schedules.sites:
+            continue
+        d = schedules.sites[site]
+        if d.sparsity_mode not in ("weight", "two_sided"):
+            continue
+        kn = plannable_kn(leaf, site)
+        if kn is None:
+            continue
+        lead = tuple(int(v) for v in leaf.shape[:-2])
+        yield path, site, d, kn, lead, leaf
+
+
+def measure_weight_densities(params, schedules) -> Dict[str, float]:
+    """Per-site element density of the actual param tensors — the cheap
+    first pass of plan bring-up (a non-zero count per planned leaf)."""
+    nnz: Dict[str, float] = {}
+    size: Dict[str, float] = {}
+    for _, site, _, _, _, leaf in _planned_leaves(params, schedules):
+        nnz[site] = nnz.get(site, 0.0) + float(torch.count_nonzero(leaf))
+        size[site] = size.get(site, 0.0) + float(leaf.numel())
+    return {s: nnz[s] / size[s] for s in size if size[s]}
+
+
+def compile_weight_plan(params, schedules, *,
+                        max_nnz: Optional[Dict[str, int]] = None
+                        ) -> WeightSparsityPlan:
+    """Compile a :class:`WeightSparsityPlan` from the actual param tensors.
+
+    Every plannable leaf of a ``weight``/``two_sided`` site of
+    ``schedules`` (a ``core.descriptors.NetworkSchedule``) gets per-slice
+    block bitmaps and per-column live-K lists at the site schedule's block
+    granularity, with one tight site-wide ``max_nnz``.  ``max_nnz``
+    optionally caps a site's bound; a cap below the tightest feasible value
+    raises ``ValueError`` naming the site and (slice, column)."""
+    plan = WeightSparsityPlan(arch=schedules.arch, shape=schedules.shape)
+    for path, site, d, kn, lead, leaf in _planned_leaves(params, schedules):
+        _, k, n = kn.shape
+        bm = max(min(d.schedule.bm, d.m), 1)
+        bk = max(min(d.schedule.bk, k), 1)
+        bn = max(min(d.schedule.bn, n), 1)
+        bmaps = block_bitmap(kn, bk, bn).cpu().numpy()        # (P, tk, tn)
+        tk, tn = bmaps.shape[1:]
+        cap = (max_nnz or {}).get(site)
+        site_nnz = cap if cap is not None else max(
+            int(bmaps.sum(1).max()), 1)
+        wkidx = np.zeros((bmaps.shape[0], tn, site_nnz), np.int32)
+        wkcnt = np.zeros((bmaps.shape[0], tn), np.int32)
+        for i in range(bmaps.shape[0]):
+            label = f"{site}[{i}]" if lead else site
+            wkidx[i], wkcnt[i] = weight_side_lists(bmaps[i], site_nnz,
+                                                   site=label)
+        nnz = int(torch.count_nonzero(leaf))
+        size = int(leaf.numel())
+        elem_bytes = leaf.element_size()
+        plan.entries["/".join(path)] = SitePlan(
+            path=path, site=site, mode=d.sparsity_mode, bm=bm, bk=bk, bn=bn,
+            tk=int(tk), tn=int(tn), max_nnz=int(site_nnz), lead=lead,
+            transpose=site in TRANSPOSED_SITES,
+            wkidx=wkidx.reshape(lead + (tn, site_nnz)),
+            wkcnt=wkcnt.reshape(lead + (tn,)),
+            b_bitmap=bmaps.reshape(lead + (tk, tn)),
+            nnz=nnz, size=size, wt_density=nnz / max(size, 1),
+            block_density=float(bmaps.mean()),
+            dense_bytes=size * elem_bytes,
+            zvc_bytes=zvc_weight_bytes(size, nnz, elem_bytes=elem_bytes))
+    return plan

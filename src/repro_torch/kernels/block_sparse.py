@@ -1,0 +1,74 @@
+"""Two-sided block-sparse matmul — the CSB + CAG unit on Hopper.
+
+Wrapper of the CUDA kernel in ``csrc/block_sparse.cu``, which replaces the
+JAX package's Pallas kernel ``_bs_kernel`` (src/repro/kernels/
+block_sparse.py:49, launched at :114).  One CUDA block per (bm, bn) output
+tile walks the tile's compressed K-block list (``BlockSparseMeta.kidx`` /
+``kcnt``, built by ``core.sparsity``); blocks where either operand is
+all-zero are never read nor multiplied, and a tile with no live block
+writes zeros.  At decode the kernel is bound by device-memory bytes (the
+live weight blocks), so the skipped blocks are the saving.
+
+CPU tensors take the plain version (``ref.block_sparse_matmul_ref``); CUDA
+tensors launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import block_sparse_matmul_ref
+
+# launches of the CUDA kernel (bumped only where it is launched)
+LAUNCHES = {"block_sparse": 0}
+
+
+def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
+                        out_dtype=None) -> torch.Tensor:
+    """C = A @ B skipping CSB-dead (A-block, B-block) pairs.
+
+    ``a`` (M, K) and ``b`` (K, N) must be block multiples of the metadata's
+    bitmaps (pad first); ``b`` may be the transposed view of a row-major
+    (N, K) matrix.  Returns ``out_dtype`` (default: ``a.dtype``), computed
+    with a float32 accumulator."""
+    out_dtype = out_dtype or a.dtype
+    tm, tk = meta.a_bitmap.shape
+    tn = meta.b_bitmap.shape[1]
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"bad operand shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    m, k = a.shape
+    n = b.shape[1]
+    bm, bk, bn = m // tm, k // tk, n // tn
+    if bm * tm != m or bk * tk != k or bn * tn != n:
+        raise ValueError(f"operands {tuple(a.shape)} @ {tuple(b.shape)} are "
+                         f"not block multiples of the ({tm}, {tk}) x "
+                         f"({tk}, {tn}) bitmaps")
+    if a.device != b.device or a.dtype != b.dtype:
+        raise ValueError(f"operands differ: {a.device}/{a.dtype} vs "
+                         f"{b.device}/{b.dtype}")
+    if a.device.type == "cpu":
+        return block_sparse_matmul_ref(a, b, meta).to(out_dtype)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    kidx, kcnt = meta.kidx, meta.kcnt
+    if (kidx.shape != (tm, tn, meta.max_nnz) or kcnt.shape != (tm, tn)
+            or kidx.dtype != torch.int32 or kcnt.dtype != torch.int32
+            or not kidx.is_contiguous() or not kcnt.is_contiguous()
+            or kidx.device != a.device or kcnt.device != a.device):
+        raise ValueError("kidx/kcnt must be contiguous int32 tensors of "
+                         f"shapes ({tm}, {tn}, {meta.max_nnz}) and "
+                         f"({tm}, {tn}) on {a.device}")
+    if not a.is_contiguous():
+        raise ValueError("A must be row-major contiguous")
+    b_trans = build.b_layout(b)
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    lib = build.library("block_sparse")
+    err = lib.bs_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                        kidx.data_ptr(), kcnt.data_ptr(), m, n, k, bm, bn,
+                        bk, meta.max_nnz, b_trans, build.dtype_code(a.dtype),
+                        build.dtype_code(out_dtype),
+                        build.stream_ptr(a.device))
+    build.check(err, "block_sparse_matmul")
+    LAUNCHES["block_sparse"] += 1
+    return out

@@ -1,0 +1,150 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` by hand into shared
+libraries with a plain C interface, loaded through ``ctypes``.
+
+Each ``csrc/<name>.cu`` (plus the shared ``*.cuh`` headers) compiles to
+``build/kernels/<name>-<hash>.so`` at the repository root, keyed by a hash of
+the sources and flags, at first use.  ``build_all()`` starts one ``nvcc``
+per source at once and waits for all of them.  Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("block_sparse", "flex_matmul")
+NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of every exported entry point (argtypes, restype int =
+# the cudaError_t of the launch)
+SIGNATURES = {
+    "block_sparse": {
+        "bs_matmul": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    },
+    "flex_matmul": {
+        "fm_output": [_P, _P, _P] + [_I] * 9 + [_P],
+        "fm_weight": [_P, _P, _P] + [_I] * 9 + [_P],
+        "fm_input": [_P, _P, _P] + [_I] * 9 + [_P],
+    },
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=SOURCES) -> float:
+    """Compile every missing library, one ``nvcc`` per source started
+    together; returns the wall seconds spent.  Raises with nvcc's output on
+    a failed build."""
+    t0 = time.perf_counter()
+    todo = [n for n in names if not _target(n).exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs: List = []
+        for n in todo:
+            tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
+            procs.append((n, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for n, tmp, proc in procs:
+            out, _ = proc.communicate()
+            BUILD_LOG[n] = out
+            if proc.returncode != 0:
+                failed.append(f"{n}:\n{out}")
+            else:
+                os.replace(tmp, _target(n))
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built on first use)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err} "
+                           f"({_error_name(err)})")
+
+
+def _error_name(err: int) -> str:
+    try:
+        rt = ctypes.CDLL("libcudart.so")
+    except OSError:
+        return "cudaError_t"
+    rt.cudaGetErrorString.restype = ctypes.c_char_p
+    rt.cudaGetErrorString.argtypes = [ctypes.c_int]
+    return rt.cudaGetErrorString(err).decode()
+
+
+# ---------------------------------------------------------------------------
+# launch helpers shared by the wrappers
+# ---------------------------------------------------------------------------
+
+def dtype_code(dtype) -> int:
+    """``rt::Dtype`` code of a torch dtype (float32 = 0, bfloat16 = 1)."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+def b_layout(b) -> int:
+    """1 when ``b`` (K, N) is the transpose of a row-major (N, K) matrix,
+    0 when it is row-major itself; anything else is refused."""
+    if b.is_contiguous():
+        return 0
+    if b.t().is_contiguous():
+        return 1
+    raise ValueError(f"B of shape {tuple(b.shape)} and strides {b.stride()}"
+                     f" is neither row-major nor a transposed row-major "
+                     f"matrix")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

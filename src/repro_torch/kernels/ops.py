@@ -1,0 +1,166 @@
+"""Per-site matmul dispatch (the JAX package's ``kernels/ops.py``).
+
+Every matmul of the dense stack routes through ``flex_matmul`` (2-D or
+stacked leaves) or ``head_matmul`` (the lm_head contraction).  A
+thread-local ``ExecConfig`` carries the descriptor table and decides:
+
+  1. ``w`` is a ``PlannedWeight`` (a precompiled plan was attached at
+     bring-up) → the block-sparse kernel with the plan's tight ``max_nnz``;
+     only the activation bitmap is derived per step (two_sided);
+  2. the site's descriptor says ``weight`` / ``two_sided`` → the
+     block-sparse kernel with metadata built from the operands;
+  3. ``use_kernels`` → the schedule-flexible matmul kernel under the site's
+     (stationarity, blocks);
+  4. otherwise a plain float32-accumulated ``torch.matmul``.
+
+The kernel wrappers launch CUDA kernels for CUDA tensors and run their plain
+versions for CPU tensors.  Bitmaps derived from the data make every mode
+equal to the dense product: zero blocks are skipped, never approximated.
+All metadata is built with device ops — nothing here waits on the device.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.core import sparsity as sparsity_lib
+from repro_torch.core.sparsity import PlannedWeight
+from repro_torch.kernels import block_sparse as bs
+from repro_torch.kernels import flex_matmul as fm
+from repro_torch.kernels.flex_matmul import DEFAULT_BLOCKS, pad_to_blocks
+
+_state = threading.local()
+
+
+@dataclass(frozen=True)
+class ExecConfig:
+    use_kernels: bool = False         # dense sites run the flex kernels
+    schedules: Optional[object] = None   # NetworkSchedule (descriptor table)
+    plan: Optional[object] = None     # WeightSparsityPlan (engine bring-up)
+
+
+def _cfg() -> ExecConfig:
+    return getattr(_state, "cfg", None) or ExecConfig()
+
+
+@contextlib.contextmanager
+def exec_config(cfg: ExecConfig):
+    prev = getattr(_state, "cfg", None)
+    _state.cfg = cfg
+    try:
+        yield cfg
+    finally:
+        _state.cfg = prev
+
+
+def _site_descriptor(site: str, cfg: ExecConfig):
+    if cfg.schedules is not None and site in cfg.schedules.sites:
+        return cfg.schedules.sites[site]
+    return None
+
+
+def _run_block_sparse(xp: torch.Tensor, wp: torch.Tensor, meta, m: int,
+                      n: int) -> torch.Tensor:
+    """Kernel dispatch + unpad tail shared by both metadata sources."""
+    out = bs.block_sparse_matmul(xp, wp, meta, out_dtype=torch.float32)
+    return out[:m, :n]
+
+
+def _sparse_site_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str,
+                        sched, site: str = "") -> torch.Tensor:
+    """(M, K) @ (K, N) through the CSB path with metadata built from the
+    operands at the site schedule's (bm, bk, bn) granularity (inputs
+    zero-padded to block multiples; padding blocks are dead).  Returns
+    float32."""
+    m, k = x2.shape
+    n = w.shape[1]
+    if sched is not None:
+        bm, bn, bk = sched.bm, sched.bn, sched.bk
+    else:
+        bm, bn, bk = DEFAULT_BLOCKS
+    bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
+    xp = pad_to_blocks(x2, bm, bk)
+    wp = pad_to_blocks(w, bk, bn)
+    tm, tk = xp.shape[0] // bm, xp.shape[1] // bk
+    b_bitmap = sparsity_lib.block_bitmap(wp, bk, bn)
+    if mode == "two_sided":
+        a_bitmap = sparsity_lib.block_bitmap(xp, bm, bk)
+    else:                             # weight-sided: IF bitmap all ones
+        a_bitmap = torch.ones((tm, tk), dtype=torch.bool, device=x2.device)
+    meta = sparsity_lib.build_block_sparse_meta(a_bitmap, b_bitmap,
+                                                site=site)
+    return _run_block_sparse(xp, wp, meta, m, n)
+
+
+def planned_operands(x2: torch.Tensor, pw: PlannedWeight):
+    """(xp, wp, meta) of (M, K) @ planned (K, N): both operands padded to
+    the plan's blocks; the weight-side metadata comes from the plan and only
+    the activation bitmap is derived (two_sided)."""
+    k = x2.shape[1]
+    xp = pad_to_blocks(x2, pw.bm, pw.bk)
+    wp = pad_to_blocks(pw.w_kn, pw.bk, pw.bn)
+    tm, tk = xp.shape[0] // pw.bm, xp.shape[1] // pw.bk
+    if tk != pw.tk:
+        raise ValueError(
+            f"{pw.site}: plan compiled for tk={pw.tk} K-blocks of {pw.bk}, "
+            f"operand K={k} gives {tk} — rebuild the plan for these shapes")
+    if pw.mode == "two_sided":
+        a_bitmap = sparsity_lib.block_bitmap(xp, pw.bm, pw.bk)
+        meta = sparsity_lib.combine_with_activation_meta(
+            a_bitmap, pw.wkidx, pw.wkcnt, pw.b_bitmap)
+    else:
+        meta = sparsity_lib.weight_plan_meta(pw.wkidx, pw.wkcnt,
+                                             pw.b_bitmap, tm)
+    return xp, wp, meta
+
+
+def _planned_matmul(x2: torch.Tensor, pw: PlannedWeight) -> torch.Tensor:
+    """(M, K) @ planned (K, N) through the block-sparse kernel.  Returns
+    float32."""
+    xp, wp, meta = planned_operands(x2, pw)
+    return _run_block_sparse(xp, wp, meta, x2.shape[0], pw.w_kn.shape[-1])
+
+
+def _plain_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """float32-accumulated x @ w, cast back to x's dtype."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
+    """x (..., K) @ w (K, N) through the site dispatch (module docstring)."""
+    cfg = _cfg()
+    lead = x.shape[:-1]
+    if isinstance(w, PlannedWeight):
+        out = _planned_matmul(x.reshape(-1, x.shape[-1]), w)
+        return out.reshape(*lead, out.shape[-1]).to(x.dtype)
+    desc = _site_descriptor(site, cfg)
+    sparse = (desc is not None and w.dim() == 2
+              and desc.sparsity_mode in ("weight", "two_sided"))
+    if sparse or cfg.use_kernels:
+        x2 = x.reshape(-1, x.shape[-1])
+        if sparse:
+            out = _sparse_site_matmul(x2, w, desc.sparsity_mode,
+                                      desc.schedule, site)
+        else:
+            out = fm.flex_matmul(x2, w, schedule=(desc.schedule if desc
+                                                  else None),
+                                 out_dtype=torch.float32)
+        return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+    return _plain_matmul(x, w)
+
+
+def head_matmul(x: torch.Tensor, head, *,
+                site: str = "lm_head") -> torch.Tensor:
+    """x (..., D) @ head (V, D)ᵀ → (..., V): the logits contraction routed
+    through the same per-site dispatch.  A raw head is passed as its
+    transposed view (the kernels read it in place); a ``PlannedWeight`` was
+    compiled on that view."""
+    if isinstance(head, PlannedWeight):
+        return flex_matmul(x, head, site=site)
+    return flex_matmul(x, head.t(), site=site)

@@ -1,0 +1,111 @@
+"""Attention for decode: MHA / GQA projections, masked dense attention and
+the per-slot KV cache (full length, or rolling for sliding windows)."""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models import rope
+from repro_torch.models.layers import normal
+
+Params = Dict[str, torch.Tensor]
+NEG_INF = -1e30
+
+
+def init_attention(cfg: ArchConfig, gen: torch.Generator,
+                   dtype=torch.bfloat16, lead=()) -> Params:
+    d, hd = cfg.d_model, cfg.head_dim
+    s = d ** -0.5
+    return {
+        "wq": normal(gen, lead + (d, cfg.n_heads * hd), s, dtype),
+        "wkv": normal(gen, lead + (d, 2 * cfg.n_kv_heads * hd), s, dtype),
+        "wo": normal(gen, lead + (cfg.n_heads * hd, d), s, dtype),
+    }
+
+
+def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor):
+    """x (B,S,D) -> q (B,S,KVH,G,hd), k/v (B,S,KVH,hd)."""
+    b, s, _ = x.shape
+    hd, kvh, g = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
+    q = ops.flex_matmul(x, p["wq"], site="attn.q").reshape(b, s, kvh, g, hd)
+    kv = ops.flex_matmul(x, p["wkv"], site="attn.kv")
+    kv = kv.reshape(b, s, 2, kvh, hd)
+    return q, kv[:, :, 0], kv[:, :, 1]
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q (B,Sq,KVH,G,hd), k/v (B,Skv,KVH,hd), mask broadcastable to
+    (B,KVH,G,Sq,Skv) bool.  Masked scores are -1e30 (not -inf); the
+    softmax runs in float32 and is cast back to q's dtype."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * (hd ** -0.5)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.tensor(
+            NEG_INF, dtype=scores.dtype, device=scores.device))
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", w, v)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device="cpu", lead=()) -> Params:
+    """Rolling cache for windowed layers (size=window), else full length."""
+    size = min(cfg.window, max_seq) if cfg.window else max_seq
+    shape = lead + (batch, size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
+                pos: torch.Tensor, *, active: Optional[torch.Tensor] = None,
+                window: int = 0) -> Tuple[torch.Tensor, Params]:
+    """One-token decode.  x (B,1,D); cache k/v (B,C,KVH,hd); ``pos`` (B,)
+    per-slot positions.
+
+    The cache is updated **in place**, and only at rows where ``active``
+    (B,) is true (None = every row): an inactive row's cache slot keeps its
+    old value.  The reference instead computes a new cache for every row
+    and selects the old one back for inactive rows — the committed state is
+    equal, and an inactive row's attention output (discarded by its
+    callers) is the only thing that may differ."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    q, k_new, v_new = _project_qkv(p, cfg, x)
+    posb = pos[:, None]
+    qf = rope.apply_rope(q.reshape(b, 1, cfg.n_heads, hd), posb,
+                         kind=cfg.rope, theta=cfg.rope_theta)
+    q = qf.reshape(q.shape)
+    k_new = rope.apply_rope(k_new, posb, kind=cfg.rope, theta=cfg.rope_theta)
+
+    size = cache["k"].shape[1]
+    slot = (pos % size) if window > 0 else torch.clamp(pos, max=size - 1)
+    rows = torch.arange(b, device=x.device)
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        new = new[:, 0].to(c.dtype)
+        if active is not None:
+            new = torch.where(active[:, None, None], new, c[rows, slot])
+        c[rows, slot] = new
+
+    idx = torch.arange(size, device=x.device)[None]
+    posm = pos[:, None]
+    if window > 0:
+        age = posm - _slot_position(idx, posm, size)
+        valid = (age >= 0) & (age < torch.clamp(posm + 1, max=window))
+    else:
+        valid = idx <= posm
+    o = dense_attention(q, cache["k"], cache["v"],
+                        valid[:, None, None, None, :])
+    o = o.reshape(b, 1, cfg.n_heads * hd)
+    return ops.flex_matmul(o, p["wo"], site="attn.out"), cache
+
+
+def _slot_position(idx: torch.Tensor, pos: torch.Tensor,
+                   size: int) -> torch.Tensor:
+    """Original sequence position stored in rolling slot ``idx`` at ``pos``."""
+    cur_slot = pos % size
+    offset = (idx - cur_slot + size) % size
+    return torch.where(offset == 0, pos, pos - size + offset)

@@ -1,0 +1,103 @@
+"""Common layers: norms, gated MLPs, embeddings, the logits head."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+
+Params = Dict[str, torch.Tensor]
+
+
+def normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
+           dtype: torch.dtype) -> torch.Tensor:
+    """N(0, scale²) draws on the generator's device, cast to ``dtype`` —
+    the reference's ``jax.random.normal(k, shape) * scale`` distribution
+    (the draws themselves differ between frameworks)."""
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg: ArchConfig, dim: int, device, lead=()) -> Params:
+    p = {"scale": torch.ones(lead + (dim,), dtype=torch.float32,
+                             device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(lead + (dim,), dtype=torch.float32,
+                                device=device)
+    return p
+
+
+def apply_norm(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
+    else:
+        var = (xf ** 2).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU / GeGLU) and plain MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg: ArchConfig, gen: torch.Generator, d_in: int, d_ff: int,
+             dtype=torch.bfloat16, lead=()) -> Params:
+    s_in, s_ff = d_in ** -0.5, d_ff ** -0.5
+    p = {"w_in": normal(gen, lead + (d_in, d_ff), s_in, dtype)}
+    if cfg.act != "gelu_plain":
+        p["w_gate"] = normal(gen, lead + (d_in, d_ff), s_in, dtype)
+    p["w_out"] = normal(gen, lead + (d_ff, d_in), s_ff, dtype)
+    return p
+
+
+def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act in ("gelu", "gelu_plain"):
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    h = ops.flex_matmul(x, p["w_in"], site="mlp.in")
+    if "w_gate" in p:
+        g = ops.flex_matmul(x, p["w_gate"], site="mlp.gate")
+        h = _act(cfg, g) * h
+    else:
+        h = _act(cfg, h)
+    return ops.flex_matmul(h, p["w_out"], site="mlp.out")
+
+
+# ---------------------------------------------------------------------------
+# Embedding + logits head
+# ---------------------------------------------------------------------------
+
+def init_embedding(cfg: ArchConfig, gen: torch.Generator,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    return normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype)
+
+
+def embed(cfg: ArchConfig, emb: torch.Tensor,
+          tokens: torch.Tensor) -> torch.Tensor:
+    x = emb[tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def logits_head(cfg: ArchConfig, head, x: torch.Tensor) -> torch.Tensor:
+    """Full float32 logits for the decode position(s); the contraction is
+    the planned/dispatched ``lm_head`` site."""
+    logits = ops.head_matmul(x, head, site="lm_head").float()
+    if cfg.logit_softcap:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits

@@ -1,0 +1,153 @@
+"""Top-level model API for decode serving: init, one decode step, the fused
+greedy block (``decode_many``) and slot prefill (``prefill_into_slot``).
+
+State is a nested dict of stacked caches ((L, B, ...), batch at axis 1),
+updated in place; params are nested dicts in the reference's tree layout
+(``embed``, ``stack.layers.{ln1,attn,ln2,mlp}``, ``final_norm``,
+``lm_head``)."""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.layers import (apply_norm, embed, init_embedding,
+                                       init_norm, logits_head)
+
+Params = Dict[str, torch.Tensor]
+
+_BIG_BUDGET = (2 ** 31 - 1) // 2
+
+
+def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
+                *, dtype=torch.bfloat16, device="cuda") -> Params:
+    """Random parameters with the reference's distributions, drawn on
+    ``device`` from ``generator`` (default: a new one seeded with 0)."""
+    dev = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+    elif gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device}, params on {dev}")
+    p: Params = {
+        "embed": init_embedding(cfg, gen, dtype),
+        "stack": transformer.init_stack(cfg, gen, dtype),
+        "final_norm": init_norm(cfg, cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = init_embedding(cfg, gen, dtype)
+    return p
+
+
+def head_matrix(p: Params, cfg: ArchConfig):
+    """The (V, D) logits matrix — ``embed`` when tied, else ``lm_head``
+    (a ``PlannedWeight`` under an attached plan)."""
+    return p["embed"] if cfg.tie_embeddings else p["lm_head"]
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
+                      dtype=torch.bfloat16, device="cuda") -> Params:
+    return transformer.init_decode_state(cfg, batch, max_seq, dtype,
+                                         resolve_device(device))
+
+
+def decode_step(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                state: Params, pos: torch.Tensor,
+                active: Optional[torch.Tensor] = None, *,
+                with_logits: bool = True
+                ) -> Tuple[Optional[torch.Tensor], Params]:
+    """One new token per sequence.  tokens (B, 1), ``pos`` (B,) → logits
+    (B, 1, V) float32.  The state is updated in place at the ``active``
+    rows (all rows when None).  ``with_logits=False`` skips the head (the
+    prefill feed discards it)."""
+    x = embed(cfg, p["embed"], tokens)
+    x, state = transformer.decode_stack(p["stack"], cfg, x, state, pos,
+                                        active)
+    if not with_logits:
+        return None, state
+    x = apply_norm(p["final_norm"], cfg, x)
+    return logits_head(cfg, head_matrix(p, cfg), x), state
+
+
+def masked_decode_step(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                       state: Params, pos: torch.Tensor,
+                       active: torch.Tensor, *, with_logits: bool = True
+                       ) -> Tuple[Optional[torch.Tensor], Params]:
+    """``decode_step`` that commits state only for ``active`` (B,) rows.
+
+    The reference selects old-vs-new over the whole state after the step
+    (model.py ``masked_decode_step``); here only the active rows are
+    written, in place — the committed state is equal."""
+    return decode_step(p, cfg, tokens, state, pos, active,
+                       with_logits=with_logits)
+
+
+def decode_many(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                state: Params, pos: torch.Tensor, live: torch.Tensor,
+                n_steps: int, *, rem: Optional[torch.Tensor] = None,
+                eos_id: Optional[int] = None):
+    """Fused greedy decode: ``n_steps`` decode steps with on-device argmax
+    feeding the next token, the stop logic on the device and no host sync
+    inside the loop.
+
+    ``tokens`` / ``pos`` (B,) are each row's current input token and
+    position, ``live`` (B,) which rows decode, ``rem`` (B,) each row's
+    remaining budget (None = unbounded); emitting ``eos_id`` zeroes a
+    row's budget.  Inactive rows feed token 0, commit no state, keep their
+    carries and emit -1.  Returns (token block (T, B) int32, state, token
+    carry, position carry, budget carry)."""
+    live = live.to(torch.bool)
+    b = tokens.shape[0]
+    dev = tokens.device
+    if rem is None:
+        rem = torch.full((b,), _BIG_BUDGET, dtype=torch.int32, device=dev)
+    tok = tokens.to(torch.int32)
+    ps = pos.to(torch.int32)
+    rm = rem.to(torch.int32)
+    eos = -1 if eos_id is None else int(eos_id)
+    emits = []
+    for _ in range(n_steps):
+        active = live & (rm > 0)
+        feed = torch.where(active, tok, 0)[:, None]
+        logits, state = masked_decode_step(p, cfg, feed.long(), state,
+                                           ps.long(), active)
+        nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+        emits.append(torch.where(active, nxt, -1))
+        rm = torch.where(active, torch.where(nxt == eos, 0, rm - 1), rm)
+        tok = torch.where(active, nxt, tok)
+        ps = torch.where(active, ps + 1, ps)
+    toks = torch.stack(emits) if emits else torch.empty(
+        (0, b), dtype=torch.int32, device=dev)
+    return toks, state, tok, ps, rm
+
+
+def prefill_into_slot(p: Params, cfg: ArchConfig, tokens, valid,
+                      slot: int, state: Params, slot_pos: torch.Tensor,
+                      start: int = 0, reset: bool = True) -> Params:
+    """Feed one admitted prompt segment into batch row ``slot``.
+
+    ``tokens`` (P,) is the segment, ``valid`` (P,) marks real positions
+    (host arrays), ``slot_pos`` (B,) every slot's position; the other rows
+    run as masked filler and keep their state.  ``reset`` zero-resets the
+    row first.  Each valid position runs one masked decode step with the
+    head skipped (its logits are discarded); fully masked (padding)
+    positions change nothing and are skipped."""
+    b = slot_pos.shape[0]
+    dev = slot_pos.device
+    if reset:
+        for leaf in (state["layers"]["k"], state["layers"]["v"]):
+            leaf[:, slot] = 0
+    onehot = torch.arange(b, device=dev) == slot
+    toks = np.asarray(tokens).reshape(-1)
+    ok = np.asarray(valid, bool).reshape(-1)
+    other = slot_pos.to(torch.int64)
+    for t in np.nonzero(ok)[0]:
+        feed = torch.where(onehot, int(toks[t]), 0)[:, None]
+        ps = torch.where(onehot, start + int(t), other)
+        _, state = masked_decode_step(p, cfg, feed, state, ps, onehot,
+                                      with_logits=False)
+    return state

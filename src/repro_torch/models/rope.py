@@ -1,0 +1,41 @@
+"""Rotary position embeddings: full, half (ChatGLM 2d) and partial
+(StableLM, 25% of the head dims)."""
+from __future__ import annotations
+
+import torch
+
+
+def _rot_half(x: torch.Tensor, cos: torch.Tensor,
+              sin: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def _freqs(dim_half: int, theta: float, device) -> torch.Tensor:
+    e = torch.arange(dim_half, dtype=torch.float32, device=device) / dim_half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), e)
+
+
+def _cos_sin(positions: torch.Tensor, dim_half: int, theta: float):
+    """positions (..., S) -> cos/sin (..., S, dim_half) in float32."""
+    ang = positions[..., None].float() * _freqs(dim_half, theta,
+                                                positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
+               kind: str = "full", theta: float = 10_000.0) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int.  kind: full | half |
+    partial25 | none.  cos/sin are cast to ``x.dtype`` before rotating."""
+    if kind == "none":
+        return x
+    hd = x.shape[-1]
+    rot_dim = {"full": hd, "half": hd // 2, "partial25": hd // 4}.get(kind)
+    if rot_dim is None:
+        raise ValueError(f"rope kind {kind!r} is not ported")
+    xr, xp = x[..., :rot_dim], x[..., rot_dim:]
+    cos, sin = _cos_sin(positions, rot_dim // 2, theta)     # (B, S, rot/2)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]       # (B, S, 1, rot/2)
+    xr = _rot_half(xr, cos.to(x.dtype), sin.to(x.dtype))
+    return torch.cat([xr, xp], dim=-1) if rot_dim < hd else xr

@@ -1,0 +1,80 @@
+"""The dense decoder stack: stacked layer weights (layer axis leading) and
+one-token decode through every layer."""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.sparsity import PlannedWeight
+from repro_torch.models import attention
+from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+
+Params = Dict[str, torch.Tensor]
+
+
+def index_tree(tree, i: int):
+    """The layer-``i`` slice of a stacked params tree (views, no copies;
+    ``PlannedWeight`` leaves slice their metadata alongside)."""
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, PlannedWeight):
+        return tree.index(i)
+    return tree[i]
+
+
+def _check_dense(cfg: ArchConfig) -> None:
+    if (cfg.moe.enabled or cfg.ssm.enabled or cfg.rglru.enabled
+            or cfg.encoder_decoder):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense family is ported so far")
+
+
+def init_dense_layer(cfg: ArchConfig, gen: torch.Generator,
+                     dtype=torch.bfloat16, lead=()) -> Params:
+    return {
+        "ln1": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "attn": attention.init_attention(cfg, gen, dtype, lead),
+        "ln2": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "mlp": init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype, lead),
+    }
+
+
+def decode_dense_layer(p: Params, cfg: ArchConfig, x, cache, pos, *,
+                       active=None, window: int = 0):
+    h = apply_norm(p["ln1"], cfg, x)
+    o, cache = attention.decode_step(p["attn"], cfg, h, cache, pos,
+                                     active=active, window=window)
+    x = x + o
+    h = apply_norm(p["ln2"], cfg, x)
+    return x + apply_mlp(p["mlp"], cfg, h), cache
+
+
+def init_stack(cfg: ArchConfig, gen: torch.Generator,
+               dtype=torch.bfloat16) -> Params:
+    """Stacked (L, ...) layer weights, drawn leaf by leaf for all layers."""
+    _check_dense(cfg)
+    return {"layers": init_dense_layer(cfg, gen, dtype, (cfg.n_layers,))}
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
+                      dtype=torch.bfloat16, device="cpu") -> Params:
+    """Stacked per-layer KV caches, (L, B, S, KVH, hd)."""
+    _check_dense(cfg)
+    return {"layers": attention.init_cache(cfg, batch, max_seq, dtype,
+                                           device, (cfg.n_layers,))}
+
+
+def decode_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, state: Params,
+                 pos: torch.Tensor, active: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Params]:
+    """One-token step through the stack.  x (B,1,D); ``pos`` (B,).  Each
+    layer's cache is a view of the stacked state, updated in place at the
+    ``active`` rows."""
+    layers, caches = p["layers"], state["layers"]
+    for i in range(cfg.n_layers):
+        cache = {"k": caches["k"][i], "v": caches["v"][i]}
+        x, _ = decode_dense_layer(index_tree(layers, i), cfg, x, cache, pos,
+                                  active=active, window=cfg.window)
+    return x, state

@@ -32,6 +32,9 @@ def pytest_configure(config):
         "markers", "slow: heavy model/system tests excluded from the fast "
         "CI lane (run with -m slow or no marker filter)")
     config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips (inside the test) where "
+        "there is none")
+    config.addinivalue_line(
         "markers", "timeout(seconds): per-test wall-clock limit enforced by "
         "the conftest SIGALRM shim (default from PYTEST_PER_TEST_TIMEOUT, "
         "600 s)")

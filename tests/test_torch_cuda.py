@@ -1,0 +1,101 @@
+"""The CUDA kernels against their plain PyTorch versions, on a card.
+
+These import no JAX, so they run on the GPU machine as they are
+(``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q``); without
+a CUDA device each test skips.  Shapes: every (K, N) of StableLM-1.6B's
+decode sites at M = 4 (attn.q/attn.out 2048×2048, attn.kv 2048×4096,
+mlp.in/gate 2048×5632, mlp.out 5632×2048), and a ragged shape.
+Tolerance: √K·2⁻²⁴·max(|A|@|B|) — two float32 sums of the same products in
+different orders differ by roundings of random sign, growing like √K —
+which float32 operands cut to TF32's 10-bit mantissa exceed (checked); the
+block-sparse run must equal its all-live run bit for bit.
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.core import sparsity as pt_sp
+from repro_torch.core.scheduler import MatmulSchedule
+from repro_torch.kernels import block_sparse as pt_bs
+from repro_torch.kernels import flex_matmul as pt_fm
+from repro_torch.kernels.ref import block_sparse_matmul_ref, matmul_ref
+
+DECODE_KN = [(2048, 2048), (2048, 4096), (2048, 5632), (5632, 2048)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc there)")
+    return torch.device("cuda")
+
+
+def _cuda_tol(a, b):
+    k = a.shape[1]
+    return k ** 0.5 * 2.0 ** -24 * torch.matmul(a.abs().float(),
+                                                b.abs().float()).max().item()
+
+
+def _tf32(x):
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stationarity", ["output", "weight", "input"])
+@pytest.mark.parametrize("mnk,blocks", [
+    *[((4, n, k), (4, 256, 128)) for k, n in DECODE_KN],
+    ((70, 300, 200), (64, 128, 128))])
+def test_cuda_flex_matmul_matches_plain(cuda, dtype, stationarity, mnk,
+                                        blocks):
+    m, n, k = mnk
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    sched = MatmulSchedule(stationarity, *blocks)
+    for bb in (b, b.t().contiguous().t()):
+        out = pt_fm.flex_matmul(a, bb, schedule=sched,
+                                out_dtype=torch.float32)
+        err = (out - matmul_ref(a, bb)).abs().max().item()
+        assert err <= _cuda_tol(a, bb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", DECODE_KN)
+def test_cuda_block_sparse_matches_plain_and_all_live(cuda, dtype, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    a = torch.randn((4, k), generator=gen, device=cuda)
+    a[:, 256:512] = 0                       # two dead activation K-blocks
+    a = a.to(dtype)
+    w = pt_sp.prune_magnitude(
+        torch.randn((k, n), generator=gen, device=cuda).to(dtype), 0.5,
+        (256, 256))
+    meta = pt_sp.build_block_sparse_meta(pt_sp.block_bitmap(a, 4, 128),
+                                         pt_sp.block_bitmap(w, 128, 256))
+    out = pt_bs.block_sparse_matmul(a, w, meta, out_dtype=torch.float32)
+    err = (out - block_sparse_matmul_ref(a, w, meta)).abs().max().item()
+    assert err <= _cuda_tol(a, w)
+    tk = k // 128
+    live = dataclasses.replace(
+        meta, max_nnz=tk, kcnt=torch.full_like(meta.kcnt, tk),
+        kidx=torch.arange(tk, dtype=torch.int32, device=cuda)
+        .expand(meta.kcnt.shape + (tk,)).contiguous())
+    assert torch.equal(out, pt_bs.block_sparse_matmul(
+        a, w, live, out_dtype=torch.float32))
+    # an empty tile list writes zeros
+    empty = dataclasses.replace(meta, kcnt=torch.zeros_like(meta.kcnt))
+    assert not pt_bs.block_sparse_matmul(a, w, empty).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", DECODE_KN)
+def test_cuda_tolerance_rejects_tf32_operands(cuda, k, n):
+    """The float32 tolerance has the power to tell true float32 from TF32:
+    the same product on operands cut to TF32 falls outside it."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn((4, k), generator=gen, device=cuda)
+    b = torch.randn((k, n), generator=gen, device=cuda)
+    err = (matmul_ref(_tf32(a), _tf32(b)) - matmul_ref(a, b)).abs().max()
+    assert err.item() > _cuda_tol(a, b)
