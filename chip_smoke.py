@@ -27,9 +27,28 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      same with every site forced to the weight- and input-stationary
      dataflows; and the plain engine (float32-accumulated ``torch.matmul``,
      no kernels) — the last three within a stated tolerance;
-  6. a ``kernels`` JSON line: per kernel its launches on the main path
-     (phases 4-5), its worst error over phase 3, and its time, bound,
-     plain-version time and ``torch.matmul`` time at the mlp.in site.
+  6. int8 serving on the same weights (``quantize=True``): every site of
+     the int8 path at layer 0 with the quantized plan's blocks and
+     metadata — the scaled block-sparse kernel and the int8 matmul kernel
+     held against their plain versions in bf16 and float32, dense and
+     half-dead activations, under √K·2⁻²⁴·max(|A|@|Q·s|); the scaled
+     block-sparse run bitwise against its all-live run and against the
+     int8 matmul kernel; the TF32 control rejected; bf16 times beside
+     each bound;
+  7. the planned two-sided int8 engine (the first 4 prompts, 16 new tokens,
+     fused blocks): tokens/s and ms per decode step, fused streams equal to
+     its ``step()`` oracle; one step of the dense int8 descriptor-table
+     engine (``int8_matmul`` at every site), whose logits must equal the
+     planned int8 engine's bit for bit; one step of the plain int8 engine
+     (weights dequantized to bf16, float32-accumulated ``torch.matmul``)
+     within 5% of max |logit|; and, for information, the int8 engine
+     against the bf16 one (first-step logits, greedy tokens);
+  8. a ``kernels`` JSON line: per kernel its launches on its main path
+     (phases 4-5 for the bf16 kernels, phase 7 for the int8 ones), its
+     worst error over phase 3 or 6, and its time, bound, plain-version
+     time and library time at the mlp.in site (none exists for bf16 x
+     int8; the int8 rows add ``bf16_matmul_ms``, ``torch.matmul`` on the
+     dequantized bf16 weight, as a reference point).
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
@@ -49,6 +68,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BPS = 3.35e12          # H100 SXM device-memory bandwidth (data sheet)
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 N_SLOTS = 4
+SLICE1_KERNELS = ("block_sparse", "output", "weight", "input")
+INT8_KERNELS = ("block_sparse_scaled", "int8_matmul")
 
 
 class SmokeFailure(Exception):
@@ -80,15 +101,16 @@ def bound_ms(n_bytes: float, flops: float):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def bs_bound_ms(a, meta, blocks):
+def bs_bound_ms(a, meta, blocks, w_elem=None, scale_bytes=0):
     """Block-sparse bound: A once, each weight block some live pair needs
-    once, the float32 output once; the MACs of the live block pairs."""
+    once (``w_elem`` bytes per element, default A's), the scales once, the
+    float32 output once; the MACs of the live block pairs."""
     bm, bk, bn = blocks
     csb = meta.a_bitmap[:, None, :] & meta.b_bitmap.t()[None]
     live_b = int(csb.any(0).sum())
     elem = a.element_size()
-    n_bytes = (a.numel() * elem + live_b * bk * bn * elem
-               + a.shape[0] * meta.b_bitmap.shape[1] * bn * 4)
+    n_bytes = (a.numel() * elem + live_b * bk * bn * (w_elem or elem)
+               + scale_bytes + a.shape[0] * meta.b_bitmap.shape[1] * bn * 4)
     return bound_ms(n_bytes, 2.0 * int(meta.kcnt.sum()) * bm * bk * bn)
 
 
@@ -108,6 +130,34 @@ def tf32(x):
     TF32 tensor-core product would see."""
     import torch
     return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def all_live(meta):
+    """``meta`` with every K-block listed for every tile (nothing skipped)."""
+    import torch
+    tk = meta.a_bitmap.shape[1]
+    return dataclasses.replace(
+        meta, max_nnz=tk,
+        kidx=torch.arange(tk, dtype=torch.int32, device=meta.kcnt.device)
+        .expand(meta.kcnt.shape + (tk,)).contiguous(),
+        kcnt=torch.full_like(meta.kcnt, tk))
+
+
+def reset_launches(counts=None) -> None:
+    """Set every wrapper's launch count to 0, or back to ``counts``."""
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels import int8_matmul as i8
+    for d in (bs.LAUNCHES, fm.LAUNCHES, i8.LAUNCHES):
+        for key in d:
+            d[key] = 0 if counts is None else counts[key]
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels import int8_matmul as i8
+    return {**bs.LAUNCHES, **fm.LAUNCHES, **i8.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +190,7 @@ def bring_up(report):
            f"{planned.plan.block_skip_fraction():.4f}")
     report(planned.schedules.describe())
     report(dense.schedules.describe())
-    return cfg, params, planned, dense
+    return cfg, sp_cfg, params, planned, dense
 
 
 # ---------------------------------------------------------------------------
@@ -185,19 +235,13 @@ def check_sites(params, planned, dense, report) -> dict:
                 a = a32.to(dtype)
                 tol_a = matmul_tol(a, w_kn)
                 tol = max(tol, tol_a)
-                xp, wp, meta = planned_operands(a, pwd)
+                xp, wp, meta, _ = planned_operands(a, pwd)
                 out = bs.block_sparse_matmul(xp, wp, meta,
                                              out_dtype=torch.float32)
                 err = (out - block_sparse_matmul_ref(xp, wp, meta)) \
                     .abs().max().item()
-                tk = meta.a_bitmap.shape[1]
-                live = dataclasses.replace(
-                    meta, max_nnz=tk,
-                    kidx=torch.arange(tk, dtype=torch.int32, device=dev)
-                    .expand(meta.kcnt.shape + (tk,)).contiguous(),
-                    kcnt=torch.full_like(meta.kcnt, tk))
                 same = torch.equal(out, bs.block_sparse_matmul(
-                    xp, wp, live, out_dtype=torch.float32))
+                    xp, wp, all_live(meta), out_dtype=torch.float32))
                 need(err <= tol_a, f"block_sparse {e.site} {dtype} {act}: "
                      f"error {err} > {tol_a}")
                 need(same, f"block_sparse {e.site} {dtype} {act}: sparse "
@@ -244,7 +288,7 @@ def check_sites(params, planned, dense, report) -> dict:
                 worst[key] = max(worst[key], errs[key])
         # bf16 times at this site, activation dense as on the path
         a, w_kn = a_full.to(torch.bfloat16), pw.w_kn
-        xp, wp, meta = planned_operands(a, pw)
+        xp, wp, meta, _ = planned_operands(a, pw)
         b_ms, _ = bs_bound_ms(xp, meta, (e.bm, e.bk, e.bn))
         t_bs = cuda_ms(lambda: bs.block_sparse_matmul(
             xp, wp, meta, out_dtype=torch.float32))
@@ -272,7 +316,7 @@ def time_kernels(t, launches) -> list:
     a, w, meta, sched = t["a"], t["w"], t["meta"], t["sched"]
     m, k = a.shape
     n = w.shape[1]
-    saved_bs, saved_fm = dict(bs.LAUNCHES), dict(fm.LAUNCHES)
+    saved = launch_counts()
     lib_ms = cuda_ms(lambda: torch.matmul(a, w))
     rows = []
     b_ms, b_by = bs_bound_ms(a, meta, t["blocks"])
@@ -304,8 +348,7 @@ def time_kernels(t, launches) -> list:
                 a, w, schedule=s, out_dtype=torch.float32)),
             "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-    bs.LAUNCHES.update(saved_bs)
-    fm.LAUNCHES.update(saved_fm)
+    reset_launches(saved)
     return rows
 
 
@@ -313,9 +356,9 @@ def time_kernels(t, launches) -> list:
 # phases 4-5: the serving engine at full width
 # ---------------------------------------------------------------------------
 
-def profile_step(engine, report) -> None:
-    """One planned decode step under ``torch.profiler``: wall time, device
-    busy time (sum of kernel time) and the block-sparse kernel's share.  A
+def profile_step(engine, report, label="planned") -> None:
+    """One decode step under ``torch.profiler``: wall time, device busy
+    time (sum of kernel time) and the block-sparse kernel's share.  A
     measurement only — a profiler that records nothing is reported, not
     fatal."""
     import torch
@@ -336,37 +379,34 @@ def profile_step(engine, report) -> None:
             if "tile_kernel" in ev.name:
                 ours += ev.device_time_total
     if not busy:
-        report("profiled decode step: the profiler recorded no device time "
-               "(not measured)")
+        report(f"profiled {label} decode step: the profiler recorded no "
+               "device time (not measured)")
         return
-    report(f"profiled planned decode step: wall {wall * 1e3:.2f} ms, device "
+    report(f"profiled {label} decode step: wall {wall * 1e3:.2f} ms, device "
            f"busy {busy / 1e3:.2f} ms ({100 * busy / 1e3 / (wall * 1e3):.1f}%"
            f" of wall, {n_kernels} kernels), block-sparse kernel "
            f"{ours / 1e3:.2f} ms")
 
 
-def run_engines(cfg, params, planned, dense, report) -> dict:
+def make_prompts(cfg):
     import numpy as np
-    import torch
-    from repro_torch.kernels import block_sparse as bs
-    from repro_torch.kernels import flex_matmul as fm
-    from repro_torch.serve.engine import ServeEngine
-
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 49)))
-               for _ in range(8)]
-    max_new = 32
+    return [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 49)))
+            for _ in range(8)]
 
-    def engine(exec_cfg, fused):
-        return ServeEngine(cfg, params, n_slots=N_SLOTS, max_seq=96,
-                           dtype=torch.bfloat16, exec_cfg=exec_cfg,
-                           fused=fused, decode_block=16, device="cuda")
 
-    # --- phase 4: planned engine, fused vs oracle ---
-    for d in (bs.LAUNCHES, fm.LAUNCHES):
-        for key in d:
-            d[key] = 0
-    eng = engine(planned, True)
+def make_engine(cfg, params, exec_cfg, fused, **kw):
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    return ServeEngine(cfg, params, n_slots=N_SLOTS, max_seq=96,
+                       dtype=torch.bfloat16, exec_cfg=exec_cfg, fused=fused,
+                       decode_block=16, device="cuda", **kw)
+
+
+def drain_timed(eng, prompts, max_new):
+    """Serve ``prompts`` to the end through ``eng``'s fused blocks; returns
+    (streams, wall seconds, {prefill s, decode s, decode steps})."""
+    import torch
     timing = {"prefill": 0.0, "decode": 0.0, "steps": 0}
     feed, run_block = eng._feed_prefill, eng._run_block
 
@@ -391,18 +431,38 @@ def run_engines(cfg, params, planned, dense, report) -> dict:
     res = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    fused = [res[u] for u in uids]
-    n_tok = sum(len(s) for s in fused)
-    need(all(len(s) == max_new for s in fused), "fused run lost tokens")
-    planned_counts = {"block_sparse": bs.LAUNCHES["block_sparse"],
-                      **fm.LAUNCHES}
-    report(f"planned engine: {n_tok} tokens in {wall:.2f} s = "
-           f"{n_tok / wall:.1f} tokens/s (prefill {timing['prefill']:.2f} s,"
-           f" decode {timing['decode']:.2f} s over {timing['steps']} "
-           f"steps = {1e3 * timing['decode'] / timing['steps']:.2f} ms per "
-           f"decode step); launches {planned_counts}")
+    streams = [res[u] for u in uids]
+    need(all(len(st) == max_new for st in streams), "fused run lost tokens")
+    return streams, wall, timing
 
-    oracle = engine(planned, False)
+
+def rate_line(streams, wall, timing) -> str:
+    n_tok = sum(len(st) for st in streams)
+    return (f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s "
+            f"(prefill {timing['prefill']:.2f} s, decode "
+            f"{timing['decode']:.2f} s over {timing['steps']} steps = "
+            f"{1e3 * timing['decode'] / timing['steps']:.2f} ms per decode "
+            f"step)")
+
+
+def run_engines(cfg, params, planned, dense, report):
+    """Phases 4-5.  Returns the main-path launches and the bf16 planned
+    engine's prompts, streams and first-step logits."""
+    import torch
+
+    prompts = make_prompts(cfg)
+    max_new = 32
+
+    # --- phase 4: planned engine, fused vs oracle ---
+    reset_launches()
+    eng = make_engine(cfg, params, planned, True)
+    fused, wall, timing = drain_timed(eng, prompts, max_new)
+    counts = launch_counts()
+    planned_counts = {k: counts[k] for k in SLICE1_KERNELS}
+    report(f"planned engine: {rate_line(fused, wall, timing)}; launches "
+           f"{planned_counts}")
+
+    oracle = make_engine(cfg, params, planned, False)
     ouids = [oracle.submit(p, max_new=max_new) for p in prompts]
     oracle.step()                          # admits 4, decodes one step
     logits0 = oracle.last_logits.clone()
@@ -432,7 +492,7 @@ def run_engines(cfg, params, planned, dense, report) -> dict:
                       ("dense, all sites weight-stationary", forced("weight")),
                       ("dense, all sites input-stationary", forced("input")),
                       ("plain torch.matmul, no kernels", None)):
-        e = engine(ec, False)
+        e = make_engine(cfg, params, ec, False)
         for p in prompts[:N_SLOTS]:
             e.submit(p, max_new=max_new)
         e.step()
@@ -446,11 +506,244 @@ def run_engines(cfg, params, planned, dense, report) -> dict:
                    f"{diff:.3e}, tol {tol:.3e}")
             need(diff <= tol, f"{label}: logits off by {diff}")
     torch.cuda.synchronize()
-    launches = {"block_sparse": bs.LAUNCHES["block_sparse"], **fm.LAUNCHES}
+    counts = launch_counts()
+    launches = {k: counts[k] for k in SLICE1_KERNELS}
     report(f"main-path launches (phases 4-5): {launches}")
     for name, count in launches.items():
         need(count > 0, f"kernel {name} never launched on the main path")
+    return launches, {"prompts": prompts, "streams": fused,
+                      "logits0": logits0}
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: int8 serving (quantize=True) on the same weights
+# ---------------------------------------------------------------------------
+
+def check_sites_int8(cfg, params, q8, report) -> dict:
+    """Every site of the int8 path at layer 0: the quantized plan's blocks
+    and metadata, the decode shape.  Returns the worst error per kernel
+    and the bf16 mlp.in operands for the ``kernels`` line."""
+    import torch
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.kernels.ops import planned_operands
+    from repro_torch.kernels.ref import (block_sparse_matmul_ref,
+                                         int8_matmul_plain)
+    from repro_torch.quant.quantize import QuantizedLinear, quantize_params
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    qparams, _ = quantize_params(params, tie_embeddings=cfg.tie_embeddings)
+    attached = q8.plan.attach(qparams)
+    worst = dict.fromkeys(INT8_KERNELS, 0.0)
+    keep = {}
+    for e in q8.plan.entries.values():
+        pw = attached
+        for key in e.path:
+            pw = pw[key]
+        if e.lead:
+            pw = pw.index(0)
+        need(pw.quantized and not e.transpose,
+             f"{e.site}: the int8 plan did not attach an int8 payload")
+        qw = QuantizedLinear(pw.w, pw.qscale)
+        w_deq = pw.w_kn                       # float32 Q·s
+        k, n = pw.kn.shape
+        m = q8.schedules.sites[e.site].m
+        a_full = torch.randn((m, k), generator=gen, device=dev)
+        kb = torch.rand(-(-k // e.bk), generator=gen, device=dev) < 0.5
+        a_half = a_full * kb.repeat_interleave(e.bk)[:k]
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = dict.fromkeys(worst, 0.0)
+            tol = 0.0
+            for act, a32 in (("dense", a_full), ("half", a_half)):
+                a = a32.to(dtype)
+                tol_a = matmul_tol(a, w_deq)
+                tol = max(tol, tol_a)
+                what = f"{e.site} {dtype} {act}"
+                xp, wp, meta, scale = planned_operands(a, pw)
+                out = bs.block_sparse_matmul(xp, wp, meta, scale=scale,
+                                             out_dtype=torch.float32)
+                err = (out - block_sparse_matmul_ref(xp, wp, meta, scale)) \
+                    .abs().max().item()
+                need(err <= tol_a, f"block_sparse_scaled {what}: error "
+                     f"{err} > {tol_a}")
+                need(torch.equal(out, bs.block_sparse_matmul(
+                    xp, wp, all_live(meta), scale=scale,
+                    out_dtype=torch.float32)),
+                    f"block_sparse_scaled {what}: sparse != all-live run")
+                errs["block_sparse_scaled"] = max(
+                    errs["block_sparse_scaled"], err)
+                d = int8_matmul(a, qw, out_dtype=torch.float32)
+                err = (d - int8_matmul_plain(a, qw.q, qw.scale)) \
+                    .abs().max().item()
+                need(err <= tol_a, f"int8_matmul {what}: error {err} > "
+                     f"{tol_a}")
+                need(torch.equal(d, out[:m, :n]), f"{what}: int8_matmul "
+                     f"!= block_sparse_scaled bitwise")
+                errs["int8_matmul"] = max(errs["int8_matmul"], err)
+                if dtype is torch.bfloat16 and act == "dense" \
+                        and e.site == "mlp.in":
+                    keep.update(a=a, qw=qw, xp=xp, wp=wp, meta=meta,
+                                scale=scale, blocks=(e.bm, e.bk, e.bn),
+                                w_bf16=w_deq.to(torch.bfloat16))
+            line = (f"int8 {e.site} {str(dtype)[6:]} M={m} K={k} N={n}: "
+                    f"block_sparse_scaled ({e.bm},{e.bk},{e.bn}) "
+                    f"{errs['block_sparse_scaled']:.3e}, int8_matmul "
+                    f"{errs['int8_matmul']:.3e}; tol {tol:.3e}; sparse == "
+                    f"all-live == int8_matmul bitwise")
+            if dtype is torch.float32:
+                a = a_full
+                xp, wp, meta, scale = planned_operands(a, pw)
+                tol_a = matmul_tol(a, w_deq)
+                ctrl_bs = (block_sparse_matmul_ref(tf32(xp), wp, meta, scale)
+                           - block_sparse_matmul_ref(xp, wp, meta, scale)) \
+                    .abs().max().item()
+                ctrl_i8 = (int8_matmul_plain(tf32(a), qw.q, qw.scale)
+                           - int8_matmul_plain(a, qw.q, qw.scale)) \
+                    .abs().max().item()
+                line += (f"; TF32 control {ctrl_bs:.3e} / {ctrl_i8:.3e} "
+                         f"(must exceed tol)")
+                need(min(ctrl_bs, ctrl_i8) > tol_a,
+                     f"int8 {e.site}: the float32 tolerance does not reject "
+                     f"a TF32 activation ({ctrl_bs}, {ctrl_i8})")
+            report(line)
+            for key in worst:
+                worst[key] = max(worst[key], errs[key])
+        # bf16 times at this site, activation dense as on the path
+        a = a_full.to(torch.bfloat16)
+        xp, wp, meta, scale = planned_operands(a, pw)
+        b_bs, _ = bs_bound_ms(xp, meta, (e.bm, e.bk, e.bn), w_elem=1,
+                              scale_bytes=4 * n)
+        b_i8, _ = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
+                           2.0 * m * n * k)
+        t_bs = cuda_ms(lambda: bs.block_sparse_matmul(
+            xp, wp, meta, scale=scale, out_dtype=torch.float32))
+        t_i8 = cuda_ms(lambda: int8_matmul(a, qw, out_dtype=torch.float32))
+        t_pbs = cuda_ms(lambda: block_sparse_matmul_ref(xp, wp, meta, scale))
+        t_pi8 = cuda_ms(lambda: int8_matmul_plain(a, qw.q, qw.scale))
+        w_bf16 = w_deq.to(torch.bfloat16)
+        t_bf16 = cuda_ms(lambda: torch.matmul(a, w_bf16))
+        report(f"  int8 {e.site} bf16 ms: block_sparse_scaled {t_bs:.4f} "
+               f"(bound {b_bs:.5f}), int8_matmul {t_i8:.4f} (bound "
+               f"{b_i8:.5f}), plain {t_pbs:.4f} / {t_pi8:.4f}, bf16 "
+               f"torch.matmul on the dequantized weight {t_bf16:.4f}")
+    need(bool(keep), "no mlp.in site in the int8 plan")
+    torch.cuda.synchronize()
+    keep["errs"] = worst
+    return keep
+
+
+def run_int8_engines(cfg, params, q8, dense8, bf16, report) -> dict:
+    """Phase 7: the int8 engines on the first 4 prompts.  Returns the int8
+    path's launches."""
+    import torch
+
+    prompts = bf16["prompts"][:N_SLOTS]
+    max_new = 16
+    reset_launches()
+    eng = make_engine(cfg, params, q8, True)
+    streams, wall, timing = drain_timed(eng, prompts, max_new)
+    report(f"planned int8 engine: {rate_line(streams, wall, timing)}; "
+           f"weights {eng.quant_stats['quantized_bytes']} bytes int8 + "
+           f"scales vs {eng.quant_stats['original_bytes']} bf16")
+
+    oracle = make_engine(cfg, params, q8, False)
+    ouids = [oracle.submit(p, max_new=max_new) for p in prompts]
+    oracle.step()
+    logits8 = oracle.last_logits.clone()
+    profile_step(oracle, report, "planned int8")
+    ores = oracle.run_until_drained()
+    same = all(ores[o] == streams[i] for i, o in enumerate(ouids))
+    report(f"int8 fused streams == step() oracle: {same}")
+    need(same, "int8 fused streams differ from the step() oracle")
+    need(bool(torch.isfinite(logits8).all()), "non-finite int8 logits")
+    need(logits8.shape == (N_SLOTS, cfg.vocab), "bad int8 logits shape")
+
+    # the dense table runs int8_matmul at every site: same tile template,
+    # same per-element summation order (K ascending), dead blocks add exact
+    # zeros, the scale applied to the same accumulator — so the same bits
+    tol = 0.05 * logits8.abs().max().item()
+    for label, ec, kw in (("dense int8 table (int8_matmul)", dense8, {}),
+                          ("plain int8 (bf16 dequantized, torch.matmul)",
+                           None, {"quantize": True})):
+        e = make_engine(cfg, params, ec, False, **kw)
+        for p in prompts:
+            e.submit(p, max_new=max_new)
+        e.step()
+        diff = (e.last_logits - logits8).abs().max().item()
+        if ec is dense8:
+            report(f"{label}: step logits vs planned int8 max |diff| = "
+                   f"{diff:.3e} (must be 0)")
+            need(diff == 0.0, "dense int8 engine differs from the planned "
+                 "int8 one")
+        else:
+            report(f"{label}: step logits vs planned int8 max |diff| = "
+                   f"{diff:.3e}, tol {tol:.3e}")
+            need(diff <= tol, f"{label}: logits off by {diff}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {k: counts[k] for k in INT8_KERNELS}
+    report(f"main-path launches (phase 7): {counts}")
+    for name, count in launches.items():
+        need(count > 0, f"kernel {name} never launched on the int8 path")
+
+    ref = [st[:max_new] for st in bf16["streams"][:N_SLOTS]]
+    agree = sum(x == y for st, rt in zip(streams, ref)
+                for x, y in zip(st, rt))
+    prefix = [next((i for i, (x, y) in enumerate(zip(st, rt)) if x != y),
+                   max_new) for st, rt in zip(streams, ref)]
+    report(f"information: int8 vs bf16 planned first-step logits max |diff| "
+           f"= {(logits8 - bf16['logits0']).abs().max().item():.3e}; greedy "
+           f"tokens equal at {agree}/{N_SLOTS * max_new} positions, common "
+           f"prefixes {prefix}")
     return launches
+
+
+def time_int8_kernels(t, launches) -> list:
+    """The int8 rows of the ``kernels`` line: bf16 x @ w_in at the decode
+    shape (M=4, K=2048, N=5632), the weight block-pruned at (256, 256) and
+    quantized, the activation dense."""
+    import torch
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels.ref import (block_sparse_matmul_ref,
+                                         int8_matmul_plain)
+
+    a, qw, meta = t["a"], t["qw"], t["meta"]
+    xp, wp, scale = t["xp"], t["wp"], t["scale"]
+    m, k = a.shape
+    n = qw.q.shape[1]
+    saved = launch_counts()
+    b_bs, by_bs = bs_bound_ms(xp, meta, t["blocks"], w_elem=1,
+                              scale_bytes=4 * n)
+    b_i8, by_i8 = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
+                           2.0 * m * n * k)
+    rows = [{
+        "name": "block_sparse_scaled", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/block_sparse.cu",
+        "replaces": "src/repro/kernels/block_sparse.py:69",
+        "launches": launches["block_sparse_scaled"],
+        "max_abs_err": t["errs"]["block_sparse_scaled"],
+        "ms": cuda_ms(lambda: bs.block_sparse_matmul(
+            xp, wp, meta, scale=scale, out_dtype=torch.float32)),
+        "plain_ms": cuda_ms(lambda: block_sparse_matmul_ref(xp, wp, meta,
+                                                            scale)),
+        "bound_ms": b_bs, "bound_by": by_bs, "library_ms": None}, {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/int8_matmul.py:24",
+        "launches": launches["int8_matmul"],
+        "max_abs_err": t["errs"]["int8_matmul"],
+        "ms": cuda_ms(lambda: int8_matmul(a, qw, out_dtype=torch.float32)),
+        "plain_ms": cuda_ms(lambda: int8_matmul_plain(a, qw.q, qw.scale)),
+        "bound_ms": b_i8, "bound_by": by_i8, "library_ms": None}]
+    # reference point, not a library time: bf16 x bf16 on the dequantized
+    # weight (timed last, after the kernels have warmed the card)
+    bf16_ms = cuda_ms(lambda: torch.matmul(a, t["w_bf16"]))
+    for row in rows:
+        row["bf16_matmul_ms"] = bf16_ms
+    reset_launches(saved)
+    return rows
 
 
 def main() -> int:
@@ -471,6 +764,7 @@ def main() -> int:
         print(msg, flush=True)
 
     try:
+        t_start = time.perf_counter()
         # phase 1: the card
         name = torch.cuda.get_device_name(0)
         smi = subprocess.run(
@@ -488,12 +782,29 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     report(f"  [{lib}] {line.strip()}")
         # phase 3: bring-up, then the kernels vs plain versions
-        cfg, params, planned, dense = bring_up(report)
+        cfg, sp_cfg, params, planned, dense = bring_up(report)
         checked = check_sites(params, planned, dense, report)
         # phases 4-5: the engines
-        launches = run_engines(cfg, params, planned, dense, report)
-        # phase 6: the kernels line
+        launches, bf16 = run_engines(cfg, params, planned, dense, report)
         rows = time_kernels(checked, launches)
+        # phase 6: int8 bring-up and the int8 kernels vs plain versions
+        from repro_torch.serve.engine import decode_exec_config
+        t0 = time.perf_counter()
+        q8 = decode_exec_config(sp_cfg, N_SLOTS, params=params,
+                                quantize=True, device="cuda")
+        dense8 = decode_exec_config(cfg, N_SLOTS, use_kernels=True,
+                                    quantize=True, device="cuda")
+        torch.cuda.synchronize()
+        report(f"int8 plan bring-up: {time.perf_counter() - t0:.1f} s; "
+               f"weight-block skip fraction "
+               f"{q8.plan.block_skip_fraction():.4f}")
+        report(q8.schedules.describe())
+        checked8 = check_sites_int8(cfg, params, q8, report)
+        # phase 7: the int8 engines
+        launches8 = run_int8_engines(cfg, params, q8, dense8, bf16, report)
+        # phase 8: the kernels line
+        rows += time_int8_kernels(checked8, launches8)
+        report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)
         report(json.dumps({"kernels": rows}))

@@ -17,6 +17,11 @@ Bitmaps and live counts are computed with torch on the weights' own device
 (at full width the weights never round-trip through the host); the small
 index lists are built on the host.  The plan keeps element counts for its
 ZVC byte model instead of packed value arrays.
+
+A quantized params tree (``quant.quantize_params``) plans its
+``QuantizedLinear`` leaves on their int8 payload — quantization is
+zero-preserving, so the bitmaps are the float weight's — and the attached
+``PlannedWeight`` carries the payload with its per-channel scales.
 """
 from __future__ import annotations
 
@@ -25,6 +30,10 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
+
+SCALE_BYTES = 4          # float32 per-output-channel dequant scale
 
 SITE_KEYS: Dict[str, Dict[str, str]] = {
     "mlp": {"w_in": "mlp.in", "w_gate": "mlp.gate", "w_out": "mlp.out"},
@@ -37,10 +46,15 @@ TOP_SITE_KEYS: Dict[str, str] = {"lm_head": "lm_head"}
 TRANSPOSED_SITES = frozenset({"lm_head"})
 
 
-def zvc_weight_bytes(n_elems: float, nnz: float, *,
-                     elem_bytes: float = 2) -> float:
-    """Weight storage under ZVC (§IV): packed non-zeros + 1 bit/element."""
-    return nnz * float(elem_bytes) + n_elems / 8.0
+def zvc_weight_bytes(n_elems: float, nnz: float, *, elem_bytes: float = 2,
+                     quantized: bool = False, n_channels: float = 0
+                     ) -> float:
+    """Weight storage under ZVC (§IV): packed non-zeros (1 byte each when
+    ``quantized``) + 1 bit/element + the float32 scales of ``n_channels``
+    output channels that the int8 form adds."""
+    data = nnz * (1.0 if quantized else float(elem_bytes))
+    scales = SCALE_BYTES * float(n_channels) if quantized else 0.0
+    return data + n_elems / 8.0 + scales
 
 
 # ---------------------------------------------------------------------------
@@ -224,11 +238,19 @@ class PlannedWeight:
     block-sparse kernel.  ``transpose`` marks the (N, K)-stored
     ``lm_head``: its metadata was compiled on the transposed view and
     ``w_kn`` is that view — the kernel reads the stored matrix in place, so
-    no (K, N) copy is ever made."""
-    w: torch.Tensor          # (..., K, N) weight ((..., N, K) if transpose)
+    no (K, N) copy is ever made.
+
+    A quantized plan carries the int8 payload in ``w`` and its float32
+    per-output-channel scales in ``qscale``; the payload is stored
+    contraction-oriented (the lm_head too), so ``transpose`` is False.  The
+    kernel reads ``kn`` (the payload) and scales its accumulator; ``w_kn``
+    is the dequantized weight."""
+    w: torch.Tensor          # (..., K, N) weight ((..., N, K) if transpose);
+    #                          int8 payload when ``qscale`` is set
     wkidx: torch.Tensor      # (..., tn, max_nnz) int32
     wkcnt: torch.Tensor      # (..., tn) int32
     b_bitmap: torch.Tensor   # (..., tk, tn) bool
+    qscale: Optional[torch.Tensor] = None   # (..., N) float32
     site: str = ""
     mode: str = "weight"     # weight | two_sided
     bm: int = 128
@@ -239,18 +261,34 @@ class PlannedWeight:
     transpose: bool = False
 
     @property
-    def w_kn(self) -> torch.Tensor:
-        """Dense weight in the (..., K, N) contraction orientation (a view
-        for transposed leaves)."""
+    def quantized(self) -> bool:
+        return self.qscale is not None
+
+    @property
+    def kn(self) -> torch.Tensor:
+        """The stored weight in the (..., K, N) contraction orientation, as
+        the kernel reads it (a view for transposed leaves; the int8 payload
+        of a quantized plan)."""
         return self.w.transpose(-1, -2) if self.transpose else self.w
+
+    @property
+    def w_kn(self) -> torch.Tensor:
+        """Dense weight in the (..., K, N) contraction orientation
+        (dequantized to float32 for quantized plans)."""
+        if self.quantized:
+            return dequantize_leaf(QuantizedLinear(self.w, self.qscale),
+                                   torch.float32)
+        return self.kn
 
     def index(self, i: int) -> "PlannedWeight":
         """The slice of a stacked leaf at leading index ``i``."""
         return PlannedWeight(
             w=self.w[i], wkidx=self.wkidx[i], wkcnt=self.wkcnt[i],
-            b_bitmap=self.b_bitmap[i], site=self.site, mode=self.mode,
-            bm=self.bm, bk=self.bk, bn=self.bn, max_nnz=self.max_nnz,
-            tk=self.tk, transpose=self.transpose)
+            b_bitmap=self.b_bitmap[i],
+            qscale=None if self.qscale is None else self.qscale[i],
+            site=self.site, mode=self.mode, bm=self.bm, bk=self.bk,
+            bn=self.bn, max_nnz=self.max_nnz, tk=self.tk,
+            transpose=self.transpose)
 
     @property
     def shape(self):
@@ -289,7 +327,13 @@ def site_for_path(keys: Tuple[str, ...]) -> Optional[str]:
 
 def plannable_kn(leaf, site: str) -> Optional[torch.Tensor]:
     """Leaf → (P, K, N) stack (a view) for planning, or None: stacked
-    (L, K, N) matmul leaves, or the bare (N, K) lm_head transposed."""
+    (L, K, N) matmul leaves, or the bare (N, K) lm_head transposed.  A
+    ``QuantizedLinear`` plans on its int8 payload, which is already
+    contraction-oriented (the lm_head's too)."""
+    if isinstance(leaf, QuantizedLinear):
+        if site in TRANSPOSED_SITES:
+            return leaf.q[None] if leaf.q.dim() == 2 else None
+        return leaf.q if leaf.q.dim() == 3 else None
     if not isinstance(leaf, torch.Tensor):
         return None
     if site in TRANSPOSED_SITES:
@@ -324,6 +368,9 @@ class SitePlan:
     block_density: float      # live weight-block fraction
     dense_bytes: int
     zvc_bytes: float
+    quantized: bool = False   # compiled from a QuantizedLinear leaf
+    int8_zvc_bytes: float = 0.0   # ZVC + int8 storage (modelled for float
+    #                               plans, exact for quantized ones)
 
 
 @dataclass
@@ -356,7 +403,7 @@ class WeightSparsityPlan:
                     f"{tuple(getattr(leaf, 'shape', ()))}) is not a "
                     f"plannable weight for this site — rebuild with "
                     f"compile_weight_plan on these params")
-            dev = leaf.device
+            dev = kn.device
             planned = torch.as_tensor(e.b_bitmap, device=dev)
             live = block_bitmap(kn, e.bk, e.bn).reshape(planned.shape)
             if bool((live & ~planned).any()):
@@ -365,9 +412,12 @@ class WeightSparsityPlan:
                     f"weight's live blocks — it was compiled from different "
                     f"tensors; rebuild with compile_weight_plan on these "
                     f"params")
+            quantized = isinstance(leaf, QuantizedLinear)
             return PlannedWeight(
-                w=leaf, wkidx=torch.as_tensor(e.wkidx, device=dev),
+                w=leaf.q if quantized else leaf,
+                wkidx=torch.as_tensor(e.wkidx, device=dev),
                 wkcnt=torch.as_tensor(e.wkcnt, device=dev), b_bitmap=planned,
+                qscale=leaf.scale if quantized else None,
                 site=e.site, mode=e.mode, bm=e.bm, bk=e.bk, bn=e.bn,
                 max_nnz=e.max_nnz, tk=e.tk, transpose=e.transpose)
         return map_leaves(wrap, params)
@@ -390,8 +440,10 @@ class WeightSparsityPlan:
 
 
 def _planned_leaves(params, schedules):
-    """(path, site, descriptor, (P, K, N) stack, lead) of every leaf a
-    sparse site of ``schedules`` plans."""
+    """(path, site, descriptor, (P, K, N) stack, lead, stored weight) of
+    every leaf a sparse site of ``schedules`` plans; the stored weight of a
+    ``QuantizedLinear`` is its int8 payload (zero-preserving, so its
+    non-zeros are the float weight's)."""
     for path, leaf in iter_leaves(params):
         site = site_for_path(path)
         if site is None or site not in schedules.sites:
@@ -403,7 +455,8 @@ def _planned_leaves(params, schedules):
         if kn is None:
             continue
         lead = tuple(int(v) for v in leaf.shape[:-2])
-        yield path, site, d, kn, lead, leaf
+        stored = leaf.q if isinstance(leaf, QuantizedLinear) else leaf
+        yield path, site, d, kn, lead, stored
 
 
 def measure_weight_densities(params, schedules) -> Dict[str, float]:
@@ -411,14 +464,15 @@ def measure_weight_densities(params, schedules) -> Dict[str, float]:
     first pass of plan bring-up (a non-zero count per planned leaf)."""
     nnz: Dict[str, float] = {}
     size: Dict[str, float] = {}
-    for _, site, _, _, _, leaf in _planned_leaves(params, schedules):
-        nnz[site] = nnz.get(site, 0.0) + float(torch.count_nonzero(leaf))
-        size[site] = size.get(site, 0.0) + float(leaf.numel())
+    for _, site, _, _, _, w in _planned_leaves(params, schedules):
+        nnz[site] = nnz.get(site, 0.0) + float(torch.count_nonzero(w))
+        size[site] = size.get(site, 0.0) + float(w.numel())
     return {s: nnz[s] / size[s] for s in size if size[s]}
 
 
 def compile_weight_plan(params, schedules, *,
-                        max_nnz: Optional[Dict[str, int]] = None
+                        max_nnz: Optional[Dict[str, int]] = None,
+                        ref_elem_bytes: Optional[int] = None
                         ) -> WeightSparsityPlan:
     """Compile a :class:`WeightSparsityPlan` from the actual param tensors.
 
@@ -427,9 +481,14 @@ def compile_weight_plan(params, schedules, *,
     block bitmaps and per-column live-K lists at the site schedule's block
     granularity, with one tight site-wide ``max_nnz``.  ``max_nnz``
     optionally caps a site's bound; a cap below the tightest feasible value
-    raises ``ValueError`` naming the site and (slice, column)."""
+    raises ``ValueError`` naming the site and (slice, column).
+
+    ``QuantizedLinear`` leaves compile on their int8 payload and mark the
+    entry ``quantized`` (never transposed).  ``ref_elem_bytes`` is the
+    dense-float width the byte economics compare against (default: the
+    leaf's own, or 2 — bf16 — for a quantized leaf)."""
     plan = WeightSparsityPlan(arch=schedules.arch, shape=schedules.shape)
-    for path, site, d, kn, lead, leaf in _planned_leaves(params, schedules):
+    for path, site, d, kn, lead, w in _planned_leaves(params, schedules):
         _, k, n = kn.shape
         bm = max(min(d.schedule.bm, d.m), 1)
         bk = max(min(d.schedule.bk, k), 1)
@@ -445,18 +504,23 @@ def compile_weight_plan(params, schedules, *,
             label = f"{site}[{i}]" if lead else site
             wkidx[i], wkcnt[i] = weight_side_lists(bmaps[i], site_nnz,
                                                    site=label)
-        nnz = int(torch.count_nonzero(leaf))
-        size = int(leaf.numel())
-        elem_bytes = leaf.element_size()
+        quantized = w.dtype == torch.int8
+        nnz = int(torch.count_nonzero(w))
+        size = int(w.numel())
+        elem_bytes = (ref_elem_bytes if ref_elem_bytes is not None
+                      else (2 if quantized else w.element_size()))
         plan.entries["/".join(path)] = SitePlan(
             path=path, site=site, mode=d.sparsity_mode, bm=bm, bk=bk, bn=bn,
             tk=int(tk), tn=int(tn), max_nnz=int(site_nnz), lead=lead,
-            transpose=site in TRANSPOSED_SITES,
+            transpose=site in TRANSPOSED_SITES and not quantized,
             wkidx=wkidx.reshape(lead + (tn, site_nnz)),
             wkcnt=wkcnt.reshape(lead + (tn,)),
             b_bitmap=bmaps.reshape(lead + (tk, tn)),
             nnz=nnz, size=size, wt_density=nnz / max(size, 1),
             block_density=float(bmaps.mean()),
             dense_bytes=size * elem_bytes,
-            zvc_bytes=zvc_weight_bytes(size, nnz, elem_bytes=elem_bytes))
+            zvc_bytes=zvc_weight_bytes(size, nnz, elem_bytes=elem_bytes),
+            quantized=quantized,
+            int8_zvc_bytes=zvc_weight_bytes(size, nnz, quantized=True,
+                                            n_channels=kn.shape[0] * n))
     return plan

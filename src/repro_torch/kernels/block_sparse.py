@@ -1,36 +1,43 @@
 """Two-sided block-sparse matmul — the CSB + CAG unit on Hopper.
 
-Wrapper of the CUDA kernel in ``csrc/block_sparse.cu``, which replaces the
-JAX package's Pallas kernel ``_bs_kernel`` (src/repro/kernels/
-block_sparse.py:49, launched at :114).  One CUDA block per (bm, bn) output
-tile walks the tile's compressed K-block list (``BlockSparseMeta.kidx`` /
-``kcnt``, built by ``core.sparsity``); blocks where either operand is
-all-zero are never read nor multiplied, and a tile with no live block
-writes zeros.  At decode the kernel is bound by device-memory bytes (the
-live weight blocks), so the skipped blocks are the saving.
+Wrapper of the CUDA kernels in ``csrc/block_sparse.cu``, which replace the
+JAX package's Pallas kernels ``_bs_kernel`` (src/repro/kernels/
+block_sparse.py:49, launched at :114) and, for an int8 weight payload with
+per-column scales, ``_bs_kernel_scaled`` (:69, launched at :155).  Each
+CUDA block (one per 256-wide strip of a (bm, bn) output tile) walks the
+tile's compressed K-block list (``BlockSparseMeta.kidx`` / ``kcnt``, built
+by ``core.sparsity``); blocks where either operand is all-zero are never
+read nor multiplied, and a tile with no live block writes zeros.  At decode the kernel is bound by
+device-memory bytes (the live weight blocks), so the skipped blocks — and,
+quantized, the int8 bytes — are the saving.
 
 CPU tensors take the plain version (``ref.block_sparse_matmul_ref``); CUDA
-tensors launch the kernel or raise.
+tensors launch a kernel or raise.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import block_sparse_matmul_ref
 
-# launches of the CUDA kernel (bumped only where it is launched)
-LAUNCHES = {"block_sparse": 0}
+# launches of each CUDA entry point (bumped only where it is launched)
+LAUNCHES = {"block_sparse": 0, "block_sparse_scaled": 0}
 
 
 def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
-                        out_dtype=None) -> torch.Tensor:
+                        out_dtype=None,
+                        scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C = A @ B skipping CSB-dead (A-block, B-block) pairs.
 
     ``a`` (M, K) and ``b`` (K, N) must be block multiples of the metadata's
     bitmaps (pad first); ``b`` may be the transposed view of a row-major
-    (N, K) matrix.  Returns ``out_dtype`` (default: ``a.dtype``), computed
-    with a float32 accumulator."""
+    (N, K) matrix.  ``scale`` (N,) float32 marks ``b`` as an int8 payload:
+    C = (A @ B) * scale, the scale applied once to the accumulator.
+    Returns ``out_dtype`` (default: ``a.dtype``), computed with a float32
+    accumulator."""
     out_dtype = out_dtype or a.dtype
     tm, tk = meta.a_bitmap.shape
     tn = meta.b_bitmap.shape[1]
@@ -44,11 +51,21 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
         raise ValueError(f"operands {tuple(a.shape)} @ {tuple(b.shape)} are "
                          f"not block multiples of the ({tm}, {tk}) x "
                          f"({tk}, {tn}) bitmaps")
-    if a.device != b.device or a.dtype != b.dtype:
-        raise ValueError(f"operands differ: {a.device}/{a.dtype} vs "
-                         f"{b.device}/{b.dtype}")
+    if scale is None:
+        if a.device != b.device or a.dtype != b.dtype:
+            raise ValueError(f"operands differ: {a.device}/{a.dtype} vs "
+                             f"{b.device}/{b.dtype}")
+    else:
+        build.dtype_code(b.dtype, (torch.int8,))
+        if (scale.shape != (n,) or scale.dtype != torch.float32
+                or not scale.is_contiguous()
+                or not a.device == b.device == scale.device):
+            raise ValueError(f"a scaled product takes a contiguous float32 "
+                             f"scale of shape ({n},) on A's device; got "
+                             f"{scale.dtype} {tuple(scale.shape)} on "
+                             f"{scale.device}, B on {b.device}")
     if a.device.type == "cpu":
-        return block_sparse_matmul_ref(a, b, meta).to(out_dtype)
+        return block_sparse_matmul_ref(a, b, meta, scale).to(out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     kidx, kcnt = meta.kidx, meta.kcnt
@@ -64,11 +81,19 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
     b_trans = build.b_layout(b)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     lib = build.library("block_sparse")
-    err = lib.bs_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                        kidx.data_ptr(), kcnt.data_ptr(), m, n, k, bm, bn,
-                        bk, meta.max_nnz, b_trans, build.dtype_code(a.dtype),
-                        build.dtype_code(out_dtype),
-                        build.stream_ptr(a.device))
-    build.check(err, "block_sparse_matmul")
-    LAUNCHES["block_sparse"] += 1
+    codes = (build.dtype_code(a.dtype), build.dtype_code(out_dtype),
+             build.stream_ptr(a.device))
+    if scale is None:
+        err = lib.bs_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                            kidx.data_ptr(), kcnt.data_ptr(), m, n, k, bm,
+                            bn, bk, meta.max_nnz, b_trans, *codes)
+        key = "block_sparse"
+    else:
+        err = lib.bs_matmul_scaled(a.data_ptr(), b.data_ptr(),
+                                   scale.data_ptr(), out.data_ptr(),
+                                   kidx.data_ptr(), kcnt.data_ptr(), m, n, k,
+                                   bm, bn, bk, meta.max_nnz, b_trans, *codes)
+        key = "block_sparse_scaled"
+    build.check(err, f"block_sparse_matmul[{key}]")
+    LAUNCHES[key] += 1
     return out

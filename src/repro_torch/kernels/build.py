@@ -21,7 +21,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("block_sparse", "flex_matmul")
+SOURCES = ("block_sparse", "flex_matmul", "int8_matmul")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -32,11 +32,15 @@ _I = ctypes.c_int
 SIGNATURES = {
     "block_sparse": {
         "bs_matmul": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+        "bs_matmul_scaled": [_P] * 6 + [_I] * 10 + [_P],
     },
     "flex_matmul": {
         "fm_output": [_P, _P, _P] + [_I] * 9 + [_P],
         "fm_weight": [_P, _P, _P] + [_I] * 9 + [_P],
         "fm_input": [_P, _P, _P] + [_I] * 9 + [_P],
+    },
+    "int8_matmul": {
+        "i8_matmul": [_P] * 4 + [_I] * 9 + [_P],
     },
 }
 
@@ -126,12 +130,17 @@ def _error_name(err: int) -> str:
 # launch helpers shared by the wrappers
 # ---------------------------------------------------------------------------
 
-def dtype_code(dtype) -> int:
-    """``rt::Dtype`` code of a torch dtype (float32 = 0, bfloat16 = 1)."""
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if dtype not in codes:
-        raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
-    return codes[dtype]
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def dtype_code(dtype, allowed=(torch.float32, torch.bfloat16)) -> int:
+    """``rt::Dtype`` code of a torch dtype (float32 = 0, bfloat16 = 1,
+    int8 = 2), refusing a dtype outside ``allowed`` (A operands and
+    outputs are float32 or bfloat16; only an int8 B payload is int8)."""
+    if dtype not in allowed:
+        names = " or ".join(str(d).replace("torch.", "") for d in allowed)
+        raise TypeError(f"expected {names}, got {dtype}")
+    return DTYPE_CODES[dtype]
 
 
 def b_layout(b) -> int:

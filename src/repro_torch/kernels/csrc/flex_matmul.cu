@@ -3,8 +3,9 @@
 // per layer).
 //
 //   fm_output  replaces ``_os_kernel`` (src/repro/kernels/flex_matmul.py:52,
-//              launched at :102): one CUDA block per (bm, bn) output tile,
-//              K-loop with the float32 accumulator in registers.
+//              launched at :102): one CUDA block per 256-wide strip of
+//              each (bm, bn) output tile, K-loop with the float32
+//              accumulator in registers.
 //   fm_weight  replaces ``_revisit_kernel`` under the weight-stationary grid
 //              (flex_matmul.py:68, launched at :118): a block owns an N-strip
 //              (and a group of M-blocks), loops k, holds its B tile in shared
@@ -165,9 +166,10 @@ int dispatch_revisit(const void* a, const void* b, float* out, int m, int n,
 extern "C" int fm_output(const void* a, const void* b, void* out, int m,
                          int n, int k, int bm, int bn, int bk, int b_trans,
                          int in_dtype, int out_dtype, void* stream) {
-  return rt::dispatch_tile<false>(a, b, out, nullptr, nullptr, m, n, k, bm,
-                                  bn, bk, 0, b_trans, in_dtype, out_dtype,
-                                  static_cast<cudaStream_t>(stream));
+  const rt::TileArgs t{a, b, nullptr, out, nullptr, nullptr, m, n, k,
+                       bm, bn, bk, 0, b_trans};
+  return rt::dispatch_tile<false, false>(t, in_dtype, out_dtype,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fm_weight(const void* a, const void* b, float* out, int m,

@@ -3,25 +3,36 @@
 // Every kernel here computes C = A @ B (or a block-sparse part of it) with
 // A (M, K) row-major and B (K, N) either row-major or given as the transpose
 // of a row-major (N, K) matrix (``b_trans``: the stored (V, D) lm_head is
-// read in place, never copied).  Inputs are float32 or bfloat16; products
-// are plain FMAs in float32 registers (never TF32), bf16 operands widened to
-// float32 on the way from shared memory.  A block of 256 threads walks its
-// output tile in register sub-tiles:
+// read in place, never copied).  A is float32 or bfloat16; B is A's type, or
+// an int8 payload with float32 per-column scales that the epilogue applies
+// once to the accumulator (C = (A @ Q) * scale).  Products are plain FMAs in
+// float32 registers (never TF32), bf16 and int8 operands widened to float32
+// on the way from shared memory; a bf16 x int8 product (8 + 7 significant
+// bits) is exact in float32.  Each block of 256 threads owns one TN-wide
+// column strip of a (bm, bn) output tile and walks it in register sub-tiles:
 //
 //   Skinny  (bm <= 4, the decode path: M = n_slots): 4 x 256 sub-tile,
 //           thread t owns column t and all four rows;
 //   Square  (bm > 4): 64 x 64 sub-tile, 4 x 4 outputs per thread.
 //
+// A tile wider than TN is split over ceil(bn / TN) blocks, which read the
+// same K-block list: at M = 4 a site has only N / bn tiles, and one block
+// per tile would leave most of the card idle (bn = 512 gives 4 blocks at a
+// 2048-wide site).
+//
 // K is staged through shared memory in chunks of kTK rows.  The order of
 // summation inside a (bm, bn) output tile is fixed by the block list alone:
 // blocks in list order, rows of a block ascending — so a block-sparse run
 // and an all-live run of the same tile agree bit for bit (a dead block adds
-// exact zeros).
+// exact zeros).  The order does not depend on (bm, bn, bk) either, so two
+// kernels on the same operands give the same bits whatever their blocks.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace rt {
 
@@ -29,11 +40,14 @@ constexpr int kThreads = 256;
 constexpr int kTK = 64;                 // K rows per staged chunk
 constexpr int kSmemLimit = 232448;      // dynamic shared memory per block
 
-enum Dtype { kF32 = 0, kBF16 = 1 };
+enum Dtype { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(int8_t x) {
+  return static_cast<float>(x);         // exact
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -43,6 +57,9 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);           // round to nearest even
+}
+template <> __device__ __forceinline__ int8_t from_f<int8_t>(float x) {
+  return static_cast<int8_t>(__float2int_rn(x));   // staging's zero fill
 }
 
 template <int TM_, int TN_, int RM_, int RN_>
@@ -165,11 +182,14 @@ __device__ __forceinline__ void zero_acc(float (&acc)[C::RM][C::RN]) {
 }
 
 // Write (or, with ``add``, accumulate into a float32 buffer) the sub-tile
-// at ``out`` (row stride ldo), masked to (mrows, ncols).
+// at ``out`` (row stride ldo), masked to (mrows, ncols).  ``scale`` (the
+// sub-tile's first column of a per-column float32 vector, or null) scales
+// the accumulator once: out = acc * scale[n].
 template <typename To, class C>
 __device__ __forceinline__ void store(To* out, int ldo,
                                       const float (&acc)[C::RM][C::RN],
-                                      int mrows, int ncols, bool add) {
+                                      int mrows, int ncols, bool add,
+                                      const float* scale = nullptr) {
   const int ty = threadIdx.x / C::GX, tx = threadIdx.x % C::GX;
 #pragma unroll
   for (int r = 0; r < C::RM; ++r) {
@@ -179,27 +199,43 @@ __device__ __forceinline__ void store(To* out, int ldo,
       const int n = tx + c * C::GX;
       if (m < mrows && n < ncols) {
         To* p = out + (size_t)m * ldo + n;
-        *p = add ? from_f<To>(to_f(*p) + acc[r][c]) : from_f<To>(acc[r][c]);
+        const float v = scale ? acc[r][c] * scale[n] : acc[r][c];
+        *p = add ? from_f<To>(to_f(*p) + v) : from_f<To>(v);
       }
     }
   }
 }
 
-// Output tile kernel: block (blockIdx.y, blockIdx.x) owns output tile
-// (i, j) of shape (bm, bn) and sums A[i, kb] @ B[kb, j] over its K-block
-// list — the CSB list kidx[i, j, :kcnt[i, j]] when kSparse, else every
-// K-block in order.  A tile with an empty list reads nothing and writes
-// zeros.
-template <typename T, typename To, class C, bool kSparse>
+// Arguments of one tile launch (pointers untyped; the dispatch types them).
+struct TileArgs {
+  const void* a;
+  const void* b;
+  const float* scale;     // per-column scales of an int8 B, else null
+  void* out;
+  const int* kidx;        // CSB lists (sparse launches only)
+  const int* kcnt;
+  int m, n, k, bm, bn, bk, max_nnz, b_trans;
+};
+
+// Output tile kernel: block (blockIdx.y, blockIdx.x) owns the TN-wide
+// column strip n0 of output tile (i, j) of shape (bm, bn) and sums
+// A[i, kb] @ B[kb, j] there over the tile's K-block list — the CSB list
+// kidx[i, j, :kcnt[i, j]] when kSparse, else every K-block in order — then
+// scales it when ``scale`` is given.  A tile with an empty list reads
+// nothing and writes zeros.
+template <typename TA, typename TB, typename To, class C, bool kSparse>
 __global__ void __launch_bounds__(kThreads)
-tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
-            To* __restrict__ out, const int* __restrict__ kidx,
-            const int* __restrict__ kcnt, int M, int N, int K, int bm,
-            int bn, int bk, int max_nnz, int b_trans) {
+tile_kernel(const TA* __restrict__ A, const TB* __restrict__ B,
+            const float* __restrict__ scale, To* __restrict__ out,
+            const int* __restrict__ kidx, const int* __restrict__ kcnt,
+            int M, int N, int K, int bm, int bn, int bk, int max_nnz,
+            int b_trans) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* As = reinterpret_cast<float*>(smem);
-  T* Bs = reinterpret_cast<T*>(As + C::TM * kTK);
-  const int j = blockIdx.x, i = blockIdx.y;
+  TB* Bs = reinterpret_cast<TB*>(As + C::TM * kTK);
+  const int nsub = (bn + C::TN - 1) / C::TN;
+  const int j = blockIdx.x / nsub, n0 = (blockIdx.x % nsub) * C::TN;
+  const int i = blockIdx.y;
   const int tn = N / bn, tk = K / bk;
   const int ldb = b_trans ? K : N;
   int cnt = tk;
@@ -208,82 +244,79 @@ tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
     cnt = kcnt[i * tn + j];
     list = kidx + ((size_t)i * tn + j) * max_nnz;
   }
+  const int ncols = min(C::TN, bn - n0), gn = j * bn + n0;
   for (int m0 = 0; m0 < bm; m0 += C::TM) {
     const int mrows = min(C::TM, bm - m0), gm = i * bm + m0;
-    for (int n0 = 0; n0 < bn; n0 += C::TN) {
-      const int ncols = min(C::TN, bn - n0), gn = j * bn + n0;
-      float acc[C::RM][C::RN];
-      zero_acc<C>(acc);
-      for (int s = 0; s < cnt; ++s) {
-        const int kb = kSparse ? list[s] : s;
-        for (int kk = 0; kk < bk; kk += kTK) {
-          const int kc = min(kTK, bk - kk), gk = kb * bk + kk;
-          const T* bsrc = b_trans ? B + (size_t)gn * ldb + gk
-                                  : B + (size_t)gk * ldb + gn;
-          __syncthreads();
-          stage_a(As, C::TM, C::TM, kTK, A + (size_t)gm * K + gk, K, mrows,
-                  kc);
-          stage_b(Bs, C::TN, kTK, C::TN, bsrc, ldb, b_trans, kc, ncols);
-          __syncthreads();
-          mac<T, C>(acc, As, C::TM, Bs, C::TN, kc);
-        }
+    float acc[C::RM][C::RN];
+    zero_acc<C>(acc);
+    for (int s = 0; s < cnt; ++s) {
+      const int kb = kSparse ? list[s] : s;
+      for (int kk = 0; kk < bk; kk += kTK) {
+        const int kc = min(kTK, bk - kk), gk = kb * bk + kk;
+        const TB* bsrc = b_trans ? B + (size_t)gn * ldb + gk
+                                 : B + (size_t)gk * ldb + gn;
+        __syncthreads();
+        stage_a(As, C::TM, C::TM, kTK, A + (size_t)gm * K + gk, K, mrows,
+                kc);
+        stage_b(Bs, C::TN, kTK, C::TN, bsrc, ldb, b_trans, kc, ncols);
+        __syncthreads();
+        mac<TB, C>(acc, As, C::TM, Bs, C::TN, kc);
       }
-      store<To, C>(out + (size_t)gm * N + gn, N, acc, mrows, ncols, false);
     }
+    store<To, C>(out + (size_t)gm * N + gn, N, acc, mrows, ncols, false,
+                 scale ? scale + gn : nullptr);
   }
 }
 
-template <typename T, class C>
+template <typename TB, class C>
 inline size_t tile_smem() {
-  return (size_t)C::TM * kTK * sizeof(float) + (size_t)kTK * C::TN * sizeof(T);
+  return (size_t)C::TM * kTK * sizeof(float) +
+         (size_t)kTK * C::TN * sizeof(TB);
 }
 
-// Launch ``tile_kernel`` for one (input, output) type pair.
-template <typename T, typename To, class C, bool kSparse>
-int launch_tile(const void* a, const void* b, void* out, const int* kidx,
-                const int* kcnt, int m, int n, int k, int bm, int bn, int bk,
-                int max_nnz, int b_trans, cudaStream_t stream) {
-  const size_t smem = tile_smem<T, C>();
-  auto kern = tile_kernel<T, To, C, kSparse>;
+// Launch ``tile_kernel`` for one (A, B, output) type triple.
+template <typename TA, typename TB, typename To, class C, bool kSparse>
+int launch_tile(const TileArgs& t, cudaStream_t stream) {
+  const size_t smem = tile_smem<TB, C>();
+  auto kern = tile_kernel<TA, TB, To, C, kSparse>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(n / bn, m / bm);
+  dim3 grid((t.n / t.bn) * ((t.bn + C::TN - 1) / C::TN), t.m / t.bm);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<To*>(out), kidx, kcnt, m, n, k, bm, bn, bk, max_nnz,
-      b_trans);
+      static_cast<const TA*>(t.a), static_cast<const TB*>(t.b), t.scale,
+      static_cast<To*>(t.out), t.kidx, t.kcnt, t.m, t.n, t.k, t.bm, t.bn,
+      t.bk, t.max_nnz, t.b_trans);
   return (int)cudaGetLastError();
 }
 
-// Type dispatch shared by the C entry points: in_dtype / out_dtype codes
-// are ``Dtype``; bm <= 4 selects the Skinny sub-tile.
-template <bool kSparse>
-int dispatch_tile(const void* a, const void* b, void* out, const int* kidx,
-                  const int* kcnt, int m, int n, int k, int bm, int bn, int bk,
-                  int max_nnz, int b_trans, int in_dtype, int out_dtype,
+// Output type and sub-tile for one (A, B) type pair: bm <= 4 selects the
+// Skinny sub-tile.
+template <typename TA, typename TB, bool kSparse>
+int dispatch_out(const TileArgs& t, int out_dtype, cudaStream_t s) {
+  const bool skinny = t.bm <= Skinny::TM;
+  if (out_dtype == kF32)
+    return skinny ? launch_tile<TA, TB, float, Skinny, kSparse>(t, s)
+                  : launch_tile<TA, TB, float, Square, kSparse>(t, s);
+  if (out_dtype == kBF16)
+    return skinny ? launch_tile<TA, TB, __nv_bfloat16, Skinny, kSparse>(t, s)
+                  : launch_tile<TA, TB, __nv_bfloat16, Square, kSparse>(t, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Type dispatch shared by the C entry points: ``in_dtype`` / ``out_dtype``
+// are ``Dtype`` codes of A and of the output; B is A's type, or int8 with
+// ``t.scale`` when kScaled.
+template <bool kSparse, bool kScaled>
+int dispatch_tile(const TileArgs& t, int in_dtype, int out_dtype,
                   cudaStream_t s) {
-#define RT_TILE(T, To, C)                                                   \
-  return launch_tile<T, To, C, kSparse>(a, b, out, kidx, kcnt, m, n, k, bm, \
-                                        bn, bk, max_nnz, b_trans, s)
-  const bool skinny = bm <= Skinny::TM;
-  if (in_dtype == kF32 && out_dtype == kF32) {
-    if (skinny) RT_TILE(float, float, Skinny);
-    RT_TILE(float, float, Square);
-  }
-  if (in_dtype == kBF16 && out_dtype == kF32) {
-    if (skinny) RT_TILE(__nv_bfloat16, float, Skinny);
-    RT_TILE(__nv_bfloat16, float, Square);
-  }
-  if (in_dtype == kBF16 && out_dtype == kBF16) {
-    if (skinny) RT_TILE(__nv_bfloat16, __nv_bfloat16, Skinny);
-    RT_TILE(__nv_bfloat16, __nv_bfloat16, Square);
-  }
-  if (in_dtype == kF32 && out_dtype == kBF16) {
-    if (skinny) RT_TILE(float, __nv_bfloat16, Skinny);
-    RT_TILE(float, __nv_bfloat16, Square);
-  }
-#undef RT_TILE
+  if (kScaled != (t.scale != nullptr)) return (int)cudaErrorInvalidValue;
+  using BF = std::conditional_t<kScaled, int8_t, float>;
+  using BH = std::conditional_t<kScaled, int8_t, __nv_bfloat16>;
+  if (in_dtype == kF32)
+    return dispatch_out<float, BF, kSparse>(t, out_dtype, s);
+  if (in_dtype == kBF16)
+    return dispatch_out<__nv_bfloat16, BH, kSparse>(t, out_dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,7 +6,8 @@ flex_matmul.py:52, launched at :102) and ``_revisit_kernel`` (:68, launched
 at :118 weight-stationary and :133 input-stationary).  A ``MatmulSchedule``
 descriptor picks the entry point and the (bm, bn, bk) blocks:
 
-  output : one CUDA block per output tile, K loop, accumulator in registers;
+  output : one CUDA block per output-tile strip, K loop, accumulator in
+           registers;
   weight : a block owns an N-strip, loops k holding its B tile in shared
            memory, then loops m, read-modify-writing a float32 output;
   input  : the mirror image over M-strips (A tile resident across n).

@@ -6,12 +6,17 @@ thread-local ``ExecConfig`` carries the descriptor table and decides:
 
   1. ``w`` is a ``PlannedWeight`` (a precompiled plan was attached at
      bring-up) → the block-sparse kernel with the plan's tight ``max_nnz``;
-     only the activation bitmap is derived per step (two_sided);
-  2. the site's descriptor says ``weight`` / ``two_sided`` → the
+     only the activation bitmap is derived per step (two_sided).  A
+     quantized plan runs the scaled kernel on its int8 payload;
+  2. ``w`` is an unplanned ``QuantizedLinear`` → with ``use_kernels``, a 2-D
+     leaf and a dense (or absent) descriptor, the int8 matmul kernel;
+     otherwise it is dequantized to the activation's dtype and dispatched
+     on as a dense weight;
+  3. the site's descriptor says ``weight`` / ``two_sided`` → the
      block-sparse kernel with metadata built from the operands;
-  3. ``use_kernels`` → the schedule-flexible matmul kernel under the site's
+  4. ``use_kernels`` → the schedule-flexible matmul kernel under the site's
      (stationarity, blocks);
-  4. otherwise a plain float32-accumulated ``torch.matmul``.
+  5. otherwise a plain float32-accumulated ``torch.matmul``.
 
 The kernel wrappers launch CUDA kernels for CUDA tensors and run their plain
 versions for CPU tensors.  Bitmaps derived from the data make every mode
@@ -32,15 +37,18 @@ from repro_torch.core.sparsity import PlannedWeight
 from repro_torch.kernels import block_sparse as bs
 from repro_torch.kernels import flex_matmul as fm
 from repro_torch.kernels.flex_matmul import DEFAULT_BLOCKS, pad_to_blocks
+from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
 
 _state = threading.local()
 
 
 @dataclass(frozen=True)
 class ExecConfig:
-    use_kernels: bool = False         # dense sites run the flex kernels
+    use_kernels: bool = False         # dense sites run flex / int8 kernels
     schedules: Optional[object] = None   # NetworkSchedule (descriptor table)
     plan: Optional[object] = None     # WeightSparsityPlan (engine bring-up)
+    quantize: bool = False            # params int8-quantized at bring-up
 
 
 def _cfg() -> ExecConfig:
@@ -64,9 +72,11 @@ def _site_descriptor(site: str, cfg: ExecConfig):
 
 
 def _run_block_sparse(xp: torch.Tensor, wp: torch.Tensor, meta, m: int,
-                      n: int) -> torch.Tensor:
-    """Kernel dispatch + unpad tail shared by both metadata sources."""
-    out = bs.block_sparse_matmul(xp, wp, meta, out_dtype=torch.float32)
+                      n: int, scale=None) -> torch.Tensor:
+    """Kernel dispatch + unpad tail shared by both metadata sources
+    (``scale``: the padded per-column scales of an int8 ``wp``)."""
+    out = bs.block_sparse_matmul(xp, wp, meta, out_dtype=torch.float32,
+                                 scale=scale)
     return out[:m, :n]
 
 
@@ -97,12 +107,17 @@ def _sparse_site_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str,
 
 
 def planned_operands(x2: torch.Tensor, pw: PlannedWeight):
-    """(xp, wp, meta) of (M, K) @ planned (K, N): both operands padded to
-    the plan's blocks; the weight-side metadata comes from the plan and only
-    the activation bitmap is derived (two_sided)."""
+    """(xp, wp, meta, scale) of (M, K) @ planned (K, N): both operands
+    padded to the plan's blocks; the weight-side metadata comes from the
+    plan and only the activation bitmap is derived (two_sided).  A
+    quantized plan gives its int8 payload and its scales padded alike;
+    ``scale`` is None otherwise."""
     k = x2.shape[1]
     xp = pad_to_blocks(x2, pw.bm, pw.bk)
-    wp = pad_to_blocks(pw.w_kn, pw.bk, pw.bn)
+    wp = pad_to_blocks(pw.kn, pw.bk, pw.bn)
+    scale = None
+    if pw.quantized:
+        scale = pad_to_blocks(pw.qscale[None], 1, pw.bn)[0]
     tm, tk = xp.shape[0] // pw.bm, xp.shape[1] // pw.bk
     if tk != pw.tk:
         raise ValueError(
@@ -115,14 +130,15 @@ def planned_operands(x2: torch.Tensor, pw: PlannedWeight):
     else:
         meta = sparsity_lib.weight_plan_meta(pw.wkidx, pw.wkcnt,
                                              pw.b_bitmap, tm)
-    return xp, wp, meta
+    return xp, wp, meta, scale
 
 
 def _planned_matmul(x2: torch.Tensor, pw: PlannedWeight) -> torch.Tensor:
-    """(M, K) @ planned (K, N) through the block-sparse kernel.  Returns
-    float32."""
-    xp, wp, meta = planned_operands(x2, pw)
-    return _run_block_sparse(xp, wp, meta, x2.shape[0], pw.w_kn.shape[-1])
+    """(M, K) @ planned (K, N) through the block-sparse kernel (the scaled
+    one for a quantized plan).  Returns float32."""
+    xp, wp, meta, scale = planned_operands(x2, pw)
+    return _run_block_sparse(xp, wp, meta, x2.shape[0], pw.kn.shape[-1],
+                             scale=scale)
 
 
 def _plain_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -140,6 +156,14 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
         out = _planned_matmul(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*lead, out.shape[-1]).to(x.dtype)
     desc = _site_descriptor(site, cfg)
+    if isinstance(w, QuantizedLinear):
+        if (cfg.use_kernels and w.q.dim() == 2
+                and (desc is None or desc.sparsity_mode == "dense")):
+            out = int8_matmul(x.reshape(-1, x.shape[-1]), w,
+                              out_dtype=torch.float32)
+            return out.reshape(*lead, out.shape[-1]).to(x.dtype)
+        # the plain path's semantics: the weight rounded to x's dtype
+        w = dequantize_leaf(w, x.dtype)
     sparse = (desc is not None and w.dim() == 2
               and desc.sparsity_mode in ("weight", "two_sided"))
     if sparse or cfg.use_kernels:
@@ -160,7 +184,7 @@ def head_matmul(x: torch.Tensor, head, *,
     """x (..., D) @ head (V, D)ᵀ → (..., V): the logits contraction routed
     through the same per-site dispatch.  A raw head is passed as its
     transposed view (the kernels read it in place); a ``PlannedWeight`` was
-    compiled on that view."""
-    if isinstance(head, PlannedWeight):
+    compiled on that view, and a ``QuantizedLinear`` is stored (D, V)."""
+    if isinstance(head, (PlannedWeight, QuantizedLinear)):
         return flex_matmul(x, head, site=site)
     return flex_matmul(x, head.t(), site=site)

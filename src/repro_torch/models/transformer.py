@@ -9,6 +9,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsity import PlannedWeight
 from repro_torch.models import attention
+from repro_torch.quant.quantize import QuantizedLinear
 from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 Params = Dict[str, torch.Tensor]
@@ -16,10 +17,11 @@ Params = Dict[str, torch.Tensor]
 
 def index_tree(tree, i: int):
     """The layer-``i`` slice of a stacked params tree (views, no copies;
-    ``PlannedWeight`` leaves slice their metadata alongside)."""
+    ``PlannedWeight`` and ``QuantizedLinear`` leaves slice their metadata
+    and scales alongside)."""
     if isinstance(tree, dict):
         return {k: index_tree(v, i) for k, v in tree.items()}
-    if isinstance(tree, PlannedWeight):
+    if isinstance(tree, (PlannedWeight, QuantizedLinear)):
         return tree.index(i)
     return tree[i]
 

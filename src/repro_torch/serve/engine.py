@@ -14,6 +14,11 @@ call, so every matmul site consults its ``SiteDescriptor``: dense sites run
 the schedule-flexible kernels (``use_kernels``) and ``weight`` /
 ``two_sided`` sites the block-sparse kernel, with the precompiled
 ``WeightSparsityPlan`` attached into the params at bring-up.
+
+``quantize`` serves int8 weights (``quant.quantize_params``): planned sites
+run the scaled block-sparse kernel on the int8 payload, unplanned dense
+sites the int8 matmul kernel (``use_kernels``) or, without kernels, the
+weight dequantized to the activation dtype.
 """
 from __future__ import annotations
 
@@ -30,10 +35,12 @@ from repro_torch.core.scheduler import H100, TPU_V5E
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
+from repro_torch.quant.quantize import quantize_params
 
 
 def decode_exec_config(cfg: ArchConfig, n_slots: int, *,
                        use_kernels: bool = False, params=None, hw=None,
+                       quantize: bool = False,
                        device="cuda") -> ops.ExecConfig:
     """ExecConfig carrying the decode-shape descriptor table for ``cfg``
     (M = n_slots), selected under ``hw`` — ``H100`` on CUDA and the
@@ -41,7 +48,12 @@ def decode_exec_config(cfg: ArchConfig, n_slots: int, *,
 
     With ``params`` and a sparse config, the weight densities are measured,
     the table re-selected under them, and a ``WeightSparsityPlan`` compiled
-    once at the final block granularity."""
+    once at the final block granularity.
+
+    ``quantize`` costs the table at int8 weight width and quantizes
+    ``params`` before measuring and planning (quantization rounds tiny
+    weights to 0, so the plan comes from the quantized tree — the one the
+    engine, quantizing the same params deterministically, serves)."""
     from repro_torch.core.descriptors import (compile_network_schedule,
                                               sparsity_mode_for)
     from repro_torch.core.sparsity import (compile_weight_plan,
@@ -51,15 +63,21 @@ def decode_exec_config(cfg: ArchConfig, n_slots: int, *,
         hw = H100 if dev.type == "cuda" else TPU_V5E
     shape = ShapeConfig(name="serve_decode", kind="decode", seq_len=1,
                         global_batch=n_slots)
-    ns = compile_network_schedule(cfg, shape, hw=hw)
+    ns = compile_network_schedule(cfg, shape, hw=hw, quantize=quantize)
+    if quantize and params is not None:
+        params, _ = quantize_params(params,
+                                    tie_embeddings=cfg.tie_embeddings)
     plan = None
     if params is not None and sparsity_mode_for(cfg) != "dense":
         measured = measure_weight_densities(params, ns)
         if measured:
             ns = compile_network_schedule(cfg, shape, hw=hw,
-                                          wt_densities=measured)
-            plan = compile_weight_plan(params, ns)
-    return ops.ExecConfig(use_kernels=use_kernels, schedules=ns, plan=plan)
+                                          wt_densities=measured,
+                                          quantize=quantize)
+            plan = compile_weight_plan(
+                params, ns, ref_elem_bytes=2 if quantize else None)
+    return ops.ExecConfig(use_kernels=use_kernels, schedules=ns, plan=plan,
+                          quantize=quantize)
 
 
 @dataclass
@@ -82,14 +100,19 @@ class ServeEngine:
 
     ``fused`` selects the block loop in ``run_until_drained`` (False = the
     per-token ``step()`` oracle loop); ``decode_block`` caps the block
-    length T.  ``params`` must already live on ``device``."""
+    length T.  ``params`` must already live on ``device``.
+
+    ``quantize`` (implied by an exec config built with ``quantize=True``)
+    serves the params int8-quantized: ``_serve_params`` holds the quantized
+    tree, ``quant_stats`` its byte counts, and the plan attaches onto it.
+    ``params`` keeps the original tree."""
 
     def __init__(self, cfg: ArchConfig, params, *, n_slots: int = 4,
                  max_seq: int = 256, dtype=torch.float32,
                  exec_cfg: Optional[ops.ExecConfig] = None,
                  fused: bool = True,
                  decode_block: int = 16, eos_id: Optional[int] = None,
-                 device="cuda"):
+                 quantize: bool = False, device="cuda"):
         self.device = resolve_device(device)
         leaf = params["embed"]
         if leaf.device.type != self.device.type:
@@ -109,9 +132,17 @@ class ServeEngine:
         self._uid = 0
         self._outputs: Dict[int, List[int]] = {}
         self._carry: Optional[tuple] = None
+        self.quantize = bool(quantize) or bool(getattr(exec_cfg, "quantize",
+                                                       False))
+        if self.quantize:
+            self._serve_params, self.quant_stats = quantize_params(
+                params, tie_embeddings=cfg.tie_embeddings)
+        else:
+            self._serve_params, self.quant_stats = params, None
         self.plan = getattr(exec_cfg, "plan", None)
-        self._exec_params = (self.plan.attach(params)
-                             if self.plan is not None else params)
+        self._exec_params = (self.plan.attach(self._serve_params)
+                             if self.plan is not None
+                             else self._serve_params)
         self.last_logits: Optional[torch.Tensor] = None
 
     @contextlib.contextmanager

@@ -4,11 +4,13 @@ These import no JAX, so they run on the GPU machine as they are
 (``PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q``); without
 a CUDA device each test skips.  Shapes: every (K, N) of StableLM-1.6B's
 decode sites at M = 4 (attn.q/attn.out 2048×2048, attn.kv 2048×4096,
-mlp.in/gate 2048×5632, mlp.out 5632×2048), and a ragged shape.
+mlp.in/gate 2048×5632, mlp.out 5632×2048; the int8 kernels also the
+2048×100352 lm_head), and a ragged shape.
 Tolerance: √K·2⁻²⁴·max(|A|@|B|) — two float32 sums of the same products in
 different orders differ by roundings of random sign, growing like √K —
-which float32 operands cut to TF32's 10-bit mantissa exceed (checked); the
-block-sparse run must equal its all-live run bit for bit.
+which float32 operands cut to TF32's 10-bit mantissa exceed (checked); with
+an int8 B, B is its dequantized value Q·s.  The block-sparse runs must
+equal their all-live runs bit for bit, and the two int8 kernels each other.
 """
 import dataclasses
 
@@ -19,9 +21,13 @@ from repro_torch.core import sparsity as pt_sp
 from repro_torch.core.scheduler import MatmulSchedule
 from repro_torch.kernels import block_sparse as pt_bs
 from repro_torch.kernels import flex_matmul as pt_fm
-from repro_torch.kernels.ref import block_sparse_matmul_ref, matmul_ref
+from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.ref import (block_sparse_matmul_ref,
+                                     int8_matmul_plain, matmul_ref)
+from repro_torch.quant.quantize import dequantize_leaf, quantize_weight
 
 DECODE_KN = [(2048, 2048), (2048, 4096), (2048, 5632), (5632, 2048)]
+INT8_KN = DECODE_KN + [(2048, 100352)]
 
 
 @pytest.fixture
@@ -39,6 +45,21 @@ def _cuda_tol(a, b):
 
 def _tf32(x):
     return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _int8_case(cuda, dtype, k, n, seed):
+    """A (4, K) activation with two dead K-blocks and a weight pruned at
+    (256, 256), quantized; the plan's (4, 128, 256) metadata."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn((4, k), generator=gen, device=cuda)
+    a[:, 256:512] = 0
+    w = pt_sp.prune_magnitude(
+        torch.randn((k, n), generator=gen, device=cuda) * k ** -0.5, 0.5,
+        (256, 256))
+    qw = quantize_weight(w)
+    meta = pt_sp.build_block_sparse_meta(pt_sp.block_bitmap(a, 4, 128),
+                                         pt_sp.block_bitmap(qw.q, 128, 256))
+    return a.to(dtype), qw, meta
 
 
 @pytest.mark.cuda
@@ -99,3 +120,46 @@ def test_cuda_tolerance_rejects_tf32_operands(cuda, k, n):
     b = torch.randn((k, n), generator=gen, device=cuda)
     err = (matmul_ref(_tf32(a), _tf32(b)) - matmul_ref(a, b)).abs().max()
     assert err.item() > _cuda_tol(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", INT8_KN)
+def test_cuda_int8_kernels_match_plain_all_live_and_each_other(cuda, dtype, k,
+                                                               n):
+    a, qw, meta = _int8_case(cuda, dtype, k, n, 3)
+    tol = _cuda_tol(a, dequantize_leaf(qw, torch.float32))
+    out = pt_bs.block_sparse_matmul(a, qw.q, meta, out_dtype=torch.float32,
+                                    scale=qw.scale)
+    plain = block_sparse_matmul_ref(a, qw.q, meta, qw.scale)
+    assert (out - plain).abs().max().item() <= tol
+    tk = k // 128
+    live = dataclasses.replace(
+        meta, max_nnz=tk, kcnt=torch.full_like(meta.kcnt, tk),
+        kidx=torch.arange(tk, dtype=torch.int32, device=cuda)
+        .expand(meta.kcnt.shape + (tk,)).contiguous())
+    assert torch.equal(out, pt_bs.block_sparse_matmul(
+        a, qw.q, live, out_dtype=torch.float32, scale=qw.scale))
+    dense = int8_matmul(a, qw, out_dtype=torch.float32)
+    assert (dense - int8_matmul_plain(a, qw.q, qw.scale)).abs().max() \
+        .item() <= tol
+    # one summation order (K ascending) whatever the blocks: the dense
+    # kernel at (4, 128, 128) equals the block-sparse one at (4, 128, 256)
+    assert torch.equal(dense, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["block_sparse_scaled", "int8_matmul"])
+@pytest.mark.parametrize("k,n", INT8_KN)
+def test_cuda_int8_tolerance_rejects_tf32_operands(cuda, kernel, k, n):
+    """The int8 payload is exact in TF32, so the control cuts A: the plain
+    version on a TF32 activation falls outside the float32 tolerance."""
+    a, qw, meta = _int8_case(cuda, torch.float32, k, n, 4)
+    tol = _cuda_tol(a, dequantize_leaf(qw, torch.float32))
+    if kernel == "int8_matmul":
+        def plain(x):
+            return int8_matmul_plain(x, qw.q, qw.scale)
+    else:
+        def plain(x):
+            return block_sparse_matmul_ref(x, qw.q, meta, qw.scale)
+    assert (plain(_tf32(a)) - plain(a)).abs().max().item() > tol

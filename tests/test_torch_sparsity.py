@@ -150,6 +150,7 @@ def test_compiled_plan_equals_reference(pruned_smoke):
         assert e.nnz == r.zvc_values.size and e.size == r.zvc_bitmap.size
         assert e.block_density == r.block_density
         assert e.dense_bytes == r.dense_bytes and e.zvc_bytes == r.zvc_bytes
+        assert e.int8_zvc_bytes == r.int8_zvc_bytes and not e.quantized
     assert ours.wt_densities() == pytest.approx(theirs.wt_densities(),
                                                 rel=0, abs=1e-15)
     for s, d in pt_ec.schedules.sites.items():
