@@ -43,12 +43,40 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      (weights dequantized to bf16, float32-accumulated ``torch.matmul``)
      within 5% of max |logit|; and, for information, the int8 engine
      against the bf16 one (first-step logits, greedy tokens);
-  8. a ``kernels`` JSON line: per kernel its launches on its main path
-     (phases 4-5 for the bf16 kernels, phase 7 for the int8 ones), its
-     worst error over phase 3 or 6, and its time, bound, plain-version
-     time and library time at the mlp.in site (none exists for bf16 x
-     int8; the int8 rows add ``bf16_matmul_ms``, ``torch.matmul`` on the
-     dequantized bf16 weight, as a reference point).
+  8. the decode kernels' rows of the ``kernels`` line (below);
+  9. long-prompt prefill of the same model (``SHAPES["prefill_32k"]`` cut
+     to 2 prompts of 4096 tokens, B·S = 8192): the flash-attention kernel
+     against its plain versions at the cell's shape (BH 64, S 4096, hd 64,
+     causal), with Sq < Skv, a window and non-causal — in float32 against
+     the float64 dense softmax under a derived tolerance that a TF32
+     control must fail, in bf16 against the kernel-order plain version
+     within one bf16 ulp of each element (plus a float32 floor) and in at
+     most 2⁻¹³ of the elements, a bound that p kept in float32 and the
+     exact softmax rounded to bf16 must fail — and layer 0's six matmul
+     sites at M = 8192 under the prefill table's schedule (all three
+     stationarities) and the prefill plan's blocks, as in phase 3, with
+     per-site times;
+ 10. bf16 ``model.prefill`` under the dense prefill table (flash kernel in
+     every layer: 24 launches), the planned two-sided prefill plan (logits
+     equal bit for bit), the plain prefill (within 5% of max |logit|);
+     ``prefill_with_cache`` (logits equal ``prefill``'s bit for bit, caches
+     within 5% of max |cache| of the plain run's), then 16 greedy
+     ``decode_many`` steps from its state under the decode table, against
+     the same continuation from the plain-prefilled state; one profiled
+     prefill (device-busy share, flash and matmul kernel time);
+ 11. int8 prefill (``quantize=True``): the dense int8 table and the planned
+     int8 plan (logits equal bit for bit), the plain int8 prefill (within
+     5% of max |logit|);
+ 12. a ``kernels`` JSON line: per kernel its launches on its main path
+     (phases 4-5 for the bf16 matmul kernels, phase 7 for the int8 ones,
+     phase 10's dense-table prefill for the flash kernel, which also gives
+     its launches over every prefill of phases 10-11), its worst error
+     over phase 3, 6 or 9, and its time, bound, plain-version time and
+     library time: the matmul kernels at the mlp.in decode site (none
+     exists for bf16 x int8; the int8 rows add ``bf16_matmul_ms``,
+     ``torch.matmul`` on the dequantized bf16 weight, as a reference
+     point), the flash kernel at the prefill cell (library: PyTorch's
+     ``scaled_dot_product_attention``, timed here only).
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
@@ -70,6 +98,9 @@ BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 N_SLOTS = 4
 SLICE1_KERNELS = ("block_sparse", "output", "weight", "input")
 INT8_KERNELS = ("block_sparse_scaled", "int8_matmul")
+PREFILL_SITES = ("attn.q", "attn.kv", "attn.out", "mlp.in", "mlp.gate",
+                 "mlp.out")
+SEED = 0
 
 
 class SmokeFailure(Exception):
@@ -143,21 +174,26 @@ def all_live(meta):
         kcnt=torch.full_like(meta.kcnt, tk))
 
 
-def reset_launches(counts=None) -> None:
-    """Set every wrapper's launch count to 0, or back to ``counts``."""
+def _launch_dicts():
     from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flex_matmul as fm
     from repro_torch.kernels import int8_matmul as i8
-    for d in (bs.LAUNCHES, fm.LAUNCHES, i8.LAUNCHES):
+    return (bs.LAUNCHES, fm.LAUNCHES, i8.LAUNCHES, fa.LAUNCHES)
+
+
+def reset_launches(counts=None) -> None:
+    """Set every wrapper's launch count to 0, or back to ``counts``."""
+    for d in _launch_dicts():
         for key in d:
             d[key] = 0 if counts is None else counts[key]
 
 
 def launch_counts() -> dict:
-    from repro_torch.kernels import block_sparse as bs
-    from repro_torch.kernels import flex_matmul as fm
-    from repro_torch.kernels import int8_matmul as i8
-    return {**bs.LAUNCHES, **fm.LAUNCHES, **i8.LAUNCHES}
+    out = {}
+    for d in _launch_dicts():
+        out.update(d)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -746,6 +782,502 @@ def time_int8_kernels(t, launches) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: long-prompt prefill at B·S = 8192
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = (  # (label, BH, Sq, Skv, causal, window); hd = 64
+    ("cell, causal", 64, 4096, 4096, True, 0),
+    ("Sq < Skv, causal", 64, 128, 4096, True, 0),
+    ("window 1024", 64, 4096, 4096, True, 1024),
+    ("non-causal", 64, 4096, 4096, False, 0),
+)
+
+
+def prefill_shape(report=None):
+    """``SHAPES["prefill_32k"]`` cut to 2 prompts of 4096 tokens."""
+    from repro_torch.configs import SHAPES
+    full = SHAPES["prefill_32k"]
+    shape = dataclasses.replace(full, seq_len=4096, global_batch=2)
+    if report is not None:
+        report(f"prefill shape: {full.name} ({full.global_batch} x "
+               f"{full.seq_len}) cut to {shape.global_batch} x "
+               f"{shape.seq_len}: 4096 is StableLM-1.6B's published context "
+               f"length and above the 2048 tokens where attention takes the "
+               f"flash branch; the float64 dense reference of one layer's "
+               f"attention (2·32·4096² scores) fits on the card at that "
+               f"length and would not at 32k")
+    return shape
+
+
+def dense_ref64(q, k, v, causal=True, window=0):
+    """The dense softmax oracle in float64, eight heads at a time."""
+    import torch
+    from repro_torch.kernels.ref import flash_attention_ref
+    return torch.cat([flash_attention_ref(
+        q[i:i + 8].double(), k[i:i + 8].double(), v[i:i + 8].double(),
+        causal=causal, window=window) for i in range(0, q.shape[0], 8)])
+
+
+def flash_tol(q, k, v) -> float:
+    """Float32 flash attention against the exact (float64) softmax.  With
+    ε = 2⁻²⁴ and S = hd^-0.5·max(|q|@|k|ᵀ) (a bound on |score|): each score
+    errs by ≤ √hd·ε·S (random-sign sums, as in ``matmul_tol``) + ε·S (the
+    scaling); a weight p = exp(s - m) then errs relatively by twice that
+    plus ε·2S (the subtraction) + ε (expf); the rescales add 2ε per kv block
+    of 64 and the sums √Skv·ε; an output o = Σ w·v moves by at most
+    2·max|v| times the weights' relative error.  So ε·max|v|·(4(√hd + 2)S
+    + 2·n_blocks + 2√Skv + 2).  Operands cut to TF32's 10-bit mantissa err
+    by ~2⁻¹¹ per element and land outside it on a causal case, whose first
+    rows carry v almost unaveraged (checked)."""
+    import torch
+    hd, skv = q.shape[2], k.shape[1]
+    s_max = hd ** -0.5 * max(
+        torch.matmul(q[i:i + 1].abs().double(),
+                     k[i:i + 1].abs().double().transpose(1, 2)).max().item()
+        for i in range(q.shape[0]))
+    return 2.0 ** -24 * v.abs().max().item() * (
+        4 * (hd ** 0.5 + 2) * s_max + 2 * (skv // 64) + 2 * skv ** 0.5 + 2)
+
+
+BF16_SHARE = 2.0 ** -13
+
+
+def bf16_check(out, plain, v):
+    """bf16 ``out`` against its kernel-order plain version ``plain``:
+    returns (max over elements of |out − plain| / bound, share of elements
+    that differ); it passes when the first is ≤ 1 and the second ≤
+    ``BF16_SHARE``.  Both sum the same exact bf16 products in float32, in
+    other orders, so their float32 values before the last rounding differ
+    by a few float32 ulps.  An element may then land one bf16 step away:
+    the bound is one bf16 ulp at the element's own magnitude, plus a floor
+    for outputs that cancel near zero, 2⁻²⁴·√Skv·max|v| (random-sign
+    float32 sums, as in ``matmul_tol``).  It does so only where the float32
+    value lies within those few ulps (≤ 8·2⁻²⁴ relative) of the boundary
+    between two bf16 values 2⁻⁸ apart: in at most 2⁻¹³ of the elements."""
+    import torch
+    d = (out.double() - plain.double()).abs()
+    _, e = torch.frexp(plain.double().abs().clamp_min(2.0 ** -126))
+    bound = torch.ldexp(torch.ones_like(d), (e - 8).to(torch.int64)) \
+        + 2.0 ** -24 * v.shape[1] ** 0.5 * v.abs().max().item()
+    return (d / bound).max().item(), (d > 0).double().mean().item()
+
+
+def bf16_passes(ratio: float, share: float) -> bool:
+    return ratio <= 1.0 and share <= BF16_SHARE
+
+
+def check_flash(report) -> dict:
+    """Phase 9a.  Returns the worst error and the bf16 cell operands."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst, keep = 0.0, {}
+    for label, bh, sq, skv, causal, window in FLASH_CASES:
+        kw = dict(causal=causal, window=window)
+        q = torch.randn((bh, sq, 64), generator=gen, device=dev)
+        k, v = (torch.randn((bh, skv, 64), generator=gen, device=dev)
+                for _ in range(2))
+        exact = dense_ref64(q, k, v, **kw)
+        err32 = (flash_attention(q, k, v, **kw).double() - exact) \
+            .abs().max().item()
+        tol = flash_tol(q, k, v)
+        need(err32 <= tol, f"flash {label} float32: error {err32} > {tol}")
+        line = (f"flash {label} (BH={bh}, Sq={sq}, Skv={skv}, hd=64): "
+                f"float32 vs float64 dense {err32:.3e}, tol {tol:.3e}")
+        if causal and sq == skv and not window:
+            ctrl = (dense_ref64(tf32(q), tf32(k), tf32(v), **kw) - exact) \
+                .abs().max().item()
+            need(ctrl > tol, f"flash {label}: the float32 tolerance does not "
+                 f"reject TF32 operands ({ctrl})")
+            line += f", TF32 control {ctrl:.3e} (must exceed tol)"
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        out = flash_attention(qb, kb, vb, **kw)
+        plain = flash_attention_plain(qb, kb, vb, **kw)
+        errb = (out.float() - plain.float()).abs().max().item()
+        ratio, share = bf16_check(out, plain, vb)
+        need(bf16_passes(ratio, share), f"flash {label} bf16: worst element "
+             f"at {ratio} of its bound, {share} of elements differ")
+        dense64 = dense_ref64(qb, kb, vb, **kw)
+        dense = (out.double() - dense64).abs().max().item()
+        # controls the bound must reject: p kept in float32 before PV (v
+        # widened exactly), and the exact softmax rounded to bf16
+        ctrls = {"p unrounded": flash_attention_plain(qb, kb, vb.float(),
+                                                      **kw),
+                 "float64 rounded": dense64.bfloat16()}
+        ctrl_txt = []
+        for name, c in ctrls.items():
+            c_ratio, c_share = bf16_check(c, plain, vb)
+            need(not bf16_passes(c_ratio, c_share), f"flash {label} bf16: "
+                 f"the bound does not reject the {name} control")
+            ctrl_txt.append(f"{name} {c_ratio:.3g} / {c_share:.3e}")
+        report(line + f"; bf16 vs kernel-order plain {errb:.3e}, worst "
+               f"element at {ratio:.3f} of its bound (one bf16 ulp of "
+               f"itself + 2⁻²⁴·√Skv·max|v|), {share:.3e} of elements differ "
+               f"(limit {BF16_SHARE:.3e}); controls rejected (worst / share "
+               f"differing): {', '.join(ctrl_txt)}; vs the float64 dense "
+               f"softmax of the bf16 inputs {dense:.3e}")
+        worst = max(worst, err32, errb)
+        if label.startswith("cell"):
+            keep = dict(q=qb, k=kb, v=vb)
+    torch.cuda.synchronize()
+    keep["err"] = worst
+    return keep
+
+
+def check_prefill_sites(params, planned, dense, report) -> dict:
+    """Phase 9b: layer 0's six stack sites at M = B·S, as phase 3 holds
+    them at decode: the block-sparse kernel under the prefill plan's blocks
+    (bitwise against its all-live run) and the flex kernels under the
+    prefill table's schedule with every stationarity, in bf16 and float32,
+    dense and half-dead activations; a TF32 control; bf16 times."""
+    import torch
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels.ops import planned_operands
+    from repro_torch.kernels.ref import block_sparse_matmul_ref, matmul_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    attached = planned.plan.attach(params)
+    stats = ("output", "weight", "input")
+    worst = dict.fromkeys(("block_sparse",) + stats, 0.0)
+    for e in planned.plan.entries.values():
+        if e.site not in PREFILL_SITES:
+            continue
+        pw = attached
+        for key in e.path:
+            pw = pw[key]
+        pw = pw.index(0)
+        desc = dense.schedules.sites[e.site]
+        sched = desc.schedule
+        k, n = pw.w_kn.shape
+        a_full = torch.randn((desc.m, k), generator=gen, device=dev)
+        kb = torch.rand(-(-k // e.bk), generator=gen, device=dev) < 0.5
+        a_half = a_full * kb.repeat_interleave(e.bk)[:k]
+        for dtype in (torch.bfloat16, torch.float32):
+            pwd = dataclasses.replace(pw, w=pw.w.to(dtype))
+            w_kn = pwd.w_kn
+            errs = dict.fromkeys(worst, 0.0)
+            tol = 0.0
+            for act, a32 in (("dense", a_full), ("half", a_half)):
+                a = a32.to(dtype)
+                tol_a = matmul_tol(a, w_kn)
+                tol = max(tol, tol_a)
+                what = f"prefill {e.site} {dtype} {act}"
+                xp, wp, meta, _ = planned_operands(a, pwd)
+                out = bs.block_sparse_matmul(xp, wp, meta,
+                                             out_dtype=torch.float32)
+                err = (out - block_sparse_matmul_ref(xp, wp, meta)) \
+                    .abs().max().item()
+                need(err <= tol_a, f"block_sparse {what}: error {err} > "
+                     f"{tol_a}")
+                need(torch.equal(out, bs.block_sparse_matmul(
+                    xp, wp, all_live(meta), out_dtype=torch.float32)),
+                    f"block_sparse {what}: sparse != all-live run")
+                errs["block_sparse"] = max(errs["block_sparse"], err)
+                plain = matmul_ref(a, w_kn)
+                for stat in stats:
+                    s = dataclasses.replace(sched, stationarity=stat)
+                    err = (fm.flex_matmul(a, w_kn, schedule=s,
+                                          out_dtype=torch.float32)
+                           - plain).abs().max().item()
+                    need(err <= tol_a, f"flex_{stat} {what}: error {err} > "
+                         f"{tol_a}")
+                    errs[stat] = max(errs[stat], err)
+            line = (f"prefill {e.site} {str(dtype)[6:]} M={desc.m} K={k} "
+                    f"N={n}: block_sparse ({e.bm},{e.bk},{e.bn}) "
+                    f"{errs['block_sparse']:.3e}, flex ({sched.bm},"
+                    f"{sched.bn},{sched.bk}, selected {sched.stationarity}) "
+                    f"output/weight/input {errs['output']:.3e}/"
+                    f"{errs['weight']:.3e}/{errs['input']:.3e}; tol "
+                    f"{tol:.3e}; sparse == all-live bitwise")
+            if dtype is torch.float32:
+                plain = matmul_ref(a_full, w_kn)
+                ctrl = (matmul_ref(tf32(a_full), tf32(w_kn)) - plain) \
+                    .abs().max().item()
+                need(ctrl > matmul_tol(a_full, w_kn),
+                     f"prefill {e.site}: the float32 tolerance does not "
+                     f"reject TF32 operands ({ctrl})")
+                line += f"; TF32 control {ctrl:.3e} (must exceed tol)"
+            report(line)
+            for key in worst:
+                worst[key] = max(worst[key], errs[key])
+        # bf16 times, activation dense as on the path
+        a, w_kn = a_full.to(torch.bfloat16), pw.w_kn
+        m = a.shape[0]
+        xp, wp, meta, _ = planned_operands(a, pw)
+        b_bs, by_bs = bs_bound_ms(xp, meta, (e.bm, e.bk, e.bn))
+        b_fm, by_fm = bound_ms(a.numel() * 2 + w_kn.numel() * 2 + m * n * 4,
+                               2.0 * m * n * k)
+        t_bs = cuda_ms(lambda: bs.block_sparse_matmul(
+            xp, wp, meta, out_dtype=torch.float32), iters=5)
+        t_fm = {stat: cuda_ms(lambda: fm.flex_matmul(
+            a, w_kn, schedule=dataclasses.replace(sched, stationarity=stat),
+            out_dtype=torch.float32), iters=5) for stat in stats}
+        t_plain = cuda_ms(lambda: matmul_ref(a, w_kn), iters=5)
+        t_lib = cuda_ms(lambda: torch.matmul(a, w_kn), iters=5)
+        report(f"  prefill {e.site} bf16 ms: block_sparse {t_bs:.4f} (bound "
+               f"{b_bs:.4f}, {by_bs}), flex output/weight/input "
+               f"{t_fm['output']:.4f}/{t_fm['weight']:.4f}/"
+               f"{t_fm['input']:.4f} (bound {b_fm:.4f}, {by_fm}), plain "
+               f"{t_plain:.4f}, torch.matmul {t_lib:.4f}")
+    torch.cuda.synchronize()
+    return worst
+
+
+def _timed(fn):
+    """(fn(), wall seconds), synchronised on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _under(ec, fn):
+    """``fn()`` under the ExecConfig ``ec`` (None: the plain path)."""
+    import torch
+    from repro_torch.kernels import ops
+    with torch.no_grad():
+        if ec is None:
+            return fn()
+        with ops.exec_config(ec):
+            return fn()
+
+
+def profile_prefill(fn, report, label) -> None:
+    """One prefill under ``torch.profiler``: device-busy share of the wall
+    time, and the flash and matmul kernels' total device time.  A
+    measurement only — a profiler that records nothing is reported."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(fn)
+    busy = flash = mm = 0.0
+    n_kernels = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += ev.device_time_total
+        n_kernels += 1
+        if "fa_kernel" in ev.name:
+            flash += ev.device_time_total
+        elif any(t in ev.name for t in ("tile_kernel", "ws_kernel",
+                                        "is_kernel")):
+            mm += ev.device_time_total
+    if not busy:
+        report(f"profiled {label}: the profiler recorded no device time "
+               "(not measured)")
+        return
+    report(f"profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
+           f"{busy / 1e3:.1f} ms ({100 * busy / 1e3 / (wall * 1e3):.1f}% of "
+           f"wall, {n_kernels} kernels), flash kernel {flash / 1e3:.1f} ms, "
+           f"matmul kernels {mm / 1e3:.1f} ms, other "
+           f"{(busy - flash - mm) / 1e3:.1f} ms")
+
+
+def run_prefill(cfg, params, dense, planned, shape, report) -> dict:
+    """Phase 10, under the dense prefill table ``dense`` and the planned
+    prefill config ``planned`` (both with ``use_kernels``).  Returns the
+    flash kernel's launches (per prefill, and over the phase's prefills)
+    and the tokens for phase 11."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import decode_exec_config
+
+    b, s = shape.global_batch, shape.seq_len
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, size=(b, s)), device="cuda")}
+    max_seq = s + 16
+    attached = planned.plan.attach(params)
+
+    def prefill(ec, p):
+        return _under(ec, lambda: model_lib.prefill(p, cfg, batch))
+
+    # 1. the dense prefill table: fm kernels and the flash kernel
+    reset_launches()
+    logits, wall = _timed(lambda: prefill(dense, params))
+    counts = launch_counts()
+    report(f"bf16 prefill, dense table: {wall:.3f} s for {b} x {s} tokens = "
+           f"{1e3 * wall / (b * s):.4f} ms per prompt token; launches "
+           f"{counts}")
+    need(counts["flash_attention"] == cfg.n_layers,
+         f"flash kernel launched {counts['flash_attention']} times in one "
+         f"prefill, not {cfg.n_layers}")
+    need(counts["output"] > 0, "no flex kernel launch in the dense prefill")
+    need(bool(torch.isfinite(logits).all()) and logits.shape ==
+         (b, 1, cfg.vocab), "bad prefill logits")
+    per_prefill = counts["flash_attention"]
+    total = per_prefill
+
+    # 2. the planned two-sided plan at the prefill shape
+    reset_launches()
+    logits_p, wall = _timed(lambda: prefill(planned, attached))
+    counts = launch_counts()
+    total += counts["flash_attention"]
+    diff = (logits_p - logits).abs().max().item()
+    report(f"bf16 prefill, planned (skip fraction "
+           f"{planned.plan.block_skip_fraction():.4f}): {wall:.3f} s; "
+           f"launches {counts}; logits vs dense table max |diff| = "
+           f"{diff:.3e} (must be 0)")
+    need(counts["block_sparse"] > 0, "no block-sparse launch in the planned "
+         "prefill")
+    need(torch.equal(logits_p, logits), "planned prefill logits differ from "
+         "the dense table's")
+
+    # 3. the plain prefill
+    tol = 0.05 * logits.abs().max().item()
+    logits_0, wall = _timed(lambda: prefill(None, params))
+    diff = (logits_0 - logits).abs().max().item()
+    report(f"bf16 prefill, plain (torch.matmul, plain online softmax): "
+           f"{wall:.3f} s; logits vs dense table max |diff| = {diff:.3e}, "
+           f"tol {tol:.3e}")
+    need(diff <= tol, f"plain prefill logits off by {diff}")
+
+    # 4. prefill_with_cache, and 16 greedy decode steps from its state
+    reset_launches()
+    (logits_c, state_c), wall = _timed(lambda: _under(
+        dense, lambda: model_lib.prefill_with_cache(params, cfg, batch,
+                                                    max_seq)))
+    total += launch_counts()["flash_attention"]
+    report(f"bf16 prefill_with_cache, dense table: {wall:.3f} s; logits == "
+           f"prefill: {torch.equal(logits_c, logits)}")
+    need(torch.equal(logits_c, logits), "prefill_with_cache logits differ "
+         "from prefill's")
+    logits_pc, state_pc = _under(None, lambda: model_lib.prefill_with_cache(
+        params, cfg, batch, max_seq))
+    for name in ("k", "v"):
+        c, pc = state_c["layers"][name], state_pc["layers"][name]
+        diff = (c.float() - pc.float()).abs().max().item()
+        bound = 0.05 * pc.float().abs().max().item()
+        report(f"  cache {name} vs the plain prefill's: max |diff| "
+               f"{diff:.3e} (layer 0: "
+               f"{(c[0].float() - pc[0].float()).abs().max().item():.3e}), "
+               f"bound {bound:.3e} (5% of max |cache|: bf16 roundings "
+               f"compound through the layers, as in the logits)")
+        need(diff <= bound, f"cache {name} off by {diff}")
+        need(not c[:, :, s:].any(), f"cache {name} written past the prompt")
+    dec = decode_exec_config(cfg, b, use_kernels=True, device="cuda")
+    first = logits[:, 0].argmax(-1)
+    pos = torch.full((b,), s, dtype=torch.long, device="cuda")
+    live = torch.ones((b,), dtype=torch.bool, device="cuda")
+
+    def step_logits(state):
+        st = {"layers": {n: t.clone() for n, t in state["layers"].items()}}
+        return _under(dec, lambda: model_lib.decode_step(
+            params, cfg, first[:, None], st, pos)[0])
+
+    l1, l1p = step_logits(state_c), step_logits(state_pc)
+    tol = 0.05 * l1.abs().max().item()
+    diff = (l1 - l1p).abs().max().item()
+    (toks, *_), wall = _timed(lambda: _under(
+        dec, lambda: model_lib.decode_many(params, cfg, first, state_c, pos,
+                                           live, 16)))
+    toks_p = _under(dec, lambda: model_lib.decode_many(
+        params, cfg, first, state_pc, pos, live, 16))[0]
+    agree = int((toks == toks_p).sum())
+    report(f"decode from the prefilled state (decode table, {b} slots, "
+           f"max_seq {max_seq}): 16 steps in {wall:.3f} s; first-step logits "
+           f"vs the plain-prefilled state's max |diff| {diff:.3e}, tol "
+           f"{tol:.3e}; greedy tokens equal at {agree}/{toks.numel()}")
+    need(diff <= tol, f"continuation logits off by {diff}")
+    need(bool((toks >= 0).all()), "decode_many stopped a live row")
+
+    # 5. one profiled prefill on the dense table
+    profile_prefill(lambda: prefill(dense, params), report,
+                    "bf16 prefill (dense table)")
+    return {"per_prefill": per_prefill, "total": total, "batch": batch}
+
+
+def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report) -> int:
+    """Phase 11.  Returns the flash kernel's launches over its prefills."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.quant.quantize import quantize_params
+    from repro_torch.serve.engine import shape_exec_config
+
+    qparams, _ = quantize_params(params, tie_embeddings=cfg.tie_embeddings)
+    dense8 = shape_exec_config(cfg, shape, use_kernels=True, quantize=True,
+                               device="cuda")
+    planned8 = shape_exec_config(sp_cfg, shape, use_kernels=True,
+                                 params=params, quantize=True, device="cuda")
+    attached = planned8.plan.attach(qparams)
+
+    def prefill(ec, p):
+        return _under(ec, lambda: model_lib.prefill(p, cfg, batch))
+
+    total = 0
+    reset_launches()
+    logits, wall = _timed(lambda: prefill(dense8, qparams))
+    counts = launch_counts()
+    total += counts["flash_attention"]
+    report(f"int8 prefill, dense int8 table: {wall:.3f} s; launches {counts}")
+    need(counts["int8_matmul"] > 0 and counts["flash_attention"] ==
+         cfg.n_layers, "the dense int8 prefill missed a kernel")
+    reset_launches()
+    logits_p, wall = _timed(lambda: prefill(planned8, attached))
+    counts = launch_counts()
+    total += counts["flash_attention"]
+    diff = (logits_p - logits).abs().max().item()
+    report(f"int8 prefill, planned (skip fraction "
+           f"{planned8.plan.block_skip_fraction():.4f}): {wall:.3f} s; "
+           f"launches {counts}; logits vs dense int8 table max |diff| = "
+           f"{diff:.3e} (must be 0)")
+    need(counts["block_sparse_scaled"] > 0, "no scaled block-sparse launch "
+         "in the planned int8 prefill")
+    need(torch.equal(logits_p, logits), "planned int8 prefill logits differ "
+         "from the dense int8 table's")
+    tol = 0.05 * logits.abs().max().item()
+    logits_0, wall = _timed(lambda: prefill(ops.ExecConfig(quantize=True),
+                                            qparams))
+    diff = (logits_0 - logits).abs().max().item()
+    report(f"int8 prefill, plain (bf16 dequantized, torch.matmul): "
+           f"{wall:.3f} s; logits vs dense int8 table max |diff| = "
+           f"{diff:.3e}, tol {tol:.3e}")
+    need(diff <= tol, f"plain int8 prefill logits off by {diff}")
+    return total
+
+
+def time_flash(t, launches) -> dict:
+    """The flash kernel's row of the ``kernels`` line: bf16 at the prefill
+    cell (BH 64, S 4096, hd 64, causal)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    q, k, v = t["q"], t["k"], t["v"]
+    bh, s, hd = q.shape
+    saved = launch_counts()
+    pairs = bh * s * (s + 1) // 2           # the causal (q, k) pairs
+    b_ms, b_by = bound_ms(4 * q.numel() * q.element_size(), 4.0 * hd * pairs)
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": launches["per_prefill"],
+        "launches_per_prefill": launches["per_prefill"],
+        "launches_run": launches["total"],
+        "max_abs_err": t["err"],
+        "ms": cuda_ms(lambda: flash_attention(q, k, v), iters=10),
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), iters=3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # (1, BH, S, hd): PyTorch's fused attention takes 4-D inputs
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True), iters=10)}
+    reset_launches(saved)
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -765,6 +1297,13 @@ def main() -> int:
 
     try:
         t_start = time.perf_counter()
+        t_phase = [t_start]
+
+        def done(label):
+            now = time.perf_counter()
+            report(f"[{label}: {now - t_phase[0]:.1f} s]")
+            t_phase[0] = now
+
         # phase 1: the card
         name = torch.cuda.get_device_name(0)
         smi = subprocess.run(
@@ -781,14 +1320,18 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     report(f"  [{lib}] {line.strip()}")
+        done("phases 1-2")
         # phase 3: bring-up, then the kernels vs plain versions
         cfg, sp_cfg, params, planned, dense = bring_up(report)
         checked = check_sites(params, planned, dense, report)
+        done("phase 3")
         # phases 4-5: the engines
         launches, bf16 = run_engines(cfg, params, planned, dense, report)
         rows = time_kernels(checked, launches)
+        done("phases 4-5")
         # phase 6: int8 bring-up and the int8 kernels vs plain versions
-        from repro_torch.serve.engine import decode_exec_config
+        from repro_torch.serve.engine import (decode_exec_config,
+                                              shape_exec_config)
         t0 = time.perf_counter()
         q8 = decode_exec_config(sp_cfg, N_SLOTS, params=params,
                                 quantize=True, device="cuda")
@@ -800,10 +1343,40 @@ def main() -> int:
                f"{q8.plan.block_skip_fraction():.4f}")
         report(q8.schedules.describe())
         checked8 = check_sites_int8(cfg, params, q8, report)
+        done("phase 6")
         # phase 7: the int8 engines
         launches8 = run_int8_engines(cfg, params, q8, dense8, bf16, report)
-        # phase 8: the kernels line
+        # phase 8: the decode kernels' rows
         rows += time_int8_kernels(checked8, launches8)
+        done("phases 7-8")
+        del q8, dense8
+        # phase 9: the prefill-shaped kernel checks
+        shape = prefill_shape(report)
+        t0 = time.perf_counter()
+        dense_pf = shape_exec_config(cfg, shape, use_kernels=True,
+                                     device="cuda")
+        planned_pf = shape_exec_config(sp_cfg, shape, use_kernels=True,
+                                       params=params, device="cuda")
+        torch.cuda.synchronize()
+        report(f"prefill table and plan bring-up: "
+               f"{time.perf_counter() - t0:.1f} s")
+        report(dense_pf.schedules.describe())
+        report(planned_pf.schedules.describe())
+        flash = check_flash(report)
+        mm_errs = check_prefill_sites(params, planned_pf, dense_pf, report)
+        report(f"prefill-shape matmul worst errors: {mm_errs}")
+        done("phase 9")
+        # phase 10: bf16 prefill
+        pf = run_prefill(cfg, params, dense_pf, planned_pf, shape, report)
+        del dense_pf, planned_pf
+        done("phase 10")
+        # phase 11: int8 prefill
+        pf["total"] += run_int8_prefill(cfg, sp_cfg, params, shape,
+                                        pf["batch"], report)
+        done("phase 11")
+        # phase 12: the kernels line
+        rows.append(time_flash(flash, pf))
+        done("phase 12")
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)

@@ -3,6 +3,7 @@ from repro_torch.configs.base import (
     ArchConfig,
     MoEConfig,
     RGLRUConfig,
+    SHAPES,
     ShapeConfig,
     SparsityConfig,
     SSMConfig,
@@ -11,7 +12,7 @@ from repro_torch.configs.base import (
 )
 
 __all__ = [
-    "ARCH_IDS", "ArchConfig", "MoEConfig", "RGLRUConfig",
+    "ARCH_IDS", "ArchConfig", "MoEConfig", "RGLRUConfig", "SHAPES",
     "ShapeConfig", "SparsityConfig", "SSMConfig", "get_config",
     "get_smoke_config",
 ]

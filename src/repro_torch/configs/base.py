@@ -179,6 +179,14 @@ class ShapeConfig:
     grad_dtype: str = "f32"    # grad accumulation/reduction dtype (f32|bf16)
 
 
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k":  ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k":   ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
 ARCH_IDS = [
     "stablelm-1.6b",
     "edge-tiny",

@@ -21,12 +21,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("block_sparse", "flex_matmul", "int8_matmul")
+SOURCES = ("block_sparse", "flex_matmul", "int8_matmul", "flash_attention")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of every exported entry point (argtypes, restype int =
 # the cudaError_t of the launch)
 SIGNATURES = {
@@ -41,6 +42,9 @@ SIGNATURES = {
     },
     "int8_matmul": {
         "i8_matmul": [_P] * 4 + [_I] * 9 + [_P],
+    },
+    "flash_attention": {
+        "fa_forward": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
     },
 }
 

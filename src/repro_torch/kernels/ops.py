@@ -18,6 +18,10 @@ thread-local ``ExecConfig`` carries the descriptor table and decides:
      (stationarity, blocks);
   5. otherwise a plain float32-accumulated ``torch.matmul``.
 
+The flash branch of full-sequence attention routes through
+``flash_attention``: the flash-attention kernel with ``use_kernels``, else
+its plain online softmax.
+
 The kernel wrappers launch CUDA kernels for CUDA tensors and run their plain
 versions for CPU tensors.  Bitmaps derived from the data make every mode
 equal to the dense product: zero blocks are skipped, never approximated.
@@ -35,9 +39,11 @@ import torch
 from repro_torch.core import sparsity as sparsity_lib
 from repro_torch.core.sparsity import PlannedWeight
 from repro_torch.kernels import block_sparse as bs
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flex_matmul as fm
 from repro_torch.kernels.flex_matmul import DEFAULT_BLOCKS, pad_to_blocks
 from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.ref import flash_attention_plain
 from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
 
 _state = threading.local()
@@ -45,7 +51,7 @@ _state = threading.local()
 
 @dataclass(frozen=True)
 class ExecConfig:
-    use_kernels: bool = False         # dense sites run flex / int8 kernels
+    use_kernels: bool = False         # flex / int8 / flash kernels
     schedules: Optional[object] = None   # NetworkSchedule (descriptor table)
     plan: Optional[object] = None     # WeightSparsityPlan (engine bring-up)
     quantize: bool = False            # params int8-quantized at bring-up
@@ -153,7 +159,7 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
     cfg = _cfg()
     lead = x.shape[:-1]
     if isinstance(w, PlannedWeight):
-        out = _planned_matmul(x.reshape(-1, x.shape[-1]), w)
+        out = _planned_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
         return out.reshape(*lead, out.shape[-1]).to(x.dtype)
     desc = _site_descriptor(site, cfg)
     if isinstance(w, QuantizedLinear):
@@ -167,7 +173,7 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
     sparse = (desc is not None and w.dim() == 2
               and desc.sparsity_mode in ("weight", "two_sided"))
     if sparse or cfg.use_kernels:
-        x2 = x.reshape(-1, x.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
         if sparse:
             out = _sparse_site_matmul(x2, w, desc.sparsity_mode,
                                       desc.schedule, site)
@@ -177,6 +183,18 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
                                  out_dtype=torch.float32)
         return out.reshape(*lead, w.shape[-1]).to(x.dtype)
     return _plain_matmul(x, w)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, bq: int = fa.BQ,
+                    bkv: int = fa.BKV) -> torch.Tensor:
+    """Attention of flattened heads, q (BH, Sq, hd), k / v (BH, Skv, hd):
+    with ``use_kernels`` the flash-attention kernel (its blocks are fixed
+    at 64), otherwise the plain online softmax over blocks of (bq, bkv)."""
+    if _cfg().use_kernels:
+        return fa.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal)
+    return flash_attention_plain(q, k, v, causal=causal, bq=bq, bkv=bkv)
 
 
 def head_matmul(x: torch.Tensor, head, *,

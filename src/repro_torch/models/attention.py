@@ -1,5 +1,8 @@
-"""Attention for decode: MHA / GQA projections, masked dense attention and
-the per-slot KV cache (full length, or rolling for sliding windows)."""
+"""Attention: MHA / GQA projections, masked dense attention, the
+full-sequence forward of a prefill (dense up to 2048 tokens, above it the
+online softmax, which is the flash-attention kernel under ``use_kernels``)
+and the per-slot KV cache of decode (full length, or rolling for sliding
+windows)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -48,6 +51,74 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             NEG_INF, dtype=scores.dtype, device=scores.device))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", w, v)
+
+
+def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, q_chunk: int = 512,
+                        kv_chunk: int = 512) -> torch.Tensor:
+    """The flash branch: q (B,S,KVH,G,hd), k/v (B,Skv,KVH,hd) flattened to
+    (B·KVH·G, S, hd) in the reference's head order (k/v broadcast over
+    G), through ``ops.flash_attention`` — the flash-attention kernel under
+    ``use_kernels``, else the online softmax over (q_chunk, kv_chunk)
+    blocks, live blocks only — and back.  Both keep the scores in float32
+    where the reference's plain twin rounds them to q's type first.  S
+    must be a multiple of the blocks, as in the reference."""
+    b, sq, kvh, g, hd = q.shape
+    skv = k.shape[1]
+    qf = q.permute(0, 2, 3, 1, 4).reshape(b * kvh * g, sq, hd)
+
+    def heads(t):
+        return t.permute(0, 2, 1, 3)[:, :, None].expand(
+            b, kvh, g, skv, hd).reshape(b * kvh * g, skv, hd)
+
+    o = ops.flash_attention(qf, heads(k), heads(v), causal=causal,
+                            bq=q_chunk, bkv=kv_chunk)
+    return o.reshape(b, kvh, g, sq, hd).permute(0, 3, 1, 2, 4)
+
+
+def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                      positions: torch.Tensor, causal: bool = True,
+                      window: int = 0, q_chunk: int = 512,
+                      use_flash: Optional[bool] = None,
+                      return_kv: bool = False):
+    """Full-sequence self-attention (prefill).  x (B,S,D), ``positions``
+    (B,S).  Dense masked attention up to 2048 tokens, above it (or with
+    ``use_flash``) the flash branch (``flash_attention_xla``).
+    ``return_kv=True`` also returns the (post-RoPE) k and the raw v
+    (B,S,KVH,hd), which the cache-filling prefill stores.
+
+    The windowed branch of the reference (``window and causal and S >
+    window``) and cross-attention are not ported (ROADMAP queue A)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    qf = rope.apply_rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim),
+                         positions, kind=cfg.rope, theta=cfg.rope_theta)
+    q = qf.reshape(q.shape)
+    k = rope.apply_rope(k, positions, kind=cfg.rope, theta=cfg.rope_theta)
+
+    if use_flash is None:
+        use_flash = s > 2048
+    if window and causal and s > window:
+        raise NotImplementedError(
+            "windowed full-sequence attention is not ported yet (ROADMAP "
+            "queue A)")
+    if use_flash:
+        o = flash_attention_xla(q, k, v, causal=causal, q_chunk=q_chunk,
+                                kv_chunk=max(q_chunk, 512))
+    else:
+        mask = None
+        if causal:
+            qpos, kpos = positions[:, :, None], positions[:, None, :]
+            mask = qpos >= kpos
+            if window:
+                mask &= (qpos - kpos) < window
+            mask = mask[:, None, None]
+        o = dense_attention(q, k, v, mask)
+    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = ops.flex_matmul(o, p["wo"], site="attn.out")
+    if return_kv:
+        return out, (k, v)
+    return out
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,

@@ -1,5 +1,7 @@
-"""Top-level model API for decode serving: init, one decode step, the fused
-greedy block (``decode_many``) and slot prefill (``prefill_into_slot``).
+"""Top-level model API: init, the full-sequence prompt pass (``prefill``,
+and ``prefill_with_cache``, which also fills the decode state), one decode
+step, the fused greedy block (``decode_many``) and slot prefill
+(``prefill_into_slot``).
 
 State is a nested dict of stacked caches ((L, B, ...), batch at axis 1),
 updated in place; params are nested dicts in the reference's tree layout
@@ -47,6 +49,76 @@ def head_matrix(p: Params, cfg: ArchConfig):
     """The (V, D) logits matrix — ``embed`` when tied, else ``lm_head``
     (a ``PlannedWeight`` under an attached plan)."""
     return p["embed"] if cfg.tie_embeddings else p["lm_head"]
+
+
+def _prompt_tokens(p: Params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """The (B, S) token tensor of a prompt batch, on the params' device.
+    Only token input is ported: the vision and encoder-decoder inputs
+    raise."""
+    if cfg.encoder_decoder or "frames" in batch or "vis_embeds" in batch:
+        raise NotImplementedError(
+            f"{cfg.name}: only token input is ported (ROADMAP queue A)")
+    tokens = batch["tokens"]
+    dev = p["embed"].device
+    if not isinstance(tokens, torch.Tensor) or tokens.dim() != 2:
+        raise TypeError("batch['tokens'] must be a (B, S) torch tensor")
+    if tokens.device != dev:
+        raise ValueError(f"tokens on {tokens.device}, params on {dev}")
+    return tokens
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    b, s = tokens.shape
+    return torch.arange(s, device=tokens.device)[None].expand(b, s)
+
+
+def forward_hidden(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+                   *, remat: str = "none", q_chunk: int = 512
+                   ) -> torch.Tensor:
+    """Token inputs → final-norm hidden states (B, S, D)."""
+    tokens = _prompt_tokens(p, cfg, batch)
+    x = embed(cfg, p["embed"], tokens)
+    x = transformer.apply_stack(p["stack"], cfg, x,
+                                positions=_positions(tokens), remat=remat,
+                                q_chunk=q_chunk)
+    return apply_norm(p["final_norm"], cfg, x)
+
+
+def prefill(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+            q_chunk: int = 512) -> torch.Tensor:
+    """Prompt pass returning the last position's logits (B, 1, V) float32.
+    ``batch["tokens"]`` (B, S) lies on the params' device."""
+    x = forward_hidden(p, cfg, batch, q_chunk=q_chunk)
+    return logits_head(cfg, head_matrix(p, cfg), x[:, -1:, :])
+
+
+def prefill_with_cache(p: Params, cfg: ArchConfig,
+                       batch: Dict[str, torch.Tensor], max_seq: int, *,
+                       dtype=torch.bfloat16) -> Tuple[torch.Tensor, Params]:
+    """Prompt pass that also fills the decode state (dense stacks): returns
+    the last position's logits (B, 1, V) and a state in the layout of
+    ``init_decode_state(cfg, B, max_seq, dtype)`` holding every layer's
+    post-RoPE k and raw v at positions 0..S-1 (zeros after), so
+    ``decode_many`` continues from it at position S."""
+    transformer._check_dense(cfg)
+    tokens = _prompt_tokens(p, cfg, batch)
+    b, s = tokens.shape
+    state = transformer.init_decode_state(cfg, b, max_seq, dtype,
+                                          tokens.device)
+    if s > state["layers"]["k"].shape[2]:
+        raise ValueError(f"prompt of {s} tokens does not fit a cache of "
+                         f"{state['layers']['k'].shape[2]} positions")
+    positions = _positions(tokens)
+    x = embed(cfg, p["embed"], tokens)
+    layers = p["stack"]["layers"]
+    for i in range(cfg.n_layers):
+        x, (k, v) = transformer.apply_dense_layer(
+            transformer.index_tree(layers, i), cfg, x, positions=positions,
+            window=cfg.window, return_kv=True)
+        state["layers"]["k"][i, :, :s] = k
+        state["layers"]["v"][i, :, :s] = v
+    x = apply_norm(p["final_norm"], cfg, x)
+    return logits_head(cfg, head_matrix(p, cfg), x[:, -1:, :]), state
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,

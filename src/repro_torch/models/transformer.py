@@ -1,5 +1,6 @@
-"""The dense decoder stack: stacked layer weights (layer axis leading) and
-one-token decode through every layer."""
+"""The dense decoder stack: stacked layer weights (layer axis leading), the
+full-sequence forward of a prefill and one-token decode through every
+layer."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -43,6 +44,23 @@ def init_dense_layer(cfg: ArchConfig, gen: torch.Generator,
     }
 
 
+def apply_dense_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                      positions: torch.Tensor, window: int = 0,
+                      q_chunk: int = 512, return_kv: bool = False):
+    """One layer over x (B,S,D); ``return_kv=True`` also returns the
+    attention's (post-RoPE k, raw v), as ``attention_forward`` does."""
+    h = apply_norm(p["ln1"], cfg, x)
+    o = attention.attention_forward(
+        p["attn"], cfg, h, positions=positions, window=window,
+        q_chunk=q_chunk, return_kv=return_kv)
+    if return_kv:
+        o, kv = o
+    x = x + o
+    h = apply_norm(p["ln2"], cfg, x)
+    x = x + apply_mlp(p["mlp"], cfg, h)
+    return (x, kv) if return_kv else x
+
+
 def decode_dense_layer(p: Params, cfg: ArchConfig, x, cache, pos, *,
                        active=None, window: int = 0):
     h = apply_norm(p["ln1"], cfg, x)
@@ -58,6 +76,20 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator,
     """Stacked (L, ...) layer weights, drawn leaf by leaf for all layers."""
     _check_dense(cfg)
     return {"layers": init_dense_layer(cfg, gen, dtype, (cfg.n_layers,))}
+
+
+def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                positions: torch.Tensor, remat: str = "none",
+                q_chunk: int = 512) -> torch.Tensor:
+    """Run the full stack over x (B,S,D) (the dense family only).
+    ``remat`` is accepted for the reference's signature and ignored: there
+    is no backward pass to save memory for yet."""
+    _check_dense(cfg)
+    for i in range(cfg.n_layers):      # the reference's scan over layers
+        x = apply_dense_layer(index_tree(p["layers"], i), cfg, x,
+                              positions=positions, window=cfg.window,
+                              q_chunk=q_chunk)
+    return x
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,

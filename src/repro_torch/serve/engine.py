@@ -38,13 +38,14 @@ from repro_torch.models import model as model_lib
 from repro_torch.quant.quantize import quantize_params
 
 
-def decode_exec_config(cfg: ArchConfig, n_slots: int, *,
-                       use_kernels: bool = False, params=None, hw=None,
-                       quantize: bool = False,
-                       device="cuda") -> ops.ExecConfig:
-    """ExecConfig carrying the decode-shape descriptor table for ``cfg``
-    (M = n_slots), selected under ``hw`` — ``H100`` on CUDA and the
-    reference's ``TPU_V5E`` on the CPU unless given.
+def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
+                      use_kernels: bool = False, params=None, hw=None,
+                      quantize: bool = False,
+                      device="cuda") -> ops.ExecConfig:
+    """ExecConfig carrying the descriptor table for ``cfg`` at ``shape``
+    (M = global_batch for a decode shape, global_batch · seq_len for a
+    prefill or train shape), selected under ``hw`` — ``H100`` on CUDA and
+    the reference's ``TPU_V5E`` on the CPU unless given.
 
     With ``params`` and a sparse config, the weight densities are measured,
     the table re-selected under them, and a ``WeightSparsityPlan`` compiled
@@ -61,8 +62,6 @@ def decode_exec_config(cfg: ArchConfig, n_slots: int, *,
     dev = resolve_device(device)
     if hw is None:
         hw = H100 if dev.type == "cuda" else TPU_V5E
-    shape = ShapeConfig(name="serve_decode", kind="decode", seq_len=1,
-                        global_batch=n_slots)
     ns = compile_network_schedule(cfg, shape, hw=hw, quantize=quantize)
     if quantize and params is not None:
         params, _ = quantize_params(params,
@@ -78,6 +77,14 @@ def decode_exec_config(cfg: ArchConfig, n_slots: int, *,
                 params, ns, ref_elem_bytes=2 if quantize else None)
     return ops.ExecConfig(use_kernels=use_kernels, schedules=ns, plan=plan,
                           quantize=quantize)
+
+
+def decode_exec_config(cfg: ArchConfig, n_slots: int, **kw) -> ops.ExecConfig:
+    """``shape_exec_config`` at the serving decode shape (one new token for
+    each of ``n_slots`` slots: M = n_slots); keywords as there."""
+    shape = ShapeConfig(name="serve_decode", kind="decode", seq_len=1,
+                        global_batch=n_slots)
+    return shape_exec_config(cfg, shape, **kw)
 
 
 @dataclass

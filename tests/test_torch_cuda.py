@@ -11,6 +11,14 @@ different orders differ by roundings of random sign, growing like √K —
 which float32 operands cut to TF32's 10-bit mantissa exceed (checked); with
 an int8 B, B is its dequantized value Q·s.  The block-sparse runs must
 equal their all-live runs bit for bit, and the two int8 kernels each other.
+
+The flash-attention kernel: in float32 against the dense reference in
+float64 under ``_flash_tol`` (derived there), which operands cut to TF32
+exceed on a causal case (checked); in bf16 against its plain version in
+the kernel's order under ``_bf16_check`` (derived there): each element
+within one bf16 ulp of its own magnitude plus a float32 floor, and at most
+2⁻¹³ of the elements different — which p kept in float32 before PV and the
+exact softmax rounded to bf16 both fail (checked).
 """
 import dataclasses
 
@@ -21,9 +29,12 @@ from repro_torch.core import sparsity as pt_sp
 from repro_torch.core.scheduler import MatmulSchedule
 from repro_torch.kernels import block_sparse as pt_bs
 from repro_torch.kernels import flex_matmul as pt_fm
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.kernels.ref import (block_sparse_matmul_ref,
-                                     int8_matmul_plain, matmul_ref)
+                                     flash_attention_plain,
+                                     flash_attention_ref, int8_matmul_plain,
+                                     matmul_ref)
 from repro_torch.quant.quantize import dequantize_leaf, quantize_weight
 
 DECODE_KN = [(2048, 2048), (2048, 4096), (2048, 5632), (5632, 2048)]
@@ -163,3 +174,102 @@ def test_cuda_int8_tolerance_rejects_tf32_operands(cuda, kernel, k, n):
         def plain(x):
             return block_sparse_matmul_ref(x, qw.q, meta, qw.scale)
     assert (plain(_tf32(a)) - plain(a)).abs().max().item() > tol
+
+
+def _flash_tol(q, k, v):
+    """Float32 flash attention against the exact (float64) softmax.  With
+    ε = 2⁻²⁴ and S = hd^-0.5·max(|q|@|k|ᵀ) (a bound on |score|): each score
+    errs by ≤ √hd·ε·S (random-sign sums, as in the matmul tolerance) + ε·S
+    (the scaling); a weight p = exp(s - m) then errs relatively by twice that
+    plus ε·2S (the subtraction) + ε (expf); the rescales add 2ε per kv block
+    and the sums √Skv·ε; an output o = Σ w·v moves by at most 2·max|v| times
+    the weights' relative error.  So ε·max|v|·(4(√hd + 2)S + 2·n_blocks +
+    2√Skv + 2)."""
+    hd, skv = q.shape[2], k.shape[1]
+    s_max = hd ** -0.5 * max(
+        torch.matmul(q[i:i + 1].abs().double(),
+                     k[i:i + 1].abs().double().transpose(1, 2)).max().item()
+        for i in range(q.shape[0]))
+    n_blocks = skv // 64
+    return 2.0 ** -24 * v.abs().max().item() * (
+        4 * (hd ** 0.5 + 2) * s_max + 2 * n_blocks + 2 * skv ** 0.5 + 2)
+
+
+def _bf16_check(out, plain, v):
+    """bf16 ``out`` against its kernel-order plain version: True when every
+    |out − plain| ≤ one bf16 ulp at the element's magnitude + 2⁻²⁴·√Skv·
+    max|v| and at most 2⁻¹³ of the elements differ.  Both sum the same
+    exact bf16 products in float32 in other orders, so their float32
+    values differ by a few float32 ulps (the floor covers outputs that
+    cancel near zero); a rounded element lands one bf16 step away only
+    where that value lies within those ulps (≤ 8·2⁻²⁴ relative) of a bf16
+    rounding boundary, 2⁻⁸ apart."""
+    d = (out.double() - plain.double()).abs()
+    _, e = torch.frexp(plain.double().abs().clamp_min(2.0 ** -126))
+    bound = torch.ldexp(torch.ones_like(d), (e - 8).to(torch.int64)) \
+        + 2.0 ** -24 * v.shape[1] ** 0.5 * v.abs().max().item()
+    return bool((d <= bound).all()) and \
+        (d > 0).double().mean().item() <= 2.0 ** -13
+
+
+FLASH_CASES = [  # (bh, sq, skv, hd, causal, window)
+    (8, 512, 512, 64, True, 0),
+    (8, 512, 512, 64, False, 0),
+    (8, 512, 512, 64, True, 128),
+    (8, 128, 512, 64, True, 0),
+    (4, 256, 256, 128, True, 0),
+    (4, 256, 256, 32, True, 64),
+]
+
+
+def _flash_inputs(cuda, bh, sq, skv, hd, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn((bh, s, hd), generator=gen, device=cuda)
+            for s in (sq, skv, skv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}x{c[3]}-"
+                              f"{'causal' if c[4] else 'full'}-w{c[5]}"
+                              for c in FLASH_CASES])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, case):
+    bh, sq, skv, hd, causal, window = case
+    q, k, v = (x.to(dtype) for x in _flash_inputs(cuda, bh, sq, skv, hd, 5))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    if dtype is torch.float32:
+        exact = flash_attention_ref(q.double(), k.double(), v.double(),
+                                    causal=causal, window=window)
+        err = (out.double() - exact).abs().max().item()
+        assert err <= _flash_tol(q, k, v)
+    else:
+        plain = flash_attention_plain(q, k, v, causal=causal, window=window)
+        assert _bf16_check(out, plain, v)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_tolerance_rejects_tf32_operands(cuda):
+    """On a causal case (rows with few keys carry v almost unaveraged), the
+    exact softmax of operands cut to TF32 falls outside ``_flash_tol``."""
+    q, k, v = _flash_inputs(cuda, 8, 512, 512, 64, 6)
+    exact = flash_attention_ref(q.double(), k.double(), v.double())
+    cut = flash_attention_ref(*(_tf32(x).double() for x in (q, k, v)))
+    assert (cut - exact).abs().max().item() > _flash_tol(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control", ["p-unrounded", "float64-rounded"])
+def test_cuda_flash_bf16_check_rejects_controls(cuda, control):
+    """``_bf16_check`` rejects p kept in float32 before PV (v widened
+    exactly) and the exact softmax rounded to bf16."""
+    q, k, v = (x.bfloat16() for x in _flash_inputs(cuda, 8, 512, 512, 64, 7))
+    plain = flash_attention_plain(q, k, v)
+    if control == "p-unrounded":
+        other = flash_attention_plain(q, k, v.float())
+    else:
+        other = flash_attention_ref(q.double(), k.double(),
+                                    v.double()).bfloat16()
+    assert not _bf16_check(other, plain, v)

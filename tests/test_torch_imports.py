@@ -1,6 +1,7 @@
 """The port stands alone: every ``repro_torch`` module (and
-``chip_smoke.py``) imports with JAX made unimportable, and no source line
-imports the JAX package."""
+``chip_smoke.py``) imports with JAX made unimportable, no source line
+imports the JAX package, and the package never calls PyTorch's fused
+attention (``chip_smoke.py`` only times it as a yardstick)."""
 import os
 import re
 import subprocess
@@ -52,3 +53,11 @@ def test_no_source_line_imports_the_reference():
         with open(path) as fh:
             for n, line in enumerate(fh, 1):
                 assert not bad.match(line), f"{path}:{n}: {line.strip()}"
+
+
+def test_port_never_calls_the_library_attention():
+    for path in _sources():
+        if path.endswith("chip_smoke.py"):
+            continue
+        with open(path) as fh:
+            assert "scaled_dot_product_attention" not in fh.read(), path
