@@ -7,7 +7,10 @@ with four slots — through ``repro_torch.serve.ServeEngine``, with random
 weights from a seeded generator, block-magnitude-pruned at (256, 256):
 
   1. the card (``torch.cuda``, ``nvidia-smi``);
-  2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc);
+  2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
+     and read each library's SASS (``cuobjdump``): the bf16 flash and
+     weight-stationary kernels multiply on the tensor cores (HMMA), every
+     other kernel — the float32 instantiations among them — does not;
   3. bring-up (weights, the weight-sparsity plan, the dense descriptor
      table), then every matmul site the main path runs, on layer 0's pruned
      weight at M = 4: the block-sparse kernel under the plan's blocks and
@@ -49,15 +52,21 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      against its plain versions at the cell's shape (BH 64, S 4096, hd 64,
      causal), with Sq < Skv, a window and non-causal — in float32 against
      the float64 dense softmax under a derived tolerance that a TF32
-     control must fail, in bf16 against the kernel-order plain version
-     within one bf16 ulp of each element (plus a float32 floor) and in at
-     most 2⁻¹³ of the elements, a bound that p kept in float32 and the
-     exact softmax rounded to bf16 must fail — and layer 0's six matmul
+     control must fail, in bf16 (scores summed on the tensor cores)
+     against the kernel-order plain version under the tensor-core
+     tolerance ``ref.flash_tc_check`` (one bf16 ulp of each element, float32
+     floors, one bf16 step of every p that the score error could round
+     apart; at most twice the share of elements in which a model of the
+     tensor cores' summation differs), which p kept in float32, the exact
+     softmax rounded to bf16 and p truncated in one warp's rows must
+     fail — and layer 0's six matmul
      sites at M = 8192 under the prefill table's schedule (all three
      stationarities) and the prefill plan's blocks, as in phase 3, with
      per-site times;
  10. bf16 ``model.prefill`` under the dense prefill table (flash kernel in
-     every layer: 24 launches), the planned two-sided prefill plan (logits
+     every layer: 24 launches), the same table with every site forced
+     weight-stationary (the tensor-core ``fm_weight`` at every site; within
+     5% of max |logit|), the planned two-sided prefill plan (logits
      equal bit for bit), the plain prefill (within 5% of max |logit|);
      ``prefill_with_cache`` (logits equal ``prefill``'s bit for bit, caches
      within 5% of max |cache| of the plain run's), then 16 greedy
@@ -76,7 +85,11 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      exists for bf16 x int8; the int8 rows add ``bf16_matmul_ms``,
      ``torch.matmul`` on the dequantized bf16 weight, as a reference
      point), the flash kernel at the prefill cell (library: PyTorch's
-     ``scaled_dot_product_attention``, timed here only).
+     ``scaled_dot_product_attention``, timed here only).  ``fm_weight``
+     also carries the launches of its split grid's summing kernel, its
+     device time and ``torch.matmul``'s (``torch.profiler``: at decode the
+     host, not the card, sets the pace of a call), its dataflow bound and
+     its launches in phase 10's weight-stationary prefill.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
@@ -96,7 +109,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BPS = 3.35e12          # H100 SXM device-memory bandwidth (data sheet)
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 N_SLOTS = 4
-SLICE1_KERNELS = ("block_sparse", "output", "weight", "input")
+# the bf16 decode kernels; ``weight_sum`` adds the weight-stationary split
+# grid's partials in K-block order (a second kernel of the same call)
+SLICE1_KERNELS = ("block_sparse", "output", "weight", "weight_sum", "input")
 INT8_KERNELS = ("block_sparse_scaled", "int8_matmul")
 PREFILL_SITES = ("attn.q", "attn.kv", "attn.out", "mlp.in", "mlp.gate",
                  "mlp.out")
@@ -127,6 +142,26 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds of the kernels one call of ``fn`` launches
+    (``torch.profiler``, warmed): the card's own time, free of the host
+    work between launches that ``cuda_ms`` includes when the host is the
+    slower side.  None (not measured) when the profiler records no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / iters if total else None
+
+
 def bound_ms(n_bytes: float, flops: float):
     t_b, t_f = n_bytes / HBM_BPS, flops / BF16_FLOPS
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
@@ -143,6 +178,16 @@ def bs_bound_ms(a, meta, blocks, w_elem=None, scale_bytes=0):
     n_bytes = (a.numel() * elem + live_b * bk * bn * (w_elem or elem)
                + scale_bytes + a.shape[0] * meta.b_bitmap.shape[1] * bn * 4)
     return bound_ms(n_bytes, 2.0 * int(meta.kcnt.sum()) * bm * bk * bn)
+
+
+def ws_dataflow_ms(m: int, n: int, k: int, bk: int, elem: int = 2):
+    """Least time of the weight-stationary dataflow's own traffic: B once,
+    A once per 128-wide N-strip, and the float32 output read-modify-written
+    once per K-block — (2·tk − 1)·M·N·4 bytes — over the card's memory
+    rate."""
+    tk, strips = k // bk, -(-n // 128)
+    n_bytes = k * n * elem + strips * m * k * elem + (2 * tk - 1) * m * n * 4
+    return n_bytes / HBM_BPS * 1e3
 
 
 def matmul_tol(a, b) -> float:
@@ -194,6 +239,39 @@ def launch_counts() -> dict:
     for d in _launch_dicts():
         out.update(d)
     return out
+
+
+def forced(ec, stat):
+    """The descriptor-table ExecConfig ``ec`` with every site's schedule
+    forced to the stationarity ``stat`` (its blocks kept)."""
+    sites = {s: dataclasses.replace(d, schedule=dataclasses.replace(
+        d.schedule, stationarity=stat))
+        for s, d in ec.schedules.sites.items()}
+    return dataclasses.replace(ec, schedules=dataclasses.replace(
+        ec.schedules, sites=sites))
+
+
+def check_tensor_cores(build, report) -> None:
+    """Phase 2b: the SASS of every built library.  The bf16 tensor-core
+    kernels (``*kernel_mma``) must multiply with HMMA/HGMMA; every other
+    kernel — the float32 instantiations and ``tile.cuh``'s kernels — must
+    have none (true float32 FMAs, no TF32)."""
+    names = []
+    for name in build.SOURCES:
+        counts = build.tensor_core_ops(name)
+        need(bool(counts), f"{name}: cuobjdump listed no kernel")
+        mma = {f: c for f, c in counts.items() if "kernel_mma" in f}
+        other = {f: c for f, c in counts.items() if "kernel_mma" not in f}
+        need(all(c > 0 for c in mma.values()),
+             f"{name}: a tensor-core kernel has no HMMA/HGMMA: {mma}")
+        need(not any(other.values()), f"{name}: tensor-core instructions "
+             f"outside the bf16 redesign: {other}")
+        report(f"  [{name}] SASS tensor-core instructions: "
+               f"{sum(mma.values())} in {len(mma)} bf16 tensor-core kernels"
+               f", 0 in the other {len(other)}")
+        names += mma
+    for kernel in ("fa_kernel_mma", "ws_kernel_mma"):
+        need(any(kernel in f for f in names), f"no {kernel} in the SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +462,14 @@ def time_kernels(t, launches) -> list:
                 a, w, schedule=s, out_dtype=torch.float32)),
             "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+    ws = rows[-2]
+    ws.update(launches_sum=launches["weight_sum"],
+              device_ms=device_ms(lambda: fm.flex_matmul(
+                  a, w, schedule=dataclasses.replace(
+                      sched, stationarity="weight"),
+                  out_dtype=torch.float32)),
+              library_device_ms=device_ms(lambda: torch.matmul(a, w)),
+              dataflow_bound_ms=ws_dataflow_ms(m, n, k, sched.bk))
     reset_launches(saved)
     return rows
 
@@ -517,16 +603,11 @@ def run_engines(cfg, params, planned, dense, report):
     # phase 3 are the tight ones.
     tol = 0.05 * logits0.abs().max().item()
 
-    def forced(stat):
-        sites = {s: dataclasses.replace(d, schedule=dataclasses.replace(
-            d.schedule, stationarity=stat))
-            for s, d in dense.schedules.sites.items()}
-        return dataclasses.replace(dense, schedules=dataclasses.replace(
-            dense.schedules, sites=sites))
-
     for label, ec in (("dense, selected schedule", dense),
-                      ("dense, all sites weight-stationary", forced("weight")),
-                      ("dense, all sites input-stationary", forced("input")),
+                      ("dense, all sites weight-stationary",
+                       forced(dense, "weight")),
+                      ("dense, all sites input-stationary",
+                       forced(dense, "input")),
                       ("plain torch.matmul, no kernels", None)):
         e = make_engine(cfg, params, ec, False)
         for p in prompts[:N_SLOTS]:
@@ -840,38 +921,17 @@ def flash_tol(q, k, v) -> float:
         4 * (hd ** 0.5 + 2) * s_max + 2 * (skv // 64) + 2 * skv ** 0.5 + 2)
 
 
-BF16_SHARE = 2.0 ** -13
-
-
-def bf16_check(out, plain, v):
-    """bf16 ``out`` against its kernel-order plain version ``plain``:
-    returns (max over elements of |out − plain| / bound, share of elements
-    that differ); it passes when the first is ≤ 1 and the second ≤
-    ``BF16_SHARE``.  Both sum the same exact bf16 products in float32, in
-    other orders, so their float32 values before the last rounding differ
-    by a few float32 ulps.  An element may then land one bf16 step away:
-    the bound is one bf16 ulp at the element's own magnitude, plus a floor
-    for outputs that cancel near zero, 2⁻²⁴·√Skv·max|v| (random-sign
-    float32 sums, as in ``matmul_tol``).  It does so only where the float32
-    value lies within those few ulps (≤ 8·2⁻²⁴ relative) of the boundary
-    between two bf16 values 2⁻⁸ apart: in at most 2⁻¹³ of the elements."""
-    import torch
-    d = (out.double() - plain.double()).abs()
-    _, e = torch.frexp(plain.double().abs().clamp_min(2.0 ** -126))
-    bound = torch.ldexp(torch.ones_like(d), (e - 8).to(torch.int64)) \
-        + 2.0 ** -24 * v.shape[1] ** 0.5 * v.abs().max().item()
-    return (d / bound).max().item(), (d > 0).double().mean().item()
-
-
-def bf16_passes(ratio: float, share: float) -> bool:
-    return ratio <= 1.0 and share <= BF16_SHARE
-
-
 def check_flash(report) -> dict:
-    """Phase 9a.  Returns the worst error and the bf16 cell operands."""
+    """Phase 9a.  Returns the worst error and the bf16 cell operands.  The
+    bf16 kernel sums its scores on the tensor cores, so it is held to the
+    tensor-core tolerance (``ref.flash_tc_check``), which three controls
+    must fail."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_plain
+    from repro_torch.kernels.ref import (SHARE_ROOM,
+                                         flash_attention_flip_bounds,
+                                         flash_attention_plain,
+                                         flash_tc_check)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -898,26 +958,36 @@ def check_flash(report) -> dict:
         out = flash_attention(qb, kb, vb, **kw)
         plain = flash_attention_plain(qb, kb, vb, **kw)
         errb = (out.float() - plain.float()).abs().max().item()
-        ratio, share = bf16_check(out, plain, vb)
-        need(bf16_passes(ratio, share), f"flash {label} bf16: worst element "
-             f"at {ratio} of its bound, {share} of elements differ")
+        bounds = flash_attention_flip_bounds(qb, kb, vb, **kw)
+        tc = flash_tc_check(out, plain, vb, bounds)
+        need(tc.ok, f"flash {label} bf16: worst element at {tc.ratio} of its "
+             f"tensor-core bound, {tc.share} of elements differ (limit "
+             f"{tc.limit})")
         dense64 = dense_ref64(qb, kb, vb, **kw)
         dense = (out.double() - dense64).abs().max().item()
-        # controls the bound must reject: p kept in float32 before PV (v
-        # widened exactly), and the exact softmax rounded to bf16
+        modelled = (bounds.modelled != plain).double().mean().item()
+        # controls the tolerance must reject: p kept in float32 before PV
+        # (v widened exactly), the exact softmax rounded to bf16, and p
+        # rounded toward zero in one 16-row slice of each 128 q rows (the
+        # rows of one consumer warp)
+        warp = (torch.arange(sq, device=dev) % 128 < 16)[None, :, None]
         ctrls = {"p unrounded": flash_attention_plain(qb, kb, vb.float(),
                                                       **kw),
-                 "float64 rounded": dense64.bfloat16()}
+                 "float64 rounded": dense64.bfloat16(),
+                 "one warp truncating p": torch.where(
+                     warp, flash_attention_plain(qb, kb, vb, truncate_p=True,
+                                                 **kw), plain)}
         ctrl_txt = []
         for name, c in ctrls.items():
-            c_ratio, c_share = bf16_check(c, plain, vb)
-            need(not bf16_passes(c_ratio, c_share), f"flash {label} bf16: "
-                 f"the bound does not reject the {name} control")
-            ctrl_txt.append(f"{name} {c_ratio:.3g} / {c_share:.3e}")
-        report(line + f"; bf16 vs kernel-order plain {errb:.3e}, worst "
-               f"element at {ratio:.3f} of its bound (one bf16 ulp of "
-               f"itself + 2⁻²⁴·√Skv·max|v|), {share:.3e} of elements differ "
-               f"(limit {BF16_SHARE:.3e}); controls rejected (worst / share "
+            c_tc = flash_tc_check(c, plain, vb, bounds)
+            need(not c_tc.ok, f"flash {label} bf16: the tensor-core "
+                 f"tolerance does not reject the {name} control")
+            ctrl_txt.append(f"{name} {c_tc.ratio:.3g} / {c_tc.share:.3e}")
+        report(line + f"; bf16 vs kernel-order plain {errb:.3e}: "
+               f"tensor-core tolerance worst element at {tc.ratio:.3f} of its "
+               f"bound, {tc.share:.3e} of elements differ (limit "
+               f"{tc.limit:.3e}: 2^-13 + {SHARE_ROOM:g} x the tensor-core "
+               f"model's {modelled:.3e}); controls rejected (worst / share "
                f"differing): {', '.join(ctrl_txt)}; vs the float64 dense "
                f"softmax of the bf16 inputs {dense:.3e}")
         worst = max(worst, err32, errb)
@@ -1023,7 +1093,9 @@ def check_prefill_sites(params, planned, dense, report) -> dict:
         report(f"  prefill {e.site} bf16 ms: block_sparse {t_bs:.4f} (bound "
                f"{b_bs:.4f}, {by_bs}), flex output/weight/input "
                f"{t_fm['output']:.4f}/{t_fm['weight']:.4f}/"
-               f"{t_fm['input']:.4f} (bound {b_fm:.4f}, {by_fm}), plain "
+               f"{t_fm['input']:.4f} (bound {b_fm:.4f}, {by_fm}; "
+               f"weight-stationary dataflow bound "
+               f"{ws_dataflow_ms(m, n, k, sched.bk):.4f}), plain "
                f"{t_plain:.4f}, torch.matmul {t_lib:.4f}")
     torch.cuda.synchronize()
     return worst
@@ -1117,6 +1189,24 @@ def run_prefill(cfg, params, dense, planned, shape, report) -> dict:
          (b, 1, cfg.vocab), "bad prefill logits")
     per_prefill = counts["flash_attention"]
     total = per_prefill
+    tol = 0.05 * logits.abs().max().item()
+
+    # 1b. the same table with every site forced weight-stationary: the
+    # tensor-core fm_weight at every stack site (M = 8192) and the lm_head
+    reset_launches()
+    logits_w, wall = _timed(lambda: prefill(forced(dense, "weight"), params))
+    counts = launch_counts()
+    total += counts["flash_attention"]
+    diff = (logits_w - logits).abs().max().item()
+    report(f"bf16 prefill, dense table, all sites weight-stationary: "
+           f"{wall:.3f} s = {1e3 * wall / (b * s):.4f} ms per prompt token; "
+           f"fm_weight launches {counts['weight']}; launches {counts}; "
+           f"logits vs dense table max |diff| = {diff:.3e}, tol {tol:.3e}")
+    need(counts["weight"] > 0 and counts["output"] == 0,
+         "the weight-stationary prefill did not run fm_weight alone")
+    need(bool(torch.isfinite(logits_w).all()), "non-finite logits")
+    need(diff <= tol, f"weight-stationary prefill logits off by {diff}")
+    ws_launches = counts["weight"]
 
     # 2. the planned two-sided plan at the prefill shape
     reset_launches()
@@ -1134,7 +1224,6 @@ def run_prefill(cfg, params, dense, planned, shape, report) -> dict:
          "the dense table's")
 
     # 3. the plain prefill
-    tol = 0.05 * logits.abs().max().item()
     logits_0, wall = _timed(lambda: prefill(None, params))
     diff = (logits_0 - logits).abs().max().item()
     report(f"bf16 prefill, plain (torch.matmul, plain online softmax): "
@@ -1194,7 +1283,8 @@ def run_prefill(cfg, params, dense, planned, shape, report) -> dict:
     # 5. one profiled prefill on the dense table
     profile_prefill(lambda: prefill(dense, params), report,
                     "bf16 prefill (dense table)")
-    return {"per_prefill": per_prefill, "total": total, "batch": batch}
+    return {"per_prefill": per_prefill, "total": total, "batch": batch,
+            "ws_prefill": ws_launches}
 
 
 def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report) -> int:
@@ -1320,6 +1410,7 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     report(f"  [{lib}] {line.strip()}")
+        check_tensor_cores(build, report)
         done("phases 1-2")
         # phase 3: bring-up, then the kernels vs plain versions
         cfg, sp_cfg, params, planned, dense = bring_up(report)
@@ -1374,7 +1465,11 @@ def main() -> int:
         pf["total"] += run_int8_prefill(cfg, sp_cfg, params, shape,
                                         pf["batch"], report)
         done("phase 11")
-        # phase 12: the kernels line
+        # phase 12: the kernels line (fm_weight's launches in phase 10's
+        # all-weight-stationary prefill beside those of phases 4-5)
+        for row in rows:
+            if row["name"] == "flex_weight":
+                row["launches_ws_prefill"] = pf["ws_prefill"]
         rows.append(time_flash(flash, pf))
         done("phase 12")
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")

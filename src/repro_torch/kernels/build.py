@@ -37,7 +37,7 @@ SIGNATURES = {
     },
     "flex_matmul": {
         "fm_output": [_P, _P, _P] + [_I] * 9 + [_P],
-        "fm_weight": [_P, _P, _P] + [_I] * 9 + [_P],
+        "fm_weight": [_P] * 4 + [_I] * 12 + [_P],
         "fm_input": [_P, _P, _P] + [_I] * 9 + [_P],
     },
     "int8_matmul": {
@@ -58,6 +58,13 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
                        "machine with the CUDA toolkit")
+
+
+def _cuobjdump() -> str:
+    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("cuobjdump not found: it comes with the CUDA toolkit")
 
 
 def _target(name: str) -> Path:
@@ -111,6 +118,25 @@ def library(name: str) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def tensor_core_ops(name: str) -> Dict[str, int]:
+    """Tensor-core instructions (SASS ``HMMA`` / ``HGMMA``) in each kernel
+    of the library built from ``csrc/<name>.cu``, by mangled kernel name
+    (``cuobjdump -sass``; builds the library first)."""
+    library(name)
+    out = subprocess.run([_cuobjdump(), "-sass", str(_target(name))],
+                         capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in out.splitlines():
+        text = line.strip()
+        if text.startswith("Function :"):
+            fn = text.split(":", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in text or "HGMMA" in text):
+            counts[fn] += 1
+    return counts
 
 
 def check(err: int, what: str) -> None:

@@ -8,38 +8,60 @@
 //               sequence ends are aligned (offset = Skv - Sq: the last Sq
 //               positions query); masked scores are -1e30, never -inf.
 //
-// Design.  The TPU grid (bh, q-block, kv-block) runs its kv axis in order on
-// one core, carrying (m, l, acc) in VMEM scratch.  Here one CUDA block of 256
-// threads owns one (bh, 64-row q tile) and walks the kv tiles of 64 rows in
-// ascending order inside the block; nothing carries between blocks.  It
-// visits exactly the kv tiles that ``_fa_kernel``'s liveness test keeps
-// (causal: k_lo <= q_lo + 63; window: q_lo - (k_lo + 63) < window), so it
-// makes the reference's sequence of online-softmax updates.  Q, K and V tiles
-// are staged through shared memory as float32 (bf16 widens exactly); thread
-// (ty, tx) owns score rows ty + 16r and columns tx + 16c (r, c < 4) and the
-// same rows of the output, so a row's max and sum are a 16-lane shuffle
-// reduction and (m, l, acc) stay in registers.  The arithmetic is the
-// reference's: scores summed in float32 then scaled, p = exp(s - m) with a
-// true expf, alpha = exp(m_old - m_new), l = l·alpha + Σp, p rounded to V's
-// type before the PV product, acc = acc·alpha + PV, O = acc / max(l, 1e-30);
-// the separate roundings are written with __fmul_rn / __fadd_rn so the
-// compiler does not contract them into FMAs.  A row that has seen only
-// masked keys gets p = 1 entries that the first real score wipes (alpha = 0),
-// as in the reference.  Blocks run the heaviest causal q tiles first.
+// The TPU grid (bh, q-block, kv-block) runs its kv axis in order on one
+// core, carrying (m, l, acc) in VMEM scratch.  Here a CUDA block owns q rows
+// of one head and walks the kv tiles of 64 rows in ascending order inside
+// the block; nothing carries between blocks.  Each 64-row q block visits
+// exactly the kv tiles that ``_fa_kernel``'s liveness test keeps (causal:
+// k_lo <= q_lo + 63; window: q_lo - (k_lo + 63) < window), so it makes the
+// reference's sequence of online-softmax updates, whose order depends only
+// on the 64-row kv tile.  The arithmetic is the reference's: scores summed
+// in float32 then scaled, p = exp(s - m) with a true expf, alpha =
+// exp(m_old - m_new), l = l·alpha + Σp (Σp of the float32 p), p rounded to
+// V's type before the PV product, acc = acc·alpha + PV, O = acc /
+// max(l, 1e-30); separate roundings are written with __fmul_rn / __fadd_rn
+// so the compiler does not contract them into FMAs.  A row that has seen
+// only masked keys gets p = 1 entries that the first real score wipes
+// (alpha = 0), as in the reference.  Blocks run the heaviest causal q tiles
+// first.
 //
 // What bounds it on the H100: at StableLM-1.6B's prefill cell (BH = 64,
 // S = 4096, hd = 64, causal) the tensor-core work is 2·2·64·4096²·64 / 2 =
 // 1.37e11 FLOPs, 0.139 ms at 989 TFLOP/s; the bytes (q, k, v, o in bf16,
-// 134 MB) take 0.040 ms — so it is bound by operations.  This first version
-// does every product as a scalar float32 FMA from shared memory (at most
-// 67 TFLOP/s on the card, less with the shared-memory loads each FMA needs)
-// and stages synchronously; mma.sync / wgmma on bf16 tiles, TMA loads into a
-// staging ring and a larger q tile per warpgroup are later work.
+// 134 MB) take 0.040 ms — so it is bound by operations, and behind them by
+// the softmax: ~5.4e8 scores, each with a true expf and ~20 float32 ALU
+// operations, which no tensor core does.
+//
+// bf16 (``fa_kernel_mma``, the prefill path): a block owns 128 q rows of one
+// head — two consumer warpgroups of 64 rows, one reference q block each —
+// plus one producer warp.  The producer streams each live 64-row K and V
+// tile with cp.async into a three-stage shared-memory ring of 64-column
+// panels, 128-byte swizzled as wgmma reads them; once a tile has landed it
+// fences it for the async proxy and signals the stage's ``full`` mbarrier;
+// consumers release a stage through its ``empty`` mbarrier.  S = Q·Kᵀ and
+// P·V are wgmma.mma_async.m64n64k16 on bf16 with float32 accumulators, A
+// from registers (q's fragments, loaded from shared memory with ldmatrix;
+// P straight from the S accumulators, rounded to bf16, nearest even) and B
+// from shared memory (K k-major, V n-major).  q's fragments are reloaded
+// for every tile: ptxas does not keep a loop-carried register A operand of
+// wgmma intact, and reused its registers for P (checked in the SASS).  Row
+// max and sum are quad shuffles in the accumulator layout; the -1e30 mask
+// is computed only on a warp's diagonal (or window edge) tiles.  A q block
+// skips kv tiles dead under the reference's test (its warps still pass
+// through the ring), so the 128-row block does not change the arithmetic;
+// a last q tile of 64 rows runs its first warpgroup only.  hd 32 uses half
+// of a panel (P·V's upper 32 columns are computed and dropped).
+//
+// float32 (``fa_kernel``): the first version, kept as the reference's
+// float32 arithmetic — one block of 256 threads per (bh, 64-row q tile),
+// scalar float32 FMAs from shared memory, synchronous staging; thread
+// (ty, tx) owns score rows ty + 16r and columns tx + 16c (r, c < 4).
+#include "mma.cuh"
 #include "tile.cuh"
 
 namespace fa {
 
-constexpr int kBQ = 64;            // q rows per CUDA block
+constexpr int kBQ = 64;            // q rows of a reference q block
 constexpr int kBKV = 64;           // kv rows per staged tile
 constexpr int kThreads = 256;
 constexpr int kGX = 16, kGY = 16;  // thread grid: tx = score column, ty = row
@@ -72,8 +94,8 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-// Block b = bh * nq + t owns rows [qi·64, qi·64 + 64) of head bh, where
-// qi = nq - 1 - t (the longest causal kv range first).
+// float32.  Block b = bh * nq + t owns rows [qi·64, qi·64 + 64) of head bh,
+// where qi = nq - 1 - t (the longest causal kv range first).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel(const T* __restrict__ Q, const T* __restrict__ K,
@@ -213,6 +235,287 @@ fa_kernel(const T* __restrict__ Q, const T* __restrict__ K,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaRows = 128;      // q rows per CUDA block
+constexpr int kConsumers = 8;      // warps of 16 q rows: two warpgroups
+constexpr int kMmaThreads = (kConsumers + 1) * 32;   // + the producer warp
+constexpr int kStages = 3;         // K/V ring depth
+constexpr int kPanel = kBKV * 64;  // one 64-row x 64-column bf16 panel
+
+// 64-column panels of a K or V tile (hd 32 uses half of one)
+template <int HD>
+constexpr int kPanels = HD < 64 ? 1 : HD / 64;
+
+template <int HD>
+constexpr size_t mma_smem_bytes() {
+  // 1 KB of alignment slack, kStages x (k, v) panels, q [128][HD + 8], then
+  // the full / empty barriers
+  return 1024 + sizeof(__nv_bfloat16) *
+                    ((size_t)kStages * 2 * kPanels<HD> * kPanel +
+                     (size_t)kMmaRows * (HD + 8)) +
+         2 * kStages * sizeof(uint64_t);
+}
+
+// Block b owns q rows [128·qt, 128·qt + 128) of head b % bh with
+// qt = nq - 1 - b / bh (every head's longest causal kv ranges first).
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
+              const __nv_bfloat16* __restrict__ K,
+              const __nv_bfloat16* __restrict__ V,
+              __nv_bfloat16* __restrict__ O, int nbh, int sq, int skv, int nq,
+              int causal, int window, float scale) {
+  using mma::bf16;
+  constexpr int LD = HD + 8;         // padded q rows: conflict-free ldmatrix
+  constexpr int CH = HD / 8;         // 16-byte chunks per row
+  constexpr int NP = kPanels<HD>;
+  constexpr int NT = HD < 64 ? HD / 8 : 8;   // n8 tiles kept of a PV panel
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // swizzled panels need 1024-byte alignment
+  unsigned char* smem = smem_raw + ((1024 - (mma::smem_u32(smem_raw) & 1023))
+                                    & 1023);
+  bf16* kvs = reinterpret_cast<bf16*>(smem);       // stage s: k then v
+  bf16* qs = kvs + kStages * 2 * NP * kPanel;
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + kMmaRows * LD);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x % nbh;
+  const int row0 = (nq - 1 - blockIdx.x / nbh) * kMmaRows;
+  const int halves = min(kMmaRows, sq - row0) / kBQ;   // 2, or 1 at the end
+  const int offset = skv - sq;
+  const int nkv = skv / kBKV;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mma::mbar_init(mma::smem_u32(&full[s]), 32);
+      mma::mbar_init(mma::smem_u32(&empty[s]), 4 * halves);
+    }
+    mma::fence_barrier_init();
+  }
+  const bf16* q = Q + ((size_t)bh * sq + row0) * HD;
+  for (int c = threadIdx.x; c < halves * kBQ * CH; c += kMmaThreads) {
+    const int r = c / CH, d = (c % CH) * 8;
+    *reinterpret_cast<uint4*>(qs + r * LD + d) =
+        *reinterpret_cast<const uint4*>(q + (size_t)r * HD + d);
+  }
+  __syncthreads();
+
+  // the reference's liveness of kv tile ki for q block h of this block
+  auto live = [&](int ki, int h) {
+    const int q_lo = row0 + h * kBQ + offset, k_lo = ki * kBKV;
+    if (h >= halves) return false;
+    if (causal && k_lo > q_lo + kBQ - 1) return false;
+    if (window && q_lo - (k_lo + kBKV - 1) >= window) return false;
+    return true;
+  };
+
+  if (warp == kConsumers) {
+    // producer: the block's live kv tiles, in order, into the ring, as
+    // 64-column panels swizzled like the tensor cores read them; a tile is
+    // signalled once it has landed and been made visible to them
+    const bf16* kg = K + (size_t)bh * skv * HD;
+    const bf16* vg = V + (size_t)bh * skv * HD;
+    int it = 0, pending = -1;
+    for (int ki = 0; ki < nkv; ++ki) {
+      if (!live(ki, 0) && !live(ki, 1)) continue;
+      const int s = it % kStages;
+      mma::mbar_wait(mma::smem_u32(&empty[s]), ((it / kStages) & 1) ^ 1);
+      bf16* ks = kvs + s * 2 * NP * kPanel;
+      bf16* vs = ks + NP * kPanel;
+      const size_t g0 = (size_t)ki * kBKV * HD;
+      for (int c = lane; c < kBKV * CH; c += 32) {
+        const int r = c / CH, d = (c % CH) * 8;
+        const int off = (d >> 6) * kPanel + mma::swz64(r, d & 63);
+        mma::cp_async16(mma::smem_u32(ks + off), kg + g0 + r * HD + d);
+        mma::cp_async16(mma::smem_u32(vs + off), vg + g0 + r * HD + d);
+      }
+      mma::cp_async_commit();
+      if (pending >= 0) {
+        mma::cp_async_wait<1>();
+        mma::fence_proxy_async();
+        mma::mbar_arrive(mma::smem_u32(&full[pending]));
+      }
+      pending = s;
+      ++it;
+    }
+    if (pending >= 0) {
+      mma::cp_async_wait<0>();
+      mma::fence_proxy_async();
+      mma::mbar_arrive(mma::smem_u32(&full[pending]));
+    }
+    return;
+  }
+  const int h = warp / 4;
+  if (h >= halves) return;
+
+  // consumer warp: rows [16·warp, 16·warp + 16) of the block; this thread
+  // holds rows g and g + 8 of them, columns 2t and 2t + 1 of each n8 tile
+  const int g = lane >> 2, t = lane & 3;
+  const int qpos0 = row0 + warp * 16 + offset;   // the warp's first position
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int it = 0;
+  for (int ki = 0; ki < nkv; ++ki) {
+    const bool l0 = live(ki, 0), l1 = live(ki, 1);
+    if (!l0 && !l1) continue;
+    const int s = it % kStages;
+    mma::mbar_wait(mma::smem_u32(&full[s]), (it / kStages) & 1);
+    ++it;
+    if (h == 0 ? l0 : l1) {
+      const uint32_t ks = mma::smem_u32(kvs + s * 2 * NP * kPanel);
+      const uint32_t vs = ks + NP * kPanel * 2;
+      const int k_lo = ki * kBKV;
+      // s = (q · k) in float32 on the tensor cores (k read k-major), then
+      // scaled and masked
+      // q's fragments, reloaded for every tile: a register A operand carried
+      // across the loop is not kept intact between wgmma batches
+      uint32_t qf[HD / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma::ldsm_x4(qf[kk], mma::smem_u32(qs + (warp * 16 + (lane & 15)) *
+                                               LD + kk * 16 +
+                                           (lane >> 4) * 8));
+      float sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      mma::pin(sc);
+      mma::pin(qf);
+      mma::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma::wgmma64<0>(sc, qf[kk],
+                   mma::sw128_desc(ks + (kk >> 2) * kPanel * 2 + (kk & 3) * 32, 16,
+                              1024));
+      mma::wgmma_commit();
+      mma::wgmma_wait0();
+      mma::pin(sc);
+      mma::pin(qf);
+      const bool edge = (causal && k_lo + kBKV - 1 > qpos0) ||
+                        (window && qpos0 + 15 - k_lo >= window);
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = __fmul_rn(sc[4 * j + e], scale);
+          if (edge) {
+            const int qp = qpos0 + g + (e >> 1) * 8;
+            const int kp = k_lo + j * 8 + 2 * t + (e & 1);
+            bool ok = true;
+            if (causal) ok = qp >= kp;
+            if (window) ok = ok && (qp - kp) < window;
+            if (!ok) v = kNegInf;
+          }
+          sc[4 * j + e] = v;
+        }
+      // online softmax update of (m, l); p kept in float32 for Σp
+      float m_new[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = sc[2 * r];
+#pragma unroll
+        for (int j = 0; j < kBKV / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        m_new[r] = fmaxf(m[r], mx);
+        alpha[r] = expf(__fsub_rn(m[r], m_new[r]));
+      }
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(__fsub_rn(sc[4 * j + e], m_new[e >> 1]));
+          sum[e >> 1] = __fadd_rn(sum[e >> 1], p);
+          sc[4 * j + e] = p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
+        sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 2));
+        l[r] = __fadd_rn(__fmul_rn(l[r], alpha[r]), sum[r]);
+        m[r] = m_new[r];
+      }
+      // p rounded to V's type: the A operand of P·V, straight from registers
+      uint32_t pf[kBKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk) {
+        pf[kk][0] = mma::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pf[kk][1] = mma::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pf[kk][2] = mma::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pf[kk][3] = mma::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      // acc = acc·alpha + P·V, one 64-column panel of v (read n-major) at a
+      // time
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn) {
+        float pv[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) pv[i] = 0.f;
+        mma::pin(pv);
+        mma::pin(pf);
+        mma::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBKV / 16; ++kk)
+          mma::wgmma64<1>(pv, pf[kk],
+                     mma::sw128_desc(vs + pn * kPanel * 2 + kk * 16 * 128,
+                                kPanel * 2, 1024));
+        mma::wgmma_commit();
+        mma::wgmma_wait0();
+        mma::pin(pv);
+        mma::pin(pf);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[pn * 8 + n][e] = __fadd_rn(
+                __fmul_rn(acc[pn * 8 + n][e], alpha[e >> 1]), pv[4 * n + e]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mma::mbar_arrive(mma::smem_u32(&empty[s]));
+  }
+
+  bf16* o = O + ((size_t)bh * sq + row0 + warp * 16) * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(o + (size_t)(g + 8 * r) * HD +
+                                         n * 8 + 2 * t) =
+          __floats2bfloat162_rn(__fdiv_rn(acc[n][2 * r], den),
+                                __fdiv_rn(acc[n][2 * r + 1], den));
+  }
+}
+
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
+               int sq, int skv, int causal, int window, float scale,
+               cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<HD>();
+  static_assert(smem <= (size_t)rt::kSmemLimit, "tile too large");
+  auto kern = fa_kernel_mma<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int nq = (sq + kMmaRows - 1) / kMmaRows;
+  kern<<<dim3((unsigned)bh * nq), kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      bh, sq, skv, nq, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int sq, int skv, int causal, int window, float scale,
@@ -231,18 +534,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// float32: the scalar kernel; bf16: the tensor-core kernel.
+template <bool kBF16>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int bh,
                 int sq, int skv, int hd, int causal, int window, float scale,
                 cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, o, bh, sq, skv, causal, window, scale, s);
+      return kBF16 ? launch_mma<32>(q, k, v, o, bh, sq, skv, causal, window,
+                                    scale, s)
+                   : launch<float, 32>(q, k, v, o, bh, sq, skv, causal,
+                                       window, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, bh, sq, skv, causal, window, scale, s);
+      return kBF16 ? launch_mma<64>(q, k, v, o, bh, sq, skv, causal, window,
+                                    scale, s)
+                   : launch<float, 64>(q, k, v, o, bh, sq, skv, causal,
+                                       window, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, bh, sq, skv, causal, window, scale,
-                            s);
+      return kBF16 ? launch_mma<128>(q, k, v, o, bh, sq, skv, causal, window,
+                                     scale, s)
+                   : launch<float, 128>(q, k, v, o, bh, sq, skv, causal,
+                                        window, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -261,10 +573,10 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
-    return fa::dispatch_hd<float>(q, k, v, o, bh, sq, skv, hd, causal, window,
+    return fa::dispatch_hd<false>(q, k, v, o, bh, sq, skv, hd, causal, window,
                                   scale, s);
   if (dtype == rt::kBF16)
-    return fa::dispatch_hd<__nv_bfloat16>(q, k, v, o, bh, sq, skv, hd,
-                                          causal, window, scale, s);
+    return fa::dispatch_hd<true>(q, k, v, o, bh, sq, skv, hd, causal, window,
+                                 scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,8 +8,10 @@ descriptor picks the entry point and the (bm, bn, bk) blocks:
 
   output : one CUDA block per output-tile strip, K loop, accumulator in
            registers;
-  weight : a block owns an N-strip, loops k holding its B tile in shared
-           memory, then loops m, read-modify-writing a float32 output;
+  weight : per K-block, a B tile held in shared memory while the M rows
+           stream past it, one float32 partial per K-block added into the
+           output in K-block order (bf16 on the tensor cores, over the grid
+           that ``weight_grid`` plans);
   input  : the mirror image over M-strips (A tile resident across n).
 
 At decode (M = n_slots) all three are bound by device-memory bytes (the
@@ -18,16 +20,22 @@ weight read once).  CPU tensors take the plain version
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.scheduler import H100
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import matmul_ref
 
 DEFAULT_BLOCKS = (128, 128, 128)
 
-# launches of each CUDA entry point (bumped only where it is launched)
-LAUNCHES = {"output": 0, "weight": 0, "input": 0}
+STATIONARITIES = ("output", "weight", "input")
+# launches of each CUDA kernel (bumped only where it is launched):
+# ``weight_sum`` is the split weight-stationary grid's second kernel
+LAUNCHES = {"output": 0, "weight": 0, "input": 0, "weight_sum": 0}
 
 
 def pad_to_blocks(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
@@ -45,8 +53,66 @@ def _groups(own: int, other: int, device) -> int:
     """How many blocks share one strip's other axis so that a decode-shaped
     matmul (a single M-strip) still spreads over the card: about two
     blocks per SM in all, at most one per tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(other, (2 * sms) // max(own, 1)))
+    return max(1, min(other, (2 * _sms(device)) // max(own, 1)))
+
+
+# The bf16 weight-stationary kernel (csrc/flex_matmul.cu, csrc/mma.cuh):
+# output columns per block, the A chunk's K columns.
+WS_STRIP = 128
+WS_CHUNK = 64
+# float32 bytes the split grid's workspace may take (decode mlp.in: 1.4 MB)
+WORKSPACE_CAP = 256 << 20
+
+
+@dataclass(frozen=True)
+class WeightGrid:
+    """Launch plan of the bf16 weight-stationary kernel.
+
+    ``split``: one block per (N-strip, K-block) writes its float32 partial
+    into a ``workspace`` of shape (tk, M, N), and a second pass adds the
+    partials in K-block order; otherwise each block owns an (N-strip,
+    M-tile group) and walks the K-blocks itself.  ``grid`` is (strips,
+    K-blocks or groups); ``rows`` the M-tile height (16 or 64)."""
+    split: bool
+    grid: Tuple[int, int]
+    rows: int
+    workspace: Optional[Tuple[int, int, int]]
+
+
+def weight_grid(m: int, n: int, k: int, bm: int, bn: int, bk: int, sms: int,
+                cap: int = WORKSPACE_CAP) -> WeightGrid:
+    """Plan the bf16 weight-stationary launch of C[m, n] = A[m, k] @ B[k, n]
+    (operands already padded to the (bm, bn, bk) blocks) on ``sms`` SMs.
+
+    The owning grid has ceil(n / 128) strips times at most
+    min(M-tiles, 2·sms // strips) groups.  When that leaves SMs idle (a
+    decode matmul has a single M-tile) and there are several K-blocks, the
+    K-blocks run in parallel instead — tk · strips blocks — provided their
+    float32 partials (tk·m·n·4 bytes) fit under ``cap``.  Raises on
+    operands that are not block multiples and on a K-block whose B tile
+    does not fit in a block's shared memory."""
+    if min(m, n, k, bm, bn, bk, sms) <= 0:
+        raise ValueError(f"non-positive size in M={m} N={n} K={k} "
+                         f"blocks=({bm}, {bn}, {bk}) SMs={sms}")
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"M={m} N={n} K={k} are not multiples of the "
+                         f"blocks ({bm}, {bn}, {bk})")
+    rows = 16 if m <= 16 else 64
+    kpad = -(-bk // WS_CHUNK) * WS_CHUNK
+    smem = 2 * (kpad * WS_STRIP + 2 * rows * WS_CHUNK)
+    if smem > H100.vmem_bytes:
+        raise ValueError(f"a {bk}-row K-block of {WS_STRIP} columns takes "
+                         f"{smem} bytes of shared memory, over "
+                         f"{H100.vmem_bytes}")
+    strips, tk, mtiles = -(-n // WS_STRIP), k // bk, -(-m // rows)
+    groups = max(1, min(mtiles, (2 * sms) // strips))
+    if strips * groups < sms and tk > 1 and 4 * tk * m * n <= cap:
+        return WeightGrid(True, (strips, tk), rows, (tk, m, n))
+    return WeightGrid(False, (strips, groups), rows, None)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
@@ -65,19 +131,33 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
         err = lib.fm_output(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
                             k, bm, bn, bk, b_trans, code,
                             build.dtype_code(out_dtype), stream)
-    elif stationarity in ("weight", "input"):
+    elif stationarity == "weight":
         # the revisit dataflows accumulate in a float32 output, cast after
         out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-        if stationarity == "weight":
-            fn, groups = lib.fm_weight, _groups(tn, tm, a.device)
+        if a.dtype == torch.bfloat16:
+            plan = weight_grid(m, n, k, bm, bn, bk, _sms(a.device),
+                               WORKSPACE_CAP)
+            ws = None if plan.workspace is None else torch.empty(
+                plan.workspace, dtype=torch.float32, device=a.device)
+            args = (*plan.grid, int(plan.split), plan.rows)
+            split = plan.split
         else:
-            fn, groups = lib.fm_input, _groups(tm, tn, a.device)
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, bm,
-                 bn, bk, groups, b_trans, code, stream)
+            ws, args = None, (tn, _groups(tn, tm, a.device), 0, 0)
+            split = False
+        err = lib.fm_weight(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                            None if ws is None else ws.data_ptr(), m, n, k,
+                            bm, bn, bk, *args, b_trans, code, stream)
+    elif stationarity == "input":
+        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        err = lib.fm_input(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
+                           k, bm, bn, bk, _groups(tm, tn, a.device), b_trans,
+                           code, stream)
     else:
         raise ValueError(f"unknown stationarity {stationarity!r}")
     build.check(err, f"flex_matmul[{stationarity}]")
     LAUNCHES[stationarity] += 1
+    if stationarity == "weight" and split:   # ws_kernel_sum ran after it
+        LAUNCHES["weight_sum"] += 1
     return out.to(out_dtype)
 
 
@@ -108,9 +188,11 @@ def flex_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule=None,
     ap = pad_to_blocks(a, bm, bk)
     bp = pad_to_blocks(b, bk, bn)
     if a.device.type == "cpu":
-        if stationarity not in LAUNCHES:
+        if stationarity not in STATIONARITIES:
             raise ValueError(f"unknown stationarity {stationarity!r}")
-        out = matmul_ref(ap, bp).to(out_dtype)
+        # row-major B: the CPU library's order then does not depend on
+        # B's layout, as the kernels' does not
+        out = matmul_ref(ap, bp.contiguous()).to(out_dtype)
     elif a.device.type == "cuda":
         out = _launch(ap, bp, stationarity, bm, bn, bk, out_dtype)
     else:

@@ -3,7 +3,7 @@
 ``chip_smoke.py`` holds each CUDA kernel against them on the card."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -106,10 +106,38 @@ def _live_q_blocks(nq: int, ki: int, bq: int, bkv: int, offset: int,
     return range(live[0], live[-1] + 1) if live else range(0)
 
 
+def _round_to_zero_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` rounded toward zero to float32 (kept in float64)."""
+    y = x.float()
+    down = torch.nextafter(y, torch.zeros_like(y))
+    return torch.where(y.double().abs() > x.abs(), down, y).double()
+
+
+def tensor_core_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q (BH, R, hd) @ kᵀ (BH, C, hd) → float32 (BH, R, C) summed as a
+    model of Hopper's tensor cores: each 16-product group (one k16 step)
+    exactly, added into the float32 accumulator and truncated toward zero,
+    groups in ascending order."""
+    bh, r, hd = q.shape
+    if hd % 16:
+        raise ValueError(f"hd={hd} is not a multiple of the k16 step")
+    g = hd // 16
+    groups = torch.einsum("brgi,bcgi->brcg",
+                          q.double().reshape(bh, r, g, 16),
+                          k.double().reshape(bh, k.shape[1], g, 16))
+    acc = torch.zeros(groups.shape[:-1], dtype=torch.float64,
+                      device=q.device)
+    for i in range(g):
+        acc = _round_to_zero_f32(acc + groups[..., i])
+    return acc.float()
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int = 0,
                           bq: int = 64, bkv: int = 64,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          tc_scores: bool = False,
+                          truncate_p: bool = False) -> torch.Tensor:
     """Plain version in the kernel's order: the online softmax over the
     live kv blocks of (bq, bkv), ascending, with the Pallas kernel's
     arithmetic — float32 scores scaled after the dot, p = exp(s - m), alpha
@@ -118,7 +146,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     type.  Each kv block updates every q block it is live for at once (the
     rows are independent).  Sq and Skv must be multiples of the blocks
     (clamped to the sequence lengths), as the reference's wrapper
-    asserts."""
+    asserts.
+
+    Two variants serve the bf16 checks: ``tc_scores`` sums the scores as
+    ``tensor_core_scores`` models the tensor cores (bf16 q and k), and
+    ``truncate_p`` rounds p toward zero instead of to nearest (a fault the
+    checks must reject)."""
     bh, sq, hd = q.shape
     skv = k.shape[1]
     bq, bkv = min(bq, sq), min(bkv, skv)
@@ -140,7 +173,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_lo = ki * bkv
         kb = k[:, k_lo:k_lo + bkv].to(acc_t)
         vb = v[:, k_lo:k_lo + bkv]
-        s = torch.matmul(q[:, r0:r1].to(acc_t), kb.transpose(1, 2)) * scale
+        if tc_scores:
+            s = tensor_core_scores(q[:, r0:r1], k[:, k_lo:k_lo + bkv])
+        else:
+            s = torch.matmul(q[:, r0:r1].to(acc_t), kb.transpose(1, 2))
+        s = s * scale
         mask = _attention_mask(r1 - r0, bkv, causal, window, q.device,
                                r0 + offset, k_lo)
         if mask is not None:
@@ -150,8 +187,148 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m_old - m_new)
         l[:, r0:r1] = l[:, r0:r1] * alpha + p.sum(dim=-1)
-        pv = torch.matmul(p.to(v.dtype).to(acc_t), vb.to(acc_t))
+        if truncate_p:      # float32 → bf16 by dropping the low 16 bits
+            pr = (p.view(torch.int32) & -65536).view(torch.float32)
+        else:
+            pr = p.to(v.dtype)
+        pv = torch.matmul(pr.to(acc_t), vb.to(acc_t))
         acc[:, r0:r1] = acc[:, r0:r1] * alpha[..., None] + pv
         m[:, r0:r1] = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
+
+
+class FlipBounds(NamedTuple):
+    """What a bf16 flash kernel whose scores are summed on the tensor cores
+    may change against ``flash_attention_plain`` (see
+    ``flash_attention_flip_bounds``), per output element (BH, Sq, hd) or
+    per row (BH, Sq)."""
+    fragile: torch.Tensor   # Σ p·|v| / l over the p that may round apart
+    weight: torch.Tensor    # Σ p̂·|v| / l: the softmax-weighted |v|
+    score_err: torch.Tensor  # per row: bound on any score's error
+    flipped: torch.Tensor   # the plain version, every fragile p̂ flipped
+    modelled: torch.Tensor  # the plain version, ``tensor_core_scores``
+
+
+def flash_attention_flip_bounds(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool = True,
+                                window: int = 0, bq: int = 64,
+                                bkv: int = 64) -> FlipBounds:
+    """Bounds for a bf16 kernel that sums the scores on the tensor cores.
+
+    Such a kernel and ``flash_attention_plain`` (bf16 q, k, v) agree on
+    every exact bf16 product but sum them differently.  A score then
+    differs by at most ε = 2⁻²⁴·(hd/8 + √hd + 1)·a, a = hd^-0.5·Σ|q||k|:
+    the tensor core truncates each 16-product group to within 2⁻²³ of its
+    largest term (hd/16 groups), the library's float32 sum errs by ~√hd
+    roundings, and the scaling by one.  The row max inherits the error of
+    the scores seen so far (``score_err``), so p = exp(s − m) moves
+    relatively by δ = ε + that.  Rounding p to bf16 turns δ into a whole
+    bf16 step (≤ 2⁻⁷·p) for the p that lie within δ of a rounding
+    boundary: the *fragile* ones.  Walks the same live blocks in the same
+    order as the plain version; ``modelled`` is the plain version with
+    ``tc_scores``."""
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    bq, bkv = min(bq, sq), min(bkv, skv)
+    scale = hd ** -0.5
+    offset = skv - sq
+    c = 2.0 ** -24 * (hd / 8 + hd ** 0.5 + 1)
+    f32 = torch.float32
+    dev = q.device
+    m = torch.full((bh, sq), NEG_INF, dtype=f32, device=dev)
+    err = torch.zeros((bh, sq), dtype=f32, device=dev)
+    l = torch.zeros((bh, sq), dtype=f32, device=dev)
+    acc = {n: torch.zeros((bh, sq, hd), dtype=f32, device=dev)
+           for n in ("fragile", "weight", "flipped")}
+    neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
+    for ki in range(skv // bkv):
+        rows = _live_q_blocks(sq // bq, ki, bq, bkv, offset, causal, window)
+        if not rows:
+            continue
+        r0, r1 = rows.start * bq, rows.stop * bq
+        k_lo = ki * bkv
+        qb, kb = q[:, r0:r1].to(f32), k[:, k_lo:k_lo + bkv].to(f32)
+        vb = v[:, k_lo:k_lo + bkv].to(f32)
+        s = torch.matmul(qb, kb.transpose(1, 2)) * scale
+        eps = c * scale * torch.matmul(qb.abs(), kb.abs().transpose(1, 2))
+        mask = _attention_mask(r1 - r0, bkv, causal, window, dev,
+                               r0 + offset, k_lo)
+        if mask is not None:
+            s = torch.where(mask[None], s, neg)       # exact on both sides
+            eps = torch.where(mask[None], eps, torch.zeros_like(eps))
+        m_old = m[:, r0:r1]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        e_new = torch.maximum(err[:, r0:r1], eps.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m_old - m_new)
+        delta = eps + e_new[..., None]
+        pb = p.bfloat16()
+        fragile = ((p * (1 + delta)).bfloat16() != pb) \
+            | ((p * (1 - delta)).bfloat16() != pb)
+        # the other bf16 neighbour of p: one step down from a p̂ above p,
+        # one step up from a p̂ below it (p̂ > 0, so the bit pattern steps)
+        bits = pb.view(torch.int16)
+        step = torch.where(pb.float() > p, -1, 1).to(torch.int16)
+        other = torch.where(fragile & (bits > 0), bits + step, bits) \
+            .view(torch.bfloat16)
+        l[:, r0:r1] = l[:, r0:r1] * alpha + p.sum(dim=-1)
+        for name, w, val in (("fragile", p * fragile, vb.abs()),
+                             ("weight", pb.to(f32), vb.abs()),
+                             ("flipped", other.to(f32), vb)):
+            acc[name][:, r0:r1] = acc[name][:, r0:r1] * alpha[..., None] \
+                + torch.matmul(w, val)
+        m[:, r0:r1] = m_new
+        err[:, r0:r1] = e_new
+    den = torch.clamp(l, min=1e-30)[..., None]
+    return FlipBounds(acc["fragile"] / den, acc["weight"] / den, err,
+                      (acc["flipped"] / den).to(q.dtype),
+                      flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, bq=bq, bkv=bkv,
+                                            tc_scores=True))
+
+
+# how far the share of differing elements may exceed the tensor-core model's
+SHARE_ROOM = 2.0
+
+
+class TcCheck(NamedTuple):
+    """``flash_tc_check``'s reading."""
+    ratio: float    # worst |out − plain| over its bound
+    share: float    # share of elements that differ
+    limit: float    # the share allowed
+
+    @property
+    def ok(self) -> bool:
+        return self.ratio <= 1.0 and self.share <= self.limit
+
+
+def flash_tc_check(out: torch.Tensor, plain: torch.Tensor, v: torch.Tensor,
+                   bounds: FlipBounds) -> TcCheck:
+    """The tensor-core tolerance of a bf16 flash kernel's ``out`` against
+    ``plain`` = ``flash_attention_plain`` of the same bf16 inputs.  Per
+    element the bound is one bf16 ulp of the element (the last
+    rounding); 2⁻²⁴·√Skv·max|v| (float32 P·V sums in other orders); the
+    score error's continuous effect on the rescales and on l, with e the
+    row's score error bound, w the weighted |v| and n the kv blocks,
+    (2e + n·2⁻²³)·(w + |o|) + 2e·|o|; and 2⁻⁷ times the weight of the
+    fragile p (each may round one bf16 step apart).  The share limit is
+    2⁻¹³ (P·V roundings, as for a scalar kernel) plus ``SHARE_ROOM`` times
+    the share of elements in which the plain version with the scores
+    summed as ``tensor_core_scores`` models them differs: the expected
+    number of p that round apart, not the most that could.  The room
+    covers a model of a rounding that NVIDIA does not document."""
+    d = (out.double() - plain.double()).abs()
+    o = plain.double().abs()
+    _, e = torch.frexp(o.clamp_min(2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(d), (e - 8).to(torch.int64))
+    skv = v.shape[1]
+    err = bounds.score_err.double()[..., None]
+    gamma = 2 * err + (skv // 64) * 2.0 ** -23
+    bound = ulp + 2.0 ** -24 * skv ** 0.5 * v.abs().max().item() \
+        + gamma * (bounds.weight.double() + o) + 2 * err * o \
+        + 2.0 ** -7 * bounds.fragile.double()
+    limit = 2.0 ** -13 + SHARE_ROOM * (bounds.modelled != plain) \
+        .double().mean().item()
+    return TcCheck((d / bound).max().item(), (d > 0).double().mean().item(),
+                   limit)

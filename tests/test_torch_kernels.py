@@ -21,6 +21,7 @@ from repro_torch.core import sparsity as pt_sp
 from repro_torch.core.scheduler import MatmulSchedule
 from repro_torch.kernels import block_sparse as pt_bs
 from repro_torch.kernels import flex_matmul as pt_fm
+from repro_torch.kernels import ref as pt_ref
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -36,7 +37,9 @@ def _sparse(rng, shape, blocks, live):
 @pytest.mark.parametrize("stationarity", ["output", "weight", "input"])
 @pytest.mark.parametrize("mnk,blocks", [((4, 96, 64), (4, 32, 16)),
                                         ((40, 72, 56), (16, 32, 16)),
-                                        ((8, 256, 128), (8, 128, 64))])
+                                        ((8, 256, 128), (8, 128, 64)),
+                                        # decode depth: M = 4, 16 K-blocks
+                                        ((4, 128, 256), (4, 32, 16))])
 def test_flex_matmul_plain_equals_pallas(stationarity, mnk, blocks):
     m, n, k = mnk
     bm, bn, bk = blocks
@@ -72,15 +75,53 @@ def test_flex_matmul_default_schedule_and_bf16():
     assert torch.allclose(out.double(), exact, rtol=2 ** -8, atol=1e-2)
 
 
+def test_weight_grid_spreads_decode_over_the_card():
+    """Decode mlp.in (M 4, K 2048, N 5632 at blocks (4, 256, 128)) has one
+    M-tile, so the owning grid would give 44 blocks; the K-blocks run in
+    parallel instead, at least one block per SM, over a workspace far under
+    the cap."""
+    plan = pt_fm.weight_grid(4, 5632, 2048, 4, 256, 128, 132)
+    assert plan.split and plan.rows == 16
+    assert plan.grid == (44, 16) and plan.grid[0] * plan.grid[1] >= 132
+    assert plan.workspace == (16, 4, 5632)
+    assert 4 * 16 * 4 * 5632 < pt_fm.WORKSPACE_CAP
+    # without room for the workspace, or with one K-block, it owns
+    assert not pt_fm.weight_grid(4, 5632, 2048, 4, 256, 128, 132, 0).split
+    assert not pt_fm.weight_grid(4, 5632, 128, 4, 256, 128, 132).split
+
+
+def test_weight_grid_owns_at_prefill():
+    """At M = 8192 the partials would take 2.95 GB: the owning grid, 44
+    strips x 6 M-tile groups of 64 rows (about two blocks per SM)."""
+    plan = pt_fm.weight_grid(8192, 5632, 2048, 128, 128, 128, 132)
+    assert not plan.split and plan.workspace is None
+    assert plan.grid == (44, 6) and plan.rows == 64
+    # the lm_head at decode has strips enough: it owns, one group
+    head = pt_fm.weight_grid(4, 100352, 2048, 4, 256, 128, 132)
+    assert not head.split and head.grid == (784, 1)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((4, 5632, 2048, 4, 256, 100), "not multiples"),
+    ((6, 5632, 2048, 4, 256, 128), "not multiples"),
+    ((4, 5632, 2048, 0, 256, 128), "non-positive"),
+    ((4, 128, 1024, 4, 128, 1024), "shared memory"),
+])
+def test_weight_grid_refuses_what_it_cannot_take(args, match):
+    with pytest.raises(ValueError, match=match):
+        pt_fm.weight_grid(*args, 132)
+
+
 def test_flex_matmul_refuses_bad_operands():
     a = torch.zeros((4, 8))
     with pytest.raises(ValueError, match="bad operand shapes"):
         pt_fm.flex_matmul(a, torch.zeros((9, 4)))
     with pytest.raises(ValueError, match="operands differ"):
         pt_fm.flex_matmul(a, torch.zeros((8, 4), dtype=torch.float64))
-    with pytest.raises(ValueError, match="unknown stationarity"):
-        pt_fm.flex_matmul(a, torch.zeros((8, 4)),
-                          schedule=MatmulSchedule("diagonal", 4, 4, 4))
+    for name in ("diagonal", "weight_sum"):   # a launch count's key too
+        with pytest.raises(ValueError, match="unknown stationarity"):
+            pt_fm.flex_matmul(a, torch.zeros((8, 4)),
+                              schedule=MatmulSchedule(name, 4, 4, 4))
 
 
 @pytest.mark.parametrize("a_live,b_live", [(1.0, 0.5), (0.5, 0.5),
@@ -113,3 +154,72 @@ def test_block_sparse_refuses_non_multiples():
     with pytest.raises(ValueError, match="not block multiples"):
         pt_bs.block_sparse_matmul(torch.zeros((4, 9)), torch.zeros((9, 8)),
                                   meta)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 96)])
+def test_flash_tc_check_admits_reordered_scores_and_rejects_controls(
+        causal, window, monkeypatch):
+    """The tensor-core tolerance of the bf16 flash kernel, on the CPU: a
+    plain version whose float32 scores are summed otherwise (float64, then
+    rounded, or as ``tensor_core_scores`` models the tensor cores) passes
+    it, and every fragile p rounded the other way stays within the
+    per-element bound; p kept in float32 before PV, the exact softmax
+    rounded to bf16 and p rounded toward zero in one 16-row slice of each
+    128 q rows (one faulty warp) fail it."""
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 256, 64))
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    kw = dict(causal=causal, window=window)
+    plain = pt_ref.flash_attention_plain(q, k, v, **kw)
+    bounds = pt_ref.flash_attention_flip_bounds(q, k, v, **kw)
+    same = pt_ref.flash_tc_check(plain, plain, v, bounds)
+    assert same.ratio == same.share == 0.0
+
+    def check(out):
+        return pt_ref.flash_tc_check(out, plain, v, bounds)
+
+    matmul = torch.matmul
+
+    def scores_in_float64(a, b):          # only q @ kᵀ (a transposed view)
+        if b.dim() == 3 and b.stride(-2) == 1 and a.dtype == torch.float32:
+            return matmul(a.double(), b.double()).float()
+        return matmul(a, b)
+
+    monkeypatch.setattr(pt_ref.torch, "matmul", scores_in_float64)
+    reordered = pt_ref.flash_attention_plain(q, k, v, **kw)
+    monkeypatch.undo()
+    assert not torch.equal(reordered, plain)
+    assert check(reordered).ok
+    assert not torch.equal(bounds.modelled, plain)
+    assert check(bounds.modelled).ok
+    assert check(bounds.flipped).ratio <= 1.0
+    assert not check(pt_ref.flash_attention_plain(q, k, v.float(), **kw)).ok
+    exact = pt_ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                       **kw)
+    assert not check(exact.bfloat16()).ok
+    warp = (torch.arange(q.shape[1]) % 128 < 16)[None, :, None]
+    faulty = torch.where(warp, pt_ref.flash_attention_plain(
+        q, k, v, truncate_p=True, **kw), plain)
+    assert not check(faulty).ok
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_tensor_core_scores_truncate_each_group(hd):
+    """``tensor_core_scores``: one 16-product group is its exact sum
+    rounded toward zero to float32; over hd/16 groups each truncation errs
+    by less than one float32 ulp of the running sum."""
+    rng = np.random.default_rng(hd)
+    q, k = (torch.from_numpy(rng.standard_normal((2, 32, hd))
+                             .astype(np.float32)).bfloat16()
+            for _ in range(2))
+    tc = pt_ref.tensor_core_scores(q, k).numpy().astype(np.float64)
+    exact = (q.double() @ k.double().transpose(1, 2)).numpy()
+    if hd == 16:
+        near = exact.astype(np.float32)
+        over = np.abs(near.astype(np.float64)) > np.abs(exact)
+        rz = np.where(over, np.nextafter(near, np.float32(0)), near)
+        np.testing.assert_array_equal(tc, rz.astype(np.float64))
+    partial = (q.double().abs() @ k.double().abs().transpose(1, 2)).numpy()
+    assert np.all(np.abs(tc - exact) <= (hd // 16) * 2.0 ** -23 * partial)
+    assert not np.array_equal(tc, exact.astype(np.float32))
