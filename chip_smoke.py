@@ -8,9 +8,12 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
 
   1. the card (``torch.cuda``, ``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
-     and read each library's SASS (``cuobjdump``): the bf16 flash and
-     weight-stationary kernels multiply on the tensor cores (HMMA), every
-     other kernel — the float32 instantiations among them — does not;
+     and read each library's SASS (``cuobjdump``): the bf16 kernels of
+     the flash attention (wgmma), the weight-stationary matmul (mma.sync),
+     and the output-stationary and block-sparse matmuls (one template:
+     mma.sync at M <= 16, wgmma above) multiply on the tensor cores
+     (HMMA/HGMMA); every other kernel — the float32 and int8
+     instantiations, ``fm_input`` and the summing passes — does not;
   3. bring-up (weights, the weight-sparsity plan, the dense descriptor
      table), then every matmul site the main path runs, on layer 0's pruned
      weight at M = 4: the block-sparse kernel under the plan's blocks and
@@ -26,7 +29,9 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      fused streams must equal the engine's per-token ``step()`` oracle;
   5. on the same weights and prompts, one decode step of: the dense
      descriptor-table engine (flex-matmul kernels), whose logits must equal
-     the planned engine's bit for bit — skipping never approximates; the
+     the planned engine's bit for bit — skipping never approximates, and
+     the bf16 ``fm_output`` and ``bs_matmul`` share one K order fixed by
+     K alone (``flex_matmul.output_grid``); the
      same with every site forced to the weight- and input-stationary
      dataflows; and the plain engine (float32-accumulated ``torch.matmul``,
      no kernels) — the last three within a stated tolerance;
@@ -72,10 +77,11 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      within 5% of max |cache| of the plain run's), then 16 greedy
      ``decode_many`` steps from its state under the decode table, against
      the same continuation from the plain-prefilled state; one profiled
-     prefill (device-busy share, flash and matmul kernel time);
+     prefill on the dense table and one on the plan (device-busy share,
+     device time by kernel);
  11. int8 prefill (``quantize=True``): the dense int8 table and the planned
      int8 plan (logits equal bit for bit), the plain int8 prefill (within
-     5% of max |logit|);
+     5% of max |logit|); the int8 kernels' times at mlp.in, M = 8192;
  12. a ``kernels`` JSON line: per kernel its launches on its main path
      (phases 4-5 for the bf16 matmul kernels, phase 7 for the int8 ones,
      phase 10's dense-table prefill for the flash kernel, which also gives
@@ -85,11 +91,18 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      exists for bf16 x int8; the int8 rows add ``bf16_matmul_ms``,
      ``torch.matmul`` on the dequantized bf16 weight, as a reference
      point), the flash kernel at the prefill cell (library: PyTorch's
-     ``scaled_dot_product_attention``, timed here only).  ``fm_weight``
-     also carries the launches of its split grid's summing kernel, its
-     device time and ``torch.matmul``'s (``torch.profiler``: at decode the
-     host, not the card, sets the pace of a call), its dataflow bound and
-     its launches in phase 10's weight-stationary prefill.
+     ``scaled_dot_product_attention``, timed here only).  The bf16
+     ``block_sparse``, ``flex_output`` and ``flex_weight`` rows also carry
+     the launches of their split grids' summing kernels, their device time
+     and ``torch.matmul``'s (``torch.profiler``: at decode the host, not
+     the card, sets the pace of a call), and every matmul row its time
+     and bound at mlp.in M = 8192 (``prefill_ms``, ``prefill_bound_ms``):
+     the bf16 rows from phase 9 beside ``torch.matmul``'s
+     (``prefill_library_ms``), the int8 rows from phase 11 beside
+     ``torch.matmul`` on the dequantized weight
+     (``prefill_bf16_matmul_ms``);
+     ``fm_weight`` adds its dataflow bound and its launches in phase 10's
+     weight-stationary prefill.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
@@ -109,9 +122,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BPS = 3.35e12          # H100 SXM device-memory bandwidth (data sheet)
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 N_SLOTS = 4
-# the bf16 decode kernels; ``weight_sum`` adds the weight-stationary split
-# grid's partials in K-block order (a second kernel of the same call)
-SLICE1_KERNELS = ("block_sparse", "output", "weight", "weight_sum", "input")
+# the bf16 decode kernels; ``*_sum`` add a split grid's partials in K order
+# (a second kernel of the same call)
+SLICE1_KERNELS = ("block_sparse", "block_sparse_sum", "output", "output_sum",
+                  "weight", "weight_sum", "input")
+# the bf16 tensor-core kernels each library must hold (phase 2)
+TENSOR_CORE_KERNELS = {"flash_attention": ("fa_kernel_mma",),
+                       "flex_matmul": ("ws_kernel_mma", "os_kernel_mma",
+                                       "os_wg_kernel_mma"),
+                       "block_sparse": ("bs_kernel_mma", "bs_wg_kernel_mma")}
+# kernel-name fragments of the port's CUDA kernels, by the entry point that
+# launches them (first match wins), for the profiles' breakdowns
+KERNEL_FAMILIES = (("bs_kernel_mma", "bs_matmul"),
+                   ("bs_wg_kernel_mma", "bs_matmul"),
+                   ("os_kernel_mma", "fm_output"),
+                   ("os_wg_kernel_mma", "fm_output"),
+                   ("seg_sum_kernel", "segment sums"),
+                   ("ws_kernel", "fm_weight"), ("is_kernel", "fm_input"),
+                   ("tile_kernel", "tile.cuh (float32 / int8)"),
+                   ("fa_kernel", "flash"))
 INT8_KERNELS = ("block_sparse_scaled", "int8_matmul")
 PREFILL_SITES = ("attn.q", "attn.kv", "attn.out", "mlp.in", "mlp.gate",
                  "mlp.out")
@@ -253,10 +282,10 @@ def forced(ec, stat):
 
 def check_tensor_cores(build, report) -> None:
     """Phase 2b: the SASS of every built library.  The bf16 tensor-core
-    kernels (``*kernel_mma``) must multiply with HMMA/HGMMA; every other
-    kernel — the float32 instantiations and ``tile.cuh``'s kernels — must
+    kernels (``*kernel_mma``, each of ``TENSOR_CORE_KERNELS`` present) must
+    multiply with HMMA/HGMMA; every other kernel — the float32
+    instantiations, ``tile.cuh``'s kernels and the summing passes — must
     have none (true float32 FMAs, no TF32)."""
-    names = []
     for name in build.SOURCES:
         counts = build.tensor_core_ops(name)
         need(bool(counts), f"{name}: cuobjdump listed no kernel")
@@ -269,9 +298,11 @@ def check_tensor_cores(build, report) -> None:
         report(f"  [{name}] SASS tensor-core instructions: "
                f"{sum(mma.values())} in {len(mma)} bf16 tensor-core kernels"
                f", 0 in the other {len(other)}")
-        names += mma
-    for kernel in ("fa_kernel_mma", "ws_kernel_mma"):
-        need(any(kernel in f for f in names), f"no {kernel} in the SASS")
+        for kernel in TENSOR_CORE_KERNELS.get(name, ()):
+            hits = {f: c for f, c in mma.items() if kernel in f}
+            need(bool(hits), f"{name}: no {kernel} in the SASS")
+            report(f"    {kernel}: {sum(hits.values())} HMMA/HGMMA in "
+                   f"{len(hits)} instances")
 
 
 # ---------------------------------------------------------------------------
@@ -432,18 +463,25 @@ def time_kernels(t, launches) -> list:
     n = w.shape[1]
     saved = launch_counts()
     lib_ms = cuda_ms(lambda: torch.matmul(a, w))
+    lib_device_ms = device_ms(lambda: torch.matmul(a, w))
     rows = []
     b_ms, b_by = bs_bound_ms(a, meta, t["blocks"])
+
+    def bs_call():
+        return bs.block_sparse_matmul(a, w, meta, out_dtype=torch.float32)
+
     rows.append({
         "name": "block_sparse", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_sparse.cu",
         "replaces": "src/repro/kernels/block_sparse.py:49",
         "launches": launches["block_sparse"],
+        "launches_sum": launches["block_sparse_sum"],
         "max_abs_err": t["errs"]["block_sparse"],
-        "ms": cuda_ms(lambda: bs.block_sparse_matmul(
-            a, w, meta, out_dtype=torch.float32)),
+        "ms": cuda_ms(bs_call),
         "plain_ms": cuda_ms(lambda: block_sparse_matmul_ref(a, w, meta)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "device_ms": device_ms(bs_call),
+        "library_device_ms": lib_device_ms})
     b_ms, b_by = bound_ms(a.numel() * 2 + w.numel() * 2 + m * n * 4,
                           2.0 * m * n * k)
     replaces = {"output": "src/repro/kernels/flex_matmul.py:52",
@@ -462,14 +500,13 @@ def time_kernels(t, launches) -> list:
                 a, w, schedule=s, out_dtype=torch.float32)),
             "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-    ws = rows[-2]
-    ws.update(launches_sum=launches["weight_sum"],
-              device_ms=device_ms(lambda: fm.flex_matmul(
-                  a, w, schedule=dataclasses.replace(
-                      sched, stationarity="weight"),
-                  out_dtype=torch.float32)),
-              library_device_ms=device_ms(lambda: torch.matmul(a, w)),
-              dataflow_bound_ms=ws_dataflow_ms(m, n, k, sched.bk))
+    for row, stat in zip(rows[1:3], ("output", "weight")):
+        s = dataclasses.replace(sched, stationarity=stat)
+        row.update(launches_sum=launches[f"{stat}_sum"],
+                   device_ms=device_ms(lambda: fm.flex_matmul(
+                       a, w, schedule=s, out_dtype=torch.float32)),
+                   library_device_ms=lib_device_ms)
+    rows[2]["dataflow_bound_ms"] = ws_dataflow_ms(m, n, k, sched.bk)
     reset_launches(saved)
     return rows
 
@@ -478,9 +515,28 @@ def time_kernels(t, launches) -> list:
 # phases 4-5: the serving engine at full width
 # ---------------------------------------------------------------------------
 
+def device_breakdown(prof):
+    """(device-busy µs, kernel launches, {family: (ms, launches)}) of a
+    ``torch.profiler`` run, the port's kernels by ``KERNEL_FAMILIES`` and
+    everything else as "other"."""
+    import torch
+    busy, n_kernels, fam = 0.0, 0, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += ev.device_time_total
+        n_kernels += 1
+        key = next((f for frag, f in KERNEL_FAMILIES if frag in ev.name),
+                   "other")
+        us, n = fam.get(key, (0.0, 0))
+        fam[key] = (us + ev.device_time_total, n + 1)
+    return busy, n_kernels, {k: (round(us / 1e3, 3), n)
+                             for k, (us, n) in fam.items()}
+
+
 def profile_step(engine, report, label="planned") -> None:
     """One decode step under ``torch.profiler``: wall time, device busy
-    time (sum of kernel time) and the block-sparse kernel's share.  A
+    time (sum of kernel time) and its breakdown by kernel family.  A
     measurement only — a profiler that records nothing is reported, not
     fatal."""
     import torch
@@ -492,22 +548,15 @@ def profile_step(engine, report, label="planned") -> None:
         engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    busy = ours = 0.0
-    n_kernels = 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            busy += ev.device_time_total
-            n_kernels += 1
-            if "tile_kernel" in ev.name:
-                ours += ev.device_time_total
+    busy, n_kernels, fam = device_breakdown(prof)
     if not busy:
         report(f"profiled {label} decode step: the profiler recorded no "
                "device time (not measured)")
         return
     report(f"profiled {label} decode step: wall {wall * 1e3:.2f} ms, device "
            f"busy {busy / 1e3:.2f} ms ({100 * busy / 1e3 / (wall * 1e3):.1f}%"
-           f" of wall, {n_kernels} kernels), block-sparse kernel "
-           f"{ours / 1e3:.2f} ms")
+           f" of wall, {n_kernels} kernels); device ms and launches by "
+           f"kernel: {fam}")
 
 
 def make_prompts(cfg):
@@ -998,12 +1047,14 @@ def check_flash(report) -> dict:
     return keep
 
 
-def check_prefill_sites(params, planned, dense, report) -> dict:
+def check_prefill_sites(params, planned, dense, report):
     """Phase 9b: layer 0's six stack sites at M = B·S, as phase 3 holds
     them at decode: the block-sparse kernel under the prefill plan's blocks
     (bitwise against its all-live run) and the flex kernels under the
     prefill table's schedule with every stationarity, in bf16 and float32,
-    dense and half-dead activations; a TF32 control; bf16 times."""
+    dense and half-dead activations; a TF32 control; bf16 times.  Returns
+    the worst error per kernel and, per kernel, its bf16 (ms, bound ms) at
+    mlp.in beside ``torch.matmul``'s ms (key ``library``)."""
     import torch
     from repro_torch.kernels import block_sparse as bs
     from repro_torch.kernels import flex_matmul as fm
@@ -1015,6 +1066,7 @@ def check_prefill_sites(params, planned, dense, report) -> dict:
     attached = planned.plan.attach(params)
     stats = ("output", "weight", "input")
     worst = dict.fromkeys(("block_sparse",) + stats, 0.0)
+    times = {}
     for e in planned.plan.entries.values():
         if e.site not in PREFILL_SITES:
             continue
@@ -1097,8 +1149,12 @@ def check_prefill_sites(params, planned, dense, report) -> dict:
                f"weight-stationary dataflow bound "
                f"{ws_dataflow_ms(m, n, k, sched.bk):.4f}), plain "
                f"{t_plain:.4f}, torch.matmul {t_lib:.4f}")
+        if e.site == "mlp.in":
+            times = {"block_sparse": (t_bs, b_bs), "library": t_lib,
+                     **{stat: (t_fm[stat], b_fm) for stat in stats}}
+    need(bool(times), "no mlp.in site in the prefill plan")
     torch.cuda.synchronize()
-    return worst
+    return worst, times
 
 
 def _timed(fn):
@@ -1124,35 +1180,23 @@ def _under(ec, fn):
 
 def profile_prefill(fn, report, label) -> None:
     """One prefill under ``torch.profiler``: device-busy share of the wall
-    time, and the flash and matmul kernels' total device time.  A
-    measurement only — a profiler that records nothing is reported."""
+    time and its breakdown by kernel family.  A measurement only — a
+    profiler that records nothing is reported."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(fn)
-    busy = flash = mm = 0.0
-    n_kernels = 0
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        busy += ev.device_time_total
-        n_kernels += 1
-        if "fa_kernel" in ev.name:
-            flash += ev.device_time_total
-        elif any(t in ev.name for t in ("tile_kernel", "ws_kernel",
-                                        "is_kernel")):
-            mm += ev.device_time_total
+    busy, n_kernels, fam = device_breakdown(prof)
     if not busy:
         report(f"profiled {label}: the profiler recorded no device time "
                "(not measured)")
         return
     report(f"profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
            f"{busy / 1e3:.1f} ms ({100 * busy / 1e3 / (wall * 1e3):.1f}% of "
-           f"wall, {n_kernels} kernels), flash kernel {flash / 1e3:.1f} ms, "
-           f"matmul kernels {mm / 1e3:.1f} ms, other "
-           f"{(busy - flash - mm) / 1e3:.1f} ms")
+           f"wall, {n_kernels} kernels); device ms and launches by kernel: "
+           f"{fam}")
 
 
 def run_prefill(cfg, params, dense, planned, shape, report) -> dict:
@@ -1280,19 +1324,27 @@ def run_prefill(cfg, params, dense, planned, shape, report) -> dict:
     need(diff <= tol, f"continuation logits off by {diff}")
     need(bool((toks >= 0).all()), "decode_many stopped a live row")
 
-    # 5. one profiled prefill on the dense table
+    # 5. one profiled prefill on the dense table, one on the plan
     profile_prefill(lambda: prefill(dense, params), report,
                     "bf16 prefill (dense table)")
+    profile_prefill(lambda: prefill(planned, attached), report,
+                    "bf16 prefill (planned)")
     return {"per_prefill": per_prefill, "total": total, "batch": batch,
             "ws_prefill": ws_launches}
 
 
-def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report) -> int:
-    """Phase 11.  Returns the flash kernel's launches over its prefills."""
+def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report):
+    """Phase 11.  Returns the flash kernel's launches over its prefills and
+    the int8 kernels' bf16 (ms, bound ms) at prefill mlp.in (layer 0's
+    weight, a seeded activation) beside ``torch.matmul``'s ms on the
+    dequantized bf16 weight (key ``bf16_matmul``)."""
     import torch
+    from repro_torch.kernels import block_sparse as bs
     from repro_torch.kernels import ops
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.kernels.ops import planned_operands
     from repro_torch.models import model as model_lib
-    from repro_torch.quant.quantize import quantize_params
+    from repro_torch.quant.quantize import QuantizedLinear, quantize_params
     from repro_torch.serve.engine import shape_exec_config
 
     qparams, _ = quantize_params(params, tie_embeddings=cfg.tie_embeddings)
@@ -1334,7 +1386,39 @@ def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report) -> int:
            f"{wall:.3f} s; logits vs dense int8 table max |diff| = "
            f"{diff:.3e}, tol {tol:.3e}")
     need(diff <= tol, f"plain int8 prefill logits off by {diff}")
-    return total
+
+    # the int8 kernels at prefill mlp.in, as phase 9 times the bf16 ones
+    saved = launch_counts()
+    e = next(e for e in planned8.plan.entries.values() if e.site == "mlp.in")
+    pw = attached
+    for key in e.path:
+        pw = pw[key]
+    pw = pw.index(0)
+    k, n = pw.kn.shape
+    m = planned8.schedules.sites[e.site].m
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    xp, wp, meta, scale = planned_operands(a, pw)
+    qw = QuantizedLinear(pw.w, pw.qscale)
+    w_bf16 = pw.w_kn.to(torch.bfloat16)
+    b_bs, _ = bs_bound_ms(xp, meta, (e.bm, e.bk, e.bn), w_elem=1,
+                          scale_bytes=4 * n)
+    b_i8, _ = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
+                       2.0 * m * n * k)
+    times = {
+        "block_sparse_scaled": (cuda_ms(lambda: bs.block_sparse_matmul(
+            xp, wp, meta, scale=scale, out_dtype=torch.float32), iters=5),
+            b_bs),
+        "int8_matmul": (cuda_ms(lambda: int8_matmul(
+            a, qw, out_dtype=torch.float32), iters=5), b_i8),
+        "bf16_matmul": cuda_ms(lambda: torch.matmul(a, w_bf16), iters=5)}
+    reset_launches(saved)
+    report(f"  int8 prefill mlp.in M={m} K={k} N={n} bf16 ms: "
+           f"block_sparse_scaled {times['block_sparse_scaled'][0]:.4f} "
+           f"(bound {b_bs:.4f}), int8_matmul {times['int8_matmul'][0]:.4f} "
+           f"(bound {b_i8:.4f}), bf16 torch.matmul on the dequantized "
+           f"weight {times['bf16_matmul']:.4f}")
+    return total, times
 
 
 def time_flash(t, launches) -> dict:
@@ -1454,7 +1538,8 @@ def main() -> int:
         report(dense_pf.schedules.describe())
         report(planned_pf.schedules.describe())
         flash = check_flash(report)
-        mm_errs = check_prefill_sites(params, planned_pf, dense_pf, report)
+        mm_errs, pf_times = check_prefill_sites(params, planned_pf, dense_pf,
+                                                report)
         report(f"prefill-shape matmul worst errors: {mm_errs}")
         done("phase 9")
         # phase 10: bf16 prefill
@@ -1462,12 +1547,25 @@ def main() -> int:
         del dense_pf, planned_pf
         done("phase 10")
         # phase 11: int8 prefill
-        pf["total"] += run_int8_prefill(cfg, sp_cfg, params, shape,
-                                        pf["batch"], report)
+        total8, pf_times8 = run_int8_prefill(cfg, sp_cfg, params, shape,
+                                             pf["batch"], report)
+        pf["total"] += total8
         done("phase 11")
-        # phase 12: the kernels line (fm_weight's launches in phase 10's
+        # phase 12: the kernels line (the bf16 matmul rows' times at
+        # prefill mlp.in from phase 9; fm_weight's launches in phase 10's
         # all-weight-stationary prefill beside those of phases 4-5)
         for row in rows:
+            key = {"block_sparse": "block_sparse", "flex_output": "output",
+                   "flex_weight": "weight",
+                   "flex_input": "input"}.get(row["name"])
+            if key is not None:
+                row.update(prefill_ms=pf_times[key][0],
+                           prefill_bound_ms=pf_times[key][1],
+                           prefill_library_ms=pf_times["library"])
+            elif row["name"] in pf_times8:
+                row.update(prefill_ms=pf_times8[row["name"]][0],
+                           prefill_bound_ms=pf_times8[row["name"]][1],
+                           prefill_bf16_matmul_ms=pf_times8["bf16_matmul"])
             if row["name"] == "flex_weight":
                 row["launches_ws_prefill"] = pf["ws_prefill"]
         rows.append(time_flash(flash, pf))

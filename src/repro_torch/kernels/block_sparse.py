@@ -4,12 +4,15 @@ Wrapper of the CUDA kernels in ``csrc/block_sparse.cu``, which replace the
 JAX package's Pallas kernels ``_bs_kernel`` (src/repro/kernels/
 block_sparse.py:49, launched at :114) and, for an int8 weight payload with
 per-column scales, ``_bs_kernel_scaled`` (:69, launched at :155).  Each
-CUDA block (one per 256-wide strip of a (bm, bn) output tile) walks the
-tile's compressed K-block list (``BlockSparseMeta.kidx`` / ``kcnt``, built
-by ``core.sparsity``); blocks where either operand is all-zero are never
-read nor multiplied, and a tile with no live block writes zeros.  At decode the kernel is bound by
-device-memory bytes (the live weight blocks), so the skipped blocks — and,
-quantized, the int8 bytes — are the saving.
+CUDA block walks the compressed K-block lists (``BlockSparseMeta.kidx`` /
+``kcnt``, built by ``core.sparsity``) of the output tiles it covers;
+blocks where either operand is all-zero are never read nor multiplied, and
+a tile with no live block writes zeros.  bf16 runs on the tensor cores, the
+kernel and launch plan (``flex_matmul.output_grid``) of bf16 ``fm_output``,
+so the two agree bit for bit; float32 and the int8 payload run scalar
+float32 FMAs.  At decode the kernel is bound by device-memory bytes (the
+live weight blocks), so the skipped blocks — and, quantized, the int8
+bytes — are the saving.
 
 CPU tensors take the plain version (``ref.block_sparse_matmul_ref``); CUDA
 tensors launch a kernel or raise.
@@ -21,23 +24,40 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flex_matmul import (aligned_rows, output_grid,
+                                             output_workspace)
 from repro_torch.kernels.ref import block_sparse_matmul_ref
 
-# launches of each CUDA entry point (bumped only where it is launched)
-LAUNCHES = {"block_sparse": 0, "block_sparse_scaled": 0}
+# launches of each CUDA kernel (bumped only where it is launched):
+# ``block_sparse_sum`` adds the segment partials of a split bf16 grid
+LAUNCHES = {"block_sparse": 0, "block_sparse_sum": 0,
+            "block_sparse_scaled": 0}
 
 
 def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
-                        out_dtype=None,
-                        scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        out_dtype=None, scale: Optional[torch.Tensor] = None,
+                        rows: Optional[int] = None) -> torch.Tensor:
     """C = A @ B skipping CSB-dead (A-block, B-block) pairs.
 
     ``a`` (M, K) and ``b`` (K, N) must be block multiples of the metadata's
     bitmaps (pad first); ``b`` may be the transposed view of a row-major
     (N, K) matrix.  ``scale`` (N,) float32 marks ``b`` as an int8 payload:
     C = (A @ B) * scale, the scale applied once to the accumulator.
+    ``rows``: only A's first ``rows`` rows are the product's (the rest pad
+    them to the blocks); C then has ``rows`` rows, and the bf16 kernel's
+    launch plan follows that count, as ``fm_output``'s follows the
+    unpadded M, so the two agree bit for bit whatever the blocks pad.
     Returns ``out_dtype`` (default: ``a.dtype``), computed with a float32
-    accumulator."""
+    accumulator.
+
+    Dead must mean zero: every (A-block, B-block) pair that the metadata
+    leaves out of a tile's list must have an all-zero A-block or B-block,
+    as ``core.sparsity`` builds the lists from the operands.  The bf16
+    kernel multiplies, over each CTA's output tile (16 or 128 rows by 128
+    columns), the K-blocks live in any CSB tile it overlaps, so a block
+    listed dead for one tile but live for a neighbour enters both; it adds
+    exact zeros only if it is zero.  Nothing here checks that (it would
+    read every block)."""
     out_dtype = out_dtype or a.dtype
     tm, tk = meta.a_bitmap.shape
     tn = meta.b_bitmap.shape[1]
@@ -51,6 +71,9 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
         raise ValueError(f"operands {tuple(a.shape)} @ {tuple(b.shape)} are "
                          f"not block multiples of the ({tm}, {tk}) x "
                          f"({tk}, {tn}) bitmaps")
+    rows = m if rows is None else rows
+    if not 0 < rows <= m:
+        raise ValueError(f"rows={rows} outside A's {m} rows")
     if scale is None:
         if a.device != b.device or a.dtype != b.dtype:
             raise ValueError(f"operands differ: {a.device}/{a.dtype} vs "
@@ -65,7 +88,7 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
                              f"{scale.dtype} {tuple(scale.shape)} on "
                              f"{scale.device}, B on {b.device}")
     if a.device.type == "cpu":
-        return block_sparse_matmul_ref(a, b, meta, scale).to(out_dtype)
+        return block_sparse_matmul_ref(a, b, meta, scale).to(out_dtype)[:rows]
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     kidx, kcnt = meta.kidx, meta.kcnt
@@ -83,10 +106,21 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
     lib = build.library("block_sparse")
     codes = (build.dtype_code(a.dtype), build.dtype_code(out_dtype),
              build.stream_ptr(a.device))
+    ws = None
     if scale is None:
+        m_run, args = m, (k, k if b_trans else n, bm, bn, bk, meta.max_nnz,
+                          0, 0)
+        if a.dtype == torch.bfloat16:       # the tensor cores: rows only
+            m_run, plan = rows, output_grid(rows, n, k)
+            ws = output_workspace(plan, a.device)
+            a, lda = aligned_rows(a)
+            b, ldb = aligned_rows(b.t() if b_trans else b)
+            args = (lda, ldb, bm, bn, bk, meta.max_nnz, plan.rows,
+                    plan.segment)
         err = lib.bs_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            kidx.data_ptr(), kcnt.data_ptr(), m, n, k, bm,
-                            bn, bk, meta.max_nnz, b_trans, *codes)
+                            None if ws is None else ws.data_ptr(),
+                            kidx.data_ptr(), kcnt.data_ptr(), m_run, n, k,
+                            *args, b_trans, *codes)
         key = "block_sparse"
     else:
         err = lib.bs_matmul_scaled(a.data_ptr(), b.data_ptr(),
@@ -96,4 +130,6 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
         key = "block_sparse_scaled"
     build.check(err, f"block_sparse_matmul[{key}]")
     LAUNCHES[key] += 1
-    return out
+    if ws is not None:            # the segment sum ran after it
+        LAUNCHES["block_sparse_sum"] += 1
+    return out[:rows]

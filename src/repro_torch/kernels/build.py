@@ -32,11 +32,11 @@ _F = ctypes.c_float
 # the cudaError_t of the launch)
 SIGNATURES = {
     "block_sparse": {
-        "bs_matmul": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+        "bs_matmul": [_P] * 6 + [_I] * 14 + [_P],
         "bs_matmul_scaled": [_P] * 6 + [_I] * 10 + [_P],
     },
     "flex_matmul": {
-        "fm_output": [_P, _P, _P] + [_I] * 9 + [_P],
+        "fm_output": [_P] * 4 + [_I] * 13 + [_P],
         "fm_weight": [_P] * 4 + [_I] * 12 + [_P],
         "fm_input": [_P, _P, _P] + [_I] * 9 + [_P],
     },

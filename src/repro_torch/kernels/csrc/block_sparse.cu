@@ -12,33 +12,58 @@
 //                     in registers, and the accumulator scaled once by the
 //                     per-column float32 ``scale`` before the write.
 //
-// Design: one CUDA block per 256-wide column strip of each (bm, bn) output
-// tile (the TPU's sequential max_nnz grid axis becomes a loop inside the
-// block); the block reads its tile's kcnt / kidx and stages each live
-// (A, B) block pair through shared memory.  A tile with kcnt == 0 reads no
-// operand and writes zeros (the TPU kernel instead clamped to max(kcnt, 1)
-// and MAC'd one dead block).
-// bm may be any size >= 1: at decode bm = M = n_slots = 4, rows are masked.
+// The TPU's sequential max_nnz grid axis becomes a loop inside the block:
+// each CUDA block reads the CSB lists of the output tiles it covers and
+// stages only the K ranges some of them list; a tile with kcnt == 0 reads
+// no operand and writes zeros (the TPU kernel instead clamped to
+// max(kcnt, 1) and MAC'd one dead block).  bm may be any size >= 1: at
+// decode bm = M = n_slots = 4, rows are masked.
 //
-// What bounds it on the H100: device-memory bytes.  At decode M = 4 every
-// weight element fetched feeds 4 FMAs, two orders of magnitude under the
-// card's ~295 FLOP/byte balance point, so the kernel's floor is the live
-// weight blocks over 3.35 TB/s; skipping dead weight blocks is the lever
-// the CSB list pulls, and the int8 payload halves the bytes of each live
-// block again.  Staging moves 16 bytes per thread, so an int8 block moves
-// 16 elements per load.  This first version is FMA-only with synchronous
-// staging; wgmma/TMA pipelining is later work.
+// Which kernel runs where, and what bounds it on the H100:
+//   * bf16 ``bs_matmul`` runs on the tensor cores: the output-stationary
+//     template of ``os_mma.cuh`` that bf16 ``fm_output`` runs, under the
+//     same plan (``output_grid``, kernels/flex_matmul.py) — mma.sync with K
+//     in segments of 256 at M <= 16, wgmma on 128 x 128 tiles above.  A
+//     chunk of 64 K is multiplied when it holds an element of a live block
+//     of a covered tile and skipped otherwise; a dead block's products are
+//     exact zeros (dead must mean an all-zero operand block, as the lists
+//     are built), so the result equals the dense product's bit for bit,
+//     and the all-live run's, whatever the blocks.
+//   * float32 ``bs_matmul`` and ``bs_matmul_scaled`` (A float32 or bf16)
+//     are scalar float32 FMAs on ``tile.cuh``: one CUDA block per 256-wide
+//     column strip of each (bm, bn) output tile, synchronous staging, K
+//     ascending (so the scaled kernel equals ``i8_matmul`` bit for bit).
+// At decode M = 4 every weight element fetched feeds 4 FMAs, two orders of
+// magnitude under the card's ~295 FLOP/byte balance point, so the floor is
+// the live weight blocks over 3.35 TB/s: skipping dead weight blocks is the
+// lever the CSB list pulls, and the int8 payload halves the bytes of each
+// live block again.  At prefill (M = 8192) the live blocks' operations
+// bound it.
+#include "os_mma.cuh"
 #include "tile.cuh"
 
-extern "C" int bs_matmul(const void* a, const void* b, void* out,
+// float32: the scalar tile kernel on contiguous operands (``lda`` = k,
+// ``ldb`` = n, or k when ``b_trans``; ``ws`` null, ``rows`` and ``seg`` 0);
+// bf16: the tensor-core kernel of os_mma.cuh under the plan of
+// ``output_grid``, as ``fm_output`` runs it (``ws``: the segment partials).
+extern "C" int bs_matmul(const void* a, const void* b, void* out, float* ws,
                          const int* kidx, const int* kcnt, int m, int n,
-                         int k, int bm, int bn, int bk, int max_nnz,
-                         int b_trans, int in_dtype, int out_dtype,
-                         void* stream) {
+                         int k, int lda, int ldb, int bm, int bn, int bk,
+                         int max_nnz, int rows, int seg, int b_trans,
+                         int in_dtype, int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == rt::kBF16) {
+    const osm::OsArgs p{static_cast<const __nv_bfloat16*>(a),
+                        static_cast<const __nv_bfloat16*>(b),
+                        out, ws, kidx, kcnt, m, n, k, lda, ldb, bm, bn, bk,
+                        max_nnz, rows, seg};
+    return osm::launch<true>(p, b_trans, out_dtype, s);
+  }
+  if (ws || rows || seg || lda != k || ldb != (b_trans ? k : n))
+    return (int)cudaErrorInvalidValue;
   const rt::TileArgs t{a, b, nullptr, out, kidx, kcnt, m, n, k,
                        bm, bn, bk, max_nnz, b_trans};
-  return rt::dispatch_tile<true, false>(t, in_dtype, out_dtype,
-                                        static_cast<cudaStream_t>(stream));
+  return rt::dispatch_tile<true, false>(t, in_dtype, out_dtype, s);
 }
 
 extern "C" int bs_matmul_scaled(const void* a, const void* q,

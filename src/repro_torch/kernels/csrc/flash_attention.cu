@@ -396,7 +396,7 @@ fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
                    mma::sw128_desc(ks + (kk >> 2) * kPanel * 2 + (kk & 3) * 32, 16,
                               1024));
       mma::wgmma_commit();
-      mma::wgmma_wait0();
+      mma::wgmma_wait<0>();
       mma::pin(sc);
       mma::pin(qf);
       const bool edge = (causal && k_lo + kBKV - 1 > qpos0) ||
@@ -469,7 +469,7 @@ fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
                      mma::sw128_desc(vs + pn * kPanel * 2 + kk * 16 * 128,
                                 kPanel * 2, 1024));
         mma::wgmma_commit();
-        mma::wgmma_wait0();
+        mma::wgmma_wait<0>();
         mma::pin(pv);
         mma::pin(pf);
 #pragma unroll

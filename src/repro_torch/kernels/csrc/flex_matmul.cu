@@ -3,9 +3,8 @@
 // per layer).
 //
 //   fm_output  replaces ``_os_kernel`` (src/repro/kernels/flex_matmul.py:52,
-//              launched at :102): one CUDA block per 256-wide strip of
-//              each (bm, bn) output tile, K-loop with the float32
-//              accumulator in registers.
+//              launched at :102): each CUDA block owns an output tile and
+//              loops over K with the float32 accumulator in registers.
 //   fm_weight  replaces ``_revisit_kernel`` under the weight-stationary grid
 //              (flex_matmul.py:68, launched at :118): per K-block, a block
 //              holds a B tile in shared memory while M rows stream past it,
@@ -19,31 +18,40 @@
 // The TPU runs its grid in order on one core; Hopper runs blocks in
 // parallel, so the sequential grid axes become loops inside a block, and
 // each block updates only output tiles it owns: no atomics, deterministic
-// results.  The strip groups (grid.y) exist so that a decode-shaped matmul
-// (M = 4, one M-strip) still spreads over the card.
+// results.
 //
-// What bounds them on the H100 at decode (M = n_slots = 4): device-memory
-// bytes — the weight is read once at 4 FMAs per element.  The revisit
-// variants add the float32 output traffic of one read-modify-write per
-// K-block.  ``fm_output``, ``fm_input`` and every float32 instantiation are
-// scalar float32 FMAs on ``tile.cuh`` with synchronous staging.
-//
-// bf16 ``fm_weight`` runs on the tensor cores (``mma.cuh``): a block owns a
-// 128-wide N-strip; per K-block it stages the (bk x 128) B tile once with
-// cp.async and streams the rows past it in 16- or 64-row A chunks through a
-// two-stage cp.async ring, mma.sync on bf16 with float32 accumulators.  Two
-// grids, chosen by ``weight_grid`` (kernels/flex_matmul.py):
-//   split   (small M: decode, M = 4, one M-tile; 22-44 strips would leave
-//           most of 132 SMs idle): one block per (strip, K-block) writes its
-//           partial into a float32 workspace (tk, M, N); ``ws_kernel_sum``
-//           then adds the partials in K-block order — the same adds, in the
-//           same order, as the serial read-modify-write;
-//   owning  (large M: prefill, where that workspace would take gigabytes):
-//           a block owns (strip, M-tile group), loops K-blocks outer and its
-//           M-tiles inner, read-modify-writing the float32 output.
-// At decode the weight's bytes bound it; at prefill the dataflow's own
-// float32 traffic, (2·tk − 1)·M·N·4 bytes, does (PERF.md).
+// Which kernel runs where, and what bounds it on the H100:
+//   * bf16 ``fm_output`` runs on the tensor cores: the output-stationary
+//     template of ``os_mma.cuh``, shared with bf16 ``bs_matmul``
+//     (block_sparse.cu), under the plan of ``output_grid``
+//     (kernels/flex_matmul.py) — mma.sync with K in segments of 256 at
+//     M <= 16 (decode: bound by the weight's bytes), wgmma on 128 x 128
+//     tiles above (prefill: bound by operations).  Each element's K order
+//     is fixed by K alone (os_mma.cuh), so the dense table and the plan
+//     agree bit for bit.
+//   * bf16 ``fm_weight`` runs on the tensor cores too (``mma.cuh``): a block
+//     owns a 128-wide N-strip; per K-block it stages the (bk x 128) B tile
+//     once with cp.async and streams the rows past it in 16- or 64-row A
+//     chunks through a two-stage cp.async ring, mma.sync on bf16 with
+//     float32 accumulators.  Two grids, chosen by ``weight_grid``:
+//       split   (small M: decode, M = 4, one M-tile; 22-44 strips would
+//               leave most of 132 SMs idle): one block per (strip, K-block)
+//               writes its partial into a float32 workspace (tk, M, N);
+//               ``ws_kernel_sum`` then adds the partials in K-block order —
+//               the same adds, in the same order, as the serial
+//               read-modify-write;
+//       owning  (large M: prefill, where that workspace would take
+//               gigabytes): a block owns (strip, M-tile group), loops
+//               K-blocks outer and its M-tiles inner, read-modify-writing
+//               the float32 output.
+//     At decode the weight's bytes bound it; at prefill the dataflow's own
+//     float32 traffic, (2·tk − 1)·M·N·4 bytes, does (PERF.md).
+//   * ``fm_input`` (bf16 and float32) and every float32 instantiation are
+//     scalar float32 FMAs on ``tile.cuh`` with synchronous staging; the
+//     revisit variants add the float32 output traffic of one
+//     read-modify-write per K-block.
 #include "mma.cuh"
+#include "os_mma.cuh"
 #include "tile.cuh"
 
 namespace rt {
@@ -312,13 +320,28 @@ inline int dispatch_ws_mma(const void* a, const void* b, float* out,
 
 }  // namespace rt
 
-extern "C" int fm_output(const void* a, const void* b, void* out, int m,
-                         int n, int k, int bm, int bn, int bk, int b_trans,
-                         int in_dtype, int out_dtype, void* stream) {
+// float32: the scalar tile kernel on contiguous operands (``lda`` = k,
+// ``ldb`` = n, or k when ``b_trans``; ``ws`` null, ``rows`` and ``seg`` 0);
+// bf16: the tensor-core kernel of os_mma.cuh under the plan of
+// ``output_grid``: ``rows`` and ``seg``, and ``ws`` the (segments, m, n)
+// float32 partials when there is more than one segment.
+extern "C" int fm_output(const void* a, const void* b, void* out, float* ws,
+                         int m, int n, int k, int lda, int ldb, int bm, int bn,
+                         int bk, int rows, int seg, int b_trans, int in_dtype,
+                         int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == rt::kBF16) {
+    const osm::OsArgs p{static_cast<const __nv_bfloat16*>(a),
+                        static_cast<const __nv_bfloat16*>(b),
+                        out, ws, nullptr, nullptr, m, n, k, lda, ldb, bm,
+                        bn, bk, 0, rows, seg};
+    return osm::launch<false>(p, b_trans, out_dtype, s);
+  }
+  if (ws || rows || seg || lda != k || ldb != (b_trans ? k : n))
+    return (int)cudaErrorInvalidValue;
   const rt::TileArgs t{a, b, nullptr, out, nullptr, nullptr, m, n, k,
                        bm, bn, bk, 0, b_trans};
-  return rt::dispatch_tile<false, false>(t, in_dtype, out_dtype,
-                                         static_cast<cudaStream_t>(stream));
+  return rt::dispatch_tile<false, false>(t, in_dtype, out_dtype, s);
 }
 
 // float32: (gx, gy) = (n / bn, strip groups) of the scalar kernel, ``ws``,

@@ -4,9 +4,10 @@
 // ``wgmma.mma_async.m64n64k16`` (one warpgroup, A from registers, B from
 // 128-byte-swizzled shared memory through a matrix descriptor), bf16
 // operands and float32 accumulators; staging is 16-byte ``cp.async``; the
-// flash kernel's producer/consumer ring adds ``mbarrier`` helpers.  The bf16 x bf16 products are exact in float32; the tensor core
-// sums them in its own order, so results agree with a float32 FMA loop only
-// to float32 rounding (tolerances, never bits).
+// flash kernel's producer/consumer ring adds ``mbarrier`` helpers.  The
+// bf16 x bf16 products are exact in float32; the tensor core sums them in
+// its own order, so results agree with a float32 FMA loop only to float32
+// rounding (tolerances, never bits).
 //
 // The weight-stationary tile (``stage_a`` / ``stage_b`` / ``mac_chunk`` /
 // ``store_acc``) computes a (TMR x 128) float32 block of C = A @ B for one
@@ -25,11 +26,19 @@
 // M, columns past N or past the K-block) are zero in shared memory, and zero
 // products leave a float32 sum unchanged.
 //
-// Used by ``fm_weight`` (flex_matmul.cu, mma.sync) and, for its wgmma,
-// barrier and staging primitives, the bf16 flash-attention kernel; written
-// to be the tile that ``fm_input``, ``fm_output`` and ``bs_matmul`` move to
-// next (ROADMAP queue B), which today run on ``tile.cuh``'s scalar float32
-// FMAs.  The swizzled panels (``swz64``) are the layout wgmma's
+// Used by ``fm_weight`` (flex_matmul.cu, mma.sync), by the bf16 flash-
+// attention kernel (wgmma, barrier and staging primitives), and by the
+// output-stationary template of ``os_mma.cuh`` that bf16 ``fm_output`` and
+// ``bs_matmul`` share (its 16-row tile at M <= 16; its wgmma tile above).
+// ``fm_input`` still runs on ``tile.cuh``'s scalar float32 FMAs (ROADMAP
+// queue B).  Each mma.sync / wgmma k-step sums one 16-element K group into
+// the float32 accumulator; ``os_mma.cuh`` issues them in one order fixed by
+// K alone (groups from K offset 0 ascending, in segments of a constant
+// length added in order), the invariant that keeps the dense and the
+// block-sparse products bit-equal.  At decode (M = 4) these tiles are
+// bound by the weight's bytes, at prefill (M = 8192) by the tensor cores'
+// operations (``fm_weight``: by its float32 read-modify-write).  The
+// swizzled panels (``swz64``) are the layout wgmma's
 // 128-byte-swizzle descriptors and TMA's CU_TENSOR_MAP_SWIZZLE_128B use.
 #pragma once
 
@@ -149,8 +158,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// Wait until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keep the compiler from moving register reads or writes of a wgmma's
 // operands across wgmma.fence / wait_group, which do not name them (what
@@ -207,7 +218,7 @@ __device__ __forceinline__ int swz64(int row, int col) {
   return row * 64 + ((((col >> 3) ^ row) & 7) << 3) + (col & 7);
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 

@@ -1,0 +1,571 @@
+// Output-stationary bf16 matmul on the tensor cores (sm_90a, CUDA C++): the
+// one kernel template behind bf16 ``fm_output`` (flex_matmul.cu, the dense
+// product) and bf16 ``bs_matmul`` (block_sparse.cu, the CSB block-sparse
+// product).  Each CTA owns an output tile and keeps its float32 accumulators
+// in registers across its K range; bf16 products are exact in float32.
+//
+// One summation order for every output element, fixed by K alone:
+//   * K is cut into 16-element groups aligned to global K offset 0, one
+//     mma / wgmma k-step each, staged in 64-element chunks (four groups)
+//     aligned to offset 0 too.
+//   * K may be split into segments of ``seg`` elements, a constant of the
+//     regime (``output_grid``, kernels/flex_matmul.py: it sees no blocks);
+//     groups accumulate in ascending order inside a segment, from zero, and
+//     ``seg_sum_kernel`` adds the segment partials in ascending order, one
+//     rounding per add: ((p0 + p1) + p2) + ...
+//   * ``fm_output`` multiplies every chunk of its segment.  ``bs_matmul``
+//     multiplies the chunks that hold an element of a K-block live in one of
+//     the CSB tiles its rows and columns overlap, and skips the others.  A
+//     dead (A-block, B-block) pair must have an all-zero operand block (the
+//     CSB lists are built from the operands' zero blocks), so every product
+//     it contributes — inside a multiplied chunk, or in a whole skipped
+//     chunk — is an exact zero, and a k-step of zero products leaves the
+//     accumulator unchanged.  Zero padding at the end of K (it differs
+//     with bk) adds only such groups, or whole segments whose partial is +0.
+//   So the dense product and the block-sparse one, under any blocks, give
+//   the same float32 value for every element, provided both run in the same
+//   regime, which depends on M alone — the product's own rows, before any
+//   padding to the blocks, which both wrappers pass — so a given element
+//   sees the same instruction, the same groups and the same segments in
+//   both.
+//
+// Two regimes, chosen from M by the plan (``rows``; ``launch`` refuses a
+// plan whose regime does not follow M):
+//   skinny (M <= 16: decode, M = n_slots; bound by the weight's bytes):
+//     ``os_kernel_mma`` / ``bs_kernel_mma``, 256 threads, mma.sync.m16n8k16
+//     on a 16 x 128 tile (eight warps of 16 columns, rows zero-padded in
+//     shared memory), a four-stage cp.async ring of (16 x 64 A, 64 x 128 B)
+//     chunks; K split into segments of 256 so that a 2048-wide site still
+//     gives 16 strips x 8 segments of CTAs, each writing its float32 partial
+//     into a workspace that ``seg_sum_kernel`` reduces.  (One launch, with
+//     the segment CTAs of a tile in one cluster adding their partials
+//     through distributed shared memory, was tried and ran slower at every
+//     decode site: PERF.md.)
+//   wide (M > 16: prefill, M = B·S; bound by operations):
+//     ``os_wg_kernel_mma`` / ``bs_wg_kernel_mma``, a 128 x 128 tile, two
+//     consumer warpgroups of 64 rows issuing wgmma.mma_async.m64n64k16 (two
+//     per k-step: the two 64-column halves) with A and B read from
+//     128-byte-swizzled shared panels through matrix descriptors, and a
+//     producer thread that keeps a three-stage ring of 32 KB chunks in
+//     flight with TMA (full / empty mbarriers, the full barrier's
+//     transaction count tracking the boxes' bytes).  Two CTAs share an SM.
+//     K is not split.
+// Operands are row-major with 16-byte aligned bases and row strides (lda,
+// ldb, in elements; the wrappers copy an operand that is not into rows
+// padded with zeros).  Every edge — rows past M, columns past N, K past its
+// end, a bn or bm narrower than the tile — is zero in shared memory.  The
+// output (float32 or bf16, rounded to nearest even by ``rt::from_f``) is
+// written once.
+#pragma once
+
+#include <cuda.h>            // CUtensorMap
+#include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled
+
+#include "mma.cuh"
+#include "tile.cuh"
+
+namespace osm {
+
+using mma::bf16;
+
+constexpr int kChunk = 64;          // K elements of a staged chunk
+constexpr int kCols = 128;          // output columns of a CTA
+constexpr int kSkinnyRows = 16;     // rows of a skinny CTA (M <= 16)
+constexpr int kSkinnyStages = 4;
+constexpr int kSkinnyThreads = mma::kThreads;   // 256: the mma.cuh tile
+constexpr int kWideRows = 128;      // rows of a wide CTA
+constexpr int kWideStages = 3;     // x 32 KB: two CTAs fit on an SM
+constexpr int kWideThreads = 9 * 32;            // 8 consumer warps + producer
+
+static_assert(kChunk == mma::kKC && kCols == mma::kTN,
+              "the skinny tile stages with mma.cuh's helpers");
+
+// Arguments of one launch; operands already padded to block multiples for
+// the block-sparse product.
+struct OsArgs {
+  const bf16* a;          // (m, k), row stride lda
+  const bf16* b;          // (k, n), row stride ldb; (n, k) when BT
+  void* out;              // (m, n) float32 or bf16, row-major
+  float* ws;              // (segments, m, n) float32 partials, or null
+  const int* kidx;        // CSB lists (block-sparse only)
+  const int* kcnt;
+  int m, n, k, lda, ldb, bm, bn, bk, max_nnz;
+  int rows;               // the plan's CTA rows: kSkinnyRows or kWideRows
+  int seg;                // K elements per segment (skinny); 0: all of K
+};
+
+// Shared-memory words of a CTA's chunk list: a count, the liveness bits and
+// the list itself, for at most ``per`` chunks.
+__host__ __device__ inline int list_words(int per) {
+  return 4 + (per + 31) / 32 + per;
+}
+
+// Every thread of the CTA calls this.  Writes to ``list`` the chunks in
+// [c0, c1), ascending, that the CTA multiplies — all of them for the dense
+// product; for the block-sparse one, those holding an element of a K-block
+// listed in kidx[i, j, :kcnt[i, j]] for a tile (i, j) that rows [m0, m0 +
+// mrows) and columns [n0, n0 + ncols) overlap — and returns their count.
+template <bool kSparse>
+__device__ int build_chunks(int* words, const OsArgs& p, int c0, int c1,
+                            int m0, int mrows, int n0, int ncols) {
+  const int per = c1 - c0;
+  int* count = words;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(words + 4);
+  int* list = words + 4 + (per + 31) / 32;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  if constexpr (!kSparse) {
+    for (int i = tid; i < per; i += nthr) list[i] = c0 + i;
+    if (tid == 0) *count = max(per, 0);
+    __syncthreads();
+    return *count;
+  }
+  for (int i = tid; i < (per + 31) / 32; i += nthr) bits[i] = 0u;
+  __syncthreads();
+  const int tn = p.n / p.bn;
+  const int i0 = m0 / p.bm, i1 = (m0 + mrows - 1) / p.bm;
+  const int j0 = n0 / p.bn, j1 = (n0 + ncols - 1) / p.bn;
+  const int nj = j1 - j0 + 1, tiles = (i1 - i0 + 1) * nj;
+  for (int e = tid; e < tiles * p.max_nnz; e += nthr) {
+    const int tile = e / p.max_nnz, s = e % p.max_nnz;
+    const int i = i0 + tile / nj, j = j0 + tile % nj;
+    const size_t t = (size_t)i * tn + j;
+    if (s >= p.kcnt[t]) continue;
+    const long long lo = (long long)p.kidx[t * p.max_nnz + s] * p.bk;
+    const int a = max((int)(lo / kChunk), c0);
+    const int b = min((int)((lo + p.bk - 1) / kChunk), c1 - 1);
+    for (int c = a; c <= b; ++c)
+      atomicOr(&bits[(c - c0) >> 5], 1u << ((c - c0) & 31));
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int c = 0; c < per; ++c)
+      if (bits[c >> 5] >> (c & 31) & 1u) list[n++] = c0 + c;
+    *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// Two neighbouring outputs (r, c) and (r, c + 1) of a tile at ``out`` (row
+// stride ldo), masked to (mrows, ncols).
+template <typename To>
+__device__ __forceinline__ void put2(To* out, int ldo, int r, int c,
+                                     float v0, float v1, int mrows,
+                                     int ncols) {
+  if (r >= mrows || c >= ncols) return;
+  To* q = out + (size_t)r * ldo + c;
+  const To x0 = rt::from_f<To>(v0), x1 = rt::from_f<To>(v1);
+  if (c + 1 < ncols && (ldo & 1) == 0 &&
+      (reinterpret_cast<uintptr_t>(q) & (2 * sizeof(To) - 1)) == 0) {
+    if constexpr (std::is_same_v<To, float>)
+      *reinterpret_cast<float2*>(q) = make_float2(x0, x1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(q) = __halves2bfloat162(x0, x1);
+  } else {
+    q[0] = x0;
+    if (c + 1 < ncols) q[1] = x1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// skinny: mma.sync on a 16 x 128 tile, one K segment per CTA
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline size_t skinny_smem(int per) {
+  return (size_t)kSkinnyStages *
+             (kChunk * kCols + kSkinnyRows * kChunk) * sizeof(bf16) +
+         (size_t)list_words(per) * sizeof(int);
+}
+
+// Block (strip, 0, segment) = (blockIdx.x, 0, blockIdx.z).
+template <bool kSparse, bool BT, typename To>
+__device__ __forceinline__ void skinny_body(const OsArgs& p) {
+  constexpr int S = kSkinnyStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Bs = reinterpret_cast<bf16*>(smem);              // S x (64 x 128)
+  bf16* As = Bs + S * kChunk * kCols;                    // S x (16 x 64)
+  int* words = reinterpret_cast<int*>(As + S * kSkinnyRows * kChunk);
+  const int n0 = blockIdx.x * kCols;
+  const int ncols = min(kCols, p.n - n0), mrows = p.m;
+  const int chunks = (p.k + kChunk - 1) / kChunk, per = p.seg / kChunk;
+  const int c0 = blockIdx.z * per, c1 = min(chunks, c0 + per);
+  const int nc = build_chunks<kSparse>(words, p, c0, c1, 0, mrows, n0,
+                                       ncols);
+  const int* list = words + 4 + (c1 - c0 + 31) / 32;
+
+  auto load = [&](int i) {            // chunk list[i] into stage i % S
+    const int kk = list[i] * kChunk, kc = min(kChunk, p.k - kk);
+    mma::stage_a<kSkinnyRows>(As + (i % S) * kSkinnyRows * kChunk, p.a + kk,
+                              p.lda, mrows, kc, true);
+    const bf16* src = BT ? p.b + (size_t)n0 * p.ldb + kk
+                         : p.b + (size_t)kk * p.ldb + n0;
+    mma::stage_b<BT>(Bs + (i % S) * kChunk * kCols, src, p.ldb, kc, ncols,
+                     kChunk, true);
+  };
+
+  mma::Acc<kSkinnyRows> acc;
+  mma::zero_acc<kSkinnyRows>(acc);
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nc) load(i);
+    mma::cp_async_commit();
+  }
+  for (int i = 0; i < nc; ++i) {
+    mma::cp_async_wait<S - 2>();
+    __syncthreads();                  // chunk i landed; stage (i - 1) free
+    if (i + S - 1 < nc) load(i + S - 1);
+    mma::cp_async_commit();
+    mma::mac_chunk<kSkinnyRows, BT>(acc, As + (i % S) * kSkinnyRows * kChunk,
+                                    Bs + (i % S) * kChunk * kCols, kChunk, 0);
+  }
+
+  // Warps<16>: warp w owns columns [16w, 16w + 16), lane (g, t) rows g and
+  // g + 8, columns 2t and 2t + 1 of each n8 tile
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h, c = warp * 16 + ni * 8 + 2 * t;
+      const float v0 = acc[0][ni][2 * h], v1 = acc[0][ni][2 * h + 1];
+      if (p.ws)
+        put2<float>(p.ws + (size_t)blockIdx.z * p.m * p.n + n0, p.n, r, c,
+                    v0, v1, mrows, ncols);
+      else
+        put2<To>(static_cast<To*>(p.out) + n0, p.n, r, c, v0, v1, mrows,
+                 ncols);
+    }
+}
+
+template <bool BT, typename To>
+__global__ void __launch_bounds__(kSkinnyThreads)
+os_kernel_mma(const OsArgs p) {
+  skinny_body<false, BT, To>(p);
+}
+
+template <bool BT, typename To>
+__global__ void __launch_bounds__(kSkinnyThreads)
+bs_kernel_mma(const OsArgs p) {
+  skinny_body<true, BT, To>(p);
+}
+
+// out = ((ws[0] + ws[1]) + ws[2]) + ..., one rounding per add, then the
+// output's type: the segment partials in ascending order.
+template <typename To>
+__global__ void seg_sum_kernel(const float* __restrict__ ws,
+                               To* __restrict__ out, int mn, int segments) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = ws[i];
+  for (int g = 1; g < segments; ++g) s = __fadd_rn(s, ws[(size_t)g * mn + i]);
+  out[i] = rt::from_f<To>(s);
+}
+
+// ---------------------------------------------------------------------------
+// wide: wgmma on a 128 x 128 tile, a TMA producer + two consumer warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kPanelA = kWideRows * kChunk;   // A chunk, elements (16 KB)
+constexpr int kPanelB = kChunk * kCols;       // B chunk, elements (16 KB)
+
+__host__ __device__ inline size_t wide_smem(int per) {
+  // 1 KB of alignment slack, the ring, full / empty barriers, the list
+  return 1024 +
+         (size_t)kWideStages * (kPanelA + kPanelB) * sizeof(bf16) +
+         2 * kWideStages * sizeof(uint64_t) +
+         (size_t)list_words(per) * sizeof(int);
+}
+
+// d (64 x 64, float32, this warpgroup) += A (64 x 16) · B (16 x 64), both
+// bf16 in shared memory through descriptors; TB: B stored n-major.
+template <int TB>
+__device__ __forceinline__ void wgmma64_ss(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// One 2-D TMA load of a (rows x 64) bf16 box at (x = inner, y = outer) of
+// ``map`` into ``dst``, completing on the mbarrier ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
+      : "memory");
+}
+
+// Arrive on ``bar`` and add ``bytes`` to the transaction count it awaits.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Block (strip, M-tile) = (blockIdx.x, blockIdx.y); ``ta`` / ``tb`` are the
+// tensor maps of A and B (make_tmap).
+template <bool kSparse, bool BT, typename To>
+__device__ __forceinline__ void wide_body(const OsArgs& p,
+                                          const CUtensorMap* ta,
+                                          const CUtensorMap* tb) {
+  constexpr int S = kWideStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // swizzled panels need 1024-byte alignment
+  unsigned char* smem =
+      smem_raw + ((1024 - (mma::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* ring = reinterpret_cast<bf16*>(smem);      // stage s: A then B
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * (kPanelA + kPanelB));
+  uint64_t* empty = full + S;
+  int* words = reinterpret_cast<int*>(empty + S);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * kCols, m0 = blockIdx.y * kWideRows;
+  const int ncols = min(kCols, p.n - n0), mrows = min(kWideRows, p.m - m0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mma::mbar_init(mma::smem_u32(&full[s]), 1);
+      mma::mbar_init(mma::smem_u32(&empty[s]), 8);
+    }
+    mma::fence_barrier_init();
+  }
+  const int chunks = (p.k + kChunk - 1) / kChunk;
+  const int nc = build_chunks<kSparse>(words, p, 0, chunks, m0, mrows, n0,
+                                       ncols);     // synchronises the block
+  const int* list = words + 4 + (chunks + 31) / 32;
+
+  if (warp == 8) {
+    // producer, one thread: per listed chunk, in order, TMA boxes of A (128
+    // rows x 64 k) and B (two of 64 k x 64 n, or one of 128 n x 64 k when
+    // BT) into a free stage, 128-byte swizzled as the tensor cores read
+    // them and zero past the matrices' ends; the stage's ``full`` barrier
+    // completes when all their bytes have landed
+    if (lane != 0) return;
+    for (int i = 0; i < nc; ++i) {
+      const int s = i % S, kk = list[i] * kChunk;
+      mma::mbar_wait(mma::smem_u32(&empty[s]), ((i / S) & 1) ^ 1);
+      const uint32_t bar = mma::smem_u32(&full[s]);
+      const uint32_t as = mma::smem_u32(ring + s * (kPanelA + kPanelB));
+      const uint32_t bs = as + kPanelA * sizeof(bf16);
+      mbar_expect_tx(bar, (kPanelA + kPanelB) * sizeof(bf16));
+      tma_load(as, ta, bar, kk, m0);
+      if (BT) {
+        tma_load(bs, tb, bar, kk, n0);
+      } else {
+        tma_load(bs, tb, bar, n0, kk);
+        tma_load(bs + kChunk * 64 * sizeof(bf16), tb, bar, n0 + 64, kk);
+      }
+    }
+    return;
+  }
+  // consumers: warpgroup h owns rows [64h, 64h + 64) of the tile
+  const int h = warp >> 2;
+  float acc[2][32];
+#pragma unroll
+  for (int nh = 0; nh < 2; ++nh)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[nh][e] = 0.f;
+  for (int i = 0; i < nc; ++i) {
+    const int s = i % S;
+    mma::mbar_wait(mma::smem_u32(&full[s]), (i / S) & 1);
+    const uint32_t as = mma::smem_u32(ring + s * (kPanelA + kPanelB));
+    const uint32_t bs = as + kPanelA * sizeof(bf16);
+    mma::pin(acc[0]);
+    mma::pin(acc[1]);
+    mma::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      const uint64_t da = mma::sw128_desc(as + h * 64 * 128 + kk * 32, 16,
+                                          1024);
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+        // the n-half's panel starts 8 KB in, for either layout of B
+        const uint32_t b0 = bs + nh * 64 * 128;
+        if (BT)
+          wgmma64_ss<0>(acc[nh], da, mma::sw128_desc(b0 + kk * 32, 16, 1024));
+        else
+          wgmma64_ss<1>(acc[nh], da,
+                        mma::sw128_desc(b0 + kk * 16 * 128, 64 * 128, 1024));
+      }
+    }
+    mma::wgmma_commit();
+    // the previous chunk's products are done: release its stage
+    mma::wgmma_wait<1>();
+    mma::pin(acc[0]);
+    mma::pin(acc[1]);
+    if (i > 0 && lane == 0)
+      mma::mbar_arrive(mma::smem_u32(&empty[(i - 1) % S]));
+  }
+  mma::wgmma_wait<0>();
+  mma::pin(acc[0]);
+  mma::pin(acc[1]);
+
+  // accumulator layout: warp w of the warpgroup holds rows 16w .. 16w + 15;
+  // acc[nh][4j + e] is row g + 8(e >> 1), column 64nh + 8j + 2t + (e & 1)
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = h * 64 + (warp & 3) * 16 + g;
+  To* out = static_cast<To*>(p.out) + (size_t)m0 * p.n + n0;
+#pragma unroll
+  for (int nh = 0; nh < 2; ++nh)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        put2<To>(out, p.n, r0 + 8 * hh, nh * 64 + 8 * j + 2 * t,
+                 acc[nh][4 * j + 2 * hh], acc[nh][4 * j + 2 * hh + 1], mrows,
+                 ncols);
+}
+
+template <bool BT, typename To>
+__global__ void __launch_bounds__(kWideThreads, 2)
+os_wg_kernel_mma(const OsArgs p, const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb) {
+  wide_body<false, BT, To>(p, &ta, &tb);
+}
+
+template <bool BT, typename To>
+__global__ void __launch_bounds__(kWideThreads, 2)
+bs_wg_kernel_mma(const OsArgs p, const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tb) {
+  wide_body<true, BT, To>(p, &ta, &tb);
+}
+
+// A 2-D tensor map of a row-major bf16 matrix (``outer`` rows of ``inner``
+// elements, row stride ``ld``) in boxes of ``box_outer`` rows x 64
+// elements, 128-byte swizzled, zero outside the matrix.  0 or an error.
+inline int make_tmap(CUtensorMap* map, const bf16* base, int inner,
+                     int outer, int ld, int box_outer) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult q;
+    void* fn = nullptr;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+    if (e != cudaSuccess) return (int)e;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
+  const cuuint32_t box[2] = {(cuuint32_t)kChunk, (cuuint32_t)box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      const_cast<void*>(static_cast<const void*>(base)), dims, strides, box,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// The kernel of a regime, instantiated only for the product it serves.
+template <bool kSparse, bool BT, typename To>
+constexpr auto skinny_kernel() {
+  if constexpr (kSparse)
+    return bs_kernel_mma<BT, To>;
+  else
+    return os_kernel_mma<BT, To>;
+}
+
+template <bool kSparse, bool BT, typename To>
+constexpr auto wide_kernel() {
+  if constexpr (kSparse)
+    return bs_wg_kernel_mma<BT, To>;
+  else
+    return os_wg_kernel_mma<BT, To>;
+}
+
+template <bool kSparse, bool BT, typename To>
+int launch_typed(const OsArgs& p, cudaStream_t s) {
+  const unsigned strips = (p.n + kCols - 1) / kCols;
+  const int chunks = (p.k + kChunk - 1) / kChunk;
+  if (p.rows == kSkinnyRows) {
+    auto kern = skinny_kernel<kSparse, BT, To>();
+    const int per = p.seg / kChunk, segments = (chunks + per - 1) / per;
+    const size_t smem = skinny_smem(per);
+    if (smem > (size_t)rt::kSmemLimit) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<dim3(strips, 1, segments), kSkinnyThreads, smem, s>>>(p);
+    if (segments > 1) {
+      const int mn = p.m * p.n;
+      seg_sum_kernel<To><<<(mn + 255) / 256, 256, 0, s>>>(
+          p.ws, static_cast<To*>(p.out), mn, segments);
+    }
+    return (int)cudaGetLastError();
+  }
+  auto kern = wide_kernel<kSparse, BT, To>();
+  const size_t smem = wide_smem(chunks);
+  if (smem > (size_t)rt::kSmemLimit) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap ta{}, tb{};
+  int r = make_tmap(&ta, p.a, p.k, p.m, p.lda, kWideRows);
+  if (r == 0)
+    r = BT ? make_tmap(&tb, p.b, p.k, p.n, p.ldb, kCols)
+           : make_tmap(&tb, p.b, p.n, p.k, p.ldb, kChunk);
+  if (r != 0) return r;
+  kern<<<dim3(strips, (p.m + kWideRows - 1) / kWideRows), kWideThreads, smem,
+         s>>>(p, ta, tb);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 product under the plan of ``output_grid``: ``p.rows`` picks the
+// regime and must follow M (16 rows and K segments of ``p.seg`` at M <= 16,
+// ``p.ws`` holding the partials when there is more than one; 128 rows and
+// all of K above).  M is the product's own row count: a block-sparse A may
+// hold more rows (zero padding to bm), which are never read, and its row
+// tiles are i = row / bm.  Operands need 16-byte aligned bases and row
+// strides (TMA's and cp.async's unit).  Refuses anything else.
+template <bool kSparse>
+int launch(const OsArgs& p, int b_trans, int out_dtype, cudaStream_t s) {
+  if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.bm <= 0 || p.bn <= 0 ||
+      p.bk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int chunks = (p.k + kChunk - 1) / kChunk;
+  const bool plan_ok =
+      p.rows == kSkinnyRows
+          ? p.m <= kSkinnyRows && p.seg > 0 && p.seg % kChunk == 0 &&
+                (chunks > p.seg / kChunk) == (p.ws != nullptr)
+          : p.rows == kWideRows && p.m > kSkinnyRows && p.seg == 0 &&
+                p.ws == nullptr;
+  if (!plan_ok) return (int)cudaErrorInvalidValue;
+  if (!mma::aligned16(p.a) || !mma::aligned16(p.b) || p.lda % 8 ||
+      p.ldb % 8 || p.lda < p.k || p.ldb < (b_trans ? p.k : p.n))
+    return (int)cudaErrorInvalidValue;
+  if (kSparse && (p.n % p.bn || p.k % p.bk || p.max_nnz < 0 || !p.kidx ||
+                  !p.kcnt))
+    return (int)cudaErrorInvalidValue;
+  if (out_dtype == rt::kF32)
+    return b_trans ? launch_typed<kSparse, true, float>(p, s)
+                   : launch_typed<kSparse, false, float>(p, s);
+  if (out_dtype == rt::kBF16)
+    return b_trans ? launch_typed<kSparse, true, bf16>(p, s)
+                   : launch_typed<kSparse, false, bf16>(p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace osm

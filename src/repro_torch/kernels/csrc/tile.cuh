@@ -1,4 +1,12 @@
-// Shared building blocks of the port's matmul kernels (sm_90a, CUDA C++).
+// Shared building blocks of the port's scalar matmul kernels (sm_90a, CUDA
+// C++): ``tile_kernel`` runs float32 ``fm_output`` and ``bs_matmul``,
+// ``bs_matmul_scaled`` and ``i8_matmul`` (A float32 or bf16, B int8), and
+// its staging and FMA helpers serve float32 ``fm_weight``, ``fm_input``
+// (float32 and bf16) and the float32 flash kernel.  bf16 x bf16
+// ``fm_output`` and ``bs_matmul`` run on the tensor cores instead
+// (``os_mma.cuh``), as do bf16 ``fm_weight`` and the bf16 flash kernel
+// (``mma.cuh``).  These kernels are bound by the weight's bytes at decode
+// and, far from the card's peak, by their own FMA issue rate at prefill.
 //
 // Every kernel here computes C = A @ B (or a block-sparse part of it) with
 // A (M, K) row-major and B (K, N) either row-major or given as the transpose
@@ -25,7 +33,9 @@
 // blocks in list order, rows of a block ascending — so a block-sparse run
 // and an all-live run of the same tile agree bit for bit (a dead block adds
 // exact zeros).  The order does not depend on (bm, bn, bk) either, so two
-// kernels on the same operands give the same bits whatever their blocks.
+// kernels on the same operands give the same bits whatever their blocks
+// (``bs_matmul_scaled`` and ``i8_matmul``; float32 ``bs_matmul`` and
+// ``fm_output``).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -305,18 +315,22 @@ int dispatch_out(const TileArgs& t, int out_dtype, cudaStream_t s) {
 }
 
 // Type dispatch shared by the C entry points: ``in_dtype`` / ``out_dtype``
-// are ``Dtype`` codes of A and of the output; B is A's type, or int8 with
-// ``t.scale`` when kScaled.
+// are ``Dtype`` codes of A and of the output.  Unscaled, A and B are
+// float32 (bf16 x bf16 runs on the tensor cores, os_mma.cuh); scaled, B is
+// an int8 payload with ``t.scale`` and A float32 or bf16.
 template <bool kSparse, bool kScaled>
 int dispatch_tile(const TileArgs& t, int in_dtype, int out_dtype,
                   cudaStream_t s) {
   if (kScaled != (t.scale != nullptr)) return (int)cudaErrorInvalidValue;
-  using BF = std::conditional_t<kScaled, int8_t, float>;
-  using BH = std::conditional_t<kScaled, int8_t, __nv_bfloat16>;
-  if (in_dtype == kF32)
-    return dispatch_out<float, BF, kSparse>(t, out_dtype, s);
-  if (in_dtype == kBF16)
-    return dispatch_out<__nv_bfloat16, BH, kSparse>(t, out_dtype, s);
+  if constexpr (kScaled) {
+    if (in_dtype == kF32)
+      return dispatch_out<float, int8_t, kSparse>(t, out_dtype, s);
+    if (in_dtype == kBF16)
+      return dispatch_out<__nv_bfloat16, int8_t, kSparse>(t, out_dtype, s);
+  } else {
+    if (in_dtype == kF32)
+      return dispatch_out<float, float, kSparse>(t, out_dtype, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

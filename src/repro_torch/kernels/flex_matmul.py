@@ -6,8 +6,9 @@ flex_matmul.py:52, launched at :102) and ``_revisit_kernel`` (:68, launched
 at :118 weight-stationary and :133 input-stationary).  A ``MatmulSchedule``
 descriptor picks the entry point and the (bm, bn, bk) blocks:
 
-  output : one CUDA block per output-tile strip, K loop, accumulator in
-           registers;
+  output : one CUDA block per output tile, K loop, accumulator in
+           registers (bf16 on the tensor cores, over the plan of
+           ``output_grid``, which ``bs_matmul`` shares);
   weight : per K-block, a B tile held in shared memory while the M rows
            stream past it, one float32 partial per K-block added into the
            output in K-block order (bf16 on the tensor cores, over the grid
@@ -34,8 +35,10 @@ DEFAULT_BLOCKS = (128, 128, 128)
 
 STATIONARITIES = ("output", "weight", "input")
 # launches of each CUDA kernel (bumped only where it is launched):
-# ``weight_sum`` is the split weight-stationary grid's second kernel
-LAUNCHES = {"output": 0, "weight": 0, "input": 0, "weight_sum": 0}
+# ``output_sum`` / ``weight_sum`` are the second kernel of a split
+# output- / weight-stationary grid
+LAUNCHES = {"output": 0, "weight": 0, "input": 0, "output_sum": 0,
+            "weight_sum": 0}
 
 
 def pad_to_blocks(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
@@ -111,12 +114,83 @@ def weight_grid(m: int, n: int, k: int, bm: int, bn: int, bk: int, sms: int,
     return WeightGrid(False, (strips, groups), rows, None)
 
 
+# The bf16 output-stationary kernel (csrc/os_mma.cuh), shared by
+# ``fm_output`` and ``bs_matmul``: a CTA's rows at M <= 16 (mma.sync) and
+# above (wgmma; every CTA owns 128 columns), and the K segment of the
+# M <= 16 regime.
+OS_SKINNY_ROWS = 16
+OS_WIDE_ROWS = 128
+OS_SEGMENT = 256
+
+
+@dataclass(frozen=True)
+class OutputGrid:
+    """Launch plan of the bf16 output-stationary kernel, the same for
+    ``fm_output`` and ``bs_matmul``; the kernel takes ``rows`` and
+    ``segment`` and refuses a ``rows`` that does not follow M.
+
+    ``rows``: the CTA tile's height, 16 (``mma.sync``) or 128 (``wgmma``).
+    ``segment``: the K elements one CTA sums (0: all of K).
+    ``workspace``: the float32 partials (segments, m, n) that a second
+    kernel adds in segment order, when there are several."""
+    rows: int
+    segment: int
+    workspace: Optional[Tuple[int, int, int]]
+
+
+def output_grid(m: int, n: int, k: int) -> OutputGrid:
+    """Plan the bf16 output-stationary launch of C[m, n] = A[m, k] @ B[k, n]
+    (``fm_output`` dense, ``bs_matmul`` block-sparse); ``m`` counts the
+    product's own rows, before any padding to the blocks.
+
+    It sees no blocks, so each output element's summation order — 16-wide
+    K groups from offset 0, ascending, inside segments of a constant
+    length, the segments added in ascending order — is the same for the
+    dense and the block-sparse product under any blocks, and the dense
+    table's results equal the plan's bit for bit (csrc/os_mma.cuh).  The
+    regime follows M alone.  At M <= 16 (decode) a 128-column strip per CTA
+    would give a 2048-wide site 16 CTAs on 132 SMs, so K is cut into
+    segments of 256 (8 per strip at K = 2048); above, 128 x 128 tiles fill
+    the card (2816 at M = 8192, N = 5632) and K is not split.  Zero padding
+    at the end of K only appends zero groups or segments."""
+    if min(m, n, k) <= 0:
+        raise ValueError(f"non-positive size in M={m} N={n} K={k}")
+    if m > OS_SKINNY_ROWS:
+        return OutputGrid(OS_WIDE_ROWS, 0, None)
+    segments = -(-k // OS_SEGMENT)
+    return OutputGrid(OS_SKINNY_ROWS, OS_SEGMENT,
+                      (segments, m, n) if segments > 1 else None)
+
+
+def output_workspace(plan: OutputGrid, device) -> Optional[torch.Tensor]:
+    """The float32 segment partials of ``plan``, or None (one segment)."""
+    if plan.workspace is None:
+        return None
+    return torch.empty(plan.workspace, dtype=torch.float32, device=device)
+
+
+def aligned_rows(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A row-major bf16 matrix as the tensor-core kernels read it (TMA and
+    ``cp.async`` move 16-byte units), and its row stride in elements:
+    ``x`` itself when its base and row stride are 16-byte multiples, else a
+    copy with each row zero-padded to a multiple of 8 elements.  The
+    kernels still take the logical K and N, and read nothing past them."""
+    rows, cols = x.shape
+    ld = -(-cols // 8) * 8
+    if ld == cols and x.data_ptr() % 16 == 0:
+        return x, ld
+    out = x.new_zeros((rows, ld))
+    out[:, :cols] = x
+    return out, ld
+
+
 def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
-            bn: int, bk: int, out_dtype) -> torch.Tensor:
+            bn: int, bk: int, out_dtype, rows: int) -> torch.Tensor:
+    """The kernel for padded operands; ``rows``: A's rows before padding."""
     if not a.is_contiguous():
         raise ValueError("A must be row-major contiguous")
     b_trans = build.b_layout(b)
@@ -126,11 +200,24 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
     lib = build.library("flex_matmul")
     stream = build.stream_ptr(a.device)
     code = build.dtype_code(a.dtype)
+    second = None                 # the key of a second kernel's launch
     if stationarity == "output":
+        ws, args = None, (k, k if b_trans else n, bm, bn, bk, 0, 0)
+        if a.dtype == torch.bfloat16:
+            # the tensor cores take ragged M: the unpadded rows only, whose
+            # count picks the plan (as for ``bs_matmul``)
+            m = rows
+            plan = output_grid(m, n, k)
+            ws = output_workspace(plan, a.device)
+            second = "output_sum" if ws is not None else None
+            a, lda = aligned_rows(a)
+            b, ldb = aligned_rows(b.t() if b_trans else b)
+            args = (lda, ldb, bm, bn, bk, plan.rows, plan.segment)
         out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-        err = lib.fm_output(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
-                            k, bm, bn, bk, b_trans, code,
-                            build.dtype_code(out_dtype), stream)
+        err = lib.fm_output(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                            None if ws is None else ws.data_ptr(), m, n, k,
+                            *args, b_trans, code, build.dtype_code(out_dtype),
+                            stream)
     elif stationarity == "weight":
         # the revisit dataflows accumulate in a float32 output, cast after
         out = torch.empty((m, n), dtype=torch.float32, device=a.device)
@@ -140,10 +227,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
             ws = None if plan.workspace is None else torch.empty(
                 plan.workspace, dtype=torch.float32, device=a.device)
             args = (*plan.grid, int(plan.split), plan.rows)
-            split = plan.split
+            second = "weight_sum" if plan.split else None
         else:
             ws, args = None, (tn, _groups(tn, tm, a.device), 0, 0)
-            split = False
         err = lib.fm_weight(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                             None if ws is None else ws.data_ptr(), m, n, k,
                             bm, bn, bk, *args, b_trans, code, stream)
@@ -156,8 +242,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
         raise ValueError(f"unknown stationarity {stationarity!r}")
     build.check(err, f"flex_matmul[{stationarity}]")
     LAUNCHES[stationarity] += 1
-    if stationarity == "weight" and split:   # ws_kernel_sum ran after it
-        LAUNCHES["weight_sum"] += 1
+    if second is not None:        # a summing kernel ran after it
+        LAUNCHES[second] += 1
     return out.to(out_dtype)
 
 
@@ -194,7 +280,7 @@ def flex_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule=None,
         # B's layout, as the kernels' does not
         out = matmul_ref(ap, bp.contiguous()).to(out_dtype)
     elif a.device.type == "cuda":
-        out = _launch(ap, bp, stationarity, bm, bn, bk, out_dtype)
+        out = _launch(ap, bp, stationarity, bm, bn, bk, out_dtype, m)
     else:
         raise ValueError(f"unsupported device {a.device}")
     return out[:m, :n]

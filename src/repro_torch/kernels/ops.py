@@ -82,8 +82,8 @@ def _run_block_sparse(xp: torch.Tensor, wp: torch.Tensor, meta, m: int,
     """Kernel dispatch + unpad tail shared by both metadata sources
     (``scale``: the padded per-column scales of an int8 ``wp``)."""
     out = bs.block_sparse_matmul(xp, wp, meta, out_dtype=torch.float32,
-                                 scale=scale)
-    return out[:m, :n]
+                                 scale=scale, rows=m)
+    return out[:, :n]
 
 
 def _sparse_site_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str,

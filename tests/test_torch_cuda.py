@@ -15,9 +15,16 @@ equal their all-live runs bit for bit, and the two int8 kernels each other.
 The bf16 weight-stationary kernel (tensor cores) is held to the same
 tolerance at decode (M = 4, over both its split-K and its owning grid),
 at M = 512 and on ragged, unaligned blocks, with B row-major and read
-transposed, and two runs must agree bit for bit.  The built libraries'
-SASS shows tensor-core instructions in the bf16 tensor-core kernels and
-none in any other kernel (the float32 ones stay true float32).
+transposed, and two runs must agree bit for bit.  So are bf16
+``fm_output`` and ``bs_matmul`` (one tensor-core template, one launch
+plan): at the four decode (K, N), at M 256 and 512, ragged, with bn below
+the kernel's 128-column strip, bk 16 and 32, and unaligned row strides;
+their bf16 output is the float32 result rounded to nearest even.  Their
+K order is fixed by K alone, so ``fm_output`` equals ``bs_matmul`` under
+other blocks bit for bit (sparse, all-live, A's rows padded or not), and an
+empty list writes zeros.  The built libraries' SASS shows tensor-core
+instructions in the bf16 tensor-core kernels and none in any other kernel
+(the float32 and int8 ones stay true float32).
 
 The flash-attention kernel: in float32 against the dense reference in
 float64 under ``_flash_tol`` (derived there), which operands cut to TF32
@@ -152,11 +159,218 @@ def test_cuda_weight_stationary_bf16(cuda, monkeypatch, mnk, blocks, cap,
     assert pt_fm.LAUNCHES["weight_sum"] == before["weight_sum"] + 4 * split
 
 
+# (m, n, k), blocks (bm, bn, bk): decode (M 4) and prefill-like (M >= 256)
+# output-stationary cases, a ragged one, and blocks narrower than the
+# kernel's 128-column strip with bk 16 and 32
+OS_CASES = [
+    *[((4, n, k), (4, 256, 128)) for k, n in DECODE_KN],
+    ((512, 2048, 2048), (128, 128, 128)),
+    ((256, 5632, 2048), (128, 128, 128)),
+    ((70, 300, 200), (64, 128, 128)),
+    ((4, 320, 192), (4, 64, 32)),
+    ((300, 320, 192), (64, 16, 16)),
+    ((16, 176, 96), (8, 16, 32)),
+    # row strides that are not 16-byte multiples: copied into zero-padded
+    # rows (``aligned_rows``) for TMA and cp.async
+    ((6, 36, 70), (6, 36, 35)),
+    ((40, 36, 70), (40, 36, 35)),
+]
+
+
+def _bs_operands(a, w, bm, bn, bk):
+    """A and B padded to the (bm, bk) x (bk, bn) blocks and their CSB
+    metadata, as the planned path builds them."""
+    xp = pt_fm.pad_to_blocks(a, bm, bk)
+    wp = pt_fm.pad_to_blocks(w, bk, bn)
+    meta = pt_sp.build_block_sparse_meta(pt_sp.block_bitmap(xp, bm, bk),
+                                         pt_sp.block_bitmap(wp, bk, bn))
+    return xp, wp, meta
+
+
+def _os_operands(cuda, m, n, k, bn, bk, seed):
+    """bf16 A with its second bk-wide K-block and about a third of the
+    others zero, and B pruned to half of its (bk, bn) blocks."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn((m, k), generator=gen, device=cuda)
+    dead = torch.rand(-(-k // bk), generator=gen, device=cuda) < 1 / 3
+    dead[1:2] = True
+    a = a * ~dead.repeat_interleave(bk)[:k]
+    b = pt_sp.prune_magnitude(torch.randn((k, n), generator=gen, device=cuda),
+                              0.5, (bk, bn))
+    return a.bfloat16(), b.bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mnk,blocks", OS_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in OS_CASES])
+def test_cuda_output_stationary_bf16_matches_plain(cuda, out_dtype, mnk,
+                                                   blocks):
+    """bf16 ``fm_output`` and ``bs_matmul`` on the tensor cores, B row-major
+    and read transposed, within the float32 tolerance of the plain version;
+    the bf16 output is the float32 result rounded to nearest even."""
+    m, n, k = mnk
+    bm, bn, bk = blocks
+    sched = MatmulSchedule("output", *blocks)
+    a, b = _os_operands(cuda, m, n, k, bn, bk, 10)
+    before = dict(pt_fm.LAUNCHES)
+    for bb in (b, b.t().contiguous().t()):
+        out = pt_fm.flex_matmul(a, bb, schedule=sched, out_dtype=out_dtype)
+        xp, wp, meta = _bs_operands(a, bb, bm, bn, bk)
+        sparse = pt_bs.block_sparse_matmul(xp, wp, meta,
+                                           out_dtype=out_dtype)[:m, :n]
+        torch.cuda.synchronize()
+        assert out.dtype == sparse.dtype == out_dtype
+        assert out.shape == sparse.shape == (m, n)
+        if out_dtype is torch.float32:
+            plain, tol = matmul_ref(a, bb), _cuda_tol(a, bb)
+            assert (out - plain).abs().max().item() <= tol
+            assert (sparse - plain).abs().max().item() <= tol
+        else:
+            exact = pt_fm.flex_matmul(a, bb, schedule=sched,
+                                      out_dtype=torch.float32).bfloat16()
+            assert torch.equal(out, exact) and torch.equal(sparse, exact)
+    plan = pt_fm.output_grid(*(-(-x // blk) * blk
+                               for x, blk in zip(mnk, blocks)))
+    split = plan.workspace is not None
+    assert pt_fm.LAUNCHES["output"] == before["output"] + 2 + (
+        2 if out_dtype is torch.bfloat16 else 0)
+    assert pt_fm.LAUNCHES["output_sum"] - before["output_sum"] == \
+        (pt_fm.LAUNCHES["output"] - before["output"]) * split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_trans", [False, True])
+@pytest.mark.parametrize("mnk,dense,sparse", [
+    *[((4, n, k), (4, 256, 128), (4, 256, 128)) for k, n in DECODE_KN],
+    ((4, 2048, 2048), (4, 256, 128), (4, 128, 256)),
+    ((4, 2048, 2048), (4, 256, 128), (4, 64, 32)),
+    ((512, 2048, 2048), (128, 128, 128), (128, 256, 128)),
+    ((512, 2048, 2048), (128, 128, 128), (128, 128, 256)),
+    ((300, 320, 200), (128, 128, 128), (64, 16, 16)),
+    # the lm_head of a prefill plan: 2 rows padded to its bm of 128
+    ((2, 4096, 2048), (128, 256, 128), (128, 128, 128)),
+    # K-blocks of 35 straddle the 16-wide groups; unaligned row strides
+    ((6, 36, 70), (6, 36, 70), (6, 36, 35)),
+    ((40, 36, 70), (40, 36, 70), (40, 36, 35)),
+])
+def test_cuda_dense_equals_block_sparse_bitwise(cuda, b_trans, mnk, dense,
+                                                sparse):
+    """One K order whatever the blocks: bf16 ``fm_output`` under the dense
+    blocks equals ``bs_matmul`` under other (bm, bn, bk) bit for bit, with
+    dead activation K-blocks and pruned weight blocks, all-live or skipped,
+    A's rows padded to the blocks or not (``rows``: the plan follows the
+    unpadded M); an empty list writes zeros."""
+    m, n, k = mnk
+    a, b = _os_operands(cuda, m, n, k, sparse[1], sparse[2], 11)
+    if b_trans:
+        b = b.t().contiguous().t()
+    ref = pt_fm.flex_matmul(a, b, schedule=MatmulSchedule("output", *dense),
+                            out_dtype=torch.float32)
+    xp, wp, meta = _bs_operands(a, b, *sparse)
+    assert int(meta.kcnt.sum()) < meta.kcnt.numel() * meta.a_bitmap.shape[1]
+    out = pt_bs.block_sparse_matmul(xp, wp, meta, out_dtype=torch.float32,
+                                    rows=m)
+    live = pt_bs.block_sparse_matmul(xp, wp, _all_live(meta),
+                                     out_dtype=torch.float32, rows=m)
+    torch.cuda.synchronize()
+    assert out.shape == (m, wp.shape[1]) and torch.equal(out, live)
+    assert torch.equal(out[:, :n], ref) and not out[:, n:].any()
+    padded = pt_bs.block_sparse_matmul(xp, wp, meta, out_dtype=torch.float32)
+    assert not padded[m:].any()
+    if xp.shape[0] <= 16 or m > 16:       # the same regime: the same bits
+        assert torch.equal(padded[:m], out)
+    empty = dataclasses.replace(meta, kcnt=torch.zeros_like(meta.kcnt))
+    assert not pt_bs.block_sparse_matmul(xp, wp, empty).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 256])
+@pytest.mark.parametrize("bn", [128, 64])
+def test_cuda_block_sparse_dead_blocks_must_hold_zeros(cuda, m, bn):
+    """``bs_matmul`` assumes that a dead pair has an all-zero operand block
+    (``core.sparsity`` builds the lists so).  Here K-block 1 of B holds
+    data but tile (0, 0)'s list leaves it out.  Where the CSB tiles are
+    the kernel's 128 columns (bn 128), the kernel skips it for that tile,
+    as the plain version does; where a CTA's columns cover two tiles (bn
+    64) and the neighbour lists it, the CTA multiplies it for both, and
+    tile (0, 0) gets the dense product: a result that follows the kernel's
+    tiling, which is why dead must mean zero."""
+    k, n, bk = 512, 256, 128
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
+    a_bm = torch.ones((1, k // bk), dtype=torch.bool, device=cuda)
+    b_bm = torch.ones((k // bk, n // bn), dtype=torch.bool, device=cuda)
+    meta = pt_sp.build_block_sparse_meta(a_bm, b_bm)
+    kidx, kcnt = meta.kidx.clone(), meta.kcnt.clone()
+    kidx[0, 0, :3] = torch.tensor([0, 2, 3], dtype=torch.int32)
+    kcnt[0, 0] = 3
+    meta = dataclasses.replace(meta, kidx=kidx, kcnt=kcnt)
+    out = pt_bs.block_sparse_matmul(a, b, meta, out_dtype=torch.float32)
+    dense = matmul_ref(a, b)
+    a_skip = a.clone()
+    a_skip[:, bk:2 * bk] = 0            # tile (0, 0)'s product without it
+    skipped = matmul_ref(a_skip, b)
+    torch.cuda.synchronize()
+    tol = _cuda_tol(a, b)
+    # m rows of 256 are one bm-tile here: tile (0, 0) is columns [0, bn)
+    assert (out[:, bn:] - dense[:, bn:]).abs().max().item() <= tol
+    assert (skipped[:, :bn] - dense[:, :bn]).abs().max().item() > 100 * tol
+    expect = skipped if bn == 128 else dense
+    assert (out[:, :bn] - expect[:, :bn]).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,rows,seg,split", [
+    (4, 128, 0, False), (40, 16, 256, True), (4, 16, 100, True),
+    (4, 16, 256, False), (40, 128, 256, False), (40, 128, 0, True)])
+def test_cuda_output_kernel_refuses_a_plan_it_does_not_run(cuda, m, rows,
+                                                           seg, split):
+    """The kernel takes ``output_grid``'s plan and refuses one whose
+    regime does not follow M, a segment that is not a multiple of the
+    64-wide chunk, or a workspace that does not match the split; the plan
+    for M passes."""
+    n, k = 256, 512
+    a = torch.zeros((m, k), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros((k, n), dtype=torch.bfloat16, device=cuda)
+    out = torch.empty((m, n), dtype=torch.float32, device=cuda)
+    ws = torch.empty((k // 64, m, n), dtype=torch.float32, device=cuda)
+    lib = build.library("flex_matmul")
+
+    def launch(rows, seg, split):
+        return lib.fm_output(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             ws.data_ptr() if split else None, m, n, k, k, n,
+                             m, 128, 128, rows, seg, 0, 1, 0,
+                             build.stream_ptr(cuda))
+
+    assert launch(rows, seg, split) != 0
+    plan = pt_fm.output_grid(m, n, k)
+    assert launch(plan.rows, plan.segment, plan.workspace is not None) == 0
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
+def _all_live(meta):
+    tk = meta.a_bitmap.shape[1]
+    return dataclasses.replace(
+        meta, max_nnz=tk, kcnt=torch.full_like(meta.kcnt, tk),
+        kidx=torch.arange(tk, dtype=torch.int32, device=meta.kcnt.device)
+        .expand(meta.kcnt.shape + (tk,)).contiguous())
+
+
+TENSOR_CORE_KERNELS = {"flash_attention": ("fa_kernel_mma",),
+                       "flex_matmul": ("ws_kernel_mma", "os_kernel_mma",
+                                       "os_wg_kernel_mma"),
+                       "block_sparse": ("bs_kernel_mma", "bs_wg_kernel_mma")}
+
+
 @pytest.mark.cuda
 def test_cuda_tensor_cores_only_in_the_bf16_redesign(cuda):
-    """The bf16 flash and weight-stationary kernels multiply on the tensor
-    cores (SASS HMMA/HGMMA); every other kernel — the float32
-    instantiations among them — has no tensor-core instruction."""
+    """The bf16 flash, weight-stationary, output-stationary and block-sparse
+    kernels multiply on the tensor cores (SASS HMMA/HGMMA); every other
+    kernel — the float32 instantiations, the int8 ones and the segment
+    sums among them — has no tensor-core instruction."""
     for name in build.SOURCES:
         counts = build.tensor_core_ops(name)
         assert counts, name
@@ -165,10 +379,8 @@ def test_cuda_tensor_cores_only_in_the_bf16_redesign(cuda):
                 assert n_ops > 0, fn
             else:
                 assert n_ops == 0, fn
-    names = [fn for name in ("flash_attention", "flex_matmul")
-             for fn in build.tensor_core_ops(name) if "kernel_mma" in fn]
-    assert any("fa_kernel_mma" in fn for fn in names)
-    assert any("ws_kernel_mma" in fn for fn in names)
+        for kernel in TENSOR_CORE_KERNELS.get(name, ()):
+            assert any(kernel in fn for fn in counts), (name, kernel)
 
 
 @pytest.mark.cuda
@@ -187,13 +399,8 @@ def test_cuda_block_sparse_matches_plain_and_all_live(cuda, dtype, k, n):
     out = pt_bs.block_sparse_matmul(a, w, meta, out_dtype=torch.float32)
     err = (out - block_sparse_matmul_ref(a, w, meta)).abs().max().item()
     assert err <= _cuda_tol(a, w)
-    tk = k // 128
-    live = dataclasses.replace(
-        meta, max_nnz=tk, kcnt=torch.full_like(meta.kcnt, tk),
-        kidx=torch.arange(tk, dtype=torch.int32, device=cuda)
-        .expand(meta.kcnt.shape + (tk,)).contiguous())
     assert torch.equal(out, pt_bs.block_sparse_matmul(
-        a, w, live, out_dtype=torch.float32))
+        a, w, _all_live(meta), out_dtype=torch.float32))
     # an empty tile list writes zeros
     empty = dataclasses.replace(meta, kcnt=torch.zeros_like(meta.kcnt))
     assert not pt_bs.block_sparse_matmul(a, w, empty).any()

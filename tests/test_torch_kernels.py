@@ -112,13 +112,91 @@ def test_weight_grid_refuses_what_it_cannot_take(args, match):
         pt_fm.weight_grid(*args, 132)
 
 
+@pytest.mark.parametrize("m,n,k", [(4, 5632, 2048), (4, 2048, 5632),
+                                   (4, 100352, 2048), (16, 36, 70),
+                                   (8192, 5632, 2048), (70, 384, 256)])
+def test_output_grid_is_the_same_whatever_the_blocks(m, n, k):
+    """``fm_output`` and ``bs_matmul`` share one plan: it is a function of
+    (M, N, K) alone (it takes no blocks), so any two block choices that pad
+    the operands to the same shape get the same regime and segments;
+    the regime follows M (16 rows and K segments of 256 up to M = 16, one
+    128-row tile and all of K above)."""
+    plan = pt_fm.output_grid(m, n, k)
+    assert plan == pt_fm.output_grid(m, n, k)
+    skinny = m <= 16
+    assert plan.rows == (16 if skinny else 128)
+    assert plan.segment == (256 if skinny else 0)
+    segments = -(-k // 256) if skinny else 1
+    assert plan.workspace == ((segments, m, n) if segments > 1 else None)
+
+
+@pytest.mark.parametrize("k", [16, 70, 256, 257, 2048, 5632])
+def test_output_grid_segments_tile_k_in_multiples_of_16(k):
+    """The segments the kernel takes — CTA z of a strip sums K from
+    z·segment, for as many CTAs as the workspace has partials — start at
+    multiples of 16 (and of 64, the staged chunk), have one constant length
+    whatever K, and cover [0, K) in ascending order."""
+    plan = pt_fm.output_grid(4, 2048, k)
+    assert plan.segment == pt_fm.output_grid(4, 2048, 64).segment
+    assert plan.segment > 0 and plan.segment % 64 == 0
+    segments = plan.workspace[0] if plan.workspace else 1
+    starts = [z * plan.segment for z in range(segments)]
+    assert all(lo % 16 == 0 for lo in starts) and starts[-1] < k
+    assert segments * plan.segment >= k
+
+
+@pytest.mark.parametrize("m", [4, 8192])
+@pytest.mark.parametrize("k,padded", [(2048, 2048 + 128), (200, 256),
+                                      (200, 512), (5632, 5632 + 512)])
+def test_output_grid_zero_padding_only_appends(m, k, padded):
+    """Padding K (to another bk) keeps the regime and the segment length,
+    so every segment boundary below K stays where it was: the padded plan
+    only extends the last segment with zeros or appends segments that hold
+    nothing but zeros."""
+    plan, more = (pt_fm.output_grid(m, 1024, kk) for kk in (k, padded))
+    assert more.segment == plan.segment and more.rows == plan.rows
+    if plan.segment:
+        inside = [lo for lo in range(0, padded, more.segment) if lo < k]
+        assert inside == list(range(0, k, plan.segment))
+    else:
+        assert plan.workspace is None and more.workspace is None
+
+
+@pytest.mark.parametrize("shape,offset", [((4, 2048), 0), ((40, 70), 0),
+                                          ((6, 36), 0), ((4, 64), 1)])
+def test_aligned_rows_pads_what_tma_cannot_address(shape, offset):
+    """The tensor-core kernels read rows of 16-byte multiples from 16-byte
+    aligned bases: an operand that is so is passed as it is, any other is
+    copied into rows zero-padded to a multiple of 8 elements, its values
+    unchanged."""
+    rows, cols = shape
+    x = torch.arange(rows * cols, dtype=torch.float32).reshape(
+        rows, cols).bfloat16()
+    if offset:                  # the same values from a base 2 bytes in
+        x = torch.cat([torch.zeros(1, dtype=torch.bfloat16),
+                       x.flatten()])[1:].view(rows, cols)
+    out, ld = pt_fm.aligned_rows(x)
+    assert ld % 8 == 0 and ld >= cols and out.shape == (rows, ld)
+    assert out.data_ptr() % 16 == 0 and out.is_contiguous()
+    assert torch.equal(out[:, :cols], x) and not out[:, cols:].any()
+    aligned = cols % 8 == 0 and x.data_ptr() % 16 == 0
+    assert (out.data_ptr() == x.data_ptr()) == aligned
+
+
+@pytest.mark.parametrize("mnk", [(0, 128, 128), (4, 0, 128), (4, 128, 0),
+                                 (-4, 128, 128)])
+def test_output_grid_refuses_non_positive_sizes(mnk):
+    with pytest.raises(ValueError, match="non-positive"):
+        pt_fm.output_grid(*mnk)
+
+
 def test_flex_matmul_refuses_bad_operands():
     a = torch.zeros((4, 8))
     with pytest.raises(ValueError, match="bad operand shapes"):
         pt_fm.flex_matmul(a, torch.zeros((9, 4)))
     with pytest.raises(ValueError, match="operands differ"):
         pt_fm.flex_matmul(a, torch.zeros((8, 4), dtype=torch.float64))
-    for name in ("diagonal", "weight_sum"):   # a launch count's key too
+    for name in ("diagonal", "weight_sum", "output_sum"):   # launch keys
         with pytest.raises(ValueError, match="unknown stationarity"):
             pt_fm.flex_matmul(a, torch.zeros((8, 4)),
                               schedule=MatmulSchedule(name, 4, 4, 4))
@@ -146,6 +224,26 @@ def test_block_sparse_plain_equals_pallas(a_live, b_live, mkn, blocks):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), **TOL)
     # skipping never approximates: the dense product, to float32 rounding
     np.testing.assert_allclose(ours.numpy(), a @ b, **TOL)
+
+
+def test_block_sparse_rows_keeps_the_unpadded_rows():
+    """``rows``: A's rows past it only pad A to the blocks; C keeps the
+    first ``rows`` rows, equal to the padded product's, and a count outside
+    A is refused."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(_sparse(rng, (3, 64), (3, 16), 0.7))
+    b = torch.from_numpy(_sparse(rng, (64, 48), (16, 16), 0.5))
+    xp = pt_fm.pad_to_blocks(a, 8, 16)
+    meta = pt_sp.build_block_sparse_meta(pt_sp.block_bitmap(xp, 8, 16),
+                                         pt_sp.block_bitmap(b, 16, 16))
+    full = pt_bs.block_sparse_matmul(xp, b, meta, out_dtype=torch.float32)
+    out = pt_bs.block_sparse_matmul(xp, b, meta, out_dtype=torch.float32,
+                                    rows=3)
+    assert out.shape == (3, 48) and torch.equal(out, full[:3])
+    np.testing.assert_allclose(out.numpy(), a.numpy() @ b.numpy(), **TOL)
+    for rows in (0, 9):
+        with pytest.raises(ValueError, match="outside A"):
+            pt_bs.block_sparse_matmul(xp, b, meta, rows=rows)
 
 
 def test_block_sparse_refuses_non_multiples():
