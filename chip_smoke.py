@@ -10,9 +10,9 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
      and read each library's SASS (``cuobjdump``): the bf16 kernels of
      the flash attention (wgmma), the weight-stationary matmul (mma.sync),
-     and the output-stationary and block-sparse matmuls (one template:
-     mma.sync at M <= 16, wgmma above) multiply on the tensor cores
-     (HMMA/HGMMA); every other kernel — the float32 and int8
+     and the output-stationary and block-sparse matmuls, bf16 and bf16 x
+     int8 (one template: mma.sync at M <= 16, wgmma above) multiply on the
+     tensor cores (HMMA/HGMMA); every other kernel — the float32
      instantiations, ``fm_input`` and the summing passes — does not;
   3. bring-up (weights, the weight-sparsity plan, the dense descriptor
      table), then every matmul site the main path runs, on layer 0's pruned
@@ -40,14 +40,15 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      metadata — the scaled block-sparse kernel and the int8 matmul kernel
      held against their plain versions in bf16 and float32, dense and
      half-dead activations, under √K·2⁻²⁴·max(|A|@|Q·s|); the scaled
-     block-sparse run bitwise against its all-live run and against the
-     int8 matmul kernel; the TF32 control rejected; bf16 times beside
-     each bound;
+     block-sparse run (rows: the product's own, as the path passes them)
+     bitwise against its all-live run and against the int8 matmul kernel;
+     the TF32 control rejected; bf16 times beside each bound;
   7. the planned two-sided int8 engine (the first 4 prompts, 16 new tokens,
      fused blocks): tokens/s and ms per decode step, fused streams equal to
      its ``step()`` oracle; one step of the dense int8 descriptor-table
      engine (``int8_matmul`` at every site), whose logits must equal the
-     planned int8 engine's bit for bit; one step of the plain int8 engine
+     planned int8 engine's bit for bit; every int8 kernel, the split
+     grids' sums included, launched; one step of the plain int8 engine
      (weights dequantized to bf16, float32-accumulated ``torch.matmul``)
      within 5% of max |logit|; and, for information, the int8 engine
      against the bf16 one (first-step logits, greedy tokens);
@@ -81,26 +82,33 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      device time by kernel);
  11. int8 prefill (``quantize=True``): the dense int8 table and the planned
      int8 plan (logits equal bit for bit), the plain int8 prefill (within
-     5% of max |logit|); the int8 kernels' times at mlp.in, M = 8192;
+     5% of max |logit|); layer 0's six stack sites at M = 8192 as in
+     phase 6 (the int8 pair against its plain versions in bf16 and
+     float32, dense and half-dead, sparse == all-live == ``int8_matmul``
+     bitwise, the TF32 control); the int8 kernels' times at mlp.in;
  12. a ``kernels`` JSON line: per kernel its launches on its main path
      (phases 4-5 for the bf16 matmul kernels, phase 7 for the int8 ones,
      phase 10's dense-table prefill for the flash kernel, which also gives
      its launches over every prefill of phases 10-11), its worst error
-     over phase 3, 6 or 9, and its time, bound, plain-version time and
-     library time: the matmul kernels at the mlp.in decode site (none
-     exists for bf16 x int8; the int8 rows add ``bf16_matmul_ms``,
-     ``torch.matmul`` on the dequantized bf16 weight, as a reference
-     point), the flash kernel at the prefill cell (library: PyTorch's
-     ``scaled_dot_product_attention``, timed here only).  The bf16
-     ``block_sparse``, ``flex_output`` and ``flex_weight`` rows also carry
-     the launches of their split grids' summing kernels, their device time
-     and ``torch.matmul``'s (``torch.profiler``: at decode the host, not
-     the card, sets the pace of a call), and every matmul row its time
-     and bound at mlp.in M = 8192 (``prefill_ms``, ``prefill_bound_ms``):
-     the bf16 rows from phase 9 beside ``torch.matmul``'s
+     over phases 3 and 9, or 6 and 11, and its time, bound, plain-version
+     time and
+     library time: the matmul kernels at the mlp.in decode site (for bf16
+     x int8 ``torch._weight_int8pack_mm``, which rounds the scales to bf16:
+     a yardstick, not the same function, and null where it raises; the
+     int8 rows add ``bf16_matmul_ms``, ``torch.matmul`` on the dequantized
+     bf16 weight, as a reference point), the flash kernel at the prefill
+     cell (library: PyTorch's ``scaled_dot_product_attention``, timed here
+     only).  The ``block_sparse``, ``flex_output``, ``flex_weight``,
+     ``block_sparse_scaled`` and ``int8_matmul`` rows also carry the
+     launches of their split grids' summing kernels, their device time and
+     the library call's (``torch.profiler``: at decode the host, not the
+     card, sets the pace of a call), and every matmul row its time and
+     bound at mlp.in M = 8192 (``prefill_ms``, ``prefill_bound_ms``): the
+     bf16 rows from phase 9 beside ``torch.matmul``'s
      (``prefill_library_ms``), the int8 rows from phase 11 beside
-     ``torch.matmul`` on the dequantized weight
-     (``prefill_bf16_matmul_ms``);
+     ``torch.matmul`` on the dequantized weight (``prefill_bf16_matmul_ms``;
+     their ``prefill_library_ms`` is null: the int8 yardstick is a kernel
+     for a few rows);
      ``fm_weight`` adds its dataflow bound and its launches in phase 10's
      weight-stationary prefill.
 
@@ -130,18 +138,27 @@ SLICE1_KERNELS = ("block_sparse", "block_sparse_sum", "output", "output_sum",
 TENSOR_CORE_KERNELS = {"flash_attention": ("fa_kernel_mma",),
                        "flex_matmul": ("ws_kernel_mma", "os_kernel_mma",
                                        "os_wg_kernel_mma"),
-                       "block_sparse": ("bs_kernel_mma", "bs_wg_kernel_mma")}
+                       "block_sparse": ("bs_kernel_mma", "bs_wg_kernel_mma",
+                                        "bsq_kernel_mma",
+                                        "bsq_wg_kernel_mma"),
+                       "int8_matmul": ("i8_kernel_mma", "i8_wg_kernel_mma")}
 # kernel-name fragments of the port's CUDA kernels, by the entry point that
 # launches them (first match wins), for the profiles' breakdowns
 KERNEL_FAMILIES = (("bs_kernel_mma", "bs_matmul"),
                    ("bs_wg_kernel_mma", "bs_matmul"),
+                   ("bsq_kernel_mma", "bs_matmul_scaled"),
+                   ("bsq_wg_kernel_mma", "bs_matmul_scaled"),
+                   ("i8_kernel_mma", "i8_matmul"),
+                   ("i8_wg_kernel_mma", "i8_matmul"),
                    ("os_kernel_mma", "fm_output"),
                    ("os_wg_kernel_mma", "fm_output"),
                    ("seg_sum_kernel", "segment sums"),
                    ("ws_kernel", "fm_weight"), ("is_kernel", "fm_input"),
-                   ("tile_kernel", "tile.cuh (float32 / int8)"),
+                   ("tile_kernel", "tile.cuh (float32)"),
                    ("fa_kernel", "flash"))
-INT8_KERNELS = ("block_sparse_scaled", "int8_matmul")
+# the int8 kernels; ``*_sum`` add (and scale) a split grid's partials
+INT8_KERNELS = ("block_sparse_scaled", "block_sparse_scaled_sum",
+                "int8_matmul", "int8_matmul_sum")
 PREFILL_SITES = ("attn.q", "attn.kv", "attn.out", "mlp.in", "mlp.gate",
                  "mlp.out")
 SEED = 0
@@ -685,10 +702,91 @@ def run_engines(cfg, params, planned, dense, report):
 # phases 6-7: int8 serving (quantize=True) on the same weights
 # ---------------------------------------------------------------------------
 
+def check_int8_site(pw, e, m, gen, report, label) -> dict:
+    """One site of the int8 path — its attached layer-0 weight ``pw`` under
+    the plan entry ``e`` — at M = ``m``: ``block_sparse_matmul(scale=,
+    rows=m)`` on the planned operands and ``int8_matmul``, with bf16 and
+    float32 activations, dense and with half their K-blocks zero, each held
+    to ``matmul_tol`` with B = Q·s against its plain version; the scaled
+    run bitwise against its all-live run and against ``int8_matmul``; a
+    float32 tolerance that must reject a TF32 activation.  Returns the
+    worst error per kernel and the dense float32 activation."""
+    import torch
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.kernels.ops import planned_operands
+    from repro_torch.kernels.ref import (block_sparse_matmul_ref,
+                                         int8_matmul_plain)
+    from repro_torch.quant.quantize import QuantizedLinear
+
+    need(pw.quantized and not e.transpose,
+         f"{e.site}: the int8 plan did not attach an int8 payload")
+    qw = QuantizedLinear(pw.w, pw.qscale)
+    w_deq = pw.w_kn                       # float32 Q·s
+    k, n = pw.kn.shape
+    a_full = torch.randn((m, k), generator=gen, device=gen.device)
+    kb = torch.rand(-(-k // e.bk), generator=gen, device=gen.device) < 0.5
+    a_half = a_full * kb.repeat_interleave(e.bk)[:k]
+    worst = dict.fromkeys(INT8_KERNELS, 0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        errs = dict.fromkeys(worst, 0.0)
+        tol = 0.0
+        for act, a32 in (("dense", a_full), ("half", a_half)):
+            a = a32.to(dtype)
+            tol_a = matmul_tol(a, w_deq)
+            tol = max(tol, tol_a)
+            what = f"{label} {e.site} {dtype} {act}"
+            xp, wp, meta, scale = planned_operands(a, pw)
+            out = bs.block_sparse_matmul(xp, wp, meta, scale=scale,
+                                         out_dtype=torch.float32, rows=m)
+            err = (out - block_sparse_matmul_ref(xp, wp, meta, scale)[:m]) \
+                .abs().max().item()
+            need(err <= tol_a, f"block_sparse_scaled {what}: error {err} > "
+                 f"{tol_a}")
+            need(torch.equal(out, bs.block_sparse_matmul(
+                xp, wp, all_live(meta), scale=scale,
+                out_dtype=torch.float32, rows=m)),
+                f"block_sparse_scaled {what}: sparse != all-live run")
+            errs["block_sparse_scaled"] = max(errs["block_sparse_scaled"],
+                                              err)
+            d = int8_matmul(a, qw, out_dtype=torch.float32)
+            err = (d - int8_matmul_plain(a, qw.q, qw.scale)).abs().max() \
+                .item()
+            need(err <= tol_a, f"int8_matmul {what}: error {err} > {tol_a}")
+            need(torch.equal(d, out[:, :n]), f"{what}: int8_matmul != "
+                 f"block_sparse_scaled bitwise")
+            errs["int8_matmul"] = max(errs["int8_matmul"], err)
+        line = (f"{label} {e.site} {str(dtype)[6:]} M={m} K={k} N={n}: "
+                f"block_sparse_scaled ({e.bm},{e.bk},{e.bn}) "
+                f"{errs['block_sparse_scaled']:.3e}, int8_matmul "
+                f"{errs['int8_matmul']:.3e}; tol {tol:.3e}; sparse == "
+                f"all-live == int8_matmul bitwise")
+        if dtype is torch.float32:
+            a = a_full
+            xp, wp, meta, scale = planned_operands(a, pw)
+            tol_a = matmul_tol(a, w_deq)
+            ctrl_bs = (block_sparse_matmul_ref(tf32(xp), wp, meta, scale)
+                       - block_sparse_matmul_ref(xp, wp, meta, scale)) \
+                .abs().max().item()
+            ctrl_i8 = (int8_matmul_plain(tf32(a), qw.q, qw.scale)
+                       - int8_matmul_plain(a, qw.q, qw.scale)) \
+                .abs().max().item()
+            line += (f"; TF32 control {ctrl_bs:.3e} / {ctrl_i8:.3e} "
+                     f"(must exceed tol)")
+            need(min(ctrl_bs, ctrl_i8) > tol_a,
+                 f"{label} {e.site}: the float32 tolerance does not reject "
+                 f"a TF32 activation ({ctrl_bs}, {ctrl_i8})")
+        report(line)
+        for key in worst:
+            worst[key] = max(worst[key], errs[key])
+    return worst, a_full
+
+
 def check_sites_int8(cfg, params, q8, report) -> dict:
-    """Every site of the int8 path at layer 0: the quantized plan's blocks
-    and metadata, the decode shape.  Returns the worst error per kernel
-    and the bf16 mlp.in operands for the ``kernels`` line."""
+    """Every site of the int8 path at layer 0 (``check_int8_site``): the
+    quantized plan's blocks and metadata, the decode shape, and bf16 times.
+    Returns the worst error per kernel and the bf16 mlp.in operands for
+    the ``kernels`` line."""
     import torch
     from repro_torch.kernels import block_sparse as bs
     from repro_torch.kernels.int8_matmul import int8_matmul
@@ -697,8 +795,7 @@ def check_sites_int8(cfg, params, q8, report) -> dict:
                                          int8_matmul_plain)
     from repro_torch.quant.quantize import QuantizedLinear, quantize_params
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(2)
     qparams, _ = quantize_params(params, tie_embeddings=cfg.tie_embeddings)
     attached = q8.plan.attach(qparams)
     worst = dict.fromkeys(INT8_KERNELS, 0.0)
@@ -709,73 +806,13 @@ def check_sites_int8(cfg, params, q8, report) -> dict:
             pw = pw[key]
         if e.lead:
             pw = pw.index(0)
-        need(pw.quantized and not e.transpose,
-             f"{e.site}: the int8 plan did not attach an int8 payload")
-        qw = QuantizedLinear(pw.w, pw.qscale)
-        w_deq = pw.w_kn                       # float32 Q·s
-        k, n = pw.kn.shape
         m = q8.schedules.sites[e.site].m
-        a_full = torch.randn((m, k), generator=gen, device=dev)
-        kb = torch.rand(-(-k // e.bk), generator=gen, device=dev) < 0.5
-        a_half = a_full * kb.repeat_interleave(e.bk)[:k]
-        for dtype in (torch.bfloat16, torch.float32):
-            errs = dict.fromkeys(worst, 0.0)
-            tol = 0.0
-            for act, a32 in (("dense", a_full), ("half", a_half)):
-                a = a32.to(dtype)
-                tol_a = matmul_tol(a, w_deq)
-                tol = max(tol, tol_a)
-                what = f"{e.site} {dtype} {act}"
-                xp, wp, meta, scale = planned_operands(a, pw)
-                out = bs.block_sparse_matmul(xp, wp, meta, scale=scale,
-                                             out_dtype=torch.float32)
-                err = (out - block_sparse_matmul_ref(xp, wp, meta, scale)) \
-                    .abs().max().item()
-                need(err <= tol_a, f"block_sparse_scaled {what}: error "
-                     f"{err} > {tol_a}")
-                need(torch.equal(out, bs.block_sparse_matmul(
-                    xp, wp, all_live(meta), scale=scale,
-                    out_dtype=torch.float32)),
-                    f"block_sparse_scaled {what}: sparse != all-live run")
-                errs["block_sparse_scaled"] = max(
-                    errs["block_sparse_scaled"], err)
-                d = int8_matmul(a, qw, out_dtype=torch.float32)
-                err = (d - int8_matmul_plain(a, qw.q, qw.scale)) \
-                    .abs().max().item()
-                need(err <= tol_a, f"int8_matmul {what}: error {err} > "
-                     f"{tol_a}")
-                need(torch.equal(d, out[:m, :n]), f"{what}: int8_matmul "
-                     f"!= block_sparse_scaled bitwise")
-                errs["int8_matmul"] = max(errs["int8_matmul"], err)
-                if dtype is torch.bfloat16 and act == "dense" \
-                        and e.site == "mlp.in":
-                    keep.update(a=a, qw=qw, xp=xp, wp=wp, meta=meta,
-                                scale=scale, blocks=(e.bm, e.bk, e.bn),
-                                w_bf16=w_deq.to(torch.bfloat16))
-            line = (f"int8 {e.site} {str(dtype)[6:]} M={m} K={k} N={n}: "
-                    f"block_sparse_scaled ({e.bm},{e.bk},{e.bn}) "
-                    f"{errs['block_sparse_scaled']:.3e}, int8_matmul "
-                    f"{errs['int8_matmul']:.3e}; tol {tol:.3e}; sparse == "
-                    f"all-live == int8_matmul bitwise")
-            if dtype is torch.float32:
-                a = a_full
-                xp, wp, meta, scale = planned_operands(a, pw)
-                tol_a = matmul_tol(a, w_deq)
-                ctrl_bs = (block_sparse_matmul_ref(tf32(xp), wp, meta, scale)
-                           - block_sparse_matmul_ref(xp, wp, meta, scale)) \
-                    .abs().max().item()
-                ctrl_i8 = (int8_matmul_plain(tf32(a), qw.q, qw.scale)
-                           - int8_matmul_plain(a, qw.q, qw.scale)) \
-                    .abs().max().item()
-                line += (f"; TF32 control {ctrl_bs:.3e} / {ctrl_i8:.3e} "
-                         f"(must exceed tol)")
-                need(min(ctrl_bs, ctrl_i8) > tol_a,
-                     f"int8 {e.site}: the float32 tolerance does not reject "
-                     f"a TF32 activation ({ctrl_bs}, {ctrl_i8})")
-            report(line)
-            for key in worst:
-                worst[key] = max(worst[key], errs[key])
+        errs, a_full = check_int8_site(pw, e, m, gen, report, "int8")
+        for key in worst:
+            worst[key] = max(worst[key], errs[key])
         # bf16 times at this site, activation dense as on the path
+        qw = QuantizedLinear(pw.w, pw.qscale)
+        k, n = pw.kn.shape
         a = a_full.to(torch.bfloat16)
         xp, wp, meta, scale = planned_operands(a, pw)
         b_bs, _ = bs_bound_ms(xp, meta, (e.bm, e.bk, e.bn), w_elem=1,
@@ -783,16 +820,19 @@ def check_sites_int8(cfg, params, q8, report) -> dict:
         b_i8, _ = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
                            2.0 * m * n * k)
         t_bs = cuda_ms(lambda: bs.block_sparse_matmul(
-            xp, wp, meta, scale=scale, out_dtype=torch.float32))
+            xp, wp, meta, scale=scale, out_dtype=torch.float32, rows=m))
         t_i8 = cuda_ms(lambda: int8_matmul(a, qw, out_dtype=torch.float32))
         t_pbs = cuda_ms(lambda: block_sparse_matmul_ref(xp, wp, meta, scale))
         t_pi8 = cuda_ms(lambda: int8_matmul_plain(a, qw.q, qw.scale))
-        w_bf16 = w_deq.to(torch.bfloat16)
+        w_bf16 = pw.w_kn.to(torch.bfloat16)
         t_bf16 = cuda_ms(lambda: torch.matmul(a, w_bf16))
         report(f"  int8 {e.site} bf16 ms: block_sparse_scaled {t_bs:.4f} "
                f"(bound {b_bs:.5f}), int8_matmul {t_i8:.4f} (bound "
                f"{b_i8:.5f}), plain {t_pbs:.4f} / {t_pi8:.4f}, bf16 "
                f"torch.matmul on the dequantized weight {t_bf16:.4f}")
+        if e.site == "mlp.in":
+            keep.update(a=a, qw=qw, xp=xp, wp=wp, meta=meta, scale=scale,
+                        blocks=(e.bm, e.bk, e.bn), w_bf16=w_bf16)
     need(bool(keep), "no mlp.in site in the int8 plan")
     torch.cuda.synchronize()
     keep["errs"] = worst
@@ -865,6 +905,28 @@ def run_int8_engines(cfg, params, q8, dense8, bf16, report) -> dict:
     return launches
 
 
+def int8pack(a, qw):
+    """PyTorch's one call of a bf16 x int8 product with per-column scales,
+    ``torch._weight_int8pack_mm(A, Qᵀ, scale)``: it rounds the scales to
+    A's dtype, so it is a yardstick of speed, not the same function.
+    Returns (a callable, its max |difference| from the plain version) or
+    (None, the first line of the error it raises on these inputs)."""
+    import torch
+    from repro_torch.kernels.ref import int8_matmul_plain
+    qt, sc = qw.q.t().contiguous(), qw.scale.to(a.dtype)
+
+    def call():
+        return torch._weight_int8pack_mm(a, qt, sc)
+
+    try:
+        out = call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, str(exc).strip().splitlines()[0][:200]
+    diff = (out.float() - int8_matmul_plain(a, qw.q, qw.scale)).abs().max()
+    return call, diff.item()
+
+
 def time_int8_kernels(t, launches) -> list:
     """The int8 rows of the ``kernels`` line: bf16 x @ w_in at the decode
     shape (M=4, K=2048, N=5632), the weight block-pruned at (256, 256) and
@@ -884,30 +946,48 @@ def time_int8_kernels(t, launches) -> list:
                               scale_bytes=4 * n)
     b_i8, by_i8 = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
                            2.0 * m * n * k)
+    lib, lib_note = int8pack(a, qw)
+    lib_ms = lib_device_ms = None
+    if lib is not None:
+        lib_ms, lib_device_ms = cuda_ms(lib), device_ms(lib)
+
+    def bs_call():
+        return bs.block_sparse_matmul(xp, wp, meta, scale=scale,
+                                      out_dtype=torch.float32, rows=m)
+
+    def i8_call():
+        return int8_matmul(a, qw, out_dtype=torch.float32)
+
     rows = [{
         "name": "block_sparse_scaled", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_sparse.cu",
         "replaces": "src/repro/kernels/block_sparse.py:69",
         "launches": launches["block_sparse_scaled"],
+        "launches_sum": launches["block_sparse_scaled_sum"],
         "max_abs_err": t["errs"]["block_sparse_scaled"],
-        "ms": cuda_ms(lambda: bs.block_sparse_matmul(
-            xp, wp, meta, scale=scale, out_dtype=torch.float32)),
+        "ms": cuda_ms(bs_call),
         "plain_ms": cuda_ms(lambda: block_sparse_matmul_ref(xp, wp, meta,
                                                             scale)),
-        "bound_ms": b_bs, "bound_by": by_bs, "library_ms": None}, {
+        "bound_ms": b_bs, "bound_by": by_bs, "library_ms": lib_ms,
+        "device_ms": device_ms(bs_call)}, {
         "name": "int8_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
         "replaces": "src/repro/kernels/int8_matmul.py:24",
         "launches": launches["int8_matmul"],
+        "launches_sum": launches["int8_matmul_sum"],
         "max_abs_err": t["errs"]["int8_matmul"],
-        "ms": cuda_ms(lambda: int8_matmul(a, qw, out_dtype=torch.float32)),
+        "ms": cuda_ms(i8_call),
         "plain_ms": cuda_ms(lambda: int8_matmul_plain(a, qw.q, qw.scale)),
-        "bound_ms": b_i8, "bound_by": by_i8, "library_ms": None}]
+        "bound_ms": b_i8, "bound_by": by_i8, "library_ms": lib_ms,
+        "device_ms": device_ms(i8_call)}]
     # reference point, not a library time: bf16 x bf16 on the dequantized
     # weight (timed last, after the kernels have warmed the card)
     bf16_ms = cuda_ms(lambda: torch.matmul(a, t["w_bf16"]))
     for row in rows:
-        row["bf16_matmul_ms"] = bf16_ms
+        row.update(bf16_matmul_ms=bf16_ms, library_device_ms=lib_device_ms,
+                   library="torch._weight_int8pack_mm (scales rounded to "
+                   "bf16: a yardstick, not the same function)",
+                   library_note=lib_note)
     reset_launches(saved)
     return rows
 
@@ -1334,10 +1414,11 @@ def run_prefill(cfg, params, dense, planned, shape, report) -> dict:
 
 
 def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report):
-    """Phase 11.  Returns the flash kernel's launches over its prefills and
+    """Phase 11.  Returns the flash kernel's launches over its prefills,
     the int8 kernels' bf16 (ms, bound ms) at prefill mlp.in (layer 0's
     weight, a seeded activation) beside ``torch.matmul``'s ms on the
-    dequantized bf16 weight (key ``bf16_matmul``)."""
+    dequantized bf16 weight (key ``bf16_matmul``), and the int8 kernels'
+    worst errors over layer 0's six stack sites at M = B·S."""
     import torch
     from repro_torch.kernels import block_sparse as bs
     from repro_torch.kernels import ops
@@ -1387,38 +1468,54 @@ def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report):
            f"{diff:.3e}, tol {tol:.3e}")
     need(diff <= tol, f"plain int8 prefill logits off by {diff}")
 
-    # the int8 kernels at prefill mlp.in, as phase 9 times the bf16 ones
+    # layer 0's six stack sites at M = B·S, as phase 6 holds them at
+    # decode and phase 9 holds the bf16 kernels at this shape
     saved = launch_counts()
-    e = next(e for e in planned8.plan.entries.values() if e.site == "mlp.in")
-    pw = attached
-    for key in e.path:
-        pw = pw[key]
-    pw = pw.index(0)
-    k, n = pw.kn.shape
-    m = planned8.schedules.sites[e.site].m
     gen = torch.Generator(device="cuda").manual_seed(5)
-    a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
-    xp, wp, meta, scale = planned_operands(a, pw)
-    qw = QuantizedLinear(pw.w, pw.qscale)
-    w_bf16 = pw.w_kn.to(torch.bfloat16)
-    b_bs, _ = bs_bound_ms(xp, meta, (e.bm, e.bk, e.bn), w_elem=1,
-                          scale_bytes=4 * n)
-    b_i8, _ = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
-                       2.0 * m * n * k)
-    times = {
-        "block_sparse_scaled": (cuda_ms(lambda: bs.block_sparse_matmul(
-            xp, wp, meta, scale=scale, out_dtype=torch.float32), iters=5),
-            b_bs),
-        "int8_matmul": (cuda_ms(lambda: int8_matmul(
-            a, qw, out_dtype=torch.float32), iters=5), b_i8),
-        "bf16_matmul": cuda_ms(lambda: torch.matmul(a, w_bf16), iters=5)}
+    worst = dict.fromkeys(INT8_KERNELS, 0.0)
+    times = {}
+    for e in planned8.plan.entries.values():
+        if e.site not in PREFILL_SITES:
+            continue
+        pw = attached
+        for key in e.path:
+            pw = pw[key]
+        pw = pw.index(0)
+        m = planned8.schedules.sites[e.site].m
+        errs, a_full = check_int8_site(pw, e, m, gen, report, "int8 prefill")
+        for key in worst:
+            worst[key] = max(worst[key], errs[key])
+        if e.site != "mlp.in":
+            continue
+        # the int8 kernels' times at mlp.in, as phase 9 times the bf16 ones
+        k, n = pw.kn.shape
+        a = a_full.to(torch.bfloat16)
+        xp, wp, meta, scale = planned_operands(a, pw)
+        qw = QuantizedLinear(pw.w, pw.qscale)
+        w_bf16 = pw.w_kn.to(torch.bfloat16)
+        b_bs, _ = bs_bound_ms(xp, meta, (e.bm, e.bk, e.bn), w_elem=1,
+                              scale_bytes=4 * n)
+        b_i8, _ = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
+                           2.0 * m * n * k)
+        times = {
+            "block_sparse_scaled": (cuda_ms(lambda: bs.block_sparse_matmul(
+                xp, wp, meta, scale=scale, out_dtype=torch.float32, rows=m),
+                iters=5), b_bs),
+            "int8_matmul": (cuda_ms(lambda: int8_matmul(
+                a, qw, out_dtype=torch.float32), iters=5), b_i8),
+            "bf16_matmul": cuda_ms(lambda: torch.matmul(a, w_bf16),
+                                   iters=5)}
+        report(f"  int8 prefill mlp.in M={m} K={k} N={n} bf16 ms: "
+               f"block_sparse_scaled {times['block_sparse_scaled'][0]:.4f} "
+               f"(bound {b_bs:.4f}), int8_matmul "
+               f"{times['int8_matmul'][0]:.4f} (bound {b_i8:.4f}), bf16 "
+               f"torch.matmul on the dequantized weight "
+               f"{times['bf16_matmul']:.4f}")
     reset_launches(saved)
-    report(f"  int8 prefill mlp.in M={m} K={k} N={n} bf16 ms: "
-           f"block_sparse_scaled {times['block_sparse_scaled'][0]:.4f} "
-           f"(bound {b_bs:.4f}), int8_matmul {times['int8_matmul'][0]:.4f} "
-           f"(bound {b_i8:.4f}), bf16 torch.matmul on the dequantized "
-           f"weight {times['bf16_matmul']:.4f}")
-    return total, times
+    need(bool(times), "no mlp.in site in the int8 prefill plan")
+    report(f"int8 prefill-shape worst errors: {worst}")
+    torch.cuda.synchronize()
+    return total, times, worst
 
 
 def time_flash(t, launches) -> dict:
@@ -1547,13 +1644,14 @@ def main() -> int:
         del dense_pf, planned_pf
         done("phase 10")
         # phase 11: int8 prefill
-        total8, pf_times8 = run_int8_prefill(cfg, sp_cfg, params, shape,
-                                             pf["batch"], report)
+        total8, pf_times8, pf_errs8 = run_int8_prefill(
+            cfg, sp_cfg, params, shape, pf["batch"], report)
         pf["total"] += total8
         done("phase 11")
-        # phase 12: the kernels line (the bf16 matmul rows' times at
-        # prefill mlp.in from phase 9; fm_weight's launches in phase 10's
-        # all-weight-stationary prefill beside those of phases 4-5)
+        # phase 12: the kernels line (the matmul rows' times at prefill
+        # mlp.in and worst errors at the prefill shape from phases 9 and
+        # 11; fm_weight's launches in phase 10's all-weight-stationary
+        # prefill beside those of phases 4-5)
         for row in rows:
             key = {"block_sparse": "block_sparse", "flex_output": "output",
                    "flex_weight": "weight",
@@ -1561,11 +1659,18 @@ def main() -> int:
             if key is not None:
                 row.update(prefill_ms=pf_times[key][0],
                            prefill_bound_ms=pf_times[key][1],
-                           prefill_library_ms=pf_times["library"])
+                           prefill_library_ms=pf_times["library"],
+                           max_abs_err=max(row["max_abs_err"],
+                                           mm_errs[key]))
             elif row["name"] in pf_times8:
+                # no library time at prefill: torch._weight_int8pack_mm is
+                # a kernel for a few rows, not for M = 8192
                 row.update(prefill_ms=pf_times8[row["name"]][0],
                            prefill_bound_ms=pf_times8[row["name"]][1],
-                           prefill_bf16_matmul_ms=pf_times8["bf16_matmul"])
+                           prefill_library_ms=None,
+                           prefill_bf16_matmul_ms=pf_times8["bf16_matmul"],
+                           max_abs_err=max(row["max_abs_err"],
+                                           pf_errs8[row["name"]]))
             if row["name"] == "flex_weight":
                 row["launches_ws_prefill"] = pf["ws_prefill"]
         rows.append(time_flash(flash, pf))

@@ -7,12 +7,13 @@ per-column scales, ``_bs_kernel_scaled`` (:69, launched at :155).  Each
 CUDA block walks the compressed K-block lists (``BlockSparseMeta.kidx`` /
 ``kcnt``, built by ``core.sparsity``) of the output tiles it covers;
 blocks where either operand is all-zero are never read nor multiplied, and
-a tile with no live block writes zeros.  bf16 runs on the tensor cores, the
-kernel and launch plan (``flex_matmul.output_grid``) of bf16 ``fm_output``,
-so the two agree bit for bit; float32 and the int8 payload run scalar
-float32 FMAs.  At decode the kernel is bound by device-memory bytes (the
-live weight blocks), so the skipped blocks — and, quantized, the int8
-bytes — are the saving.
+a tile with no live block writes zeros.  A bf16 activation runs on the
+tensor cores, the kernel and launch plan (``flex_matmul.output_grid``) of
+bf16 ``fm_output`` — or, over an int8 payload widened to bf16 in shared
+memory, of bf16-activation ``i8_matmul`` — so each pair agrees bit for
+bit; a float32 activation runs scalar float32 FMAs.  At decode the kernel
+is bound by device-memory bytes (the live weight blocks), so the skipped
+blocks — and, quantized, the int8 bytes — are the saving.
 
 CPU tensors take the plain version (``ref.block_sparse_matmul_ref``); CUDA
 tensors launch a kernel or raise.
@@ -24,14 +25,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flex_matmul import (aligned_rows, output_grid,
-                                             output_workspace)
+from repro_torch.kernels.flex_matmul import count_launch, tensor_core_operands
 from repro_torch.kernels.ref import block_sparse_matmul_ref
 
 # launches of each CUDA kernel (bumped only where it is launched):
-# ``block_sparse_sum`` adds the segment partials of a split bf16 grid
+# ``*_sum`` adds (and, scaled, scales) the segment partials of a split
+# bf16 grid
 LAUNCHES = {"block_sparse": 0, "block_sparse_sum": 0,
-            "block_sparse_scaled": 0}
+            "block_sparse_scaled": 0, "block_sparse_scaled_sum": 0}
 
 
 def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
@@ -42,11 +43,13 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
     ``a`` (M, K) and ``b`` (K, N) must be block multiples of the metadata's
     bitmaps (pad first); ``b`` may be the transposed view of a row-major
     (N, K) matrix.  ``scale`` (N,) float32 marks ``b`` as an int8 payload:
-    C = (A @ B) * scale, the scale applied once to the accumulator.
+    C = (A @ B) * scale, the scale applied once to the finished sum; with a
+    bf16 A on CUDA the payload must be row-major.
     ``rows``: only A's first ``rows`` rows are the product's (the rest pad
-    them to the blocks); C then has ``rows`` rows, and the bf16 kernel's
-    launch plan follows that count, as ``fm_output``'s follows the
-    unpadded M, so the two agree bit for bit whatever the blocks pad.
+    them to the blocks); C then has ``rows`` rows, and the bf16 kernels'
+    launch plan follows that count, as ``fm_output``'s and
+    ``int8_matmul``'s follow the unpadded M, so each pair agrees bit for
+    bit whatever the blocks pad.
     Returns ``out_dtype`` (default: ``a.dtype``), computed with a float32
     accumulator.
 
@@ -102,34 +105,32 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
     if not a.is_contiguous():
         raise ValueError("A must be row-major contiguous")
     b_trans = build.b_layout(b)
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    lib = build.library("block_sparse")
     codes = (build.dtype_code(a.dtype), build.dtype_code(out_dtype),
              build.stream_ptr(a.device))
-    ws = None
+    ws, m_run, plan = None, m, None
+    args = (k, k if b_trans else n, bm, bn, bk, meta.max_nnz, 0, 0)
+    if a.dtype == torch.bfloat16:           # the tensor cores: rows only
+        if scale is not None and b_trans:
+            raise ValueError("the int8 tensor-core kernel reads the payload "
+                             "row-major (K, N)")
+        m_run = rows
+        a, lda, b, ldb, plan, ws = tensor_core_operands(a, b, rows)
+        args = (lda, ldb, bm, bn, bk, meta.max_nnz, plan.rows, plan.segment)
+    out = torch.empty((m_run, n), dtype=out_dtype, device=a.device)
+    lib = build.library("block_sparse")
+    common = (out.data_ptr(), None if ws is None else ws.data_ptr(),
+              kidx.data_ptr(), kcnt.data_ptr(), m_run, n, k, *args,
+              b_trans, *codes)
     if scale is None:
-        m_run, args = m, (k, k if b_trans else n, bm, bn, bk, meta.max_nnz,
-                          0, 0)
-        if a.dtype == torch.bfloat16:       # the tensor cores: rows only
-            m_run, plan = rows, output_grid(rows, n, k)
-            ws = output_workspace(plan, a.device)
-            a, lda = aligned_rows(a)
-            b, ldb = aligned_rows(b.t() if b_trans else b)
-            args = (lda, ldb, bm, bn, bk, meta.max_nnz, plan.rows,
-                    plan.segment)
-        err = lib.bs_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            None if ws is None else ws.data_ptr(),
-                            kidx.data_ptr(), kcnt.data_ptr(), m_run, n, k,
-                            *args, b_trans, *codes)
+        err = lib.bs_matmul(a.data_ptr(), b.data_ptr(), *common)
         key = "block_sparse"
     else:
         err = lib.bs_matmul_scaled(a.data_ptr(), b.data_ptr(),
-                                   scale.data_ptr(), out.data_ptr(),
-                                   kidx.data_ptr(), kcnt.data_ptr(), m, n, k,
-                                   bm, bn, bk, meta.max_nnz, b_trans, *codes)
+                                   scale.data_ptr(), *common)
         key = "block_sparse_scaled"
     build.check(err, f"block_sparse_matmul[{key}]")
-    LAUNCHES[key] += 1
-    if ws is not None:            # the segment sum ran after it
-        LAUNCHES["block_sparse_sum"] += 1
+    if plan is None:
+        LAUNCHES[key] += 1
+    else:                         # with its segment sum, if it has one
+        count_launch(LAUNCHES, key, plan)
     return out[:rows]

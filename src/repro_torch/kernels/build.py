@@ -33,7 +33,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "block_sparse": {
         "bs_matmul": [_P] * 6 + [_I] * 14 + [_P],
-        "bs_matmul_scaled": [_P] * 6 + [_I] * 10 + [_P],
+        "bs_matmul_scaled": [_P] * 7 + [_I] * 14 + [_P],
     },
     "flex_matmul": {
         "fm_output": [_P] * 4 + [_I] * 13 + [_P],
@@ -41,7 +41,7 @@ SIGNATURES = {
         "fm_input": [_P, _P, _P] + [_I] * 9 + [_P],
     },
     "int8_matmul": {
-        "i8_matmul": [_P] * 4 + [_I] * 9 + [_P],
+        "i8_matmul": [_P] * 5 + [_I] * 13 + [_P],
     },
     "flash_attention": {
         "fa_forward": [_P] * 4 + [_I] * 6 + [_F, _I, _P],

@@ -8,9 +8,8 @@
 //                     with a float32 accumulator, written as out_dtype.
 //   bs_matmul_scaled  replaces ``_bs_kernel_scaled`` (block_sparse.py:69,
 //                     launched at :155 by ``_block_sparse_matmul_scaled``):
-//                     the same sum over an int8 B payload, widened to float32
-//                     in registers, and the accumulator scaled once by the
-//                     per-column float32 ``scale`` before the write.
+//                     the same sum over an int8 B payload, and the finished
+//                     sum scaled once by the per-column float32 ``scale``.
 //
 // The TPU's sequential max_nnz grid axis becomes a loop inside the block:
 // each CUDA block reads the CSB lists of the output tiles it covers and
@@ -20,19 +19,23 @@
 // decode bm = M = n_slots = 4, rows are masked.
 //
 // Which kernel runs where, and what bounds it on the H100:
-//   * bf16 ``bs_matmul`` runs on the tensor cores: the output-stationary
-//     template of ``os_mma.cuh`` that bf16 ``fm_output`` runs, under the
-//     same plan (``output_grid``, kernels/flex_matmul.py) — mma.sync with K
-//     in segments of 256 at M <= 16, wgmma on 128 x 128 tiles above.  A
-//     chunk of 64 K is multiplied when it holds an element of a live block
-//     of a covered tile and skipped otherwise; a dead block's products are
-//     exact zeros (dead must mean an all-zero operand block, as the lists
-//     are built), so the result equals the dense product's bit for bit,
-//     and the all-live run's, whatever the blocks.
-//   * float32 ``bs_matmul`` and ``bs_matmul_scaled`` (A float32 or bf16)
-//     are scalar float32 FMAs on ``tile.cuh``: one CUDA block per 256-wide
-//     column strip of each (bm, bn) output tile, synchronous staging, K
-//     ascending (so the scaled kernel equals ``i8_matmul`` bit for bit).
+//   * bf16-activation ``bs_matmul`` and ``bs_matmul_scaled`` run on the
+//     tensor cores: the output-stationary template of ``os_mma.cuh`` that
+//     bf16 ``fm_output`` and ``i8_matmul`` run, under the same plan
+//     (``output_grid``, kernels/flex_matmul.py) — mma.sync with K in
+//     segments of 256 at M <= 16, wgmma on 128 x 128 tiles above; the int8
+//     payload is staged as int8 and widened to bf16 in shared memory
+//     (exact), and its scale multiplies the finished sum once.  A chunk of
+//     64 K is multiplied when it holds an element of a live block of a
+//     covered tile and skipped otherwise; a dead block's products are exact
+//     zeros (dead must mean an all-zero operand block, as the lists are
+//     built; quantization keeps zeros), so the result equals the dense
+//     product's (``fm_output``, ``i8_matmul``) bit for bit, and the
+//     all-live run's, whatever the blocks.
+//   * float32-activation ``bs_matmul`` and ``bs_matmul_scaled`` are scalar
+//     float32 FMAs on ``tile.cuh``: one CUDA block per 256-wide column
+//     strip of each (bm, bn) output tile, synchronous staging, K ascending
+//     (so the scaled kernel equals float32 ``i8_matmul`` bit for bit).
 // At decode M = 4 every weight element fetched feeds 4 FMAs, two orders of
 // magnitude under the card's ~295 FLOP/byte balance point, so the floor is
 // the live weight blocks over 3.35 TB/s: skipping dead weight blocks is the
@@ -66,14 +69,25 @@ extern "C" int bs_matmul(const void* a, const void* b, void* out, float* ws,
   return rt::dispatch_tile<true, false>(t, in_dtype, out_dtype, s);
 }
 
+// ``bs_matmul`` over an int8 payload ``q`` with per-column ``scale``: the
+// same arguments and routes (bf16 A on the tensor cores, Q row-major).
 extern "C" int bs_matmul_scaled(const void* a, const void* q,
-                                const float* scale, void* out,
+                                const float* scale, void* out, float* ws,
                                 const int* kidx, const int* kcnt, int m,
-                                int n, int k, int bm, int bn, int bk,
-                                int max_nnz, int b_trans, int in_dtype,
+                                int n, int k, int lda, int ldb, int bm,
+                                int bn, int bk, int max_nnz, int rows,
+                                int seg, int b_trans, int in_dtype,
                                 int out_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == rt::kBF16) {
+    const osm::OsArgs p{static_cast<const __nv_bfloat16*>(a), q, out, ws,
+                        kidx, kcnt, m, n, k, lda, ldb, bm, bn, bk, max_nnz,
+                        rows, seg, scale};
+    return osm::launch<true, int8_t>(p, b_trans, out_dtype, s);
+  }
+  if (ws || rows || seg || lda != k || ldb != (b_trans ? k : n))
+    return (int)cudaErrorInvalidValue;
   const rt::TileArgs t{a, q, scale, out, kidx, kcnt, m, n, k,
                        bm, bn, bk, max_nnz, b_trans};
-  return rt::dispatch_tile<true, true>(t, in_dtype, out_dtype,
-                                       static_cast<cudaStream_t>(stream));
+  return rt::dispatch_tile<true, true>(t, in_dtype, out_dtype, s);
 }

@@ -29,9 +29,9 @@
 // Used by ``fm_weight`` (flex_matmul.cu, mma.sync), by the bf16 flash-
 // attention kernel (wgmma, barrier and staging primitives), and by the
 // output-stationary template of ``os_mma.cuh`` that bf16 ``fm_output`` and
-// ``bs_matmul`` share (its 16-row tile at M <= 16; its wgmma tile above).
-// ``fm_input`` still runs on ``tile.cuh``'s scalar float32 FMAs (ROADMAP
-// queue B).  Each mma.sync / wgmma k-step sums one 16-element K group into
+// ``bs_matmul`` and bf16-activation ``i8_matmul`` and ``bs_matmul_scaled``
+// share (its 16-row tile at M <= 16; its wgmma tile above).  ``fm_input``
+// still runs on ``tile.cuh``'s scalar float32 FMAs (ROADMAP queue B).  Each mma.sync / wgmma k-step sums one 16-element K group into
 // the float32 accumulator; ``os_mma.cuh`` issues them in one order fixed by
 // K alone (groups from K offset 0 ascending, in segments of a constant
 // length added in order), the invariant that keeps the dense and the

@@ -1,22 +1,23 @@
 // Shared building blocks of the port's scalar matmul kernels (sm_90a, CUDA
-// C++): ``tile_kernel`` runs float32 ``fm_output`` and ``bs_matmul``,
-// ``bs_matmul_scaled`` and ``i8_matmul`` (A float32 or bf16, B int8), and
-// its staging and FMA helpers serve float32 ``fm_weight``, ``fm_input``
-// (float32 and bf16) and the float32 flash kernel.  bf16 x bf16
-// ``fm_output`` and ``bs_matmul`` run on the tensor cores instead
-// (``os_mma.cuh``), as do bf16 ``fm_weight`` and the bf16 flash kernel
-// (``mma.cuh``).  These kernels are bound by the weight's bytes at decode
-// and, far from the card's peak, by their own FMA issue rate at prefill.
+// C++): ``tile_kernel`` runs float32-activation ``fm_output``,
+// ``bs_matmul``, ``bs_matmul_scaled`` and ``i8_matmul`` (B float32, or an
+// int8 payload), and its staging and FMA helpers serve float32
+// ``fm_weight``, ``fm_input`` (float32 and bf16) and the float32 flash
+// kernel.  bf16-activation ``fm_output``, ``bs_matmul``, ``i8_matmul`` and
+// ``bs_matmul_scaled`` run on the tensor cores instead (``os_mma.cuh``),
+// as do bf16 ``fm_weight`` and the bf16 flash kernel (``mma.cuh``).
+// These kernels are bound by the weight's bytes at decode and, far from the
+// card's peak, by their own FMA issue rate at prefill.
 //
 // Every kernel here computes C = A @ B (or a block-sparse part of it) with
 // A (M, K) row-major and B (K, N) either row-major or given as the transpose
 // of a row-major (N, K) matrix (``b_trans``: the stored (V, D) lm_head is
-// read in place, never copied).  A is float32 or bfloat16; B is A's type, or
-// an int8 payload with float32 per-column scales that the epilogue applies
-// once to the accumulator (C = (A @ Q) * scale).  Products are plain FMAs in
-// float32 registers (never TF32), bf16 and int8 operands widened to float32
-// on the way from shared memory; a bf16 x int8 product (8 + 7 significant
-// bits) is exact in float32.  Each block of 256 threads owns one TN-wide
+// read in place, never copied).  A is float32 (or bfloat16 in
+// ``fm_input``); B is A's type, or an int8 payload with float32 per-column
+// scales that the epilogue applies once to the accumulator (C = (A @ Q) *
+// scale).  Products are plain FMAs in float32 registers (never TF32), bf16
+// and int8 operands widened to float32 on the way from shared memory.
+// Each block of 256 threads owns one TN-wide
 // column strip of a (bm, bn) output tile and walks it in register sub-tiles:
 //
 //   Skinny  (bm <= 4, the decode path: M = n_slots): 4 x 256 sub-tile,
@@ -34,8 +35,8 @@
 // and an all-live run of the same tile agree bit for bit (a dead block adds
 // exact zeros).  The order does not depend on (bm, bn, bk) either, so two
 // kernels on the same operands give the same bits whatever their blocks
-// (``bs_matmul_scaled`` and ``i8_matmul``; float32 ``bs_matmul`` and
-// ``fm_output``).
+// (float32 ``bs_matmul_scaled`` and ``i8_matmul``; float32 ``bs_matmul``
+// and ``fm_output``).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -315,23 +316,18 @@ int dispatch_out(const TileArgs& t, int out_dtype, cudaStream_t s) {
 }
 
 // Type dispatch shared by the C entry points: ``in_dtype`` / ``out_dtype``
-// are ``Dtype`` codes of A and of the output.  Unscaled, A and B are
-// float32 (bf16 x bf16 runs on the tensor cores, os_mma.cuh); scaled, B is
-// an int8 payload with ``t.scale`` and A float32 or bf16.
+// are ``Dtype`` codes of A and of the output.  A is float32 (a bf16 A runs
+// on the tensor cores, os_mma.cuh); B is float32, or scaled an int8
+// payload with ``t.scale``.
 template <bool kSparse, bool kScaled>
 int dispatch_tile(const TileArgs& t, int in_dtype, int out_dtype,
                   cudaStream_t s) {
-  if (kScaled != (t.scale != nullptr)) return (int)cudaErrorInvalidValue;
-  if constexpr (kScaled) {
-    if (in_dtype == kF32)
-      return dispatch_out<float, int8_t, kSparse>(t, out_dtype, s);
-    if (in_dtype == kBF16)
-      return dispatch_out<__nv_bfloat16, int8_t, kSparse>(t, out_dtype, s);
-  } else {
-    if (in_dtype == kF32)
-      return dispatch_out<float, float, kSparse>(t, out_dtype, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (kScaled != (t.scale != nullptr) || in_dtype != kF32)
+    return (int)cudaErrorInvalidValue;
+  if constexpr (kScaled)
+    return dispatch_out<float, int8_t, kSparse>(t, out_dtype, s);
+  else
+    return dispatch_out<float, float, kSparse>(t, out_dtype, s);
 }
 
 }  // namespace rt

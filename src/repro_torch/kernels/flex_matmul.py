@@ -114,8 +114,9 @@ def weight_grid(m: int, n: int, k: int, bm: int, bn: int, bk: int, sms: int,
     return WeightGrid(False, (strips, groups), rows, None)
 
 
-# The bf16 output-stationary kernel (csrc/os_mma.cuh), shared by
-# ``fm_output`` and ``bs_matmul``: a CTA's rows at M <= 16 (mma.sync) and
+# The output-stationary tensor-core kernel (csrc/os_mma.cuh), shared by
+# bf16 ``fm_output`` and ``bs_matmul`` and by bf16-activation ``i8_matmul``
+# and ``bs_matmul_scaled``: a CTA's rows at M <= 16 (mma.sync) and
 # above (wgmma; every CTA owns 128 columns), and the K segment of the
 # M <= 16 regime.
 OS_SKINNY_ROWS = 16
@@ -125,8 +126,9 @@ OS_SEGMENT = 256
 
 @dataclass(frozen=True)
 class OutputGrid:
-    """Launch plan of the bf16 output-stationary kernel, the same for
-    ``fm_output`` and ``bs_matmul``; the kernel takes ``rows`` and
+    """Launch plan of the output-stationary tensor-core kernel, the same
+    for ``fm_output`` and ``bs_matmul`` (bf16) and for ``i8_matmul`` and
+    ``bs_matmul_scaled`` (bf16 x int8); the kernel takes ``rows`` and
     ``segment`` and refuses a ``rows`` that does not follow M.
 
     ``rows``: the CTA tile's height, 16 (``mma.sync``) or 128 (``wgmma``).
@@ -139,9 +141,10 @@ class OutputGrid:
 
 
 def output_grid(m: int, n: int, k: int) -> OutputGrid:
-    """Plan the bf16 output-stationary launch of C[m, n] = A[m, k] @ B[k, n]
-    (``fm_output`` dense, ``bs_matmul`` block-sparse); ``m`` counts the
-    product's own rows, before any padding to the blocks.
+    """Plan the output-stationary tensor-core launch of C[m, n] = A[m, k] @
+    B[k, n] (``fm_output`` and ``i8_matmul`` dense, ``bs_matmul`` and
+    ``bs_matmul_scaled`` block-sparse); ``m`` counts the product's own
+    rows, before any padding to the blocks.
 
     It sees no blocks, so each output element's summation order — 16-wide
     K groups from offset 0, ascending, inside segments of a constant
@@ -170,18 +173,44 @@ def output_workspace(plan: OutputGrid, device) -> Optional[torch.Tensor]:
 
 
 def aligned_rows(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """A row-major bf16 matrix as the tensor-core kernels read it (TMA and
-    ``cp.async`` move 16-byte units), and its row stride in elements:
-    ``x`` itself when its base and row stride are 16-byte multiples, else a
-    copy with each row zero-padded to a multiple of 8 elements.  The
-    kernels still take the logical K and N, and read nothing past them."""
+    """A row-major bf16 or int8 matrix as the tensor-core kernels read it
+    (TMA and ``cp.async`` move 16-byte units), and its row stride in
+    elements: ``x`` itself when its base and row stride are 16-byte
+    multiples, else a copy with each row zero-padded to a multiple of 16
+    bytes (8 bf16 or 16 int8 elements).  The kernels still take the logical
+    K and N, and read nothing past them."""
     rows, cols = x.shape
-    ld = -(-cols // 8) * 8
+    unit = 16 // x.element_size()
+    ld = -(-cols // unit) * unit
     if ld == cols and x.data_ptr() % 16 == 0:
         return x, ld
     out = x.new_zeros((rows, ld))
     out[:, :cols] = x
     return out, ld
+
+
+def tensor_core_operands(a: torch.Tensor, b: torch.Tensor, m: int):
+    """What an output-stationary tensor-core launch of the ``m`` unpadded
+    rows of A[:, K] @ B[K, N] takes (``fm_output``, ``bs_matmul``,
+    ``i8_matmul``, ``bs_matmul_scaled``): (A, lda, B's storage, ldb, plan,
+    workspace) — A and B's row-major storage, (K, N) or for a transposed
+    ``b`` (N, K), as ``aligned_rows`` gives them, the plan
+    ``output_grid(m, N, K)`` and its workspace or None."""
+    k, n = b.shape
+    plan = output_grid(m, n, k)
+    ws = output_workspace(plan, a.device)
+    a, lda = aligned_rows(a)
+    b, ldb = aligned_rows(b.t() if build.b_layout(b) else b)
+    return a, lda, b, ldb, plan, ws
+
+
+def count_launch(launches: dict, key: str, plan: OutputGrid) -> None:
+    """Count one launch of a tensor-core kernel under ``plan`` in
+    ``launches[key]``, and its segment sum in ``launches[key + "_sum"]``
+    when the plan splits K."""
+    launches[key] += 1
+    if plan.workspace is not None:
+        launches[f"{key}_sum"] += 1
 
 
 def _sms(device) -> int:
@@ -201,18 +230,15 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
     stream = build.stream_ptr(a.device)
     code = build.dtype_code(a.dtype)
     second = None                 # the key of a second kernel's launch
+    grid = None                   # the plan of a tensor-core launch
     if stationarity == "output":
         ws, args = None, (k, k if b_trans else n, bm, bn, bk, 0, 0)
         if a.dtype == torch.bfloat16:
             # the tensor cores take ragged M: the unpadded rows only, whose
             # count picks the plan (as for ``bs_matmul``)
             m = rows
-            plan = output_grid(m, n, k)
-            ws = output_workspace(plan, a.device)
-            second = "output_sum" if ws is not None else None
-            a, lda = aligned_rows(a)
-            b, ldb = aligned_rows(b.t() if b_trans else b)
-            args = (lda, ldb, bm, bn, bk, plan.rows, plan.segment)
+            a, lda, b, ldb, grid, ws = tensor_core_operands(a, b, m)
+            args = (lda, ldb, bm, bn, bk, grid.rows, grid.segment)
         out = torch.empty((m, n), dtype=out_dtype, device=a.device)
         err = lib.fm_output(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                             None if ws is None else ws.data_ptr(), m, n, k,
@@ -241,9 +267,12 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
     else:
         raise ValueError(f"unknown stationarity {stationarity!r}")
     build.check(err, f"flex_matmul[{stationarity}]")
-    LAUNCHES[stationarity] += 1
-    if second is not None:        # a summing kernel ran after it
-        LAUNCHES[second] += 1
+    if grid is not None:          # with its segment sum, if it has one
+        count_launch(LAUNCHES, stationarity, grid)
+    else:
+        LAUNCHES[stationarity] += 1
+        if second is not None:    # a summing kernel ran after it
+            LAUNCHES[second] += 1
     return out.to(out_dtype)
 
 

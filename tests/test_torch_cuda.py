@@ -22,9 +22,14 @@ the kernel's 128-column strip, bk 16 and 32, and unaligned row strides;
 their bf16 output is the float32 result rounded to nearest even.  Their
 K order is fixed by K alone, so ``fm_output`` equals ``bs_matmul`` under
 other blocks bit for bit (sparse, all-live, A's rows padded or not), and an
-empty list writes zeros.  The built libraries' SASS shows tensor-core
-instructions in the bf16 tensor-core kernels and none in any other kernel
-(the float32 and int8 ones stay true float32).
+empty list writes zeros.  bf16-activation ``int8_matmul`` and
+``block_sparse_matmul(scale=)`` run that template over an int8 payload
+widened to bf16 (exact): held to the same tolerance (B = Q·s) at decode,
+at M 256 and 8192, on an N that is not a 16-byte row, and bit-equal to
+each other under other blocks and with A's rows padded.  The built
+libraries' SASS shows tensor-core instructions in the tensor-core kernels
+and none in any other kernel (the float32-activation ones stay true
+float32).
 
 The flash-attention kernel: in float32 against the dense reference in
 float64 under ``_flash_tol`` (derived there), which operands cut to TF32
@@ -49,6 +54,7 @@ from repro_torch.kernels import block_sparse as pt_bs
 from repro_torch.kernels import build
 from repro_torch.kernels import flex_matmul as pt_fm
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import int8_matmul as pt_i8
 from repro_torch.kernels.int8_matmul import int8_matmul
 from repro_torch.kernels.ref import (block_sparse_matmul_ref,
                                      flash_attention_flip_bounds,
@@ -58,6 +64,7 @@ from repro_torch.kernels.ref import (block_sparse_matmul_ref,
 from repro_torch.quant.quantize import dequantize_leaf, quantize_weight
 
 DECODE_KN = [(2048, 2048), (2048, 4096), (2048, 5632), (5632, 2048)]
+
 INT8_KN = DECODE_KN + [(2048, 100352)]
 
 
@@ -362,15 +369,20 @@ def _all_live(meta):
 TENSOR_CORE_KERNELS = {"flash_attention": ("fa_kernel_mma",),
                        "flex_matmul": ("ws_kernel_mma", "os_kernel_mma",
                                        "os_wg_kernel_mma"),
-                       "block_sparse": ("bs_kernel_mma", "bs_wg_kernel_mma")}
+                       "block_sparse": ("bs_kernel_mma", "bs_wg_kernel_mma",
+                                        "bsq_kernel_mma",
+                                        "bsq_wg_kernel_mma"),
+                       "int8_matmul": ("i8_kernel_mma", "i8_wg_kernel_mma")}
 
 
 @pytest.mark.cuda
 def test_cuda_tensor_cores_only_in_the_bf16_redesign(cuda):
     """The bf16 flash, weight-stationary, output-stationary and block-sparse
-    kernels multiply on the tensor cores (SASS HMMA/HGMMA); every other
-    kernel — the float32 instantiations, the int8 ones and the segment
-    sums among them — has no tensor-core instruction."""
+    kernels and the bf16-activation int8 kernels (dense and scaled
+    block-sparse) multiply on the tensor cores (SASS HMMA/HGMMA); every
+    other kernel — the float32-activation instantiations (float32 and int8
+    B) on ``tile.cuh``, ``fm_input`` and every segment sum — has no
+    tensor-core instruction."""
     for name in build.SOURCES:
         counts = build.tensor_core_ops(name)
         assert counts, name
@@ -555,3 +567,163 @@ def test_cuda_flash_bf16_check_rejects_controls(cuda, control):
     bounds = flash_attention_flip_bounds(q, k, v)
     assert not flash_tc_check(other, plain, v, bounds).ok
     assert flash_tc_check(flash_attention(q, k, v), plain, v, bounds).ok
+
+
+def _int8_pair_case(cuda, m, k, n, bm, bk, bn, seed):
+    """bf16 A (M, K) with about a third of its bk-wide K-blocks zero, a
+    weight pruned at (256, 256) and quantized, and the scaled product's
+    operands padded to (bm, bk, bn) with their metadata."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn((m, k), generator=gen, device=cuda)
+    dead = torch.rand(-(-k // bk), generator=gen, device=cuda) < 1 / 3
+    a = (a * ~dead.repeat_interleave(bk)[:k]).bfloat16()
+    w = pt_sp.prune_magnitude(
+        torch.randn((k, n), generator=gen, device=cuda) * k ** -0.5, 0.5,
+        (256, 256))
+    qw = quantize_weight(w)
+    xp = pt_fm.pad_to_blocks(a, bm, bk)
+    qp = pt_fm.pad_to_blocks(qw.q, bk, bn)
+    sp = pt_fm.pad_to_blocks(qw.scale[None], 1, bn)[0]
+    meta = pt_sp.build_block_sparse_meta(pt_sp.block_bitmap(xp, bm, bk),
+                                         pt_sp.block_bitmap(qp, bk, bn))
+    return a, qw, xp, qp, sp, meta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [256, 8192])
+def test_cuda_int8_pair_wide_matches_plain(cuda, m):
+    """The wgmma regime of both int8 kernels at mlp.in (K 2048, N 5632)
+    within the float32 tolerance of their plain versions (B = Q·s), and
+    bit-equal to each other."""
+    k, n = 2048, 5632
+    a, qw, xp, qp, sp, meta = _int8_pair_case(cuda, m, k, n, 128, 128, 256,
+                                              13)
+    tol = _cuda_tol(a, dequantize_leaf(qw, torch.float32))
+    before = dict(pt_bs.LAUNCHES)
+    dense = int8_matmul(a, qw, out_dtype=torch.float32)
+    sparse = pt_bs.block_sparse_matmul(xp, qp, meta, out_dtype=torch.float32,
+                                       scale=sp, rows=m)
+    torch.cuda.synchronize()
+    assert dense.shape == (m, n) and sparse.shape == (m, qp.shape[1])
+    assert (dense - int8_matmul_plain(a, qw.q, qw.scale)).abs().max() \
+        .item() <= tol
+    assert (sparse - block_sparse_matmul_ref(xp, qp, meta, sp)[:m]).abs() \
+        .max().item() <= tol
+    assert torch.equal(sparse[:, :n], dense)
+    # the wide regime has no split: no segment sum
+    assert pt_bs.LAUNCHES["block_sparse_scaled_sum"] == \
+        before["block_sparse_scaled_sum"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bn", [256, 512])
+@pytest.mark.parametrize("m,bm", [(4, 4), (256, 128)])
+def test_cuda_int8_pair_bitwise_under_other_blocks(cuda, out_dtype, bn, m,
+                                                   bm):
+    """One K order whatever the blocks: ``int8_matmul`` under its default
+    blocks equals ``block_sparse_matmul(scale=)`` under (bm, 128, bn),
+    skipped and all-live, bit for bit, and both count their launches (the
+    split grid's sum at decode)."""
+    k, n = 2048, 5632
+    a, qw, xp, qp, sp, meta = _int8_pair_case(cuda, m, k, n, bm, 128, bn, 14)
+    assert int(meta.kcnt.sum()) < meta.kcnt.numel() * meta.a_bitmap.shape[1]
+    before_i8, before_bs = dict(pt_i8.LAUNCHES), dict(pt_bs.LAUNCHES)
+    dense = int8_matmul(a, qw, out_dtype=out_dtype)
+    sparse = pt_bs.block_sparse_matmul(xp, qp, meta, out_dtype=out_dtype,
+                                       scale=sp, rows=m)
+    live = pt_bs.block_sparse_matmul(xp, qp, _all_live(meta),
+                                     out_dtype=out_dtype, scale=sp, rows=m)
+    torch.cuda.synchronize()
+    assert dense.dtype == sparse.dtype == out_dtype
+    assert torch.equal(sparse, live) and torch.equal(sparse[:, :n], dense)
+    split = m <= 16
+    assert pt_i8.LAUNCHES["int8_matmul"] == before_i8["int8_matmul"] + 1
+    assert pt_i8.LAUNCHES["int8_matmul_sum"] == \
+        before_i8["int8_matmul_sum"] + split
+    assert pt_bs.LAUNCHES["block_sparse_scaled"] == \
+        before_bs["block_sparse_scaled"] + 2
+    assert pt_bs.LAUNCHES["block_sparse_scaled_sum"] == \
+        before_bs["block_sparse_scaled_sum"] + 2 * split
+
+
+@pytest.mark.cuda
+def test_cuda_scaled_rows_equals_int8_matmul(cuda):
+    """The prefill lm_head's case: 2 rows padded to the plan's bm of 128.
+    With ``rows=2`` the scaled kernel plans from the product's own rows
+    (mma.sync, as ``int8_matmul`` on the unpadded A) and equals it bit for
+    bit; the padded rows are never written."""
+    m, k, n = 2, 2048, 4096
+    a, qw, xp, qp, sp, meta = _int8_pair_case(cuda, m, k, n, 128, 128, 256,
+                                              15)
+    out = pt_bs.block_sparse_matmul(xp, qp, meta, out_dtype=torch.float32,
+                                    scale=sp, rows=m)
+    dense = int8_matmul(a, qw, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert out.shape == (m, n) and torch.equal(out, dense)
+    tol = _cuda_tol(a, dequantize_leaf(qw, torch.float32))
+    assert (dense - int8_matmul_plain(a, qw.q, qw.scale)).abs().max() \
+        .item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [6, 40])
+def test_cuda_int8_unaligned_payload_rows(cuda, m):
+    """Q (200, 70): its 70-byte rows are not 16-byte multiples, so the
+    wrappers copy it into zero-padded rows; both kernels match the plain
+    version and each other (blocks (m, 40, 35) for the scaled one)."""
+    k, n = 200, 70
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    qw = quantize_weight(torch.randn((k, n), generator=gen, device=cuda))
+    meta = pt_sp.build_block_sparse_meta(pt_sp.block_bitmap(a, m, 40),
+                                         pt_sp.block_bitmap(qw.q, 40, 35))
+    tol = _cuda_tol(a, dequantize_leaf(qw, torch.float32))
+    dense = int8_matmul(a, qw, out_dtype=torch.float32)
+    sparse = pt_bs.block_sparse_matmul(a, qw.q, meta, out_dtype=torch.float32,
+                                       scale=qw.scale)
+    torch.cuda.synchronize()
+    assert (dense - int8_matmul_plain(a, qw.q, qw.scale)).abs().max() \
+        .item() <= tol
+    assert torch.equal(sparse, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["i8_matmul", "bs_matmul_scaled"])
+@pytest.mark.parametrize("m,rows,seg,split", [
+    (4, 128, 0, False), (40, 16, 256, True), (4, 16, 256, False),
+    (40, 128, 0, True)])
+def test_cuda_int8_kernel_refuses_a_plan_it_does_not_run(cuda, kernel, m,
+                                                         rows, seg, split):
+    """The int8 tensor-core kernels take ``output_grid``'s plan and refuse
+    one whose regime does not follow M, or a workspace that does not match
+    the split; the plan for M passes and writes the (zero) product."""
+    n, k = 256, 512
+    a = torch.zeros((m, k), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((k, n), dtype=torch.int8, device=cuda)
+    scale = torch.ones((n,), dtype=torch.float32, device=cuda)
+    out = torch.full((m, n), 1.0, dtype=torch.float32, device=cuda)
+    ws = torch.empty((k // 64, m, n), dtype=torch.float32, device=cuda)
+    meta = pt_sp.build_block_sparse_meta(
+        torch.ones((1, k // 128), dtype=torch.bool, device=cuda),
+        torch.ones((k // 128, n // 128), dtype=torch.bool, device=cuda))
+    lib = build.library("int8_matmul" if kernel == "i8_matmul"
+                        else "block_sparse")
+
+    def launch(rows, seg, split):
+        w = ws.data_ptr() if split else None
+        tail = (m, n, k, k, n, m, 128, 128)
+        if kernel == "i8_matmul":
+            args = (w, *tail, rows, seg)
+        else:
+            args = (w, meta.kidx.data_ptr(), meta.kcnt.data_ptr(), *tail,
+                    meta.max_nnz, rows, seg)
+        return getattr(lib, kernel)(a.data_ptr(), q.data_ptr(),
+                                    scale.data_ptr(), out.data_ptr(), *args,
+                                    0, 1, 0, build.stream_ptr(cuda))
+
+    assert launch(rows, seg, split) != 0
+    plan = pt_fm.output_grid(m, n, k)
+    assert launch(plan.rows, plan.segment, plan.workspace is not None) == 0
+    torch.cuda.synchronize()
+    assert not out.any()

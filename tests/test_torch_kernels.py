@@ -183,6 +183,77 @@ def test_aligned_rows_pads_what_tma_cannot_address(shape, offset):
     assert (out.data_ptr() == x.data_ptr()) == aligned
 
 
+@pytest.mark.parametrize("shape,offset", [((4, 2048), 0), ((40, 70), 0),
+                                          ((6, 40), 0), ((4, 64), 1)])
+def test_aligned_rows_pads_int8_rows_to_16_elements(shape, offset):
+    """An int8 payload's 16-byte unit is 16 elements: an aligned one is
+    passed as it is, any other copied into rows zero-padded to a multiple
+    of 16 elements, its values unchanged."""
+    rows, cols = shape
+    x = (torch.arange(rows * cols) % 255 - 127).to(torch.int8) \
+        .reshape(rows, cols)
+    if offset:                  # the same values from a base 1 byte in
+        x = torch.cat([torch.zeros(1, dtype=torch.int8),
+                       x.flatten()])[1:].view(rows, cols)
+    out, ld = pt_fm.aligned_rows(x)
+    assert ld % 16 == 0 and ld >= cols and out.shape == (rows, ld)
+    assert out.dtype == torch.int8 and out.is_contiguous()
+    assert out.data_ptr() % 16 == 0
+    assert torch.equal(out[:, :cols], x) and not out[:, cols:].any()
+    aligned = cols % 16 == 0 and x.data_ptr() % 16 == 0
+    assert (out.data_ptr() == x.data_ptr()) == aligned
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("mnk", [(4, 64, 2048), (2, 70, 36), (300, 128, 64)])
+def test_tensor_core_operands_plan_and_storage(mnk, transposed):
+    """The one launch recipe of the four tensor-core wrappers: the plan of
+    the product's own (M, N, K), a workspace exactly when it splits K, and
+    B's row-major storage — (K, N), or (N, K) for a transposed B — with
+    both operands as ``aligned_rows`` gives them."""
+    m, n, k = mnk
+    a = torch.randn((m + 5, k)).bfloat16()      # padded rows past m
+    store = torch.randn((n, k) if transposed else (k, n)).bfloat16()
+    b = store.t() if transposed else store
+    a2, lda, b2, ldb, plan, ws = pt_fm.tensor_core_operands(a, b, m)
+    assert plan == pt_fm.output_grid(m, n, k)
+    assert (ws is None) == (plan.workspace is None)
+    if ws is not None:
+        assert ws.shape == plan.workspace and ws.dtype == torch.float32
+    for x, got, ld in ((a, a2, lda), (store, b2, ldb)):
+        want, want_ld = pt_fm.aligned_rows(x)
+        assert ld == want_ld and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mnk", [(4, 64, 2048), (4, 64, 256), (300, 64, 64)])
+def test_count_launch_counts_the_sum_only_when_k_splits(mnk):
+    plan = pt_fm.output_grid(*mnk)
+    launches = {"int8_matmul": 0, "int8_matmul_sum": 0}
+    pt_fm.count_launch(launches, "int8_matmul", plan)
+    pt_fm.count_launch(launches, "int8_matmul", plan)
+    split = plan.workspace is not None
+    assert split == (mnk[0] <= 16 and mnk[2] > 256)
+    assert launches == {"int8_matmul": 2, "int8_matmul_sum": 2 * split}
+
+
+def test_int8_widens_exactly_to_bf16():
+    """The int8 tensor-core kernels' premise: every int8 value is a bf16
+    value (|q| <= 128 fits bf16's 8-bit significand), and its product with
+    a bf16 activation (8 + 7 significant bits) is exact in float32, so
+    widening Q to bf16 and multiplying on the tensor cores computes the
+    same products as the float32 plain version."""
+    q = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    assert torch.equal(q.to(torch.bfloat16).to(torch.int32),
+                       q.to(torch.int32))
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(np.concatenate([
+        rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 7, 4096),
+        [1.0, -1.0, 3.0e38 / 128, 2.0 ** -100]])).to(torch.bfloat16)
+    prod32 = a.float()[:, None] * q.to(torch.bfloat16).float()[None, :]
+    prod64 = a.double()[:, None] * q.double()[None, :]
+    assert torch.equal(prod32.double(), prod64)
+
+
 @pytest.mark.parametrize("mnk", [(0, 128, 128), (4, 0, 128), (4, 128, 0),
                                  (-4, 128, 128)])
 def test_output_grid_refuses_non_positive_sizes(mnk):

@@ -328,6 +328,33 @@ def test_int8_matmul_plain_equals_pallas(mkn, blocks):
     assert torch.allclose(out.double(), exact, rtol=2 ** -8, atol=1e-2)
 
 
+def test_scaled_block_sparse_rows_equals_int8_matmul():
+    """``block_sparse_matmul(scale=, rows=2)`` on an A padded to 128 rows
+    (the prefill lm_head's plan) returns the product's 2 rows, equal to
+    ``int8_matmul`` on the unpadded A and to the Pallas kernel's."""
+    m, k, n = 2, 256, 384
+    bm, bk, bn = 128, 128, 128
+    rng = np.random.default_rng(7)
+    a, q, scale = _int8_operands(rng, m, k, n, 1.0, 0.5, (m, bk, bn))
+    ap = np.zeros((bm, k), np.float32)
+    ap[:m] = a
+    meta = pt_sp.build_block_sparse_meta(
+        torch.from_numpy(ref_sp.block_bitmap(ap, bm, bk)),
+        torch.from_numpy(ref_sp.block_bitmap(q, bk, bn)))
+    qw = pt_q.QuantizedLinear(torch.from_numpy(q), torch.from_numpy(scale))
+    out = pt_bs.block_sparse_matmul(
+        torch.from_numpy(ap), qw.q, meta, out_dtype=torch.float32,
+        scale=qw.scale, rows=m)
+    dense = int8_matmul(torch.from_numpy(a), qw, out_dtype=torch.float32)
+    ref = ref_i8.int8_matmul(
+        jnp.asarray(a), ref_q.QuantizedLinear(jnp.asarray(q),
+                                              jnp.asarray(scale)),
+        interpret=True, out_dtype=jnp.float32)
+    assert out.shape == dense.shape == (m, n)
+    np.testing.assert_allclose(out.numpy(), dense.numpy(), **TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
 def test_int8_kernels_refuse_bad_operands():
     meta = pt_sp.build_block_sparse_meta(torch.ones((1, 2), dtype=torch.bool),
                                          torch.ones((2, 2), dtype=torch.bool))
