@@ -9,11 +9,11 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
   1. the card (``torch.cuda``, ``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
      and read each library's SASS (``cuobjdump``): the bf16 kernels of
-     the flash attention (wgmma), the weight-stationary matmul (mma.sync),
-     and the output-stationary and block-sparse matmuls, bf16 and bf16 x
-     int8 (one template: mma.sync at M <= 16, wgmma above) multiply on the
-     tensor cores (HMMA/HGMMA); every other kernel — the float32
-     instantiations, ``fm_input`` and the summing passes — does not;
+     the flash attention (wgmma), the weight- and input-stationary matmuls
+     (mma.sync), and the output-stationary and block-sparse matmuls, bf16
+     and bf16 x int8 (one template: mma.sync at M <= 16, wgmma above)
+     multiply on the tensor cores (HMMA/HGMMA); every other kernel — the
+     float32 instantiations and the summing passes — does not;
   3. bring-up (weights, the weight-sparsity plan, the dense descriptor
      table), then every matmul site the main path runs, on layer 0's pruned
      weight at M = 4: the block-sparse kernel under the plan's blocks and
@@ -21,7 +21,8 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      dense table's schedule, each held against its plain PyTorch version in
      bf16 and float32, with the activation dense (as the path gives it) and
      with half its K-blocks zero; the block-sparse run bitwise against an
-     all-live run of the same inputs; and a TF32 control that the float32
+     all-live run of the same inputs; the bf16 input-stationary run bitwise
+     against the weight-stationary one; and a TF32 control that the float32
      tolerance must reject;
   4. the planned two-sided engine: 8 requests (prompts of 8-48 tokens,
      32 new tokens each, fused blocks of 16), tokens/s, ms per decode step,
@@ -33,8 +34,10 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      the bf16 ``fm_output`` and ``bs_matmul`` share one K order fixed by
      K alone (``flex_matmul.output_grid``); the
      same with every site forced to the weight- and input-stationary
-     dataflows; and the plain engine (float32-accumulated ``torch.matmul``,
-     no kernels) — the last three within a stated tolerance;
+     dataflows, whose logits must equal each other bit for bit (one
+     tensor-core tile, the partials added in K-block order by both); and
+     the plain engine (float32-accumulated ``torch.matmul``, no kernels) —
+     the last three within a stated tolerance;
   6. int8 serving on the same weights (``quantize=True``): every site of
      the int8 path at layer 0 with the quantized plan's blocks and
      metadata — the scaled block-sparse kernel and the int8 matmul kernel
@@ -67,12 +70,15 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      softmax rounded to bf16 and p truncated in one warp's rows must
      fail — and layer 0's six matmul
      sites at M = 8192 under the prefill table's schedule (all three
-     stationarities) and the prefill plan's blocks, as in phase 3, with
-     per-site times;
+     stationarities, bf16 input-stationary bitwise equal to
+     weight-stationary) and the prefill plan's blocks, as in phase 3, with
+     per-site times beside the two revisit dataflows' bounds;
  10. bf16 ``model.prefill`` under the dense prefill table (flash kernel in
      every layer: 24 launches), the same table with every site forced
      weight-stationary (the tensor-core ``fm_weight`` at every site; within
-     5% of max |logit|), the planned two-sided prefill plan (logits
+     5% of max |logit|), then forced input-stationary (``fm_input`` at every
+     site; logits equal to the weight-stationary ones bit for bit), the
+     planned two-sided prefill plan (logits
      equal bit for bit), the plain prefill (within 5% of max |logit|);
      ``prefill_with_cache`` (logits equal ``prefill``'s bit for bit, caches
      within 5% of max |cache| of the plain run's), then 16 greedy
@@ -99,7 +105,8 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      bf16 weight, as a reference point), the flash kernel at the prefill
      cell (library: PyTorch's ``scaled_dot_product_attention``, timed here
      only).  The ``block_sparse``, ``flex_output``, ``flex_weight``,
-     ``block_sparse_scaled`` and ``int8_matmul`` rows also carry the
+     ``flex_input``, ``block_sparse_scaled`` and ``int8_matmul`` rows
+     also carry the
      launches of their split grids' summing kernels, their device time and
      the library call's (``torch.profiler``: at decode the host, not the
      card, sets the pace of a call), and every matmul row its time and
@@ -109,8 +116,12 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      ``torch.matmul`` on the dequantized weight (``prefill_bf16_matmul_ms``;
      their ``prefill_library_ms`` is null: the int8 yardstick is a kernel
      for a few rows);
-     ``fm_weight`` adds its dataflow bound and its launches in phase 10's
-     weight-stationary prefill.
+     ``fm_weight`` and ``fm_input`` add their dataflow bounds at decode
+     and prefill and their launches in phase 10's weight- and
+     input-stationary prefills; ``fm_input``'s prefill bound is that of
+     the kernel's own M-tile (``prefill_dataflow_rows``), and
+     ``prefill_dataflow_bound_128rows_ms`` that of 128-row tiles, which
+     read B half as often.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
@@ -133,11 +144,11 @@ N_SLOTS = 4
 # the bf16 decode kernels; ``*_sum`` add a split grid's partials in K order
 # (a second kernel of the same call)
 SLICE1_KERNELS = ("block_sparse", "block_sparse_sum", "output", "output_sum",
-                  "weight", "weight_sum", "input")
+                  "weight", "weight_sum", "input", "input_sum")
 # the bf16 tensor-core kernels each library must hold (phase 2)
 TENSOR_CORE_KERNELS = {"flash_attention": ("fa_kernel_mma",),
-                       "flex_matmul": ("ws_kernel_mma", "os_kernel_mma",
-                                       "os_wg_kernel_mma"),
+                       "flex_matmul": ("ws_kernel_mma", "is_kernel_mma",
+                                       "os_kernel_mma", "os_wg_kernel_mma"),
                        "block_sparse": ("bs_kernel_mma", "bs_wg_kernel_mma",
                                         "bsq_kernel_mma",
                                         "bsq_wg_kernel_mma"),
@@ -233,6 +244,17 @@ def ws_dataflow_ms(m: int, n: int, k: int, bk: int, elem: int = 2):
     rate."""
     tk, strips = k // bk, -(-n // 128)
     n_bytes = k * n * elem + strips * m * k * elem + (2 * tk - 1) * m * n * 4
+    return n_bytes / HBM_BPS * 1e3
+
+
+def is_dataflow_ms(m: int, n: int, k: int, bk: int, rows: int,
+                   elem: int = 2):
+    """Least time of the input-stationary dataflow's own traffic: A once, B
+    once per M-tile of ``rows``, and the float32 output read-modify-written
+    once per K-block — (2·tk − 1)·M·N·4 bytes — over the card's memory
+    rate."""
+    tk, mtiles = k // bk, -(-m // rows)
+    n_bytes = m * k * elem + mtiles * k * n * elem + (2 * tk - 1) * m * n * 4
     return n_bytes / HBM_BPS * 1e3
 
 
@@ -410,14 +432,19 @@ def check_sites(params, planned, dense, report) -> dict:
                      f"!= all-live run")
                 errs["block_sparse"] = max(errs["block_sparse"], err)
                 plain = matmul_ref(a, w_kn)
+                outs = {}
                 for stat in stats:
                     s = dataclasses.replace(sched, stationarity=stat)
-                    err = (fm.flex_matmul(a, w_kn, schedule=s,
-                                          out_dtype=torch.float32)
-                           - plain).abs().max().item()
+                    outs[stat] = fm.flex_matmul(a, w_kn, schedule=s,
+                                                out_dtype=torch.float32)
+                    err = (outs[stat] - plain).abs().max().item()
                     need(err <= tol_a, f"flex_{stat} {e.site} {dtype} {act}"
                          f": error {err} > {tol_a}")
                     errs[stat] = max(errs[stat], err)
+                need(dtype is torch.float32 or torch.equal(
+                    outs["input"], outs["weight"]),
+                    f"flex_input {e.site} {dtype} {act}: differs from "
+                    f"flex_weight")
                 if dtype is torch.bfloat16 and act == "dense" \
                         and e.site == "mlp.in":
                     keep.update(a=a, w=w_kn, meta=meta, sched=sched,
@@ -430,6 +457,8 @@ def check_sites(params, planned, dense, report) -> dict:
                     f"{errs['output']:.3e}/{errs['weight']:.3e}/"
                     f"{errs['input']:.3e}; tol {tol:.3e}; sparse == "
                     f"all-live bitwise")
+            if dtype is torch.bfloat16:
+                line += "; input == weight bitwise"
             if dtype is torch.float32:
                 a = a_full
                 plain = matmul_ref(a, w_kn)
@@ -517,13 +546,15 @@ def time_kernels(t, launches) -> list:
                 a, w, schedule=s, out_dtype=torch.float32)),
             "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-    for row, stat in zip(rows[1:3], ("output", "weight")):
+    for row, stat in zip(rows[1:4], ("output", "weight", "input")):
         s = dataclasses.replace(sched, stationarity=stat)
         row.update(launches_sum=launches[f"{stat}_sum"],
                    device_ms=device_ms(lambda: fm.flex_matmul(
                        a, w, schedule=s, out_dtype=torch.float32)),
                    library_device_ms=lib_device_ms)
     rows[2]["dataflow_bound_ms"] = ws_dataflow_ms(m, n, k, sched.bk)
+    rows[3]["dataflow_bound_ms"] = is_dataflow_ms(m, n, k, sched.bk,
+                                                  fm.revisit_rows(m))
     reset_launches(saved)
     return rows
 
@@ -669,6 +700,7 @@ def run_engines(cfg, params, planned, dense, report):
     # phase 3 are the tight ones.
     tol = 0.05 * logits0.abs().max().item()
 
+    forced_logits = {}
     for label, ec in (("dense, selected schedule", dense),
                       ("dense, all sites weight-stationary",
                        forced(dense, "weight")),
@@ -679,6 +711,7 @@ def run_engines(cfg, params, planned, dense, report):
         for p in prompts[:N_SLOTS]:
             e.submit(p, max_new=max_new)
         e.step()
+        forced_logits[label] = e.last_logits.clone()
         diff = (e.last_logits - logits0).abs().max().item()
         if ec is dense:
             report(f"{label}: step logits vs planned max |diff| = "
@@ -688,6 +721,12 @@ def run_engines(cfg, params, planned, dense, report):
             report(f"{label}: step logits vs planned max |diff| = "
                    f"{diff:.3e}, tol {tol:.3e}")
             need(diff <= tol, f"{label}: logits off by {diff}")
+    same = torch.equal(forced_logits["dense, all sites input-stationary"],
+                       forced_logits["dense, all sites weight-stationary"])
+    report(f"all sites input-stationary == all sites weight-stationary, "
+           f"step logits bit for bit: {same}")
+    need(same, "the input-stationary engine's logits differ from the "
+         "weight-stationary engine's")
     torch.cuda.synchronize()
     counts = launch_counts()
     launches = {k: counts[k] for k in SLICE1_KERNELS}
@@ -1182,14 +1221,19 @@ def check_prefill_sites(params, planned, dense, report):
                     f"block_sparse {what}: sparse != all-live run")
                 errs["block_sparse"] = max(errs["block_sparse"], err)
                 plain = matmul_ref(a, w_kn)
+                outs = {}
                 for stat in stats:
                     s = dataclasses.replace(sched, stationarity=stat)
-                    err = (fm.flex_matmul(a, w_kn, schedule=s,
-                                          out_dtype=torch.float32)
-                           - plain).abs().max().item()
+                    outs[stat] = fm.flex_matmul(a, w_kn, schedule=s,
+                                                out_dtype=torch.float32)
+                    err = (outs[stat] - plain).abs().max().item()
                     need(err <= tol_a, f"flex_{stat} {what}: error {err} > "
                          f"{tol_a}")
                     errs[stat] = max(errs[stat], err)
+                need(dtype is torch.float32 or torch.equal(
+                    outs["input"], outs["weight"]),
+                    f"flex_input {what}: differs from flex_weight")
+                del outs
             line = (f"prefill {e.site} {str(dtype)[6:]} M={desc.m} K={k} "
                     f"N={n}: block_sparse ({e.bm},{e.bk},{e.bn}) "
                     f"{errs['block_sparse']:.3e}, flex ({sched.bm},"
@@ -1197,6 +1241,8 @@ def check_prefill_sites(params, planned, dense, report):
                     f"output/weight/input {errs['output']:.3e}/"
                     f"{errs['weight']:.3e}/{errs['input']:.3e}; tol "
                     f"{tol:.3e}; sparse == all-live bitwise")
+            if dtype is torch.bfloat16:
+                line += "; input == weight bitwise"
             if dtype is torch.float32:
                 plain = matmul_ref(a_full, w_kn)
                 ctrl = (matmul_ref(tf32(a_full), tf32(w_kn)) - plain) \
@@ -1222,16 +1268,23 @@ def check_prefill_sites(params, planned, dense, report):
             out_dtype=torch.float32), iters=5) for stat in stats}
         t_plain = cuda_ms(lambda: matmul_ref(a, w_kn), iters=5)
         t_lib = cuda_ms(lambda: torch.matmul(a, w_kn), iters=5)
+        is_rows = fm.revisit_rows(m)
+        is_df = is_dataflow_ms(m, n, k, sched.bk, is_rows)
+        is_df128 = is_dataflow_ms(m, n, k, sched.bk, 128)
         report(f"  prefill {e.site} bf16 ms: block_sparse {t_bs:.4f} (bound "
                f"{b_bs:.4f}, {by_bs}), flex output/weight/input "
                f"{t_fm['output']:.4f}/{t_fm['weight']:.4f}/"
                f"{t_fm['input']:.4f} (bound {b_fm:.4f}, {by_fm}; "
-               f"weight-stationary dataflow bound "
-               f"{ws_dataflow_ms(m, n, k, sched.bk):.4f}), plain "
-               f"{t_plain:.4f}, torch.matmul {t_lib:.4f}")
+               f"weight- / input-stationary dataflow bounds "
+               f"{ws_dataflow_ms(m, n, k, sched.bk):.4f} / {is_df:.4f} at "
+               f"{is_rows} rows, {is_df128:.4f} at 128), "
+               f"plain {t_plain:.4f}, torch.matmul {t_lib:.4f}")
         if e.site == "mlp.in":
             times = {"block_sparse": (t_bs, b_bs), "library": t_lib,
-                     **{stat: (t_fm[stat], b_fm) for stat in stats}}
+                     **{stat: (t_fm[stat], b_fm) for stat in stats},
+                     "dataflow": {"weight": ws_dataflow_ms(m, n, k, sched.bk),
+                                  "input": is_df, "input_rows": is_rows,
+                                  "input_128": is_df128}}
     need(bool(times), "no mlp.in site in the prefill plan")
     torch.cuda.synchronize()
     return worst, times
@@ -1332,6 +1385,24 @@ def run_prefill(cfg, params, dense, planned, shape, report) -> dict:
     need(diff <= tol, f"weight-stationary prefill logits off by {diff}")
     ws_launches = counts["weight"]
 
+    # 1c. every site forced input-stationary: the tensor-core fm_input at
+    # every site, its logits equal to the weight-stationary ones bit for bit
+    reset_launches()
+    logits_i, wall = _timed(lambda: prefill(forced(dense, "input"), params))
+    counts = launch_counts()
+    total += counts["flash_attention"]
+    same = torch.equal(logits_i, logits_w)
+    report(f"bf16 prefill, dense table, all sites input-stationary: "
+           f"{wall:.3f} s = {1e3 * wall / (b * s):.4f} ms per prompt token; "
+           f"fm_input launches {counts['input']}; launches {counts}; "
+           f"logits == all sites weight-stationary bit for bit: {same}")
+    need(counts["input"] > 0 and counts["output"] == 0,
+         "the input-stationary prefill did not run fm_input alone")
+    need(same, "input-stationary prefill logits differ from the "
+         "weight-stationary ones")
+    is_launches = counts["input"]
+    del logits_i
+
     # 2. the planned two-sided plan at the prefill shape
     reset_launches()
     logits_p, wall = _timed(lambda: prefill(planned, attached))
@@ -1410,7 +1481,7 @@ def run_prefill(cfg, params, dense, planned, shape, report) -> dict:
     profile_prefill(lambda: prefill(planned, attached), report,
                     "bf16 prefill (planned)")
     return {"per_prefill": per_prefill, "total": total, "batch": batch,
-            "ws_prefill": ws_launches}
+            "ws_prefill": ws_launches, "is_prefill": is_launches}
 
 
 def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report):
@@ -1672,7 +1743,15 @@ def main() -> int:
                            max_abs_err=max(row["max_abs_err"],
                                            pf_errs8[row["name"]]))
             if row["name"] == "flex_weight":
-                row["launches_ws_prefill"] = pf["ws_prefill"]
+                row.update(launches_ws_prefill=pf["ws_prefill"],
+                           prefill_dataflow_bound_ms=pf_times["dataflow"][
+                               "weight"])
+            elif row["name"] == "flex_input":
+                df = pf_times["dataflow"]
+                row.update(launches_is_prefill=pf["is_prefill"],
+                           prefill_dataflow_bound_ms=df["input"],
+                           prefill_dataflow_rows=df["input_rows"],
+                           prefill_dataflow_bound_128rows_ms=df["input_128"])
         rows.append(time_flash(flash, pf))
         done("phase 12")
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")

@@ -38,7 +38,7 @@ SIGNATURES = {
     "flex_matmul": {
         "fm_output": [_P] * 4 + [_I] * 13 + [_P],
         "fm_weight": [_P] * 4 + [_I] * 12 + [_P],
-        "fm_input": [_P, _P, _P] + [_I] * 9 + [_P],
+        "fm_input": [_P] * 4 + [_I] * 12 + [_P],
     },
     "int8_matmul": {
         "i8_matmul": [_P] * 5 + [_I] * 13 + [_P],

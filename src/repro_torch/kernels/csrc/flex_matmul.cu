@@ -12,8 +12,10 @@
 //              ``out = ((p0 + p1) + p2) + ...`` (the reference's
 //              ``o_ref += part``).
 //   fm_input   replaces ``_revisit_kernel`` under the input-stationary grid
-//              (launched at :133): the mirror image over M-strips — the A
-//              tile stays in shared memory across the block's n loop.
+//              (launched at :133): the mirror image over M-tiles — per
+//              K-block, a block holds an A tile in shared memory while the
+//              N-strips stream past it, and the float32 output gathers the
+//              same partials in the same K-block order.
 //
 // The TPU runs its grid in order on one core; Hopper runs blocks in
 // parallel, so the sequential grid axes become loops inside a block, and
@@ -46,10 +48,33 @@
 //               the float32 output.
 //     At decode the weight's bytes bound it; at prefill the dataflow's own
 //     float32 traffic, (2·tk − 1)·M·N·4 bytes, does (PERF.md).
-//   * ``fm_input`` (bf16 and float32) and every float32 instantiation are
-//     scalar float32 FMAs on ``tile.cuh`` with synchronous staging; the
-//     revisit variants add the float32 output traffic of one
-//     read-modify-write per K-block.
+//   * bf16 ``fm_input`` is its mirror image on the same tile
+//     (``is_kernel_mma``): a block keeps one K-block of an M-tile of A
+//     resident (swizzled, double-buffered so that the next one loads
+//     early) and streams B past it in 64 x 128 chunks through a cp.async
+//     ring, so shared memory bounds only A.  Two grids, chosen by
+//     ``input_grid``:
+//       split   (decode: one M-tile would leave most SMs idle): one block
+//               per (K-block, strip group) writes its strips' partials into
+//               the (tk, M, N) workspace, and ``is_kernel_sum`` adds them in
+//               K-block order;
+//       owning  (prefill): a block owns (M-tile, strip group) and walks the
+//               K-blocks outer and its strips inner; the old float32 tile of
+//               each strip is read into shared memory with cp.async while
+//               the strip before it runs, so the read of the
+//               read-modify-write lands behind that strip's products and
+//               stores.
+//     Each partial starts from zero and sums the K-block's 16-wide groups
+//     ascending with the tile of ``fm_weight`` (mma::Warps, 16 or 64 rows
+//     by M), and the partials are added in K-block order, one __fadd_rn
+//     each: a forced input-stationary run equals a forced weight-stationary
+//     one bit for bit.  Bound: the weight's bytes at decode; at prefill the
+//     float32 read-modify-write, (2·tk − 1)·M·N·4 bytes, with B read once
+//     per M-tile (PERF.md).
+//   * Every float32 instantiation is scalar float32 FMAs on ``tile.cuh``
+//     with synchronous staging (true float32, no TF32); the revisit
+//     variants add the float32 output traffic of one read-modify-write per
+//     K-block.
 #include "mma.cuh"
 #include "os_mma.cuh"
 #include "tile.cuh"
@@ -97,8 +122,8 @@ ws_kernel(const T* __restrict__ A, const T* __restrict__ B,
   }
 }
 
-// Input-stationary: block (blockIdx.x = i, blockIdx.y = group) owns M-strip
-// i and the N-blocks j = group, group + groups, ...
+// Input-stationary, float32: block (blockIdx.x = i, blockIdx.y = group)
+// owns M-strip i and the N-blocks j = group, group + groups, ...
 template <typename T, class C>
 __global__ void __launch_bounds__(kThreads)
 is_kernel(const T* __restrict__ A, const T* __restrict__ B,
@@ -171,28 +196,16 @@ int launch_revisit(const void* a, const void* b, float* out, int m, int n,
   return (int)cudaGetLastError();
 }
 
+// float32 only: bf16 runs on the tensor cores (dispatch_mma)
 template <bool kWeight>
 int dispatch_revisit(const void* a, const void* b, float* out, int m, int n,
                      int k, int bm, int bn, int bk, int groups, int b_trans,
-                     int in_dtype, cudaStream_t s) {
-  const bool skinny = bm <= Skinny::TM;
-  if (in_dtype == kF32) {
-    if (skinny)
-      return launch_revisit<float, Skinny, kWeight>(a, b, out, m, n, k, bm,
-                                                    bn, bk, groups, b_trans, s);
-    return launch_revisit<float, Square, kWeight>(a, b, out, m, n, k, bm, bn,
+                     cudaStream_t s) {
+  if (bm <= Skinny::TM)
+    return launch_revisit<float, Skinny, kWeight>(a, b, out, m, n, k, bm, bn,
                                                   bk, groups, b_trans, s);
-  }
-  if constexpr (!kWeight) {   // bf16 fm_weight runs on the tensor cores
-    if (in_dtype == kBF16) {
-      if (skinny)
-        return launch_revisit<__nv_bfloat16, Skinny, kWeight>(
-            a, b, out, m, n, k, bm, bn, bk, groups, b_trans, s);
-      return launch_revisit<__nv_bfloat16, Square, kWeight>(
-          a, b, out, m, n, k, bm, bn, bk, groups, b_trans, s);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_revisit<float, Square, kWeight>(a, b, out, m, n, k, bm, bn,
+                                                bk, groups, b_trans, s);
 }
 
 // Weight-stationary, bf16 on the tensor cores.  Block (blockIdx.x = strip)
@@ -263,10 +276,127 @@ ws_kernel_mma(const __nv_bfloat16* __restrict__ A,
   }
 }
 
-// out[i] = ((ws[0][i] + ws[1][i]) + ws[2][i]) + ...: the split grid's
-// partials added in K-block order, one rounding per add.
-__global__ void ws_kernel_sum(const float* __restrict__ ws,
-                              float* __restrict__ out, int mn, int tk) {
+// Input-stationary, bf16 on the tensor cores: the mirror image of
+// ``ws_kernel_mma``.  A block walks a list of A blocks — TMR rows x one
+// K-block, held in shared memory as kpad / 64 swizzled chunks, two buffers
+// so that the next loads while this one is used — and for each, its
+// strips blockIdx.y, blockIdx.y + gridDim.y, ... of 128 columns, streaming
+// their B past it in 64 x 128 chunks.  Owning (``split`` 0): M-tile
+// blockIdx.x, every K-block in order; each strip's partial is added into
+// ``out`` (the first K-block stores it).  ``split``: K-block blockIdx.x of
+// every M-tile; each partial goes to ws[kb] (M x N).
+//
+// One producer order, step u = (A block, strip, chunk), loaded ``depth``
+// steps ahead into a ring of kRing B chunks, so the next strip's chunks
+// and the next A block load while this strip finishes; depth <= the steps
+// of one A block keeps each A buffer's next load after its last reader.  Owning, the old
+// float32 tile of strip g (K-block > 0) is read with cp.async into buffer
+// g % kOutTiles when strip g - ahead starts, so the read of the
+// read-modify-write lands while ``ahead`` strips' products and stores
+// run; ahead < the block's strip count, so that tile was written (by strip
+// g - strips, one K-block earlier) before the read starts.  A block of one
+// strip reads its old tile in the epilogue, after the write.
+template <int TMR, bool BT>
+__global__ void __launch_bounds__(mma::kThreads)
+is_kernel_mma(const __nv_bfloat16* __restrict__ A,
+              const __nv_bfloat16* __restrict__ B, float* __restrict__ out,
+              float* __restrict__ ws, int M, int N, int K, int bk, int split) {
+  using mma::bf16;
+  using mma::kKC;
+  using mma::kOutLd;
+  using mma::kOutTiles;
+  using mma::kRing;
+  using mma::kTN;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kpad = round_up(bk, kKC), nkc = kpad / kKC;
+  bf16* As = reinterpret_cast<bf16*>(smem);          // 2 x (TMR x kpad)
+  bf16* Bs = As + 2 * (size_t)TMR * kpad;            // kRing x (64 x 128)
+  float* Os = reinterpret_cast<float*>(Bs + kRing * kKC * kTN);
+  const int strips = (N + kTN - 1) / kTN, tk = K / bk;
+  const int gy = blockIdx.y, gn = gridDim.y;
+  const int ns = gy < strips ? (strips - 1 - gy) / gn + 1 : 0;
+  const int spa = ns * nkc;                          // steps per A block
+  const int steps = (split ? (M + TMR - 1) / TMR : tk) * spa;
+  const int ahead = split ? 0 : min(kOutTiles - 1, ns - 1);
+  // an old tile read at the start of strip g lands by the epilogue of
+  // strip g + ahead, (ahead + 1)·nkc - 1 steps on
+  const int depth = min(min(kRing - 1, spa),
+                        ahead > 0 ? (ahead + 1) * nkc - 1 : kRing);
+  const int ldb = BT ? K : N;
+  const bool vec_a = K % 8 == 0 && bk % 8 == 0 && mma::aligned16(A);
+  const bool vec_b = (BT ? K % 8 == 0 && bk % 8 == 0 : N % 8 == 0) &&
+                     mma::aligned16(B);
+  const bool vec_o = N % 4 == 0 && mma::aligned16(out);
+
+  // strip g (g = step / nkc): its M-tile origin, K-block and column origin
+  auto where = [&](int g, int& m0, int& kb, int& n0) {
+    const int blk = g / ns;
+    m0 = (split ? blk : blockIdx.x) * TMR;
+    kb = split ? blockIdx.x : blk;
+    n0 = (gy + g % ns * gn) * kTN;
+  };
+
+  auto load = [&](int u) {
+    int m0, kb, n0;
+    where(u / nkc, m0, kb, n0);
+    const int kk = u % nkc * kKC;
+    if (u % spa == 0) {                              // a new A block
+      bf16* dst = As + ((u / spa) & 1) * (size_t)TMR * kpad;
+      for (int c = 0; c < nkc; ++c)
+        mma::stage_a<TMR>(dst + c * TMR * kKC,
+                          A + (size_t)m0 * K + (size_t)kb * bk + c * kKC, K,
+                          min(TMR, M - m0), min(kKC, bk - c * kKC), vec_a);
+    }
+    const size_t k0 = (size_t)kb * bk + kk;
+    mma::stage_b<BT>(Bs + (u % kRing) * kKC * kTN,
+                     BT ? B + (size_t)n0 * ldb + k0 : B + k0 * ldb + n0, ldb,
+                     min(kKC, bk - kk), min(kTN, N - n0), kKC, vec_b);
+  };
+
+  auto load_old = [&](int g) {                       // strip g's old tile
+    int m0, kb, n0;
+    where(g, m0, kb, n0);
+    if (kb > 0)
+      mma::stage_f32(Os + g % kOutTiles * TMR * kOutLd, kOutLd,
+                     out + (size_t)m0 * N + n0, N, min(TMR, M - m0),
+                     min(kTN, N - n0), vec_o);
+  };
+
+  for (int u = 0; u < depth; ++u) {
+    load(u);
+    mma::cp_async_commit();
+  }
+  mma::Acc<TMR> acc;
+  mma::zero_acc<TMR>(acc);
+  for (int t = 0; t < steps; ++t) {
+    mma::cp_async_wait_n(depth - 1);                 // step t's group landed
+    __syncthreads();                  // and step t - 1's readers are done
+    if (t + depth < steps) load(t + depth);
+    const int g = t / nkc, c = t % nkc;
+    if (ahead > 0 && c == 0 && (t + ahead * nkc) < steps) load_old(g + ahead);
+    mma::cp_async_commit();
+    mma::mac_chunk<TMR, BT>(
+        acc, As + ((t / spa) & 1) * (size_t)TMR * kpad + c * TMR * kKC,
+        Bs + (t % kRing) * kKC * kTN, kKC, 0);
+    if (c == nkc - 1) {
+      int m0, kb, n0;
+      where(g, m0, kb, n0);
+      float* dst = split ? ws + (size_t)kb * M * N : out;
+      mma::store_acc<TMR>(
+          dst + (size_t)m0 * N + n0, N, acc, min(TMR, M - m0),
+          min(kTN, N - n0), !split && kb > 0,
+          ahead > 0 ? Os + g % kOutTiles * TMR * kOutLd : nullptr, kOutLd);
+      mma::zero_acc<TMR>(acc);
+    }
+  }
+}
+
+// out[i] = ((ws[0][i] + ws[1][i]) + ws[2][i]) + ...: a split grid's
+// partials added in K-block order, one rounding per add — the same adds,
+// in the same order, as the owning grid's read-modify-write.
+__device__ __forceinline__ void sum_partials(const float* __restrict__ ws,
+                                             float* __restrict__ out, int mn,
+                                             int tk) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= mn) return;
   float s = ws[i];
@@ -274,13 +404,24 @@ __global__ void ws_kernel_sum(const float* __restrict__ ws,
   out[i] = s;
 }
 
-template <int TMR, bool BT>
-int launch_ws_mma(const void* a, const void* b, float* out, float* ws, int m,
-                  int n, int k, int bk, int gx, int gy, int split,
-                  cudaStream_t stream) {
-  const size_t smem = mma::ws_smem_bytes(TMR, bk);
+__global__ void ws_kernel_sum(const float* __restrict__ ws,
+                              float* __restrict__ out, int mn, int tk) {
+  sum_partials(ws, out, mn, tk);
+}
+
+__global__ void is_kernel_sum(const float* __restrict__ ws,
+                              float* __restrict__ out, int mn, int tk) {
+  sum_partials(ws, out, mn, tk);
+}
+
+template <bool kWeight, int TMR, bool BT>
+int launch_mma(const void* a, const void* b, float* out, float* ws, int m,
+               int n, int k, int bk, int gx, int gy, int split,
+               cudaStream_t stream) {
+  const size_t smem = kWeight ? mma::ws_smem_bytes(TMR, bk)
+                              : mma::is_smem_bytes(TMR, bk, split);
   if (smem > (size_t)kSmemLimit) return (int)cudaErrorInvalidValue;
-  auto kern = ws_kernel_mma<TMR, BT>;
+  auto kern = kWeight ? ws_kernel_mma<TMR, BT> : is_kernel_mma<TMR, BT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -291,31 +432,37 @@ int launch_ws_mma(const void* a, const void* b, float* out, float* ws, int m,
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     const int mn = m * n;
-    ws_kernel_sum<<<(mn + 255) / 256, 256, 0, stream>>>(ws, out, mn, k / bk);
+    auto sum = kWeight ? ws_kernel_sum : is_kernel_sum;
+    sum<<<(mn + 255) / 256, 256, 0, stream>>>(ws, out, mn, k / bk);
   }
   return (int)cudaGetLastError();
 }
 
-// bf16 fm_weight: the grid (gx, gy), ``split`` and the M-tile rows come
-// from ``weight_grid``; the checks here refuse anything else.
-inline int dispatch_ws_mma(const void* a, const void* b, float* out,
-                           float* ws, int m, int n, int k, int bk, int gx,
-                           int gy, int split, int rows, int b_trans,
-                           cudaStream_t s) {
-  if (bk <= 0 || k % bk || gx != (n + mma::kTN - 1) / mma::kTN || gy <= 0 ||
-      (split ? ws == nullptr || gy != k / bk : gy > (m + rows - 1) / rows))
+// bf16 fm_weight / fm_input: the grid (gx, gy), ``split`` and the M-tile
+// rows come from ``weight_grid`` / ``input_grid``; the checks here refuse
+// anything else.
+template <bool kWeight>
+int dispatch_mma(const void* a, const void* b, float* out, float* ws, int m,
+                 int n, int k, int bk, int gx, int gy, int split, int rows,
+                 int b_trans, cudaStream_t s) {
+  if (bk <= 0 || k % bk || gy <= 0 || (rows != 16 && rows != 64))
+    return (int)cudaErrorInvalidValue;
+  const int strips = (n + mma::kTN - 1) / mma::kTN;
+  const int mtiles = (m + rows - 1) / rows, tk = k / bk;
+  if (split && ws == nullptr) return (int)cudaErrorInvalidValue;
+  if (kWeight ? gx != strips || (split ? gy != tk : gy > mtiles)
+              : rows != (m <= 16 ? 16 : 64) || gy > strips ||
+                    gx != (split ? tk : mtiles))
     return (int)cudaErrorInvalidValue;
   if (rows == 16)
-    return b_trans ? launch_ws_mma<16, true>(a, b, out, ws, m, n, k, bk, gx,
-                                             gy, split, s)
-                   : launch_ws_mma<16, false>(a, b, out, ws, m, n, k, bk, gx,
-                                              gy, split, s);
-  if (rows == 64)
-    return b_trans ? launch_ws_mma<64, true>(a, b, out, ws, m, n, k, bk, gx,
-                                             gy, split, s)
-                   : launch_ws_mma<64, false>(a, b, out, ws, m, n, k, bk, gx,
-                                              gy, split, s);
-  return (int)cudaErrorInvalidValue;
+    return b_trans ? launch_mma<kWeight, 16, true>(a, b, out, ws, m, n, k,
+                                                   bk, gx, gy, split, s)
+                   : launch_mma<kWeight, 16, false>(a, b, out, ws, m, n, k,
+                                                    bk, gx, gy, split, s);
+  return b_trans ? launch_mma<kWeight, 64, true>(a, b, out, ws, m, n, k, bk,
+                                                 gx, gy, split, s)
+                 : launch_mma<kWeight, 64, false>(a, b, out, ws, m, n, k, bk,
+                                                  gx, gy, split, s);
 }
 
 }  // namespace rt
@@ -354,17 +501,26 @@ extern "C" int fm_weight(const void* a, const void* b, float* out, float* ws,
                          int in_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == rt::kBF16)
-    return rt::dispatch_ws_mma(a, b, out, ws, m, n, k, bk, gx, gy, split,
-                               rows, b_trans, s);
+    return rt::dispatch_mma<true>(a, b, out, ws, m, n, k, bk, gx, gy, split,
+                                  rows, b_trans, s);
   if (in_dtype != rt::kF32 || gx != n / bn) return (int)cudaErrorInvalidValue;
   return rt::dispatch_revisit<true>(a, b, out, m, n, k, bm, bn, bk, gy,
-                                    b_trans, in_dtype, s);
+                                    b_trans, s);
 }
 
-extern "C" int fm_input(const void* a, const void* b, float* out, int m,
-                        int n, int k, int bm, int bn, int bk, int groups,
-                        int b_trans, int in_dtype, void* stream) {
-  return rt::dispatch_revisit<false>(a, b, out, m, n, k, bm, bn, bk, groups,
-                                     b_trans, in_dtype,
-                                     static_cast<cudaStream_t>(stream));
+// float32: (gx, gy) = (m / bm, N-block groups) of the scalar kernel, ``ws``,
+// ``split`` and ``rows`` unused; bf16: the tensor-core grid of
+// ``input_grid``, with ``ws`` the (k / bk, m, n) float32 workspace of a
+// split grid.
+extern "C" int fm_input(const void* a, const void* b, float* out, float* ws,
+                        int m, int n, int k, int bm, int bn, int bk, int gx,
+                        int gy, int split, int rows, int b_trans,
+                        int in_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == rt::kBF16)
+    return rt::dispatch_mma<false>(a, b, out, ws, m, n, k, bk, gx, gy, split,
+                                   rows, b_trans, s);
+  if (in_dtype != rt::kF32 || gx != m / bm) return (int)cudaErrorInvalidValue;
+  return rt::dispatch_revisit<false>(a, b, out, m, n, k, bm, bn, bk, gy,
+                                     b_trans, s);
 }

@@ -26,20 +26,22 @@
 // M, columns past N or past the K-block) are zero in shared memory, and zero
 // products leave a float32 sum unchanged.
 //
-// Used by ``fm_weight`` (flex_matmul.cu, mma.sync), by the bf16 flash-
-// attention kernel (wgmma, barrier and staging primitives), and by the
-// output-stationary template of ``os_mma.cuh`` that bf16 ``fm_output`` and
-// ``bs_matmul`` and bf16-activation ``i8_matmul`` and ``bs_matmul_scaled``
-// share (its 16-row tile at M <= 16; its wgmma tile above).  ``fm_input``
-// still runs on ``tile.cuh``'s scalar float32 FMAs (ROADMAP queue B).  Each mma.sync / wgmma k-step sums one 16-element K group into
+// Used by ``fm_weight`` and ``fm_input`` (flex_matmul.cu, mma.sync: the
+// same tile, so the two revisit dataflows agree bit for bit), by the bf16
+// flash-attention kernel (wgmma, barrier and staging primitives), and by
+// the output-stationary template of ``os_mma.cuh`` that bf16 ``fm_output``
+// and ``bs_matmul`` and bf16-activation ``i8_matmul`` and
+// ``bs_matmul_scaled`` share (its 16-row tile at M <= 16; its wgmma tile
+// above).  Each mma.sync / wgmma k-step sums one 16-element K group into
 // the float32 accumulator; ``os_mma.cuh`` issues them in one order fixed by
 // K alone (groups from K offset 0 ascending, in segments of a constant
 // length added in order), the invariant that keeps the dense and the
 // block-sparse products bit-equal.  At decode (M = 4) these tiles are
 // bound by the weight's bytes, at prefill (M = 8192) by the tensor cores'
-// operations (``fm_weight``: by its float32 read-modify-write).  The
-// swizzled panels (``swz64``) are the layout wgmma's
-// 128-byte-swizzle descriptors and TMA's CU_TENSOR_MAP_SWIZZLE_128B use.
+// operations (``fm_weight`` and ``fm_input``: by their float32
+// read-modify-write).  The swizzled panels (``swz64``) are the layout
+// wgmma's 128-byte-swizzle descriptors and TMA's CU_TENSOR_MAP_SWIZZLE_128B
+// use.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -105,6 +107,16 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp_async_wait<n> for a count known only at run time (0 <= n <= 2).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  if (n == 0)
+    cp_async_wait<0>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<2>();
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -338,13 +350,39 @@ __device__ __forceinline__ void mac_chunk(Acc<TMR>& acc, const bf16* As,
   }
 }
 
+// Stage rows [0, mrows) x columns [0, ncols) of a float32 tile (``src`` at
+// its origin, row stride ``ldg``) into ``dst`` (row stride ``lds``, a
+// multiple of 4); other elements are left as they are.  ``vec``: ``src``'s
+// rows are 16-byte aligned (cp.async, 16 bytes at a time).
+__device__ __forceinline__ void stage_f32(float* dst, int lds,
+                                          const float* __restrict__ src,
+                                          int ldg, int mrows, int ncols,
+                                          bool vec) {
+  for (int c = threadIdx.x; c < mrows * (kTN / 4); c += kThreads) {
+    const int r = c / (kTN / 4), c4 = (c % (kTN / 4)) * 4;
+    float* d = dst + r * lds + c4;
+    const float* s = src + (size_t)r * ldg + c4;
+    if (vec && c4 + 4 <= ncols) {
+      cp_async16(smem_u32(d), s);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (c4 + i < ncols) d[i] = s[i];
+    }
+  }
+}
+
 // Write the tile's accumulators at ``out`` (its origin, row stride ``ldo``)
 // masked to (mrows, ncols), or with ``add`` accumulate them into the float32
-// values there: out = out + acc, one rounding per element.
+// values there: out = out + acc, one rounding per element.  With ``old``
+// (shared memory, row stride ``ld_old``) the values added to are read
+// there instead: out = old + acc.
 template <int TMR>
 __device__ __forceinline__ void store_acc(float* out, int ldo,
                                           const Acc<TMR>& acc, int mrows,
-                                          int ncols, bool add) {
+                                          int ncols, bool add,
+                                          const float* old = nullptr,
+                                          int ld_old = 0) {
   using W = Warps<TMR>;
   constexpr int WN = 8 / W::WM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -360,18 +398,19 @@ __device__ __forceinline__ void store_acc(float* out, int ldo,
       for (int ni = 0; ni < W::NI; ++ni) {
         const int c = wn * W::NI * 8 + ni * 8 + 2 * t;
         float* p = out + (size_t)r * ldo + c;
+        const float* q = old ? old + r * ld_old + c : p;
         const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
         if (pairs && c + 1 < ncols) {
           float2 o = make_float2(v0, v1);
           if (add) {
-            const float2 q = *reinterpret_cast<float2*>(p);
-            o.x = __fadd_rn(q.x, v0);
-            o.y = __fadd_rn(q.y, v1);
+            const float2 w = *reinterpret_cast<const float2*>(q);
+            o.x = __fadd_rn(w.x, v0);
+            o.y = __fadd_rn(w.y, v1);
           }
           *reinterpret_cast<float2*>(p) = o;
         } else {
-          if (c < ncols) p[0] = add ? __fadd_rn(p[0], v0) : v0;
-          if (c + 1 < ncols) p[1] = add ? __fadd_rn(p[1], v1) : v1;
+          if (c < ncols) p[0] = add ? __fadd_rn(q[0], v0) : v0;
+          if (c + 1 < ncols) p[1] = add ? __fadd_rn(q[1], v1) : v1;
         }
       }
     }
@@ -382,6 +421,22 @@ __device__ __forceinline__ void store_acc(float* out, int ldo,
 __host__ __device__ inline size_t ws_smem_bytes(int tmr, int bk) {
   const int kpad = (bk + kKC - 1) / kKC * kKC;
   return ((size_t)kpad * kTN + 2 * (size_t)tmr * kKC) * sizeof(bf16);
+}
+
+// The input-stationary block's B ring (64 x 128 bf16 chunks), the float32
+// output tiles an owning block reads ahead of their read-modify-write, and
+// their row stride (a store_acc warp then reads 32 banks).
+constexpr int kRing = 3;
+constexpr int kOutTiles = 2;
+constexpr int kOutLd = kTN + 8;
+
+// Dynamic shared memory of an input-stationary block: two A blocks (TMR x
+// kpad bf16: this one and the next), the ring and, owning, the float32
+// output tiles (TMR x kOutLd).
+__host__ __device__ inline size_t is_smem_bytes(int tmr, int bk, int split) {
+  const int kpad = (bk + kKC - 1) / kKC * kKC;
+  return (2 * (size_t)tmr * kpad + (size_t)kRing * kKC * kTN) * sizeof(bf16) +
+         (split ? 0 : (size_t)kOutTiles * tmr * kOutLd * sizeof(float));
 }
 
 }  // namespace mma

@@ -13,7 +13,10 @@ descriptor picks the entry point and the (bm, bn, bk) blocks:
            stream past it, one float32 partial per K-block added into the
            output in K-block order (bf16 on the tensor cores, over the grid
            that ``weight_grid`` plans);
-  input  : the mirror image over M-strips (A tile resident across n).
+  input  : the mirror image over M-tiles, an A tile resident while the
+           N-strips stream past it (bf16 on the same tensor-core tile, over
+           the grid that ``input_grid`` plans: the same partials added in
+           the same order, so it equals ``weight`` bit for bit).
 
 At decode (M = n_slots) all three are bound by device-memory bytes (the
 weight read once).  CPU tensors take the plain version
@@ -35,10 +38,10 @@ DEFAULT_BLOCKS = (128, 128, 128)
 
 STATIONARITIES = ("output", "weight", "input")
 # launches of each CUDA kernel (bumped only where it is launched):
-# ``output_sum`` / ``weight_sum`` are the second kernel of a split
-# output- / weight-stationary grid
+# ``output_sum`` / ``weight_sum`` / ``input_sum`` are the second kernel of
+# a split output- / weight- / input-stationary grid
 LAUNCHES = {"output": 0, "weight": 0, "input": 0, "output_sum": 0,
-            "weight_sum": 0}
+            "weight_sum": 0, "input_sum": 0}
 
 
 def pad_to_blocks(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
@@ -59,12 +62,48 @@ def _groups(own: int, other: int, device) -> int:
     return max(1, min(other, (2 * _sms(device)) // max(own, 1)))
 
 
-# The bf16 weight-stationary kernel (csrc/flex_matmul.cu, csrc/mma.cuh):
-# output columns per block, the A chunk's K columns.
+# The bf16 revisit kernels (csrc/flex_matmul.cu, csrc/mma.cuh): output
+# columns per block, the staged chunk's K columns; the input-stationary
+# block's B ring, its staged float32 output tiles and their row stride.
+# These and the two shared-memory sizes below mirror mma.cuh's kTN, kKC,
+# kRing, kOutTiles, kOutLd, ws_smem_bytes and is_smem_bytes, which the
+# launcher checks; tests/test_torch_kernels.py holds them equal.
 WS_STRIP = 128
 WS_CHUNK = 64
+IS_RING, IS_OUT_TILES, IS_OUT_LD = 3, 2, WS_STRIP + 8
 # float32 bytes the split grid's workspace may take (decode mlp.in: 1.4 MB)
 WORKSPACE_CAP = 256 << 20
+
+
+def revisit_rows(m: int) -> int:
+    """M-tile height of both bf16 revisit kernels for ``m`` (padded) rows:
+    16 (the decode rows, zero-padded in shared memory) or 64."""
+    return 16 if m <= 16 else 64
+
+
+def ws_smem_bytes(rows: int, bk: int) -> int:
+    """Shared memory of a weight-stationary block: the K-block's B strip
+    (bk rounded up to 64, x 128) and two A chunks (rows x 64), bf16."""
+    kpad = -(-bk // WS_CHUNK) * WS_CHUNK
+    return 2 * (kpad * WS_STRIP + 2 * rows * WS_CHUNK)
+
+
+def is_smem_bytes(rows: int, bk: int, split: bool) -> int:
+    """Shared memory of an input-stationary block: two K-blocks of A (rows
+    x bk rounded up to 64) and the B ring, bf16, and, owning, the float32
+    output tiles read ahead of their read-modify-write."""
+    kpad = -(-bk // WS_CHUNK) * WS_CHUNK
+    return (2 * (2 * rows * kpad + IS_RING * WS_CHUNK * WS_STRIP)
+            + (0 if split else IS_OUT_TILES * rows * IS_OUT_LD * 4))
+
+
+def _revisit_checks(m, n, k, bm, bn, bk, sms) -> None:
+    if min(m, n, k, bm, bn, bk, sms) <= 0:
+        raise ValueError(f"non-positive size in M={m} N={n} K={k} "
+                         f"blocks=({bm}, {bn}, {bk}) SMs={sms}")
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"M={m} N={n} K={k} are not multiples of the "
+                         f"blocks ({bm}, {bn}, {bk})")
 
 
 @dataclass(frozen=True)
@@ -94,15 +133,9 @@ def weight_grid(m: int, n: int, k: int, bm: int, bn: int, bk: int, sms: int,
     float32 partials (tk·m·n·4 bytes) fit under ``cap``.  Raises on
     operands that are not block multiples and on a K-block whose B tile
     does not fit in a block's shared memory."""
-    if min(m, n, k, bm, bn, bk, sms) <= 0:
-        raise ValueError(f"non-positive size in M={m} N={n} K={k} "
-                         f"blocks=({bm}, {bn}, {bk}) SMs={sms}")
-    if m % bm or n % bn or k % bk:
-        raise ValueError(f"M={m} N={n} K={k} are not multiples of the "
-                         f"blocks ({bm}, {bn}, {bk})")
-    rows = 16 if m <= 16 else 64
-    kpad = -(-bk // WS_CHUNK) * WS_CHUNK
-    smem = 2 * (kpad * WS_STRIP + 2 * rows * WS_CHUNK)
+    _revisit_checks(m, n, k, bm, bn, bk, sms)
+    rows = revisit_rows(m)
+    smem = ws_smem_bytes(rows, bk)
     if smem > H100.vmem_bytes:
         raise ValueError(f"a {bk}-row K-block of {WS_STRIP} columns takes "
                          f"{smem} bytes of shared memory, over "
@@ -112,6 +145,55 @@ def weight_grid(m: int, n: int, k: int, bm: int, bn: int, bk: int, sms: int,
     if strips * groups < sms and tk > 1 and 4 * tk * m * n <= cap:
         return WeightGrid(True, (strips, tk), rows, (tk, m, n))
     return WeightGrid(False, (strips, groups), rows, None)
+
+
+@dataclass(frozen=True)
+class InputGrid:
+    """Launch plan of the bf16 input-stationary kernel, the mirror of
+    ``WeightGrid``.
+
+    ``split``: one block per (K-block, strip group) holds that K-block of
+    A and writes its strips' float32 partials into a ``workspace`` of shape
+    (tk, M, N), and a second pass adds them in K-block order; otherwise each
+    block owns an (M-tile, strip group) and walks the K-blocks itself.
+    ``grid`` is (K-blocks or M-tiles, strip groups); ``rows`` the M-tile
+    height (16 or 64, as ``weight_grid``'s, so that the two kernels form
+    the same partials)."""
+    split: bool
+    grid: Tuple[int, int]
+    rows: int
+    workspace: Optional[Tuple[int, int, int]]
+
+
+def input_grid(m: int, n: int, k: int, bm: int, bn: int, bk: int, sms: int,
+               cap: int = WORKSPACE_CAP) -> InputGrid:
+    """Plan the bf16 input-stationary launch of C[m, n] = A[m, k] @ B[k, n]
+    (operands already padded to the (bm, bn, bk) blocks) on ``sms`` SMs.
+
+    The owning grid has ceil(m / rows) M-tiles times at most
+    min(strips, 2·sms // M-tiles) groups of 128-column strips.  When that
+    leaves SMs idle (a decode matmul has a single M-tile) and there are
+    several K-blocks, the K-blocks run in parallel instead — tk times at
+    most min(strips, 2·sms // tk) strip groups — provided their float32
+    partials (tk·m·n·4 bytes) fit under ``cap``.  B streams past A in
+    64-deep chunks, so shared memory bounds only the resident A (two
+    K-blocks of it, rows x bk rounded up to 64, bf16) beside the ring and,
+    owning, the staged output tiles.  Raises on operands that are not block
+    multiples and on a K-block of A that does not fit."""
+    _revisit_checks(m, n, k, bm, bn, bk, sms)
+    rows = revisit_rows(m)
+    strips, tk, mtiles = -(-n // WS_STRIP), k // bk, -(-m // rows)
+    groups = max(1, min(strips, (2 * sms) // mtiles))
+    split = mtiles * groups < sms and tk > 1 and 4 * tk * m * n <= cap
+    smem = is_smem_bytes(rows, bk, split)
+    if smem > H100.vmem_bytes:
+        raise ValueError(f"a {bk}-column K-block of {rows} rows of A takes "
+                         f"{smem} bytes of shared memory with its ring, over "
+                         f"{H100.vmem_bytes}")
+    if split:
+        return InputGrid(True, (tk, max(1, min(strips, (2 * sms) // tk))),
+                         rows, (tk, m, n))
+    return InputGrid(False, (mtiles, groups), rows, None)
 
 
 # The output-stationary tensor-core kernel (csrc/os_mma.cuh), shared by
@@ -244,26 +326,24 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
                             None if ws is None else ws.data_ptr(), m, n, k,
                             *args, b_trans, code, build.dtype_code(out_dtype),
                             stream)
-    elif stationarity == "weight":
+    elif stationarity in ("weight", "input"):
         # the revisit dataflows accumulate in a float32 output, cast after
+        weight = stationarity == "weight"
         out = torch.empty((m, n), dtype=torch.float32, device=a.device)
         if a.dtype == torch.bfloat16:
-            plan = weight_grid(m, n, k, bm, bn, bk, _sms(a.device),
-                               WORKSPACE_CAP)
+            plan = (weight_grid if weight else input_grid)(
+                m, n, k, bm, bn, bk, _sms(a.device), WORKSPACE_CAP)
             ws = None if plan.workspace is None else torch.empty(
                 plan.workspace, dtype=torch.float32, device=a.device)
             args = (*plan.grid, int(plan.split), plan.rows)
-            second = "weight_sum" if plan.split else None
+            second = f"{stationarity}_sum" if plan.split else None
         else:
-            ws, args = None, (tn, _groups(tn, tm, a.device), 0, 0)
-        err = lib.fm_weight(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            None if ws is None else ws.data_ptr(), m, n, k,
-                            bm, bn, bk, *args, b_trans, code, stream)
-    elif stationarity == "input":
-        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-        err = lib.fm_input(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n,
-                           k, bm, bn, bk, _groups(tm, tn, a.device), b_trans,
-                           code, stream)
+            own, other = (tn, tm) if weight else (tm, tn)
+            ws, args = None, (own, _groups(own, other, a.device), 0, 0)
+        err = (lib.fm_weight if weight else lib.fm_input)(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, n, k, bm, bn, bk,
+            *args, b_trans, code, stream)
     else:
         raise ValueError(f"unknown stationarity {stationarity!r}")
     build.check(err, f"flex_matmul[{stationarity}]")

@@ -12,10 +12,11 @@ which float32 operands cut to TF32's 10-bit mantissa exceed (checked); with
 an int8 B, B is its dequantized value Q·s.  The block-sparse runs must
 equal their all-live runs bit for bit, and the two int8 kernels each other.
 
-The bf16 weight-stationary kernel (tensor cores) is held to the same
-tolerance at decode (M = 4, over both its split-K and its owning grid),
-at M = 512 and on ragged, unaligned blocks, with B row-major and read
-transposed, and two runs must agree bit for bit.  So are bf16
+The bf16 weight- and input-stationary kernels (tensor cores) are held to
+the same tolerance at decode (M = 4, over both their split-K and their
+owning grids), at M = 512 and on ragged, unaligned blocks, with B
+row-major and read transposed; two runs must agree bit for bit, and the
+input-stationary result must equal the weight-stationary one bit for bit.  So are bf16
 ``fm_output`` and ``bs_matmul`` (one tensor-core template, one launch
 plan): at the four decode (K, N), at M 256 and 512, ragged, with bn below
 the kernel's 128-column strip, bk 16 and 32, and unaligned row strides;
@@ -164,6 +165,65 @@ def test_cuda_weight_stationary_bf16(cuda, monkeypatch, mnk, blocks, cap,
     assert pt_fm.LAUNCHES["weight"] == before["weight"] + 4
     # the split grid's second kernel adds the partials
     assert pt_fm.LAUNCHES["weight_sum"] == before["weight_sum"] + 4 * split
+
+
+IS_CASES = [  # WS_CASES' shapes under the input-stationary plan: (m, n, k),
+    # (bm, bn, bk), workspace cap (None: the wrapper's), split grid expected
+    ((4, 5632, 2048), (4, 256, 128), None, True),     # decode mlp.in
+    ((4, 5632, 2048), (4, 256, 128), 0, False),
+    ((4, 2048, 5632), (4, 256, 128), None, True),     # decode mlp.out
+    ((512, 2048, 2048), (128, 128, 128), None, True),
+    ((512, 2048, 2048), (128, 128, 128), 0, False),
+    ((70, 300, 200), (64, 128, 128), 0, False),       # ragged M and N
+    ((6, 36, 70), (6, 36, 35), None, True),           # unaligned K-blocks
+    ((6, 36, 70), (6, 36, 35), 0, False),
+    ((512, 2048, 2048), (128, 128, 64), 0, False),    # one chunk a K-block
+    # two strips a block, old tiles read ahead from rows that are not
+    # 16-byte multiples (N 330), a ragged last strip, unaligned A and B
+    ((5760, 330, 70), (64, 330, 35), None, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mnk,blocks,cap,split", IS_CASES,
+                         ids=[f"{c[0]}-{c[1]}-cap{c[2]}" for c in IS_CASES])
+def test_cuda_input_stationary_bf16(cuda, monkeypatch, mnk, blocks, cap,
+                                    split):
+    """The bf16 input-stationary kernel (tensor cores) over its split and
+    owning grids: within the tolerance, two runs bit-equal, and equal bit
+    for bit to the weight-stationary kernel on the same operands — each
+    partial is formed on the same tile from zero and the partials are added
+    in K-block order by both."""
+    m, n, k = mnk
+    if cap is not None:
+        monkeypatch.setattr(pt_fm, "WORKSPACE_CAP", cap)
+    padded = (-(-x // blk) * blk for x, blk in zip(mnk, blocks))
+    plan = pt_fm.input_grid(
+        *padded, *blocks,
+        torch.cuda.get_device_properties(cuda).multi_processor_count,
+        pt_fm.WORKSPACE_CAP)
+    assert plan.split == split
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    a = torch.randn((m, k), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((k, n), generator=gen, device=cuda).bfloat16()
+    sched = MatmulSchedule("input", *blocks)
+    ws_sched = MatmulSchedule("weight", *blocks)
+    before = dict(pt_fm.LAUNCHES)
+    for bb in (b, b.t().contiguous().t()):
+        out = pt_fm.flex_matmul(a, bb, schedule=sched,
+                                out_dtype=torch.float32)
+        again = pt_fm.flex_matmul(a, bb, schedule=sched,
+                                  out_dtype=torch.float32)
+        ws_out = pt_fm.flex_matmul(a, bb, schedule=ws_sched,
+                                   out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert torch.equal(out, ws_out)
+        assert (out - matmul_ref(a, bb)).abs().max().item() \
+            <= _cuda_tol(a, bb)
+    assert pt_fm.LAUNCHES["input"] == before["input"] + 4
+    # the split grid's second kernel adds the partials
+    assert pt_fm.LAUNCHES["input_sum"] == before["input_sum"] + 4 * split
 
 
 # (m, n, k), blocks (bm, bn, bk): decode (M 4) and prefill-like (M >= 256)
@@ -367,8 +427,8 @@ def _all_live(meta):
 
 
 TENSOR_CORE_KERNELS = {"flash_attention": ("fa_kernel_mma",),
-                       "flex_matmul": ("ws_kernel_mma", "os_kernel_mma",
-                                       "os_wg_kernel_mma"),
+                       "flex_matmul": ("ws_kernel_mma", "is_kernel_mma",
+                                       "os_kernel_mma", "os_wg_kernel_mma"),
                        "block_sparse": ("bs_kernel_mma", "bs_wg_kernel_mma",
                                         "bsq_kernel_mma",
                                         "bsq_wg_kernel_mma"),
@@ -377,11 +437,11 @@ TENSOR_CORE_KERNELS = {"flash_attention": ("fa_kernel_mma",),
 
 @pytest.mark.cuda
 def test_cuda_tensor_cores_only_in_the_bf16_redesign(cuda):
-    """The bf16 flash, weight-stationary, output-stationary and block-sparse
-    kernels and the bf16-activation int8 kernels (dense and scaled
-    block-sparse) multiply on the tensor cores (SASS HMMA/HGMMA); every
-    other kernel — the float32-activation instantiations (float32 and int8
-    B) on ``tile.cuh``, ``fm_input`` and every segment sum — has no
+    """The bf16 flash, weight-, input- and output-stationary and
+    block-sparse kernels and the bf16-activation int8 kernels (dense and
+    scaled block-sparse) multiply on the tensor cores (SASS HMMA/HGMMA);
+    every other kernel — the float32-activation instantiations (float32 and
+    int8 B) on ``tile.cuh`` and every segment or K-block sum — has no
     tensor-core instruction."""
     for name in build.SOURCES:
         counts = build.tensor_core_ops(name)

@@ -8,6 +8,9 @@ another order, so they agree to a few float32 ulps of the result scale —
 rtol/atol 1e-5.  ``tests/test_torch_cuda.py`` holds the CUDA kernels
 themselves against the plain versions on a card.
 """
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +21,7 @@ from repro.core.scheduler import MatmulSchedule as RefSchedule
 from repro.kernels import block_sparse as ref_bs
 from repro.kernels import flex_matmul as ref_fm
 from repro_torch.core import sparsity as pt_sp
-from repro_torch.core.scheduler import MatmulSchedule
+from repro_torch.core.scheduler import H100, MatmulSchedule
 from repro_torch.kernels import block_sparse as pt_bs
 from repro_torch.kernels import flex_matmul as pt_fm
 from repro_torch.kernels import ref as pt_ref
@@ -110,6 +113,129 @@ def test_weight_grid_owns_at_prefill():
 def test_weight_grid_refuses_what_it_cannot_take(args, match):
     with pytest.raises(ValueError, match=match):
         pt_fm.weight_grid(*args, 132)
+
+
+def test_input_grid_splits_at_decode():
+    """Decode mlp.in (M 4, K 2048, N 5632 at blocks (4, 256, 128)) has one
+    M-tile, so the owning grid would give 44 blocks; one block per
+    (K-block, strip group) instead — 16 x 16, each holding its K-block of
+    A over about three strips — over a workspace far under the cap."""
+    plan = pt_fm.input_grid(4, 5632, 2048, 4, 256, 128, 132)
+    assert plan.split and plan.rows == 16
+    assert plan.grid == (16, 16) and plan.grid[0] * plan.grid[1] >= 132
+    assert plan.workspace == (16, 4, 5632)
+    assert 4 * 16 * 4 * 5632 < pt_fm.WORKSPACE_CAP
+    # without room for the workspace, or with one K-block, it owns: one
+    # M-tile, a block per strip
+    owns = pt_fm.input_grid(4, 5632, 2048, 4, 256, 128, 132, 0)
+    assert not owns.split and owns.grid == (1, 44) and owns.workspace is None
+    assert not pt_fm.input_grid(4, 5632, 128, 4, 256, 128, 132).split
+
+
+def test_input_grid_owns_at_prefill():
+    """At M = 8192 the partials would take 2.95 GB: the owning grid, 128
+    M-tiles of 64 rows x 2 groups of 22 strips (about two blocks per SM)."""
+    plan = pt_fm.input_grid(8192, 5632, 2048, 128, 128, 128, 132)
+    assert not plan.split and plan.workspace is None
+    assert plan.grid == (128, 2) and plan.rows == 64
+    # the lm_head at decode has strips enough: it owns, 264 strip groups
+    head = pt_fm.input_grid(4, 100352, 2048, 4, 256, 128, 132)
+    assert not head.split and head.grid == (1, 264) and head.rows == 16
+
+
+@pytest.mark.parametrize("args,match", [
+    ((4, 5632, 2048, 4, 256, 100), "not multiples"),
+    ((6, 5632, 2048, 4, 256, 128), "not multiples"),
+    ((4, 5632, 2048, 0, 256, 128), "non-positive"),
+    ((4, 5632, 2048, 4, 256, -128), "non-positive"),
+    ((4, 128, 4096, 4, 128, 4096), "shared memory"),
+    ((128, 128, 512, 128, 128, 512), "shared memory"),
+])
+def test_input_grid_refuses_what_it_cannot_take(args, match):
+    with pytest.raises(ValueError, match=match):
+        pt_fm.input_grid(*args, 132)
+
+
+def test_input_grid_takes_a_k_block_weight_grid_refuses():
+    """B streams past the resident A in 64-deep chunks, so a 1024-deep
+    K-block that ``weight_grid`` cannot hold as a B tile fits at 16 rows."""
+    args = (4, 128, 1024, 4, 128, 1024, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        pt_fm.weight_grid(*args)
+    plan = pt_fm.input_grid(*args)
+    assert plan.rows == 16 and plan.grid == (1, 1) and not plan.split
+
+
+@pytest.mark.parametrize("mnk,blocks", [
+    ((4, 5632, 2048), (4, 256, 128)), ((4, 2048, 5632), (4, 256, 128)),
+    ((4, 100352, 2048), (4, 256, 128)), ((16, 128, 256), (16, 128, 128)),
+    ((8192, 5632, 2048), (128, 128, 128)), ((512, 2048, 2048),
+                                            (128, 128, 128)),
+    ((128, 384, 256), (64, 128, 128)), ((6, 36, 70), (6, 36, 35))])
+def test_input_grid_tiles_rows_as_weight_grid(mnk, blocks):
+    """The two revisit kernels form each partial on a tile of the same
+    height (16 rows up to M = 16, 64 above) and split K the same way, the
+    precondition of their bitwise equality; each plan's workspace, when it
+    splits, is the (tk, M, N) partials of that K split."""
+    wg = pt_fm.weight_grid(*mnk, *blocks, 132)
+    ig = pt_fm.input_grid(*mnk, *blocks, 132)
+    assert ig.rows == wg.rows
+    m, n, k = mnk
+    tk = k // blocks[2]
+    for plan in (wg, ig):
+        assert plan.workspace == ((tk, m, n) if plan.split else None)
+    if ig.split:                     # a block per (K-block, strip group)
+        assert ig.grid[0] == tk and 1 <= ig.grid[1] <= -(-n // 128)
+    else:                            # a block per (M-tile, strip group)
+        assert ig.grid[0] == -(-m // ig.rows)
+
+
+_CSRC = pathlib.Path(pt_fm.__file__).parent / "csrc"
+
+
+def _cuh_constants():
+    """The integer ``constexpr`` constants of tile.cuh and mma.cuh."""
+    consts = {}
+    for name in ("tile.cuh", "mma.cuh"):
+        text = (_CSRC / name).read_text()
+        for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
+                                    re.M):
+            consts[key] = eval(expr, {}, dict(consts))
+    return consts
+
+
+def test_revisit_layout_constants_match_mma_cuh():
+    """``input_grid`` / ``weight_grid`` size shared memory with the
+    kernels' own constants, so a plan they admit is one the launcher takes."""
+    c = _cuh_constants()
+    assert (pt_fm.WS_STRIP, pt_fm.WS_CHUNK) == (c["kTN"], c["kKC"])
+    assert (pt_fm.IS_RING, pt_fm.IS_OUT_TILES, pt_fm.IS_OUT_LD) == (
+        c["kRing"], c["kOutTiles"], c["kOutLd"])
+    assert H100.vmem_bytes == c["kSmemLimit"]
+
+
+@pytest.mark.parametrize("fn", ["ws_smem_bytes", "is_smem_bytes"])
+def test_revisit_smem_bytes_match_mma_cuh(fn):
+    """The Python shared-memory size equals mma.cuh's function of the same
+    name, its body read as Python, for both tile heights and split grids."""
+    text = (_CSRC / "mma.cuh").read_text()
+    params, body = re.search(fn + r"\(([^)]*)\) \{(.*?)\n\}", text,
+                             re.S).groups()
+    for c_text, py in (("const int ", ""), ("(size_t)", ""), ("/", "//"),
+                       ("sizeof(bf16)", "2"), ("sizeof(float)", "4"),
+                       ("split ? 0 :", "0 if split else"),
+                       ("return ", "out = ")):
+        body = body.replace(c_text, py)
+    code = "\n".join(" ".join(st.split()) for st in body.split(";")
+                      if st.strip())
+    for rows in (16, 64):
+        for bk in (35, 64, 128, 200, 256, 1024):
+            for split in (0, 1):
+                env = dict(_cuh_constants(), tmr=rows, bk=bk, split=split)
+                exec(code, {}, env)
+                args = (rows, bk) + ((bool(split),) if "split" in params
+                                     else ())
+                assert getattr(pt_fm, fn)(*args) == env["out"], (rows, bk)
 
 
 @pytest.mark.parametrize("m,n,k", [(4, 5632, 2048), (4, 2048, 5632),
