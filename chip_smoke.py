@@ -123,6 +123,26 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      ``prefill_dataflow_bound_128rows_ms`` that of 128-row tiles, which
      read B half as often.
 
+ 13. the full engine on the same bf16 weights (planned two-sided plan and
+     dense table; 6 requests of 8-16 prompt tokens and 12 new tokens, 3
+     greedy and 3 sampled at temperature 0.8, top_k 40, seeds 1-3,
+     submitted two per tick; 4 slots, prefill chunks of 8, blocks of 4):
+     the port's threefry bits and uniforms on the card equal the CPU's bit
+     for bit and its Gumbel noise is within an ulp (one ``sample_tokens``
+     call at (4, 100352) timed beside an argmax); the async chunked
+     engine's streams equal the synchronous whole-prompt engine's, the
+     ``step()`` oracle's and the dense table's; a slot poisoned with NaN
+     (``serve.faults.poison_slot_state``, dense table) ends its request
+     ``failed`` on a clean prefix and leaves the other streams unchanged;
+     ``activation_densities`` gives every planned site a density in
+     (0, 1], and a decode block counting popcounts makes no more
+     synchronizing calls than one without (``set_sync_debug_mode``);
+     ``warmup`` leaves the state bit for bit; ms per decode step async
+     against sync and sampled against greedy; and, at 2 layers under a
+     ``VirtualClock``, a cancel in mid-decode, a missed deadline and a
+     shed request.  ``bs_matmul`` and ``fm_output`` (with their sums)
+     must launch; their rows add ``launches_phase13``.
+
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
 
@@ -141,6 +161,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BPS = 3.35e12          # H100 SXM device-memory bandwidth (data sheet)
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 N_SLOTS = 4
+TINY32 = 1.1754943508222875e-38   # float32's smallest normal
 # the bf16 decode kernels; ``*_sum`` add a split grid's partials in K order
 # (a second kernel of the same call)
 SLICE1_KERNELS = ("block_sparse", "block_sparse_sum", "output", "output_sum",
@@ -615,8 +636,12 @@ def make_prompts(cfg):
 
 
 def make_engine(cfg, params, exec_cfg, fused, **kw):
+    """A phase 4-7 engine: whole-prompt admission and synchronous blocks
+    (each block read before the next is launched), as in earlier runs, so
+    their times stay comparable; phase 13 drives the rest."""
     import torch
     from repro_torch.serve.engine import ServeEngine
+    kw.setdefault("async_dispatch", False)
     return ServeEngine(cfg, params, n_slots=N_SLOTS, max_seq=96,
                        dtype=torch.bfloat16, exec_cfg=exec_cfg, fused=fused,
                        decode_block=16, device="cuda", **kw)
@@ -624,26 +649,30 @@ def make_engine(cfg, params, exec_cfg, fused, **kw):
 
 def drain_timed(eng, prompts, max_new):
     """Serve ``prompts`` to the end through ``eng``'s fused blocks; returns
-    (streams, wall seconds, {prefill s, decode s, decode steps})."""
+    (streams, wall seconds, {prefill s, decode s, decode steps}).  The
+    prefill feed and each block launch run to the device's end inside
+    their timers (the engine reads each block synchronously anyway)."""
     import torch
     timing = {"prefill": 0.0, "decode": 0.0, "steps": 0}
-    feed, run_block = eng._feed_prefill, eng._run_block
+    feed, dispatch = eng._feed_prefill, eng._dispatch_block
 
-    def timed_feed(i):
+    def timed_feed(i, start, count):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        feed(i)
+        feed(i, start, count)
         torch.cuda.synchronize()
         timing["prefill"] += time.perf_counter() - t
 
-    def timed_block(live, t_block):
+    def timed_dispatch(live, t_block, *carries):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        run_block(live, t_block)
+        n = dispatch(live, t_block, *carries)
+        torch.cuda.synchronize()
         timing["decode"] += time.perf_counter() - t
-        timing["steps"] += t_block
+        timing["steps"] += n
+        return n
 
-    eng._feed_prefill, eng._run_block = timed_feed, timed_block
+    eng._feed_prefill, eng._dispatch_block = timed_feed, timed_dispatch
     uids = [eng.submit(p, max_new=max_new) for p in prompts]
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1620,6 +1649,335 @@ def time_flash(t, launches) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the full engine — sampling, chunked admission, async dispatch,
+# lifecycle, NaN quarantine, density feedback, warmup
+# ---------------------------------------------------------------------------
+
+P13_NEW = 12          # new tokens per request
+P13_BLOCK = 4         # decode_block: a request decodes over >= 3 blocks
+
+
+def p13_traffic(cfg):
+    """6 requests, prompts of 8-16 tokens: 3 greedy and 3 sampled
+    (temperature 0.8, top_k 40, seeds 1-3), interleaved."""
+    import numpy as np
+    from repro_torch.serve.engine import SamplingParams
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 17)))
+               for _ in range(6)]
+    sampling = [None if i % 2 == 0 else SamplingParams(0.8, 40, i // 2 + 1)
+                for i in range(6)]
+    return list(zip(prompts, sampling))
+
+
+def p13_engine(cfg, params, exec_cfg, **kw):
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    kw.setdefault("prefill_chunk", 8)
+    return ServeEngine(cfg, params, n_slots=N_SLOTS, max_seq=96,
+                       dtype=torch.bfloat16, exec_cfg=exec_cfg,
+                       decode_block=P13_BLOCK, device="cuda", **kw)
+
+
+def p13_serve(eng, traffic, poison=False):
+    """Submit ``traffic`` two per tick through ``faults.drive`` to the end.
+    With ``poison``, the first decoding request with 1-4 tokens credited
+    (its later blocks still to come) has its slot poisoned.  Returns
+    (streams, statuses, wall s, index of the poisoned request or None)."""
+    import torch
+    from repro_torch.serve.faults import drive, poison_slot_state
+    uids, hit = [], []
+
+    def on_tick(_):
+        for p, sp in traffic[len(uids):len(uids) + 2]:
+            uids.append(eng.submit(p, max_new=P13_NEW, sampling=sp))
+        if poison and not hit:
+            for i in eng._live():
+                r = eng.slots[i].req
+                if 0 < len(r.out) <= P13_BLOCK:
+                    poison_slot_state(eng, i)
+                    hit.append(uids.index(r.uid))
+                    break
+        return len(uids) < len(traffic)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    drive(eng, on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    res = eng.results()
+    return ([res[u] for u in uids], [eng.status(u) for u in uids], wall,
+            hit[0] if hit else None)
+
+
+def check_sampling(report, card) -> None:
+    """The port's threefry on the card against the CPU, V = 100352: random
+    bits and uniforms bit for bit, Gumbel noise within one ulp of its
+    magnitude plus 2^-23 (``torch.log`` on the two devices)."""
+    import torch
+    from repro_torch.models import prng
+    v = 100352
+    seeds = torch.tensor([1, 2, 3]).repeat_interleave(4)
+    pos = torch.tensor([0, 1, 37, 2 ** 20]).repeat(3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        key = prng.fold_in(prng.PRNGKey(seeds.to(dev)), pos.to(dev))
+        out[dev] = [prng.random_bits(key, v).cpu(),
+                    prng.uniform(key, v, minval=TINY32).cpu(),
+                    prng.gumbel(key, v).cpu()]
+    (b0, u0, g0), (b1, u1, g1) = out["cpu"], out["cuda"]
+    need(torch.equal(b0, b1), "random bits on the card differ from the CPU")
+    need(torch.equal(u0.view(torch.int32), u1.view(torch.int32)),
+         "uniforms on the card differ from the CPU")
+    ulp = torch.nextafter(g0.abs(), torch.tensor(float("inf"))) - g0.abs()
+    diff = (g1 - g0).abs()
+    need(bool(torch.isfinite(g1).all()), "non-finite Gumbel noise")
+    need(bool((diff <= ulp + 2.0 ** -23).all()),
+         f"Gumbel noise off by {diff.max().item():.3e}")
+    big = g0.abs() >= 1
+    report(f"sampling on the card, 3 seeds x 4 positions x V {v}: bits and "
+           f"uniforms equal the CPU's bit for bit; Gumbel max |diff| "
+           f"{diff.max().item():.3e}, worst {(diff / ulp)[big].max().item():.1f}"
+           f" ulp of |g| where |g| >= 1, {(diff > 0).float().mean().item():.4f}"
+           f" of elements differ ({card})")
+    # what one decode step's sampling costs at (4 slots, V)
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import sample_tokens
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    args = (torch.randn((N_SLOTS, v), generator=gen, device="cuda"),
+            torch.full((N_SLOTS,), 0.8, device="cuda"),
+            torch.full((N_SLOTS,), 40, device="cuda"),
+            seeds[:N_SLOTS].cuda(), pos[:N_SLOTS].cuda())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sample_tokens(*args)
+        torch.cuda.synchronize()
+    _, n_kernels, _ = device_breakdown(prof)
+    report(f"sample_tokens at ({N_SLOTS}, {v}): "
+           f"{cuda_ms(lambda: sample_tokens(*args)):.3f} ms per call (CUDA "
+           f"events, host-paced), device time "
+           f"{device_ms(lambda: sample_tokens(*args))} ms, {n_kernels} "
+           f"kernels; argmax alone "
+           f"{cuda_ms(lambda: torch.argmax(args[0], dim=-1)):.3f} ms ({card})")
+
+
+def p13_decode_rate(cfg, params, exec_cfg, traffic, report, card, label,
+                    sampled, **kw) -> float:
+    """ms per decode step and tokens/s of 4 live requests (4-token prompts,
+    24 new tokens) once all four stream: the blocks after every first
+    token, ticked by ``decode_block_step`` to the end."""
+    import torch
+    from repro_torch.serve.engine import SamplingParams
+    eng = p13_engine(cfg, params, exec_cfg, **kw)
+    for i, (p, _) in enumerate(traffic[:N_SLOTS]):
+        eng.submit(p[:4], max_new=24,
+                   sampling=SamplingParams(0.8, 40, i + 1) if sampled
+                   else None)
+    while len(eng._live()) < N_SLOTS or any(
+            not eng.slots[i].req.out for i in eng._live()):
+        eng.decode_block_step()
+    eng.flush()
+    torch.cuda.synchronize()
+    n0 = sum(len(s.req.out) for s in eng.slots)
+    t = time.perf_counter()
+    while not eng._drained():
+        eng.decode_block_step()
+    eng.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n_tok = sum(len(s.req.out) for s in eng.slots) - n0
+    need(n_tok == N_SLOTS * 24 - n0, f"{label}: lost tokens")
+    ms = 1e3 * wall / (n_tok / N_SLOTS)
+    report(f"  {label}: {ms:.2f} ms per decode step, "
+           f"{n_tok / wall:.1f} tokens/s ({n_tok} tokens in {wall:.3f} s; "
+           f"{card})")
+    return ms
+
+
+def count_syncs(fn) -> int:
+    """Synchronizing CUDA calls made by ``fn()``, counted from the
+    warnings of ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def p13_lifecycle(cfg, params, traffic, report) -> None:
+    """Host logic under a ``VirtualClock`` at 2 layers (dense table, 2
+    slots, max_queue 2): one cancel in mid-decode, one missed deadline,
+    one request shed."""
+    import torch
+    from repro_torch.core.sparsity import map_leaves
+    from repro_torch.serve.engine import ServeEngine, decode_exec_config
+    from repro_torch.serve.faults import VirtualClock, drive
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params2 = map_leaves(lambda path, leaf: leaf[:2]
+                         if path[:2] == ("stack", "layers") else leaf, params)
+    clk = VirtualClock()
+    eng = ServeEngine(cfg2, params2, n_slots=2, max_seq=96,
+                      dtype=torch.bfloat16,
+                      exec_cfg=decode_exec_config(cfg2, 2, use_kernels=True,
+                                                  device="cuda"),
+                      decode_block=P13_BLOCK, prefill_chunk=8, max_queue=2,
+                      clock=clk, device="cuda")
+    p = [t[0] for t in traffic]
+    u1 = eng.submit(p[0], max_new=40)
+    u2 = eng.submit(p[1], max_new=40, sampling=traffic[1][1], deadline=50.0)
+    eng.decode_block_step()
+    u3, u4, u5 = (eng.submit(q, max_new=6) for q in p[2:5])
+    need(eng.status(u5) == "shed", "a full queue did not shed")
+    eng.decode_block_step()
+    eng.decode_block_step()
+    need(eng.status(u1) == "decode", f"request 1 is {eng.status(u1)}")
+    need(eng.cancel(u1) and not eng.cancel(u1), "cancel in mid-decode")
+    clk.advance(100.0)
+    drive(eng)
+    got = [eng.status(u) for u in (u1, u2, u3, u4, u5)]
+    res = eng.results()
+    want = ["cancelled", "deadline_missed", "done", "done", "shed"]
+    counters = {"done": 2, "cancelled": 1, "deadline_missed": 1,
+                "failed": 0, "shed": 1, "demotions": 0}
+    report(f"lifecycle (2 layers, VirtualClock): statuses {got}, counters "
+           f"{eng.counters}, tokens {[len(res[u]) for u in (u1, u2, u3, u4)]}")
+    need(got == want, f"lifecycle statuses {got}, expected {want}")
+    need(eng.counters == counters, f"counters {eng.counters}")
+    need(len(res[u3]) == len(res[u4]) == 6 and 0 < len(res[u1]) < 40,
+         "lifecycle streams")
+
+
+def run_full_engine(cfg, params, planned, dense, report, card) -> dict:
+    """Phase 13.  Returns the launches of its main path (runs A-E)."""
+    import torch
+    t_phase = time.perf_counter()
+    traffic = p13_traffic(cfg)
+    check_sampling(report, card)
+    stats_ec = dataclasses.replace(planned, collect_stats=True)
+
+    reset_launches()
+    runs = {}
+    for label, ec, kw in (
+            ("A planned, async, chunked, collect_stats", stats_ec, {}),
+            ("B planned, sync, whole prompt", planned,
+             {"async_dispatch": False, "prefill_chunk": None}),
+            ("D dense table, async, chunked", dense, {})):
+        eng = p13_engine(cfg, params, ec, **kw)
+        streams, statuses, wall, _ = p13_serve(eng, traffic)
+        n_tok = sum(len(x) for x in streams)
+        report(f"  run {label}: {n_tok} tokens in {wall:.2f} s = "
+               f"{n_tok / wall:.1f} tokens/s ({card})")
+        need(statuses == ["done"] * 6 and all(
+            len(x) == P13_NEW for x in streams), f"run {label}: {statuses}")
+        runs[label[0]] = (eng, streams)
+    oracle = p13_engine(cfg, params, planned, fused=False)
+    ouids = [oracle.submit(p, max_new=P13_NEW, sampling=sp)
+             for p, sp in traffic]
+    ores = oracle.run_until_drained()
+    streams_a = runs["A"][1]
+    same = {"B (sync, whole)": runs["B"][1] == streams_a,
+            "C (step() oracle)": [ores[u] for u in ouids] == streams_a,
+            "D (dense table)": runs["D"][1] == streams_a}
+    report(f"streams of run A (planned, async, chunked) equal: {same}")
+    for what, ok in same.items():
+        need(ok, f"phase 13: run A's streams differ from {what}")
+
+    # quarantine on the dense table (a two-sided bitmap reads a NaN block
+    # as dead, as the reference's does, and would hide the poison)
+    eng = p13_engine(cfg, params, dense)
+    streams, statuses, _, hit = p13_serve(eng, traffic, poison=True)
+    need(hit is not None, "phase 13: no request was poisoned")
+    others_same = all(streams[i] == streams_a[i] for i in range(6)
+                      if i != hit)
+    report(f"quarantine: request {hit} poisoned -> {statuses[hit]} after "
+           f"{len(streams[hit])} of {P13_NEW} tokens (its clean stream's "
+           f"prefix: {streams[hit] == streams_a[hit][:len(streams[hit])]}); "
+           f"other streams equal the unpoisoned run's: {others_same}")
+    need(statuses[hit] == "failed" and eng.counters["failed"] == 1,
+         "the poisoned request did not fail")
+    need(len(streams[hit]) < P13_NEW
+         and streams[hit] == streams_a[hit][:len(streams[hit])],
+         "the poisoned stream is not a clean prefix")
+    need(others_same and statuses.count("done") == 5,
+         "the poison reached another stream")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ("block_sparse", "block_sparse_sum",
+                                       "output", "output_sum")}
+    report(f"main-path launches (phase 13, runs A-E): {launches}")
+    for name, count in launches.items():
+        need(count > 0, f"kernel {name} never launched in phase 13")
+
+    # density feedback: every planned two-sided site measured, in (0, 1]
+    dens = runs["A"][0].activation_densities()
+    sites = {e.site for e in planned.plan.entries.values()
+             if e.mode == "two_sided"}
+    report(f"activation densities (run A): "
+           f"{ {k: round(v, 6) for k, v in sorted(dens.items())} }")
+    need(set(dens) == sites and all(0.0 < v <= 1.0 for v in dens.values()),
+         f"densities {dens} for planned sites {sorted(sites)}")
+
+    # one decode block launched from the carries and read, with and
+    # without popcounts: the stats add no synchronizing call
+    syncs = {}
+    for label, ec in (("without stats", planned), ("with stats", stats_ec)):
+        eng = p13_engine(cfg, params, ec, async_dispatch=False)
+        for p, _ in traffic[:N_SLOTS]:
+            eng.submit(p[:2], max_new=16)
+        eng.decode_block_step()
+        live = eng._live()
+        need(len(live) == N_SLOTS, "sync count: not every slot decodes")
+
+        def block():
+            eng._launch(live, P13_BLOCK)
+            eng._account_one()
+        syncs[label] = count_syncs(block)
+        if label == "without stats":
+            # warmup mid-traffic: every state bit stays as it was
+            eng.flush()
+            before = {k: v.clone() for k, v in eng.state["layers"].items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.warmup()
+            warm_s = time.perf_counter() - t
+            same_state = all(torch.equal(before[k].view(torch.int16),
+                                         v.view(torch.int16))
+                             for k, v in eng.state["layers"].items())
+            report(f"warmup: {warm_s:.2f} s (kernels built, block lengths "
+                   f"1-{P13_BLOCK} and the step with every row dead), state "
+                   f"bit-unchanged: {same_state} ({card})")
+            need(same_state, "warmup changed the decode state")
+    report(f"synchronizing calls in one decode block: {syncs}")
+    need(syncs["with stats"] <= syncs["without stats"],
+         "collect_stats added a synchronizing call to a decode block")
+
+    # host-paced times spread from run to run: each mode twice, in turns
+    report("decode rate, 4 live requests (planned):")
+    ms = {"greedy, async": [], "sampled, async": [], "greedy, sync": []}
+    for label in ("greedy, async", "sampled, async", "greedy, sync",
+                  "greedy, sync", "sampled, async", "greedy, async"):
+        ms[label].append(p13_decode_rate(
+            cfg, params, planned, traffic, report, card, label,
+            label.startswith("sampled"),
+            async_dispatch=label.endswith("async")))
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    report(f"  means: {({k: round(v, 2) for k, v in mean.items()})} ms; "
+           f"async / sync {mean['greedy, async'] / mean['greedy, sync']:.3f}"
+           f", sampled / greedy "
+           f"{mean['sampled, async'] / mean['greedy, async']:.3f}")
+    p13_lifecycle(cfg, params, traffic, report)
+    report(f"phase 13 wall time: {time.perf_counter() - t_phase:.1f} s "
+           f"({card})")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1754,6 +2112,17 @@ def main() -> int:
                            prefill_dataflow_bound_128rows_ms=df["input_128"])
         rows.append(time_flash(flash, pf))
         done("phase 12")
+        # phase 13: the full engine
+        card = smi[0] if smi else name
+        launches13 = run_full_engine(cfg, params, planned, dense, report,
+                                     card)
+        for row in rows:
+            key = {"block_sparse": "block_sparse",
+                   "flex_output": "output"}.get(row["name"])
+            if key is not None:
+                row.update(launches_phase13=launches13[key],
+                           launches_sum_phase13=launches13[f"{key}_sum"])
+        done("phase 13")
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)

@@ -382,14 +382,16 @@ class WeightSparsityPlan:
     shape: str = ""
     entries: Dict[str, SitePlan] = field(default_factory=dict)
 
-    def attach(self, params):
+    def attach(self, params, verify: bool = True):
         """Wrap every planned weight leaf of ``params`` as a
         ``PlannedWeight`` (metadata moved to the leaf's device; the weight
         itself is referenced, not copied).
 
-        Each leaf's block bitmap is recomputed and checked to be covered by
-        the plan — a plan compiled from different
-        tensors of the same shape would otherwise silently skip live MACs.
+        With ``verify`` each leaf's block bitmap is recomputed and checked
+        to be covered by the plan — a plan compiled from different tensors
+        of the same shape would otherwise silently skip live MACs.
+        ``verify=False`` skips that pass (a read of every planned weight),
+        for a plan just compiled from these very params.
         """
         def wrap(path, leaf):
             key = "/".join(path)
@@ -405,8 +407,9 @@ class WeightSparsityPlan:
                     f"compile_weight_plan on these params")
             dev = kn.device
             planned = torch.as_tensor(e.b_bitmap, device=dev)
-            live = block_bitmap(kn, e.bk, e.bn).reshape(planned.shape)
-            if bool((live & ~planned).any()):
+            if verify and bool(
+                    (block_bitmap(kn, e.bk, e.bn).reshape(planned.shape)
+                     & ~planned).any()):
                 raise ValueError(
                     f"{key} [{e.site}]: plan does not cover the attached "
                     f"weight's live blocks — it was compiled from different "

@@ -26,13 +26,19 @@ The kernel wrappers launch CUDA kernels for CUDA tensors and run their plain
 versions for CPU tensors.  Bitmaps derived from the data make every mode
 equal to the dense product: zero blocks are skipped, never approximated.
 All metadata is built with device ops — nothing here waits on the device.
+
+Runtime feedback: under ``sparsity_stats(collector)`` every two-sided site
+(planned or operand-derived) adds its activation popcount to a per-site
+device counter; ``active_rows`` restricts the count to live rows.  The
+counters are read only by ``SparsityStatsCollector.densities`` — recording
+adds no host sync to a step.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -55,6 +61,12 @@ class ExecConfig:
     schedules: Optional[object] = None   # NetworkSchedule (descriptor table)
     plan: Optional[object] = None     # WeightSparsityPlan (engine bring-up)
     quantize: bool = False            # params int8-quantized at bring-up
+    collect_stats: bool = False       # count activation popcounts per site
+    # the per-site activation densities the table was selected under (None
+    # = the 0.5 prior: the drift baseline of ``maybe_recalibrate``) and the
+    # ArchConfig it was compiled from, so the engine can recompile it
+    act_densities: Optional[Dict[str, float]] = None
+    arch_cfg: Optional[object] = None
 
 
 def _cfg() -> ExecConfig:
@@ -69,6 +81,77 @@ def exec_config(cfg: ExecConfig):
         yield cfg
     finally:
         _state.cfg = prev
+
+
+class SparsityStatsCollector:
+    """Per-site activation popcounts, accumulated on the device: each site
+    holds one int64 (live, total) tensor, added to in place by every
+    recorded matmul and read only by ``densities``."""
+
+    def __init__(self):
+        self._acc: Dict[str, torch.Tensor] = {}
+
+    def reset(self) -> None:
+        self._acc.clear()
+
+    def record(self, site: str, live: torch.Tensor, total) -> None:
+        acc = self._acc.get(site)
+        if acc is None:
+            acc = self._acc[site] = torch.zeros(2, dtype=torch.int64,
+                                                device=live.device)
+        acc[0].add_(live)
+        acc[1].add_(total)
+
+    def densities(self) -> Dict[str, float]:
+        """Measured element-level activation density per site (one device
+        read for all sites); sites with no counted element are skipped."""
+        if not self._acc:
+            return {}
+        sites = list(self._acc)
+        counts = torch.stack([self._acc[s] for s in sites]).cpu().tolist()
+        return {s: live / total for s, (live, total) in zip(sites, counts)
+                if total}
+
+
+@contextlib.contextmanager
+def sparsity_stats(collector: SparsityStatsCollector):
+    """Install ``collector``: two-sided sites record their activation
+    popcounts into it."""
+    prev = getattr(_state, "collector", None)
+    _state.collector = collector
+    try:
+        yield collector
+    finally:
+        _state.collector = prev
+
+
+@contextlib.contextmanager
+def active_rows(mask: Optional[torch.Tensor]):
+    """Install a (B,) bool row mask: popcounts count only these rows, so
+    dead slots' and mid-prefill rows' filler tokens do not skew the
+    measured density (a 1-live-of-N engine measures what a 1-slot engine
+    measures).  Operands whose row count is not B count every row."""
+    prev = getattr(_state, "rows", None)
+    _state.rows = mask
+    try:
+        yield mask
+    finally:
+        _state.rows = prev
+
+
+def _record_act_stats(site: str, x2: torch.Tensor) -> None:
+    col = getattr(_state, "collector", None)
+    if col is None or not site:
+        return
+    rows = getattr(_state, "rows", None)
+    nz = x2 != 0
+    if rows is not None and rows.shape[0] == x2.shape[0]:
+        live = (nz & rows[:, None]).sum()
+        total = rows.sum() * x2.shape[1]
+    else:
+        live = nz.sum()
+        total = x2.numel()
+    col.record(site, live, total)
 
 
 def _site_descriptor(site: str, cfg: ExecConfig):
@@ -94,6 +177,8 @@ def _sparse_site_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str,
     float32."""
     m, k = x2.shape
     n = w.shape[1]
+    if mode == "two_sided":
+        _record_act_stats(site, x2)
     if sched is not None:
         bm, bn, bk = sched.bm, sched.bn, sched.bk
     else:
@@ -142,6 +227,8 @@ def planned_operands(x2: torch.Tensor, pw: PlannedWeight):
 def _planned_matmul(x2: torch.Tensor, pw: PlannedWeight) -> torch.Tensor:
     """(M, K) @ planned (K, N) through the block-sparse kernel (the scaled
     one for a quantized plan).  Returns float32."""
+    if pw.mode == "two_sided":
+        _record_act_stats(pw.site, x2)
     xp, wp, meta, scale = planned_operands(x2, pw)
     return _run_block_sparse(xp, wp, meta, x2.shape[0], pw.kn.shape[-1],
                              scale=scale)

@@ -47,8 +47,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hd = q.shape[-1]
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * (hd ** -0.5)
     if mask is not None:
-        scores = torch.where(mask, scores, torch.tensor(
-            NEG_INF, dtype=scores.dtype, device=scores.device))
+        scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskh->bqkgh", w, v)
 

@@ -1,7 +1,7 @@
 """Top-level model API: init, the full-sequence prompt pass (``prefill``,
 and ``prefill_with_cache``, which also fills the decode state), one decode
-step, the fused greedy block (``decode_many``) and slot prefill
-(``prefill_into_slot``).
+step, per-row token sampling (``sample_tokens``), the fused decode block
+(``decode_many``) and slot prefill (``prefill_into_slot``).
 
 State is a nested dict of stacked caches ((L, B, ...), batch at axis 1),
 updated in place; params are nested dicts in the reference's tree layout
@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.kernels import ops
+from repro_torch.models import prng, transformer
 from repro_torch.models.layers import (apply_norm, embed, init_embedding,
                                        init_norm, logits_head)
 
@@ -153,25 +154,75 @@ def masked_decode_step(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
     The reference selects old-vs-new over the whole state after the step
     (model.py ``masked_decode_step``); here only the active rows are
-    written, in place — the committed state is equal."""
-    return decode_step(p, cfg, tokens, state, pos, active,
-                       with_logits=with_logits)
+    written, in place — the committed state is equal.  ``active`` is also
+    the popcount row filter (``ops.active_rows``), so runtime activation
+    densities count live rows only."""
+    with ops.active_rows(active):
+        return decode_step(p, cfg, tokens, state, pos, active,
+                           with_logits=with_logits)
+
+
+def sample_tokens(logits: torch.Tensor, temp: torch.Tensor,
+                  top_k: torch.Tensor, seeds: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    """Per-row temperature / top-k sampling over (B, V) logits → (B,)
+    int32.
+
+    ``temp`` (B,) float: 0 is greedy argmax for that row (bit-equal to the
+    plain argmax).  ``top_k`` (B,): keep the logits at or above the k-th
+    largest (ties at the threshold stay live; 0 or >= V disables).  Row r
+    at position p draws Gumbel noise from ``fold_in(PRNGKey(seeds[r]), p)``
+    (``models.prng``, JAX's threefry), so a sampled stream is a pure
+    function of (seed, position): a T-step block samples what T ``step()``
+    calls sample.  ``argmax`` takes the first maximum."""
+    v = logits.shape[-1]
+    lg = logits.float()
+    greedy = torch.argmax(lg, dim=-1).to(torch.int32)
+    k = top_k.to(torch.int64).clamp(1, v)
+    top_desc = torch.sort(lg, dim=-1, descending=True).values
+    thresh = torch.gather(top_desc, -1, (k - 1)[:, None])
+    use_k = (top_k > 0) & (top_k < v)
+    masked = torch.where(use_k[:, None] & (lg < thresh), -torch.inf, lg)
+    keys = prng.fold_in(prng.PRNGKey(seeds), pos)
+    noise = prng.gumbel(keys, v)
+    scaled = masked / torch.clamp_min(temp.float(), 1e-6)[:, None]
+    sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
+    return torch.where(temp > 0, sampled, greedy)
+
+
+# Row-stop sentinels of a ``decode_many`` token block: -1 is a benign stop
+# (EOS hit or budget drained), QUARANTINE_SENTINEL a row whose logits went
+# non-finite under ``nan_guard``.  Both sit below every token id.
+QUARANTINE_SENTINEL = -2
 
 
 def decode_many(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
                 state: Params, pos: torch.Tensor, live: torch.Tensor,
                 n_steps: int, *, rem: Optional[torch.Tensor] = None,
-                eos_id: Optional[int] = None):
-    """Fused greedy decode: ``n_steps`` decode steps with on-device argmax
-    feeding the next token, the stop logic on the device and no host sync
-    inside the loop.
+                eos_id: Optional[int] = None,
+                temp: Optional[torch.Tensor] = None,
+                top_k: Optional[torch.Tensor] = None,
+                seeds: Optional[torch.Tensor] = None,
+                nan_guard: bool = False):
+    """Fused decode: ``n_steps`` decode steps with on-device token
+    selection feeding the next token, the stop logic on the device and no
+    host sync inside the loop.
 
     ``tokens`` / ``pos`` (B,) are each row's current input token and
     position, ``live`` (B,) which rows decode, ``rem`` (B,) each row's
     remaining budget (None = unbounded); emitting ``eos_id`` zeroes a
     row's budget.  Inactive rows feed token 0, commit no state, keep their
-    carries and emit -1.  Returns (token block (T, B) int32, state, token
-    carry, position carry, budget carry)."""
+    carries and emit -1.  ``temp`` / ``top_k`` / ``seeds`` (all (B,), or
+    all None for greedy) select per-row sampling (``sample_tokens``, keyed
+    by each step's position).
+
+    ``nan_guard`` quarantines a row whose logits go non-finite: at that
+    step it emits ``QUARANTINE_SENTINEL``, its budget drops to 0 and its
+    token / position carries stay at the last healthy step; every other
+    row is unchanged.
+
+    Returns (token block (T, B) int32, state, token carry, position carry,
+    budget carry)."""
     live = live.to(torch.bool)
     b = tokens.shape[0]
     dev = tokens.device
@@ -187,11 +238,24 @@ def decode_many(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
         feed = torch.where(active, tok, 0)[:, None]
         logits, state = masked_decode_step(p, cfg, feed.long(), state,
                                            ps.long(), active)
-        nxt = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
-        emits.append(torch.where(active, nxt, -1))
-        rm = torch.where(active, torch.where(nxt == eos, 0, rm - 1), rm)
-        tok = torch.where(active, nxt, tok)
-        ps = torch.where(active, ps + 1, ps)
+        lg = logits[:, 0, :]
+        if temp is not None:
+            nxt = sample_tokens(lg, temp, top_k, seeds, ps)
+        else:
+            nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+        step_rm = torch.where(nxt == eos, 0, rm - 1)
+        if nan_guard:
+            bad = active & ~torch.isfinite(lg).all(dim=-1)
+            good = active & ~bad
+            emits.append(torch.where(bad, QUARANTINE_SENTINEL,
+                                     torch.where(active, nxt, -1)))
+            rm = torch.where(bad, 0, torch.where(active, step_rm, rm))
+        else:
+            good = active
+            emits.append(torch.where(active, nxt, -1))
+            rm = torch.where(active, step_rm, rm)
+        tok = torch.where(good, nxt, tok)
+        ps = torch.where(good, ps + 1, ps)
     toks = torch.stack(emits) if emits else torch.empty(
         (0, b), dtype=torch.int32, device=dev)
     return toks, state, tok, ps, rm

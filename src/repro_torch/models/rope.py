@@ -12,9 +12,11 @@ def _rot_half(x: torch.Tensor, cos: torch.Tensor,
 
 
 def _freqs(dim_half: int, theta: float, device) -> torch.Tensor:
+    # the float32 base is filled on the device: a tensor built on the host
+    # and copied there would make every decode step wait for the card
     e = torch.arange(dim_half, dtype=torch.float32, device=device) / dim_half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), e)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), e)
 
 
 def _cos_sin(positions: torch.Tensor, dim_half: int, theta: float):

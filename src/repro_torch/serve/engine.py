@@ -1,19 +1,47 @@
 """Batched serving engine: slot-based continuous batching over the fused
-decode block (the JAX package's ``serve/engine.py`` core).
+decode block (the JAX package's ``serve/engine.py``, without plan tiers and
+speculation).
 
-A fixed decode batch of ``n_slots`` sequences; finished sequences free their
-slot and queued requests (FIFO) are prefilled into it whole
-(``models.model.prefill_into_slot``).  ``run_until_drained`` drives fused
-greedy blocks (``models.model.decode_many``): per block the host does one
-dispatch and one token-block sync, and per-row budgets / EOS stop each row
-on the device.  ``step()`` is the per-token oracle — the fused block is
-computation-identical to T of these steps.
+A fixed decode batch of ``n_slots`` sequences; finished sequences free
+their slot and queued requests are prefilled into it
+(``models.model.prefill_into_slot``), whole or — with ``prefill_chunk`` —
+in chunks interleaved one per tick with decode blocks, round-robin over the
+slots mid-prefill.  ``run_until_drained`` / ``decode_block_step`` drive
+fused blocks (``models.model.decode_many``): per-row budgets, EOS and the
+NaN quarantine stop each row on the device, and greedy or sampled tokens
+(``SamplingParams``, position-keyed) are picked there.  ``step()`` is the
+per-token oracle — the fused block is computation-identical to T steps.
+
+**Async dispatch** (``async_dispatch``, the default): block k+1 launches
+from block k's device (token, pos, rem) carries before block k's token
+block reaches the host, so block k's host accounting overlaps block k+1's
+device work.  The carries are valid only while the live set is unchanged,
+keyed by (slot, uid) pairs.  Every launch and every state write (admission,
+the zero-reset on re-admission, ``faults.poison_slot_state``) is queued in
+order on the current CUDA stream; a block's token block is copied
+``non_blocking`` into pinned memory behind it, and ``_account_one`` waits
+on the event recorded after that copy.  On the CPU every call completes
+before it returns, so the engine syncs plainly.
+
+**Admission** is policy (``AdmissionPolicy``): which queued request a freed
+slot takes, the prefill chunk, and which request a full bounded queue
+(``max_queue``) sheds.  Policies reorder scheduling only; streams are
+schedule-invariant.
+
+**Lifecycle**: a request ends in exactly one of ``TERMINAL_STATES`` —
+``cancel``, deadlines on the engine ``clock``, the ``nan_guard``
+quarantine (the -2 sentinel) and shedding end it early; ``status``,
+``results`` and ``health`` report it.  ``Request.latency_class`` is
+validated and served at the full-quality tier (plan tiers are not ported).
 
 An ``ExecConfig`` (``decode_exec_config``) is installed around every model
 call, so every matmul site consults its ``SiteDescriptor``: dense sites run
 the schedule-flexible kernels (``use_kernels``) and ``weight`` /
 ``two_sided`` sites the block-sparse kernel, with the precompiled
-``WeightSparsityPlan`` attached into the params at bring-up.
+``WeightSparsityPlan`` attached into the params at bring-up.  With
+``collect_stats`` the two-sided sites count activation popcounts on the
+device (``activation_densities``), and ``maybe_recalibrate`` recompiles the
+table when they drift from the densities it was selected under.
 
 ``quantize`` serves int8 weights (``quant.quantize_params``): planned sites
 run the scaled block-sparse kernel on the int8 payload, unplanned dense
@@ -24,8 +52,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import time
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -33,14 +63,16 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.scheduler import H100, TPU_V5E
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.models import model as model_lib
 from repro_torch.quant.quantize import quantize_params
 
 
 def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
                       use_kernels: bool = False, params=None, hw=None,
-                      quantize: bool = False,
+                      quantize: bool = False, collect_stats: bool = False,
+                      act_densities: Optional[Dict[str, float]] = None,
+                      wt_densities: Optional[Dict[str, float]] = None,
                       device="cuda") -> ops.ExecConfig:
     """ExecConfig carrying the descriptor table for ``cfg`` at ``shape``
     (M = global_batch for a decode shape, global_batch · seq_len for a
@@ -49,7 +81,11 @@ def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
 
     With ``params`` and a sparse config, the weight densities are measured,
     the table re-selected under them, and a ``WeightSparsityPlan`` compiled
-    once at the final block granularity.
+    once at the final block granularity.  ``act_densities`` (measured
+    activation densities, ``ServeEngine.activation_densities``) and
+    ``wt_densities`` (already-measured weight densities, e.g. a plan's
+    ``wt_densities()``) replace the selector's priors; ``collect_stats``
+    makes an engine count activation popcounts.
 
     ``quantize`` costs the table at int8 weight width and quantizes
     ``params`` before measuring and planning (quantization rounds tiny
@@ -62,7 +98,9 @@ def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
     dev = resolve_device(device)
     if hw is None:
         hw = H100 if dev.type == "cuda" else TPU_V5E
-    ns = compile_network_schedule(cfg, shape, hw=hw, quantize=quantize)
+    ns = compile_network_schedule(cfg, shape, hw=hw, quantize=quantize,
+                                  act_densities=act_densities,
+                                  wt_densities=wt_densities)
     if quantize and params is not None:
         params, _ = quantize_params(params,
                                     tie_embeddings=cfg.tie_embeddings)
@@ -72,11 +110,15 @@ def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
         if measured:
             ns = compile_network_schedule(cfg, shape, hw=hw,
                                           wt_densities=measured,
+                                          act_densities=act_densities,
                                           quantize=quantize)
             plan = compile_weight_plan(
                 params, ns, ref_elem_bytes=2 if quantize else None)
     return ops.ExecConfig(use_kernels=use_kernels, schedules=ns, plan=plan,
-                          quantize=quantize)
+                          quantize=quantize, collect_stats=collect_stats,
+                          act_densities=(dict(act_densities)
+                                         if act_densities else None),
+                          arch_cfg=cfg)
 
 
 def decode_exec_config(cfg: ArchConfig, n_slots: int, **kw) -> ops.ExecConfig:
@@ -87,19 +129,170 @@ def decode_exec_config(cfg: ArchConfig, n_slots: int, **kw) -> ops.ExecConfig:
     return shape_exec_config(cfg, shape, **kw)
 
 
+def activation_density_drift(baseline: Optional[Dict[str, float]],
+                             measured: Dict[str, float], *,
+                             prior: float = 0.5) -> float:
+    """Max |measured − selected-under| activation density over sites;
+    sites absent from ``baseline`` were selected under ``prior``."""
+    drift = 0.0
+    for site, m in (measured or {}).items():
+        drift = max(drift, abs(m - (baseline or {}).get(site, prior)))
+    return drift
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Per-request sampling: ``temperature`` 0 (the default) is greedy
+    argmax; above 0 the request samples from the temperature-scaled
+    distribution, truncated to the ``top_k`` highest logits when
+    ``top_k > 0``.  Row r at position p draws from
+    ``fold_in(PRNGKey(seed), p)``, so a sampled stream is reproducible
+    from ``seed`` and invariant to how decode steps are blocked."""
+    temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+
+
+# Terminal ``Request.status`` values; a request ends in exactly one:
+#   done            — EOS / budget / sequence-wall completion
+#   cancelled       — ServeEngine.cancel(uid)
+#   deadline_missed — submit(deadline=...) expired before completion
+#   failed          — on-device NaN/Inf quarantine (-2 sentinel)
+#   shed            — bounded-queue overload eviction / rejection
+TERMINAL_STATES = ("done", "cancelled", "deadline_missed", "failed", "shed")
+
+
 @dataclass
 class Request:
     uid: int
     prompt: np.ndarray            # (S,) int32
     max_new: int = 16
+    sampling: Optional[SamplingParams] = None   # None = greedy
+    # plan-tier class; validated, served at the full-quality tier
+    latency_class: int = 0
+    # PriorityAdmission ordering class (lower = sooner); schedule-only
+    priority: int = 0
+    # absolute deadline on the engine clock (None = none)
+    deadline: Optional[float] = None
     out: List[int] = field(default_factory=list)
-    done: bool = False
+    done: bool = False            # True for every terminal status
+    # queued -> prefill -> decode -> one of TERMINAL_STATES
+    status: str = "queued"
 
 
 @dataclass
 class _Slot:
     req: Optional[Request] = None
     pos: int = 0                  # next position to write
+    prefill_cursor: int = 0       # prompt-feed tokens already prefilled
+
+
+@dataclass
+class _InflightBlock:
+    """A dispatched block whose tokens the host has not read: ``key`` is
+    the (slot, uid) live set it was launched for, ``host`` its (T, n_slots)
+    token block (pinned host memory on CUDA, filled by a copy queued
+    behind the block) and ``ready`` the event recorded after that copy
+    (None on the CPU)."""
+    key: tuple
+    live: List[int]
+    t_block: int
+    host: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+
+
+class AdmissionPolicy:
+    """Pluggable admission: queue ordering, prefill chunk sizing and the
+    overload valve.  ``pick`` returns the index of the queued request the
+    next freed slot takes (FIFO here); ``chunk`` the prefill chunk of the
+    next feed (None = whole prompt); ``shed`` — asked only when a bounded
+    queue is
+    full at submit — the index of a queued request to evict for
+    ``incoming``, or None to reject ``incoming`` (the base policy).
+    Policies read the engine and never change what a stream is."""
+
+    def pick(self, queue: Deque[Request], engine: "ServeEngine") -> int:
+        return 0
+
+    def chunk(self, engine: "ServeEngine") -> Optional[int]:
+        return engine.prefill_chunk
+
+    def shed(self, queue: Deque[Request], engine: "ServeEngine",
+             incoming: Request) -> Optional[int]:
+        return None
+
+
+def _lowest_priority_victim(queue: Deque[Request],
+                            incoming: Request) -> Optional[int]:
+    """Evict the least important queued request (highest ``priority``
+    number, newest within a class) when ``incoming`` strictly outranks
+    it; otherwise reject ``incoming``."""
+    if not queue:
+        return None
+    worst = max(range(len(queue)), key=lambda i: (queue[i].priority, i))
+    return worst if incoming.priority < queue[worst].priority else None
+
+
+class ShedLowestPriority(AdmissionPolicy):
+    """FIFO admission; under overload an incoming request evicts the least
+    important queued one if it strictly outranks it."""
+
+    def shed(self, queue: Deque[Request], engine: "ServeEngine",
+             incoming: Request) -> Optional[int]:
+        return _lowest_priority_victim(queue, incoming)
+
+
+class FIFOAdmission(AdmissionPolicy):
+    """The explicit baseline: queue order, the constructor's chunk."""
+
+
+@dataclass(frozen=True)
+class AdaptiveAdmission(AdmissionPolicy):
+    """Occupancy-adaptive chunking and shortest-prompt-first under burst.
+
+    The chunk scales geometrically from ``max_chunk`` (no live decode) to
+    ``min_chunk`` (every slot decoding), always a power of two; while the
+    queue holds more than ``burst_depth`` requests a freed slot takes the
+    shortest prompt."""
+    min_chunk: int = 32
+    max_chunk: int = 256
+    burst_depth: int = 4
+
+    def __post_init__(self):
+        for name in ("min_chunk", "max_chunk"):
+            v = getattr(self, name)
+            if v < 1 or (v & (v - 1)) != 0:
+                raise ValueError(f"{name} must be a power of two >= 1, "
+                                 f"got {v}")
+        if self.min_chunk > self.max_chunk:
+            raise ValueError(
+                f"min_chunk={self.min_chunk} > max_chunk={self.max_chunk}")
+
+    def pick(self, queue: Deque[Request], engine: "ServeEngine") -> int:
+        if len(queue) > self.burst_depth:
+            return min(range(len(queue)),
+                       key=lambda i: len(queue[i].prompt))
+        return 0
+
+    def chunk(self, engine: "ServeEngine") -> Optional[int]:
+        occ = len(engine._live()) / max(engine.n_slots, 1)
+        span = (self.max_chunk // self.min_chunk).bit_length() - 1
+        return max(self.min_chunk, self.max_chunk >> round(occ * span))
+
+
+@dataclass(frozen=True)
+class PriorityAdmission(AdmissionPolicy):
+    """Strict priority classes: a freed slot takes the oldest request of
+    the numerically lowest ``priority``; sheds like
+    ``ShedLowestPriority``."""
+
+    def pick(self, queue: Deque[Request], engine: "ServeEngine") -> int:
+        return min(range(len(queue)),
+                   key=lambda i: (queue[i].priority, i))
+
+    def shed(self, queue: Deque[Request], engine: "ServeEngine",
+             incoming: Request) -> Optional[int]:
+        return _lowest_priority_victim(queue, incoming)
 
 
 class ServeEngine:
@@ -107,19 +300,32 @@ class ServeEngine:
 
     ``fused`` selects the block loop in ``run_until_drained`` (False = the
     per-token ``step()`` oracle loop); ``decode_block`` caps the block
-    length T.  ``params`` must already live on ``device``.
+    length T; ``prefill_chunk`` feeds prompts in chunks (None = whole);
+    ``async_dispatch`` double-buffers blocks (module docstring);
+    ``admission`` plugs the policy (default ``FIFOAdmission``);
+    ``max_queue`` bounds the queue; ``clock`` is the engine clock of
+    deadlines (default ``time.monotonic``); ``nan_guard`` quarantines rows
+    whose logits go non-finite.  ``params`` must already live on
+    ``device``.
 
     ``quantize`` (implied by an exec config built with ``quantize=True``)
     serves the params int8-quantized: ``_serve_params`` holds the quantized
-    tree, ``quant_stats`` its byte counts, and the plan attaches onto it.
-    ``params`` keeps the original tree."""
+    tree, ``quant_stats`` its byte counts, and the plan attaches onto it
+    (``verify_plan=False`` skips the plan's coverage re-check).  ``params``
+    keeps the original tree."""
 
     def __init__(self, cfg: ArchConfig, params, *, n_slots: int = 4,
                  max_seq: int = 256, dtype=torch.float32,
                  exec_cfg: Optional[ops.ExecConfig] = None,
-                 fused: bool = True,
+                 verify_plan: bool = True, fused: bool = True,
                  decode_block: int = 16, eos_id: Optional[int] = None,
-                 quantize: bool = False, device="cuda"):
+                 prefill_chunk: Optional[int] = None,
+                 async_dispatch: bool = True,
+                 admission: Optional[AdmissionPolicy] = None,
+                 quantize: bool = False,
+                 max_queue: Optional[int] = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 nan_guard: bool = True, device="cuda"):
         self.device = resolve_device(device)
         leaf = params["embed"]
         if leaf.device.type != self.device.type:
@@ -131,14 +337,45 @@ class ServeEngine:
         self.fused = fused
         self.decode_block = decode_block
         self.eos_id = eos_id
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, "
+                             f"got {prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
+        self._prefill_rr = 0          # round-robin over mid-prefill slots
+        self.async_dispatch = async_dispatch
+        if admission is not None and not isinstance(admission,
+                                                    AdmissionPolicy):
+            raise TypeError(f"admission must be an AdmissionPolicy, got "
+                            f"{type(admission).__name__}")
+        self.admission = admission if admission is not None \
+            else FIFOAdmission()
+        # dispatched-but-unread blocks (oldest first; depth <= 2) and the
+        # device (token, pos, rem) carries keyed by their (slot, uid) set
+        self._inflight: List[_InflightBlock] = []
+        self._carry: Optional[tuple] = None
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.max_queue = max_queue
+        self._clock = clock if clock is not None else time.monotonic
+        self.nan_guard = bool(nan_guard)
+        # lifetime counters per terminal state ("demotions" stays 0: plan
+        # tiers are not ported) and bounded uid -> status / tokens maps
+        self.counters = {s: 0 for s in TERMINAL_STATES}
+        self.counters["demotions"] = 0
+        self._terminal: "collections.OrderedDict[int, str]" = \
+            collections.OrderedDict()
+        self._outputs: "collections.OrderedDict[int, List[int]]" = \
+            collections.OrderedDict()
+        # EMA of clock seconds per credited token (None until two blocks)
+        self._tok_ema: Optional[float] = None
+        self._last_account: Optional[float] = None
         self.state = model_lib.init_decode_state(cfg, n_slots, max_seq,
                                                  dtype=dtype,
                                                  device=self.device)
         self.slots = [_Slot() for _ in range(n_slots)]
         self.queue: Deque[Request] = collections.deque()
         self._uid = 0
-        self._outputs: Dict[int, List[int]] = {}
-        self._carry: Optional[tuple] = None
+        self._mask_cache: Dict[tuple, torch.Tensor] = {}
         self.quantize = bool(quantize) or bool(getattr(exec_cfg, "quantize",
                                                        False))
         if self.quantize:
@@ -147,23 +384,162 @@ class ServeEngine:
         else:
             self._serve_params, self.quant_stats = params, None
         self.plan = getattr(exec_cfg, "plan", None)
-        self._exec_params = (self.plan.attach(self._serve_params)
+        self._exec_params = (self.plan.attach(self._serve_params,
+                                              verify=verify_plan)
                              if self.plan is not None
                              else self._serve_params)
+        self._stats = (ops.SparsityStatsCollector()
+                       if exec_cfg is not None and exec_cfg.collect_stats
+                       else None)
         self.last_logits: Optional[torch.Tensor] = None
 
     @contextlib.contextmanager
     def _scope(self):
-        if self.exec_cfg is None:
+        """The exec config and stats collector around a model call."""
+        with contextlib.ExitStack() as scopes:
+            scopes.enter_context(torch.no_grad())
+            if self.exec_cfg is not None:
+                scopes.enter_context(ops.exec_config(self.exec_cfg))
+            if self._stats is not None:
+                scopes.enter_context(ops.sparsity_stats(self._stats))
             yield
-        else:
-            with ops.exec_config(self.exec_cfg):
-                yield
 
-    # ---- requests ----
-    def submit(self, prompt: np.ndarray, max_new: int = 16) -> int:
-        """Queue a request; returns its uid.  Empty or non-1-D prompts and
-        prompts needing more than ``max_seq`` positions are refused."""
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; on CUDA through pinned
+        memory, queued on the stream without waiting for it."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def warmup(self) -> None:
+        """Build every CUDA kernel (``build.build_all``) and run each
+        power-of-two block length up to ``decode_block``, the oracle step
+        and the prefill feed's step (one masked step per prompt token, no
+        head) with every row dead, so the decode state is left bit for bit
+        as it was.  Flushes any in-flight block first.  A later capture of
+        these shapes as CUDA graphs goes here."""
+        self.flush()
+        if self.device.type == "cuda":
+            build.build_all()
+        zero = self._to_device(np.zeros((self.n_slots,), np.int64))
+        dead = self._to_device(np.zeros((self.n_slots,), bool))
+        with self._scope():
+            t = 1
+            while t <= self.decode_block:
+                _, self.state, *_ = model_lib.decode_many(
+                    self._exec_params, self.cfg, zero, self.state, zero,
+                    dead, t, rem=zero, eos_id=self.eos_id,
+                    nan_guard=self.nan_guard)
+                t *= 2
+            for with_logits in (True, False):
+                model_lib.masked_decode_step(
+                    self._exec_params, self.cfg, zero[:, None], self.state,
+                    zero, dead, with_logits=with_logits)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ---- density feedback ----
+    def activation_densities(self) -> Dict[str, float]:
+        """Measured per-site activation densities from the device popcount
+        counters (needs ``ExecConfig.collect_stats``); live rows only."""
+        if self._stats is None:
+            return {}
+        return self._stats.densities()
+
+    def maybe_recalibrate(self, drift_threshold: float = 0.15, *,
+                          recompile: bool = True
+                          ) -> Optional[Dict[str, float]]:
+        """When the measured activation densities drift more than
+        ``drift_threshold`` from those the table was selected under,
+        recompile the table (``decode_exec_config(act_densities=...)``) and
+        swap it in; state and requests carry over.  The plan is reused when
+        every planned site keeps its blocks, else rebuilt.  Each probe with
+        measurements consumes the popcount window.  Returns the measured
+        densities when the threshold tripped, else None;
+        ``recompile=False`` answers only the trigger question."""
+        if self.exec_cfg is None or self._stats is None:
+            return None
+        self.flush()
+        measured = self.activation_densities()
+        if not measured:
+            return None
+        if recompile and self.exec_cfg.arch_cfg is None:
+            raise ValueError(
+                "maybe_recalibrate(recompile=True) needs an ExecConfig "
+                "built by decode_exec_config (arch_cfg is unset on this "
+                "hand-built config) — pass recompile=False to only probe "
+                "the trigger, or rebuild the config via decode_exec_config")
+        self._stats.reset()
+        drift = activation_density_drift(self.exec_cfg.act_densities,
+                                         measured)
+        if drift <= drift_threshold:
+            return None
+        if recompile:
+            old = self.exec_cfg
+            common = dict(use_kernels=old.use_kernels,
+                          collect_stats=old.collect_stats,
+                          act_densities=measured, quantize=old.quantize,
+                          device=self.device)
+            new_ec = decode_exec_config(
+                old.arch_cfg, self.n_slots,
+                wt_densities=(self.plan.wt_densities()
+                              if self.plan is not None and self.plan.entries
+                              else None), **common)
+            plan_sites = ({e.site for e in self.plan.entries.values()}
+                          if self.plan is not None else set())
+
+            def blocks(ec, s):
+                d = ec.schedules.sites.get(s)
+                return None if d is None else (d.schedule.bm, d.schedule.bn,
+                                               d.schedule.bk)
+            if self.plan is None or all(
+                    blocks(new_ec, s) is not None
+                    and blocks(new_ec, s) == blocks(old, s)
+                    for s in plan_sites):
+                self.exec_cfg = dataclasses.replace(new_ec, plan=self.plan)
+            else:
+                self.exec_cfg = decode_exec_config(
+                    old.arch_cfg, self.n_slots, params=self.params, **common)
+                self.plan = self.exec_cfg.plan
+                self._exec_params = (
+                    self.plan.attach(self._serve_params, verify=False)
+                    if self.plan is not None else self._serve_params)
+            # nothing built under the old table survives (flushed above)
+            self._mask_cache.clear()
+            self._carry = None
+        return measured
+
+    # ---- request management ----
+    def _finish(self, req: Request, status: str = "done") -> None:
+        """Move a request to a terminal status — the only place a request
+        ends; the first terminal status wins."""
+        if req.done:
+            return
+        req.status = status
+        req.done = True
+        self.counters[status] += 1
+        self._terminal[req.uid] = status
+        self._outputs[req.uid] = req.out
+        while len(self._terminal) > 4096:
+            self._terminal.popitem(last=False)
+        while len(self._outputs) > 4096:
+            self._outputs.popitem(last=False)
+
+    def submit(self, prompt: np.ndarray, max_new: int = 16,
+               sampling: Optional[SamplingParams] = None, *,
+               latency_class: int = 0, priority: int = 0,
+               deadline: Optional[float] = None) -> int:
+        """Queue a request; returns its uid.
+
+        ``priority`` is the ``PriorityAdmission`` class; ``deadline`` a
+        completion budget in engine-clock seconds from now, after which
+        the request ends ``deadline_missed`` wherever it is.  With a full
+        bounded queue the policy's ``shed`` picks a queued victim or
+        rejects this request; either loser ends ``shed`` (a rejected
+        request still gets its uid).  Empty or non-1-D prompts, prompts
+        needing more than ``max_seq`` positions, a negative
+        ``latency_class`` and a non-positive ``deadline`` are refused."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError(
@@ -174,21 +550,111 @@ class ServeEngine:
                 f"prompt of {len(prompt)} tokens needs {len(prompt) + 1} "
                 f"cache positions (prompt + first generated token) but "
                 f"max_seq={self.max_seq}")
+        if latency_class < 0:
+            raise ValueError(
+                f"latency_class must be >= 0, got {latency_class}")
+        if deadline is not None and deadline <= 0:
+            raise ValueError(f"deadline must be > 0 seconds, got {deadline}")
         self._uid += 1
-        self.queue.append(Request(self._uid, prompt, max_new=max_new))
+        req = Request(self._uid, prompt, max_new=max_new, sampling=sampling,
+                      latency_class=int(latency_class),
+                      priority=int(priority),
+                      deadline=(self._clock() + deadline
+                                if deadline is not None else None))
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            victim = self.admission.shed(self.queue, self, req)
+            if victim is None:
+                self._finish(req, "shed")
+                return req.uid
+            if not 0 <= victim < len(self.queue):
+                raise ValueError(
+                    f"shed() returned index {victim} for a queue of "
+                    f"{len(self.queue)}")
+            evicted = self.queue[victim]
+            del self.queue[victim]
+            self._finish(evicted, "shed")
+        self.queue.append(req)
         return self._uid
 
-    def _finish(self, req: Request) -> None:
-        if req.done:
-            return
-        req.done = True
-        self._outputs[req.uid] = req.out
+    def cancel(self, uid: int) -> bool:
+        """Cancel a queued, mid-prefill or mid-decode request: True when it
+        was live and is now ``cancelled``.  Ending it drops it from the
+        live set, which invalidates the carry key, and an in-flight block
+        read later never credits a terminal request."""
+        for idx, r in enumerate(self.queue):
+            if r.uid == uid:
+                del self.queue[idx]
+                self._finish(r, "cancelled")
+                return True
+        for s in self.slots:
+            if s.req is not None and s.req.uid == uid and not s.req.done:
+                self._finish(s.req, "cancelled")
+                return True
+        return False
+
+    def status(self, uid: int) -> Optional[str]:
+        """``queued`` / ``prefill`` / ``decode`` while live, a terminal
+        status after, None for unknown uids.  Under async dispatch an
+        unread block may already have finished it: ``flush()`` first."""
+        for r in self.queue:
+            if r.uid == uid:
+                return r.status
+        for s in self.slots:
+            if s.req is not None and s.req.uid == uid:
+                return s.req.status
+        return self._terminal.get(uid)
 
     def results(self) -> Dict[int, List[int]]:
-        """Output tokens of every finished request, by uid."""
+        """Credited tokens of every terminal request, whatever its status
+        (bounded to the most recent 4096)."""
         return dict(self._outputs)
 
-    # ---- admission ----
+    def _expire_deadlines(self) -> bool:
+        """End every request whose deadline has passed on the engine
+        clock, queued or slot-bound; True when any expired."""
+        now = self._clock()
+        expired = False
+        survivors = []
+        for r in self.queue:
+            if r.deadline is not None and r.deadline <= now:
+                self._finish(r, "deadline_missed")
+                expired = True
+            else:
+                survivors.append(r)
+        if expired:
+            self.queue = collections.deque(survivors)
+        for s in self.slots:
+            r = s.req
+            if (r is not None and not r.done and r.deadline is not None
+                    and r.deadline <= now):
+                self._finish(r, "deadline_missed")
+                expired = True
+        return expired
+
+    def health(self) -> Dict[str, object]:
+        """Snapshot without a flush or a device sync: queue depth, slot
+        occupancy, in-flight blocks, live requests' statuses, the lifetime
+        counters, the speculation counters (all 0: speculation is not
+        ported) and the service-rate estimate."""
+        requests = {r.uid: r.status for r in self.queue}
+        requests.update({s.req.uid: s.req.status for s in self.slots
+                         if s.req is not None})
+        return {
+            "queue_depth": len(self.queue),
+            "max_queue": self.max_queue,
+            "free_slots": len(self._free_slots()),
+            "decoding": len(self._live()),
+            "prefilling": len(self._prefilling()),
+            "inflight_blocks": len(self._inflight),
+            "inflight_speculative": 0,
+            "requests": requests,
+            "counters": dict(self.counters),
+            "spec": {"drafted": 0, "accepted": 0, "emitted": 0,
+                     "verify_blocks": 0},
+            "tok_ema_s": self._tok_ema,
+        }
+
+    # ---- admission and prefill ----
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots)
                 if s.req is None or s.req.done]
@@ -196,36 +662,84 @@ class ServeEngine:
     def _slot_positions(self) -> np.ndarray:
         return np.asarray([s.pos for s in self.slots], np.int64)
 
-    def _feed_prefill(self, i: int) -> None:
-        """Prefill slot ``i`` with its prompt minus the last token (the
-        first decode input), zero-resetting the row first."""
-        s = self.slots[i]
-        feed = np.asarray(s.req.prompt[:-1], np.int32)
-        slot_pos = torch.as_tensor(self._slot_positions(), device=self.device)
-        with self._scope(), torch.no_grad():
-            model_lib.prefill_into_slot(
-                self._exec_params, self.cfg, feed, np.ones(len(feed), bool),
-                i, self.state, slot_pos, 0, True)
-        s.pos = len(feed)
+    @staticmethod
+    def _feed_len(req: Request) -> int:
+        """``prompt[:-1]``'s length: the last prompt token is the first
+        decode input (0 for a length-1 prompt: only the zero-reset)."""
+        return len(req.prompt) - 1
 
-    def _admit(self) -> None:
-        """Move queued requests (FIFO) into free slots, prefilling each
-        whole prompt."""
+    def _feed_prefill(self, i: int, start: int, count: int) -> None:
+        """Feed ``count`` prompt-feed tokens from ``start`` into slot ``i``
+        (the row zero-reset on the first segment); the other rows run as
+        masked filler and keep their state."""
+        s = self.slots[i]
+        seg = np.asarray(s.req.prompt[:-1], np.int32)[start:start + count]
+        with self._scope():
+            model_lib.prefill_into_slot(
+                self._exec_params, self.cfg, seg, np.ones(len(seg), bool),
+                i, self.state, self._to_device(self._slot_positions()),
+                start, start == 0)
+        s.prefill_cursor = start + len(seg)
+        s.pos = s.prefill_cursor
+        if not s.req.done:
+            s.req.status = ("decode"
+                            if s.prefill_cursor >= self._feed_len(s.req)
+                            else "prefill")
+
+    def _admit(self) -> bool:
+        """Move queued requests into free slots (the policy picks which),
+        feeding each its first chunk (or whole prompt) now."""
+        admitted = False
         for i in self._free_slots():
             if not self.queue:
                 break
-            self.slots[i] = _Slot(req=self.queue.popleft(), pos=0)
-            self._feed_prefill(i)
+            idx = self.admission.pick(self.queue, self)
+            req = self.queue[idx]
+            del self.queue[idx]
+            self.slots[i] = _Slot(req=req, pos=0, prefill_cursor=0)
+            feed_len = self._feed_len(req)
+            chunk = self.admission.chunk(self)
+            count = feed_len if chunk is None else min(feed_len, chunk)
+            self._feed_prefill(i, 0, count)
+            admitted = True
+        return admitted
+
+    def _prefilling(self) -> List[int]:
+        """Slots whose prompt feed is not fully prefilled yet."""
+        return [i for i, s in enumerate(self.slots)
+                if s.req is not None and not s.req.done
+                and s.prefill_cursor < self._feed_len(s.req)]
+
+    def _advance_prefill(self) -> bool:
+        """Feed one pending chunk, round-robin over mid-prefill slots;
+        True when a chunk was fed."""
+        pend = self._prefilling()
+        if not pend:
+            return False
+        i = pend[self._prefill_rr % len(pend)]
+        self._prefill_rr += 1
+        s = self.slots[i]
+        chunk = self.admission.chunk(self)
+        count = (self._feed_len(s.req) - s.prefill_cursor
+                 if chunk is None else chunk)
+        self._feed_prefill(i, s.prefill_cursor, count)
+        return True
 
     # ---- decode ----
     def _live(self) -> List[int]:
+        """Decode-ready slots: occupied, not done, prompt fully fed."""
         return [i for i, s in enumerate(self.slots)
-                if s.req is not None and not s.req.done]
+                if s.req is not None and not s.req.done
+                and s.prefill_cursor >= self._feed_len(s.req)]
 
     def _live_mask(self, live: List[int]) -> torch.Tensor:
-        m = np.zeros((self.n_slots,), bool)
-        m[list(live)] = True
-        return torch.as_tensor(m, device=self.device)
+        """Device (n_slots,) bool mask of ``live``, cached per live set."""
+        key = tuple(live)
+        if key not in self._mask_cache:
+            m = np.zeros((self.n_slots,), bool)
+            m[list(live)] = True
+            self._mask_cache[key] = self._to_device(m)
+        return self._mask_cache[key]
 
     def _current_tokens(self, live: List[int]) -> np.ndarray:
         toks = np.zeros((self.n_slots,), np.int64)
@@ -241,47 +755,88 @@ class ServeEngine:
         r = s.req
         if (self.eos_id is not None and r.out and r.out[-1] == self.eos_id) \
                 or len(r.out) >= r.max_new or s.pos >= self.max_seq - 1:
-            self._finish(r)
+            self._finish(r, "done")
 
     def _append_block(self, live: List[int], block: np.ndarray,
                       t_block: int) -> Dict[int, List[int]]:
-        """Credit a synced (T, n_slots) token block, truncating each column
-        at its -1 sentinel."""
+        """Credit a read (T, n_slots) token block: each column is cut at
+        its first sentinel; -2 marks the request ``failed``.  Rows whose
+        request is already terminal are skipped."""
         out: Dict[int, List[int]] = {}
         for i in live:
             s = self.slots[i]
             if s.req.done:
                 continue
             toks = block[:t_block, i].tolist()
-            if -1 in toks:
-                toks = toks[:toks.index(-1)]
+            quarantined = False
+            for j, t in enumerate(toks):
+                if t < 0:
+                    quarantined = t == model_lib.QUARANTINE_SENTINEL
+                    toks = toks[:j]
+                    break
             s.req.out.extend(toks)
             s.pos += len(toks)
             out[s.req.uid] = toks
-            self._finish_check(s)
+            if quarantined:
+                self._finish(s.req, "failed")
+            else:
+                self._finish_check(s)
         return out
+
+    def _sampling_arrays(self, live: List[int]):
+        """Per-slot (temperature, top_k, seed) arrays, or None when every
+        live slot is greedy (the block then runs no sampling work)."""
+        if all(self.slots[i].req.sampling is None
+               or self.slots[i].req.sampling.temperature <= 0
+               for i in live):
+            return None
+        temp = np.zeros((self.n_slots,), np.float32)
+        topk = np.zeros((self.n_slots,), np.int64)
+        seeds = np.zeros((self.n_slots,), np.int64)
+        for i in live:
+            sp = self.slots[i].req.sampling
+            if sp is not None:
+                temp[i], topk[i], seeds[i] = sp.temperature, sp.top_k, sp.seed
+        return temp, topk, seeds
 
     def step(self) -> Dict[int, int]:
         """One decode step for every live slot (the per-token oracle);
-        returns {uid: new_token}.  The step's (n_slots, V) float32 logits
-        stay in ``last_logits``."""
+        returns {uid: new_token}.  Flushes any in-flight block first
+        (crediting, not returning, its tokens); expires deadlines; under
+        ``nan_guard`` a row with non-finite logits ends ``failed`` with no
+        token.  The step's (n_slots, V) float32 logits stay in
+        ``last_logits``."""
+        self.flush()
+        self._expire_deadlines()
         self._admit()
+        self._advance_prefill()
         live = self._live()
         if not live:
             return {}
-        toks = torch.as_tensor(self._current_tokens(live)[:, None],
-                               device=self.device)
-        pos = torch.as_tensor(self._slot_positions(), device=self.device)
-        with self._scope(), torch.no_grad():
+        pos = self._to_device(self._slot_positions())
+        with self._scope():
             logits, self.state = model_lib.masked_decode_step(
-                self._exec_params, self.cfg, toks, self.state, pos,
-                self._live_mask(live))
-        self.last_logits = logits[:, 0, :]
-        nxt = torch.argmax(self.last_logits, dim=-1).cpu().numpy()
-        self._carry = None
+                self._exec_params, self.cfg,
+                self._to_device(self._current_tokens(live)[:, None]),
+                self.state, pos, self._live_mask(live))
+            lg = logits[:, 0, :]
+            samp = self._sampling_arrays(live)
+            if samp is None:
+                nxt = torch.argmax(lg, dim=-1)
+            else:
+                temp, topk, seeds = (self._to_device(a) for a in samp)
+                nxt = model_lib.sample_tokens(lg, temp, topk, seeds, pos)
+        self.last_logits = lg
+        self._carry = None            # the device carries are a step behind
+        nxt = nxt.cpu().numpy()
+        finite = (torch.isfinite(lg).all(dim=-1).cpu().numpy()
+                  if self.nan_guard else None)
         out: Dict[int, int] = {}
         for i in live:
             s = self.slots[i]
+            if finite is not None and not finite[i]:
+                self._finish(s.req, "failed")
+                continue
             s.req.out.append(int(nxt[i]))
             s.pos += 1
             out[s.req.uid] = int(nxt[i])
@@ -308,52 +863,209 @@ class ServeEngine:
                              (self.max_seq - 1) - s.pos), 0)
         return rem
 
+    # ---- async double-buffered blocks ----
     def _live_key(self, live: List[int]) -> tuple:
         return tuple((i, self.slots[i].req.uid) for i in live)
 
-    def _run_block(self, live: List[int], t_block: int) -> None:
-        """Dispatch one fused block and credit it.  The next block starts
-        from the device (token, pos, budget) carries while the live set is
-        unchanged (keyed by (slot, uid)), else from host state."""
+    def _dispatch_block(self, live: List[int], t_block: int, toks_in,
+                        pos_in, rem_in) -> int:
+        """Launch one fused block without reading its tokens: the carries
+        are kept for the next launch and the block is parked on
+        ``_inflight`` behind a non-blocking copy to pinned memory and an
+        event.  Returns the block length."""
+        samp = self._sampling_arrays(live)
+        temp, topk, seeds = ((self._to_device(a) for a in samp)
+                             if samp is not None else (None, None, None))
+        with self._scope():
+            block, self.state, tok, pos, rem = model_lib.decode_many(
+                self._exec_params, self.cfg, toks_in, self.state, pos_in,
+                self._live_mask(live), t_block, rem=rem_in,
+                eos_id=self.eos_id, temp=temp, top_k=topk, seeds=seeds,
+                nan_guard=self.nan_guard)
         key = self._live_key(live)
-        if self._carry is not None and self._carry[0] == key:
-            _, toks, pos, rem = self._carry
+        self._carry = (key, tok, pos, rem)
+        if self.device.type == "cuda":
+            host = torch.empty(block.shape, dtype=block.dtype,
+                               pin_memory=True)
+            host.copy_(block, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
         else:
-            dev = self.device
-            toks = torch.as_tensor(self._current_tokens(live), device=dev)
-            pos = torch.as_tensor(self._slot_positions(), device=dev)
-            rem = torch.as_tensor(self._slot_budgets(live), device=dev)
-        with self._scope(), torch.no_grad():
-            block, self.state, toks, pos, rem = model_lib.decode_many(
-                self._exec_params, self.cfg, toks, self.state, pos,
-                self._live_mask(live), t_block, rem=rem, eos_id=self.eos_id)
-        self._carry = (key, toks, pos, rem)
-        self._append_block(live, block.cpu().numpy(), t_block)
+            host, ready = block, None
+        self._inflight.append(_InflightBlock(key, list(live), t_block, host,
+                                             ready))
+        return t_block
+
+    def _launch(self, live: List[int], t_block: int) -> int:
+        """Launch a block for ``live`` from the device carries when they
+        belong to this exact live set, else from host state."""
+        if self._carry is not None and self._carry[0] == self._live_key(live):
+            _, tok, pos, rem = self._carry
+            return self._dispatch_block(live, t_block, tok, pos, rem)
+        return self._dispatch_block(
+            live, t_block, self._to_device(self._current_tokens(live)),
+            self._to_device(self._slot_positions()),
+            self._to_device(self._slot_budgets(live)))
+
+    def _account_one(self, out: Optional[Dict[int, List[int]]] = None
+                     ) -> bool:
+        """Wait for the oldest in-flight block's tokens and credit them
+        (merged into ``out`` when given).  True when any of its requests
+        finished — the occupancy change that invalidates a successor
+        launched from its carries."""
+        blk = self._inflight.pop(0)
+        if blk.ready is not None:
+            blk.ready.synchronize()
+        credited = self._append_block(blk.live, blk.host.numpy(),
+                                      blk.t_block)
+        now = self._clock()
+        n_tok = sum(len(t) for t in credited.values())
+        if self._last_account is not None and n_tok:
+            dt = now - self._last_account
+            if dt > 0:
+                per = dt / n_tok
+                self._tok_ema = (per if self._tok_ema is None
+                                 else 0.8 * self._tok_ema + 0.2 * per)
+        self._last_account = now
+        if out is not None:
+            for uid, toks in credited.items():
+                out.setdefault(uid, []).extend(toks)
+        return any(self.slots[i].req.done for i in blk.live)
+
+    def flush(self) -> Dict[int, List[int]]:
+        """Read and credit every in-flight block; returns {uid: [tokens]}
+        they produced ({} when nothing was pending)."""
+        out: Dict[int, List[int]] = {}
+        while self._inflight:
+            self._account_one(out)
+        return out
+
+    def _joinable(self) -> bool:
+        """True when a request could join the live set this tick: a slot
+        mid-prefill, or a queued request and a free slot."""
+        return bool(self._prefilling()
+                    or (self.queue and self._free_slots()))
+
+    def _block_len_ahead(self, live: List[int], budget: int,
+                         inflight_t: int) -> int:
+        """Block length of a launch ahead of the pending block's
+        accounting: host budgets are stale by its ``inflight_t`` steps.
+        0 when every live row exhausts its budget inside it."""
+        rem = max(
+            min(s.req.max_new - len(s.req.out),
+                (self.max_seq - 1) - s.pos) - inflight_t
+            for s in (self.slots[i] for i in live))
+        if rem <= 0:
+            return 0
+        t = max(1, min(rem, budget))
+        return 1 << (t.bit_length() - 1)
+
+    def decode_block_step(self, n_steps: Optional[int] = None
+                          ) -> Dict[int, List[int]]:
+        """One serving tick: expire deadlines, admit, feed one pending
+        prefill chunk, decode one block of at most ``n_steps`` (default
+        ``decode_block``).  Returns {uid: [tokens]} credited this tick.
+
+        With ``async_dispatch`` the tick launches the next block from the
+        device carries before reading the previous one, so it returns the
+        previous block's tokens — except that a block carrying some
+        request's first token is read in its own tick, and nothing is
+        launched ahead while a request could join the live set."""
+        budget = max(1, self.decode_block if n_steps is None else n_steps)
+        out: Dict[int, List[int]] = {}
+        self._expire_deadlines()
+        launched = False
+        if self.async_dispatch and self._inflight:
+            live = self._live()
+            if live and not self._joinable() and self._carry is not None \
+                    and self._carry[0] == self._live_key(live):
+                t_ahead = self._block_len_ahead(
+                    live, budget, self._inflight[-1].t_block)
+                if t_ahead > 0:
+                    self._launch(live, t_ahead)
+                    launched = True
+            if self._account_one(out) and launched:
+                # occupancy changed under the block launched ahead: read
+                # it too (its tokens are exact) and relaunch from host state
+                self._account_one(out)
+                launched = False
+        elif self._inflight:
+            out = self.flush()
+        self._admit()
+        self._advance_prefill()
+        live = self._live()
+        if not live or launched:
+            return out
+        self._launch(live, self._block_len(live, budget))
+        if not self.async_dispatch \
+                or any(not self.slots[i].req.out for i in live):
+            self._account_one(out)
+        return out
 
     def _collect(self, results: Dict[int, List[int]]) -> None:
         for s in self.slots:
             if s.req is not None and s.req.done:
                 results[s.req.uid] = s.req.out
 
+    def _drained(self) -> bool:
+        return (not self.queue and not self._prefilling()
+                and all(s.req is None or s.req.done for s in self.slots))
+
     def run_until_drained(self, max_steps: int = 1024
                           ) -> Dict[int, List[int]]:
         """Serve until queue and slots drain (or ``max_steps`` decode
-        steps); returns {uid: tokens} of the requests finished."""
+        steps); returns {uid: tokens} of the requests finished.  With
+        ``async_dispatch`` block k+1 launches from the carries before
+        block k is read, whenever the carries are valid (a drain has no
+        first token to protect); an occupancy change revealed by block
+        k's accounting reads block k+1 at once and the next launch comes
+        from host state.  ``fused=False`` runs the ``step()`` oracle."""
         if not self.fused:
             return self._run_per_token(max_steps)
         results: Dict[int, List[int]] = {}
         steps = 0
         while True:
-            self._collect(results)
-            self._admit()
-            live = self._live()
-            if not live or steps >= max_steps:
+            self._expire_deadlines()
+            if not self._inflight:
                 self._collect(results)
+                self._admit()
+                fed = self._advance_prefill()
+                live = self._live()
+                if not live:
+                    if (fed or self._prefilling()) and steps < max_steps:
+                        steps += 1      # a prefill-only iteration
+                        continue
+                    self._collect(results)
+                    break
+                if steps >= max_steps:
+                    break
+                t_block = self._block_len(
+                    live, min(self.decode_block, max_steps - steps))
+                steps += self._launch(live, t_block)
+                if not self.async_dispatch:
+                    self._account_one()
+                    self._collect(results)
+                    if self._drained():
+                        break
+                continue
+            self._advance_prefill()
+            live = self._live()
+            ahead = False
+            if steps < max_steps and live and self._carry is not None \
+                    and self._carry[0] == self._live_key(live):
+                t_ahead = self._block_len_ahead(
+                    live, min(self.decode_block, max_steps - steps),
+                    self._inflight[-1].t_block)
+                if t_ahead > 0:
+                    steps += self._launch(live, t_ahead)
+                    ahead = True
+            changed = self._account_one()
+            self._collect(results)
+            if changed and ahead:
+                self._account_one()
+                self._collect(results)
+            if not self._inflight and self._drained():
                 break
-            t_block = self._block_len(
-                live, min(self.decode_block, max_steps - steps))
-            self._run_block(live, t_block)
-            steps += t_block
         return results
 
     def _run_per_token(self, max_steps: int) -> Dict[int, List[int]]:

@@ -787,3 +787,75 @@ def test_cuda_int8_kernel_refuses_a_plan_it_does_not_run(cuda, kernel, m,
     assert launch(plan.rows, plan.segment, plan.workspace is not None) == 0
     torch.cuda.synchronize()
     assert not out.any()
+
+
+@pytest.mark.cuda
+def test_cuda_sampling_bits_equal_the_cpu(cuda):
+    """The port's threefry on the card: keys, random bits and uniforms equal
+    the CPU's bit for bit at V = 100352; Gumbel noise (``torch.log`` on
+    each device) within one ulp of its magnitude plus 2⁻²³."""
+    from repro_torch.models import prng
+    v = 100352
+    seeds = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 32 - 1]).repeat_interleave(4)
+    pos = torch.tensor([0, 1, 37, 2 ** 20]).repeat(4)
+    out = {}
+    for dev in ("cpu", cuda):
+        key = prng.fold_in(prng.PRNGKey(seeds.to(dev)), pos.to(dev))
+        out[str(dev)] = [t.cpu() for t in (
+            key, prng.random_bits(key, v),
+            prng.uniform(key, v, minval=torch.finfo(torch.float32).tiny),
+            prng.gumbel(key, v))]
+    (k0, b0, u0, g0), (k1, b1, u1, g1) = out["cpu"], out[str(cuda)]
+    assert torch.equal(k0, k1) and torch.equal(b0, b1)
+    assert torch.equal(u0.view(torch.int32), u1.view(torch.int32))
+    ulp = torch.nextafter(g0.abs(), torch.tensor(float("inf"))) - g0.abs()
+    assert torch.isfinite(g1).all()
+    assert ((g1 - g0).abs() <= ulp + 2.0 ** -23).all()
+
+
+@pytest.mark.cuda
+def test_cuda_stats_add_no_sync_to_a_decode_block(cuda):
+    """A fused decode block that counts activation popcounts (two-sided
+    plan, ``collect_stats``) makes no more synchronizing calls than the
+    same block without them (``torch.cuda.set_sync_debug_mode``), and
+    ``activation_densities`` reads every planned site once."""
+    import warnings
+    from repro_torch.configs import SparsityConfig, get_smoke_config
+    from repro_torch.models import model as pt_model
+    from repro_torch.serve import ServeEngine, decode_exec_config
+    cfg = get_smoke_config("stablelm-1.6b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = pt_model.init_params(cfg, gen, dtype=torch.bfloat16,
+                                  device=cuda)
+    params = pt_sp.map_leaves(
+        lambda _, leaf: pt_sp.prune_stacked_magnitude(leaf, 0.5, (16, 16)),
+        params)
+    sp_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        weight_sparsity=0.5, activation_threshold=0.05))
+    counts = {}
+    for stats in (False, True):
+        ec = decode_exec_config(sp_cfg, 4, params=params,
+                                collect_stats=stats, device=cuda)
+        eng = ServeEngine(cfg, params, n_slots=4, max_seq=32,
+                          dtype=torch.bfloat16, exec_cfg=ec,
+                          async_dispatch=False, device=cuda)
+        for i in range(4):
+            eng.submit([3 + i, 5, 7], max_new=12)
+        eng.decode_block_step()
+        live = eng._live()
+        assert len(live) == 4
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng._launch(live, 4)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        eng._account_one()
+        counts[stats] = sum("synchroniz" in str(w.message) for w in caught)
+        if stats:
+            dens = eng.activation_densities()
+            assert set(dens) == {e.site for e in ec.plan.entries.values()}
+            assert all(0.0 < d <= 1.0 for d in dens.values())
+    assert counts[True] <= counts[False]
