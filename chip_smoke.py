@@ -143,6 +143,26 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      shed request.  ``bs_matmul`` and ``fm_output`` (with their sums)
      must launch; their rows add ``launches_phase13``.
 
+ 14. plan tiers and self-speculative decoding on the same weights under a
+     weight-only plan, tiers (0.0, 0.5), phase 13's traffic with 16 new
+     tokens: the speculative engine (k 4, verify windows of M = 20, run
+     as 16 + 4 rows by ``ops.decode_rows``) equals the tiered engine
+     without speculation, its ``step()`` oracle and k 3 (M = 16); a
+     two-sided engine gates speculation off; a self-drafting engine
+     accepts exactly every draft; from a captured state a verify block
+     windowed equals sequential and each window position's logits equal
+     ``masked_decode_step``'s bit for bit; at layer 0's six sites
+     ``bs_matmul`` under the 0.5 tier's lists equals ``fm_output`` on the
+     ``prune_k_blocks`` weight bit for bit at M = 4 and 20, and class-1
+     requests equal the dense table on the tier-pruned weights end to
+     end; int8 speculation equals int8 without; at 2 layers under a
+     ``VirtualClock`` a request is demoted and ``warmup`` leaves the state
+     bit for bit.  Reported: acceptance, ms per emitted token speculative
+     against plain (each twice, in turns), device time of a decode step,
+     a draft step and a verify window.  ``bs_matmul``,
+     ``bs_matmul_scaled`` and ``fm_output`` (with their sums) must
+     launch; their rows add ``launches_phase14``.
+
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
 
@@ -1680,8 +1700,9 @@ def p13_engine(cfg, params, exec_cfg, **kw):
                        decode_block=P13_BLOCK, device="cuda", **kw)
 
 
-def p13_serve(eng, traffic, poison=False):
-    """Submit ``traffic`` two per tick through ``faults.drive`` to the end.
+def p13_serve(eng, traffic, poison=False, max_new=P13_NEW):
+    """Submit ``traffic`` (``max_new`` tokens each) two per tick through
+    ``faults.drive`` to the end.
     With ``poison``, the first decoding request with 1-4 tokens credited
     (its later blocks still to come) has its slot poisoned.  Returns
     (streams, statuses, wall s, index of the poisoned request or None)."""
@@ -1691,7 +1712,7 @@ def p13_serve(eng, traffic, poison=False):
 
     def on_tick(_):
         for p, sp in traffic[len(uids):len(uids) + 2]:
-            uids.append(eng.submit(p, max_new=P13_NEW, sampling=sp))
+            uids.append(eng.submit(p, max_new=max_new, sampling=sp))
         if poison and not hit:
             for i in eng._live():
                 r = eng.slots[i].req
@@ -1977,6 +1998,438 @@ def run_full_engine(cfg, params, planned, dense, report, card) -> dict:
            f"({card})")
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 14: plan tiers and self-speculative decoding
+# ---------------------------------------------------------------------------
+
+P14_NEW = 16          # new tokens per request
+P14_K = 4             # drafts per verify block: windows of 5, M = 4 * 5 = 20
+P14_TIERS = (0.0, 0.5)
+
+
+def p14_engine(cfg, params, exec_cfg, **kw):
+    """Phase 13's engine with the plan tiers (0.0, 0.5) unless given."""
+    kw.setdefault("plan_tiers", P14_TIERS)
+    return p13_engine(cfg, params, exec_cfg, **kw)
+
+
+def p14_oracle(cfg, params, exec_cfg, traffic, max_new, **kw):
+    """The streams of the ``step()`` oracle over ``traffic``."""
+    eng = p14_engine(cfg, params, exec_cfg, fused=False, **kw)
+    uids = [eng.submit(p, max_new=max_new, sampling=sp) for p, sp in traffic]
+    res = eng.run_until_drained()
+    return [res[u] for u in uids]
+
+
+def p14_served(eng, traffic, label, max_new=P14_NEW):
+    """Serve ``traffic`` as phase 13 does; every request must end done
+    with ``max_new`` tokens.  Returns the streams."""
+    streams, statuses, wall, _ = p13_serve(eng, traffic, max_new=max_new)
+    need(statuses == ["done"] * len(traffic)
+         and all(len(x) == max_new for x in streams),
+         f"phase 14 {label}: {statuses}")
+    return streams, wall
+
+
+def tier_pruned(params, plan):
+    """``params`` with every block that ``plan`` leaves out of its lists
+    zeroed: at a pruned tier, the weight ``prune_k_blocks`` leaves at the
+    tier's ratio (the dead blocks are zero already)."""
+    import torch
+    from repro_torch.core.sparsity import map_leaves, plannable_kn
+
+    def prune(path, leaf):
+        e = plan.entries.get("/".join(path))
+        if e is None:
+            return leaf
+        kn = plannable_kn(leaf, e.site)
+        p_, k, n = kn.shape
+        keep = torch.as_tensor(e.b_bitmap, device=kn.device).reshape(
+            p_, e.tk, e.tn)
+        mask = keep.repeat_interleave(e.bk, 1).repeat_interleave(
+            e.bn, 2)[:, :k, :n]
+        out = torch.where(mask, kn, torch.zeros((), dtype=kn.dtype,
+                                                device=kn.device))
+        return out[0].t().contiguous() if e.transpose else out.reshape(
+            leaf.shape)
+    return map_leaves(prune, params)
+
+
+def state_copy(eng):
+    return {"layers": {n: t.clone() for n, t in eng.state["layers"].items()}}
+
+
+def bits(t):
+    """A bf16 tensor's bits (int16) or a float32 tensor's (int32)."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def p14_window(cfg, params, wo, traffic, report, card) -> dict:
+    """Gate 3 from a state captured mid-traffic (4 live greedy rows): one
+    ``verify_block`` windowed and sequential, and one ``verify_window``
+    against ``masked_decode_step`` at each position.  Then the profiles:
+    a decode step on tier 0, a draft step on tier 1, a verify window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as model_lib
+    eng = p14_engine(cfg, params, wo, speculate_k=P14_K)
+    for p, _ in traffic[:N_SLOTS]:
+        eng.submit(p, max_new=P14_NEW)
+    while len(eng._live()) < N_SLOTS or any(
+            not eng.slots[i].req.out for i in eng._live()):
+        eng.decode_block_step()
+    eng.flush()
+    live = eng._live()
+    toks = eng._to_device(eng._current_tokens(live))
+    pos = eng._to_device(eng._slot_positions())
+    mask = eng._live_mask(live)
+    rem = eng._to_device(eng._slot_budgets(live))
+    full, draft = eng._tier_params
+    with eng._scope():
+        out = {w: model_lib.verify_block(full, draft, cfg, toks,
+                                         state_copy(eng), pos, mask, P14_K,
+                                         rem=rem, windowed=w)
+               for w in (True, False)}
+        blk_w, st_w, *car_w = out[True]
+        blk_s, st_s, *car_s = out[False]
+        same_tokens = torch.equal(blk_w, blk_s) and all(
+            torch.equal(a, b) for a, b in zip(car_w, car_s))
+        # positions below each row's new position: the window also wrote
+        # the rejected drafts' K/V above it, which no query reads
+        below = (torch.arange(eng.max_seq, device="cuda")[None, :]
+                 < car_w[1].long()[:, None])
+        same_state = all(torch.equal(bits(st_w["layers"][n][:, below]),
+                                     bits(st_s["layers"][n][:, below]))
+                         for n in ("k", "v"))
+        drafts, *_ = model_lib.decode_many(draft, cfg, toks, state_copy(eng),
+                                           pos, mask, P14_K)
+        win = torch.cat([toks[:, None], drafts.t().clamp_min(0).long()], 1)
+        lw, st_win = model_lib.verify_window(full, cfg, win, state_copy(eng),
+                                             pos, mask)
+        st_step = state_copy(eng)
+        worst, equal = 0.0, []
+        for i in range(P14_K + 1):
+            ls, st_step = model_lib.masked_decode_step(
+                full, cfg, win[:, i:i + 1], st_step, pos + i, mask)
+            equal.append(torch.equal(bits(ls[:, 0]), bits(lw[:, i])))
+            worst = max(worst, (ls[:, 0] - lw[:, i]).abs().max().item())
+        steps_state = all(torch.equal(bits(st_win["layers"][n]),
+                                      bits(st_step["layers"][n]))
+                          for n in ("k", "v"))
+    accepted = (blk_w >= 0).sum(0).tolist()
+    report(f"gate 3, one verify block from a captured state (k {P14_K}, "
+           f"M {N_SLOTS * (P14_K + 1)}): tokens emitted per row {accepted}; "
+           f"windowed == sequential: tokens and carries {same_tokens}, "
+           f"state below each row's position {same_state}; verify_window "
+           f"logits == masked_decode_step's at positions 0-{P14_K}: {equal}"
+           f" (max |diff| {worst:.3e}), states {steps_state}")
+    need(same_tokens, "gate 3: windowed and sequential verify blocks differ")
+    need(same_state, "gate 3: windowed and sequential states differ")
+    need(all(equal) and steps_state,
+         "gate 3: window logits or state differ from the decode steps")
+
+    def profiled(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return device_breakdown(prof)
+
+    prof = {}
+    st = state_copy(eng)
+    with eng._scope():
+        for label, tier_p in (("decode step, tier 0", full),
+                              ("draft step, tier 1", draft)):
+            prof[label] = profiled(lambda: model_lib.decode_many(
+                tier_p, cfg, toks, st, pos, mask, 1))
+        prof["verify window, tier 0"] = profiled(
+            lambda: model_lib.verify_window(full, cfg, win, st, pos, mask))
+    listed = [sum(int(e.wkcnt.sum()) for e in plan.entries.values())
+              for plan in eng.plan_tiers]
+    for label, (busy, n_kernels, fam) in prof.items():
+        bs_ms = fam.get("bs_matmul", (0.0, 0))
+        report(f"profiled {label}: device busy {busy / 1e3:.3f} ms over "
+               f"{n_kernels} kernels; bs_matmul {bs_ms[0]} ms in "
+               f"{bs_ms[1]} launches (segment sums "
+               f"{fam.get('segment sums', (0.0, 0))[0]} ms); {fam} ({card})"
+               if busy else f"profiled {label}: no device time recorded "
+               "(not measured)")
+    report(f"listed K-blocks over all planned sites: tier 0 {listed[0]}, "
+           f"tier 1 {listed[1]} ({listed[1] / listed[0]:.4f} of tier 0's)")
+    return {k: v[0] / 1e3 for k, v in prof.items()}
+
+
+def p14_tier_sites(params, tier, dense, report) -> None:
+    """Gate 4, kernels: at layer 0's six stack sites, ``bs_matmul`` under
+    the 0.5 tier's lists equals ``fm_output`` on the weight that
+    ``prune_k_blocks`` prunes at ``tier_max_live(tk, 0.5)``, bit for bit,
+    at M = 4 (decode) and M = 20 (a verify window); and that weight equals
+    the stored one masked by the tier's bitmap."""
+    import torch
+    from repro_torch.core.sparsity import prune_k_blocks, tier_max_live
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels.ops import _planned_matmul
+    attached = tier.attach(params, verify=False)
+    masked = tier_pruned(params, tier)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for parent, leaf in (("attn", "wq"), ("attn", "wkv"), ("attn", "wo"),
+                         ("mlp", "w_in"), ("mlp", "w_gate"),
+                         ("mlp", "w_out")):
+        pw = attached["stack"]["layers"][parent][leaf].index(0)
+        w = params["stack"]["layers"][parent][leaf][0]
+        k = w.shape[0]
+        cut = tier_max_live(-(-k // pw.bk), 0.5)
+        wp = torch.from_numpy(prune_k_blocks(
+            w.float().cpu().numpy(), pw.bk, pw.bn, cut)).to(
+            "cuda", torch.bfloat16)
+        # by value: prune_k_blocks multiplies by 0, leaving -0.0 in place of
+        # negative values, where the mask leaves +0.0
+        need(torch.equal(wp, masked["stack"]["layers"][parent][leaf][0]),
+             f"gate 4: {pw.site}: the tier's mask is not prune_k_blocks'")
+        sched = dataclasses.replace(dense.schedules.sites[pw.site].schedule,
+                                    stationarity="output")
+        for m in (N_SLOTS, N_SLOTS * (P14_K + 1)):
+            x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            got = _planned_matmul(x, pw)
+            want = fm.flex_matmul(x, wp, schedule=sched,
+                                  out_dtype=torch.float32)
+            need(torch.equal(bits(got), bits(want)),
+                 f"gate 4: {pw.site} at M = {m}: bs_matmul under the tier "
+                 f"differs from fm_output on the pruned weight by "
+                 f"{(got - want).abs().max().item():.3e}")
+        report(f"  gate 4 {pw.site}: K-blocks kept {cut} of "
+               f"{-(-k // pw.bk)} (tier max_nnz {pw.max_nnz}); bs_matmul "
+               f"(tier lists) == fm_output (pruned weight) bit for bit at "
+               f"M = {N_SLOTS} and {N_SLOTS * (P14_K + 1)}")
+
+
+def p14_host(cfg, wo_cfg, params, traffic, report) -> None:
+    """Gate 6 at 2 layers (weight-only plan, tiers, speculation) under a
+    ``VirtualClock`` that moves 1 s a tick: a request of 40 tokens due in
+    5 s is demoted to class 1 once a service rate exists (two blocks
+    read: tick 3), then misses its deadline; ``warmup`` leaves the state
+    bit for bit."""
+    import torch
+    from repro_torch.core.sparsity import map_leaves
+    from repro_torch.serve.engine import ServeEngine, decode_exec_config
+    from repro_torch.serve.faults import VirtualClock
+    cfg2 = dataclasses.replace(wo_cfg, n_layers=2)
+    params2 = map_leaves(lambda path, leaf: leaf[:2]
+                         if path[:2] == ("stack", "layers") else leaf, params)
+    clk = VirtualClock()
+    eng = ServeEngine(cfg2, params2, n_slots=2, max_seq=96,
+                      dtype=torch.bfloat16,
+                      exec_cfg=decode_exec_config(cfg2, 2, params=params2,
+                                                  device="cuda"),
+                      decode_block=P13_BLOCK, plan_tiers=P14_TIERS,
+                      speculate_k=P14_K, clock=clk, device="cuda")
+    u1 = eng.submit(traffic[0][0], max_new=40, deadline=5.0)
+    u2 = eng.submit(traffic[1][0], max_new=8)
+    r1 = eng.queue[0]
+    for _ in range(40):
+        eng.decode_block_step()
+        clk.advance(1.0)
+        if eng._drained() and not eng._inflight:
+            break
+    eng.flush()
+    report(f"gate 6 (2 layers, VirtualClock): request 1 class "
+           f"{r1.latency_class} after {r1.demotions} demotion(s), status "
+           f"{eng.status(u1)}; request 2 {eng.status(u2)}; counters "
+           f"{eng.counters}; spec {eng.spec_stats}")
+    need(r1.latency_class == 1 and r1.demotions == 1
+         and eng.counters["demotions"] == 1,
+         "gate 6: the request under deadline pressure was not demoted")
+    need(eng.status(u1) == "deadline_missed" and eng.status(u2) == "done",
+         "gate 6: statuses")
+    eng.submit(traffic[2][0], max_new=8)
+    eng.decode_block_step()
+    eng.flush()
+    before = {k: v.clone() for k, v in eng.state["layers"].items()}
+    eng.warmup()
+    same = all(torch.equal(bits(before[k]), bits(v))
+               for k, v in eng.state["layers"].items())
+    report(f"gate 6: warmup with tiers and speculation leaves the state "
+           f"bit for bit: {same}")
+    need(same, "gate 6: warmup changed the decode state")
+
+
+def p14_rate(cfg, params, wo, traffic, report, card, label, **kw):
+    """ms per emitted token of 4 live requests (4-token prompts, 12 new
+    tokens, greedy) once all four stream, ticked by ``decode_block_step``
+    to the end.  Returns (ms per emitted token, acceptance or None)."""
+    import torch
+    eng = p14_engine(cfg, params, wo, **kw)
+    for p, _ in traffic[:N_SLOTS]:
+        eng.submit(p[:4], max_new=12)
+    while len(eng._live()) < N_SLOTS or any(
+            not eng.slots[i].req.out for i in eng._live()):
+        eng.decode_block_step()
+    eng.flush()
+    torch.cuda.synchronize()
+    n0 = sum(len(s.req.out) for s in eng.slots)
+    t = time.perf_counter()
+    while not eng._drained():
+        eng.decode_block_step()
+    eng.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n_tok = sum(len(s.req.out) for s in eng.slots) - n0
+    need(n_tok == N_SLOTS * 12 - n0, f"{label}: lost tokens")
+    acc = eng.speculative_acceptance() if eng.speculate_k else None
+    ms = 1e3 * wall / n_tok
+    report(f"  {label}: {ms:.3f} ms per emitted token ({n_tok} tokens in "
+           f"{wall:.3f} s; {1e3 * wall / (n_tok / N_SLOTS):.2f} ms per "
+           f"token of a stream; acceptance {acc}; {card})")
+    return ms, acc
+
+
+def run_speculative(cfg, params, planned, dense, traffic, report,
+                    card) -> dict:
+    """Phase 14.  Returns the launches of its run."""
+    import torch
+    from repro_torch.configs import SparsityConfig
+    from repro_torch.serve.engine import decode_exec_config
+    t_phase = time.perf_counter()
+    reset_launches()
+    wo_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        weight_sparsity=0.5, activation_threshold=0.0))
+    t0 = time.perf_counter()
+    wo = decode_exec_config(wo_cfg, N_SLOTS, params=params, device="cuda")
+    torch.cuda.synchronize()
+    report(f"weight-only plan bring-up: {time.perf_counter() - t0:.1f} s")
+    report(wo.schedules.describe())
+
+    # gate 1: speculation is exact (k = 4: M = 20; k = 3: M = 16)
+    t0 = time.perf_counter()
+    s4 = p14_engine(cfg, params, wo, speculate_k=P14_K)
+    report(f"tiered engine bring-up (tier 0.5 compiled and attached): "
+           f"{time.perf_counter() - t0:.2f} s")
+    streams4, wall4 = p14_served(s4, traffic, "k = 4")
+    streams0, wall0 = p14_served(p14_engine(cfg, params, wo), traffic,
+                                 "tiered, k = 0")
+    oracle = p14_oracle(cfg, params, wo, traffic, P14_NEW)
+    # k = 3 on the first 4 requests x 8 tokens: its streams are the first
+    # 8 tokens of the others'
+    s3 = p14_engine(cfg, params, wo, speculate_k=3)
+    streams3, wall3 = p14_served(s3, traffic[:N_SLOTS], "k = 3", max_new=8)
+    same = {"k = 0": streams0 == streams4, "step() oracle": oracle == streams4,
+            "k = 3": streams3 == [x[:8] for x in streams4[:N_SLOTS]]}
+    report(f"gate 1: streams of the speculative engine (k {P14_K}, windows "
+           f"of M = {N_SLOTS * (P14_K + 1)}) equal: {same}; acceptance "
+           f"k 4 {s4.speculative_acceptance():.4f} {s4.spec_stats}, k 3 "
+           f"{s3.speculative_acceptance():.4f} {s3.spec_stats}; walls "
+           f"k 4 {wall4:.2f} s, k 0 {wall0:.2f} s, k 3 {wall3:.2f} s "
+           f"({card})")
+    for what, ok in same.items():
+        need(ok, f"gate 1: the speculative streams differ from {what}")
+    need(s4.spec_stats["verify_blocks"] > 0
+         and s3.spec_stats["verify_blocks"] > 0, "gate 1: no verify block")
+    # the two-sided config gates speculation off, as the reference does
+    two = p14_engine(planned.arch_cfg, params, planned, speculate_k=P14_K)
+    p14_served(two, [(p[:1], sp) for p, sp in traffic[:N_SLOTS]],
+               "two-sided", max_new=8)
+    report(f"two-sided engine with speculate_k {P14_K}: _spec_windowed "
+           f"{two._spec_windowed}, verify blocks "
+           f"{two.spec_stats['verify_blocks']}")
+    need(not two._spec_windowed and two.spec_stats["verify_blocks"] == 0,
+         "the two-sided engine speculated")
+
+    # gate 2: a self-drafting engine accepts every draft (15 = 3 windows
+    # of 5 new tokens and no EOS, so no row stops inside a window)
+    self_eng = p14_engine(cfg, params, wo, plan_tiers=None,
+                          speculate_k=P14_K)
+    streams_self, _ = p14_served(self_eng, traffic, "self-draft",
+                                 max_new=15)
+    acc = self_eng.speculative_acceptance()
+    report(f"gate 2: self-draft (plan_tiers None, k {P14_K}) acceptance "
+           f"{acc} {self_eng.spec_stats}; streams == the first 15 tokens of "
+           f"gate 1's: {streams_self == [x[:15] for x in streams4]}")
+    need(acc == 1.0, f"gate 2: self-draft acceptance {acc}, not 1.0")
+    need(streams_self == [x[:15] for x in streams4],
+         "gate 2: self-draft streams differ from gate 1's")
+
+    # gate 3 and the profiles
+    prof = p14_window(cfg, params, wo, traffic, report, card)
+
+    # gate 4: a tier is the dense product of the tier-pruned weight
+    tier = s4.plan_tiers[1]
+    p14_tier_sites(params, tier, dense, report)
+    # end to end, 1-token prompts: admission prefills under the full plan
+    # on a tiered engine and would start the two engines apart
+    one = [(p[:1], sp) for p, sp in traffic[:N_SLOTS]]
+    pruned = tier_pruned(params, tier)
+    res = []
+    for eng, cls in ((p14_engine(cfg, params, wo), 1),
+                     (p14_engine(cfg, pruned, dense, plan_tiers=None), 0)):
+        uids = [eng.submit(p, max_new=P14_NEW, sampling=sp,
+                           latency_class=cls) for p, sp in one]
+        eng.step()
+        first = eng.last_logits.clone()
+        got = eng.run_until_drained()
+        res.append((first, [got[u] for u in uids]))
+    del pruned
+    same_logits = torch.equal(bits(res[0][0]), bits(res[1][0]))
+    report(f"gate 4 end to end: 4 class-1 requests on the tiered engine vs "
+           f"the dense table on the tier-pruned weights: first-step logits "
+           f"equal bit for bit {same_logits} (max |diff| "
+           f"{(res[0][0] - res[1][0]).abs().max().item():.3e}), streams "
+           f"equal {res[0][1] == res[1][1]}")
+    need(same_logits and res[0][1] == res[1][1],
+         "gate 4: the class-1 tier differs from the tier-pruned weights")
+
+    # gate 5: int8, tiers (0.0, 0.5), k = 4, the first 4 requests x 8
+    q8w = decode_exec_config(wo_cfg, N_SLOTS, params=params, quantize=True,
+                             device="cuda")
+    scaled0 = launch_counts()["block_sparse_scaled"]
+    spec8 = p14_engine(cfg, params, q8w, speculate_k=P14_K)
+    streams8, _ = p14_served(spec8, traffic[:N_SLOTS], "int8, k = 4",
+                             max_new=8)
+    plain8, _ = p14_served(p14_engine(cfg, params, q8w), traffic[:N_SLOTS],
+                           "int8, k = 0", max_new=8)
+    n_scaled = launch_counts()["block_sparse_scaled"] - scaled0
+    report(f"gate 5 (int8): speculative streams == the int8 tiered engine's "
+           f"without speculation: {streams8 == plain8}; acceptance "
+           f"{spec8.speculative_acceptance():.4f} {spec8.spec_stats}; "
+           f"bs_matmul_scaled launches {n_scaled}")
+    need(streams8 == plain8, "gate 5: int8 speculative streams differ")
+    need(spec8.spec_stats["verify_blocks"] > 0 and n_scaled > 0,
+         "gate 5: no int8 verify block or bs_matmul_scaled launch")
+    del q8w, spec8
+
+    # gate 6: host logic at 2 layers
+    p14_host(cfg, wo_cfg, params, traffic, report)
+
+    # ms per emitted token, speculative against plain, each twice in turns
+    report("ms per emitted token, 4 live greedy requests (tiered engine):")
+    ms = {"speculative k 4": [], "plain": []}
+    accs = []
+    for label in ("speculative k 4", "plain", "plain", "speculative k 4"):
+        t, a = p14_rate(cfg, params, wo, traffic, report, card, label,
+                        speculate_k=P14_K if label != "plain" else 0)
+        ms[label].append(t)
+        if a is not None:
+            accs.append(a)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    report(f"  means: {({k: round(v, 3) for k, v in mean.items()})} ms per "
+           f"emitted token; speculative / plain "
+           f"{mean['speculative k 4'] / mean['plain']:.3f}; acceptance "
+           f"{[round(a, 4) for a in accs]}; device ms {prof}")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {k: counts[k] for k in ("block_sparse", "block_sparse_sum",
+                                       "block_sparse_scaled",
+                                       "block_sparse_scaled_sum", "output",
+                                       "output_sum")}
+    report(f"main-path launches (phase 14): {launches}")
+    for name, count in launches.items():
+        need(count > 0, f"kernel {name} never launched in phase 14")
+    report(f"phase 14 wall time: {time.perf_counter() - t_phase:.1f} s "
+           f"({card})")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -2123,6 +2576,17 @@ def main() -> int:
                 row.update(launches_phase13=launches13[key],
                            launches_sum_phase13=launches13[f"{key}_sum"])
         done("phase 13")
+        # phase 14: plan tiers and self-speculative decoding
+        launches14 = run_speculative(cfg, params, planned, dense,
+                                     p13_traffic(cfg), report, card)
+        for row in rows:
+            key = {"block_sparse": "block_sparse",
+                   "block_sparse_scaled": "block_sparse_scaled",
+                   "flex_output": "output"}.get(row["name"])
+            if key is not None:
+                row.update(launches_phase14=launches14[key],
+                           launches_sum_phase14=launches14[f"{key}_sum"])
+        done("phase 14")
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)

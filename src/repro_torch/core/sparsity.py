@@ -22,6 +22,12 @@ A quantized params tree (``quant.quantize_params``) plans its
 ``QuantizedLinear`` leaves on their int8 payload — quantization is
 zero-preserving, so the bitmaps are the float weight's — and the attached
 ``PlannedWeight`` carries the payload with its per-channel scales.
+
+3. **Elastic plan tiers** — ``compile_weight_plan(prune_ratio=r)`` compiles
+   the lists as if ``prune_k_blocks`` had dropped the weakest fraction
+   ``r`` of each output column's K-blocks, without touching the weight:
+   a tier is a second schedule over the same weights (``compile_plan_tiers``
+   builds one per ratio, all attaching to the same leaves).
 """
 from __future__ import annotations
 
@@ -224,6 +230,77 @@ def prune_stacked_magnitude(leaf, sparsity: float,
     return prune_magnitude(leaf, sparsity, block)
 
 
+def prune_k_blocks(w: np.ndarray, bk: int, bn: int,
+                   max_live: int) -> np.ndarray:
+    """Structured prune of a host (K, N) matrix: keep the ``max_live``
+    highest-L2 (bk, bn) K-blocks of each output-block column (norms in
+    float64, ties in index order: a stable argsort), zero the rest.  Every
+    output column then has at most ``max_live`` live K-blocks."""
+    k, n = w.shape
+    tk, tn = -(-k // bk), -(-n // bn)
+    if max_live >= tk:
+        return w
+    pad = np.zeros((tk * bk, tn * bn), dtype=w.dtype)
+    pad[:k, :n] = w
+    blocks = pad.reshape(tk, bk, tn, bn)
+    norms = np.sqrt((blocks.astype(np.float64) ** 2).sum(axis=(1, 3)))
+    mask = np.zeros((tk, tn), dtype=w.dtype)
+    np.put_along_axis(mask, _keep_order(norms)[:max_live], 1, axis=0)
+    return (blocks * mask[:, None, :, None]).reshape(tk * bk,
+                                                     tn * bn)[:k, :n]
+
+
+def _keep_order(norms: np.ndarray) -> np.ndarray:
+    """(tk, tn) block norms → each column's K-blocks strongest first, ties
+    in index order.  Stable, so a smaller keep count keeps a prefix of a
+    larger one's blocks: a higher tier ratio keeps a subset."""
+    return np.argsort(-norms, axis=0, kind="stable")
+
+
+def tier_max_live(tk: int, ratio: float) -> int:
+    """Live K-block cap of a pruning ``ratio`` over ``tk`` K-blocks:
+    ``max(tk - floor(ratio * tk), 1)``, non-increasing in ``ratio``, ``tk``
+    at ratio 0, never below one block per output column."""
+    return max(tk - int(ratio * tk + 1e-9), 1)
+
+
+def _prune_stack_blocks(kn: torch.Tensor, scale: Optional[torch.Tensor],
+                        bk: int, bn: int, ratio: float
+                        ) -> Optional[np.ndarray]:
+    """The (P, tk, tn) bool mask of the K-blocks that ``prune_k_blocks`` at
+    ``tier_max_live(tk, ratio)`` keeps in each slice of the (P, K, N) stack
+    ``kn`` (its values times the per-column ``scale`` (P, N) of an int8
+    payload, in float32, as the dequantized weight), or None when it keeps
+    them all.  The block norms are taken in float64 on the weight's device
+    (a full-width stack never comes to the host); only the (tk, tn) norms
+    are sorted on the host, as ``prune_k_blocks`` sorts them."""
+    p, k, n = kn.shape
+    tk, tn = -(-k // bk), -(-n // bn)
+    max_live = tier_max_live(tk, ratio)
+    if max_live >= tk:
+        return None
+    keep = np.zeros((p, tk, tn), bool)
+    for i in range(p):
+        v = kn[i].float()
+        if scale is not None:
+            v = v * scale[i][None, :]
+        v = torch.nn.functional.pad(v.double(), (0, tn * bn - n,
+                                                 0, tk * bk - k))
+        norms = v.square().reshape(tk, bk, tn, bn).sum((1, 3)).sqrt()
+        np.put_along_axis(keep[i], _keep_order(norms.cpu().numpy())[
+            :max_live], True, axis=0)
+    return keep
+
+
+def _block_nonzeros(kn: torch.Tensor, bk: int, bn: int) -> np.ndarray:
+    """(P, tk, tn) non-zero element counts of each (bk, bn) block."""
+    p, k, n = kn.shape
+    tk, tn = -(-k // bk), -(-n // bn)
+    nz = torch.nn.functional.pad((kn != 0).to(torch.int32),
+                                 (0, tn * bn - n, 0, tk * bk - k))
+    return nz.reshape(p, tk, bk, tn, bn).sum((2, 4)).cpu().numpy()
+
+
 # ---------------------------------------------------------------------------
 # Precompiled weight-sparsity plans
 # ---------------------------------------------------------------------------
@@ -244,7 +321,14 @@ class PlannedWeight:
     per-output-channel scales in ``qscale``; the payload is stored
     contraction-oriented (the lm_head too), so ``transpose`` is False.  The
     kernel reads ``kn`` (the payload) and scales its accumulator; ``w_kn``
-    is the dequantized weight."""
+    is the dequantized weight.
+
+    ``gather`` marks a pruned plan tier: its lists leave out live blocks of
+    ``w`` on purpose, so on the CPU the dispatch contracts only the listed
+    blocks (``ops._gathered_planned_matmul``), from ``wgather`` — the
+    listed blocks of each output column packed (..., tn, max_nnz, bk, bn),
+    empty slots zero — when it was built.  On the card the block-sparse
+    kernel walks the lists and ``wgather`` is never read."""
     w: torch.Tensor          # (..., K, N) weight ((..., N, K) if transpose);
     #                          int8 payload when ``qscale`` is set
     wkidx: torch.Tensor      # (..., tn, max_nnz) int32
@@ -259,6 +343,8 @@ class PlannedWeight:
     max_nnz: int = 1
     tk: int = 1
     transpose: bool = False
+    gather: bool = False
+    wgather: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
@@ -288,7 +374,8 @@ class PlannedWeight:
             qscale=None if self.qscale is None else self.qscale[i],
             site=self.site, mode=self.mode, bm=self.bm, bk=self.bk,
             bn=self.bn, max_nnz=self.max_nnz, tk=self.tk,
-            transpose=self.transpose)
+            transpose=self.transpose, gather=self.gather,
+            wgather=None if self.wgather is None else self.wgather[i])
 
     @property
     def shape(self):
@@ -371,6 +458,8 @@ class SitePlan:
     quantized: bool = False   # compiled from a QuantizedLinear leaf
     int8_zvc_bytes: float = 0.0   # ZVC + int8 storage (modelled for float
     #                               plans, exact for quantized ones)
+    prune_ratio: float = 0.0  # tier ratio the lists were compiled at (0 =
+    #                           the full plan); the weight is never pruned
 
 
 @dataclass
@@ -381,17 +470,28 @@ class WeightSparsityPlan:
     arch: str = ""
     shape: str = ""
     entries: Dict[str, SitePlan] = field(default_factory=dict)
+    prune_ratio: float = 0.0   # tier ratio every entry was compiled at
 
     def attach(self, params, verify: bool = True):
         """Wrap every planned weight leaf of ``params`` as a
         ``PlannedWeight`` (metadata moved to the leaf's device; the weight
-        itself is referenced, not copied).
+        itself is referenced, not copied, so every tier attached to one
+        tree shares its weights).
 
         With ``verify`` each leaf's block bitmap is recomputed and checked
         to be covered by the plan — a plan compiled from different tensors
-        of the same shape would otherwise silently skip live MACs.
-        ``verify=False`` skips that pass (a read of every planned weight),
-        for a plan just compiled from these very params.
+        of the same shape would otherwise silently skip live MACs.  A
+        pruned tier (``prune_ratio > 0``) skips live blocks on purpose, so
+        its check is the other way round: every block it lists must be
+        live.  ``verify=False`` skips that pass (a read of every planned
+        weight), for a plan just compiled from these very params.
+
+        A pruned tier's leaves are marked ``gather``; on the CPU, where
+        that dispatch contracts the listed blocks, they also carry the
+        packed ``wgather`` payload (about max_nnz/tk of the site's bytes).
+        On the card the kernel walks the lists over the shared weight, and
+        no payload is built: it would be a second copy of about half the
+        weights.
         """
         def wrap(path, leaf):
             key = "/".join(path)
@@ -407,22 +507,33 @@ class WeightSparsityPlan:
                     f"compile_weight_plan on these params")
             dev = kn.device
             planned = torch.as_tensor(e.b_bitmap, device=dev)
-            if verify and bool(
-                    (block_bitmap(kn, e.bk, e.bn).reshape(planned.shape)
-                     & ~planned).any()):
-                raise ValueError(
-                    f"{key} [{e.site}]: plan does not cover the attached "
-                    f"weight's live blocks — it was compiled from different "
-                    f"tensors; rebuild with compile_weight_plan on these "
-                    f"params")
+            if verify:
+                live = block_bitmap(kn, e.bk, e.bn).reshape(planned.shape)
+                if e.prune_ratio:
+                    bad = planned & ~live
+                    why = ("pruned-tier plan lists blocks that are dead in "
+                           "the attached weight")
+                else:
+                    bad = live & ~planned
+                    why = ("plan does not cover the attached weight's live "
+                           "blocks")
+                if bool(bad.any()):
+                    raise ValueError(
+                        f"{key} [{e.site}]: {why} — it was compiled from "
+                        f"different tensors; rebuild with "
+                        f"compile_weight_plan on these params")
             quantized = isinstance(leaf, QuantizedLinear)
+            gather = bool(e.prune_ratio)
+            wkidx = torch.as_tensor(e.wkidx, device=dev)
+            wkcnt = torch.as_tensor(e.wkcnt, device=dev)
             return PlannedWeight(
-                w=leaf.q if quantized else leaf,
-                wkidx=torch.as_tensor(e.wkidx, device=dev),
-                wkcnt=torch.as_tensor(e.wkcnt, device=dev), b_bitmap=planned,
-                qscale=leaf.scale if quantized else None,
+                w=leaf.q if quantized else leaf, wkidx=wkidx, wkcnt=wkcnt,
+                b_bitmap=planned, qscale=leaf.scale if quantized else None,
                 site=e.site, mode=e.mode, bm=e.bm, bk=e.bk, bn=e.bn,
-                max_nnz=e.max_nnz, tk=e.tk, transpose=e.transpose)
+                max_nnz=e.max_nnz, tk=e.tk, transpose=e.transpose,
+                gather=gather,
+                wgather=(_tier_gather_payload(kn, wkidx, wkcnt, e)
+                         if gather and dev.type == "cpu" else None))
         return map_leaves(wrap, params)
 
     def wt_densities(self) -> Dict[str, float]:
@@ -442,11 +553,35 @@ class WeightSparsityPlan:
         return 1.0 - live / max(total, 1)
 
 
+def _tier_gather_payload(kn: torch.Tensor, wkidx: torch.Tensor,
+                         wkcnt: torch.Tensor, e: SitePlan) -> torch.Tensor:
+    """The listed K-blocks of each output column of a pruned tier, packed
+    lead + (tn, max_nnz, bk, bn) in the stored weight's dtype (the int8
+    payload of a quantized leaf), empty slots zero: what the gathered
+    dispatch contracts.  ``kn`` is the (P, K, N) stack."""
+    p, k, n = kn.shape
+    kp, np_ = e.tk * e.bk, e.tn * e.bn
+    idx = wkidx.reshape(p, e.tn, e.max_nnz).long()
+    live = (torch.arange(e.max_nnz, device=kn.device)[None, None, :]
+            < wkcnt.reshape(p, e.tn)[:, :, None])
+    cols = torch.arange(e.tn, device=kn.device)[:, None]
+    out = torch.zeros((p, e.tn, e.max_nnz, e.bk, e.bn), dtype=kn.dtype,
+                      device=kn.device)
+    for s in range(p):
+        wb = torch.nn.functional.pad(kn[s], (0, np_ - n, 0, kp - k))
+        wb = wb.reshape(e.tk, e.bk, e.tn, e.bn).permute(2, 0, 1, 3)
+        out[s] = torch.where(live[s][:, :, None, None], wb[cols, idx[s]],
+                             torch.zeros((), dtype=kn.dtype,
+                                         device=kn.device))
+    return out.reshape(e.lead + (e.tn, e.max_nnz, e.bk, e.bn))
+
+
 def _planned_leaves(params, schedules):
-    """(path, site, descriptor, (P, K, N) stack, lead, stored weight) of
-    every leaf a sparse site of ``schedules`` plans; the stored weight of a
-    ``QuantizedLinear`` is its int8 payload (zero-preserving, so its
-    non-zeros are the float weight's)."""
+    """(path, site, descriptor, (P, K, N) stack, lead, stored weight,
+    scales) of every leaf a sparse site of ``schedules`` plans; the stored
+    weight of a ``QuantizedLinear`` is its int8 payload (zero-preserving,
+    so its non-zeros are the float weight's) and its scales come as
+    (P, N), else None."""
     for path, leaf in iter_leaves(params):
         site = site_for_path(path)
         if site is None or site not in schedules.sites:
@@ -458,8 +593,11 @@ def _planned_leaves(params, schedules):
         if kn is None:
             continue
         lead = tuple(int(v) for v in leaf.shape[:-2])
-        stored = leaf.q if isinstance(leaf, QuantizedLinear) else leaf
-        yield path, site, d, kn, lead, stored
+        quantized = isinstance(leaf, QuantizedLinear)
+        stored = leaf.q if quantized else leaf
+        scale = (leaf.scale.reshape(kn.shape[0], -1) if quantized
+                 else None)
+        yield path, site, d, kn, lead, stored, scale
 
 
 def measure_weight_densities(params, schedules) -> Dict[str, float]:
@@ -467,7 +605,7 @@ def measure_weight_densities(params, schedules) -> Dict[str, float]:
     first pass of plan bring-up (a non-zero count per planned leaf)."""
     nnz: Dict[str, float] = {}
     size: Dict[str, float] = {}
-    for _, site, _, _, _, w in _planned_leaves(params, schedules):
+    for _, site, _, _, _, w, _ in _planned_leaves(params, schedules):
         nnz[site] = nnz.get(site, 0.0) + float(torch.count_nonzero(w))
         size[site] = size.get(site, 0.0) + float(w.numel())
     return {s: nnz[s] / size[s] for s in size if size[s]}
@@ -475,7 +613,8 @@ def measure_weight_densities(params, schedules) -> Dict[str, float]:
 
 def compile_weight_plan(params, schedules, *,
                         max_nnz: Optional[Dict[str, int]] = None,
-                        ref_elem_bytes: Optional[int] = None
+                        ref_elem_bytes: Optional[int] = None,
+                        prune_ratio: float = 0.0
                         ) -> WeightSparsityPlan:
     """Compile a :class:`WeightSparsityPlan` from the actual param tensors.
 
@@ -489,15 +628,36 @@ def compile_weight_plan(params, schedules, *,
     ``QuantizedLinear`` leaves compile on their int8 payload and mark the
     entry ``quantized`` (never transposed).  ``ref_elem_bytes`` is the
     dense-float width the byte economics compare against (default: the
-    leaf's own, or 2 — bf16 — for a quantized leaf)."""
-    plan = WeightSparsityPlan(arch=schedules.arch, shape=schedules.shape)
-    for path, site, d, kn, lead, w in _planned_leaves(params, schedules):
+    leaf's own, or 2 — bf16 — for a quantized leaf).
+
+    ``prune_ratio`` compiles a **pruned tier**: each site's lists are those
+    of the weight that ``prune_k_blocks`` at ``tier_max_live(tk, ratio)``
+    would leave (the weakest K-blocks of each output column dropped, by
+    the L2 norm of the dequantized values for an int8 leaf), while the
+    weight itself stays as it is, so the tier attaches to the same leaves
+    as the full plan.  ``wt_density`` / ``block_density`` are then the
+    tier's dispatched densities; the byte economics keep describing the
+    stored weight.  At ratio 0 the plan is the default one."""
+    if not 0.0 <= prune_ratio < 1.0:
+        raise ValueError(f"prune_ratio must be in [0, 1), got {prune_ratio}")
+    plan = WeightSparsityPlan(arch=schedules.arch, shape=schedules.shape,
+                              prune_ratio=float(prune_ratio))
+    for path, site, d, kn, lead, w, scale in _planned_leaves(params,
+                                                             schedules):
         _, k, n = kn.shape
         bm = max(min(d.schedule.bm, d.m), 1)
         bk = max(min(d.schedule.bk, k), 1)
         bn = max(min(d.schedule.bn, n), 1)
         bmaps = block_bitmap(kn, bk, bn).cpu().numpy()        # (P, tk, tn)
         tk, tn = bmaps.shape[1:]
+        nnz = int(torch.count_nonzero(w))
+        size = int(w.numel())
+        dispatched = nnz
+        keep = (_prune_stack_blocks(kn, scale, bk, bn, prune_ratio)
+                if prune_ratio else None)
+        if keep is not None:
+            bmaps = bmaps & keep
+            dispatched = int((_block_nonzeros(kn, bk, bn) * keep).sum())
         cap = (max_nnz or {}).get(site)
         site_nnz = cap if cap is not None else max(
             int(bmaps.sum(1).max()), 1)
@@ -508,8 +668,6 @@ def compile_weight_plan(params, schedules, *,
             wkidx[i], wkcnt[i] = weight_side_lists(bmaps[i], site_nnz,
                                                    site=label)
         quantized = w.dtype == torch.int8
-        nnz = int(torch.count_nonzero(w))
-        size = int(w.numel())
         elem_bytes = (ref_elem_bytes if ref_elem_bytes is not None
                       else (2 if quantized else w.element_size()))
         plan.entries["/".join(path)] = SitePlan(
@@ -519,11 +677,31 @@ def compile_weight_plan(params, schedules, *,
             wkidx=wkidx.reshape(lead + (tn, site_nnz)),
             wkcnt=wkcnt.reshape(lead + (tn,)),
             b_bitmap=bmaps.reshape(lead + (tk, tn)),
-            nnz=nnz, size=size, wt_density=nnz / max(size, 1),
+            nnz=nnz, size=size, wt_density=dispatched / max(size, 1),
             block_density=float(bmaps.mean()),
+            prune_ratio=float(prune_ratio),
             dense_bytes=size * elem_bytes,
             zvc_bytes=zvc_weight_bytes(size, nnz, elem_bytes=elem_bytes),
             quantized=quantized,
             int8_zvc_bytes=zvc_weight_bytes(size, nnz, quantized=True,
                                             n_channels=kn.shape[0] * n))
     return plan
+
+
+def compile_plan_tiers(params, schedules, ratios=(0.0, 0.5), *,
+                       max_nnz: Optional[Dict[str, int]] = None,
+                       ref_elem_bytes: Optional[int] = None) -> list:
+    """One :class:`WeightSparsityPlan` per pruning ratio (non-decreasing,
+    conventionally from 0.0, the full plan), all over ``schedules`` and so
+    at one block granularity: attached to one params tree they share its
+    weights.  A higher ratio lists a subset of a lower one's blocks, with a
+    ``max_nnz`` no larger."""
+    rs = [float(r) for r in ratios]
+    if not rs:
+        raise ValueError("compile_plan_tiers needs at least one ratio")
+    if any(b < a for a, b in zip(rs, rs[1:])):
+        raise ValueError(f"tier ratios must be non-decreasing, got {rs}")
+    return [compile_weight_plan(params, schedules, max_nnz=max_nnz,
+                                ref_elem_bytes=ref_elem_bytes,
+                                prune_ratio=r)
+            for r in rs]

@@ -204,6 +204,13 @@ def input_grid(m: int, n: int, k: int, bm: int, bn: int, bk: int, sms: int,
 OS_SKINNY_ROWS = 16
 OS_WIDE_ROWS = 128
 OS_SEGMENT = 256
+# K elements of one staged chunk and output columns of one CTA, in both
+# regimes: the grain at which ``bs_matmul`` skips.  A CTA multiplies every
+# chunk that holds a block listed for any column tile it overlaps, so the
+# lists of a pruned plan tier, which leave non-zero blocks out, are walked
+# exactly only when bk is a multiple of OS_CHUNK and bn of OS_COLS.
+OS_CHUNK = 64
+OS_COLS = 128
 
 
 @dataclass(frozen=True)

@@ -7,7 +7,10 @@ thread-local ``ExecConfig`` carries the descriptor table and decides:
   1. ``w`` is a ``PlannedWeight`` (a precompiled plan was attached at
      bring-up) → the block-sparse kernel with the plan's tight ``max_nnz``;
      only the activation bitmap is derived per step (two_sided).  A
-     quantized plan runs the scaled kernel on its int8 payload;
+     quantized plan runs the scaled kernel on its int8 payload.  A pruned
+     plan tier (``gather``) runs the same kernels with its own lists; on
+     the CPU it contracts just its listed blocks
+     (``_gathered_planned_matmul``);
   2. ``w`` is an unplanned ``QuantizedLinear`` → with ``use_kernels``, a 2-D
      leaf and a dense (or absent) descriptor, the int8 matmul kernel;
      otherwise it is dequantized to the activation's dtype and dispatched
@@ -32,6 +35,12 @@ Runtime feedback: under ``sparsity_stats(collector)`` every two-sided site
 device counter; ``active_rows`` restricts the count to live rows.  The
 counters are read only by ``SparsityStatsCollector.densities`` — recording
 adds no host sync to a step.
+
+``decode_rows`` cuts every site's rows into chunks of at most
+``flex_matmul.OS_SKINNY_ROWS``: a speculative verify window scores B·(k+1)
+rows, and the kernels pick their regime (and so each element's summation
+order) from the row count, so under it every row is summed as in a decode
+step.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import sparsity as sparsity_lib
 from repro_torch.core.sparsity import PlannedWeight
@@ -139,6 +149,18 @@ def active_rows(mask: Optional[torch.Tensor]):
         _state.rows = prev
 
 
+@contextlib.contextmanager
+def decode_rows():
+    """Run every matmul site in chunks of at most ``OS_SKINNY_ROWS`` rows,
+    the kernels' decode regime (module docstring)."""
+    prev = getattr(_state, "row_cap", None)
+    _state.row_cap = fm.OS_SKINNY_ROWS
+    try:
+        yield
+    finally:
+        _state.row_cap = prev
+
+
 def _record_act_stats(site: str, x2: torch.Tensor) -> None:
     col = getattr(_state, "collector", None)
     if col is None or not site:
@@ -224,11 +246,51 @@ def planned_operands(x2: torch.Tensor, pw: PlannedWeight):
     return xp, wp, meta, scale
 
 
+def _gathered_planned_matmul(x2: torch.Tensor,
+                             pw: PlannedWeight) -> torch.Tensor:
+    """(M, K) @ a pruned tier's (K, N) on the CPU, in float32: each output
+    column contracts only its ≤ ``max_nnz`` listed K-blocks, gathered from
+    the activation and taken from ``pw.wgather`` (or gathered from the
+    weight here when it is absent; empty list slots point at block 0 and
+    are zeroed), as one batched matmul over the tn columns.  The sums are
+    grouped unlike the dense product's, so the last bits may differ."""
+    m, k = x2.shape
+    tn = pw.wkcnt.shape[-1]
+    kp, np_ = pw.tk * pw.bk, tn * pw.bn
+    n = pw.kn.shape[-1]
+    idx = pw.wkidx.long()
+    xg = F.pad(x2, (0, kp - k)).reshape(m, pw.tk, pw.bk)[:, idx]
+    if pw.wgather is not None:
+        wg = pw.wgather.float()                     # (tn, nnz, bk, bn)
+    else:
+        wb = F.pad(pw.kn, (0, np_ - n, 0, kp - k)).reshape(
+            pw.tk, pw.bk, tn, pw.bn).permute(2, 0, 1, 3)
+        live = (torch.arange(pw.max_nnz, device=x2.device)[None, :]
+                < pw.wkcnt[:, None])
+        wg = (wb[torch.arange(tn, device=x2.device)[:, None], idx].float()
+              * live[:, :, None, None])
+    lhs = xg.float().reshape(m, tn, pw.max_nnz * pw.bk).transpose(0, 1)
+    out = torch.bmm(lhs, wg.reshape(tn, pw.max_nnz * pw.bk, pw.bn))
+    out = out.transpose(0, 1).reshape(m, np_)[:, :n]
+    if pw.quantized:
+        out = out * pw.qscale[None, :]
+    return out
+
+
 def _planned_matmul(x2: torch.Tensor, pw: PlannedWeight) -> torch.Tensor:
     """(M, K) @ planned (K, N) through the block-sparse kernel (the scaled
-    one for a quantized plan).  Returns float32."""
+    one for a quantized plan); a pruned tier on the CPU through
+    ``_gathered_planned_matmul``.  Returns float32."""
     if pw.mode == "two_sided":
         _record_act_stats(pw.site, x2)
+    if pw.gather and x2.device.type == "cpu":
+        return _gathered_planned_matmul(x2, pw)
+    if pw.gather and (pw.bk % fm.OS_CHUNK or pw.bn % fm.OS_COLS):
+        raise ValueError(
+            f"{pw.site}: a pruned plan tier at blocks (bk={pw.bk}, "
+            f"bn={pw.bn}) is not walked exactly by the block-sparse kernel, "
+            f"which skips {fm.OS_CHUNK}-wide K chunks per {fm.OS_COLS} "
+            f"output columns")
     xp, wp, meta, scale = planned_operands(x2, pw)
     return _run_block_sparse(xp, wp, meta, x2.shape[0], pw.kn.shape[-1],
                              scale=scale)
@@ -243,6 +305,13 @@ def _plain_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
     """x (..., K) @ w (K, N) through the site dispatch (module docstring)."""
+    cap = getattr(_state, "row_cap", None)
+    rows = x.numel() // max(x.shape[-1], 1)
+    if cap is not None and rows > cap:
+        x2 = x.reshape(rows, x.shape[-1])
+        out = torch.cat([flex_matmul(x2[i:i + cap], w, site=site)
+                         for i in range(0, rows, cap)])
+        return out.reshape(*x.shape[:-1], out.shape[-1])
     cfg = _cfg()
     lead = x.shape[:-1]
     if isinstance(w, PlannedWeight):

@@ -1,8 +1,8 @@
 """Attention: MHA / GQA projections, masked dense attention, the
 full-sequence forward of a prefill (dense up to 2048 tokens, above it the
-online softmax, which is the flash-attention kernel under ``use_kernels``)
-and the per-slot KV cache of decode (full length, or rolling for sliding
-windows)."""
+online softmax, which is the flash-attention kernel under ``use_kernels``),
+the per-slot KV cache of decode (full length, or rolling for sliding
+windows) and the W-position decode of a speculative verify window."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -170,6 +170,52 @@ def decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
     o = dense_attention(q, cache["k"], cache["v"],
                         valid[:, None, None, None, :])
     o = o.reshape(b, 1, cfg.n_heads * hd)
+    return ops.flex_matmul(o, p["wo"], site="attn.out"), cache
+
+
+def decode_window(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                  cache: Params, pos: torch.Tensor, *,
+                  active: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Params]:
+    """W-position decode, the scorer of a speculative verify window.
+    x (B, W, D) holds W consecutive tokens per row and ``pos`` (B,) the
+    position of each row's first; full-length caches only.
+
+    All W K/V pairs of the ``active`` rows (every row when None) are
+    written in place at positions pos .. pos + W - 1 (clamped to the
+    cache), as ``decode_step`` writes one; then window position i attends
+    under the mask ``idx <= pos + i``, one position at a time at the
+    shapes of a decode step (``q[:, i:i+1]``), so it gets that step's bits:
+    the positions above it hold values it masks, as they would at decode.
+    The projections run once for the whole window."""
+    b, w, _ = x.shape
+    hd = cfg.head_dim
+    q, k_new, v_new = _project_qkv(p, cfg, x)
+    posw = pos[:, None] + torch.arange(w, device=x.device)[None]   # (B, W)
+    qf = rope.apply_rope(q.reshape(b, w, cfg.n_heads, hd), posw,
+                         kind=cfg.rope, theta=cfg.rope_theta)
+    q = qf.reshape(q.shape)
+    k_new = rope.apply_rope(k_new, posw, kind=cfg.rope, theta=cfg.rope_theta)
+
+    size = cache["k"].shape[1]
+    slots = torch.clamp(posw, max=size - 1)
+    rows = torch.arange(b, device=x.device)[:, None]
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        new = new.to(c.dtype)
+        if active is not None:
+            new = torch.where(active[:, None, None, None], new,
+                              c[rows, slots])
+        c[rows, slots] = new
+
+    idx = torch.arange(size, device=x.device)[None]
+    outs = []
+    for i in range(w):
+        valid = idx <= posw[:, i:i + 1]
+        outs.append(dense_attention(q[:, i:i + 1].contiguous(), cache["k"],
+                                    cache["v"],
+                                    valid[:, None, None, None, :]))
+    o = torch.cat(outs, dim=1).reshape(b, w, cfg.n_heads * hd)
     return ops.flex_matmul(o, p["wo"], site="attn.out"), cache
 
 

@@ -47,6 +47,16 @@ def apply_norm(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def apply_norm_per_position(p: Params, cfg: ArchConfig,
+                            x: torch.Tensor) -> torch.Tensor:
+    """``apply_norm`` on each position of x (B, W, D) in turn, at the
+    (B, 1, D) shape of a decode step: how a row reduction splits its sum
+    can depend on the number of rows, and a verify window must give each
+    position a decode step's bits."""
+    return torch.cat([apply_norm(p, cfg, x[:, i:i + 1].contiguous())
+                      for i in range(x.shape[1])], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Gated MLP (SwiGLU / GeGLU) and plain MLP
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Top-level model API: init, the full-sequence prompt pass (``prefill``,
 and ``prefill_with_cache``, which also fills the decode state), one decode
 step, per-row token sampling (``sample_tokens``), the fused decode block
-(``decode_many``) and slot prefill (``prefill_into_slot``).
+(``decode_many``), the self-speculative block (``verify_window``,
+``verify_block``) and slot prefill (``prefill_into_slot``).
 
 State is a nested dict of stacked caches ((L, B, ...), batch at axis 1),
 updated in place; params are nested dicts in the reference's tree layout
@@ -18,8 +19,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import prng, transformer
-from repro_torch.models.layers import (apply_norm, embed, init_embedding,
-                                       init_norm, logits_head)
+from repro_torch.models.layers import (apply_norm, apply_norm_per_position,
+                                       embed, init_embedding, init_norm,
+                                       logits_head)
 
 Params = Dict[str, torch.Tensor]
 
@@ -259,6 +261,125 @@ def decode_many(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
     toks = torch.stack(emits) if emits else torch.empty(
         (0, b), dtype=torch.int32, device=dev)
     return toks, state, tok, ps, rm
+
+
+def verify_window(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                  state: Params, pos: torch.Tensor, active: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Params]:
+    """Score W consecutive tokens per row in one pass.  tokens (B, W);
+    ``pos`` (B,) the position of each row's first; ``active`` (B,) the rows
+    whose K/V is written (in place, for all W positions; the other rows
+    keep their state).  Returns logits (B, W, V) float32 and the state.
+
+    Window position i gives the logits of a ``masked_decode_step`` at
+    pos + i from the state holding the window's first i tokens, bit for
+    bit: every matmul site runs its rows in the kernels' decode regime
+    (``ops.decode_rows``), norms and attention at a decode step's shapes
+    (``transformer.decode_stack_window``).  K/V written past what the
+    caller accepts is never read: a query masks every position above its
+    own, and the next block writes each position before reading it.
+    Plain dense full-cache stacks only."""
+    x = embed(cfg, p["embed"], tokens)
+    with ops.active_rows(active), ops.decode_rows():
+        x, state = transformer.decode_stack_window(p["stack"], cfg, x,
+                                                   state, pos, active)
+        x = apply_norm_per_position(p["final_norm"], cfg, x)
+        return logits_head(cfg, head_matrix(p, cfg), x), state
+
+
+def verify_block(p_full: Params, p_draft: Params, cfg: ArchConfig,
+                 tokens: torch.Tensor, state: Params, pos: torch.Tensor,
+                 live: torch.Tensor, k: int, *,
+                 rem: Optional[torch.Tensor] = None,
+                 eos_id: Optional[int] = None,
+                 temp: Optional[torch.Tensor] = None,
+                 top_k: Optional[torch.Tensor] = None,
+                 seeds: Optional[torch.Tensor] = None,
+                 windowed: bool = True, nan_guard: bool = False):
+    """Self-speculative block: draft ``k`` tokens with ``p_draft`` (a
+    pruned plan tier), score all k + 1 positions with ``p_full`` and keep
+    the longest prefix it confirms.  Arguments and return contract are
+    ``decode_many``'s with T = k + 1: a (k+1, B) token block with -1 after
+    each row's first rejection (the rejected position emits the full
+    plan's own token), the state, and the token / position / budget
+    carries.
+
+    The emitted stream is the full plan's: position i feeds what the full
+    plan's decode would have fed while every earlier draft matched.
+    Sampled rows draw position-keyed noise (``sample_tokens``), so a draft
+    and the full plan choose by the same rule and acceptance is token
+    equality.  ``nan_guard`` acts on the full plan's logits, as in
+    ``decode_many``; the draft runs unguarded (its tokens are proposals).
+
+    The draft writes K/V at positions pos .. pos+k-1 of its live rows in
+    place; those k positions of every row are saved first and put back
+    after it, so the draft leaves no trace.  The full plan then scores
+    with ``windowed=True`` one ``verify_window`` over the rows that are
+    live with budget left, or with ``windowed=False`` k + 1 masked decode
+    steps that commit only rows still matching — the sequential scorer."""
+    live = live.to(torch.bool)
+    b = tokens.shape[0]
+    dev = tokens.device
+    if rem is None:
+        rem = torch.full((b,), _BIG_BUDGET, dtype=torch.int32, device=dev)
+    eos = -1 if eos_id is None else int(eos_id)
+
+    kv = state["layers"]
+    rows = torch.arange(b, device=dev)[:, None]
+    slots = torch.clamp(pos.long()[:, None]
+                        + torch.arange(k, device=dev)[None],
+                        max=kv["k"].shape[2] - 1)
+    saved = {n: kv[n][:, rows, slots] for n in ("k", "v")}
+    d_toks, state, *_ = decode_many(p_draft, cfg, tokens, state, pos, live,
+                                    k, temp=temp, top_k=top_k, seeds=seeds)
+    for n in ("k", "v"):
+        kv[n][:, rows, slots] = saved[n]
+    # the feed window: the current token, then the k proposals (dead rows
+    # drafted -1 sentinels, which must not reach the embedding)
+    tok = tokens.to(torch.int32)
+    win = torch.cat([torch.where(live, tok, 0)[:, None],
+                     torch.clamp_min(d_toks.t(), 0)], dim=1)
+    ps = pos.to(torch.int32)
+    rm = rem.to(torch.int32)
+    active0 = live & (rm > 0)
+    if windowed:
+        feed = torch.where(active0[:, None], win, 0)
+        logits, state = verify_window(p_full, cfg, feed.long(), state,
+                                      ps.long(), active0)
+
+    ok = live                       # prefix still matching
+    emits = []
+    for i in range(k + 1):
+        act = ok & (rm > 0)
+        if windowed:
+            lg = logits[:, i, :]
+        else:
+            feed = torch.where(act, win[:, i], 0)[:, None]
+            lg_i, state = masked_decode_step(p_full, cfg, feed.long(),
+                                             state, ps.long(), act)
+            lg = lg_i[:, 0, :]
+        if temp is not None:
+            nxt = sample_tokens(lg, temp, top_k, seeds, ps)
+        else:
+            nxt = torch.argmax(lg, dim=-1).to(torch.int32)
+        step_rm = torch.where(nxt == eos, 0, rm - 1)
+        if nan_guard:
+            bad = act & ~torch.isfinite(lg).all(dim=-1)
+            good = act & ~bad
+            emits.append(torch.where(bad, QUARANTINE_SENTINEL,
+                                     torch.where(act, nxt, -1)))
+            rm = torch.where(bad, 0, torch.where(act, step_rm, rm))
+        else:
+            good = act
+            emits.append(torch.where(act, nxt, -1))
+            rm = torch.where(act, step_rm, rm)
+        tok = torch.where(good, nxt, tok)
+        ps = torch.where(good, ps + 1, ps)
+        if i < k:
+            ok = ok & (win[:, i + 1] == nxt)
+            if nan_guard:
+                ok = ok & ~bad
+    return torch.stack(emits), state, tok, ps, rm
 
 
 def prefill_into_slot(p: Params, cfg: ArchConfig, tokens, valid,

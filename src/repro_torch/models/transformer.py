@@ -1,6 +1,6 @@
 """The dense decoder stack: stacked layer weights (layer axis leading), the
-full-sequence forward of a prefill and one-token decode through every
-layer."""
+full-sequence forward of a prefill, one-token decode through every layer
+and the W-token decode of a speculative verify window."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -11,7 +11,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsity import PlannedWeight
 from repro_torch.models import attention
 from repro_torch.quant.quantize import QuantizedLinear
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models.layers import (apply_mlp, apply_norm,
+                                       apply_norm_per_position, init_mlp,
+                                       init_norm)
 
 Params = Dict[str, torch.Tensor]
 
@@ -111,4 +113,31 @@ def decode_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, state: Params,
         cache = {"k": caches["k"][i], "v": caches["v"][i]}
         x, _ = decode_dense_layer(index_tree(layers, i), cfg, x, cache, pos,
                                   active=active, window=cfg.window)
+    return x, state
+
+
+def decode_stack_window(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                        state: Params, pos: torch.Tensor,
+                        active: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, Params]:
+    """W-token decode through a plain dense stack with full-length caches
+    (the scorer of ``model.verify_window``).  x (B, W, D); ``pos`` (B,)
+    the position of each row's first window token; the caches are written
+    in place at the ``active`` rows.  The norms run per position
+    (``apply_norm_per_position``) and attention per query
+    (``attention.decode_window``), at a decode step's shapes."""
+    if (cfg.moe.enabled or cfg.ssm.enabled or cfg.rglru.enabled
+            or cfg.encoder_decoder or cfg.window):
+        raise ValueError(
+            "decode_stack_window: plain dense full-cache stacks only")
+    layers, caches = p["layers"], state["layers"]
+    for i in range(cfg.n_layers):
+        lp = index_tree(layers, i)
+        cache = {"k": caches["k"][i], "v": caches["v"][i]}
+        h = apply_norm_per_position(lp["ln1"], cfg, x)
+        o, _ = attention.decode_window(lp["attn"], cfg, h, cache, pos,
+                                       active=active)
+        x = x + o
+        h = apply_norm_per_position(lp["ln2"], cfg, x)
+        x = x + apply_mlp(lp["mlp"], cfg, h)
     return x, state

@@ -1,6 +1,5 @@
 """Batched serving engine: slot-based continuous batching over the fused
-decode block (the JAX package's ``serve/engine.py``, without plan tiers and
-speculation).
+decode block (the JAX package's ``serve/engine.py``).
 
 A fixed decode batch of ``n_slots`` sequences; finished sequences free
 their slot and queued requests are prefilled into it
@@ -31,8 +30,20 @@ schedule-invariant.
 **Lifecycle**: a request ends in exactly one of ``TERMINAL_STATES`` —
 ``cancel``, deadlines on the engine ``clock``, the ``nan_guard``
 quarantine (the -2 sentinel) and shedding end it early; ``status``,
-``results`` and ``health`` report it.  ``Request.latency_class`` is
-validated and served at the full-quality tier (plan tiers are not ported).
+``results`` and ``health`` report it.
+
+**Plan tiers** (``plan_tiers``): the plan compiled again at each pruning
+ratio (``core.sparsity.compile_weight_plan(prune_ratio=...)``), every tier
+attached to the same weights.  A block decodes under the tier of the least
+relaxed ``Request.latency_class`` among its live rows; under deadline
+pressure (``deadline_demotion``) a request that cannot finish in time at
+the measured service rate moves one class down.  **Self-speculative
+decoding** (``speculate_k``): a block drafts k tokens on the last (most
+pruned) tier, scores the k + 1 positions under its own tier in one verify
+window (``models.model.verify_block``) and keeps the prefix that tier
+confirms, so the streams are those of plain decoding under that tier.
+Speculation runs only where a window is bit-equal to k + 1 steps: plain
+dense full-cache stacks with weight-only (not two-sided) sparsity.
 
 An ``ExecConfig`` (``decode_exec_config``) is installed around every model
 call, so every matmul site consults its ``SiteDescriptor``: dense sites run
@@ -55,7 +66,7 @@ import contextlib
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -168,7 +179,8 @@ class Request:
     prompt: np.ndarray            # (S,) int32
     max_new: int = 16
     sampling: Optional[SamplingParams] = None   # None = greedy
-    # plan-tier class; validated, served at the full-quality tier
+    # plan-tier class: 0 = the full plan, c > 0 decodes under tier
+    # min(c, n_tiers - 1) (more pruned, cheaper, less exact)
     latency_class: int = 0
     # PriorityAdmission ordering class (lower = sooner); schedule-only
     priority: int = 0
@@ -178,6 +190,8 @@ class Request:
     done: bool = False            # True for every terminal status
     # queued -> prefill -> decode -> one of TERMINAL_STATES
     status: str = "queued"
+    # deadline-pressure demotions applied (latency_class increments)
+    demotions: int = 0
 
 
 @dataclass
@@ -193,12 +207,14 @@ class _InflightBlock:
     the (slot, uid) live set it was launched for, ``host`` its (T, n_slots)
     token block (pinned host memory on CUDA, filled by a copy queued
     behind the block) and ``ready`` the event recorded after that copy
-    (None on the CPU)."""
+    (None on the CPU).  ``spec_k`` > 0 marks a verify block that drafted
+    ``spec_k`` tokens (read for the acceptance counts only)."""
     key: tuple
     live: List[int]
     t_block: int
     host: torch.Tensor
     ready: Optional[torch.cuda.Event]
+    spec_k: int = 0
 
 
 class AdmissionPolicy:
@@ -312,7 +328,15 @@ class ServeEngine:
     serves the params int8-quantized: ``_serve_params`` holds the quantized
     tree, ``quant_stats`` its byte counts, and the plan attaches onto it
     (``verify_plan=False`` skips the plan's coverage re-check).  ``params``
-    keeps the original tree."""
+    keeps the original tree.
+
+    ``plan_tiers`` (non-decreasing pruning ratios from 0.0; needs a
+    planned ``exec_cfg``) compiles the plan tiers, ``speculate_k`` > 0
+    drafts that many tokens per verify block on the last tier (with one
+    tier, on the full plan itself: every draft is then accepted), and
+    ``deadline_demotion`` with ``demote_margin`` demotes a request whose
+    remaining tokens × seconds per token × margin exceed its time left
+    (module docstring)."""
 
     def __init__(self, cfg: ArchConfig, params, *, n_slots: int = 4,
                  max_seq: int = 256, dtype=torch.float32,
@@ -323,9 +347,12 @@ class ServeEngine:
                  async_dispatch: bool = True,
                  admission: Optional[AdmissionPolicy] = None,
                  quantize: bool = False,
+                 plan_tiers: Optional[Sequence[float]] = None,
+                 speculate_k: int = 0,
                  max_queue: Optional[int] = None,
                  clock: Optional[Callable[[], float]] = None,
-                 nan_guard: bool = True, device="cuda"):
+                 nan_guard: bool = True, deadline_demotion: bool = True,
+                 demote_margin: float = 1.0, device="cuda"):
         self.device = resolve_device(device)
         leaf = params["embed"]
         if leaf.device.type != self.device.type:
@@ -358,8 +385,10 @@ class ServeEngine:
         self.max_queue = max_queue
         self._clock = clock if clock is not None else time.monotonic
         self.nan_guard = bool(nan_guard)
-        # lifetime counters per terminal state ("demotions" stays 0: plan
-        # tiers are not ported) and bounded uid -> status / tokens maps
+        self.deadline_demotion = bool(deadline_demotion)
+        self.demote_margin = float(demote_margin)
+        # lifetime counters per terminal state and of demotions, and
+        # bounded uid -> status / tokens maps
         self.counters = {s: 0 for s in TERMINAL_STATES}
         self.counters["demotions"] = 0
         self._terminal: "collections.OrderedDict[int, str]" = \
@@ -388,10 +417,66 @@ class ServeEngine:
                                               verify=verify_plan)
                              if self.plan is not None
                              else self._serve_params)
+        if speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        self.speculate_k = int(speculate_k)
+        self.tier_ratios = (tuple(float(r) for r in plan_tiers)
+                            if plan_tiers is not None else (0.0,))
+        if plan_tiers is not None:
+            if self.plan is None or exec_cfg is None:
+                raise ValueError(
+                    "plan_tiers requires a planned engine (exec_cfg built "
+                    "by decode_exec_config with params)")
+            if not self.tier_ratios or self.tier_ratios[0] != 0.0:
+                raise ValueError(
+                    f"plan_tiers must start at ratio 0.0 (the full-quality "
+                    f"tier every class-0 request decodes under), got "
+                    f"{self.tier_ratios}")
+            if any(b < a for a, b in zip(self.tier_ratios,
+                                         self.tier_ratios[1:])):
+                raise ValueError(
+                    f"plan_tiers ratios must be non-decreasing, got "
+                    f"{self.tier_ratios}")
+        self._compile_tiers(verify=verify_plan)
+        # lifetime draft / accept counts, and (drafted, accepted) per slot
+        self.spec_stats = {"drafted": 0, "accepted": 0, "emitted": 0,
+                           "verify_blocks": 0}
+        self.spec_slot_stats = np.zeros((n_slots, 2), np.int64)
+        # a verify window is bit-equal to k + 1 decode steps only for plain
+        # dense full-cache stacks (MoE capacity couples the window's rows,
+        # recurrent state and sliding windows need a scan); two-sided sites
+        # are left out as the reference leaves them out (their activation
+        # bitmaps see the window's rows, not a step's).  Elsewhere
+        # ``speculate_k`` is a no-op.
+        self._spec_windowed = not (cfg.moe.enabled or cfg.ssm.enabled
+                                   or cfg.rglru.enabled
+                                   or cfg.encoder_decoder or cfg.window
+                                   or cfg.sparsity.activation_threshold > 0)
         self._stats = (ops.SparsityStatsCollector()
                        if exec_cfg is not None and exec_cfg.collect_stats
                        else None)
         self.last_logits: Optional[torch.Tensor] = None
+
+    def _compile_tiers(self, *, verify: bool = False) -> None:
+        """(Re)compile the pruned tiers of ``tier_ratios`` over the served
+        params and attach each onto them (no weight is copied).  Tier 0 is
+        ``self.plan`` / ``self._exec_params`` as they are (ratio 0 compiles
+        to the same plan)."""
+        if len(self.tier_ratios) <= 1 or self.plan is None:
+            self.plan_tiers = [self.plan] if self.plan is not None else []
+            self._tier_params = [self._exec_params]
+            return
+        from repro_torch.core.sparsity import compile_weight_plan
+        tiers, tier_params = [self.plan], [self._exec_params]
+        for r in self.tier_ratios[1:]:
+            p = compile_weight_plan(self._serve_params,
+                                    self.exec_cfg.schedules,
+                                    ref_elem_bytes=2 if self.quantize
+                                    else None, prune_ratio=r)
+            tiers.append(p)
+            tier_params.append(p.attach(self._serve_params, verify=verify))
+        self.plan_tiers = tiers
+        self._tier_params = tier_params
 
     @contextlib.contextmanager
     def _scope(self):
@@ -413,25 +498,34 @@ class ServeEngine:
         return t
 
     def warmup(self) -> None:
-        """Build every CUDA kernel (``build.build_all``) and run each
-        power-of-two block length up to ``decode_block``, the oracle step
-        and the prefill feed's step (one masked step per prompt token, no
-        head) with every row dead, so the decode state is left bit for bit
-        as it was.  Flushes any in-flight block first.  A later capture of
-        these shapes as CUDA graphs goes here."""
+        """Build every CUDA kernel (``build.build_all``) and run, with every
+        row dead so that the decode state is left bit for bit as it was,
+        each power-of-two block length up to ``decode_block`` under every
+        tier, the greedy verify block of every tier a block can verify
+        under (with speculation), the oracle step and the prefill feed's
+        step (one masked step per prompt token, no head).  Flushes any
+        in-flight block first.  A later capture of these shapes as CUDA
+        graphs goes here."""
         self.flush()
         if self.device.type == "cuda":
             build.build_all()
         zero = self._to_device(np.zeros((self.n_slots,), np.int64))
         dead = self._to_device(np.zeros((self.n_slots,), bool))
         with self._scope():
-            t = 1
-            while t <= self.decode_block:
-                _, self.state, *_ = model_lib.decode_many(
-                    self._exec_params, self.cfg, zero, self.state, zero,
-                    dead, t, rem=zero, eos_id=self.eos_id,
-                    nan_guard=self.nan_guard)
-                t *= 2
+            for tier_p in self._tier_params:
+                t = 1
+                while t <= self.decode_block:
+                    _, self.state, *_ = model_lib.decode_many(
+                        tier_p, self.cfg, zero, self.state, zero, dead, t,
+                        rem=zero, eos_id=self.eos_id,
+                        nan_guard=self.nan_guard)
+                    t *= 2
+            if self.speculate_k and self._spec_windowed:
+                for tier_p in self._tier_params[:-1] or self._tier_params:
+                    _, self.state, *_ = model_lib.verify_block(
+                        tier_p, self._tier_params[-1], self.cfg, zero,
+                        self.state, zero, dead, self.speculate_k, rem=zero,
+                        eos_id=self.eos_id, nan_guard=self.nan_guard)
             for with_logits in (True, False):
                 model_lib.masked_decode_step(
                     self._exec_params, self.cfg, zero[:, None], self.state,
@@ -453,9 +547,10 @@ class ServeEngine:
         """When the measured activation densities drift more than
         ``drift_threshold`` from those the table was selected under,
         recompile the table (``decode_exec_config(act_densities=...)``) and
-        swap it in; state and requests carry over.  The plan is reused when
-        every planned site keeps its blocks, else rebuilt.  Each probe with
-        measurements consumes the popcount window.  Returns the measured
+        swap it in; state and requests carry over.  The plan (and every
+        plan tier) is reused when every planned site keeps its blocks, else
+        rebuilt.  Each probe with measurements consumes the popcount
+        window.  Returns the measured
         densities when the threshold tripped, else None;
         ``recompile=False`` answers only the trigger question."""
         if self.exec_cfg is None or self._stats is None:
@@ -505,6 +600,8 @@ class ServeEngine:
                 self._exec_params = (
                     self.plan.attach(self._serve_params, verify=False)
                     if self.plan is not None else self._serve_params)
+                # new blocks invalidate every tier's lists: rebuild them all
+                self._compile_tiers()
             # nothing built under the old table survives (flushed above)
             self._mask_cache.clear()
             self._carry = None
@@ -631,11 +728,36 @@ class ServeEngine:
                 expired = True
         return expired
 
+    def _maybe_demote(self) -> None:
+        """Deadline-pressure demotion: a live request whose remaining
+        tokens × ``_tok_ema`` (seconds per token) × ``demote_margin``
+        exceed its time left moves one latency class down (to a more
+        pruned tier), at most one class per tick and not past the last
+        tier; ``Request.demotions`` and ``counters["demotions"]`` count it.
+        Needs tiers, ``deadline_demotion`` and a service-rate estimate.
+        A block runs under its least relaxed live class, so a demotion
+        speeds the request's blocks only once its batchmates allow it."""
+        if (not self.deadline_demotion or len(self._tier_params) <= 1
+                or self._tok_ema is None):
+            return
+        now = self._clock()
+        hi = len(self._tier_params) - 1
+        for i in self._live():
+            r = self.slots[i].req
+            if r.deadline is None or r.latency_class >= hi:
+                continue
+            need = ((r.max_new - len(r.out)) * self._tok_ema
+                    * self.demote_margin)
+            if need > r.deadline - now:
+                r.latency_class += 1
+                r.demotions += 1
+                self.counters["demotions"] += 1
+
     def health(self) -> Dict[str, object]:
         """Snapshot without a flush or a device sync: queue depth, slot
-        occupancy, in-flight blocks, live requests' statuses, the lifetime
-        counters, the speculation counters (all 0: speculation is not
-        ported) and the service-rate estimate."""
+        occupancy, in-flight blocks (and how many are verify blocks), live
+        requests' statuses, the lifetime counters, the speculation counters
+        and the service-rate estimate."""
         requests = {r.uid: r.status for r in self.queue}
         requests.update({s.req.uid: s.req.status for s in self.slots
                          if s.req is not None})
@@ -646,11 +768,11 @@ class ServeEngine:
             "decoding": len(self._live()),
             "prefilling": len(self._prefilling()),
             "inflight_blocks": len(self._inflight),
-            "inflight_speculative": 0,
+            "inflight_speculative": sum(1 for b in self._inflight
+                                        if b.spec_k),
             "requests": requests,
             "counters": dict(self.counters),
-            "spec": {"drafted": 0, "accepted": 0, "emitted": 0,
-                     "verify_blocks": 0},
+            "spec": dict(self.spec_stats),
             "tok_ema_s": self._tok_ema,
         }
 
@@ -804,10 +926,11 @@ class ServeEngine:
         returns {uid: new_token}.  Flushes any in-flight block first
         (crediting, not returning, its tokens); expires deadlines; under
         ``nan_guard`` a row with non-finite logits ends ``failed`` with no
-        token.  The step's (n_slots, V) float32 logits stay in
-        ``last_logits``."""
+        token.  It runs under the block's tier, as a fused block would.
+        The step's (n_slots, V) float32 logits stay in ``last_logits``."""
         self.flush()
         self._expire_deadlines()
+        self._maybe_demote()
         self._admit()
         self._advance_prefill()
         live = self._live()
@@ -816,7 +939,7 @@ class ServeEngine:
         pos = self._to_device(self._slot_positions())
         with self._scope():
             logits, self.state = model_lib.masked_decode_step(
-                self._exec_params, self.cfg,
+                self._tier_params[self._block_tier(live)], self.cfg,
                 self._to_device(self._current_tokens(live)[:, None]),
                 self.state, pos, self._live_mask(live))
             lg = logits[:, 0, :]
@@ -867,21 +990,55 @@ class ServeEngine:
     def _live_key(self, live: List[int]) -> tuple:
         return tuple((i, self.slots[i].req.uid) for i in live)
 
+    def _block_tier(self, live: List[int]) -> int:
+        """The tier a block over ``live`` runs under: the least relaxed
+        live latency class, clamped to the tier count, so no request is
+        served below its class."""
+        if len(self._tier_params) <= 1:
+            return 0
+        hi = len(self._tier_params) - 1
+        return min(min(self.slots[i].req.latency_class, hi) for i in live)
+
+    def _spec_k_for(self, t_block: int, tier: int) -> int:
+        """Draft length of the next block, 0 to decode plainly: speculate
+        when enabled, windowed-exact and the block has at least 2 steps of
+        budget, unless the block's tier is itself the draft tier (of
+        several).  A single-tier engine drafts on its full plan."""
+        if not self.speculate_k or not self._spec_windowed or t_block < 2:
+            return 0
+        n = len(self._tier_params)
+        if n > 1 and tier >= n - 1:
+            return 0
+        return self.speculate_k
+
     def _dispatch_block(self, live: List[int], t_block: int, toks_in,
                         pos_in, rem_in) -> int:
-        """Launch one fused block without reading its tokens: the carries
-        are kept for the next launch and the block is parked on
-        ``_inflight`` behind a non-blocking copy to pinned memory and an
-        event.  Returns the block length."""
+        """Launch one block without reading its tokens — a verify block of
+        ``speculate_k`` + 1 rows (``_spec_k_for``) or ``t_block`` fused
+        decode steps, under the block's tier: the carries are kept for the
+        next launch and the block is parked on ``_inflight`` behind a
+        non-blocking copy to pinned memory and an event.  Returns the
+        launched block length."""
+        tier = self._block_tier(live)
+        spec_k = self._spec_k_for(t_block, tier)
         samp = self._sampling_arrays(live)
         temp, topk, seeds = ((self._to_device(a) for a in samp)
                              if samp is not None else (None, None, None))
         with self._scope():
-            block, self.state, tok, pos, rem = model_lib.decode_many(
-                self._exec_params, self.cfg, toks_in, self.state, pos_in,
-                self._live_mask(live), t_block, rem=rem_in,
-                eos_id=self.eos_id, temp=temp, top_k=topk, seeds=seeds,
-                nan_guard=self.nan_guard)
+            if spec_k:
+                t_block = spec_k + 1
+                block, self.state, tok, pos, rem = model_lib.verify_block(
+                    self._tier_params[tier], self._tier_params[-1],
+                    self.cfg, toks_in, self.state, pos_in,
+                    self._live_mask(live), spec_k, rem=rem_in,
+                    eos_id=self.eos_id, temp=temp, top_k=topk, seeds=seeds,
+                    nan_guard=self.nan_guard)
+            else:
+                block, self.state, tok, pos, rem = model_lib.decode_many(
+                    self._tier_params[tier], self.cfg, toks_in, self.state,
+                    pos_in, self._live_mask(live), t_block, rem=rem_in,
+                    eos_id=self.eos_id, temp=temp, top_k=topk, seeds=seeds,
+                    nan_guard=self.nan_guard)
         key = self._live_key(live)
         self._carry = (key, tok, pos, rem)
         if self.device.type == "cuda":
@@ -893,7 +1050,7 @@ class ServeEngine:
         else:
             host, ready = block, None
         self._inflight.append(_InflightBlock(key, list(live), t_block, host,
-                                             ready))
+                                             ready, spec_k))
         return t_block
 
     def _launch(self, live: List[int], t_block: int) -> int:
@@ -912,10 +1069,13 @@ class ServeEngine:
         """Wait for the oldest in-flight block's tokens and credit them
         (merged into ``out`` when given).  True when any of its requests
         finished — the occupancy change that invalidates a successor
-        launched from its carries."""
+        launched from its carries.  A verify block's row that emitted n ≥ 1
+        tokens accepted n − 1 of its drafts (the last token is the full
+        plan's correction or bonus)."""
         blk = self._inflight.pop(0)
         if blk.ready is not None:
             blk.ready.synchronize()
+        uid_slot = {self.slots[i].req.uid: i for i in blk.live}
         credited = self._append_block(blk.live, blk.host.numpy(),
                                       blk.t_block)
         now = self._clock()
@@ -927,6 +1087,18 @@ class ServeEngine:
                 self._tok_ema = (per if self._tok_ema is None
                                  else 0.8 * self._tok_ema + 0.2 * per)
         self._last_account = now
+        if blk.spec_k:
+            self.spec_stats["verify_blocks"] += 1
+            for uid, toks in credited.items():
+                if not toks:
+                    continue
+                acc = len(toks) - 1
+                self.spec_stats["drafted"] += blk.spec_k
+                self.spec_stats["accepted"] += acc
+                self.spec_stats["emitted"] += len(toks)
+                i = uid_slot[uid]
+                self.spec_slot_stats[i, 0] += blk.spec_k
+                self.spec_slot_stats[i, 1] += acc
         if out is not None:
             for uid, toks in credited.items():
                 out.setdefault(uid, []).extend(toks)
@@ -939,6 +1111,13 @@ class ServeEngine:
         while self._inflight:
             self._account_one(out)
         return out
+
+    def speculative_acceptance(self) -> float:
+        """Accepted over drafted tokens of every verify block read so far
+        (0.0 before any); per slot in ``spec_slot_stats``.  ``flush()``
+        first to count the blocks in flight."""
+        d = self.spec_stats["drafted"]
+        return self.spec_stats["accepted"] / d if d else 0.0
 
     def _joinable(self) -> bool:
         """True when a request could join the live set this tick: a slot
@@ -974,6 +1153,7 @@ class ServeEngine:
         budget = max(1, self.decode_block if n_steps is None else n_steps)
         out: Dict[int, List[int]] = {}
         self._expire_deadlines()
+        self._maybe_demote()
         launched = False
         if self.async_dispatch and self._inflight:
             live = self._live()
@@ -1026,6 +1206,7 @@ class ServeEngine:
         steps = 0
         while True:
             self._expire_deadlines()
+            self._maybe_demote()
             if not self._inflight:
                 self._collect(results)
                 self._admit()

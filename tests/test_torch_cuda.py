@@ -859,3 +859,126 @@ def test_cuda_stats_add_no_sync_to_a_decode_block(cuda):
             assert set(dens) == {e.site for e in ec.plan.entries.values()}
             assert all(0.0 < d <= 1.0 for d in dens.values())
     assert counts[True] <= counts[False]
+
+
+# ---------------------------------------------------------------------------
+# plan tiers and self-speculative decoding: StableLM-1.6B's full width at 2
+# layers (the plan's blocks (4, 256, 128), which a pruned tier needs on the
+# card), weights pruned at (256, 256), weight-only plan at 4 slots
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def spec_setup():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels build with nvcc there)")
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.models import model as pt_model
+    from repro_torch.serve import decode_exec_config
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = pt_sp.map_leaves(
+        lambda _, leaf: pt_sp.prune_stacked_magnitude(leaf, 0.5, (256, 256)),
+        pt_model.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda"))
+    wo_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        weight_sparsity=0.5, activation_threshold=0.0))
+    ec = decode_exec_config(wo_cfg, 4, params=params, device="cuda")
+    tiers = pt_sp.compile_plan_tiers(params, ec.schedules, (0.0, 0.5))
+    return cfg, params, ec, [t.attach(params) for t in tiers]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 20])
+def test_cuda_tier_bs_matmul_equals_fm_output_on_the_pruned_weight(
+        spec_setup, m):
+    """At the six stack sites of layer 0, ``bs_matmul`` under the 0.5
+    tier's lists equals ``fm_output`` on the weight ``prune_k_blocks``
+    leaves at ``tier_max_live(tk, 0.5)``, bit for bit, at decode's M and a
+    verify window's."""
+    from repro_torch.kernels.ops import _planned_matmul
+    _, params, _, (_, tier) = spec_setup
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    for parent, leaf in (("attn", "wq"), ("attn", "wkv"), ("attn", "wo"),
+                         ("mlp", "w_in"), ("mlp", "w_gate"),
+                         ("mlp", "w_out")):
+        pw = tier["stack"]["layers"][parent][leaf].index(0)
+        assert pw.gather and pw.wgather is None
+        w = params["stack"]["layers"][parent][leaf][0]
+        k = w.shape[0]
+        wp = torch.from_numpy(pt_sp.prune_k_blocks(
+            w.float().cpu().numpy(), pw.bk, pw.bn,
+            pt_sp.tier_max_live(-(-k // pw.bk), 0.5))).to("cuda",
+                                                         torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        got = _planned_matmul(x, pw)
+        want = pt_fm.flex_matmul(x, wp, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want)), pw.site
+
+
+@pytest.mark.cuda
+def test_cuda_verify_window_equals_the_decode_steps(spec_setup):
+    """From a state 3 steps deep, each position of a 5-token verify window
+    (M = 20 rows at every site) gives ``masked_decode_step``'s logits and
+    state bit for bit, and a windowed verify block the sequential one's
+    tokens and carries."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as pt_model
+    cfg, _, ec, (full, draft) = spec_setup
+    b, k = 4, 4
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (b,), generator=gen, device="cuda")
+    live = torch.ones(b, dtype=torch.bool, device="cuda")
+    state = pt_model.init_decode_state(cfg, b, 32, device="cuda")
+
+    def copy():
+        return {"layers": {n: t.clone() for n, t in
+                           state["layers"].items()}}
+
+    with ops.exec_config(ec), torch.no_grad():
+        _, state, toks, pos, _ = pt_model.decode_many(
+            full, cfg, toks, state, torch.zeros(b, dtype=torch.long,
+                                                device="cuda"), live, 3)
+        pos = pos.long()
+        win = torch.randint(0, cfg.vocab, (b, k + 1), generator=gen,
+                            device="cuda")
+        lw, sw = pt_model.verify_window(full, cfg, win, copy(), pos, live)
+        ss = copy()
+        for i in range(k + 1):
+            ls, ss = pt_model.masked_decode_step(full, cfg, win[:, i:i + 1],
+                                                 ss, pos + i, live)
+            assert torch.equal(_bits(ls[:, 0]), _bits(lw[:, i])), i
+        for n in ("k", "v"):
+            assert torch.equal(_bits(sw["layers"][n]), _bits(ss["layers"][n]))
+        blocks = [pt_model.verify_block(full, draft, cfg, toks, copy(), pos,
+                                        live, k, windowed=w)
+                  for w in (True, False)]
+    for a, c in zip(blocks[0][:1] + blocks[0][2:],
+                    blocks[1][:1] + blocks[1][2:]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_cuda_self_draft_engine_accepts_everything(spec_setup):
+    """One tier, drafting on the full plan at M = 4 and verifying windows
+    at M = 20: every draft is accepted (no EOS; budgets of two windows of
+    k + 1), and the streams are the ``step()`` oracle's."""
+    from repro_torch.serve import ServeEngine
+    cfg, params, ec, _ = spec_setup
+
+    def run(**kw):
+        eng = ServeEngine(cfg, params, n_slots=4, max_seq=32,
+                          dtype=torch.bfloat16, exec_cfg=ec, decode_block=8,
+                          device="cuda", **kw)
+        uids = [eng.submit([3 + i, 5, 7], max_new=10) for i in range(4)]
+        res = eng.run_until_drained()
+        return eng, [res[u] for u in uids]
+
+    eng, out = run(speculate_k=4)
+    _, oracle = run(fused=False)
+    assert out == oracle
+    assert eng.spec_stats["verify_blocks"] > 0
+    assert eng.speculative_acceptance() == 1.0
