@@ -3,8 +3,9 @@
 
 Drives the port's main path — sparse decode serving of StableLM-1.6B at its
 published width and depth (24 layers, d_model 2048, vocab 100352) in bf16
-with four slots — through ``repro_torch.serve.ServeEngine``, with random
-weights from a seeded generator, block-magnitude-pruned at (256, 256):
+with four slots, then (phase 15) of DeepSeek-MoE-16B — through
+``repro_torch.serve.ServeEngine``, with random weights from a seeded
+generator, block-magnitude-pruned at (256, 256):
 
   1. the card (``torch.cuda``, ``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
@@ -108,8 +109,10 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      ``flex_input``, ``block_sparse_scaled`` and ``int8_matmul`` rows
      also carry the
      launches of their split grids' summing kernels, their device time and
-     the library call's (``torch.profiler``: at decode the host, not the
-     card, sets the pace of a call), and every matmul row its time and
+     the library call's (``device_ms``: 20 calls captured in a CUDA graph
+     and replayed, since at decode the host, not the card, sets the pace
+     of a call; the one device timer of every row), and every
+     matmul row its time and
      bound at mlp.in M = 8192 (``prefill_ms``, ``prefill_bound_ms``): the
      bf16 rows from phase 9 beside ``torch.matmul``'s
      (``prefill_library_ms``), the int8 rows from phase 11 beside
@@ -162,6 +165,37 @@ weights from a seeded generator, block-magnitude-pruned at (256, 256):
      a draft step and a verify window.  ``bs_matmul``,
      ``bs_matmul_scaled`` and ``fm_output`` (with their sums) must
      launch; their rows add ``launches_phase14``.
+
+ 15. the MoE family, with StableLM's weights freed: DeepSeek-MoE-16B at
+     its published width and depth (28 layers, the first dense; 64 routed
+     experts top-6 and 2 shared per MoE layer; 16.4 B parameters in bf16)
+     from a seeded generator, every stacked leaf (router and experts
+     included) block-magnitude-pruned to 50% at (256, 256); the planned
+     two-sided config, the dense table and the int8 plan, each timed, with
+     ``max_memory_allocated``.  (a) At the first MoE layer's three expert
+     sites, on a dispatch buffer that the real router fills from a random
+     hidden state (some experts get no token): the expert-batched
+     ``bs_matmul`` (plan's blocks), ``bs_matmul_scaled`` (int8 plan) and
+     ``fm_output`` (dense table's schedule) against their plain versions
+     under each expert's ``matmul_tol``; (b) each batched launch equal to
+     E launches of its 2-D kernel bit for bit, and the dense table equal to
+     the plan; (c) the float32 router at every MoE layer: planned == dense
+     table bitwise, kernel vs plain within the float32 tolerance, top-k
+     set flips with their probability margins; (d) the first MoE layer's
+     ``apply_moe`` (kernels) against ``apply_moe_gshard`` routed by the same
+     logits, within 2⁻⁶ of max |y|; (e) 4 slots, ``max_seq`` 64, 4 greedy
+     requests of 8-16 prompt tokens and 16 new: the planned engine's fused
+     streams equal its ``step()`` oracle's, the dense table's first-step
+     logits and streams equal the plan's bit for bit, and the planned int8
+     engine's fused streams (first 2 requests) equal its oracle's.
+     Reported: ms per decode step, one profiled step (device busy share,
+     kernels, top device operations, expert-kernel launches: one per site
+     and MoE layer, 81, where the reference launches 5184), the step's
+     model call timed by the profiler and by ``device_ms`` (the check of
+     the profiler's busy time), the share of
+     empty expert tile lists, peak memory and the phase's time.  The
+     expert-batched kernels must launch; their rows join the ``kernels``
+     line, and the 2-D rows add ``launches_phase15``.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
@@ -240,24 +274,40 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Mean device milliseconds of the kernels one call of ``fn`` launches
-    (``torch.profiler``, warmed): the card's own time, free of the host
-    work between launches that ``cuda_ms`` includes when the host is the
-    slower side.  None (not measured) when the profiler records no device
-    time."""
+def device_ms(fn, calls: int = 20, replays: int = 3):
+    """Mean device milliseconds per call of ``fn``: ``calls`` calls captured
+    in one CUDA graph (warmed), CUDA events around ``replays`` replays.
+    The graph keeps the host out of the way, so this is the card's own time
+    for the calls' kernels run back to back, where ``cuda_ms`` includes the
+    host's gaps when the host is the slower side.  The one device timer of
+    every kernel row and of phase 15's decode step (``torch.profiler`` read
+    less than the bound for single expert kernels after the earlier
+    phases' profiles).  None (not measured; the reason on stderr) when
+    ``fn`` cannot be captured because it synchronizes with the host."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as err:
         torch.cuda.synchronize()
-    total = sum(ev.device_time_total for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / iters if total else None
+        print(f"device_ms: not measured ({type(err).__name__}: "
+              f"{str(err)[:160]})", file=sys.stderr)
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -265,16 +315,26 @@ def bound_ms(n_bytes: float, flops: float):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
-def bs_bound_ms(a, meta, blocks, w_elem=None, scale_bytes=0):
-    """Block-sparse bound: A once, each weight block some live pair needs
-    once (``w_elem`` bytes per element, default A's), the scales once, the
-    float32 output once; the MACs of the live block pairs."""
+def bs_bound_ms(a, meta, blocks, w_elem=None, scale_elem=0):
+    """Block-sparse bound over the blocks this run's data needs: each A
+    block and each weight block that some live pair takes, once (``w_elem``
+    bytes per weight element, default A's), the column scales
+    (``scale_elem`` bytes each) of the column tiles with a live pair, once,
+    and the float32 output once; the MACs of the live block pairs.
+    Metadata with a leading expert axis counts every expert's: an expert
+    that got no token has no live pair, so its A blocks, weight blocks and
+    scales count nothing."""
     bm, bk, bn = blocks
-    csb = meta.a_bitmap[:, None, :] & meta.b_bitmap.t()[None]
-    live_b = int(csb.any(0).sum())
+    # (..., tm, tn, tk): A block (i, k) meets weight block (k, j)
+    csb = (meta.a_bitmap[..., :, None, :]
+           & meta.b_bitmap.transpose(-1, -2)[..., None, :, :])
+    live_a = int(csb.any(-2).sum())
+    live_b = int(csb.any(-3).sum())
+    live_cols = int(csb.any(-1).any(-2).sum())
     elem = a.element_size()
-    n_bytes = (a.numel() * elem + live_b * bk * bn * (w_elem or elem)
-               + scale_bytes + a.shape[0] * meta.b_bitmap.shape[1] * bn * 4)
+    n_bytes = (live_a * bm * bk * elem + live_b * bk * bn * (w_elem or elem)
+               + live_cols * bn * scale_elem
+               + (a.numel() // a.shape[-1]) * meta.b_bitmap.shape[-1] * bn * 4)
     return bound_ms(n_bytes, 2.0 * int(meta.kcnt.sum()) * bm * bk * bn)
 
 
@@ -904,7 +964,7 @@ def check_sites_int8(cfg, params, q8, report) -> dict:
         a = a_full.to(torch.bfloat16)
         xp, wp, meta, scale = planned_operands(a, pw)
         b_bs, _ = bs_bound_ms(xp, meta, (e.bm, e.bk, e.bn), w_elem=1,
-                              scale_bytes=4 * n)
+                              scale_elem=4)
         b_i8, _ = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
                            2.0 * m * n * k)
         t_bs = cuda_ms(lambda: bs.block_sparse_matmul(
@@ -1031,7 +1091,7 @@ def time_int8_kernels(t, launches) -> list:
     n = qw.q.shape[1]
     saved = launch_counts()
     b_bs, by_bs = bs_bound_ms(xp, meta, t["blocks"], w_elem=1,
-                              scale_bytes=4 * n)
+                              scale_elem=4)
     b_i8, by_i8 = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
                            2.0 * m * n * k)
     lib, lib_note = int8pack(a, qw)
@@ -1614,7 +1674,7 @@ def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report):
         qw = QuantizedLinear(pw.w, pw.qscale)
         w_bf16 = pw.w_kn.to(torch.bfloat16)
         b_bs, _ = bs_bound_ms(xp, meta, (e.bm, e.bk, e.bn), w_elem=1,
-                              scale_bytes=4 * n)
+                              scale_elem=4)
         b_i8, _ = bound_ms(a.numel() * 2 + k * n + 4 * n + m * n * 4,
                            2.0 * m * n * k)
         times = {
@@ -2431,6 +2491,603 @@ def run_speculative(cfg, params, planned, dense, traffic, report,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the MoE family — DeepSeek-MoE-16B sparse decode serving
+# ---------------------------------------------------------------------------
+
+P15_ARCH = "deepseek-moe-16b"
+P15_NEW = 16
+P15_MAX_SEQ = 64
+EXPERT_SITES = ("experts_in", "experts_gate", "experts_out")
+# the expert-batched kernels; ``*_sum`` add (and scale) their partials
+EXPERT_KERNELS = ("block_sparse_experts", "block_sparse_experts_sum",
+                  "output_experts", "output_experts_sum",
+                  "block_sparse_scaled_experts",
+                  "block_sparse_scaled_experts_sum")
+
+
+def prune_in_place(tree, sparsity, block) -> None:
+    """Block-magnitude-prune every stacked leaf of ``tree`` (3-D and 4-D),
+    replacing each leaf in its dict as it goes, so that at most one leaf's
+    copy is alive at a time."""
+    from repro_torch.core.sparsity import prune_stacked_magnitude
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            prune_in_place(leaf, sparsity, block)
+        else:
+            tree[key] = prune_stacked_magnitude(leaf, sparsity, block)
+
+
+def p15_bring_up(report):
+    """Weights, pruning, the planned two-sided config, the dense table and
+    the int8 plan at full width, each timed."""
+    import torch
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import decode_exec_config
+    cfg = get_config(P15_ARCH)
+    sp_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        weight_sparsity=0.5, activation_threshold=0.05))
+    secs = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    secs["init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prune_in_place(params, 0.5, (256, 256))
+    torch.cuda.synchronize()
+    secs["prune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    planned = decode_exec_config(sp_cfg, N_SLOTS, params=params,
+                                 device="cuda")
+    dense = decode_exec_config(cfg, N_SLOTS, use_kernels=True, device="cuda")
+    torch.cuda.synchronize()
+    secs["plan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q8 = decode_exec_config(sp_cfg, N_SLOTS, params=params, quantize=True,
+                            device="cuda")
+    torch.cuda.synchronize()
+    secs["quantize + int8 plan"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    report(f"{P15_ARCH}: {cfg.n_layers} layers ({cfg.moe.first_dense_layers}"
+           f" dense), d {cfg.d_model}, {cfg.moe.n_experts} experts top-"
+           f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared, {n_params / 1e9:.3f}"
+           f" B parameters; bring-up seconds "
+           f"{({k: round(v, 1) for k, v in secs.items()})}; "
+           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+           f" GiB")
+    report(planned.schedules.describe())
+    report(dense.schedules.describe())
+    for label, ec in (("bf16", planned), ("int8", q8)):
+        skips = {}
+        for e in ec.plan.entries.values():
+            if e.site.startswith("moe.experts") or e.site == "moe.router":
+                skips[e.site] = round(1.0 - float(e.b_bitmap.mean()), 4)
+        report(f"  {label} plan weight-block skip fraction per MoE site: "
+               f"{skips} (all sites {ec.plan.block_skip_fraction():.4f})")
+    return cfg, sp_cfg, params, planned, dense, q8
+
+
+def _leaves(tree):
+    from repro_torch.core.sparsity import iter_leaves
+    return iter_leaves(tree)
+
+
+def _tree_at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def expert_tols(a, w):
+    """Per-expert ``matmul_tol`` of (E, M, K) @ (E, K, N): √K·2⁻²⁴·
+    max(|A_e|@|B_e|), shape (E, 1, 1)."""
+    import torch
+    mag = torch.matmul(a.abs().float(), w.abs().float()).amax((1, 2))
+    return (a.shape[-1] ** 0.5 * 2.0 ** -24 * mag)[:, None, None]
+
+
+def p15_dispatch(cfg, moe_p, planned, gen):
+    """A dispatch buffer built by the real router (under the plan, on the
+    card) from a random (4, D) hidden state: (xe (E, C, D), share of the
+    experts that got no token)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    m = cfg.moe
+    x = (torch.randn((N_SLOTS, cfg.d_model), generator=gen, device="cuda")
+         ).to(torch.bfloat16)
+    with ops.exec_config(planned):
+        _, idx = moe._route(moe_p["router"], x, m.top_k)
+    cap = moe._capacity(N_SLOTS, m.top_k, m.n_experts, m.capacity_factor)
+    f_sel, valid = moe._dispatch_indices(idx.reshape(-1), m.n_experts, cap)
+    xe = torch.where(valid[..., None], x[f_sel // m.top_k],
+                     torch.zeros((), dtype=x.dtype, device=x.device))
+    empty = 1.0 - valid.any(1).float().mean().item()
+    return xe, empty
+
+
+def p15_kernels(cfg, params, planned, dense, q8, report) -> dict:
+    """Gates (a) and (b) at the first MoE layer's three expert sites, and
+    the times of the expert kernels at experts_in for the kernels line."""
+    import torch
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import planned_operands
+    from repro_torch.kernels.ref import (block_sparse_expert_matmul_ref,
+                                         expert_matmul_ref, meta_at)
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import index_tree
+    from repro_torch.quant.quantize import dequantize_leaf, quantize_params
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    att = planned.plan.attach(params, verify=False)
+    moe_p = index_tree(att["stack"]["layers"]["moe"], 0)
+    raw = {k: params["stack"]["layers"]["moe"][k][0] for k in EXPERT_SITES}
+    xe, empty = p15_dispatch(cfg, moe_p, planned, gen)
+    # the operands the path gives each site: experts_out takes silu(g)·h
+    h = expert_matmul_ref(xe, raw["experts_in"]).to(torch.bfloat16)
+    g = expert_matmul_ref(xe, raw["experts_gate"]).to(torch.bfloat16)
+    acts = {"experts_in": xe, "experts_gate": xe,
+            "experts_out": moe._act_mul(g, h)}
+    q8p = quantize_params(params)[0]
+    att8 = q8.plan.attach(q8p, verify=False)
+    worst = dict.fromkeys(("block_sparse_experts", "output_experts",
+                           "block_sparse_scaled_experts"), 0.0)
+    keep = {}
+    for site in EXPERT_SITES:
+        a, w = acts[site], raw[site]
+        pw = moe_p[site]
+        pw8 = att8["stack"]["layers"]["moe"][site].index(0)
+        sched = dense.schedules.sites[f"moe.{site}"].schedule
+        res = {}
+        for key, p_w, wd in (("block_sparse_experts", pw, w),
+                             ("block_sparse_scaled_experts", pw8,
+                              pw8.w_kn)):
+            xp, wp, meta, scale = planned_operands(a, p_w)
+            out = bs.block_sparse_matmul(xp, wp, meta, scale=scale,
+                                         out_dtype=torch.float32,
+                                         rows=a.shape[1])
+            plain = block_sparse_expert_matmul_ref(xp, wp, meta, scale)
+            tol = expert_tols(a, wd)
+            err = (out - plain).abs()
+            need(bool((err <= tol).all()), f"{key} {site}: error "
+                 f"{err.max().item()} over the per-expert tolerance")
+            # (b): one launch over the experts == E launches, bit for bit
+            for i in range(a.shape[0]):
+                one = bs.block_sparse_matmul(
+                    xp[i], wp[i], meta_at(meta, i), out_dtype=torch.float32,
+                    scale=None if scale is None else scale[i],
+                    rows=a.shape[1])
+                need(torch.equal(out[i], one),
+                     f"{key} {site}: expert {i} differs from its own launch")
+            worst[key] = max(worst[key], err.max().item())
+            res[key] = (out, meta, err.max().item(), tol.max().item())
+            if site == "experts_in":
+                # a copy of the layer's slice: a view would keep the whole
+                # int8 leaf of ``q8p`` alive
+                keep[key] = (xp, wp.clone(), meta, scale, wd)
+        dense_out = fm.flex_matmul(a, w, schedule=sched,
+                                   out_dtype=torch.float32)
+        err = (dense_out - expert_matmul_ref(a, w)).abs()
+        need(bool((err <= expert_tols(a, w)).all()),
+             f"output_experts {site}: error {err.max().item()}")
+        for i in range(a.shape[0]):
+            need(torch.equal(dense_out[i], fm.flex_matmul(
+                a[i], w[i], schedule=sched, out_dtype=torch.float32)),
+                f"output_experts {site}: expert {i} differs from its own "
+                f"fm_output launch")
+        worst["output_experts"] = max(worst["output_experts"],
+                                      err.max().item())
+        same = torch.equal(dense_out, res["block_sparse_experts"][0])
+        need(same, f"{site}: the dense table differs from the plan")
+        # int8 at the dense table: an unplanned int8 stack is dequantized
+        # to the activation's dtype first (as the reference's), then the
+        # batched fm_output runs on it.  Both sides round a float32 sum to
+        # bf16, so they may differ by the float32 tolerance plus one bf16
+        # ulp of the larger (2⁻⁷ of it at most)
+        q = q8p["stack"]["layers"]["moe"][site].index(0)
+        with ops.exec_config(dense):
+            out8 = ops.flex_expert_matmul(a, q, site=f"moe.{site}")
+        w8 = dequantize_leaf(q, torch.bfloat16)
+        ref8 = expert_matmul_ref(a, w8).to(torch.bfloat16)
+        err8 = (out8.float() - ref8.float()).abs()
+        ulp = 2.0 ** -7 * torch.maximum(out8.float().abs(),
+                                        ref8.float().abs())
+        need(bool((err8 <= expert_tols(a, w8) + ulp).all()),
+             f"int8 dense table {site}: error {err8.max().item()}")
+        meta = res["block_sparse_experts"][1]
+        empty_lists = (meta.kcnt == 0).float().mean().item()
+        report(f"  {site} (E {a.shape[0]}, C {a.shape[1]}, K {a.shape[2]}, "
+               f"N {w.shape[-1]}): bs_matmul experts ({pw.bm},{pw.bk},"
+               f"{pw.bn}) err {res['block_sparse_experts'][2]:.3e} (tol up "
+               f"to {res['block_sparse_experts'][3]:.3e}), bs_matmul_scaled "
+               f"experts ({pw8.bm},{pw8.bk},{pw8.bn}) err "
+               f"{res['block_sparse_scaled_experts'][2]:.3e}, fm_output "
+               f"experts ({sched.bm},{sched.bn},{sched.bk}) err "
+               f"{err.max().item():.3e}, int8 at the dense table "
+               f"(dequantized to bf16 first) err {err8.max().item():.3e}; "
+               f"batched == per-expert launches bit for bit (all three); "
+               f"dense table == plan bitwise; empty tile lists "
+               f"{empty_lists:.4f}")
+        if site == "experts_in":
+            keep["output_experts"] = (a, w, sched)
+    report(f"dispatch buffer from the real router: {empty:.4f} of the "
+           f"experts got no token")
+    keep["errs"] = worst
+    keep["empty"] = empty
+    return keep
+
+
+def p15_router(cfg, params, planned, dense, report) -> None:
+    """Gate (c): the float32 router at decode (M = 4): planned == dense
+    table bitwise, kernel within the float32 tolerance of plain, and the
+    top-k sets of the kernel's and the plain router's probabilities, with
+    the probability margin of every flip."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    att = planned.plan.attach(params, verify=False)
+    k = cfg.moe.top_k
+    flips, margins, worst, tol_max, rows = 0, [], 0.0, 0.0, 0
+    for layer in range(cfg.n_layers - cfg.moe.first_dense_layers):
+        r_plan = att["stack"]["layers"]["moe"]["router"].index(layer)
+        r_raw = params["stack"]["layers"]["moe"]["router"][layer]
+        for _ in range(4):
+            x = torch.randn((N_SLOTS, cfg.d_model), generator=gen,
+                            device="cuda")
+            with ops.exec_config(planned):
+                lp = ops.flex_matmul(x, r_plan, site="moe.router")
+            with ops.exec_config(dense):
+                ld = ops.flex_matmul(x, r_raw, site="moe.router")
+            need(torch.equal(lp, ld), f"router layer {layer}: planned != "
+                 "dense table")
+            plain = matmul_ref(x, r_raw)
+            tol = matmul_tol(x, r_raw)
+            err = (lp - plain).abs().max().item()
+            need(err <= tol, f"router layer {layer}: error {err} > {tol}")
+            worst, tol_max = max(worst, err), max(tol_max, tol)
+            pk, ik = moe.top_k(torch.softmax(lp, -1), k + 1)
+            _, ip = moe.top_k(torch.softmax(plain, -1), k)
+            diff = (ik[:, :k].sort(-1).values != ip.sort(-1).values).any(-1)
+            flips += int(diff.sum())
+            margins += (pk[:, k - 1] - pk[:, k])[diff].tolist()
+            rows += N_SLOTS
+    report(f"router (float32, M {N_SLOTS}, {rows} rows over every MoE "
+           f"layer): planned == dense table bitwise; kernel vs plain max "
+           f"err {worst:.3e} (tol up to {tol_max:.3e}); top-{k} set flips "
+           f"kernel vs plain: {flips} of {rows} rows, margins {margins}")
+
+
+def p15_layer(cfg, params, planned, report) -> None:
+    """Gate (d): the first MoE layer's ``apply_moe`` under the plan (the
+    kernels) against ``apply_moe_gshard`` (plain one-hot products, raw
+    weights) routed by the same router logits.  bf16: within 2⁻⁶ of
+    max |y|, two bf16 ulps of the largest element (the paths round their
+    bf16 intermediates at different points)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import index_tree
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    att = planned.plan.attach(params, verify=False)
+    p_plan = index_tree(att["stack"]["layers"]["moe"], 0)
+    p_raw = index_tree(params["stack"]["layers"]["moe"], 0)
+    x = torch.randn((N_SLOTS, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with ops.exec_config(planned):
+        y = moe.apply_moe(p_plan, cfg, x)
+        logits = ops.flex_matmul(x.reshape(N_SLOTS, -1).float(),
+                                 p_plan["router"], site="moe.router")
+    y_or = moe.apply_moe_gshard(p_raw, cfg, x, router_logits=logits)
+    err = (y.float() - y_or.float()).abs().max().item()
+    bar = 2.0 ** -6 * y_or.float().abs().max().item()
+    report(f"MoE layer 1: apply_moe (kernels, plan) vs apply_moe_gshard "
+           f"(same logits): max |diff| {err:.3e}, bar {bar:.3e}")
+    need(bool(torch.isfinite(y).all()) and y.shape == x.shape,
+         "MoE layer output not finite")
+    need(err <= bar, f"MoE layer: {err} > {bar}")
+
+
+def free():
+    """Collect what the caller dropped: ``drain_timed`` leaves an engine in
+    a reference cycle (its patched methods), and an int8 engine holds a
+    15 GiB copy of the weights."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def p15_engine(cfg, params, exec_cfg, fused=True, **kw):
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    return ServeEngine(cfg, params, n_slots=N_SLOTS, max_seq=P15_MAX_SEQ,
+                       dtype=torch.bfloat16, exec_cfg=exec_cfg, fused=fused,
+                       decode_block=16, async_dispatch=False, device="cuda",
+                       **kw)
+
+
+def p15_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(15)
+    return [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 17)))
+            for _ in range(N_SLOTS)]
+
+
+def p15_profile(eng, report) -> None:
+    """One profiled ``step()``: device busy share, kernels, launches of the
+    expert kernels in that step, and the top device operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    before = launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    after = launch_counts()
+    step = {k: after[k] - before[k] for k in EXPERT_KERNELS + (
+        "block_sparse", "block_sparse_sum") if after[k] != before[k]}
+    busy, n_kernels, fam = device_breakdown(prof)
+    tops = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = tops.get(ev.name, (0.0, 0))
+            tops[ev.name] = (us + ev.device_time_total, n + 1)
+    top = sorted(tops.items(), key=lambda kv: -kv[1][0])[:8]
+    if not busy:
+        report("profiled MoE decode step: the profiler recorded no device "
+               "time (not measured)")
+    else:
+        report(f"profiled MoE decode step (planned): wall {wall * 1e3:.2f} "
+               f"ms, device busy {busy / 1e3:.2f} ms "
+               f"({100 * busy / 1e3 / (wall * 1e3):.1f}% of wall, "
+               f"{n_kernels} kernels); by family {fam}; top device "
+               f"operations {[(n[:60], round(us / 1e3, 3), c) for n, (us, c) in top]}")
+    p15_step_device(eng, report, round(busy / 1e3, 3) if busy else None)
+    n_moe = eng.cfg.n_layers - eng.cfg.moe.first_dense_layers
+    report(f"expert-site launches in that step: {step} (one per site and "
+           f"MoE layer: {3 * n_moe}, against {3 * n_moe * eng.cfg.moe.n_experts}"
+           f" launched expert by expert)")
+    need(step.get("block_sparse_experts") == 3 * n_moe,
+         f"expert launches per step {step}, not {3 * n_moe}")
+
+
+def p15_step_device(eng, report, step_busy_ms) -> None:
+    """The profiled step's model call — ``masked_decode_step`` under the
+    plan on a copy of the engine's state, every slot live — timed by
+    ``torch.profiler`` (summed kernel time) and by ``device_ms`` (a CUDA
+    graph replay: the card's time with the host out of the way), with its
+    synchronizing calls: the check of the profiler's busy time.  Its
+    launches are not the main path's: the counts are put back after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as model_lib
+    saved = launch_counts()
+    live = eng._live()
+    toks = eng._to_device(eng._current_tokens(live)[:, None])
+    pos = eng._to_device(eng._slot_positions())
+    mask = eng._live_mask(live)
+    st = {g: {n: t.clone() for n, t in grp.items()}
+          for g, grp in eng.state.items()}
+
+    def call():
+        return model_lib.masked_decode_step(eng._tier_params[0], eng.cfg,
+                                            toks, st, pos, mask)
+    with eng._scope():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        busy, n_kernels, _ = device_breakdown(prof)
+        syncs = count_syncs(call)
+        d_ms = device_ms(call, calls=1, replays=5)
+    reset_launches(saved)
+    graph = "not measured" if d_ms is None else f"{d_ms:.3f} ms"
+    diff = ("" if d_ms is None or not busy else
+            f" (profiler / graph {busy / 1e3 / d_ms:.4f})")
+    report(f"MoE decode step's model call (masked_decode_step, planned, "
+           f"{len(live)} live rows): profiler {busy / 1e3:.3f} ms over "
+           f"{n_kernels} kernels (the engine step's profile: "
+           f"{step_busy_ms} ms); device_ms (CUDA graph replay) {graph}"
+           f"{diff}; synchronizing calls {syncs}")
+
+
+def p15_empty_lists(eng) -> float:
+    """Share of the expert kernels' tile lists that were empty (kcnt 0:
+    no live activation block met a live weight block) over one ``step()``
+    — the router acting as FlexNN's activation bitmap."""
+    from repro_torch.kernels import block_sparse as bs
+    orig = bs.block_sparse_matmul
+    seen = []
+
+    def spy(a, b, meta, **kw):
+        if a.dim() == 3:                  # the expert sites
+            seen.append(((meta.kcnt == 0).sum(), meta.kcnt.numel()))
+        return orig(a, b, meta, **kw)
+    bs.block_sparse_matmul = spy
+    try:
+        eng.step()
+    finally:
+        bs.block_sparse_matmul = orig
+    empty = sum(int(e) for e, _ in seen)
+    return empty / max(sum(n for _, n in seen), 1)
+
+
+def p15_serve(cfg, params, planned, dense, q8, report, card) -> dict:
+    """Gate (e) and the engine numbers.  Returns the launches of the
+    phase's engine runs."""
+    import torch
+    prompts = p15_prompts(cfg)
+    reset_launches()
+    eng = p15_engine(cfg, params, planned)
+    streams, wall, timing = drain_timed(eng, prompts, P15_NEW)
+    report(f"planned MoE engine (fused blocks of 16): "
+           f"{rate_line(streams, wall, timing)} ({card})")
+    del eng
+    free()
+    oracle = p15_engine(cfg, params, planned, fused=False)
+    ouids = [oracle.submit(p, max_new=P15_NEW) for p in prompts]
+    oracle.step()                       # admits all 4, decodes one step
+    logits_p = oracle.last_logits.clone()
+    p15_profile(oracle, report)
+    empty = p15_empty_lists(oracle)
+    ores = oracle.run_until_drained()
+    same = [ores[u] for u in ouids] == streams
+    report(f"bf16: fused streams == step() oracle: {same}; empty expert "
+           f"tile lists in a step: {empty:.4f}")
+    need(same, "phase 15: fused streams differ from the step() oracle")
+    need(bool(torch.isfinite(logits_p).all())
+         and logits_p.shape == (N_SLOTS, cfg.vocab), "bad MoE logits")
+    del oracle
+    free()
+    de = p15_engine(cfg, params, dense)
+    duids = [de.submit(p, max_new=P15_NEW) for p in prompts]
+    de.step()
+    logits_d = de.last_logits.clone()
+    dres = de.run_until_drained()
+    same_l = torch.equal(logits_p, logits_d)
+    same_s = [dres[u] for u in duids] == streams
+    report(f"dense table vs plan: first-step logits equal bit for bit "
+           f"{same_l} (max |diff| "
+           f"{(logits_p - logits_d).abs().max().item():.3e}), streams "
+           f"equal {same_s}")
+    need(same_l and same_s, "phase 15: the dense table differs from the "
+         "plan")
+    del de
+    free()
+    q_eng = p15_engine(cfg, params, q8)
+    q_streams, q_wall, q_timing = drain_timed(q_eng, prompts[:2], P15_NEW)
+    report(f"planned int8 MoE engine (first 2 requests): "
+           f"{rate_line(q_streams, q_wall, q_timing)} ({card})")
+    del q_eng
+    free()
+    q_or = p15_engine(cfg, params, q8, fused=False)
+    quids = [q_or.submit(p, max_new=P15_NEW) for p in prompts[:2]]
+    qres = q_or.run_until_drained()
+    same = [qres[u] for u in quids] == q_streams
+    report(f"int8: fused streams == step() oracle: {same}; int8 vs bf16 "
+           f"first two streams equal: {q_streams == streams[:2]}")
+    need(same, "phase 15: int8 fused streams differ from the step() "
+         "oracle")
+    del q_or
+    free()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {k: counts[k] for k in EXPERT_KERNELS + (
+        "block_sparse", "block_sparse_sum", "block_sparse_scaled",
+        "block_sparse_scaled_sum", "output", "output_sum")}
+    report(f"main-path launches (phase 15, the five engine runs): "
+           f"{launches}")
+    for name, count in launches.items():
+        need(count > 0, f"kernel {name} never launched in phase 15")
+    return launches
+
+
+def time_expert_kernels(t, launches) -> list:
+    """The expert kernels' rows of the ``kernels`` line, at the first MoE
+    layer's experts_in (E 64, C 1, K 2048, N 1408) on the real router's
+    dispatch buffer: time, plain version (2-D plain versions per expert),
+    bound, ``torch.bmm`` on the dense weights; the block-sparse rows add
+    the time of the E 2-D launches that the batched launch replaces."""
+    import torch
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels.ref import (block_sparse_expert_matmul_ref,
+                                         expert_matmul_ref, meta_at)
+    saved = launch_counts()
+    rows = []
+    a, w, sched = t["output_experts"]
+    lib_ms = cuda_ms(lambda: torch.bmm(a, w))
+    lib_device_ms = device_ms(lambda: torch.bmm(a, w))
+    for key, name, replaces in (
+            ("block_sparse_experts", "block_sparse_experts",
+             "src/repro/kernels/block_sparse.py:49"),
+            ("block_sparse_scaled_experts", "block_sparse_scaled_experts",
+             "src/repro/kernels/block_sparse.py:69")):
+        xp, wp, meta, scale, _ = t[key]
+        blocks = (xp.shape[1] // meta.a_bitmap.shape[-2],
+                  xp.shape[2] // meta.a_bitmap.shape[-1],
+                  wp.shape[2] // meta.b_bitmap.shape[-1])
+        b_ms, b_by = bs_bound_ms(xp, meta, blocks,
+                                 w_elem=wp.element_size(),
+                                 scale_elem=0 if scale is None else 4)
+
+        def call(xp=xp, wp=wp, meta=meta, scale=scale):
+            return bs.block_sparse_matmul(
+                xp, wp, meta, scale=scale, out_dtype=torch.float32)
+        def per_expert(xp=xp, wp=wp, meta=meta, scale=scale):
+            return [bs.block_sparse_matmul(
+                xp[i], wp[i], meta_at(meta, i), out_dtype=torch.float32,
+                scale=None if scale is None else scale[i])
+                for i in range(xp.shape[0])]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/block_sparse.cu",
+            "replaces": replaces,
+            "launches": launches[key],
+            "launches_sum": launches[f"{key}_sum"],
+            "max_abs_err": t["errs"][key],
+            "ms": cuda_ms(call),
+            "plain_ms": cuda_ms(lambda: block_sparse_expert_matmul_ref(
+                xp, wp, meta, scale)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "device_ms": device_ms(call),
+            "library_device_ms": lib_device_ms,
+            "per_expert_launches_ms": cuda_ms(per_expert, iters=5),
+            "per_expert_launches_device_ms": device_ms(per_expert, calls=5)})
+    e, m, k = a.shape
+    n = w.shape[-1]
+    b_ms, b_by = bound_ms(a.numel() * 2 + w.numel() * 2 + e * m * n * 4,
+                          2.0 * e * m * n * k)
+
+    def fm_call():
+        return fm.flex_matmul(a, w, schedule=sched, out_dtype=torch.float32)
+    rows.append({
+        "name": "flex_output_experts", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flex_matmul.cu",
+        "replaces": "src/repro/kernels/flex_matmul.py:52",
+        "launches": launches["output_experts"],
+        "launches_sum": launches["output_experts_sum"],
+        "max_abs_err": t["errs"]["output_experts"],
+        "ms": cuda_ms(fm_call),
+        "plain_ms": cuda_ms(lambda: expert_matmul_ref(a, w)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "device_ms": device_ms(fm_call),
+        "library_device_ms": lib_device_ms})
+    reset_launches(saved)
+    return rows
+
+
+def run_moe(report, card):
+    """Phase 15.  Returns (its launches, the expert kernels' rows)."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, sp_cfg, params, planned, dense, q8 = p15_bring_up(report)
+    checked = p15_kernels(cfg, params, planned, dense, q8, report)
+    p15_router(cfg, params, planned, dense, report)
+    p15_layer(cfg, params, planned, report)
+    launches = p15_serve(cfg, params, planned, dense, q8, report, card)
+    rows = time_expert_kernels(checked, launches)
+    report(f"phase 15 peak memory: max_memory_allocated "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+           f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
+           f" GiB ({card})")
+    report(f"phase 15 wall time: {time.perf_counter() - t_phase:.1f} s "
+           f"({card})")
+    return launches, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2587,6 +3244,25 @@ def main() -> int:
                 row.update(launches_phase14=launches14[key],
                            launches_sum_phase14=launches14[f"{key}_sum"])
         done("phase 14")
+        # phase 15: the MoE family at full width (StableLM's weights freed)
+        del params, planned, dense, checked, checked8, bf16, flash, pf
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        report(f"memory before phase 15: "
+               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        launches15, rows15 = run_moe(report, card)
+        for row in rows:
+            key = {"block_sparse": "block_sparse",
+                   "block_sparse_scaled": "block_sparse_scaled",
+                   "flex_output": "output"}.get(row["name"])
+            if key is not None:
+                row.update(launches_phase15=launches15[key],
+                           launches_sum_phase15=launches15[f"{key}_sum"])
+        for row in rows15:
+            row["launches_phase15"] = row["launches"]
+        rows += rows15
+        done("phase 15")
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)

@@ -190,6 +190,7 @@ SHAPES = {
 ARCH_IDS = [
     "stablelm-1.6b",
     "edge-tiny",
+    "deepseek-moe-16b",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

@@ -18,6 +18,11 @@ Bitmaps and live counts are computed with torch on the weights' own device
 index lists are built on the host.  The plan keeps element counts for its
 ZVC byte model instead of packed value arrays.
 
+Stacks are processed in slices of their leading axis
+(``stacks.leading_slices``), so a full-width expert leaf — (L, E, K, N),
+10 GB in bf16 — never gets a whole-leaf temporary; every result is per
+(K, N) matrix, so slicing changes no number.
+
 A quantized params tree (``quant.quantize_params``) plans its
 ``QuantizedLinear`` leaves on their int8 payload — quantization is
 zero-preserving, so the bitmaps are the float weight's — and the attached
@@ -37,6 +42,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.stacks import leading_slices, pad_to_blocks
 from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
 
 SCALE_BYTES = 4          # float32 per-output-channel dequant scale
@@ -44,6 +50,11 @@ SCALE_BYTES = 4          # float32 per-output-channel dequant scale
 SITE_KEYS: Dict[str, Dict[str, str]] = {
     "mlp": {"w_in": "mlp.in", "w_gate": "mlp.gate", "w_out": "mlp.out"},
     "attn": {"wq": "attn.q", "wkv": "attn.kv", "wo": "attn.out"},
+    "moe": {"router": "moe.router", "experts_in": "moe.experts_in",
+            "experts_gate": "moe.experts_gate",
+            "experts_out": "moe.experts_out"},
+    "shared": {"w_in": "moe.shared_in", "w_gate": "moe.shared_gate",
+               "w_out": "moe.shared_out"},
 }
 # top-level leaves (no parent key); ``embed`` is deliberately absent — a
 # tied head *is* the embedding table and is never planned
@@ -93,6 +104,25 @@ def block_bitmap(x: torch.Tensor, bm: int, bk: int) -> torch.Tensor:
     return blocks.abs().amax(dim=(-3, -1)) > 0
 
 
+def stack_block_bitmap(kn: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
+    """``block_bitmap`` of a (P, K, N) stack, (P, tk, tn) on its device,
+    computed slice by slice (``leading_slices``)."""
+    p, k, n = kn.shape
+    return torch.cat([block_bitmap(kn[s], bk, bn)
+                      for s in leading_slices(p, k * n)])
+
+
+def count_nonzero(w: torch.Tensor) -> int:
+    """Non-zero elements of ``w``, counted slice by slice of its leading
+    axis (no whole-tensor temporary)."""
+    if w.dim() < 3:
+        return int(torch.count_nonzero(w))
+    flat = w.reshape(-1, *w.shape[-2:])
+    p, k, n = flat.shape
+    return sum(int(torch.count_nonzero(flat[s]))
+               for s in leading_slices(p, k * n))
+
+
 def _live_first(dead: torch.Tensor) -> torch.Tensor:
     """Indices that put live entries first, each group in ascending order:
     a *stable* sort of an integer key (0 = live, 1 = dead)."""
@@ -106,22 +136,26 @@ def build_block_sparse_meta(a_bitmap: torch.Tensor, b_bitmap: torch.Tensor,
     ``build_block_sparse_meta_jnp`` semantics).  ``max_nnz`` defaults to
     the K-block count tk (the safe bound); a smaller value is checked
     against every tile's live count and raises ``ValueError`` when it would
-    drop live blocks (the check reads the counts on the host)."""
-    tm, tk = a_bitmap.shape
-    tk2, tn = b_bitmap.shape
+    drop live blocks (the check reads the counts on the host).  Bitmaps
+    with leading (expert) axes, (..., tm, tk) and (..., tk, tn), give
+    lists per leading index."""
+    tm, tk = a_bitmap.shape[-2:]
+    tk2, tn = b_bitmap.shape[-2:]
     if tk != tk2:
         raise ValueError(f"bitmap K-blocks differ: {tk} vs {tk2}")
     max_nnz = tk if max_nnz is None else int(max_nnz)
-    csb = a_bitmap[:, None, :] & b_bitmap.t()[None, :, :]     # (tm, tn, tk)
+    # (..., tm, tn, tk)
+    csb = (a_bitmap[..., :, None, :]
+           & b_bitmap.transpose(-1, -2)[..., None, :, :])
     kcnt = csb.sum(-1, dtype=torch.int32)
     if max_nnz < tk:
         worst = int(kcnt.max())
         if worst > max_nnz:
-            mi, ni = np.unravel_index(int(kcnt.argmax()), tuple(kcnt.shape))
+            at = np.unravel_index(int(kcnt.argmax()), tuple(kcnt.shape))
             raise ValueError(
                 f"{site + ': ' if site else ''}max_nnz={max_nnz} < live "
-                f"K-blocks ({worst}) at output tile (mi={int(mi)}, "
-                f"ni={int(ni)}) — a truncated kidx would silently drop "
+                f"K-blocks ({worst}) at output tile (mi={int(at[-2])}, "
+                f"ni={int(at[-1])}) — a truncated kidx would silently drop "
                 f"live MACs")
     kidx = _live_first(~csb)[..., :max_nnz]
     pad = torch.arange(max_nnz, device=kcnt.device) < kcnt[..., None]
@@ -159,13 +193,16 @@ def weight_side_lists(b_bitmap: np.ndarray,
 def weight_plan_meta(wkidx: torch.Tensor, wkcnt: torch.Tensor,
                      b_bitmap: torch.Tensor, tm: int) -> BlockSparseMeta:
     """Weight-mode metadata from a plan: a broadcast, no sort (the
-    activation bitmap is all ones)."""
-    tn, max_nnz = wkidx.shape
-    tk = b_bitmap.shape[0]
-    kidx = wkidx[None].expand(tm, tn, max_nnz).contiguous()
-    kcnt = wkcnt[None].expand(tm, tn).contiguous()
+    activation bitmap is all ones).  Leading (expert) axes of the plan's
+    lists carry through."""
+    tn, max_nnz = wkidx.shape[-2:]
+    lead = tuple(wkidx.shape[:-2])
+    tk = b_bitmap.shape[-2]
+    kidx = wkidx[..., None, :, :].expand(*lead, tm, tn, max_nnz).contiguous()
+    kcnt = wkcnt[..., None, :].expand(*lead, tm, tn).contiguous()
     return BlockSparseMeta(kidx=kidx, kcnt=kcnt,
-                           a_bitmap=torch.ones((tm, tk), dtype=torch.bool,
+                           a_bitmap=torch.ones(lead + (tm, tk),
+                                               dtype=torch.bool,
                                                device=wkidx.device),
                            b_bitmap=b_bitmap, max_nnz=int(max_nnz))
 
@@ -178,14 +215,23 @@ def combine_with_activation_meta(a_bitmap: torch.Tensor, wkidx: torch.Tensor,
     Only the activation bits at each column's live weight K-blocks are
     gathered and compacted (a stable live-first sort over ``max_nnz``
     slots); the weight side is never re-derived.  Produces entry for entry
-    ``build_block_sparse_meta(a_bitmap, b_bitmap, max_nnz)``."""
-    tn, max_nnz = wkidx.shape
+    ``build_block_sparse_meta(a_bitmap, b_bitmap, max_nnz)``.  Leading
+    (expert) axes, a_bitmap (..., tm, tk) against lists (..., tn, s), are
+    combined in one pass: every expert's lists at once."""
+    tn, max_nnz = wkidx.shape[-2:]
+    tm, tk = a_bitmap.shape[-2:]
+    lead = tuple(wkidx.shape[:-2])
     dev = wkidx.device
-    slot_live = torch.arange(max_nnz, device=dev)[None, :] < wkcnt[:, None]
-    alive = a_bitmap[:, wkidx.long()] & slot_live[None]       # (tm, tn, s)
+    slot_live = (torch.arange(max_nnz, device=dev)
+                 < wkcnt[..., None])                          # (..., tn, s)
+    shape = lead + (tm, tn, max_nnz)
+    alive = torch.gather(
+        a_bitmap[..., :, None, :].expand(lead + (tm, tn, tk)), -1,
+        wkidx.long()[..., None, :, :].expand(shape))
+    alive = alive & slot_live[..., None, :, :]               # (..., tm, tn, s)
     kcnt = alive.sum(-1, dtype=torch.int32)
     order = _live_first(~alive)
-    kidx = torch.gather(wkidx[None].expand(alive.shape), -1, order)
+    kidx = torch.gather(wkidx[..., None, :, :].expand(shape), -1, order)
     pad = torch.arange(max_nnz, device=dev) < kcnt[..., None]
     kidx = torch.where(pad, kidx, 0).to(torch.int32).contiguous()
     return BlockSparseMeta(kidx=kidx, kcnt=kcnt.contiguous(),
@@ -201,30 +247,36 @@ def prune_magnitude(w: torch.Tensor, sparsity: float,
                     block: Tuple[int, int]) -> torch.Tensor:
     """Block-magnitude pruning of the trailing (K, N) matrices of ``w``:
     per matrix, zero every (bk, bn) block whose L2 norm is at or below the
-    ``sparsity`` quantile of the matrix's block norms."""
+    ``sparsity`` quantile of the matrix's block norms.  The matrices are
+    pruned a slice of the leading axes at a time (``leading_slices``) into
+    the output, so the temporaries stay a slice's size."""
     if sparsity <= 0:
         return w
     bk, bn = block
     k, n = w.shape[-2:]
     tk, tn = -(-k // bk), -(-n // bn)
     flat = w.reshape(-1, k, n)
-    pad = torch.nn.functional.pad(flat.float(), (0, tn * bn - n,
-                                                 0, tk * bk - k))
-    norms = pad.reshape(-1, tk, bk, tn, bn).square().sum((2, 4)).sqrt()
-    thr = torch.quantile(norms.reshape(norms.shape[0], -1).double(),
-                         sparsity, dim=1)
-    keep = norms.double() > thr[:, None, None]                # (P, tk, tn)
-    mask = keep.repeat_interleave(bk, 1).repeat_interleave(bn, 2)
-    out = torch.where(mask[:, :k, :n], flat, torch.zeros((), dtype=w.dtype,
-                                                         device=w.device))
+    out = torch.empty_like(flat)
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    for s in leading_slices(flat.shape[0], k * n):
+        part = flat[s]
+        pad = torch.nn.functional.pad(part.float(), (0, tn * bn - n,
+                                                     0, tk * bk - k))
+        norms = pad.reshape(-1, tk, bk, tn, bn).square().sum((2, 4)).sqrt()
+        del pad
+        thr = torch.quantile(norms.reshape(norms.shape[0], -1).double(),
+                             sparsity, dim=1)
+        keep = norms.double() > thr[:, None, None]            # (p, tk, tn)
+        mask = keep.repeat_interleave(bk, 1).repeat_interleave(bn, 2)
+        out[s] = torch.where(mask[:, :k, :n], part, zero)
     return out.reshape(w.shape)
 
 
 def prune_stacked_magnitude(leaf, sparsity: float,
                             block: Tuple[int, int] = (16, 16)):
-    """Prune every (K, N) slice of a stacked (L, K, N) weight leaf; leaves
-    with fewer than three dims (embeddings, norms, the lm_head) are
-    returned untouched."""
+    """Prune every (K, N) slice of a stacked (L, K, N) weight leaf or 4-D
+    (L, E, K, N) expert leaf; leaves with fewer than three dims
+    (embeddings, norms, the lm_head) are returned untouched."""
     if not isinstance(leaf, torch.Tensor) or leaf.dim() < 3:
         return leaf
     return prune_magnitude(leaf, sparsity, block)
@@ -293,12 +345,16 @@ def _prune_stack_blocks(kn: torch.Tensor, scale: Optional[torch.Tensor],
 
 
 def _block_nonzeros(kn: torch.Tensor, bk: int, bn: int) -> np.ndarray:
-    """(P, tk, tn) non-zero element counts of each (bk, bn) block."""
+    """(P, tk, tn) non-zero element counts of each (bk, bn) block, slice
+    by slice of the stack."""
     p, k, n = kn.shape
     tk, tn = -(-k // bk), -(-n // bn)
-    nz = torch.nn.functional.pad((kn != 0).to(torch.int32),
-                                 (0, tn * bn - n, 0, tk * bk - k))
-    return nz.reshape(p, tk, bk, tn, bn).sum((2, 4)).cpu().numpy()
+    out = []
+    for s in leading_slices(p, k * n):
+        nz = torch.nn.functional.pad((kn[s] != 0).to(torch.int32),
+                                     (0, tn * bn - n, 0, tk * bk - k))
+        out.append(nz.reshape(-1, tk, bk, tn, bn).sum((2, 4)).cpu().numpy())
+    return np.concatenate(out)
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +384,13 @@ class PlannedWeight:
     blocks (``ops._gathered_planned_matmul``), from ``wgather`` — the
     listed blocks of each output column packed (..., tn, max_nnz, bk, bn),
     empty slots zero — when it was built.  On the card the block-sparse
-    kernel walks the lists and ``wgather`` is never read."""
+    kernel walks the lists and ``wgather`` is never read.
+
+    ``wpad`` is ``kn`` zero-padded to the block multiples (..., tk·bk,
+    tn·bn), made once at attach for a weight that is not one (``None``
+    otherwise), so the dispatch does not copy the weight every step.  The
+    padding blocks are zero and dead.  Expert leaves carry (L, E) in front:
+    ``index(l)`` gives the layer's (E, K, N) stack with its lists."""
     w: torch.Tensor          # (..., K, N) weight ((..., N, K) if transpose);
     #                          int8 payload when ``qscale`` is set
     wkidx: torch.Tensor      # (..., tn, max_nnz) int32
@@ -345,6 +407,7 @@ class PlannedWeight:
     transpose: bool = False
     gather: bool = False
     wgather: Optional[torch.Tensor] = None
+    wpad: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
@@ -356,6 +419,21 @@ class PlannedWeight:
         the kernel reads it (a view for transposed leaves; the int8 payload
         of a quantized plan)."""
         return self.w.transpose(-1, -2) if self.transpose else self.w
+
+    @property
+    def kn_padded(self) -> torch.Tensor:
+        """``kn`` at the block multiples: ``wpad`` when attach made one,
+        else ``kn`` itself, which must then be one (a copy of the weight
+        every call is refused)."""
+        if self.wpad is not None:
+            return self.wpad
+        k, n = self.kn.shape[-2:]
+        if k % self.bk or n % self.bn:
+            raise ValueError(
+                f"{self.site}: weight ({k}, {n}) is not a multiple of the "
+                f"({self.bk}, {self.bn}) blocks and carries no padded copy; "
+                f"attach the plan (or plan_weight) to build it once")
+        return self.kn
 
     @property
     def w_kn(self) -> torch.Tensor:
@@ -375,7 +453,8 @@ class PlannedWeight:
             site=self.site, mode=self.mode, bm=self.bm, bk=self.bk,
             bn=self.bn, max_nnz=self.max_nnz, tk=self.tk,
             transpose=self.transpose, gather=self.gather,
-            wgather=None if self.wgather is None else self.wgather[i])
+            wgather=None if self.wgather is None else self.wgather[i],
+            wpad=None if self.wpad is None else self.wpad[i])
 
     @property
     def shape(self):
@@ -414,20 +493,21 @@ def site_for_path(keys: Tuple[str, ...]) -> Optional[str]:
 
 def plannable_kn(leaf, site: str) -> Optional[torch.Tensor]:
     """Leaf → (P, K, N) stack (a view) for planning, or None: stacked
-    (L, K, N) matmul leaves, or the bare (N, K) lm_head transposed.  A
-    ``QuantizedLinear`` plans on its int8 payload, which is already
-    contraction-oriented (the lm_head's too)."""
+    (L, K, N) matmul leaves, 4-D (L, E, K, N) expert leaves (P = L·E), or
+    the bare (N, K) lm_head transposed.  A ``QuantizedLinear`` plans on its
+    int8 payload, which is already contraction-oriented (the lm_head's
+    too)."""
     if isinstance(leaf, QuantizedLinear):
         if site in TRANSPOSED_SITES:
             return leaf.q[None] if leaf.q.dim() == 2 else None
-        return leaf.q if leaf.q.dim() == 3 else None
-    if not isinstance(leaf, torch.Tensor):
+        leaf = leaf.q
+    elif not isinstance(leaf, torch.Tensor):
         return None
-    if site in TRANSPOSED_SITES:
+    elif site in TRANSPOSED_SITES:
         return leaf.t()[None] if leaf.dim() == 2 else None
-    if leaf.dim() != 3:
+    if leaf.dim() not in (3, 4):
         return None
-    return leaf
+    return leaf.reshape(-1, *leaf.shape[-2:])
 
 
 @dataclass
@@ -460,6 +540,41 @@ class SitePlan:
     #                               plans, exact for quantized ones)
     prune_ratio: float = 0.0  # tier ratio the lists were compiled at (0 =
     #                           the full plan); the weight is never pruned
+    expert_nnz: Optional[np.ndarray] = None   # (E,) non-zeros per expert
+    #                                           (expert leaves only)
+
+    def stats(self) -> Dict[str, object]:
+        """The plan's economics for this leaf (the reference's
+        ``SitePlan.stats``): an expert leaf adds the expert count, each
+        expert's element density and each expert's largest live count."""
+        saved = max(self.dense_bytes - self.zvc_bytes, 0.0)
+        out = {
+            "site": self.site, "mode": self.mode, "lead": list(self.lead),
+            "layers": int(self.lead[0]) if self.lead else 1,
+            "blocks": [self.bm, self.bk, self.bn],
+            "max_nnz": self.max_nnz, "tk": self.tk,
+            "wt_density": self.wt_density,
+            "block_density": self.block_density,
+            "dense_bytes": self.dense_bytes, "zvc_bytes": self.zvc_bytes,
+            "bytes_saved": saved, "quantized": self.quantized,
+            "prune_ratio": self.prune_ratio,
+            "int8_zvc_bytes": self.int8_zvc_bytes,
+            "bytes_saved_int8": max(self.dense_bytes - self.int8_zvc_bytes,
+                                    0.0),
+            "int8_vs_sparse_reduction": (
+                self.zvc_bytes / self.int8_zvc_bytes
+                if self.int8_zvc_bytes else 1.0),
+        }
+        if len(self.lead) > 1:
+            per_expert = self.size / self.lead[1]
+            out["experts"] = int(self.lead[1])
+            out["expert_wt_density"] = [float(v) / per_expert
+                                        for v in self.expert_nnz]
+            out["expert_max_nnz"] = [
+                int(v) for v in self.wkcnt.max(
+                    axis=tuple(i for i in range(self.wkcnt.ndim)
+                               if i != 1))]
+        return out
 
 
 @dataclass
@@ -508,7 +623,8 @@ class WeightSparsityPlan:
             dev = kn.device
             planned = torch.as_tensor(e.b_bitmap, device=dev)
             if verify:
-                live = block_bitmap(kn, e.bk, e.bn).reshape(planned.shape)
+                live = stack_block_bitmap(kn, e.bk, e.bn).reshape(
+                    planned.shape)
                 if e.prune_ratio:
                     bad = planned & ~live
                     why = ("pruned-tier plan lists blocks that are dead in "
@@ -526,6 +642,10 @@ class WeightSparsityPlan:
             gather = bool(e.prune_ratio)
             wkidx = torch.as_tensor(e.wkidx, device=dev)
             wkcnt = torch.as_tensor(e.wkcnt, device=dev)
+            stored = leaf.q if quantized else leaf
+            kn_full = (stored.transpose(-1, -2) if e.transpose and
+                       not quantized else stored)
+            padded = pad_to_blocks(kn_full, e.bk, e.bn)
             return PlannedWeight(
                 w=leaf.q if quantized else leaf, wkidx=wkidx, wkcnt=wkcnt,
                 b_bitmap=planned, qscale=leaf.scale if quantized else None,
@@ -533,7 +653,8 @@ class WeightSparsityPlan:
                 max_nnz=e.max_nnz, tk=e.tk, transpose=e.transpose,
                 gather=gather,
                 wgather=(_tier_gather_payload(kn, wkidx, wkcnt, e)
-                         if gather and dev.type == "cpu" else None))
+                         if gather and dev.type == "cpu" else None),
+                wpad=None if padded is kn_full else padded.contiguous())
         return map_leaves(wrap, params)
 
     def wt_densities(self) -> Dict[str, float]:
@@ -600,13 +721,65 @@ def _planned_leaves(params, schedules):
         yield path, site, d, kn, lead, stored, scale
 
 
+def _stack_lists(bmaps: np.ndarray, site: str, lead: Tuple[int, ...],
+                 cap: Optional[int] = None):
+    """(site_nnz, wkidx (P, tn, s), wkcnt (P, tn)) of a (P, tk, tn) bitmap
+    stack: the tight site-wide ``max_nnz`` (``cap`` overrides; too small a
+    cap raises, naming the slice's coordinates in ``lead``) and each
+    slice's ``weight_side_lists``."""
+    tn = bmaps.shape[2]
+    site_nnz = cap if cap is not None else max(int(bmaps.sum(1).max()), 1)
+    wkidx = np.zeros((bmaps.shape[0], tn, site_nnz), np.int32)
+    wkcnt = np.zeros((bmaps.shape[0], tn), np.int32)
+    for i in range(bmaps.shape[0]):
+        label = (f"{site}[{','.join(map(str, np.unravel_index(i, lead)))}]"
+                 if lead else site)
+        wkidx[i], wkcnt[i] = weight_side_lists(bmaps[i], site_nnz,
+                                               site=label)
+    return site_nnz, wkidx, wkcnt
+
+
+def plan_weight(w, *, site: str = "", mode: str = "weight", bm: int = 128,
+                bk: int = 128, bn: int = 128, max_nnz: Optional[int] = None,
+                transpose: bool = False) -> PlannedWeight:
+    """One weight compiled into a :class:`PlannedWeight`: (K, N), a
+    batched-expert (E, K, N) or a stacked (L, E, K, N) leaf (``transpose``:
+    stored (..., N, K), planned on the transposed view), with one tight
+    ``max_nnz`` over every slice unless given.  A ``QuantizedLinear`` is
+    planned on its int8 payload and carries its scales (never
+    transposed)."""
+    quantized = isinstance(w, QuantizedLinear)
+    if quantized and transpose:
+        raise ValueError("quantized weights are stored contraction-oriented "
+                         "— plan them with transpose=False")
+    stored = w.q if quantized else w
+    kn = stored.transpose(-1, -2) if transpose else stored
+    lead = tuple(int(v) for v in kn.shape[:-2])
+    flat = kn.reshape(-1, *kn.shape[-2:])
+    bmaps = stack_block_bitmap(flat, bk, bn).cpu().numpy()
+    tk, tn = bmaps.shape[1:]
+    site_nnz, wkidx, wkcnt = _stack_lists(bmaps, site, lead, max_nnz)
+    dev = stored.device
+    padded = pad_to_blocks(kn, bk, bn)
+    return PlannedWeight(
+        w=stored,
+        wkidx=torch.as_tensor(wkidx.reshape(lead + (tn, site_nnz)),
+                              device=dev),
+        wkcnt=torch.as_tensor(wkcnt.reshape(lead + (tn,)), device=dev),
+        b_bitmap=torch.as_tensor(bmaps.reshape(lead + (tk, tn)), device=dev),
+        qscale=w.scale if quantized else None, site=site, mode=mode, bm=bm,
+        bk=bk, bn=bn, max_nnz=int(site_nnz), tk=int(tk),
+        transpose=transpose,
+        wpad=None if padded is kn else padded.contiguous())
+
+
 def measure_weight_densities(params, schedules) -> Dict[str, float]:
     """Per-site element density of the actual param tensors — the cheap
     first pass of plan bring-up (a non-zero count per planned leaf)."""
     nnz: Dict[str, float] = {}
     size: Dict[str, float] = {}
     for _, site, _, _, _, w, _ in _planned_leaves(params, schedules):
-        nnz[site] = nnz.get(site, 0.0) + float(torch.count_nonzero(w))
+        nnz[site] = nnz.get(site, 0.0) + float(count_nonzero(w))
         size[site] = size.get(site, 0.0) + float(w.numel())
     return {s: nnz[s] / size[s] for s in size if size[s]}
 
@@ -648,9 +821,13 @@ def compile_weight_plan(params, schedules, *,
         bm = max(min(d.schedule.bm, d.m), 1)
         bk = max(min(d.schedule.bk, k), 1)
         bn = max(min(d.schedule.bn, n), 1)
-        bmaps = block_bitmap(kn, bk, bn).cpu().numpy()        # (P, tk, tn)
+        bmaps = stack_block_bitmap(kn, bk, bn).cpu().numpy()  # (P, tk, tn)
         tk, tn = bmaps.shape[1:]
-        nnz = int(torch.count_nonzero(w))
+        nnz = count_nonzero(w)
+        expert_nnz = None
+        if len(lead) > 1:             # (L, E, K, N): non-zeros per expert
+            expert_nnz = np.array([count_nonzero(w[:, i])
+                                   for i in range(lead[1])], np.int64)
         size = int(w.numel())
         dispatched = nnz
         keep = (_prune_stack_blocks(kn, scale, bk, bn, prune_ratio)
@@ -658,15 +835,8 @@ def compile_weight_plan(params, schedules, *,
         if keep is not None:
             bmaps = bmaps & keep
             dispatched = int((_block_nonzeros(kn, bk, bn) * keep).sum())
-        cap = (max_nnz or {}).get(site)
-        site_nnz = cap if cap is not None else max(
-            int(bmaps.sum(1).max()), 1)
-        wkidx = np.zeros((bmaps.shape[0], tn, site_nnz), np.int32)
-        wkcnt = np.zeros((bmaps.shape[0], tn), np.int32)
-        for i in range(bmaps.shape[0]):
-            label = f"{site}[{i}]" if lead else site
-            wkidx[i], wkcnt[i] = weight_side_lists(bmaps[i], site_nnz,
-                                                   site=label)
+        site_nnz, wkidx, wkcnt = _stack_lists(
+            bmaps, site, lead, (max_nnz or {}).get(site))
         quantized = w.dtype == torch.int8
         elem_bytes = (ref_elem_bytes if ref_elem_bytes is not None
                       else (2 if quantized else w.element_size()))
@@ -684,7 +854,8 @@ def compile_weight_plan(params, schedules, *,
             zvc_bytes=zvc_weight_bytes(size, nnz, elem_bytes=elem_bytes),
             quantized=quantized,
             int8_zvc_bytes=zvc_weight_bytes(size, nnz, quantized=True,
-                                            n_channels=kn.shape[0] * n))
+                                            n_channels=kn.shape[0] * n),
+            expert_nnz=expert_nnz)
     return plan
 
 

@@ -28,15 +28,16 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of every exported entry point (argtypes, restype int =
 # the cudaError_t of the launch)
 SIGNATURES = {
     "block_sparse": {
-        "bs_matmul": [_P] * 6 + [_I] * 14 + [_P],
-        "bs_matmul_scaled": [_P] * 7 + [_I] * 14 + [_P],
+        "bs_matmul": [_P] * 6 + [_I] * 15 + [_L] * 4 + [_P],
+        "bs_matmul_scaled": [_P] * 7 + [_I] * 15 + [_L] * 4 + [_P],
     },
     "flex_matmul": {
-        "fm_output": [_P] * 4 + [_I] * 13 + [_P],
+        "fm_output": [_P] * 4 + [_I] * 14 + [_L] * 2 + [_P],
         "fm_weight": [_P] * 4 + [_I] * 12 + [_P],
         "fm_input": [_P] * 4 + [_I] * 12 + [_P],
     },
@@ -174,11 +175,11 @@ def dtype_code(dtype, allowed=(torch.float32, torch.bfloat16)) -> int:
 
 
 def b_layout(b) -> int:
-    """1 when ``b`` (K, N) is the transpose of a row-major (N, K) matrix,
-    0 when it is row-major itself; anything else is refused."""
+    """1 when ``b`` (..., K, N) is the transpose of a row-major (..., N, K)
+    stack, 0 when it is row-major itself; anything else is refused."""
     if b.is_contiguous():
         return 0
-    if b.t().is_contiguous():
+    if b.transpose(-1, -2).is_contiguous():
         return 1
     raise ValueError(f"B of shape {tuple(b.shape)} and strides {b.stride()}"
                      f" is neither row-major nor a transposed row-major "

@@ -49,20 +49,31 @@
 // ``ldb`` = n, or k when ``b_trans``; ``ws`` null, ``rows`` and ``seg`` 0);
 // bf16: the tensor-core kernel of os_mma.cuh under the plan of
 // ``output_grid``, as ``fm_output`` runs it (``ws``: the segment partials).
+// ``experts`` products of one shape (the MoE expert contraction (E, m, k)
+// @ (E, k, n), bf16, skinny regime, B row-major) run in one launch, the
+// grid's y axis over the experts: expert e's A starts ``ea`` elements after
+// expert e-1's, its B ``eb`` after, its CSB lists ``ekidx`` / ``ekcnt``
+// after; its output (m, n) and its (segments, m, n) partials follow the
+// previous expert's.  Each expert equals its own launch bit for bit.  A
+// single product passes ``experts`` 1 (the strides are then unread).
 extern "C" int bs_matmul(const void* a, const void* b, void* out, float* ws,
                          const int* kidx, const int* kcnt, int m, int n,
                          int k, int lda, int ldb, int bm, int bn, int bk,
                          int max_nnz, int rows, int seg, int b_trans,
-                         int in_dtype, int out_dtype, void* stream) {
+                         int in_dtype, int out_dtype, int experts,
+                         long long ea, long long eb, long long ekidx,
+                         long long ekcnt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == rt::kBF16) {
-    const osm::OsArgs p{static_cast<const __nv_bfloat16*>(a),
-                        static_cast<const __nv_bfloat16*>(b),
-                        out, ws, kidx, kcnt, m, n, k, lda, ldb, bm, bn, bk,
-                        max_nnz, rows, seg};
+    osm::OsArgs p{static_cast<const __nv_bfloat16*>(a),
+                  static_cast<const __nv_bfloat16*>(b),
+                  out, ws, kidx, kcnt, m, n, k, lda, ldb, bm, bn, bk,
+                  max_nnz, rows, seg};
+    osm::set_experts(p, experts, ea, eb, ekidx, ekcnt);
     return osm::launch<true>(p, b_trans, out_dtype, s);
   }
-  if (ws || rows || seg || lda != k || ldb != (b_trans ? k : n))
+  if (experts != 1 || ws || rows || seg || lda != k ||
+      ldb != (b_trans ? k : n))
     return (int)cudaErrorInvalidValue;
   const rt::TileArgs t{a, b, nullptr, out, kidx, kcnt, m, n, k,
                        bm, bn, bk, max_nnz, b_trans};
@@ -70,22 +81,27 @@ extern "C" int bs_matmul(const void* a, const void* b, void* out, float* ws,
 }
 
 // ``bs_matmul`` over an int8 payload ``q`` with per-column ``scale``: the
-// same arguments and routes (bf16 A on the tensor cores, Q row-major).
+// same arguments and routes (bf16 A on the tensor cores, Q row-major);
+// expert e's scales (n,) follow expert e-1's.
 extern "C" int bs_matmul_scaled(const void* a, const void* q,
                                 const float* scale, void* out, float* ws,
                                 const int* kidx, const int* kcnt, int m,
                                 int n, int k, int lda, int ldb, int bm,
                                 int bn, int bk, int max_nnz, int rows,
                                 int seg, int b_trans, int in_dtype,
-                                int out_dtype, void* stream) {
+                                int out_dtype, int experts, long long ea,
+                                long long eb, long long ekidx,
+                                long long ekcnt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == rt::kBF16) {
-    const osm::OsArgs p{static_cast<const __nv_bfloat16*>(a), q, out, ws,
-                        kidx, kcnt, m, n, k, lda, ldb, bm, bn, bk, max_nnz,
-                        rows, seg, scale};
+    osm::OsArgs p{static_cast<const __nv_bfloat16*>(a), q, out, ws,
+                  kidx, kcnt, m, n, k, lda, ldb, bm, bn, bk, max_nnz,
+                  rows, seg, scale};
+    osm::set_experts(p, experts, ea, eb, ekidx, ekcnt);
     return osm::launch<true, int8_t>(p, b_trans, out_dtype, s);
   }
-  if (ws || rows || seg || lda != k || ldb != (b_trans ? k : n))
+  if (experts != 1 || ws || rows || seg || lda != k ||
+      ldb != (b_trans ? k : n))
     return (int)cudaErrorInvalidValue;
   const rt::TileArgs t{a, q, scale, out, kidx, kcnt, m, n, k,
                        bm, bn, bk, max_nnz, b_trans};

@@ -471,20 +471,28 @@ int dispatch_mma(const void* a, const void* b, float* out, float* ws, int m,
 // ``ldb`` = n, or k when ``b_trans``; ``ws`` null, ``rows`` and ``seg`` 0);
 // bf16: the tensor-core kernel of os_mma.cuh under the plan of
 // ``output_grid``: ``rows`` and ``seg``, and ``ws`` the (segments, m, n)
-// float32 partials when there is more than one segment.
+// float32 partials when there is more than one segment.  ``experts``
+// products of one shape (the dense MoE expert contraction, bf16, skinny
+// regime, B row-major) run in one launch, the grid's y axis over the
+// experts (expert e's A ``ea`` and B ``eb`` elements after expert e-1's,
+// outputs and partials following each other), each equal to its own
+// launch bit for bit; a single product passes ``experts`` 1.
 extern "C" int fm_output(const void* a, const void* b, void* out, float* ws,
                          int m, int n, int k, int lda, int ldb, int bm, int bn,
                          int bk, int rows, int seg, int b_trans, int in_dtype,
-                         int out_dtype, void* stream) {
+                         int out_dtype, int experts, long long ea,
+                         long long eb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == rt::kBF16) {
-    const osm::OsArgs p{static_cast<const __nv_bfloat16*>(a),
-                        static_cast<const __nv_bfloat16*>(b),
-                        out, ws, nullptr, nullptr, m, n, k, lda, ldb, bm,
-                        bn, bk, 0, rows, seg};
+    osm::OsArgs p{static_cast<const __nv_bfloat16*>(a),
+                  static_cast<const __nv_bfloat16*>(b),
+                  out, ws, nullptr, nullptr, m, n, k, lda, ldb, bm,
+                  bn, bk, 0, rows, seg};
+    osm::set_experts(p, experts, ea, eb, 0, 0);
     return osm::launch<false>(p, b_trans, out_dtype, s);
   }
-  if (ws || rows || seg || lda != k || ldb != (b_trans ? k : n))
+  if (experts != 1 || ws || rows || seg || lda != k ||
+      ldb != (b_trans ? k : n))
     return (int)cudaErrorInvalidValue;
   const rt::TileArgs t{a, b, nullptr, out, nullptr, nullptr, m, n, k,
                        bm, bn, bk, 0, b_trans};
@@ -524,3 +532,4 @@ extern "C" int fm_input(const void* a, const void* b, float* out, float* ws,
   return rt::dispatch_revisit<false>(a, b, out, m, n, k, bm, bn, bk, gy,
                                      b_trans, s);
 }
+

@@ -66,6 +66,12 @@
 //     A and 8 KB of int8 B, which the consumers widen into one of two bf16
 //     B panels, so that widening chunk i + 1 overlaps the wgmma of chunk
 //     i.  Two CTAs share an SM.  K is not split.
+// The skinny regime also runs E products of one shape in one launch
+// (``experts`` > 1, the MoE expert contraction (E, C, K) @ (E, K, N)): the
+// grid's y axis picks the expert, whose operands, lists, scales, output and
+// workspace sit at fixed strides from the first; each expert's CTAs do
+// exactly what a launch of that expert alone does, so the batched launch
+// equals E single launches bit for bit.
 // Operands are row-major with 16-byte aligned bases and row strides (lda,
 // ldb, in elements; the wrappers copy an operand that is not into rows
 // padded with zeros); an int8 B is (k, n), never read transposed.  Every
@@ -112,7 +118,24 @@ struct OsArgs {
   int rows;               // the plan's CTA rows: kSkinnyRows or kWideRows
   int seg;                // K elements per segment (skinny); 0: all of K
   const float* scale;     // (n,) per-column scale of an int8 B, else null
+  // an expert-batched launch (skinny only): ``experts`` products, expert e's
+  // A at a + e·ea, B at b + e·eb, lists at kidx + e·ekidx and kcnt + e·ekcnt
+  // (elements), scale at scale + e·n, output at out + e·m·n, partials at
+  // ws + e·segments·m·n
+  int experts = 1;
+  long long ea = 0, eb = 0, ekidx = 0, ekcnt = 0;
 };
+
+// Make ``p`` an expert-batched launch of ``experts`` products at the given
+// element strides (``launch`` checks them when ``experts`` > 1).
+inline void set_experts(OsArgs& p, int experts, long long ea, long long eb,
+                        long long ekidx, long long ekcnt) {
+  p.experts = experts;
+  p.ea = ea;
+  p.eb = eb;
+  p.ekidx = ekidx;
+  p.ekcnt = ekcnt;
+}
 
 template <typename TB>
 constexpr bool kInt8 = std::is_same_v<TB, int8_t>;
@@ -289,9 +312,25 @@ __host__ __device__ inline size_t skinny_smem(int per) {
          (size_t)list_words(per) * sizeof(int);
 }
 
-// Block (strip, 0, segment) = (blockIdx.x, 0, blockIdx.z).
+// The arguments of expert ``e`` of an expert-batched launch alone.
+template <typename To, typename TB>
+__device__ __forceinline__ OsArgs expert_args(const OsArgs& p0, int e,
+                                              int segments) {
+  OsArgs p = p0;
+  p.experts = 1;
+  p.a += e * p0.ea;
+  p.b = static_cast<const TB*>(p0.b) + e * p0.eb;
+  p.out = static_cast<To*>(p0.out) + (size_t)e * p0.m * p0.n;
+  if (p0.ws) p.ws += (size_t)e * segments * p0.m * p0.n;
+  if (p0.kidx) p.kidx += e * p0.ekidx;
+  if (p0.kcnt) p.kcnt += e * p0.ekcnt;
+  if (p0.scale) p.scale += (size_t)e * p0.n;
+  return p;
+}
+
+// Block (strip, expert, segment) = (blockIdx.x, blockIdx.y, blockIdx.z).
 template <bool kSparse, bool BT, typename To, typename TB>
-__device__ __forceinline__ void skinny_body(const OsArgs& p) {
+__device__ __forceinline__ void skinny_body(const OsArgs& p0) {
   constexpr int S = kSkinnyStages;
   static_assert(!(kInt8<TB> && BT), "an int8 B is read row-major");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -299,10 +338,12 @@ __device__ __forceinline__ void skinny_body(const OsArgs& p) {
   bf16* As = reinterpret_cast<bf16*>(Bs + S * kChunk * kCols);  // S x 16x64
   bf16* Bw = As + S * kSkinnyRows * kChunk;    // int8: the widened chunk
   int* words = reinterpret_cast<int*>(Bw + (kInt8<TB> ? kChunk * kCols : 0));
+  const int chunks = (p0.k + kChunk - 1) / kChunk, per = p0.seg / kChunk;
+  const OsArgs p = expert_args<To, TB>(p0, blockIdx.y,
+                                       (chunks + per - 1) / per);
   const TB* b = static_cast<const TB*>(p.b);
   const int n0 = blockIdx.x * kCols;
   const int ncols = min(kCols, p.n - n0), mrows = p.m;
-  const int chunks = (p.k + kChunk - 1) / kChunk, per = p.seg / kChunk;
   const int c0 = blockIdx.z * per, c1 = min(chunks, c0 + per);
   const int nc = build_chunks<kSparse>(words, p, c0, c1, 0, mrows, n0,
                                        ncols);
@@ -395,17 +436,21 @@ bsq_kernel_mma(const OsArgs p) {
 
 // out = ((ws[0] + ws[1]) + ws[2]) + ..., one rounding per add, then times
 // the column's ``scale`` when there is one (an int8 product), then the
-// output's type: the segment partials in ascending order.
+// output's type: the segment partials in ascending order.  ``total`` =
+// experts · mn outputs: expert e's partials (segments, m, n) start at
+// ws + e·segments·mn, its scales at scale + e·n.
 template <typename To>
 __global__ void seg_sum_kernel(const float* __restrict__ ws,
                                const float* __restrict__ scale,
-                               To* __restrict__ out, int mn, int n,
-                               int segments) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = ws[i];
-  for (int g = 1; g < segments; ++g) s = __fadd_rn(s, ws[(size_t)g * mn + i]);
-  if (scale) s = __fmul_rn(s, scale[i % n]);
+                               To* __restrict__ out, long long total, int mn,
+                               int n, int segments) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long e = i / mn, j = i - e * mn;
+  const float* w = ws + e * segments * mn + j;
+  float s = w[0];
+  for (int g = 1; g < segments; ++g) s = __fadd_rn(s, w[(size_t)g * mn]);
+  if (scale) s = __fmul_rn(s, scale[e * n + j % n]);
   out[i] = rt::from_f<To>(s);
 }
 
@@ -725,11 +770,12 @@ int launch_typed(const OsArgs& p, cudaStream_t s) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    kern<<<dim3(strips, 1, segments), kSkinnyThreads, smem, s>>>(p);
+    kern<<<dim3(strips, p.experts, segments), kSkinnyThreads, smem, s>>>(p);
     if (segments > 1) {
       const int mn = p.m * p.n;
-      seg_sum_kernel<To><<<(mn + 255) / 256, 256, 0, s>>>(
-          p.ws, p.scale, static_cast<To*>(p.out), mn, p.n, segments);
+      const long long total = (long long)p.experts * mn;
+      seg_sum_kernel<To><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+          p.ws, p.scale, static_cast<To*>(p.out), total, mn, p.n, segments);
     }
     return (int)cudaGetLastError();
   }
@@ -758,11 +804,19 @@ int launch_typed(const OsArgs& p, cudaStream_t s) {
 // tiles are i = row / bm.  ``TB``: B's type, bf16 (``p.scale`` null) or an
 // int8 payload (``p.scale`` its column scales; row-major only).  Operands
 // need 16-byte aligned bases and row strides (TMA's and cp.async's unit).
-// Refuses anything else.
+// ``p.experts`` > 1 batches that many products of the skinny regime (B
+// row-major; every expert's operands 16-byte aligned, lists and scales
+// non-null as for one).  Refuses anything else.
 template <bool kSparse, typename TB = bf16>
 int launch(const OsArgs& p, int b_trans, int out_dtype, cudaStream_t s) {
   if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.bm <= 0 || p.bn <= 0 ||
-      p.bk <= 0)
+      p.bk <= 0 || p.experts <= 0 || p.experts > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (p.experts > 1 &&
+      (p.rows != kSkinnyRows || b_trans || p.ea < (long long)p.m * p.lda ||
+       p.eb < (long long)p.k * p.ldb || (p.ea * 2) % 16 ||
+       (p.eb * (long long)sizeof(TB)) % 16 ||
+       (kSparse && (p.ekidx <= 0 || p.ekcnt <= 0))))
     return (int)cudaErrorInvalidValue;
   const int chunks = (p.k + kChunk - 1) / kChunk;
   const bool plan_ok =

@@ -21,6 +21,12 @@ descriptor picks the entry point and the (bm, bn, bk) blocks:
 At decode (M = n_slots) all three are bound by device-memory bytes (the
 weight read once).  CPU tensors take the plain version
 (``ref.matmul_ref``); CUDA tensors launch a kernel or raise.
+
+Over a leading expert axis — the MoE expert contraction (E, C, K) @
+(E, K, N) — bf16 output-stationary at C <= 16 (decode) is one launch over
+all E experts (the grid's y axis over the experts, each expert bit-equal
+to its own launch); anything else runs the 2-D kernels expert by expert,
+as the reference's Pallas path unrolls them.
 """
 from __future__ import annotations
 
@@ -28,31 +34,22 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.scheduler import H100
+from repro_torch.core.stacks import pad_to_blocks
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import matmul_ref
+from repro_torch.kernels.ref import expert_matmul_ref, matmul_ref
 
 DEFAULT_BLOCKS = (128, 128, 128)
 
 STATIONARITIES = ("output", "weight", "input")
 # launches of each CUDA kernel (bumped only where it is launched):
 # ``output_sum`` / ``weight_sum`` / ``input_sum`` are the second kernel of
-# a split output- / weight- / input-stationary grid
+# a split output- / weight- / input-stationary grid; ``output_experts``
+# (+ ``_sum``) the output-stationary kernel's expert-batched launches
 LAUNCHES = {"output": 0, "weight": 0, "input": 0, "output_sum": 0,
-            "weight_sum": 0, "input_sum": 0}
-
-
-def pad_to_blocks(x: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
-    """Zero-pad a 2-D operand up to block multiples (a no-op, and no copy,
-    when it already is one).  Padding blocks are all-zero, so their bitmap
-    bits are dead and the block-sparse path skips them."""
-    p0 = (-x.shape[0]) % m0
-    p1 = (-x.shape[1]) % m1
-    if p0 or p1:
-        x = F.pad(x, (0, p1, 0, p0))
-    return x
+            "weight_sum": 0, "input_sum": 0, "output_experts": 0,
+            "output_experts_sum": 0}
 
 
 def _groups(own: int, other: int, device) -> int:
@@ -254,42 +251,49 @@ def output_grid(m: int, n: int, k: int) -> OutputGrid:
                       (segments, m, n) if segments > 1 else None)
 
 
-def output_workspace(plan: OutputGrid, device) -> Optional[torch.Tensor]:
-    """The float32 segment partials of ``plan``, or None (one segment)."""
+def output_workspace(plan: OutputGrid, device,
+                     lead: Tuple[int, ...] = ()) -> Optional[torch.Tensor]:
+    """The float32 segment partials of ``plan`` — lead + (segments, m, n),
+    ``lead`` (E,) for an expert-batched launch — or None (one segment)."""
     if plan.workspace is None:
         return None
-    return torch.empty(plan.workspace, dtype=torch.float32, device=device)
+    return torch.empty(tuple(lead) + plan.workspace, dtype=torch.float32,
+                       device=device)
 
 
 def aligned_rows(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """A row-major bf16 or int8 matrix as the tensor-core kernels read it
-    (TMA and ``cp.async`` move 16-byte units), and its row stride in
-    elements: ``x`` itself when its base and row stride are 16-byte
-    multiples, else a copy with each row zero-padded to a multiple of 16
-    bytes (8 bf16 or 16 int8 elements).  The kernels still take the logical
-    K and N, and read nothing past them."""
-    rows, cols = x.shape
+    """A row-major bf16 or int8 matrix, or a stack of them (..., rows,
+    cols), as the tensor-core kernels read it (TMA and ``cp.async`` move
+    16-byte units), and its row stride in elements: ``x`` itself when it is
+    contiguous and its base and row stride are 16-byte multiples, else a
+    copy with each row zero-padded to a multiple of 16 bytes (8 bf16 or 16
+    int8 elements); in a stack each matrix then starts rows·stride
+    elements after the previous one.  The kernels still take the logical K
+    and N, and read nothing past them."""
+    *lead, cols = x.shape
     unit = 16 // x.element_size()
     ld = -(-cols // unit) * unit
-    if ld == cols and x.data_ptr() % 16 == 0:
+    if ld == cols and x.is_contiguous() and x.data_ptr() % 16 == 0:
         return x, ld
-    out = x.new_zeros((rows, ld))
-    out[:, :cols] = x
+    out = x.new_zeros((*lead, ld))
+    out[..., :cols] = x
     return out, ld
 
 
 def tensor_core_operands(a: torch.Tensor, b: torch.Tensor, m: int):
     """What an output-stationary tensor-core launch of the ``m`` unpadded
-    rows of A[:, K] @ B[K, N] takes (``fm_output``, ``bs_matmul``,
-    ``i8_matmul``, ``bs_matmul_scaled``): (A, lda, B's storage, ldb, plan,
-    workspace) — A and B's row-major storage, (K, N) or for a transposed
-    ``b`` (N, K), as ``aligned_rows`` gives them, the plan
-    ``output_grid(m, N, K)`` and its workspace or None."""
-    k, n = b.shape
+    rows of A[..., :, K] @ B[..., K, N] takes (``fm_output``,
+    ``bs_matmul``, ``i8_matmul``, ``bs_matmul_scaled``; one product or a
+    stack of them): (A, lda, B's storage, ldb, plan, workspace) — A and B's
+    row-major storage, (K, N) or for a transposed ``b`` (N, K), as
+    ``aligned_rows`` gives them, the plan ``output_grid(m, N, K)`` and its
+    workspace (with the stack's leading axis) or None.  The kernels read
+    A's first ``m`` rows (of each matrix of a stack)."""
+    k, n = b.shape[-2:]
     plan = output_grid(m, n, k)
-    ws = output_workspace(plan, a.device)
+    ws = output_workspace(plan, a.device, a.shape[:-2])
     a, lda = aligned_rows(a)
-    b, ldb = aligned_rows(b.t() if build.b_layout(b) else b)
+    b, ldb = aligned_rows(b.transpose(-1, -2) if build.b_layout(b) else b)
     return a, lda, b, ldb, plan, ws
 
 
@@ -308,31 +312,38 @@ def _sms(device) -> int:
 
 def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
             bn: int, bk: int, out_dtype, rows: int) -> torch.Tensor:
-    """The kernel for padded operands; ``rows``: A's rows before padding."""
+    """The kernel for padded operands; ``rows``: A's rows before padding.
+    A leading expert axis reaches only bf16 output-stationary at rows <= 16
+    (one launch over the experts)."""
     if not a.is_contiguous():
         raise ValueError("A must be row-major contiguous")
     b_trans = build.b_layout(b)
-    m, k = a.shape
-    n = b.shape[1]
+    lead = tuple(a.shape[:-2])
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
     tm, tn = m // bm, n // bn
     lib = build.library("flex_matmul")
     stream = build.stream_ptr(a.device)
     code = build.dtype_code(a.dtype)
     second = None                 # the key of a second kernel's launch
     grid = None                   # the plan of a tensor-core launch
+    key = stationarity
     if stationarity == "output":
         ws, args = None, (k, k if b_trans else n, bm, bn, bk, 0, 0)
+        strides = (0, 0)
         if a.dtype == torch.bfloat16:
             # the tensor cores take ragged M: the unpadded rows only, whose
             # count picks the plan (as for ``bs_matmul``)
             m = rows
             a, lda, b, ldb, grid, ws = tensor_core_operands(a, b, m)
             args = (lda, ldb, bm, bn, bk, grid.rows, grid.segment)
-        out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+            strides = (a.shape[-2] * lda, b.shape[-2] * ldb)
+        out = torch.empty(lead + (m, n), dtype=out_dtype, device=a.device)
         err = lib.fm_output(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                             None if ws is None else ws.data_ptr(), m, n, k,
                             *args, b_trans, code, build.dtype_code(out_dtype),
-                            stream)
+                            lead[0] if lead else 1, *strides, stream)
+        key += "_experts" if lead else ""
     elif stationarity in ("weight", "input"):
         # the revisit dataflows accumulate in a float32 output, cast after
         weight = stationarity == "weight"
@@ -353,11 +364,11 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
             *args, b_trans, code, stream)
     else:
         raise ValueError(f"unknown stationarity {stationarity!r}")
-    build.check(err, f"flex_matmul[{stationarity}]")
+    build.check(err, f"flex_matmul[{key}]")
     if grid is not None:          # with its segment sum, if it has one
-        count_launch(LAUNCHES, stationarity, grid)
+        count_launch(LAUNCHES, key, grid)
     else:
-        LAUNCHES[stationarity] += 1
+        LAUNCHES[key] += 1
         if second is not None:    # a summing kernel ran after it
             LAUNCHES[second] += 1
     return out.to(out_dtype)
@@ -371,22 +382,36 @@ def flex_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule=None,
     output-stationary default with 128³ blocks.  Blocks are clamped to the
     operand dims and the operands zero-padded to block multiples.  ``b``
     may be the transposed view of a row-major (N, K) matrix (the stored
-    lm_head), which the kernels read in place."""
+    lm_head), which the kernels read in place.
+
+    Over a leading expert axis, A[E, M, K] @ B[E, K, N] → C[E, M, N],
+    expert e's product as the 2-D call runs it: on CUDA a bf16
+    output-stationary product of at most ``OS_SKINNY_ROWS`` rows is one
+    launch over every expert, each expert bit-equal to its own launch;
+    other stationarities, float32 and more rows launch the 2-D kernels
+    expert by expert.  CPU tensors take the plain version."""
     if schedule is None:
         stationarity, (bm, bn, bk) = "output", DEFAULT_BLOCKS
     else:
         stationarity = schedule.stationarity
         bm, bn, bk = schedule.bm, schedule.bn, schedule.bk
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    if (a.dim() not in (2, 3) or b.dim() != a.dim()
+            or a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]):
         raise ValueError(f"bad operand shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     if a.device != b.device or a.dtype != b.dtype:
         raise ValueError(f"operands differ: {a.device}/{a.dtype} vs "
                          f"{b.device}/{b.dtype}")
-    m, k = a.shape
-    n = b.shape[1]
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
     bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
     out_dtype = out_dtype or a.dtype
+    if a.device.type == "cuda" and a.dim() == 3 and not (
+            stationarity == "output" and a.dtype == torch.bfloat16
+            and m <= OS_SKINNY_ROWS):
+        return torch.stack([flex_matmul(a[i], b[i], schedule=schedule,
+                                        out_dtype=out_dtype)
+                            for i in range(a.shape[0])])
     ap = pad_to_blocks(a, bm, bk)
     bp = pad_to_blocks(b, bk, bn)
     if a.device.type == "cpu":
@@ -394,9 +419,10 @@ def flex_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule=None,
             raise ValueError(f"unknown stationarity {stationarity!r}")
         # row-major B: the CPU library's order then does not depend on
         # B's layout, as the kernels' does not
-        out = matmul_ref(ap, bp.contiguous()).to(out_dtype)
+        ref = expert_matmul_ref if a.dim() == 3 else matmul_ref
+        out = ref(ap, bp.contiguous()).to(out_dtype)
     elif a.device.type == "cuda":
         out = _launch(ap, bp, stationarity, bm, bn, bk, out_dtype, m)
     else:
         raise ValueError(f"unsupported device {a.device}")
-    return out[:m, :n]
+    return out[..., :m, :n]

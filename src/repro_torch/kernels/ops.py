@@ -1,7 +1,8 @@
 """Per-site matmul dispatch (the JAX package's ``kernels/ops.py``).
 
-Every matmul of the dense stack routes through ``flex_matmul`` (2-D or
-stacked leaves) or ``head_matmul`` (the lm_head contraction).  A
+Every matmul of the model routes through ``flex_matmul`` (2-D or stacked
+leaves), ``flex_expert_matmul`` (the MoE expert contraction (E, C, K) @
+(E, K, N)) or ``head_matmul`` (the lm_head contraction).  A
 thread-local ``ExecConfig`` carries the descriptor table and decides:
 
   1. ``w`` is a ``PlannedWeight`` (a precompiled plan was attached at
@@ -20,6 +21,12 @@ thread-local ``ExecConfig`` carries the descriptor table and decides:
   4. ``use_kernels`` → the schedule-flexible matmul kernel under the site's
      (stationarity, blocks);
   5. otherwise a plain float32-accumulated ``torch.matmul``.
+
+``flex_expert_matmul`` takes the same routes over a leading expert axis —
+a planned (L, E, K, N) leaf's layer slice, trace-time metadata, the dense
+kernel, and an unplanned int8 stack dequantized first — with the metadata
+built once for all E experts and, at decode, one kernel launch per site
+over all of them (the reference launches one Pallas kernel per expert).
 
 The flash branch of full-sequence attention routes through
 ``flash_attention``: the flash-attention kernel with ``use_kernels``, else
@@ -167,7 +174,7 @@ def _record_act_stats(site: str, x2: torch.Tensor) -> None:
         return
     rows = getattr(_state, "rows", None)
     nz = x2 != 0
-    if rows is not None and rows.shape[0] == x2.shape[0]:
+    if rows is not None and x2.dim() == 2 and rows.shape[0] == x2.shape[0]:
         live = (nz & rows[:, None]).sum()
         total = rows.sum() * x2.shape[1]
     else:
@@ -185,20 +192,21 @@ def _site_descriptor(site: str, cfg: ExecConfig):
 def _run_block_sparse(xp: torch.Tensor, wp: torch.Tensor, meta, m: int,
                       n: int, scale=None) -> torch.Tensor:
     """Kernel dispatch + unpad tail shared by both metadata sources
-    (``scale``: the padded per-column scales of an int8 ``wp``)."""
+    (``scale``: the padded per-column scales of an int8 ``wp``); (E, M, K)
+    operands carry per-expert metadata."""
     out = bs.block_sparse_matmul(xp, wp, meta, out_dtype=torch.float32,
                                  scale=scale, rows=m)
-    return out[:, :n]
+    return out[..., :n]
 
 
 def _sparse_site_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str,
                         sched, site: str = "") -> torch.Tensor:
-    """(M, K) @ (K, N) through the CSB path with metadata built from the
-    operands at the site schedule's (bm, bk, bn) granularity (inputs
-    zero-padded to block multiples; padding blocks are dead).  Returns
-    float32."""
-    m, k = x2.shape
-    n = w.shape[1]
+    """(M, K) @ (K, N), or (E, M, K) @ (E, K, N) expert by expert, through
+    the CSB path with metadata built from the operands at the site
+    schedule's (bm, bk, bn) granularity (inputs zero-padded to block
+    multiples; padding blocks are dead).  Returns float32."""
+    m, k = x2.shape[-2:]
+    n = w.shape[-1]
     if mode == "two_sided":
         _record_act_stats(site, x2)
     if sched is not None:
@@ -208,30 +216,34 @@ def _sparse_site_matmul(x2: torch.Tensor, w: torch.Tensor, mode: str,
     bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
     xp = pad_to_blocks(x2, bm, bk)
     wp = pad_to_blocks(w, bk, bn)
-    tm, tk = xp.shape[0] // bm, xp.shape[1] // bk
+    tm, tk = xp.shape[-2] // bm, xp.shape[-1] // bk
     b_bitmap = sparsity_lib.block_bitmap(wp, bk, bn)
     if mode == "two_sided":
         a_bitmap = sparsity_lib.block_bitmap(xp, bm, bk)
     else:                             # weight-sided: IF bitmap all ones
-        a_bitmap = torch.ones((tm, tk), dtype=torch.bool, device=x2.device)
+        a_bitmap = torch.ones(xp.shape[:-2] + (tm, tk), dtype=torch.bool,
+                              device=x2.device)
     meta = sparsity_lib.build_block_sparse_meta(a_bitmap, b_bitmap,
                                                 site=site)
     return _run_block_sparse(xp, wp, meta, m, n)
 
 
 def planned_operands(x2: torch.Tensor, pw: PlannedWeight):
-    """(xp, wp, meta, scale) of (M, K) @ planned (K, N): both operands
-    padded to the plan's blocks; the weight-side metadata comes from the
-    plan and only the activation bitmap is derived (two_sided).  A
-    quantized plan gives its int8 payload and its scales padded alike;
+    """(xp, wp, meta, scale) of (M, K) @ planned (K, N), or of (E, C, K) @
+    one layer's planned (E, K, N) experts: both operands padded to the
+    plan's blocks; the weight-side metadata comes from the plan and only
+    the activation bitmap is derived (two_sided; every expert's in one
+    pass, the metadata carrying the leading E axis).  A quantized plan
+    gives its int8 payload and its scales ((N,) or (E, N)) padded alike;
     ``scale`` is None otherwise."""
-    k = x2.shape[1]
+    k = x2.shape[-1]
     xp = pad_to_blocks(x2, pw.bm, pw.bk)
-    wp = pad_to_blocks(pw.kn, pw.bk, pw.bn)
+    wp = pw.kn_padded
     scale = None
     if pw.quantized:
-        scale = pad_to_blocks(pw.qscale[None], 1, pw.bn)[0]
-    tm, tk = xp.shape[0] // pw.bm, xp.shape[1] // pw.bk
+        scale = pad_to_blocks(pw.qscale[..., None, :], 1,
+                              pw.bn)[..., 0, :].contiguous()
+    tm, tk = xp.shape[-2] // pw.bm, xp.shape[-1] // pw.bk
     if tk != pw.tk:
         raise ValueError(
             f"{pw.site}: plan compiled for tk={pw.tk} K-blocks of {pw.bk}, "
@@ -278,12 +290,16 @@ def _gathered_planned_matmul(x2: torch.Tensor,
 
 
 def _planned_matmul(x2: torch.Tensor, pw: PlannedWeight) -> torch.Tensor:
-    """(M, K) @ planned (K, N) through the block-sparse kernel (the scaled
-    one for a quantized plan); a pruned tier on the CPU through
-    ``_gathered_planned_matmul``.  Returns float32."""
+    """(M, K) @ planned (K, N), or (E, C, K) @ one layer's planned experts,
+    through the block-sparse kernel (the scaled one for a quantized plan);
+    a pruned tier on the CPU through ``_gathered_planned_matmul``.  Returns
+    float32."""
     if pw.mode == "two_sided":
         _record_act_stats(pw.site, x2)
     if pw.gather and x2.device.type == "cpu":
+        if x2.dim() == 3:
+            return torch.stack([_gathered_planned_matmul(x2[e], pw.index(e))
+                                for e in range(x2.shape[0])])
         return _gathered_planned_matmul(x2, pw)
     if pw.gather and (pw.bk % fm.OS_CHUNK or pw.bn % fm.OS_COLS):
         raise ValueError(
@@ -292,7 +308,7 @@ def _planned_matmul(x2: torch.Tensor, pw: PlannedWeight) -> torch.Tensor:
             f"which skips {fm.OS_CHUNK}-wide K chunks per {fm.OS_COLS} "
             f"output columns")
     xp, wp, meta, scale = planned_operands(x2, pw)
-    return _run_block_sparse(xp, wp, meta, x2.shape[0], pw.kn.shape[-1],
+    return _run_block_sparse(xp, wp, meta, x2.shape[-2], pw.kn.shape[-1],
                              scale=scale)
 
 
@@ -338,6 +354,47 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
                                                   else None),
                                  out_dtype=torch.float32)
         return out.reshape(*lead, w.shape[-1]).to(x.dtype)
+    return _plain_matmul(x, w)
+
+
+def flex_expert_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
+    """x (E, C, K) @ w (E, K, N) → (E, C, N) in x's dtype, through the
+    site dispatch (the reference's four routes):
+
+      1. ``w`` is a ``PlannedWeight`` of one layer's (E, K, N) experts → the
+         batched block-sparse kernel with the plan's per-expert lists and
+         site-wide ``max_nnz``;
+      2. ``w`` is an unplanned ``QuantizedLinear`` → dequantized to x's
+         dtype first, then as a dense weight;
+      3. the descriptor says ``weight`` / ``two_sided`` → the batched
+         block-sparse kernel with metadata built from the operands;
+      4. ``use_kernels`` → the schedule-flexible matmul over the experts
+         (one launch at decode, output-stationary); otherwise a plain
+         float32-accumulated batched product.
+
+    ``x`` is the capacity-padded dispatch buffer: rows no token was routed
+    to are zero, so under two-sided sparsity their activation blocks are
+    dead and skipped; the recorded popcounts fold routing occupancy into
+    the activation density, as the reference's do."""
+    cfg = _cfg()
+    if isinstance(w, PlannedWeight):
+        if w.w.dim() != 3 or x.dim() != 3 or x.shape[0] != w.w.shape[0]:
+            raise ValueError(f"{w.site}: expert operands {tuple(x.shape)} "
+                             f"@ {tuple(w.w.shape)}")
+        return _planned_matmul(x.contiguous(), w).to(x.dtype)
+    if isinstance(w, QuantizedLinear):
+        w = dequantize_leaf(w, x.dtype)
+    if w.dim() != 3 or x.dim() != 3 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"{site}: expert operands {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    desc = _site_descriptor(site, cfg)
+    if desc is not None and desc.sparsity_mode in ("weight", "two_sided"):
+        return _sparse_site_matmul(x.contiguous(), w, desc.sparsity_mode,
+                                   desc.schedule, site).to(x.dtype)
+    if cfg.use_kernels:
+        return fm.flex_matmul(
+            x.contiguous(), w, schedule=desc.schedule if desc else None,
+            out_dtype=torch.float32).to(x.dtype)
     return _plain_matmul(x, w)
 
 

@@ -37,6 +37,32 @@ def block_sparse_matmul_ref(a: torch.Tensor, b: torch.Tensor, meta,
     return out
 
 
+def meta_at(meta, e: int):
+    """Expert ``e``'s metadata of a batched ``BlockSparseMeta`` (every
+    tensor carries a leading expert axis)."""
+    return type(meta)(kidx=meta.kidx[e], kcnt=meta.kcnt[e],
+                      a_bitmap=meta.a_bitmap[e], b_bitmap=meta.b_bitmap[e],
+                      max_nnz=meta.max_nnz)
+
+
+def expert_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched dense expert matmul: (E, M, K) @
+    (E, K, N) as ``matmul_ref`` per expert, stacked (float32)."""
+    return torch.stack([matmul_ref(a[e], b[e]) for e in range(a.shape[0])])
+
+
+def block_sparse_expert_matmul_ref(a: torch.Tensor, b: torch.Tensor, meta,
+                                   scale: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """Plain version of the batched block-sparse expert matmul: (E, M, K)
+    @ (E, K, N) under metadata with a leading expert axis (``scale`` (E, N)
+    for an int8 payload), ``block_sparse_matmul_ref`` per expert."""
+    return torch.stack([
+        block_sparse_matmul_ref(a[e], b[e], meta_at(meta, e),
+                                None if scale is None else scale[e])
+        for e in range(a.shape[0])])
+
+
 def int8_matmul_ref(a: torch.Tensor, q: torch.Tensor,
                     scale: torch.Tensor) -> torch.Tensor:
     """The reference's oracle of the int8-weight matmul: dequantize to

@@ -135,12 +135,13 @@ def decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
     """One-token decode.  x (B,1,D); cache k/v (B,C,KVH,hd); ``pos`` (B,)
     per-slot positions.
 
-    The cache is updated **in place**, and only at rows where ``active``
-    (B,) is true (None = every row): an inactive row's cache slot keeps its
-    old value.  The reference instead computes a new cache for every row
-    and selects the old one back for inactive rows — the committed state is
-    equal, and an inactive row's attention output (discarded by its
-    callers) is the only thing that may differ."""
+    The cache is updated **in place**, and committed only at rows where
+    ``active`` (B,) is true (None = every row): every row's new K/V is
+    written and attended to, as the reference does, and an inactive row's
+    slot then gets its old value back.  So every row's output is the
+    reference's, the inactive rows' too: a MoE layer routes all rows of
+    the batch together, and an idle slot's filler row competes for expert
+    capacity with the live ones."""
     b = x.shape[0]
     hd = cfg.head_dim
     q, k_new, v_new = _project_qkv(p, cfg, x)
@@ -153,11 +154,13 @@ def decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
     size = cache["k"].shape[1]
     slot = (pos % size) if window > 0 else torch.clamp(pos, max=size - 1)
     rows = torch.arange(b, device=x.device)
+    kept = {}
     for name, new in (("k", k_new), ("v", v_new)):
         c = cache[name]
         new = new[:, 0].to(c.dtype)
         if active is not None:
-            new = torch.where(active[:, None, None], new, c[rows, slot])
+            kept[name] = torch.where(active[:, None, None], new,
+                                     c[rows, slot])
         c[rows, slot] = new
 
     idx = torch.arange(size, device=x.device)[None]
@@ -169,6 +172,8 @@ def decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
         valid = idx <= posm
     o = dense_attention(q, cache["k"], cache["v"],
                         valid[:, None, None, None, :])
+    for name, val in kept.items():       # inactive rows keep their slot
+        cache[name][rows, slot] = val
     o = o.reshape(b, 1, cfg.n_heads * hd)
     return ops.flex_matmul(o, p["wo"], site="attn.out"), cache
 

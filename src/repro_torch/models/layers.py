@@ -1,15 +1,25 @@
 """Common layers: norms, gated MLPs, embeddings, the logits head."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.stacks import leading_slices
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
+
+
+# float32 draws of one ``normal`` call above which a stacked leaf is drawn
+# in slices of its leading axis of at most as many (2 GiB of float32; a
+# full-width expert leaf of DeepSeek-MoE-16B would otherwise take a 20 GB
+# float32 temporary).  Smaller leaves are drawn in one call, as before
+# there were slices, so their draws stay the same
+DRAW_ELEMS = 1 << 29
 
 
 def normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
@@ -17,6 +27,12 @@ def normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
     """N(0, scale²) draws on the generator's device, cast to ``dtype`` —
     the reference's ``jax.random.normal(k, shape) * scale`` distribution
     (the draws themselves differ between frameworks)."""
+    if len(shape) > 2 and math.prod(shape) > DRAW_ELEMS:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        for s in leading_slices(shape[0], math.prod(shape[1:]), DRAW_ELEMS):
+            out[s] = normal(gen, (s.stop - s.start,) + tuple(shape[1:]),
+                            scale, dtype)
+        return out
     x = torch.randn(shape, generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (x * scale).to(dtype)

@@ -7,7 +7,8 @@ step, per-row token sampling (``sample_tokens``), the fused decode block
 State is a nested dict of stacked caches ((L, B, ...), batch at axis 1),
 updated in place; params are nested dicts in the reference's tree layout
 (``embed``, ``stack.layers.{ln1,attn,ln2,mlp}``, ``final_norm``,
-``lm_head``)."""
+``lm_head``; a MoE stack has ``stack.layers.{ln1,attn,ln2,moe}`` and
+``stack.dense_layers``, and its state the same two groups)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -396,8 +397,9 @@ def prefill_into_slot(p: Params, cfg: ArchConfig, tokens, valid,
     b = slot_pos.shape[0]
     dev = slot_pos.device
     if reset:
-        for leaf in (state["layers"]["k"], state["layers"]["v"]):
-            leaf[:, slot] = 0
+        for group in state.values():
+            for leaf in group.values():
+                leaf[:, slot] = 0
     onehot = torch.arange(b, device=dev) == slot
     toks = np.asarray(tokens).reshape(-1)
     ok = np.asarray(valid, bool).reshape(-1)

@@ -1,6 +1,12 @@
-"""The dense decoder stack: stacked layer weights (layer axis leading), the
+"""The decoder stack: stacked layer weights (layer axis leading), the
 full-sequence forward of a prefill, one-token decode through every layer
-and the W-token decode of a speculative verify window."""
+and the W-token decode of a speculative verify window.
+
+Two families are ported: the dense decoder (``layers``) and the MoE
+decoder — ``dense_layers`` (the first ``moe.first_dense_layers`` layers,
+dense) then ``layers`` (attention and ``models.moe`` in each), with the
+decode state split the same way.  The full-cache prefill and the verify
+window take dense stacks only, as the reference's."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -10,6 +16,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsity import PlannedWeight
 from repro_torch.models import attention
+from repro_torch.models import moe as moe_mod
 from repro_torch.quant.quantize import QuantizedLinear
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        apply_norm_per_position, init_mlp,
@@ -29,11 +36,17 @@ def index_tree(tree, i: int):
     return tree[i]
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if (cfg.moe.enabled or cfg.ssm.enabled or cfg.rglru.enabled
-            or cfg.encoder_decoder):
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.ssm.enabled or cfg.rglru.enabled or cfg.encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported so far")
+            f"{cfg.name}: only the dense and MoE families are ported so far")
+
+
+def _check_dense(cfg: ArchConfig) -> None:
+    _check_ported(cfg)
+    if cfg.moe.enabled:
+        raise NotImplementedError(
+            f"{cfg.name}: the cache-filling prefill takes dense stacks only")
 
 
 def init_dense_layer(cfg: ArchConfig, gen: torch.Generator,
@@ -73,20 +86,73 @@ def decode_dense_layer(p: Params, cfg: ArchConfig, x, cache, pos, *,
     return x + apply_mlp(p["mlp"], cfg, h), cache
 
 
+def init_moe_layer(cfg: ArchConfig, gen: torch.Generator,
+                   dtype=torch.bfloat16, lead=()) -> Params:
+    return {
+        "ln1": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "attn": attention.init_attention(cfg, gen, dtype, lead),
+        "ln2": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "moe": moe_mod.init_moe(cfg, gen, dtype, lead),
+    }
+
+
+def apply_moe_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                    positions: torch.Tensor,
+                    q_chunk: int = 512) -> torch.Tensor:
+    h = apply_norm(p["ln1"], cfg, x)
+    x = x + attention.attention_forward(p["attn"], cfg, h,
+                                        positions=positions, q_chunk=q_chunk)
+    h = apply_norm(p["ln2"], cfg, x)
+    return x + moe_mod.apply_moe(p["moe"], cfg, h)
+
+
+def decode_moe_layer(p: Params, cfg: ArchConfig, x, cache, pos, *,
+                     active=None):
+    h = apply_norm(p["ln1"], cfg, x)
+    o, cache = attention.decode_step(p["attn"], cfg, h, cache, pos,
+                                     active=active)
+    x = x + o
+    h = apply_norm(p["ln2"], cfg, x)
+    return x + moe_mod.apply_moe(p["moe"], cfg, h), cache
+
+
+def _moe_layout(cfg: ArchConfig) -> Tuple[int, int]:
+    """(dense, MoE) layer counts of a MoE stack."""
+    n_dense = cfg.moe.first_dense_layers
+    return n_dense, cfg.n_layers - n_dense
+
+
 def init_stack(cfg: ArchConfig, gen: torch.Generator,
                dtype=torch.bfloat16) -> Params:
-    """Stacked (L, ...) layer weights, drawn leaf by leaf for all layers."""
-    _check_dense(cfg)
+    """Stacked (L, ...) layer weights, drawn leaf by leaf for all layers;
+    a MoE stack holds its MoE layers in ``layers`` and its leading dense
+    ones in ``dense_layers``."""
+    _check_ported(cfg)
+    if cfg.moe.enabled:
+        n_dense, n_moe = _moe_layout(cfg)
+        p = {"layers": init_moe_layer(cfg, gen, dtype, (n_moe,))}
+        if n_dense:
+            p["dense_layers"] = init_dense_layer(cfg, gen, dtype, (n_dense,))
+        return p
     return {"layers": init_dense_layer(cfg, gen, dtype, (cfg.n_layers,))}
 
 
 def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                 positions: torch.Tensor, remat: str = "none",
                 q_chunk: int = 512) -> torch.Tensor:
-    """Run the full stack over x (B,S,D) (the dense family only).
-    ``remat`` is accepted for the reference's signature and ignored: there
-    is no backward pass to save memory for yet."""
-    _check_dense(cfg)
+    """Run the full stack over x (B,S,D).  ``remat`` is accepted for the
+    reference's signature and ignored: there is no backward pass to save
+    memory for yet."""
+    _check_ported(cfg)
+    if cfg.moe.enabled:
+        n_dense, n_moe = _moe_layout(cfg)
+        for i in range(n_dense):
+            x = apply_dense_layer(index_tree(p["dense_layers"], i), cfg, x,
+                                  positions=positions, q_chunk=q_chunk)
+        for i in range(n_moe):
+            x = apply_moe_layer(index_tree(p["layers"], i), cfg, x,
+                                positions=positions, q_chunk=q_chunk)
+        return x
     for i in range(cfg.n_layers):      # the reference's scan over layers
         x = apply_dense_layer(index_tree(p["layers"], i), cfg, x,
                               positions=positions, window=cfg.window,
@@ -96,8 +162,17 @@ def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device="cpu") -> Params:
-    """Stacked per-layer KV caches, (L, B, S, KVH, hd)."""
-    _check_dense(cfg)
+    """Stacked per-layer KV caches, (L, B, S, KVH, hd); a MoE stack's are
+    split as its weights are (``layers``, ``dense_layers``)."""
+    _check_ported(cfg)
+    if cfg.moe.enabled:
+        n_dense, n_moe = _moe_layout(cfg)
+        st = {"layers": attention.init_cache(cfg, batch, max_seq, dtype,
+                                             device, (n_moe,))}
+        if n_dense:
+            st["dense_layers"] = attention.init_cache(
+                cfg, batch, max_seq, dtype, device, (n_dense,))
+        return st
     return {"layers": attention.init_cache(cfg, batch, max_seq, dtype,
                                            device, (cfg.n_layers,))}
 
@@ -107,7 +182,22 @@ def decode_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, state: Params,
                  ) -> Tuple[torch.Tensor, Params]:
     """One-token step through the stack.  x (B,1,D); ``pos`` (B,).  Each
     layer's cache is a view of the stacked state, updated in place at the
-    ``active`` rows."""
+    ``active`` rows.  A MoE stack runs its dense layers, then its MoE
+    layers, whose routing takes every row of the batch."""
+    if cfg.moe.enabled:
+        n_dense, n_moe = _moe_layout(cfg)
+        if n_dense:
+            caches = state["dense_layers"]
+            for i in range(n_dense):
+                cache = {"k": caches["k"][i], "v": caches["v"][i]}
+                x, _ = decode_dense_layer(index_tree(p["dense_layers"], i),
+                                          cfg, x, cache, pos, active=active)
+        caches = state["layers"]
+        for i in range(n_moe):
+            cache = {"k": caches["k"][i], "v": caches["v"][i]}
+            x, _ = decode_moe_layer(index_tree(p["layers"], i), cfg, x,
+                                    cache, pos, active=active)
+        return x, state
     layers, caches = p["layers"], state["layers"]
     for i in range(cfg.n_layers):
         cache = {"k": caches["k"][i], "v": caches["v"][i]}

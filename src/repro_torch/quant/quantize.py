@@ -23,6 +23,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.stacks import leading_slices
+
 
 @dataclass
 class QuantizedLinear:
@@ -43,14 +45,32 @@ class QuantizedLinear:
         return self.q.dtype
 
 
-def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
-    """(..., K, N) float → int8 + per-(..., N) scale (symmetric,
-    round half to even).  All-zero columns get the epsilon scale and
-    quantize to exactly 0."""
+def _quantize_matrices(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     wf = w.float()
     scale = wf.abs().amax(dim=-2) / 127.0 + 1e-12
     q = torch.clamp(torch.round(wf / scale[..., None, :]), -127, 127)
-    return QuantizedLinear(q=q.to(torch.int8), scale=scale)
+    return q.to(torch.int8), scale
+
+
+def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
+    """(..., K, N) float → int8 + per-(..., N) scale (symmetric,
+    round half to even).  All-zero columns get the epsilon scale and
+    quantize to exactly 0.  A stack is quantized a slice of its leading
+    axes at a time into the payload (each (K, N) matrix on its own, so the
+    slices give the whole leaf's numbers): a full-width expert leaf never
+    gets a whole-leaf float32 temporary."""
+    if w.dim() < 3:
+        q, scale = _quantize_matrices(w)
+        return QuantizedLinear(q=q, scale=scale)
+    k, n = w.shape[-2:]
+    flat = w.reshape(-1, k, n)
+    q = torch.empty(flat.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((flat.shape[0], n), dtype=torch.float32,
+                        device=w.device)
+    for s in leading_slices(flat.shape[0], k * n):
+        q[s], scale[s] = _quantize_matrices(flat[s])
+    return QuantizedLinear(q=q.reshape(w.shape),
+                           scale=scale.reshape(*w.shape[:-2], n))
 
 
 def dequantize_leaf(qw: QuantizedLinear, dtype=torch.bfloat16
@@ -85,8 +105,10 @@ def quantize_params(params, *, tie_embeddings: bool = False
                     ) -> Tuple[Dict, Dict]:
     """Params tree → (the same tree with ``QuantizedLinear`` at every matmul
     leaf, stats).  Embeddings, norms and vectors keep their dtype; stacked
-    (L, K, N) leaves get (L, N) scales; the ``lm_head`` is quantized on its
-    (D, V) view, or skipped under ``tie_embeddings``."""
+    (L, K, N) leaves get (L, N) scales and expert (L, E, K, N) leaves
+    (L, E, N); the float32 MoE router is quantized like any matmul leaf;
+    the ``lm_head`` is quantized on its (D, V) view, or skipped under
+    ``tie_embeddings``."""
     stats = {"quantized_bytes": 0, "original_bytes": 0, "n_quantized": 0}
 
     def qleaf(path, leaf):

@@ -45,6 +45,12 @@ confirms, so the streams are those of plain decoding under that tier.
 Speculation runs only where a window is bit-equal to k + 1 steps: plain
 dense full-cache stacks with weight-only (not two-sided) sparsity.
 
+A MoE config (``deepseek-moe-16b``) is served like a dense one — fused
+blocks, async dispatch, chunked prefill, sampling and admission policies —
+except for speculation, which it gates off as the reference does: its
+expert capacity is competed for by every row of a step, so the fused block
+and ``step()`` feed the same rows, idle slots' filler included.
+
 An ``ExecConfig`` (``decode_exec_config``) is installed around every model
 call, so every matmul site consults its ``SiteDescriptor``: dense sites run
 the schedule-flexible kernels (``use_kernels``) and ``weight`` /

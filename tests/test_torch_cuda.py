@@ -408,7 +408,7 @@ def test_cuda_output_kernel_refuses_a_plan_it_does_not_run(cuda, m, rows,
     def launch(rows, seg, split):
         return lib.fm_output(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                              ws.data_ptr() if split else None, m, n, k, k, n,
-                             m, 128, 128, rows, seg, 0, 1, 0,
+                             m, 128, 128, rows, seg, 0, 1, 0, 1, 0, 0,
                              build.stream_ptr(cuda))
 
     assert launch(rows, seg, split) != 0
@@ -778,9 +778,11 @@ def test_cuda_int8_kernel_refuses_a_plan_it_does_not_run(cuda, kernel, m,
         else:
             args = (w, meta.kidx.data_ptr(), meta.kcnt.data_ptr(), *tail,
                     meta.max_nnz, rows, seg)
+        # bs_matmul_scaled also takes its expert count and strides
+        experts = () if kernel == "i8_matmul" else (1, 0, 0, 0, 0)
         return getattr(lib, kernel)(a.data_ptr(), q.data_ptr(),
                                     scale.data_ptr(), out.data_ptr(), *args,
-                                    0, 1, 0, build.stream_ptr(cuda))
+                                    0, 1, 0, *experts, build.stream_ptr(cuda))
 
     assert launch(rows, seg, split) != 0
     plan = pt_fm.output_grid(m, n, k)
@@ -982,3 +984,93 @@ def test_cuda_self_draft_engine_accepts_everything(spec_setup):
     assert out == oracle
     assert eng.spec_stats["verify_blocks"] > 0
     assert eng.speculative_acceptance() == 1.0
+
+
+# ---------------------------------------------------------------------------
+# the expert axis: one launch over every expert (MoE decode)
+# ---------------------------------------------------------------------------
+
+def _expert_case(cuda, k, n, rows, seed, e=64):
+    """DeepSeek-MoE-16B's expert shapes: E experts' (K, N) weights pruned at
+    (256, 256), and a (E, rows, K) dispatch buffer in which a quarter of
+    the experts got no token (zero rows) and the others some zero
+    K-blocks."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    w = pt_sp.prune_magnitude(
+        torch.randn((e, k, n), generator=gen, device=cuda) * k ** -0.5,
+        0.5, (256, 256)).to(torch.bfloat16)
+    a = torch.randn((e, rows, k), generator=gen, device=cuda)
+    a = a * (torch.rand((e, 1, 1), generator=gen, device=cuda) > 0.25)
+    kb = torch.rand((e, 1, k // 128), generator=gen, device=cuda) > 0.3
+    return (a * kb.repeat_interleave(128, -1)).to(torch.bfloat16), w
+
+
+EXPERT_KN = [(2048, 1408), (1408, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 16])
+@pytest.mark.parametrize("kn", EXPERT_KN, ids=["in", "out"])
+def test_cuda_expert_batched_launch_equals_per_expert_launches(cuda, kn,
+                                                               rows):
+    """``bs_matmul``, ``fm_output`` and ``bs_matmul_scaled`` over the
+    expert axis (one launch each) equal E launches of the 2-D kernels bit
+    for bit, and their plain versions within the float32 tolerance of each
+    expert's operands (B = Q·s for int8)."""
+    from repro_torch.kernels.ops import planned_operands
+    from repro_torch.kernels.ref import (block_sparse_expert_matmul_ref,
+                                         expert_matmul_ref, meta_at)
+    k, n = kn
+    a, w = _expert_case(cuda, k, n, rows, seed=rows + k)
+    before = dict(pt_bs.LAUNCHES), dict(pt_fm.LAUNCHES)
+    for quant in (False, True):
+        wq = quantize_weight(w) if quant else w
+        pw = pt_sp.plan_weight(wq, mode="two_sided", bm=rows, bk=128,
+                               bn=128 if k == 2048 else 256)
+        xp, wp, meta, scale = planned_operands(a, pw)
+        out = pt_bs.block_sparse_matmul(xp, wp, meta, scale=scale,
+                                        out_dtype=torch.float32)
+        for i in range(a.shape[0]):
+            one = pt_bs.block_sparse_matmul(
+                xp[i], wp[i], meta_at(meta, i), out_dtype=torch.float32,
+                scale=None if scale is None else scale[i])
+            assert torch.equal(out[i], one), (quant, i)
+        plain = block_sparse_expert_matmul_ref(xp, wp, meta, scale)
+        dense_w = dequantize_leaf(wq, torch.float32) if quant else w
+        for i in range(a.shape[0]):
+            tol = _cuda_tol(a[i], dense_w[i])
+            assert (out[i] - plain[i]).abs().max().item() <= tol
+    sched = MatmulSchedule("output", rows, 128, 128)
+    dense = pt_fm.flex_matmul(a, w, schedule=sched, out_dtype=torch.float32)
+    for i in range(a.shape[0]):
+        assert torch.equal(dense[i], pt_fm.flex_matmul(
+            a[i], w[i], schedule=sched, out_dtype=torch.float32))
+    # the dense table equals the plan bit for bit (one K order)
+    pw = pt_sp.plan_weight(w, mode="two_sided", bm=rows, bk=128, bn=128)
+    xp, wp, meta, _ = planned_operands(a, pw)
+    assert torch.equal(dense, pt_bs.block_sparse_matmul(
+        xp, wp, meta, out_dtype=torch.float32))
+    assert torch.allclose(dense, expert_matmul_ref(a, w), rtol=0,
+                          atol=max(_cuda_tol(a[i], w[i])
+                                   for i in range(a.shape[0])))
+    assert pt_bs.LAUNCHES["block_sparse_experts"] \
+        > before[0]["block_sparse_experts"]
+    assert pt_bs.LAUNCHES["block_sparse_scaled_experts"] \
+        > before[0]["block_sparse_scaled_experts"]
+    assert pt_fm.LAUNCHES["output_experts"] > before[1]["output_experts"]
+
+
+@pytest.mark.cuda
+def test_cuda_expert_matmul_above_16_rows_loops_the_2d_kernels(cuda):
+    """A prefill-sized dispatch buffer (C = 40) takes the 2-D kernels
+    expert by expert (the reference's unrolled route), counted as theirs."""
+    from repro_torch.kernels.ops import planned_operands
+    a, w = _expert_case(cuda, 2048, 1408, 40, seed=3, e=4)
+    pw = pt_sp.plan_weight(w, mode="two_sided", bm=40, bk=128, bn=128)
+    xp, wp, meta, _ = planned_operands(a, pw)
+    n0 = pt_bs.LAUNCHES["block_sparse"]
+    out = pt_bs.block_sparse_matmul(xp, wp, meta, out_dtype=torch.float32)
+    assert pt_bs.LAUNCHES["block_sparse"] == n0 + 4
+    ref = torch.stack([matmul_ref(a[i], w[i]) for i in range(4)])
+    for i in range(4):
+        assert (out[i] - ref[i]).abs().max().item() <= _cuda_tol(a[i], w[i])
