@@ -3,7 +3,8 @@
 
 Drives the port's main path — sparse decode serving of StableLM-1.6B at its
 published width and depth (24 layers, d_model 2048, vocab 100352) in bf16
-with four slots, then (phase 15) of DeepSeek-MoE-16B — through
+with four slots, then (phase 15) of DeepSeek-MoE-16B and (phases 16-17)
+of Yi-9B, Gemma-2B, ChatGLM3-6B and RecurrentGemma-9B — through
 ``repro_torch.serve.ServeEngine``, with random weights from a seeded
 generator, block-magnitude-pruned at (256, 256):
 
@@ -196,6 +197,35 @@ generator, block-magnitude-pruned at (256, 256):
      empty expert tile lists, peak memory and the phase's time.  The
      expert-batched kernels must launch; their rows join the ``kernels``
      line, and the 2-D rows add ``launches_phase15``.
+
+ 16. the rest of the dense family at published width and depth, one
+     config at a time, each freed before the next: ``yi-9b`` (48 layers,
+     GQA kv 4), ``gemma-2b`` (18 layers, MQA, head dim 256, GeGLU, tied
+     and √d-scaled embeddings, vocab 256000) and ``chatglm3-6b`` (28
+     layers, GQA kv 2, RoPE on half the head dims), weights from seed 0,
+     every stacked matmul weight pruned to 50% at (256, 256), the head
+     dense; 4 slots, ``max_seq`` 64, 4 greedy requests of 8-16 prompt
+     tokens and 8 new: the planned engine's fused streams equal its
+     ``step()`` oracle's, the dense table's first-step logits and streams
+     equal the plan's bit for bit, and the plain engine's first-step
+     logits lie within 5% of max |logit|.  gemma-2b also runs int8 (the
+     planned int8 engine against its oracle, the dense int8 table against
+     the plan bit for bit) and first holds the flash kernel at head dim
+     256 against its plain versions at its prefill cell (BH 16, S 4096:
+     causal, Sq < Skv, window, non-causal; float32 vs the float64 softmax
+     with a TF32 control, bf16 under the tensor-core tolerance with its
+     three controls), then prefills 2 x 4096 tokens (18 flash launches):
+     dense table == plan bit for bit, plain within 5%,
+     ``prefill_with_cache`` == ``prefill``;
+ 17. the Griffin hybrid ``recurrentgemma-9b`` (38 layers: 12 groups of
+     two RG-LRU blocks and one attention block of window 2048, then 2
+     recurrent layers; MQA, head dim 256) the same way: the flash kernel
+     at its prefill cell (BH 32, window 2048) and the other three cases,
+     the same decode gates, and a 2 x 4096 prefill through the windowed
+     branch (12 flash launches at window 2048): dense table == plan,
+     plain within 5%.  The kernels of each config's run must launch; the
+     hd-256 flash rows join the ``kernels`` line, and the 2-D matmul rows
+     add ``launches_phase16`` / ``launches_phase17``.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
@@ -443,6 +473,13 @@ def check_tensor_cores(build, report) -> None:
             need(bool(hits), f"{name}: no {kernel} in the SASS")
             report(f"    {kernel}: {sum(hits.values())} HMMA/HGMMA in "
                    f"{len(hits)} instances")
+    # the flash kernel's head-dim-256 instance (q read by wgmma from
+    # shared memory) is on the tensor cores too
+    hd256 = {f: c for f, c in build.tensor_core_ops("flash_attention").items()
+             if "fa_kernel_mma" in f and "ILi256E" in f}
+    need(bool(hd256) and all(c > 0 for c in hd256.values()),
+         f"flash_attention: no HGMMA in the hd-256 instance: {hd256}")
+    report(f"    fa_kernel_mma<256>: {sum(hd256.values())} HGMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -511,8 +548,10 @@ def check_sites(params, planned, dense, report) -> dict:
         kb = torch.rand(-(-k // e.bk), generator=gen, device=dev) < 0.5
         a_half = a_full * kb.repeat_interleave(e.bk)[:k]
         for dtype in (torch.bfloat16, torch.float32):
-            w = pw.w.to(dtype)
-            pwd = dataclasses.replace(pw, w=w)
+            # a ragged site keeps its weight zero-padded (``wpad``) too
+            pwd = dataclasses.replace(pw, w=pw.w.to(dtype), wpad=None
+                                      if pw.wpad is None else
+                                      pw.wpad.to(dtype))
             w_kn = pwd.w_kn                  # transposed view for the head
             errs = dict.fromkeys(worst, 0.0)
             tol = 0.0
@@ -1198,11 +1237,13 @@ def flash_tol(q, k, v) -> float:
         4 * (hd ** 0.5 + 2) * s_max + 2 * (skv // 64) + 2 * skv ** 0.5 + 2)
 
 
-def check_flash(report) -> dict:
-    """Phase 9a.  Returns the worst error and the bf16 cell operands.  The
-    bf16 kernel sums its scores on the tensor cores, so it is held to the
-    tensor-core tolerance (``ref.flash_tc_check``), which three controls
-    must fail."""
+def check_flash(report, cases=FLASH_CASES, hd=64, seed=3) -> dict:
+    """Phase 9a (and the head-dim-256 checks of phases 16-17): each case
+    of ``cases`` at head dim ``hd``.  Returns the worst error and the bf16
+    operands of the first case, the cell.  The bf16 kernel sums its scores
+    on the tensor cores, so it is held to the tensor-core tolerance
+    (``ref.flash_tc_check``), which three controls must fail; the float32
+    tolerance must reject TF32 operands on the cell."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import (SHARE_ROOM,
@@ -1211,21 +1252,21 @@ def check_flash(report) -> dict:
                                          flash_tc_check)
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     worst, keep = 0.0, {}
-    for label, bh, sq, skv, causal, window in FLASH_CASES:
+    for i, (label, bh, sq, skv, causal, window) in enumerate(cases):
         kw = dict(causal=causal, window=window)
-        q = torch.randn((bh, sq, 64), generator=gen, device=dev)
-        k, v = (torch.randn((bh, skv, 64), generator=gen, device=dev)
+        q = torch.randn((bh, sq, hd), generator=gen, device=dev)
+        k, v = (torch.randn((bh, skv, hd), generator=gen, device=dev)
                 for _ in range(2))
         exact = dense_ref64(q, k, v, **kw)
         err32 = (flash_attention(q, k, v, **kw).double() - exact) \
             .abs().max().item()
         tol = flash_tol(q, k, v)
         need(err32 <= tol, f"flash {label} float32: error {err32} > {tol}")
-        line = (f"flash {label} (BH={bh}, Sq={sq}, Skv={skv}, hd=64): "
+        line = (f"flash {label} (BH={bh}, Sq={sq}, Skv={skv}, hd={hd}): "
                 f"float32 vs float64 dense {err32:.3e}, tol {tol:.3e}")
-        if causal and sq == skv and not window:
+        if i == 0:
             ctrl = (dense_ref64(tf32(q), tf32(k), tf32(v), **kw) - exact) \
                 .abs().max().item()
             need(ctrl > tol, f"flash {label}: the float32 tolerance does not "
@@ -1268,8 +1309,8 @@ def check_flash(report) -> dict:
                f"differing): {', '.join(ctrl_txt)}; vs the float64 dense "
                f"softmax of the bf16 inputs {dense:.3e}")
         worst = max(worst, err32, errb)
-        if label.startswith("cell"):
-            keep = dict(q=qb, k=kb, v=vb)
+        if i == 0:
+            keep = dict(q=qb, k=kb, v=vb, causal=causal, window=window)
     torch.cuda.synchronize()
     keep["err"] = worst
     return keep
@@ -1698,33 +1739,74 @@ def run_int8_prefill(cfg, sp_cfg, params, shape, batch, report):
     return total, times, worst
 
 
-def time_flash(t, launches) -> dict:
-    """The flash kernel's row of the ``kernels`` line: bf16 at the prefill
-    cell (BH 64, S 4096, hd 64, causal)."""
+def flash_pairs(bh, sq, skv, causal, window) -> int:
+    """The (q, k) pairs the mask keeps: query i sits at position i + skv -
+    sq and sees keys up to it (causal) and fewer than ``window`` back."""
+    import numpy as np
+    pos = np.arange(sq) + (skv - sq)
+    hi = pos + 1 if causal else np.full(sq, skv)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(sq, int)
+    return bh * int((hi - lo).sum())
+
+
+def time_flash(t, launches, name="flash_attention") -> dict:
+    """A flash kernel's row of the ``kernels`` line: bf16 on the cell's
+    operands ``t`` (phase 9: BH 64, S 4096, hd 64, causal; phases 16-17
+    the hd-256 prefill cells)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_plain
 
     q, k, v = t["q"], t["k"], t["v"]
-    bh, s, hd = q.shape
+    kw = dict(causal=t["causal"], window=t["window"])
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
     saved = launch_counts()
-    pairs = bh * s * (s + 1) // 2           # the causal (q, k) pairs
-    b_ms, b_by = bound_ms(4 * q.numel() * q.element_size(), 4.0 * hd * pairs)
+    pairs = flash_pairs(bh, sq, skv, **kw)
+    b_ms, b_by = bound_ms(2 * (q.numel() + k.numel()) * q.element_size(),
+                          4.0 * hd * pairs)
+
+    def call():
+        return flash_attention(q, k, v, **kw)
+
+    # PyTorch's fused attention takes (1, BH, S, hd); a window is a mask
+    if kw["window"]:
+        pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask = (pos - kpos < kw["window"]) & (pos >= kpos if kw["causal"]
+                                              else True)
+
+        def library():
+            return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                  attn_mask=mask)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                  is_causal=kw["causal"])
+    try:
+        lib_ms, lib_dev = cuda_ms(library, iters=10), device_ms(library,
+                                                                calls=10)
+    except RuntimeError as err:      # a yardstick only: none may take it
+        print(f"{name}: scaled_dot_product_attention refused "
+              f"({str(err)[:160]})", file=sys.stderr)
+        lib_ms = lib_dev = None
     row = {
-        "name": "flash_attention", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:25",
         "launches": launches["per_prefill"],
         "launches_per_prefill": launches["per_prefill"],
         "launches_run": launches["total"],
         "max_abs_err": t["err"],
-        "ms": cuda_ms(lambda: flash_attention(q, k, v), iters=10),
-        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), iters=3),
+        "ms": cuda_ms(call, iters=10),
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                            iters=3),
         "bound_ms": b_ms, "bound_by": b_by,
-        # (1, BH, S, hd): PyTorch's fused attention takes 4-D inputs
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True), iters=10)}
+        "library_ms": lib_ms,
+        "device_ms": device_ms(call, calls=10),
+        "library_device_ms": lib_dev,
+        "head_dim": hd, "bh": bh, "seq": sq, **kw}
     reset_launches(saved)
     return row
 
@@ -2497,7 +2579,6 @@ def run_speculative(cfg, params, planned, dense, traffic, report,
 
 P15_ARCH = "deepseek-moe-16b"
 P15_NEW = 16
-P15_MAX_SEQ = 64
 EXPERT_SITES = ("experts_in", "experts_gate", "experts_out")
 # the expert-batched kernels; ``*_sum`` add (and scale) their partials
 EXPERT_KERNELS = ("block_sparse_experts", "block_sparse_experts_sum",
@@ -2507,14 +2588,15 @@ EXPERT_KERNELS = ("block_sparse_experts", "block_sparse_experts_sum",
 
 
 def prune_in_place(tree, sparsity, block) -> None:
-    """Block-magnitude-prune every stacked leaf of ``tree`` (3-D and 4-D),
+    """Block-magnitude-prune every stacked leaf of ``tree`` (3-D and 4-D)
+    but an RG-LRU block's depthwise conv taps (``conv_w``, not a matmul),
     replacing each leaf in its dict as it goes, so that at most one leaf's
     copy is alive at a time."""
     from repro_torch.core.sparsity import prune_stacked_magnitude
     for key, leaf in tree.items():
         if isinstance(leaf, dict):
             prune_in_place(leaf, sparsity, block)
-        else:
+        elif key != "conv_w":
             tree[key] = prune_stacked_magnitude(leaf, sparsity, block)
 
 
@@ -2573,12 +2655,6 @@ def p15_bring_up(report):
 def _leaves(tree):
     from repro_torch.core.sparsity import iter_leaves
     return iter_leaves(tree)
-
-
-def _tree_at(tree, path):
-    for key in path:
-        tree = tree[key]
-    return tree
 
 
 def expert_tols(a, w):
@@ -2803,22 +2879,6 @@ def free():
     torch.cuda.empty_cache()
 
 
-def p15_engine(cfg, params, exec_cfg, fused=True, **kw):
-    import torch
-    from repro_torch.serve.engine import ServeEngine
-    return ServeEngine(cfg, params, n_slots=N_SLOTS, max_seq=P15_MAX_SEQ,
-                       dtype=torch.bfloat16, exec_cfg=exec_cfg, fused=fused,
-                       decode_block=16, async_dispatch=False, device="cuda",
-                       **kw)
-
-
-def p15_prompts(cfg):
-    import numpy as np
-    rng = np.random.default_rng(15)
-    return [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 17)))
-            for _ in range(N_SLOTS)]
-
-
 def p15_profile(eng, report) -> None:
     """One profiled ``step()``: device busy share, kernels, launches of the
     expert kernels in that step, and the top device operations."""
@@ -2924,64 +2984,26 @@ def p15_empty_lists(eng) -> float:
 
 
 def p15_serve(cfg, params, planned, dense, q8, report, card) -> dict:
-    """Gate (e) and the engine numbers.  Returns the launches of the
+    """Gate (e) through ``family_serve`` (bf16 with the dense-table gate,
+    the planned oracle's first step profiled; int8 on the first two
+    requests) and the engine numbers.  Returns the launches of the
     phase's engine runs."""
-    import torch
-    prompts = p15_prompts(cfg)
+    prompts = family_prompts(cfg, seed=15)
     reset_launches()
-    eng = p15_engine(cfg, params, planned)
-    streams, wall, timing = drain_timed(eng, prompts, P15_NEW)
-    report(f"planned MoE engine (fused blocks of 16): "
-           f"{rate_line(streams, wall, timing)} ({card})")
-    del eng
-    free()
-    oracle = p15_engine(cfg, params, planned, fused=False)
-    ouids = [oracle.submit(p, max_new=P15_NEW) for p in prompts]
-    oracle.step()                       # admits all 4, decodes one step
-    logits_p = oracle.last_logits.clone()
-    p15_profile(oracle, report)
-    empty = p15_empty_lists(oracle)
-    ores = oracle.run_until_drained()
-    same = [ores[u] for u in ouids] == streams
-    report(f"bf16: fused streams == step() oracle: {same}; empty expert "
-           f"tile lists in a step: {empty:.4f}")
-    need(same, "phase 15: fused streams differ from the step() oracle")
-    need(bool(torch.isfinite(logits_p).all())
-         and logits_p.shape == (N_SLOTS, cfg.vocab), "bad MoE logits")
-    del oracle
-    free()
-    de = p15_engine(cfg, params, dense)
-    duids = [de.submit(p, max_new=P15_NEW) for p in prompts]
-    de.step()
-    logits_d = de.last_logits.clone()
-    dres = de.run_until_drained()
-    same_l = torch.equal(logits_p, logits_d)
-    same_s = [dres[u] for u in duids] == streams
-    report(f"dense table vs plan: first-step logits equal bit for bit "
-           f"{same_l} (max |diff| "
-           f"{(logits_p - logits_d).abs().max().item():.3e}), streams "
-           f"equal {same_s}")
-    need(same_l and same_s, "phase 15: the dense table differs from the "
-         "plan")
-    del de
-    free()
-    q_eng = p15_engine(cfg, params, q8)
-    q_streams, q_wall, q_timing = drain_timed(q_eng, prompts[:2], P15_NEW)
-    report(f"planned int8 MoE engine (first 2 requests): "
-           f"{rate_line(q_streams, q_wall, q_timing)} ({card})")
-    del q_eng
-    free()
-    q_or = p15_engine(cfg, params, q8, fused=False)
-    quids = [q_or.submit(p, max_new=P15_NEW) for p in prompts[:2]]
-    qres = q_or.run_until_drained()
-    same = [qres[u] for u in quids] == q_streams
-    report(f"int8: fused streams == step() oracle: {same}; int8 vs bf16 "
-           f"first two streams equal: {q_streams == streams[:2]}")
-    need(same, "phase 15: int8 fused streams differ from the step() "
-         "oracle")
-    del q_or
-    free()
-    torch.cuda.synchronize()
+    empty = []
+
+    def on_oracle(oracle):
+        p15_profile(oracle, report)
+        empty.append(p15_empty_lists(oracle))
+    _, streams, _ = family_serve(cfg, params, planned, dense, report, card,
+                                 prompts=prompts, max_new=P15_NEW,
+                                 on_oracle=on_oracle)
+    report(f"empty expert tile lists in a step: {empty[0]:.4f}")
+    _, q_streams, _ = family_serve(cfg, params, q8, None, report, card,
+                                   label="int8 (first 2 requests)",
+                                   prompts=prompts[:2], max_new=P15_NEW)
+    report(f"int8 vs bf16 first two streams equal: "
+           f"{q_streams == streams[:2]}")
     counts = launch_counts()
     launches = {k: counts[k] for k in EXPERT_KERNELS + (
         "block_sparse", "block_sparse_sum", "block_sparse_scaled",
@@ -3086,6 +3108,359 @@ def run_moe(report, card):
     report(f"phase 15 wall time: {time.perf_counter() - t_phase:.1f} s "
            f"({card})")
     return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# phases 16-17: the rest of the dense family and the Griffin hybrid
+# ---------------------------------------------------------------------------
+
+P16_ARCHS = ("yi-9b", "gemma-2b", "chatglm3-6b")
+P17_ARCH = "recurrentgemma-9b"
+FAMILY_NEW = 8
+FAMILY_MAX_SEQ = 64
+# the flash kernel at head dim 256, at the two prefill cells of 2 x 4096
+# tokens: gemma-2b's (8 query heads of one kv head, BH 16, causal) and
+# recurrentgemma-9b's (16 query heads, BH 32, window 2048); the first case
+# of each list is the cell
+FLASH256_CASES = {
+    "gemma-2b": (
+        ("gemma-2b cell, causal", 16, 4096, 4096, True, 0),
+        ("Sq < Skv, causal", 16, 128, 4096, True, 0),
+        ("window 2048", 16, 4096, 4096, True, 2048),
+        ("non-causal", 16, 4096, 4096, False, 0)),
+    "recurrentgemma-9b": (
+        ("recurrentgemma-9b cell, window 2048", 32, 4096, 4096, True, 2048),
+        ("causal", 32, 4096, 4096, True, 0),
+        ("Sq < Skv, window 2048", 32, 128, 4096, True, 2048),
+        ("non-causal", 32, 4096, 4096, False, 0)),
+}
+FAMILY_KERNELS = ("block_sparse", "block_sparse_sum", "output", "output_sum")
+
+
+def family_bring_up(arch, report):
+    """One config at its published width and depth: weights (seed 0),
+    every stacked matmul weight pruned to 50% at (256, 256) (the head and
+    the embedding dense), the planned two-sided config and the dense
+    table, each timed.  Both run the kernels (``use_kernels``): a tied
+    head is never planned, and its dense site must take ``fm_output`` in
+    the plan as in the table for the two to agree bit for bit."""
+    import torch
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import decode_exec_config
+    cfg = get_config(arch)
+    sp_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        weight_sparsity=0.5, activation_threshold=0.05))
+    torch.cuda.reset_peak_memory_stats()
+    secs = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    secs["init"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prune_in_place(params, 0.5, (256, 256))
+    torch.cuda.synchronize()
+    secs["prune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    planned = decode_exec_config(sp_cfg, N_SLOTS, params=params,
+                                 use_kernels=True, device="cuda")
+    dense = decode_exec_config(cfg, N_SLOTS, use_kernels=True, device="cuda")
+    torch.cuda.synchronize()
+    secs["plan"] = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    report(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+           f"heads of {cfg.head_dim} over {cfg.n_kv_heads} kv, d_ff "
+           f"{cfg.d_ff}, vocab {cfg.vocab}, tied head {cfg.tie_embeddings}; "
+           f"{n_params / 1e9:.3f} B parameters; bring-up seconds "
+           f"{({k: round(v, 1) for k, v in secs.items()})}; weight-block "
+           f"skip fraction {planned.plan.block_skip_fraction():.4f}; "
+           f"max_memory_allocated "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    report(planned.schedules.describe())
+    return cfg, sp_cfg, params, planned, dense
+
+
+def check_tied_head(params, dense, report) -> float:
+    """A tied head is never planned: the logits contraction runs the dense
+    table's ``lm_head`` schedule on the embedding's transposed view, in
+    the plan as in the table.  That kernel against its plain version at
+    the decode M, bf16 and float32 (``matmul_tol``, with the TF32
+    control).  Returns the worst error."""
+    import torch
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels.ref import matmul_ref
+    desc = dense.schedules.sites["lm_head"]
+    sched = desc.schedule
+    emb = params["embed"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    a_full = torch.randn((desc.m, emb.shape[1]), generator=gen,
+                         device="cuda")
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        a, w_kn = a_full.to(dtype), emb.to(dtype).t()
+        tol = matmul_tol(a, w_kn)
+        plain = matmul_ref(a, w_kn)
+        out = fm.flex_matmul(a, w_kn, schedule=sched,
+                             out_dtype=torch.float32)
+        err = (out - plain).abs().max().item()
+        line = (f"tied lm_head {str(dtype)[6:]} M={desc.m} K={w_kn.shape[0]}"
+                f" N={w_kn.shape[1]} (B read transposed): flex_"
+                f"{sched.stationarity} ({sched.bm},{sched.bn},{sched.bk}) "
+                f"{err:.3e}; tol {tol:.3e}")
+        need(err <= tol, f"tied lm_head {dtype}: error {err} > {tol}")
+        if dtype is torch.float32:
+            ctrl = (matmul_ref(tf32(a), tf32(w_kn)) - plain).abs().max() \
+                .item()
+            line += f"; TF32 control {ctrl:.3e} (must exceed tol)"
+            need(ctrl > tol, f"tied lm_head: the float32 tolerance does "
+                 f"not reject TF32 operands ({ctrl})")
+        report(line)
+        worst = max(worst, err)
+        del a, w_kn, plain, out
+    free()
+    return worst
+
+
+def family_engine(cfg, params, exec_cfg, fused=True, max_new=FAMILY_NEW):
+    """The decode gates' engine: 4 slots, ``max_seq`` 64, fused blocks of
+    ``max_new`` (one block per request)."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    return ServeEngine(cfg, params, n_slots=N_SLOTS,
+                       max_seq=FAMILY_MAX_SEQ, dtype=torch.bfloat16,
+                       exec_cfg=exec_cfg, fused=fused, decode_block=max_new,
+                       async_dispatch=False, device="cuda")
+
+
+def family_prompts(cfg, seed=16):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 17)))
+            for _ in range(N_SLOTS)]
+
+
+def first_step(cfg, params, exec_cfg, prompts, fused=True,
+               max_new=FAMILY_NEW):
+    """An engine with ``prompts`` submitted after one ``step()`` (all
+    admitted, one decode step): (engine, uids, that step's logits)."""
+    eng = family_engine(cfg, params, exec_cfg, fused=fused, max_new=max_new)
+    uids = [eng.submit(p, max_new=max_new) for p in prompts]
+    eng.step()
+    return eng, uids, eng.last_logits.clone()
+
+
+def family_serve(cfg, params, planned, dense, report, card, label="bf16",
+                 prompts=None, max_new=FAMILY_NEW, on_oracle=None):
+    """The decode gates of phases 4-5 (and 7 for int8), shared by phases
+    15-17: the planned engine's fused streams equal its ``step()``
+    oracle's (``on_oracle`` sees the oracle after its first step), and,
+    unless ``dense`` is None, the dense table's first-step logits and
+    streams equal the plan's bit for bit.  Launches are counted by the
+    caller.  Returns (prompts, streams, the oracle's first-step logits)."""
+    import torch
+    if prompts is None:
+        prompts = family_prompts(cfg)
+    eng = family_engine(cfg, params, planned, max_new=max_new)
+    streams, wall, timing = drain_timed(eng, prompts, max_new)
+    report(f"{cfg.name} {label} planned engine (fused blocks of "
+           f"{max_new}): {rate_line(streams, wall, timing)} ({card})")
+    del eng
+    free()
+    oracle, ouids, logits_p = first_step(cfg, params, planned, prompts,
+                                         fused=False, max_new=max_new)
+    if on_oracle is not None:
+        on_oracle(oracle)
+    ores = oracle.run_until_drained()
+    same = [ores[u] for u in ouids] == streams
+    report(f"{cfg.name} {label}: fused streams == step() oracle: {same}")
+    need(same, f"{cfg.name} {label}: fused streams differ from the step() "
+         f"oracle")
+    need(bool(torch.isfinite(logits_p).all())
+         and logits_p.shape == (N_SLOTS, cfg.vocab),
+         f"{cfg.name} {label}: bad logits")
+    del oracle
+    free()
+    if dense is None:
+        return prompts, streams, logits_p
+    de, duids, logits_d = first_step(cfg, params, dense, prompts,
+                                     max_new=max_new)
+    dres = de.run_until_drained()
+    same_l = torch.equal(logits_p, logits_d)
+    same_s = [dres[u] for u in duids] == streams
+    report(f"{cfg.name} {label}: dense table vs plan: first-step logits "
+           f"equal bit for bit {same_l} (max |diff| "
+           f"{(logits_p - logits_d).abs().max().item():.3e}), streams equal "
+           f"{same_s}")
+    need(same_l and same_s, f"{cfg.name} {label}: the dense table differs "
+         f"from the plan")
+    del de
+    free()
+    return prompts, streams, logits_p
+
+
+def family_plain(cfg, params, prompts, logits_p, report, exec_cfg=None,
+                 label="plain torch.matmul, no kernels"):
+    """The plain engine's first-step logits within 5% of max |logit| of
+    the plan's (every matmul's bf16 output is re-rounded, so 1-ulp
+    differences compound through the layers, as in phase 5)."""
+    eng, _, logits = first_step(cfg, params, exec_cfg, prompts, fused=False)
+    diff = (logits - logits_p).abs().max().item()
+    tol = 0.05 * logits_p.abs().max().item()
+    report(f"{cfg.name} {label}: first-step logits vs planned max |diff| = "
+           f"{diff:.3e}, tol {tol:.3e}")
+    need(diff <= tol, f"{cfg.name} {label}: logits off by {diff}")
+    del eng
+    free()
+
+
+def family_prefill(cfg, sp_cfg, params, report, card, with_cache):
+    """A 2 x 4096 prefill through the hd-256 flash kernel: the dense
+    prefill table (flash launches = attention layers), the planned plan
+    (logits equal bit for bit), the plain path (within 5% of max |logit|)
+    and, for dense stacks, ``prefill_with_cache`` (logits equal
+    ``prefill``'s).  Returns the flash launches (per prefill, over the
+    phase's prefills)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.transformer import griffin_layout
+    from repro_torch.serve.engine import shape_exec_config
+    shape = prefill_shape()
+    b, s = shape.global_batch, shape.seq_len
+    t0 = time.perf_counter()
+    dense_pf = shape_exec_config(cfg, shape, use_kernels=True, device="cuda")
+    planned_pf = shape_exec_config(sp_cfg, shape, use_kernels=True,
+                                   params=params, device="cuda")
+    attached = planned_pf.plan.attach(params)
+    report(f"{cfg.name} prefill table and plan bring-up: "
+           f"{time.perf_counter() - t0:.1f} s")
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, size=(b, s)), device="cuda")}
+    n_attn = cfg.n_layers
+    if cfg.rglru.enabled:
+        n_attn = griffin_layout(cfg)[0] * cfg.rglru.block_pattern.count(
+            "attn")
+
+    def prefill(ec, p):
+        return _under(ec, lambda: model_lib.prefill(p, cfg, batch))
+
+    before = launch_counts()["flash_attention"]
+    logits, wall = _timed(lambda: prefill(dense_pf, params))
+    per_prefill = launch_counts()["flash_attention"] - before
+    report(f"{cfg.name} bf16 prefill, dense table: {wall:.3f} s for {b} x "
+           f"{s} tokens = {1e3 * wall / (b * s):.4f} ms per prompt token; "
+           f"{per_prefill} flash launches at hd {cfg.head_dim}"
+           f"{f', window {cfg.window}' if cfg.window else ''} ({card})")
+    need(per_prefill == n_attn, f"{cfg.name}: flash kernel launched "
+         f"{per_prefill} times in one prefill, not {n_attn}")
+    need(bool(torch.isfinite(logits).all())
+         and logits.shape == (b, 1, cfg.vocab), f"{cfg.name}: bad prefill "
+         f"logits")
+    logits_p, wall = _timed(lambda: prefill(planned_pf, attached))
+    same = torch.equal(logits_p, logits)
+    report(f"{cfg.name} bf16 prefill, planned (skip fraction "
+           f"{planned_pf.plan.block_skip_fraction():.4f}): {wall:.3f} s; "
+           f"logits == dense table bit for bit: {same}")
+    need(same, f"{cfg.name}: planned prefill logits differ from the dense "
+         f"table's")
+    logits_0, wall = _timed(lambda: prefill(None, params))
+    diff = (logits_0 - logits).abs().max().item()
+    tol = 0.05 * logits.abs().max().item()
+    report(f"{cfg.name} bf16 prefill, plain: {wall:.3f} s; logits vs dense "
+           f"table max |diff| = {diff:.3e}, tol {tol:.3e}")
+    need(diff <= tol, f"{cfg.name}: plain prefill logits off by {diff}")
+    if with_cache:
+        (logits_c, _), wall = _timed(lambda: _under(
+            dense_pf, lambda: model_lib.prefill_with_cache(
+                params, cfg, batch, s + 16)))
+        same = torch.equal(logits_c, logits)
+        report(f"{cfg.name} bf16 prefill_with_cache, dense table: "
+               f"{wall:.3f} s; logits == prefill: {same}")
+        need(same, f"{cfg.name}: prefill_with_cache logits differ from "
+             f"prefill's")
+    total = launch_counts()["flash_attention"] - before
+    profile_prefill(lambda: prefill(dense_pf, params), report,
+                    f"{cfg.name} bf16 prefill (dense table)")
+    del dense_pf, planned_pf, attached
+    free()
+    return {"per_prefill": per_prefill, "total": total}
+
+
+def family_int8(cfg, sp_cfg, params, report, card):
+    """int8 (``quantize=True``; a tied head stays the bf16 embedding): the
+    int8 kernels against their plain versions at layer 0's sites
+    (``check_sites_int8``; those launches are not counted), the planned
+    int8 engine's fused streams equal its ``step()`` oracle's, and the
+    dense int8 table's first-step logits equal the plan's bit for bit.
+    Returns the int8 kernels' worst errors."""
+    from repro_torch.serve.engine import decode_exec_config
+    t0 = time.perf_counter()
+    q8 = decode_exec_config(sp_cfg, N_SLOTS, params=params, quantize=True,
+                            use_kernels=True, device="cuda")
+    dense8 = decode_exec_config(cfg, N_SLOTS, use_kernels=True,
+                                quantize=True, device="cuda")
+    report(f"{cfg.name} int8 plan bring-up: {time.perf_counter() - t0:.1f} "
+           f"s; weight-block skip fraction "
+           f"{q8.plan.block_skip_fraction():.4f}; head planned: "
+           f"{'lm_head' in q8.plan.entries}")
+    saved = launch_counts()
+    errs = check_sites_int8(cfg, params, q8, report)["errs"]
+    reset_launches(saved)
+    free()
+    family_serve(cfg, params, q8, dense8, report, card, label="int8")
+    del q8, dense8
+    free()
+    return errs
+
+
+def run_family(arch, report, card, flash_rows):
+    """One config of phase 16 or 17, freed at the end.  Returns its
+    main-path launches and the matmul kernels' worst errors against their
+    plain versions at its sites."""
+    import torch
+    t0 = time.perf_counter()
+    if arch in FLASH256_CASES:
+        checked = check_flash(report, FLASH256_CASES[arch], hd=256, seed=16)
+    cfg, sp_cfg, params, planned, dense = family_bring_up(arch, report)
+    report(f"{arch}: the matmul kernels vs their plain versions at layer "
+           f"0's sites")
+    errs = check_sites(params, planned, dense, report)["errs"]
+    if cfg.tie_embeddings:
+        errs["output"] = max(errs["output"],
+                             check_tied_head(params, dense, report))
+    free()
+    reset_launches()
+    prompts, _, logits_p = family_serve(cfg, params, planned, dense, report,
+                                        card)
+    family_plain(cfg, params, prompts, logits_p, report)
+    kernels = FAMILY_KERNELS
+    if arch == "gemma-2b":
+        errs.update(family_int8(cfg, sp_cfg, params, report, card))
+        kernels += INT8_KERNELS
+    if arch in FLASH256_CASES:
+        pf = family_prefill(cfg, sp_cfg, params, report, card,
+                            with_cache=not cfg.rglru.enabled)
+        kernels += ("flash_attention",)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {k: counts[k] for k in kernels}
+    report(f"main-path launches ({arch}): {launches}")
+    for name, count in launches.items():
+        need(count > 0, f"kernel {name} never launched in {arch}'s run")
+    report(f"{arch} peak memory: max_memory_allocated "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
+           f"{time.perf_counter() - t0:.1f} s ({card})")
+    del params, planned, dense
+    free()
+    if arch in FLASH256_CASES:
+        name = "flash_attention_hd256" + ("_window" if cfg.window else "")
+        flash_rows.append(time_flash(checked, pf, name=name))
+        del checked
+        free()
+    report(f"{arch} matmul kernels' worst errors: {errs}")
+    return launches, errs
 
 
 def main() -> int:
@@ -3263,6 +3638,36 @@ def main() -> int:
             row["launches_phase15"] = row["launches"]
         rows += rows15
         done("phase 15")
+        # phases 16-17: yi-9b, gemma-2b (with int8 and the hd-256 prefill)
+        # and chatglm3-6b, then recurrentgemma-9b, one config at a time
+        free()
+        flash_rows, launches16, errs16 = [], {}, {}
+        for arch in P16_ARCHS:
+            launches16[arch], errs16[arch] = run_family(arch, report, card,
+                                                        flash_rows)
+        done("phase 16")
+        launches17, errs17 = run_family(P17_ARCH, report, card, flash_rows)
+        done("phase 17")
+        for row in rows:
+            key = {"block_sparse": "block_sparse", "flex_output": "output",
+                   "flex_weight": "weight", "flex_input": "input",
+                   "block_sparse_scaled": "block_sparse_scaled",
+                   "int8_matmul": "int8_matmul"}.get(row["name"])
+            if key is None:
+                continue
+            err16 = max(e.get(key, 0.0) for e in errs16.values())
+            err17 = errs17.get(key, 0.0)
+            row.update(max_abs_err_phase16=err16, max_abs_err_phase17=err17,
+                       max_abs_err=max(row["max_abs_err"], err16, err17))
+            if key in ("weight", "input"):
+                continue              # forced only: not on these paths
+            row.update(
+                launches_phase16=sum(n.get(key, 0)
+                                     for n in launches16.values()),
+                launches_phase17=launches17.get(key, 0))
+        for row in flash_rows:
+            row["launches_phase16_17"] = row["launches"]
+        rows += flash_rows
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)

@@ -191,6 +191,10 @@ ARCH_IDS = [
     "stablelm-1.6b",
     "edge-tiny",
     "deepseek-moe-16b",
+    "yi-9b",
+    "gemma-2b",
+    "chatglm3-6b",
+    "recurrentgemma-9b",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

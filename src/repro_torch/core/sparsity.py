@@ -50,6 +50,8 @@ SCALE_BYTES = 4          # float32 per-output-channel dequant scale
 SITE_KEYS: Dict[str, Dict[str, str]] = {
     "mlp": {"w_in": "mlp.in", "w_gate": "mlp.gate", "w_out": "mlp.out"},
     "attn": {"wq": "attn.q", "wkv": "attn.kv", "wo": "attn.out"},
+    "rglru": {"w_x": "rglru.in", "w_gate": "rglru.gate",
+              "w_out": "rglru.out"},
     "moe": {"router": "moe.router", "experts_in": "moe.experts_in",
             "experts_gate": "moe.experts_gate",
             "experts_out": "moe.experts_out"},

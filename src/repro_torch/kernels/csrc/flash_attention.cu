@@ -50,7 +50,15 @@
 // skips kv tiles dead under the reference's test (its warps still pass
 // through the ring), so the 128-row block does not change the arithmetic;
 // a last q tile of 64 rows runs its first warpgroup only.  hd 32 uses half
-// of a panel (P·V's upper 32 columns are computed and dropped).
+// of a panel (P·V's upper 32 columns are computed and dropped).  hd 256
+// keeps the 64-row kv tile and the 128-row q block, so its order and
+// arithmetic are those of the smaller heads; what changes is where q lives.
+// Its fragments (64 registers) beside the accumulator (128) would pass the
+// 168 registers a thread of this 9-warp block gets (three warps share each
+// quarter of the register file), and q's padded rows with a three-stage
+// ring would pass the 227 KB of shared memory, so q is staged once as four
+// swizzled 64-column panels that S = Q·Kᵀ reads as wgmma's A descriptor,
+// and the ring has two stages: 197,664 bytes in all.
 //
 // float32 (``fa_kernel``): the first version, kept as the reference's
 // float32 arithmetic — one block of 256 threads per (bh, 64-row q tile),
@@ -242,21 +250,28 @@ fa_kernel(const T* __restrict__ Q, const T* __restrict__ K,
 constexpr int kMmaRows = 128;      // q rows per CUDA block
 constexpr int kConsumers = 8;      // warps of 16 q rows: two warpgroups
 constexpr int kMmaThreads = (kConsumers + 1) * 32;   // + the producer warp
-constexpr int kStages = 3;         // K/V ring depth
 constexpr int kPanel = kBKV * 64;  // one 64-row x 64-column bf16 panel
 
 // 64-column panels of a K or V tile (hd 32 uses half of one)
 template <int HD>
 constexpr int kPanels = HD < 64 ? 1 : HD / 64;
 
+// hd 256: q is read by wgmma from shared memory (swizzled 128-row panels),
+// not from registers, and the K/V ring has two stages, not three (three
+// would take 265,264 bytes of shared memory; see the file's head)
+template <int HD>
+constexpr bool kQShared = HD > 128;
+template <int HD>
+constexpr int kStages = kQShared<HD> ? 2 : 3;   // K/V ring depth
+
 template <int HD>
 constexpr size_t mma_smem_bytes() {
-  // 1 KB of alignment slack, kStages x (k, v) panels, q [128][HD + 8], then
-  // the full / empty barriers
+  // 1 KB of alignment slack, kStages x (k, v) panels, q ([128][HD + 8], or
+  // HD / 64 swizzled [128][64] panels), then the full / empty barriers
   return 1024 + sizeof(__nv_bfloat16) *
-                    ((size_t)kStages * 2 * kPanels<HD> * kPanel +
-                     (size_t)kMmaRows * (HD + 8)) +
-         2 * kStages * sizeof(uint64_t);
+                    ((size_t)kStages<HD> * 2 * kPanels<HD> * kPanel +
+                     (size_t)kMmaRows * (kQShared<HD> ? HD : HD + 8)) +
+         2 * kStages<HD> * sizeof(uint64_t);
 }
 
 // Block b owns q rows [128·qt, 128·qt + 128) of head b % bh with
@@ -273,14 +288,17 @@ fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
   constexpr int CH = HD / 8;         // 16-byte chunks per row
   constexpr int NP = kPanels<HD>;
   constexpr int NT = HD < 64 ? HD / 8 : 8;   // n8 tiles kept of a PV panel
+  constexpr int ST = kStages<HD>;
+  constexpr bool QS = kQShared<HD>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // swizzled panels need 1024-byte alignment
   unsigned char* smem = smem_raw + ((1024 - (mma::smem_u32(smem_raw) & 1023))
                                     & 1023);
   bf16* kvs = reinterpret_cast<bf16*>(smem);       // stage s: k then v
-  bf16* qs = kvs + kStages * 2 * NP * kPanel;
-  uint64_t* full = reinterpret_cast<uint64_t*>(qs + kMmaRows * LD);
-  uint64_t* empty = full + kStages;
+  bf16* qs = kvs + ST * 2 * NP * kPanel;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(qs + kMmaRows * (QS ? HD : LD));
+  uint64_t* empty = full + ST;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bh = blockIdx.x % nbh;
@@ -290,7 +308,7 @@ fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
   const int nkv = skv / kBKV;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mma::mbar_init(mma::smem_u32(&full[s]), 32);
       mma::mbar_init(mma::smem_u32(&empty[s]), 4 * halves);
     }
@@ -299,9 +317,12 @@ fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
   const bf16* q = Q + ((size_t)bh * sq + row0) * HD;
   for (int c = threadIdx.x; c < halves * kBQ * CH; c += kMmaThreads) {
     const int r = c / CH, d = (c % CH) * 8;
-    *reinterpret_cast<uint4*>(qs + r * LD + d) =
+    const int off = QS ? (d >> 6) * kMmaRows * 64 + mma::swz64(r, d & 63)
+                       : r * LD + d;
+    *reinterpret_cast<uint4*>(qs + off) =
         *reinterpret_cast<const uint4*>(q + (size_t)r * HD + d);
   }
+  if (QS) mma::fence_proxy_async();   // wgmma reads q through the async proxy
   __syncthreads();
 
   // the reference's liveness of kv tile ki for q block h of this block
@@ -322,8 +343,8 @@ fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
     int it = 0, pending = -1;
     for (int ki = 0; ki < nkv; ++ki) {
       if (!live(ki, 0) && !live(ki, 1)) continue;
-      const int s = it % kStages;
-      mma::mbar_wait(mma::smem_u32(&empty[s]), ((it / kStages) & 1) ^ 1);
+      const int s = it % ST;
+      mma::mbar_wait(mma::smem_u32(&empty[s]), ((it / ST) & 1) ^ 1);
       bf16* ks = kvs + s * 2 * NP * kPanel;
       bf16* vs = ks + NP * kPanel;
       const size_t g0 = (size_t)ki * kBKV * HD;
@@ -367,8 +388,8 @@ fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
   for (int ki = 0; ki < nkv; ++ki) {
     const bool l0 = live(ki, 0), l1 = live(ki, 1);
     if (!l0 && !l1) continue;
-    const int s = it % kStages;
-    mma::mbar_wait(mma::smem_u32(&full[s]), (it / kStages) & 1);
+    const int s = it % ST;
+    mma::mbar_wait(mma::smem_u32(&full[s]), (it / ST) & 1);
     ++it;
     if (h == 0 ? l0 : l1) {
       const uint32_t ks = mma::smem_u32(kvs + s * 2 * NP * kPanel);
@@ -376,29 +397,48 @@ fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
       const int k_lo = ki * kBKV;
       // s = (q · k) in float32 on the tensor cores (k read k-major), then
       // scaled and masked
-      // q's fragments, reloaded for every tile: a register A operand carried
-      // across the loop is not kept intact between wgmma batches
-      uint32_t qf[HD / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        mma::ldsm_x4(qf[kk], mma::smem_u32(qs + (warp * 16 + (lane & 15)) *
-                                               LD + kk * 16 +
-                                           (lane >> 4) * 8));
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-      mma::pin(sc);
-      mma::pin(qf);
-      mma::wgmma_fence();
+      if constexpr (QS) {
+        // q's 64 rows of this warpgroup straight from its swizzled panels
+        const uint32_t qa = mma::smem_u32(qs) + h * 64 * 128;
+        mma::pin(sc);
+        mma::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        mma::wgmma64<0>(sc, qf[kk],
-                   mma::sw128_desc(ks + (kk >> 2) * kPanel * 2 + (kk & 3) * 32, 16,
+        for (int kk = 0; kk < HD / 16; ++kk)
+          mma::wgmma64_ss<0>(
+              sc,
+              mma::sw128_desc(qa + (kk >> 2) * kMmaRows * 128 + (kk & 3) * 32,
+                              16, 1024),
+              mma::sw128_desc(ks + (kk >> 2) * kPanel * 2 + (kk & 3) * 32, 16,
                               1024));
-      mma::wgmma_commit();
-      mma::wgmma_wait<0>();
-      mma::pin(sc);
-      mma::pin(qf);
+        mma::wgmma_commit();
+        mma::wgmma_wait<0>();
+        mma::pin(sc);
+      } else {
+        // q's fragments, reloaded for every tile: a register A operand
+        // carried across the loop is not kept intact between wgmma batches
+        uint32_t qf[HD / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          mma::ldsm_x4(qf[kk], mma::smem_u32(qs + (warp * 16 + (lane & 15)) *
+                                                 LD + kk * 16 +
+                                             (lane >> 4) * 8));
+        mma::pin(sc);
+        mma::pin(qf);
+        mma::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          mma::wgmma64<0>(sc, qf[kk],
+                          mma::sw128_desc(ks + (kk >> 2) * kPanel * 2 +
+                                              (kk & 3) * 32,
+                                          16, 1024));
+        mma::wgmma_commit();
+        mma::wgmma_wait<0>();
+        mma::pin(sc);
+        mma::pin(qf);
+      }
       const bool edge = (causal && k_lo + kBKV - 1 > qpos0) ||
                         (window && qpos0 + 15 - k_lo >= window);
 #pragma unroll
@@ -555,6 +595,11 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int bh,
                                      scale, s)
                    : launch<float, 128>(q, k, v, o, bh, sq, skv, causal,
                                         window, scale, s);
+    case 256:
+      return kBF16 ? launch_mma<256>(q, k, v, o, bh, sq, skv, causal, window,
+                                     scale, s)
+                   : launch<float, 256>(q, k, v, o, bh, sq, skv, causal,
+                                        window, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -564,7 +609,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int bh,
 
 // q (bh, sq, hd), k / v (bh, skv, hd) and o (bh, sq, hd), contiguous, all of
 // ``dtype`` (rt::Dtype: float32 or bfloat16); sq and skv multiples of 64,
-// sq <= skv; hd 32, 64 or 128.  Returns the cudaError_t of the launch.
+// sq <= skv; hd 32, 64, 128 or 256.  Returns the cudaError_t of the launch.
 extern "C" int fa_forward(const void* q, const void* k, const void* v,
                           void* o, int bh, int sq, int skv, int hd,
                           int causal, int window, float scale, int dtype,

@@ -11,7 +11,7 @@ Layout: heads flattened by the caller — q (BH, Sq, hd), k / v (BH, Skv, hd),
 contiguous, all float32 or all bfloat16; the output has q's type.  The
 kernel's blocks are fixed at (64, 64): Sq and Skv must be multiples of 64
 (ragged lengths are refused, as the reference's wrapper asserts
-divisibility), Sq <= Skv (the last Sq positions query), hd 32, 64 or 128.
+divisibility), Sq <= Skv (the last Sq positions query), hd 32, 64, 128 or 256.
 
 CPU tensors take the plain version in the kernel's order
 (``ref.flash_attention_plain``); CUDA tensors launch the kernel or raise.
@@ -24,7 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_plain
 
 BQ = BKV = 64                      # the kernel's q and kv block rows
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 # launches of the CUDA kernel (bumped only where it is launched)
 LAUNCHES = {"flash_attention": 0}

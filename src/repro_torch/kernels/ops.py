@@ -66,7 +66,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flex_matmul as fm
 from repro_torch.kernels.flex_matmul import DEFAULT_BLOCKS, pad_to_blocks
 from repro_torch.kernels.int8_matmul import int8_matmul
-from repro_torch.kernels.ref import flash_attention_plain
+from repro_torch.kernels.ref import flash_attention_plain, windowed_attention
 from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
 
 _state = threading.local()
@@ -399,15 +399,24 @@ def flex_expert_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, bq: int = fa.BQ,
+                    causal: bool, window: int = 0, bq: int = fa.BQ,
                     bkv: int = fa.BKV) -> torch.Tensor:
-    """Attention of flattened heads, q (BH, Sq, hd), k / v (BH, Skv, hd):
-    with ``use_kernels`` the flash-attention kernel (its blocks are fixed
-    at 64), otherwise the plain online softmax over blocks of (bq, bkv)."""
+    """Attention of flattened heads, q (BH, Sq, hd), k / v (BH, Skv, hd),
+    causal and / or within a sliding ``window`` (0: none): with
+    ``use_kernels`` the flash-attention kernel (its blocks are fixed at
+    64); otherwise, for a causal window over one sequence, the
+    reference's ``windowed_attention`` in query chunks of ``bq``, else the
+    plain online softmax over blocks of (bq, bkv)."""
     if _cfg().use_kernels:
         return fa.flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=causal)
-    return flash_attention_plain(q, k, v, causal=causal, bq=bq, bkv=bkv)
+                                  v.contiguous(), causal=causal,
+                                  window=window)
+    if window and causal and q.shape[1] == k.shape[1]:
+        return windowed_attention(q[:, :, None, None], k[:, :, None],
+                                  v[:, :, None], window=window,
+                                  q_chunk=bq)[:, :, 0, 0]
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 bq=bq, bkv=bkv)
 
 
 def head_matmul(x: torch.Tensor, head, *,

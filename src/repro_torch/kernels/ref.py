@@ -120,6 +120,33 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bqk,bkh->bqh", w.to(v.dtype), v)
 
 
+def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       window: int, q_chunk: int = 512) -> torch.Tensor:
+    """Causal sliding-window attention with O(S·window) work, the
+    reference's plain path: each query chunk attends only to the [pos -
+    window, pos] slice of K/V.  q (B,S,KVH,G,hd), k/v (B,S,KVH,hd)."""
+    b, sq, kvh, g, hd = q.shape
+    q_chunk = min(q_chunk, sq)
+    nq = sq // q_chunk
+    span = window + q_chunk
+    scale = hd ** -0.5
+    outs = []
+    for qi in range(nq):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        start = max(qi * q_chunk + q_chunk - span, 0)
+        n = min(span, sq)
+        kc, vc = k[:, start:start + n], v[:, start:start + n]
+        qpos = torch.arange(qi * q_chunk, (qi + 1) * q_chunk,
+                            device=q.device)[:, None]
+        kpos = torch.arange(start, start + n, device=q.device)[None, :]
+        mask = (qpos >= kpos) & (qpos - kpos < window)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qc, kc).float() * scale
+        s = torch.where(mask, s, NEG_INF)
+        w = torch.softmax(s, dim=-1).to(qc.dtype)
+        outs.append(torch.einsum("bkgqs,bskh->bqkgh", w, vc))
+    return torch.cat(outs, dim=1)
+
+
 def _live_q_blocks(nq: int, ki: int, bq: int, bkv: int, offset: int,
                   causal: bool, window: int) -> range:
     """The q blocks for which kv block ``ki`` is live under the Pallas

@@ -1,6 +1,7 @@
-"""Attention: MHA / GQA projections, masked dense attention, the
+"""Attention: MHA / GQA / MQA projections, masked dense attention, the
 full-sequence forward of a prefill (dense up to 2048 tokens, above it the
-online softmax, which is the flash-attention kernel under ``use_kernels``),
+online softmax, which is the flash-attention kernel under ``use_kernels``;
+a sliding window shorter than the sequence takes the windowed branch),
 the per-slot KV cache of decode (full length, or rolling for sliding
 windows) and the W-position decode of a speculative verify window."""
 from __future__ import annotations
@@ -53,7 +54,7 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool, q_chunk: int = 512,
+                        causal: bool, window: int = 0, q_chunk: int = 512,
                         kv_chunk: int = 512) -> torch.Tensor:
     """The flash branch: q (B,S,KVH,G,hd), k/v (B,Skv,KVH,hd) flattened to
     (B·KVH·G, S, hd) in the reference's head order (k/v broadcast over
@@ -61,7 +62,8 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``use_kernels``, else the online softmax over (q_chunk, kv_chunk)
     blocks, live blocks only — and back.  Both keep the scores in float32
     where the reference's plain twin rounds them to q's type first.  S
-    must be a multiple of the blocks, as in the reference."""
+    must be a multiple of the blocks, as in the reference.  ``window``
+    (0: none) also masks keys ``window`` or more positions back."""
     b, sq, kvh, g, hd = q.shape
     skv = k.shape[1]
     qf = q.permute(0, 2, 3, 1, 4).reshape(b * kvh * g, sq, hd)
@@ -71,7 +73,7 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             b, kvh, g, skv, hd).reshape(b * kvh * g, skv, hd)
 
     o = ops.flash_attention(qf, heads(k), heads(v), causal=causal,
-                            bq=q_chunk, bkv=kv_chunk)
+                            window=window, bq=q_chunk, bkv=kv_chunk)
     return o.reshape(b, kvh, g, sq, hd).permute(0, 3, 1, 2, 4)
 
 
@@ -86,8 +88,11 @@ def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     ``return_kv=True`` also returns the (post-RoPE) k and the raw v
     (B,S,KVH,hd), which the cache-filling prefill stores.
 
-    The windowed branch of the reference (``window and causal and S >
-    window``) and cross-attention are not ported (ROADMAP queue A)."""
+    A causal ``window`` shorter than the sequence takes the windowed
+    branch (``flash_attention_xla`` with the window): the flash-attention
+    kernel under ``use_kernels``, else the reference's
+    ``windowed_attention``.
+    Cross-attention is not ported (ROADMAP queue A)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x)
     qf = rope.apply_rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim),
@@ -98,10 +103,9 @@ def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     if use_flash is None:
         use_flash = s > 2048
     if window and causal and s > window:
-        raise NotImplementedError(
-            "windowed full-sequence attention is not ported yet (ROADMAP "
-            "queue A)")
-    if use_flash:
+        o = flash_attention_xla(q, k, v, causal=True, window=window,
+                                q_chunk=q_chunk, kv_chunk=max(q_chunk, 512))
+    elif use_flash:
         o = flash_attention_xla(q, k, v, causal=causal, q_chunk=q_chunk,
                                 kv_chunk=max(q_chunk, 512))
     else:

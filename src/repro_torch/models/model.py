@@ -8,7 +8,9 @@ State is a nested dict of stacked caches ((L, B, ...), batch at axis 1),
 updated in place; params are nested dicts in the reference's tree layout
 (``embed``, ``stack.layers.{ln1,attn,ln2,mlp}``, ``final_norm``,
 ``lm_head``; a MoE stack has ``stack.layers.{ln1,attn,ln2,moe}`` and
-``stack.dense_layers``, and its state the same two groups)."""
+``stack.dense_layers``, and its state the same two groups; a Griffin
+stack has ``stack.groups.b{i}_{kind}`` and ``stack.trailing``, and its
+state the same)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.sparsity import iter_leaves
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import prng, transformer
@@ -396,10 +399,9 @@ def prefill_into_slot(p: Params, cfg: ArchConfig, tokens, valid,
     positions change nothing and are skipped."""
     b = slot_pos.shape[0]
     dev = slot_pos.device
-    if reset:
-        for group in state.values():
-            for leaf in group.values():
-                leaf[:, slot] = 0
+    if reset:     # every leaf, at any depth (Griffin's state has three)
+        for _, leaf in iter_leaves(state):
+            leaf[:, slot] = 0
     onehot = torch.arange(b, device=dev) == slot
     toks = np.asarray(tokens).reshape(-1)
     ok = np.asarray(valid, bool).reshape(-1)

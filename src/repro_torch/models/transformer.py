@@ -2,11 +2,14 @@
 full-sequence forward of a prefill, one-token decode through every layer
 and the W-token decode of a speculative verify window.
 
-Two families are ported: the dense decoder (``layers``) and the MoE
+Three families are ported: the dense decoder (``layers``); the MoE
 decoder — ``dense_layers`` (the first ``moe.first_dense_layers`` layers,
-dense) then ``layers`` (attention and ``models.moe`` in each), with the
-decode state split the same way.  The full-cache prefill and the verify
-window take dense stacks only, as the reference's."""
+dense) then ``layers`` (attention and ``models.moe`` in each); and the
+Griffin hybrid — ``groups`` of ``rglru.block_pattern`` blocks (two RG-LRU
+recurrent layers, then one sliding-window attention layer, keyed
+``b{i}_{kind}``) then the ``trailing`` recurrent layers.  The decode state
+is split the same way.  The full-cache prefill and the verify window take
+dense stacks only, as the reference's."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -17,6 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsity import PlannedWeight
 from repro_torch.models import attention
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru
 from repro_torch.quant.quantize import QuantizedLinear
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        apply_norm_per_position, init_mlp,
@@ -37,14 +41,15 @@ def index_tree(tree, i: int):
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.ssm.enabled or cfg.rglru.enabled or cfg.encoder_decoder:
+    if cfg.ssm.enabled or cfg.encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and MoE families are ported so far")
+            f"{cfg.name}: only the dense, MoE and Griffin families are "
+            f"ported so far")
 
 
 def _check_dense(cfg: ArchConfig) -> None:
     _check_ported(cfg)
-    if cfg.moe.enabled:
+    if cfg.moe.enabled or cfg.rglru.enabled:
         raise NotImplementedError(
             f"{cfg.name}: the cache-filling prefill takes dense stacks only")
 
@@ -116,6 +121,76 @@ def decode_moe_layer(p: Params, cfg: ArchConfig, x, cache, pos, *,
     return x + moe_mod.apply_moe(p["moe"], cfg, h), cache
 
 
+def init_rec_layer(cfg: ArchConfig, gen: torch.Generator,
+                   dtype=torch.bfloat16, lead=()) -> Params:
+    return {
+        "ln1": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "rglru": rglru.init_rglru(cfg, gen, dtype, lead),
+        "ln2": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "mlp": init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype, lead),
+    }
+
+
+def apply_rec_layer(p: Params, cfg: ArchConfig,
+                    x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(p["ln1"], cfg, x)
+    x = x + rglru.rglru_forward(p["rglru"], cfg, h)
+    h = apply_norm(p["ln2"], cfg, x)
+    return x + apply_mlp(p["mlp"], cfg, h)
+
+
+def decode_rec_layer(p: Params, cfg: ArchConfig, x, state, *, active=None):
+    h = apply_norm(p["ln1"], cfg, x)
+    o, state = rglru.rglru_decode_step(p["rglru"], cfg, h, state,
+                                       active=active)
+    x = x + o
+    h = apply_norm(p["ln2"], cfg, x)
+    return x + apply_mlp(p["mlp"], cfg, h), state
+
+
+def griffin_layout(cfg: ArchConfig) -> Tuple[int, int]:
+    """(n_groups, n_trailing_rec) of a Griffin stack."""
+    glen = len(cfg.rglru.block_pattern)     # 3 for (rec, rec, attn)
+    return cfg.n_layers // glen, cfg.n_layers % glen
+
+
+def init_griffin_group(cfg: ArchConfig, gen: torch.Generator,
+                       dtype=torch.bfloat16, lead=()) -> Params:
+    group = {}
+    for i, kind in enumerate(cfg.rglru.block_pattern):
+        init = init_rec_layer if kind == "rec" else init_dense_layer
+        group[f"b{i}_{kind}"] = init(cfg, gen, dtype, lead)
+    return group
+
+
+def apply_griffin_group(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                        positions: torch.Tensor,
+                        q_chunk: int = 512) -> torch.Tensor:
+    for i, kind in enumerate(cfg.rglru.block_pattern):
+        lp = p[f"b{i}_{kind}"]
+        if kind == "rec":
+            x = apply_rec_layer(lp, cfg, x)
+        else:
+            x = apply_dense_layer(lp, cfg, x, positions=positions,
+                                  window=cfg.window, q_chunk=q_chunk)
+    return x
+
+
+def decode_griffin_group(p: Params, cfg: ArchConfig, x, state, pos, *,
+                         active=None):
+    """One token through a group; each block's state (views of the
+    stacked state) is updated in place at the ``active`` rows."""
+    for i, kind in enumerate(cfg.rglru.block_pattern):
+        key = f"b{i}_{kind}"
+        if kind == "rec":
+            x, _ = decode_rec_layer(p[key], cfg, x, state[key],
+                                    active=active)
+        else:
+            x, _ = decode_dense_layer(p[key], cfg, x, state[key], pos,
+                                      active=active, window=cfg.window)
+    return x, state
+
+
 def _moe_layout(cfg: ArchConfig) -> Tuple[int, int]:
     """(dense, MoE) layer counts of a MoE stack."""
     n_dense = cfg.moe.first_dense_layers
@@ -126,8 +201,15 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator,
                dtype=torch.bfloat16) -> Params:
     """Stacked (L, ...) layer weights, drawn leaf by leaf for all layers;
     a MoE stack holds its MoE layers in ``layers`` and its leading dense
-    ones in ``dense_layers``."""
+    ones in ``dense_layers``, a Griffin stack its groups in ``groups``
+    and its last recurrent layers in ``trailing``."""
     _check_ported(cfg)
+    if cfg.rglru.enabled:
+        n_groups, n_trail = griffin_layout(cfg)
+        p = {"groups": init_griffin_group(cfg, gen, dtype, (n_groups,))}
+        if n_trail:
+            p["trailing"] = init_rec_layer(cfg, gen, dtype, (n_trail,))
+        return p
     if cfg.moe.enabled:
         n_dense, n_moe = _moe_layout(cfg)
         p = {"layers": init_moe_layer(cfg, gen, dtype, (n_moe,))}
@@ -144,6 +226,14 @@ def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     reference's signature and ignored: there is no backward pass to save
     memory for yet."""
     _check_ported(cfg)
+    if cfg.rglru.enabled:
+        n_groups, n_trail = griffin_layout(cfg)
+        for i in range(n_groups):
+            x = apply_griffin_group(index_tree(p["groups"], i), cfg, x,
+                                    positions=positions, q_chunk=q_chunk)
+        for i in range(n_trail):
+            x = apply_rec_layer(index_tree(p["trailing"], i), cfg, x)
+        return x
     if cfg.moe.enabled:
         n_dense, n_moe = _moe_layout(cfg)
         for i in range(n_dense):
@@ -163,8 +253,26 @@ def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device="cpu") -> Params:
     """Stacked per-layer KV caches, (L, B, S, KVH, hd); a MoE stack's are
-    split as its weights are (``layers``, ``dense_layers``)."""
+    split as its weights are (``layers``, ``dense_layers``).  A Griffin
+    stack's ``groups`` hold an RG-LRU state ({h, conv}, (G, B, ...)) per
+    recurrent block and a rolling cache per attention block, its
+    ``trailing`` the recurrent layers' states."""
     _check_ported(cfg)
+    if cfg.rglru.enabled:
+        n_groups, n_trail = griffin_layout(cfg)
+        group = {}
+        for i, kind in enumerate(cfg.rglru.block_pattern):
+            group[f"b{i}_{kind}"] = (
+                rglru.init_rglru_state(cfg, batch, dtype, device,
+                                       (n_groups,))
+                if kind == "rec" else
+                attention.init_cache(cfg, batch, max_seq, dtype, device,
+                                     (n_groups,)))
+        st = {"groups": group}
+        if n_trail:
+            st["trailing"] = rglru.init_rglru_state(cfg, batch, dtype,
+                                                    device, (n_trail,))
+        return st
     if cfg.moe.enabled:
         n_dense, n_moe = _moe_layout(cfg)
         st = {"layers": attention.init_cache(cfg, batch, max_seq, dtype,
@@ -183,7 +291,19 @@ def decode_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, state: Params,
     """One-token step through the stack.  x (B,1,D); ``pos`` (B,).  Each
     layer's cache is a view of the stacked state, updated in place at the
     ``active`` rows.  A MoE stack runs its dense layers, then its MoE
-    layers, whose routing takes every row of the batch."""
+    layers, whose routing takes every row of the batch; a Griffin stack
+    its groups, then its trailing recurrent layers."""
+    if cfg.rglru.enabled:
+        n_groups, n_trail = griffin_layout(cfg)
+        for i in range(n_groups):
+            x, _ = decode_griffin_group(index_tree(p["groups"], i), cfg, x,
+                                        index_tree(state["groups"], i), pos,
+                                        active=active)
+        for i in range(n_trail):
+            x, _ = decode_rec_layer(index_tree(p["trailing"], i), cfg, x,
+                                    index_tree(state["trailing"], i),
+                                    active=active)
+        return x, state
     if cfg.moe.enabled:
         n_dense, n_moe = _moe_layout(cfg)
         if n_dense:

@@ -16,7 +16,8 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core.sparsity import iter_leaves
 from repro_torch.models import model as pt_model
 
-ARCHS = ["edge-tiny", "stablelm-1.6b"]
+ARCHS = ["edge-tiny", "stablelm-1.6b", "yi-9b", "gemma-2b",
+         "chatglm3-6b"]
 
 
 def ref_config(cfg):

@@ -562,6 +562,12 @@ FLASH_CASES = [  # (bh, sq, skv, hd, causal, window)
     (4, 256, 256, 32, False, 0),
     (4, 192, 192, 64, True, 0),     # a last q tile of 64 rows
     (4, 192, 512, 128, True, 128),
+    # head dim 256 (gemma-2b, recurrentgemma-9b): q read by wgmma from
+    # shared memory, a two-stage ring
+    (4, 256, 256, 256, True, 0),
+    (4, 256, 256, 256, False, 0),
+    (4, 256, 512, 256, True, 128),
+    (4, 192, 192, 256, True, 64),   # a last q tile of 64 rows, windowed
 ]
 
 
@@ -569,6 +575,16 @@ def _flash_inputs(cuda, bh, sq, skv, hd, seed):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     return (torch.randn((bh, s, hd), generator=gen, device=cuda)
             for s in (sq, skv, skv))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_hd256_runs_on_the_tensor_cores(cuda):
+    """The bf16 flash kernel's head-dim-256 instance (q read by wgmma from
+    shared memory) multiplies with HGMMA, as the smaller heads do."""
+    counts = build.tensor_core_ops("flash_attention")
+    hits = {f: c for f, c in counts.items()
+            if "fa_kernel_mma" in f and "ILi256E" in f}
+    assert hits and all(c > 0 for c in hits.values()), counts
 
 
 @pytest.mark.cuda
@@ -613,7 +629,20 @@ def test_cuda_flash_bf16_check_rejects_controls(cuda, control):
     widened exactly), the exact softmax rounded to bf16, and p rounded
     toward zero in one 16-row slice of each 128 q rows (one faulty
     consumer warp); the kernel itself passes it."""
-    q, k, v = (x.bfloat16() for x in _flash_inputs(cuda, 8, 512, 512, 64, 7))
+    _check_controls(cuda, control, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control", ["p-unrounded", "float64-rounded",
+                                     "warp-truncating-p"])
+def test_cuda_flash_bf16_check_rejects_controls_hd256(cuda, control):
+    """As above at head dim 256, whose bounds carry hd/8 + √hd + 1 score
+    roundings per score: the controls still fall outside them."""
+    _check_controls(cuda, control, 256)
+
+
+def _check_controls(cuda, control, hd):
+    q, k, v = (x.bfloat16() for x in _flash_inputs(cuda, 8, 512, 512, hd, 7))
     plain = flash_attention_plain(q, k, v)
     if control == "p-unrounded":
         other = flash_attention_plain(q, k, v.float())

@@ -553,18 +553,16 @@ def test_converted_tree_carries_the_moe_layout():
 
 
 def test_unported_families_still_refuse():
+    # the Griffin family (rglru) is ported: tests/test_torch_griffin.py
     cfg = smoke()
     refused = {
         "ssm": dataclasses.replace(cfg, moe=pt_base.MoEConfig(),
                                    ssm=pt_base.SSMConfig(d_state=16)),
-        "rglru": dataclasses.replace(cfg, moe=pt_base.MoEConfig(),
-                                     rglru=pt_base.RGLRUConfig(
-                                         lru_width=64)),
         "whisper": dataclasses.replace(cfg, moe=pt_base.MoEConfig(),
                                        encoder_decoder=True),
     }
     for name, bad in refused.items():
-        assert bad.ssm.enabled or bad.rglru.enabled or bad.encoder_decoder
+        assert bad.ssm.enabled or bad.encoder_decoder
         for fn in (lambda: pt_tr.init_stack(bad, torch.Generator()),
                    lambda: pt_tr.init_decode_state(bad, 1, 8)):
             with pytest.raises(NotImplementedError):

@@ -46,7 +46,8 @@ from repro_torch.models import model as pt_model
 from repro_torch.quant.quantize import quantize_params
 from repro_torch.serve import engine as pt_engine
 
-ARCHS = ["edge-tiny", "stablelm-1.6b"]
+ARCHS = ["edge-tiny", "stablelm-1.6b", "yi-9b", "gemma-2b",
+         "chatglm3-6b"]
 SPARSE = pt_base.SparsityConfig(weight_sparsity=0.5,
                                 activation_threshold=0.05)
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -132,6 +133,10 @@ FLASH_CASES = [  # (bh, sq, skv, hd, causal, window, block)
     (4, 512, 512, 64, True, 128, 128),
     (4, 128, 512, 64, True, 0, 64),
     (4, 128, 512, 64, True, 0, 128),
+    # head dim 256 (gemma-2b, recurrentgemma-9b): causal, windowed, full
+    (2, 128, 128, 256, True, 0, 64),
+    (2, 128, 128, 256, True, 64, 64),
+    (2, 128, 128, 256, False, 0, 64),
 ]
 
 
@@ -164,9 +169,11 @@ def test_flash_plain_versions_match_reference(case, dtype):
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     x = torch.zeros((2, 128, 64))
-    narrow = torch.zeros((2, 128, 8))
+    narrow, wide = torch.zeros((2, 128, 8)), torch.zeros((2, 128, 512))
     with pytest.raises(ValueError, match="head dim"):
         pt_fa.flash_attention(narrow, narrow, narrow)
+    with pytest.raises(ValueError, match="head dim"):
+        pt_fa.flash_attention(wide, wide, wide)
     with pytest.raises(ValueError, match="multiples of 64"):
         pt_fa.flash_attention(torch.zeros((2, 96, 64)), x, x)
     with pytest.raises(ValueError, match="Sq <= Skv"):
@@ -211,16 +218,6 @@ def test_attention_forward_matches_reference(arch, s, use_flash, dtype):
     np.testing.assert_allclose(_np(out_p), _np(out_r), **tol)
     np.testing.assert_allclose(_np(kp), _np(kr), **tol)
     np.testing.assert_allclose(_np(vp), _np(vr), **tol)
-
-
-def test_windowed_branch_is_not_ported():
-    cfg, _, _, pp = setup("edge-tiny")
-    cfg = dataclasses.replace(cfg, window=16)
-    player = {n: w[0] for n, w in pp["stack"]["layers"]["attn"].items()}
-    x = torch.zeros((1, 32, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_attn.attention_forward(player, cfg, x, window=16,
-                                  positions=torch.arange(32)[None])
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +280,9 @@ def test_quantized_prefill_matches_reference(arch, planned):
         rec = _ref_shape_exec(rcfg, shape, rp, quantize=True)
         pec = pt_engine.shape_exec_config(cfg, shape, params=pp,
                                           quantize=True, device="cpu")
-        assert pec.plan.entries["lm_head"].quantized
+        # a tied head is never planned
+        assert ("lm_head" in pec.plan.entries) == (not cfg.tie_embeddings)
+        assert all(e.quantized for e in pec.plan.entries.values())
         rq, pq = rec.plan.attach(rq), pec.plan.attach(pq)
     plog, rlog = _both_prefill(rcfg, rq, rec, cfg, pq, pec, toks)
     np.testing.assert_allclose(plog.numpy(), np.asarray(rlog), **LOGITS)
@@ -372,7 +371,7 @@ def test_prefill_refuses_tokens_off_the_params_device():
 def test_prefill_with_kernels_on_cpu_runs_the_plain_versions():
     """``use_kernels`` on CPU tensors: every wrapper (the flex matmul and
     the flash kernel's) runs its plain version, and no launch is counted.
-    The flash wrapper takes head dims 32, 64 and 128, so the smoke model
+    The flash wrapper takes head dims 32, 64, 128 and 256, so the smoke model
     gets 2 heads of 32; S = 2560 takes the flash branch."""
     cfg = dataclasses.replace(pt_base.get_smoke_config("stablelm-1.6b"),
                               n_heads=2, n_kv_heads=2, head_dim=32)

@@ -41,7 +41,8 @@ from repro_torch.models import model as pt_model
 from repro_torch.quant import quantize as pt_q
 from repro_torch.serve import engine as pt_engine
 
-ARCHS = ["edge-tiny", "stablelm-1.6b"]
+ARCHS = ["edge-tiny", "stablelm-1.6b", "yi-9b", "gemma-2b",
+         "chatglm3-6b"]
 SPARSE = pt_base.SparsityConfig(weight_sparsity=0.5,
                                 activation_threshold=0.05)
 N_SLOTS, MAX_SEQ = 4, 40
@@ -145,7 +146,7 @@ def test_quantize_params_bit_equal(arch, tie, dtype):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_dequantize_params_gives_back_the_structure(arch):
-    _, _, rp, pp = setup(arch, False)
+    cfg, _, rp, pp = setup(arch, False)
     rq, _ = ref_q.quantize_params(rp)
     pq, _ = pt_q.quantize_params(pp)
     back = pt_q.dequantize_params(pq, dtype=torch.bfloat16)
@@ -157,8 +158,10 @@ def test_dequantize_params_gives_back_the_structure(arch):
         assert leaf.shape == orig[path].shape, path
         np.testing.assert_array_equal(_bits(leaf), _bits(ref_back[path]))
     assert sorted(dict(iter_leaves(back))) == sorted(orig)
-    # the dequantized head is back in its stored (V, D) orientation
-    assert back["lm_head"].is_contiguous()
+    # the dequantized head is back in its stored (V, D) orientation; a tied
+    # head is the embedding, which is not quantized
+    if not cfg.tie_embeddings:
+        assert back["lm_head"].is_contiguous()
     # one (K, N) weight: the same bits as the reference's
     wq, rwq = pq["stack"]["layers"]["attn"]["wq"], rq["stack"]["layers"][
         "attn"]["wq"]
@@ -182,7 +185,8 @@ def test_quantized_plan_equals_reference(arch):
     assert pec.quantize and rec.quantize
     ours, theirs = pec.plan, rec.plan
     assert sorted(ours.entries) == sorted(theirs.entries)
-    assert "lm_head" in ours.entries
+    # a tied head is never planned
+    assert ("lm_head" in ours.entries) == (not cfg.tie_embeddings)
     for key, e in ours.entries.items():
         r = theirs.entries[key]
         assert e.quantized and r.quantized and not e.transpose, key
@@ -207,8 +211,11 @@ def test_quantized_plan_equals_reference(arch):
     last = wq.index(cfg.n_layers - 1)
     assert torch.equal(last.qscale, pq["stack"]["layers"]["attn"]["wq"]
                        .scale[-1])
-    head = attached["lm_head"]
-    assert head.quantized and head.kn.shape == (cfg.d_model, cfg.vocab)
+    if cfg.tie_embeddings:       # a tied head is never planned
+        assert "lm_head" not in attached
+    else:
+        head = attached["lm_head"]
+        assert head.quantized and head.kn.shape == (cfg.d_model, cfg.vocab)
 
 
 def _table_configs():
@@ -401,7 +408,11 @@ def test_planned_int8_engine_streams_equal_reference(arch):
     peng = pt_engine.ServeEngine(cfg, pp, n_slots=N_SLOTS, max_seq=MAX_SEQ,
                                  exec_cfg=pec, decode_block=8, device="cpu")
     assert peng.quantize and peng.quant_stats == reng.quant_stats
-    assert isinstance(peng._exec_params["lm_head"], pt_sp.PlannedWeight)
+    if cfg.tie_embeddings:       # a tied head is never planned
+        assert "lm_head" not in peng._exec_params
+    else:
+        assert isinstance(peng._exec_params["lm_head"],
+                          pt_sp.PlannedWeight)
     prompts = _prompts(cfg)
     got, want = _drain(peng, prompts), _drain(reng, prompts)
     assert got == want

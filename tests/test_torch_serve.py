@@ -24,7 +24,8 @@ from repro_torch.kernels import ops as pt_ops
 from repro_torch.models import model as pt_model
 from repro_torch.serve import engine as pt_engine
 
-ARCHS = ["edge-tiny", "stablelm-1.6b"]
+ARCHS = ["edge-tiny", "stablelm-1.6b", "yi-9b", "gemma-2b",
+         "chatglm3-6b"]
 SPARSE = pt_base.SparsityConfig(weight_sparsity=0.5,
                                 activation_threshold=0.05)
 N_SLOTS, MAX_SEQ = 4, 40
