@@ -226,6 +226,33 @@ generator, block-magnitude-pruned at (256, 256):
      plain within 5%.  The kernels of each config's run must launch; the
      hd-256 flash rows join the ``kernels`` line, and the 2-D matmul rows
      add ``launches_phase16`` / ``launches_phase17``.
+ 18. FlexNN's analytic core (no new kernel): (a) the paper's Fig 16 —
+     ``scheduler.optimize_network`` on the card for resnet101 and yolov2
+     under FlexNN (dense) and the Eyeriss-RS and TPU-NLR baselines scaled
+     to its SRAM (built as ``benchmarks/bench_energy_vs_fixed.py`` builds
+     them), every layer's winning ``Schedule``, energy and cycles equal to
+     the same search on the CPU, and the per-network and per-layer %
+     reductions of modelled energy (Table I's units, not joules); (b) the
+     four profiled networks (§V-C profiles) under two-sided, weight-only
+     and no sparsity support, card == CPU on every layer of resnet50 and
+     mobilenet_v2 and every 3rd of googlenet and inception_v3; (c) the ZVC
+     codec and the CSB on StableLM-1.6B's tensors (rebuilt from seed 0 by
+     phase 3's ``bring_up``: phase 4's weights and plan): layer 0's mlp.in
+     output for a 128-token row block under ReLU, the SiLU hidden
+     activation and the pruned mlp.out weight — decoded == x, packed /
+     bitmap / nnz and the ReLU rows' CSB popcounts equal to the CPU's,
+     ``zvc_compressed_bytes`` of the mlp.out leaf equal to its
+     ``SitePlan.stats`` ZVC bytes; (d) ``ExecConfig(sparse_dispatch=
+     False)`` on the planned engine: one decode step runs ``fm_output``
+     once at every site and ``bs_matmul`` never, two fused drains (4 x 8
+     prompt tokens x 8 new) with the switch off and on give the same
+     streams, four ``step()``s' logits are bit-equal under the switch-off
+     table, the plan and the dense table, and ``site_plan_estimate`` is
+     printed beside each site's measured plan stats.  An ``analytic`` JSON
+     line holds the phase's seconds, the card's and the CPU's search
+     seconds per network, the Fig 16 summary and the gate counts; the
+     ``block_sparse`` and ``flex_output`` rows add ``launches_phase18``
+     (the switch-off drain's).
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON.
@@ -3463,6 +3490,329 @@ def run_family(arch, report, card, flash_rows):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 18: FlexNN's analytic core on the card, the ZVC codec on real
+# tensors, and sparse dispatch switched off
+# ---------------------------------------------------------------------------
+
+FIG16_NETS = ("resnet101", "yolov2")
+ZOO_VARIANTS = ("two_sided", "weight", "none")
+# the profiled networks whose CPU cross-check takes every 3rd layer (the
+# card searches every layer), so the phase keeps within its 90 s
+ZOO_SAMPLED = ("googlenet", "inception_v3")
+P18_NEW = 8
+
+
+def fig16_accelerators():
+    """FlexNN (dense) and the two fixed-dataflow baselines scaled to its
+    SRAM, built as ``benchmarks/bench_energy_vs_fixed.py`` builds them."""
+    from repro_torch.core.energy_model import EYERISS, FLEXNN, TPU
+    return {"flex": dataclasses.replace(FLEXNN, sparsity_support="none"),
+            "eyeriss": dataclasses.replace(EYERISS,
+                                           sram_bytes=FLEXNN.sram_bytes),
+            "tpu": dataclasses.replace(TPU, sram_bytes=FLEXNN.sram_bytes,
+                                       rf_if=16, rf_fl=32, rf_of=16,
+                                       cost_inter_pe=0.12, cost_mac=1.06)}
+
+
+def same_costs(a, b) -> bool:
+    """Two searches' results equal: every layer's winning ``Schedule``,
+    and its energy and cycles as floats."""
+    return len(a) == len(b) and all(
+        x.schedule == y.schedule and x.energy == y.energy
+        and x.cycles == y.cycles for x, y in zip(a, b))
+
+
+def timed_search(layers, acc, sps, device):
+    """``optimize_network`` on ``device``: (costs, seconds)."""
+    import torch
+    from repro_torch.core.scheduler import optimize_network
+    t = time.perf_counter()
+    costs = optimize_network(layers, acc, sps, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return costs, time.perf_counter() - t
+
+
+def p18_fig16(report, gates, seconds) -> dict:
+    """(a) Fig 16: the per-layer optimal flexible schedule against the
+    Eyeriss-RS and TPU-NLR baselines, searched on the card and on the
+    CPU; modelled energies in Table I's units (not joules)."""
+    from repro_torch.configs.cnn_zoo import NETWORKS
+    accs = fig16_accelerators()
+    summary = {}
+    for net in FIG16_NETS:
+        layers = NETWORKS[net]()
+        energy = {}
+        secs = {"cuda": 0.0, "cpu": 0.0}
+        for name, acc in accs.items():
+            got, t_cuda = timed_search(layers, acc, None, "cuda")
+            want, t_cpu = timed_search(layers, acc, None, "cpu")
+            secs["cuda"] += t_cuda
+            secs["cpu"] += t_cpu
+            ok = same_costs(got, want)
+            gates["fig16"] = gates.get("fig16", 0) + ok
+            need(ok, f"phase 18: {net} under {name}: the card's search "
+                 f"differs from the CPU's")
+            energy[name] = [c.energy for c in got]
+        seconds[net] = secs
+        for base in ("eyeriss", "tpu"):
+            red = [100.0 * (1.0 - f / b)
+                   for f, b in zip(energy["flex"], energy[base])]
+            r = {"network_pct": 100.0 * (1.0 - sum(energy["flex"])
+                                         / sum(energy[base])),
+                 "min_layer_pct": min(red), "max_layer_pct": max(red),
+                 "mean_layer_pct": sum(red) / len(red),
+                 "n_negative_layers": sum(v < 0 for v in red),
+                 "n_layers": len(red)}
+            summary[f"{net}_vs_{base}"] = r
+            report(f"Fig 16 {net} vs {base} (modelled energy, Table I "
+                   f"units): net={r['network_pct']:.1f}% layers "
+                   f"[{r['min_layer_pct']:.1f}, {r['max_layer_pct']:.1f}]% "
+                   f"mean={r['mean_layer_pct']:.1f}% "
+                   f"neg={r['n_negative_layers']}/{r['n_layers']}")
+        report(f"{net}: search {secs['cuda']:.2f} s on the card, "
+               f"{secs['cpu']:.2f} s on the CPU (three accelerators, "
+               f"{len(layers)} layers each); schedules, energies and "
+               f"cycles equal")
+    return summary
+
+
+def p18_zoo(report, gates, seconds) -> dict:
+    """(b) The four profiled networks under two-sided, weight-only and no
+    sparsity support: the card's search held to the CPU's, on every layer
+    of resnet50 and mobilenet_v2 and every 3rd (0, 3, 6, ...) of
+    ``ZOO_SAMPLED``.  The §V-C profiles are seeded from
+    ``hash(network)``, so the energies change from process to process;
+    the gate does not."""
+    from repro_torch.configs.cnn_zoo import NETWORKS
+    from repro_torch.core.energy_model import flexnn_variant
+    from repro_torch.core.sparsity_profiles import (_NETWORK_STATS,
+                                                    network_sparsity,
+                                                    profiles_for)
+    out = {}
+    for net in _NETWORK_STATS:
+        layers = NETWORKS[net]()
+        sps = profiles_for(net, layers)
+        wt_sp, act_sp = network_sparsity(sps, layers)
+        step = 3 if net in ZOO_SAMPLED else 1
+        secs = {"cuda": 0.0, "cpu": 0.0, "cpu_layers": len(layers[::step])}
+        energy = {}
+        for v in ZOO_VARIANTS:
+            acc = flexnn_variant(v)
+            got, t_cuda = timed_search(layers, acc, sps, "cuda")
+            want, t_cpu = timed_search(layers[::step], acc, sps[::step],
+                                       "cpu")
+            secs["cuda"] += t_cuda
+            secs["cpu"] += t_cpu
+            ok = same_costs(got[::step], want)
+            gates["zoo"] = gates.get("zoo", 0) + ok
+            need(ok, f"phase 18: {net} under flexnn-{v}: the card's search "
+                 f"differs from the CPU's")
+            energy[v] = sum(c.energy for c in got)
+        seconds[net] = secs
+        out[net] = energy
+        report(f"{net} (weight sp {wt_sp:.3f}, act sp {act_sp:.3f}; this "
+               f"process's profiles): modelled energy two-sided "
+               f"{energy['two_sided']:.4e}, weight-only "
+               f"{energy['weight']:.4e}, dense {energy['none']:.4e} "
+               f"(Table I units); two-sided saves "
+               f"{100 * (1 - energy['two_sided'] / energy['none']):.1f}%; "
+               f"search {secs['cuda']:.2f} s card ({len(layers)} layers), "
+               f"{secs['cpu']:.2f} s CPU ({secs['cpu_layers']} of them), "
+               f"equal")
+    return out
+
+
+def zvc_same(x, report, label, gates) -> tuple:
+    """(c) One tensor through the codec on the card and on the CPU:
+    decoded equal in value, and packed (bits), bitmap and nnz equal."""
+    import torch
+    from repro_torch.core.sparsity import zvc_decode, zvc_encode
+    packed, bitmap, nnz = zvc_encode(x)
+    dec = zvc_decode(packed, bitmap)
+    cp, cb, cn = zvc_encode(x.cpu())
+    ints = torch.int16 if x.element_size() == 2 else torch.int32
+    ok = (torch.equal(dec, x)
+          and torch.equal(packed.cpu().view(ints), cp.view(ints))
+          and torch.equal(bitmap.cpu(), cb) and int(nnz) == int(cn))
+    gates["zvc"] = gates.get("zvc", 0) + ok
+    n = x.numel()
+    report(f"ZVC {label} {tuple(x.shape)} {x.dtype}: nnz {int(nnz)} of {n} "
+           f"({int(nnz) / n:.4f}); decoded == x, and packed / bitmap / nnz "
+           f"== the CPU's: {ok}")
+    need(ok, f"phase 18: the ZVC codec on {label} differs")
+    return bitmap
+
+
+def p18_zvc(cfg, params, plan, report, gates) -> dict:
+    """(c) The codec and the CSB on StableLM-1.6B's tensors: layer 0's
+    mlp.in output for one 128-token prompt row block under ReLU (FlexNN's
+    ReLU-induced case) and the raw SiLU hidden activation that feeds
+    mlp.out (the dense case), and layer 0's pruned mlp.out weight."""
+    import torch
+    from repro_torch.core.sparsity import (csb_popcount,
+                                           relu_activation_bitmap,
+                                           zvc_compressed_bytes)
+    from repro_torch.models import attention, layers as L, model as M
+    from repro_torch.models.transformer import index_tree
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    tokens = torch.randint(0, cfg.vocab, (1, 128), generator=gen,
+                           device="cuda")
+    p0 = index_tree(params["stack"]["layers"], 0)
+    with torch.no_grad():
+        x = L.embed(cfg, params["embed"], tokens)
+        x = x + attention.attention_forward(
+            p0["attn"], cfg, L.apply_norm(p0["ln1"], cfg, x),
+            positions=M._positions(tokens))
+        h = L.apply_norm(p0["ln2"], cfg, x)[0]
+        mm = lambda a, w: torch.matmul(a.float(), w.float()).to(a.dtype)
+        pre = mm(h, p0["mlp"]["w_in"])
+        relu = torch.relu(pre)
+        silu = torch.nn.functional.silu(mm(h, p0["mlp"]["w_gate"])) * pre
+    w_out = p0["mlp"]["w_out"]
+    a_bm = zvc_same(relu, report, "ReLU(mlp.in output)", gates)
+    need(torch.equal(a_bm, relu_activation_bitmap(relu)),
+         "phase 18: the ReLU bitmap differs from relu_activation_bitmap")
+    zvc_same(silu, report, "SiLU hidden activation", gates)
+    w_bm = zvc_same(w_out, report, "pruned mlp.out weight", gates)
+    # the MAC pairs that fire for the first rows of relu @ w_out
+    pops = []
+    for r in range(4):
+        got = csb_popcount(a_bm[r][:, None], w_bm)
+        want = csb_popcount(a_bm[r].cpu()[:, None], w_bm.cpu())
+        need(int(got) == int(want), "phase 18: csb_popcount differs")
+        pops.append(int(got))
+    gates["csb"] = len(pops)
+    k, n = w_out.shape
+    report(f"CSB popcount of ReLU rows 0-3 against the pruned mlp.out "
+           f"weight: {pops} of {k * n} pairs each (card == CPU)")
+    entry = next(e for e in plan.entries.values() if e.site == "mlp.out")
+    leaf = params["stack"]["layers"]["mlp"]["w_out"]
+    got = zvc_compressed_bytes(leaf, elem_bytes=leaf.element_size())
+    want = entry.stats()["zvc_bytes"]
+    report(f"mlp.out ZVC bytes, all {leaf.shape[0]} layers: "
+           f"zvc_compressed_bytes {got:.1f}, SitePlan.stats {want:.1f}")
+    need(got == want, "phase 18: ZVC bytes differ from the plan's")
+    gates["zvc_bytes"] = 1
+    return {"relu_density": int(a_bm.sum()) / a_bm.numel(),
+            "csb_pairs_rows_0_3": pops}
+
+
+def p18_dispatch(cfg, sp_cfg, params, planned, dense, report,
+                 gates) -> dict:
+    """(d) ``sparse_dispatch=False`` at full width: the plan's dense
+    fallback at every site, through the flex-matmul kernels
+    (``use_kernels``, as the reference's switch-off route takes its Pallas
+    kernel) at the plan table's schedules; the returned launches are the
+    switch-off drain's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.descriptors import site_plan_estimate
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    off = dataclasses.replace(planned, sparse_dispatch=False,
+                              use_kernels=True)
+    rng = np.random.default_rng(SEED + 18)
+    prompts = [rng.integers(0, cfg.vocab, size=8) for _ in range(N_SLOTS)]
+    n_sites = sum(e.lead[0] if e.lead else 1
+                  for e in planned.plan.entries.values())
+    # one decode step under the switch: fm_output at every site, once
+    attached = planned.plan.attach(params, verify=False)
+    state = M.init_decode_state(cfg, N_SLOTS, 16, dtype=torch.bfloat16,
+                                device="cuda")
+    tok = torch.zeros((N_SLOTS, 1), dtype=torch.long, device="cuda")
+    pos = torch.zeros((N_SLOTS,), dtype=torch.long, device="cuda")
+    live = torch.ones((N_SLOTS,), dtype=torch.bool, device="cuda")
+    reset_launches()
+    with torch.no_grad(), ops.exec_config(off):
+        M.masked_decode_step(attached, cfg, tok, state, pos, live)
+    torch.cuda.synchronize()
+    step = launch_counts()
+    report(f"one decode step, sparse_dispatch=False: fm_output "
+           f"{step['output']} launches ({n_sites} sites x layers), "
+           f"bs_matmul {step['block_sparse']}")
+    need(step["output"] == n_sites and step["block_sparse"] == 0,
+         "phase 18: the switch-off step did not run fm_output once at "
+         "every site")
+    del attached, state
+    streams, launches = {}, {}
+    for label, ec in (("sparse_dispatch=False", off), ("plan", planned)):
+        reset_launches()
+        eng = make_engine(cfg, params, ec, True)
+        uids = [eng.submit(p, max_new=P18_NEW) for p in prompts]
+        res = eng.run_until_drained()
+        torch.cuda.synchronize()
+        streams[label] = [res[u] for u in uids]
+        launches[label] = {k: launch_counts()[k] for k in
+                           ("block_sparse", "output")}
+        report(f"drain ({label}): {N_SLOTS} x 8 prompt tokens x {P18_NEW} "
+               f"new; launches {launches[label]}")
+    off_counts = launches["sparse_dispatch=False"]
+    need(off_counts["block_sparse"] == 0 and off_counts["output"] > 0,
+         "phase 18: the switch-off drain launched bs_matmul")
+    same = streams["sparse_dispatch=False"] == streams["plan"]
+    report(f"switch-off streams == plan streams: {same}")
+    need(same, "phase 18: the switch-off streams differ from the plan's")
+    gates["dispatch_streams"] = 1
+    # four step()s' logits under the three tables, bit for bit
+    logits = {}
+    for label, ec in (("sparse_dispatch=False", off), ("plan", planned),
+                      ("dense table", dense)):
+        eng = make_engine(cfg, params, ec, False)
+        for p in prompts:
+            eng.submit(p, max_new=P18_NEW)
+        steps = []
+        for _ in range(4):
+            eng.step()
+            steps.append(eng.last_logits.clone())
+        logits[label] = torch.stack(steps)
+    base = logits["sparse_dispatch=False"]
+    for label in ("plan", "dense table"):
+        ok = torch.equal(base, logits[label])
+        report(f"four step()s' logits, sparse_dispatch=False == {label} "
+               f"bit for bit: {ok}")
+        need(ok, f"phase 18: switch-off logits differ from the {label}'s")
+        gates["dispatch_logits"] = gates.get("dispatch_logits", 0) + 1
+    need(bool(torch.isfinite(base).all()), "phase 18: non-finite logits")
+    # the plan estimate beside what the plan measured
+    for e in planned.plan.entries.values():
+        d = planned.schedules.sites[e.site]
+        est = site_plan_estimate(d, sp_cfg)
+        st = e.stats()
+        n_l = st["layers"]
+        report(f"  {e.site}: est_max_nnz {est['est_max_nnz']} vs max_nnz "
+               f"{st['max_nnz']} (tk {st['tk']}); ZVC bytes est "
+               f"{est['zvc_bytes'] * n_l:.4e} vs measured "
+               f"{st['zvc_bytes']:.4e} ({n_l} layers)")
+    return off_counts
+
+
+def run_analytic(report) -> tuple:
+    """Phase 18 (a)-(d).  Returns the switch-off drain's launches and the
+    ``analytic`` JSON object."""
+    import torch
+    t0 = time.perf_counter()
+    gates, seconds = {}, {}
+    fig16 = p18_fig16(report, gates, seconds)
+    zoo = p18_zoo(report, gates, seconds)
+    t_search = time.perf_counter() - t0
+    cfg, sp_cfg, params, planned, dense = bring_up(report)
+    zvc = p18_zvc(cfg, params, planned.plan, report, gates)
+    launches = p18_dispatch(cfg, sp_cfg, params, planned, dense, report,
+                            gates)
+    del params, planned, dense
+    free()
+    secs = time.perf_counter() - t0
+    report(f"phase 18 wall time: {secs:.1f} s (searches {t_search:.1f} s; "
+           f"budget 90 s)")
+    return launches, {"seconds": secs, "search_seconds": t_search,
+                      "search_seconds_by_network": seconds,
+                      "fig16_modelled_energy": fig16,
+                      "zoo_modelled_energy": zoo, "zvc": zvc,
+                      "gates": gates, "device": torch.cuda.get_device_name(0)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3668,9 +4018,18 @@ def main() -> int:
         for row in flash_rows:
             row["launches_phase16_17"] = row["launches"]
         rows += flash_rows
+        # phase 18: the analytic core, the ZVC codec, sparse dispatch off
+        launches18, analytic = run_analytic(report)
+        for row in rows:
+            key = {"block_sparse": "block_sparse",
+                   "flex_output": "output"}.get(row["name"])
+            if key is not None:
+                row["launches_phase18"] = launches18[key]
+        done("phase 18")
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)
+        report(json.dumps({"analytic": analytic}))
         report(json.dumps({"kernels": rows}))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

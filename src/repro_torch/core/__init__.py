@@ -1,2 +1,4 @@
-"""FlexNN core, ported: descriptor table, schedule selector, FlexTree's
-analytic half and the weight-sparsity plan layer."""
+"""FlexNN core, ported: the access-count energy model and the per-layer
+schedule search, the descriptor table and matmul schedule selector,
+FlexTree's analytic half, the §V-C sparsity profiles, and the sparsity
+machinery (ZVC codec, CSB, weight-sparsity plans)."""

@@ -18,13 +18,17 @@ numerically identical to dense — zero blocks are skipped, never
 approximated.  Densities start from config priors
 (``sparsity_densities_for``) and are replaced by measured values
 (``compile_network_schedule(wt_densities=..., act_densities=...)``).
+``site_plan_estimate`` models what a compiled plan would measure at a site
+from the config's density prior alone.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core.energy_model import zvc_weight_bytes
 from repro_torch.core.flextree import ReduceConfig, best_strategy
 from repro_torch.core.scheduler import (MatmulSchedule, TPUHardware, TPU_V5E,
                                         select_matmul_schedule)
@@ -203,3 +207,58 @@ def compile_network_schedule(cfg: ArchConfig, shape: ShapeConfig, *,
             sparsity_mode=mode,
         )
     return ns
+
+
+def site_plan_estimate(d: SiteDescriptor, cfg: ArchConfig,
+                       in_bytes: int = 2,
+                       model_shards: int = 1) -> Dict[str, object]:
+    """Modeled weight-plan stats for one site: what ``compile_weight_plan``
+    would measure, estimated from the config's density prior.
+
+    Records per-site plan economics where there are no param tensors to
+    compile a real plan from: K-block count at the schedule granularity,
+    the expected tight ``max_nnz``, and ZVC bytes saved at rest.  Engines
+    with real params get measured numbers via ``SitePlan.stats``.
+    """
+    act_d, wt_d = sparsity_densities_for(cfg)
+    bk = max(min(d.schedule.bk, d.k), 1)
+    tk = -(-d.k // bk)
+    sparse = d.sparsity_mode in ("weight", "two_sided")
+    est_nnz = max(1, min(tk, math.ceil(tk * wt_d))) if sparse else tk
+    # batched-expert sites carry E per-expert (K, N) matrices behind one
+    # descriptor — the plan economics scale by the *per-device* expert
+    # count: like matmul_sites, the estimate is per device-row; expert
+    # tensors are EP-sharded over the model axis (ceil for uneven splits —
+    # the worst-loaded device)
+    n_mats = 1
+    if d.site.startswith("moe.experts") and cfg.moe.enabled:
+        n_mats = -(-cfg.moe.n_experts // model_shards)
+    dense_bytes = d.k * d.n * in_bytes * n_mats
+    zvc_bytes = (dense_bytes * wt_d + n_mats * d.k * d.n / 8.0 if sparse
+                 else float(dense_bytes))
+    # int8 columns: the same at-rest economics with a 1-byte payload plus
+    # the per-output-channel f32 scales — reported unconditionally so the
+    # estimate records the quantization headroom even for bf16 plans
+    n_elems = n_mats * d.k * d.n
+    nnz = n_elems * (wt_d if sparse else 1.0)
+    n_channels = n_mats * d.n
+    int8_zvc = (zvc_weight_bytes(n_elems, nnz, quantized=True,
+                                 n_channels=n_channels) if sparse
+                else float(nnz) + 4.0 * n_channels)
+    out = {
+        "sparsity_mode": d.sparsity_mode,
+        "wt_density": wt_d if sparse else 1.0,
+        "tk": tk,
+        "est_max_nnz": est_nnz,
+        "dense_bytes": dense_bytes,
+        "zvc_bytes": zvc_bytes,
+        "bytes_saved": max(dense_bytes - zvc_bytes, 0.0),
+        "int8_zvc_bytes": int8_zvc,
+        "bytes_saved_int8": max(dense_bytes - int8_zvc, 0.0),
+        "int8_vs_sparse_reduction": zvc_bytes / int8_zvc if int8_zvc else 1.0,
+    }
+    if n_mats > 1:
+        out["experts"] = n_mats
+        out["per_expert_dense_bytes"] = d.k * d.n * in_bytes
+        out["per_expert_zvc_bytes"] = zvc_bytes / n_mats
+    return out

@@ -1,11 +1,60 @@
-"""FlexTree's analytic half (FlexNN §III-B): the mesh-level reduction
-strategies' link-traffic model and the strategy choice the descriptor
-compiler records per site.  The collectives themselves (the JAX package's
-``reduce_psum``) belong to the distribution slice of the port."""
+"""FlexTree's analytic half (FlexNN §III-B), ported from the JAX package's
+``core/flextree.py``:
+
+1. the cycle model of the hardware adder tree — flexible output tap points
+   at every level (``IC_P`` 1..16, non-powers-of-2 zero-padded) against a
+   neighbor-to-neighbor psum chain and a fixed root-only tree;
+2. the mesh-level reduction strategies' link-traffic model and the
+   strategy choice the descriptor compiler records per site.
+
+The collectives themselves (the reference's ``reduce_psum``) belong to the
+distribution slice of the port."""
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+
+MAX_EXTRACT_PER_ROUND = 4     # ≤4 OF points drained from FlexTree per round
+TREE_FANIN = 16               # 16 PEs per column feed the tree
+
+
+def _tap_points(ic_p: int) -> int:
+    """Output tap points per round for a given IC_P (§III-B: [8,8,4,2,1]
+    for IC_P = [1,2,4,8,16])."""
+    ic_p_pow2 = 1 << max(0, math.ceil(math.log2(max(ic_p, 1))))
+    return max(TREE_FANIN // max(ic_p_pow2, 2), 1)
+
+
+def flextree_cycles(n_outputs: int, ic_p: int) -> float:
+    """Cycles to reduce+drain ``n_outputs`` OF points with IC_P-deep taps."""
+    per_round = min(_tap_points(ic_p), MAX_EXTRACT_PER_ROUND)
+    depth = math.ceil(math.log2(max(ic_p, 2)))
+    rounds = math.ceil(n_outputs / per_round)
+    return rounds + depth          # pipelined: depth fills once
+
+
+def fixed_tree_cycles(n_outputs: int, ic_p: int) -> float:
+    """Fixed root-only tree: every output serializes through the single
+    root tap and re-traverses the full depth (no level taps, no multi-
+    extract) — the fixed-depth baseline of §III-B whose layer-level gap is
+    the paper's 4–16× band."""
+    depth = math.ceil(math.log2(TREE_FANIN))
+    return n_outputs * (depth + 1)
+
+
+def neighbor_chain_cycles(n_outputs: int, ic_p: int) -> float:
+    """Neighbor-to-neighbor psum forwarding (Eyeriss-style), pipelined:
+    successive outputs overlap their IC_P hops, so the chain drains one
+    output per cycle after an IC_P-cycle fill."""
+    return n_outputs + max(ic_p, 1)
+
+
+def flextree_speedup_vs_fixed(n_outputs: int, ic_p: int) -> float:
+    return fixed_tree_cycles(n_outputs, ic_p) / flextree_cycles(n_outputs, ic_p)
+
+
+def flextree_speedup_vs_chain(n_outputs: int, ic_p: int) -> float:
+    return neighbor_chain_cycles(n_outputs, ic_p) / flextree_cycles(n_outputs, ic_p)
 
 
 @dataclass(frozen=True)

@@ -1,12 +1,195 @@
-"""Matmul schedule selection — the "compiler" role of FlexNN (§III-A),
-ported from the JAX package's ``core/scheduler.py``: stationarity + blocking
-per matmul site, minimising modelled device-memory traffic under the
-per-block fast-memory budget of the target (``TPU_V5E`` or ``H100``).
+"""Schedule search — the "compiler" role of FlexNN (§III-A), ported from
+the JAX package's ``core/scheduler.py``.
+
+FlexNN's hardware accepts *any* schedule; the per-layer optimal schedule is
+found by software.  The first half enumerates the schedule space (loop
+order × blocking × partitioning) and returns the minimum-energy point of
+the access-count model (``core.energy_model``); fixed-dataflow baselines
+(Eyeriss-RS, TPU-WS, OS, IS) are the same search constrained to their
+dataflow family — exactly the framing of §II-A / Fig 3.  The search is one
+float64 tensor program per layer on a device (``core._vectorized``).
+
+The second half is the matmul schedule selector of the serving path: the
+same stationarity/blocking decision per matmul site, minimising modelled
+device-memory traffic under the per-block fast-memory budget of the target
+(``TPU_V5E`` or ``H100``).
 """
 from __future__ import annotations
 
+import itertools
+import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.core import _vectorized
+from repro_torch.core.energy_model import (
+    Accelerator,
+    ConvLayer,
+    Cost,
+    DENSE,
+    Schedule,
+    SparsityStats,
+    evaluate,
+    rf_feasible,
+)
+from repro_torch.device import resolve_device
+
+
+def _pow2_factors(n: int, cap: int) -> List[int]:
+    out = [1]
+    f = 2
+    while f <= min(n, cap):
+        out.append(f)
+        f *= 2
+    if n <= cap and n not in out:
+        out.append(n)
+    return out
+
+
+# Representative loop orders: the canonical dataflows + rotations.  (Full 24
+# permutations change results <1% in practice; these 8 span the reuse space.)
+_ORDERS: Tuple[Tuple[str, ...], ...] = (
+    ("oc", "ic", "oy", "ox"),   # IF-ish stationary inner spatial
+    ("ic", "oc", "oy", "ox"),   # WS: FL loops outermost → FL loaded once
+    ("oc", "oy", "ox", "ic"),   # OS: reduction innermost → no psum spill
+    ("oy", "ox", "oc", "ic"),   # OS spatial-major
+    ("ox", "oy", "ic", "oc"),   # IS: IF loops outermost
+    ("ic", "oy", "ox", "oc"),
+    ("oy", "ox", "ic", "oc"),
+    ("oc", "ox", "oy", "ic"),
+)
+
+_DATAFLOW_ORDERS: Dict[str, Tuple[Tuple[str, ...], ...]] = {
+    "ws": (("ic", "oc", "oy", "ox"), ("oc", "ic", "oy", "ox")),
+    "os": (("oc", "oy", "ox", "ic"), ("oy", "ox", "oc", "ic")),
+    "is": (("ox", "oy", "ic", "oc"), ("oy", "ox", "ic", "oc")),
+    "rs": (("oc", "oy", "ic", "ox"),),
+    "nlr": (("ic", "oc", "oy", "ox"),),
+}
+
+
+def enumerate_schedules(layer: ConvLayer, acc: Accelerator,
+                        sp: SparsityStats = DENSE,
+                        orders: Optional[Sequence[Tuple[str, ...]]] = None,
+                        dataflow: Optional[str] = None,
+                        ) -> Iterable[Schedule]:
+    """Yield RF-feasible schedules.  ``dataflow`` constrains to a fixed
+    family (order + partitioning style); None = full flexible space.  The
+    partition sets are ``_partition_sets``' (the reference spells the same
+    sets out a second time here)."""
+    ic_g = layer.ic // layer.groups
+    if orders is None:
+        orders = _DATAFLOW_ORDERS[dataflow] if dataflow else _ORDERS
+
+    p_sets = _partition_sets(layer, acc, dataflow)
+
+    # blocking candidates -----------------------------------------------------
+    b_ics = _pow2_factors(ic_g, acc.rf_if)
+    b_ocs = _pow2_factors(layer.oc, acc.rf_of)
+    b_oxs = _pow2_factors(layer.ox, 16)
+    b_oys = _pow2_factors(layer.oy, 16)
+
+    seen = set()
+    for ps in p_sets:
+        for b_ic, b_oc, b_ox, b_oy in itertools.product(b_ics, b_ocs,
+                                                        b_oxs, b_oys):
+            sched = Schedule(order=orders[0], b_ic=b_ic, b_oc=b_oc,
+                             b_ox=b_ox, b_oy=b_oy, **ps)
+            if not rf_feasible(layer, sched, acc, sp):
+                continue
+            for order in orders:
+                key = (order, b_ic, b_oc, b_ox, b_oy,
+                       tuple(sorted(ps.items())))
+                if key in seen:
+                    continue
+                seen.add(key)
+                yield Schedule(order=order, b_ic=b_ic, b_oc=b_oc, b_ox=b_ox,
+                               b_oy=b_oy, **ps)
+
+
+def _partition_sets(layer: ConvLayer, acc: Accelerator,
+                    dataflow: Optional[str]) -> List[dict]:
+    ic_g = layer.ic // layer.groups
+    rows, cols = acc.pe_rows, acc.pe_cols
+    if dataflow == "rs":
+        return [dict(p_fy=min(layer.fy, rows), p_oy=min(layer.oy, cols),
+                     p_ic=1, p_oc=1, p_ox=1)]
+    if dataflow == "ws":
+        p_ic = min(rows, 1 << int(math.log2(ic_g))) if ic_g > 1 else 1
+        p_oc = min(cols, 1 << int(math.log2(layer.oc))) if layer.oc > 1 else 1
+        return [dict(p_ic=p_ic, p_oc=p_oc, p_ox=1, p_oy=1, p_fy=1)]
+    if dataflow == "os":
+        return [dict(p_ox=min(layer.ox, cols), p_oy=min(layer.oy, rows),
+                     p_ic=1, p_oc=1, p_fy=1)]
+    if dataflow == "is":
+        return [dict(p_ox=min(layer.ox, cols), p_oc=min(layer.oc, rows),
+                     p_ic=1, p_oy=1, p_fy=1)]
+    if dataflow == "nlr":
+        return [dict(p_oc=min(layer.oc, cols), p_ic=min(ic_g, rows),
+                     p_ox=1, p_oy=1, p_fy=1)]
+    p_sets = []
+    for p_oc in _pow2_factors(layer.oc, cols):
+        for p_ic in _pow2_factors(ic_g, rows):
+            rem = (rows * cols) // max(p_oc * p_ic, 1)
+            if rem < 1:
+                continue
+            for p_ox in _pow2_factors(layer.ox, rem):
+                p_oy = min(rem // p_ox, layer.oy)
+                p_oy = 1 << int(math.log2(p_oy)) if p_oy >= 1 else 1
+                p_sets.append(dict(p_oc=p_oc, p_ic=p_ic, p_ox=p_ox,
+                                   p_oy=max(p_oy, 1), p_fy=1))
+    return p_sets
+
+
+def optimize_layer(layer: ConvLayer, acc: Accelerator,
+                   sp: SparsityStats = DENSE, *,
+                   dataflow: Optional[str] = None,
+                   objective: str = "energy",
+                   count_dram: bool = True,
+                   device: Union[str, torch.device, None] = "cuda") -> Cost:
+    """Best schedule for ``layer`` on ``acc``.
+
+    ``dataflow=None`` + ``acc.flexible`` searches the full space (FlexNN);
+    otherwise the accelerator's fixed family is used.  Uses the vectorized
+    grid search (``core._vectorized``: one float64 tensor program on
+    ``device``, CUDA unless the caller names the CPU); semantics are
+    pinned to the scalar ``evaluate`` by re-scoring the winner.
+    """
+    if dataflow is None and not acc.flexible:
+        dataflow = acc.fixed_dataflow
+    orders = _DATAFLOW_ORDERS[dataflow] if dataflow else _ORDERS
+    p_sets = _partition_sets(layer, acc, dataflow)
+    ic_g = layer.ic // layer.groups
+    best = _vectorized.search(
+        layer, acc, sp, orders, p_sets,
+        _pow2_factors(ic_g, acc.rf_if), _pow2_factors(layer.oc, acc.rf_of),
+        _pow2_factors(layer.ox, 16), _pow2_factors(layer.oy, 16),
+        objective=objective, count_dram=count_dram,
+        device=resolve_device(device))
+    if best is None:
+        best = evaluate(layer, Schedule(), acc, sp, count_dram=count_dram)
+    return best
+
+
+def optimize_network(layers: Sequence[ConvLayer], acc: Accelerator,
+                     sps: Optional[Sequence[SparsityStats]] = None, *,
+                     dataflow: Optional[str] = None,
+                     objective: str = "energy",
+                     count_dram: bool = True,
+                     device: Union[str, torch.device, None] = "cuda"
+                     ) -> List[Cost]:
+    device = resolve_device(device)
+    sps = sps or [DENSE] * len(layers)
+    return [optimize_layer(l, acc, s, dataflow=dataflow, objective=objective,
+                           count_dram=count_dram, device=device)
+            for l, s in zip(layers, sps)]
+
+
+# ---------------------------------------------------------------------------
+# Matmul schedule selection (the serving path's twin)
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

@@ -1,12 +1,23 @@
-"""Two-sided sparsity: the plan layer (FlexNN §III-D), ported from the JAX
+"""Two-sided sparsity machinery (FlexNN §III-D), ported from the JAX
 package's ``core/sparsity.py``.
 
-1. **Block-sparse metadata** — per-tile bitmaps for A (M×K) and B (K×N),
+1. **ZVC codec** — zero-value compression: a dense tensor → (packed
+   non-zeros, 1-bit/element bitmap, nnz) in a fixed-size buffer on the
+   tensor's own device, with no host read (``zvc_encode``/``zvc_decode``);
+   ``zvc_compressed_bytes`` is its storage cost (§IV).
+
+2. **Combined sparsity bitmap (CSB)** — ``IF_bitmap AND FL_bitmap`` and its
+   popcount: the number of MAC pairs that actually fire (Fig 13).
+
+3. **PE cycle model** — lockstep rounds gated by the busiest PE's
+   surviving MACs (§II-B, §V-C): closed form or Monte Carlo.
+
+4. **Block-sparse metadata** — per-tile bitmaps for A (M×K) and B (K×N),
    the combined sparsity bitmap (CSB) per (m, n) output tile = AND across
    the K blocks, compressed into the K-index lists the block-sparse kernel
    walks (``BlockSparseMeta``; the CAG unit analogue).
 
-2. **Precompiled weight-sparsity plans** — weights are static at serving
+5. **Precompiled weight-sparsity plans** — weights are static at serving
    time, so their block bitmaps and per-output-column live-K index lists
    are compiled *once* at engine bring-up (``compile_weight_plan``) with a
    tight ``max_nnz``.  In the decode step only the activation bitmap is
@@ -28,7 +39,7 @@ A quantized params tree (``quant.quantize_params``) plans its
 zero-preserving, so the bitmaps are the float weight's — and the attached
 ``PlannedWeight`` carries the payload with its per-channel scales.
 
-3. **Elastic plan tiers** — ``compile_weight_plan(prune_ratio=r)`` compiles
+6. **Elastic plan tiers** — ``compile_weight_plan(prune_ratio=r)`` compiles
    the lists as if ``prune_k_blocks`` had dropped the weakest fraction
    ``r`` of each output column's K-blocks, without touching the weight:
    a tier is a second schedule over the same weights (``compile_plan_tiers``
@@ -36,16 +47,17 @@ zero-preserving, so the bitmaps are the float weight's — and the attached
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.energy_model import zvc_weight_bytes
 from repro_torch.core.stacks import leading_slices, pad_to_blocks
 from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
 
-SCALE_BYTES = 4          # float32 per-output-channel dequant scale
 
 SITE_KEYS: Dict[str, Dict[str, str]] = {
     "mlp": {"w_in": "mlp.in", "w_gate": "mlp.gate", "w_out": "mlp.out"},
@@ -65,15 +77,95 @@ TOP_SITE_KEYS: Dict[str, str] = {"lm_head": "lm_head"}
 TRANSPOSED_SITES = frozenset({"lm_head"})
 
 
-def zvc_weight_bytes(n_elems: float, nnz: float, *, elem_bytes: float = 2,
-                     quantized: bool = False, n_channels: float = 0
-                     ) -> float:
-    """Weight storage under ZVC (§IV): packed non-zeros (1 byte each when
-    ``quantized``) + 1 bit/element + the float32 scales of ``n_channels``
-    output channels that the int8 form adds."""
-    data = nnz * (1.0 if quantized else float(elem_bytes))
-    scales = SCALE_BYTES * float(n_channels) if quantized else 0.0
-    return data + n_elems / 8.0 + scales
+# ---------------------------------------------------------------------------
+# ZVC codec
+# ---------------------------------------------------------------------------
+
+def zvc_encode(x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ZVC with a fixed-size output buffer, on ``x``'s device.
+
+    Returns (packed, bitmap, nnz): ``packed`` has ``x.numel()`` slots; the
+    first ``nnz`` hold the non-zeros in scan order (the SRAM layout of
+    Fig 12), the rest are zero.  ``bitmap = x != 0``, so a ``-0.0`` is
+    dropped (it decodes as ``+0.0``) and a NaN is kept.  Every zero is
+    scattered to the last slot; those colliding writes are all ``+0.0``, so
+    the order the device makes them in cannot change the buffer.
+    """
+    flat = x.reshape(-1)
+    bitmap = flat != 0
+    # position of each non-zero in the packed stream
+    pos = torch.cumsum(bitmap, 0) - 1
+    dump = torch.full_like(pos, flat.shape[0] - 1)
+    packed = torch.zeros_like(flat).scatter_(
+        0, torch.where(bitmap, pos, dump), torch.where(bitmap, flat, 0))
+    nnz = bitmap.sum(dtype=torch.int32)
+    return packed, bitmap.reshape(x.shape), nnz
+
+
+def zvc_decode(packed: torch.Tensor, bitmap: torch.Tensor) -> torch.Tensor:
+    flat_bm = bitmap.reshape(-1)
+    pos = torch.cumsum(flat_bm, 0) - 1
+    gathered = packed[pos.clamp(0, packed.shape[0] - 1)]
+    return torch.where(flat_bm, gathered, 0).reshape(bitmap.shape).to(
+        packed.dtype)
+
+
+def zvc_compressed_bytes(x: torch.Tensor, elem_bytes: int = 1) -> float:
+    """Storage cost: packed non-zeros + 1 bit/element bitmap (§IV)."""
+    nnz = int(torch.count_nonzero(x))
+    return nnz * elem_bytes + x.numel() / 8.0
+
+
+# ---------------------------------------------------------------------------
+# Combined sparsity bitmap
+# ---------------------------------------------------------------------------
+
+def combined_bitmap(if_bitmap: torch.Tensor,
+                    fl_bitmap: torch.Tensor) -> torch.Tensor:
+    """CSB = IF ∧ FL (Fig 13) — positions where a MAC actually fires."""
+    return torch.logical_and(if_bitmap, fl_bitmap)
+
+
+def csb_popcount(if_bitmap: torch.Tensor,
+                 fl_bitmap: torch.Tensor) -> torch.Tensor:
+    return combined_bitmap(if_bitmap, fl_bitmap).sum(dtype=torch.int32)
+
+
+def relu_activation_bitmap(x: torch.Tensor,
+                           threshold: float = 0.0) -> torch.Tensor:
+    """Activation bitmap after thresholding (§II-B ReLU-induced sparsity)."""
+    return torch.abs(x) > threshold
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo / closed-form PE cycle simulation (§V-C model)
+# ---------------------------------------------------------------------------
+
+def simulate_pe_cycles(block_macs: int, n_pes: int, rounds: int,
+                       pair_density: float, macs_per_pe: int = 8,
+                       seed: int = 0, mc: bool = False) -> float:
+    """Cycles for `rounds` lockstep rounds where each of ``n_pes`` PEs
+    processes Binomial(block_macs, pair_density) surviving MACs.
+
+    The *max* across PEs gates each round (§II-B workload imbalance).  The
+    Monte-Carlo branch draws from numpy's ``default_rng(seed)``, the
+    reference's stream: these are the paper's statistics, not device
+    randomness.
+    """
+    if pair_density >= 1.0:
+        return rounds * block_macs / macs_per_pe
+    if mc:
+        rng = np.random.default_rng(seed)
+        n_sim = min(rounds, 256)
+        draws = rng.binomial(block_macs, pair_density, size=(n_sim, n_pes))
+        per_round = draws.max(axis=1).mean()
+        return rounds * float(per_round) / macs_per_pe
+    mean = block_macs * pair_density
+    var = block_macs * pair_density * (1 - pair_density)
+    exp_max = min(block_macs, mean + math.sqrt(
+        max(2 * var * math.log(max(n_pes, 2)), 0.0)))
+    return rounds * exp_max / macs_per_pe
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,14 @@ thread-local ``ExecConfig`` carries the descriptor table and decides:
      (stationarity, blocks);
   5. otherwise a plain float32-accumulated ``torch.matmul``.
 
+``ExecConfig.sparse_dispatch=False`` switches routes 1 and 3 off, as in the
+reference: a ``PlannedWeight`` takes its dense fallback (``w_kn``: the
+weight, or the int8 payload dequantized to float32, in which case the
+product is taken in float32), no descriptor sends a site to the
+block-sparse kernel and no activation popcount is recorded.  The dense
+fallback still runs at the site's scheduled stationarity and blocks
+(``site_schedule`` ignores the switch).
+
 ``flex_expert_matmul`` takes the same routes over a leading expert axis —
 a planned (L, E, K, N) leaf's layer slice, trace-time metadata, the dense
 kernel, and an unplanned int8 stack dequantized first — with the metadata
@@ -76,6 +84,7 @@ _state = threading.local()
 class ExecConfig:
     use_kernels: bool = False         # flex / int8 / flash kernels
     schedules: Optional[object] = None   # NetworkSchedule (descriptor table)
+    sparse_dispatch: bool = True      # honour plans and sparsity modes
     plan: Optional[object] = None     # WeightSparsityPlan (engine bring-up)
     quantize: bool = False            # params int8-quantized at bring-up
     collect_stats: bool = False       # count activation popcounts per site
@@ -187,6 +196,32 @@ def _site_descriptor(site: str, cfg: ExecConfig):
     if cfg.schedules is not None and site in cfg.schedules.sites:
         return cfg.schedules.sites[site]
     return None
+
+
+def site_schedule(site: str):
+    """The site's ``MatmulSchedule`` in the active table (None without
+    one), whether or not sparse dispatch is on."""
+    desc = _site_descriptor(site, _cfg())
+    return desc.schedule if desc is not None else None
+
+
+def site_sparsity_mode(site: str) -> str:
+    """The sparsity mode the site dispatches under: its descriptor's, or
+    ``dense`` without one or with sparse dispatch off."""
+    cfg = _cfg()
+    desc = _site_descriptor(site, cfg)
+    if desc is None or not cfg.sparse_dispatch:
+        return "dense"
+    return desc.sparsity_mode
+
+
+def _common_dtype(x: torch.Tensor, w: torch.Tensor):
+    """Both operands in one dtype: a bf16 activation meets the float32
+    weight of a quantized plan's dense fallback in float32."""
+    if x.dtype == w.dtype:
+        return x, w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
 
 
 def _run_block_sparse(xp: torch.Tensor, wp: torch.Tensor, meta, m: int,
@@ -331,9 +366,11 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
     cfg = _cfg()
     lead = x.shape[:-1]
     if isinstance(w, PlannedWeight):
-        out = _planned_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
-        return out.reshape(*lead, out.shape[-1]).to(x.dtype)
-    desc = _site_descriptor(site, cfg)
+        if cfg.sparse_dispatch:
+            out = _planned_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
+            return out.reshape(*lead, out.shape[-1]).to(x.dtype)
+        w = w.w_kn                     # plan disabled → dense fallback
+    desc = _site_descriptor(site, cfg) if cfg.sparse_dispatch else None
     if isinstance(w, QuantizedLinear):
         if (cfg.use_kernels and w.q.dim() == 2
                 and (desc is None or desc.sparsity_mode == "dense")):
@@ -350,8 +387,8 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
             out = _sparse_site_matmul(x2, w, desc.sparsity_mode,
                                       desc.schedule, site)
         else:
-            out = fm.flex_matmul(x2, w, schedule=(desc.schedule if desc
-                                                  else None),
+            out = fm.flex_matmul(*_common_dtype(x2, w),
+                                 schedule=site_schedule(site),
                                  out_dtype=torch.float32)
         return out.reshape(*lead, w.shape[-1]).to(x.dtype)
     return _plain_matmul(x, w)
@@ -381,19 +418,21 @@ def flex_expert_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
         if w.w.dim() != 3 or x.dim() != 3 or x.shape[0] != w.w.shape[0]:
             raise ValueError(f"{w.site}: expert operands {tuple(x.shape)} "
                              f"@ {tuple(w.w.shape)}")
-        return _planned_matmul(x.contiguous(), w).to(x.dtype)
+        if cfg.sparse_dispatch:
+            return _planned_matmul(x.contiguous(), w).to(x.dtype)
+        w = w.w_kn                     # plan disabled → dense fallback
     if isinstance(w, QuantizedLinear):
         w = dequantize_leaf(w, x.dtype)
     if w.dim() != 3 or x.dim() != 3 or x.shape[0] != w.shape[0]:
         raise ValueError(f"{site}: expert operands {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
-    desc = _site_descriptor(site, cfg)
+    desc = _site_descriptor(site, cfg) if cfg.sparse_dispatch else None
     if desc is not None and desc.sparsity_mode in ("weight", "two_sided"):
         return _sparse_site_matmul(x.contiguous(), w, desc.sparsity_mode,
                                    desc.schedule, site).to(x.dtype)
     if cfg.use_kernels:
         return fm.flex_matmul(
-            x.contiguous(), w, schedule=desc.schedule if desc else None,
+            *_common_dtype(x.contiguous(), w), schedule=site_schedule(site),
             out_dtype=torch.float32).to(x.dtype)
     return _plain_matmul(x, w)
 

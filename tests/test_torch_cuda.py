@@ -43,6 +43,12 @@ and 2⁻⁷ times the weight of such fragile p, and the share of differing
 elements by twice the share in which a model of the tensor cores'
 summation differs.  p kept in float32 before PV, the exact softmax
 rounded to bf16 and p truncated in one warp's rows fail it (checked).
+
+The analytic core (no kernel of its own): the schedule search and the ZVC
+codec on the card equal their CPU runs (schedules, energies and cycles
+as floats; grid energies bit for bit, cycles within 2⁻⁴⁹; packed bits),
+and a planned weight with ``sparse_dispatch=False`` runs ``fm_output``,
+bit-equal to the plan's ``bs_matmul``.
 """
 import dataclasses
 
@@ -1103,3 +1109,88 @@ def test_cuda_expert_matmul_above_16_rows_loops_the_2d_kernels(cuda):
     ref = torch.stack([matmul_ref(a[i], w[i]) for i in range(4)])
     for i in range(4):
         assert (out[i] - ref[i]).abs().max().item() <= _cuda_tol(a[i], w[i])
+
+
+@pytest.mark.cuda
+def test_cuda_schedule_search_equals_the_cpu(cuda):
+    """The analytic core's search on the card: every yolov2 layer's winning
+    schedule, energy and cycles equal to the same search on the CPU, and
+    one layer's grid energies bit for bit (cycles within 2⁻⁴⁹: the
+    card's libm ``log`` / ``sqrt``)."""
+    from repro_torch.configs.cnn_zoo import yolov2
+    from repro_torch.core import _vectorized as vec
+    from repro_torch.core import scheduler as sch
+    from repro_torch.core.energy_model import FLEXNN, SparsityStats
+    layers = yolov2()
+    sps = [SparsityStats(0.5, 0.3 + 0.02 * i) for i in range(len(layers))]
+    got = sch.optimize_network(layers, FLEXNN, sps, device=cuda)
+    want = sch.optimize_network(layers, FLEXNN, sps, device="cpu")
+    for g, w in zip(got, want):
+        assert (g.schedule, g.energy, g.cycles, g.breakdown) == \
+            (w.schedule, w.energy, w.cycles, w.breakdown)
+    layer, sp = layers[3], sps[3]
+    args = (sch._partition_sets(layer, FLEXNN, None),
+            sch._pow2_factors(layer.ic, FLEXNN.rf_if),
+            sch._pow2_factors(layer.oc, FLEXNN.rf_of),
+            sch._pow2_factors(layer.ox, 16), sch._pow2_factors(layer.oy, 16))
+    grid = vec._candidate_grid(layer, FLEXNN, *args, sp, cuda)
+    cgrid = vec._candidate_grid(layer, FLEXNN, *args, sp,
+                                torch.device("cpu"))
+    for order in sch._ORDERS:
+        e, c = vec.evaluate_grid(layer, FLEXNN, grid, order, sp)
+        ce, cc = vec.evaluate_grid(layer, FLEXNN, cgrid, order, sp)
+        assert torch.equal(e.cpu(), ce)
+        assert ((c.cpu() - cc).abs() <= 2.0 ** -49 * cc.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_zvc_equals_the_cpu(cuda, dtype):
+    """The codec on the card: packed bits, bitmap and nnz equal the CPU's,
+    decode gives the tensor back, and the CSB popcount agrees."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((512, 1536), generator=gen, device=cuda)
+    x = torch.relu(x).to(dtype)
+    packed, bitmap, nnz = pt_sp.zvc_encode(x)
+    cp, cb, cn = pt_sp.zvc_encode(x.cpu())
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(packed.cpu().view(ints), cp.view(ints))
+    assert torch.equal(bitmap.cpu(), cb) and int(nnz) == int(cn)
+    assert torch.equal(pt_sp.zvc_decode(packed, bitmap), x)
+    w_bm = torch.rand((1536,), generator=gen, device=cuda) < 0.5
+    assert int(pt_sp.csb_popcount(bitmap, w_bm)) == \
+        int(pt_sp.csb_popcount(cb, w_bm.cpu()))
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_dispatch_off_runs_fm_output(cuda):
+    """A planned weight with ``sparse_dispatch=False`` runs ``fm_output``
+    at its site's schedule (never ``bs_matmul``), equal bit for bit to the
+    plan's block-sparse product (one K order)."""
+    from repro_torch.core.descriptors import NetworkSchedule, SiteDescriptor
+    from repro_torch.core.flextree import ReduceConfig
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    k, n = 2048, 5632
+    a = torch.randn((4, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = pt_sp.prune_magnitude(
+        torch.randn((k, n), generator=gen, device=cuda) * k ** -0.5, 0.5,
+        (256, 256)).to(torch.bfloat16)
+    pw = pt_sp.plan_weight(w, site="mlp.in", mode="two_sided", bm=4,
+                           bk=128, bn=256)
+    ns = NetworkSchedule(arch="t", shape="t")
+    ns.sites["mlp.in"] = SiteDescriptor(
+        site="mlp.in", m=4, n=n, k=k,
+        schedule=MatmulSchedule("output", 4, 256, 128,
+                                sparsity_mode="two_sided"),
+        reduce=ReduceConfig("model", 1), sparsity_mode="two_sided")
+    on = ops.ExecConfig(use_kernels=True, schedules=ns)
+    with ops.exec_config(on):
+        planned = ops.flex_matmul(a, pw, site="mlp.in")
+    bs0, os0 = pt_bs.LAUNCHES["block_sparse"], pt_fm.LAUNCHES["output"]
+    with ops.exec_config(dataclasses.replace(on, sparse_dispatch=False)):
+        off = ops.flex_matmul(a, pw, site="mlp.in")
+    torch.cuda.synchronize()
+    assert pt_bs.LAUNCHES["block_sparse"] == bs0
+    assert pt_fm.LAUNCHES["output"] == os0 + 1
+    assert torch.equal(off, planned)
