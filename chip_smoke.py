@@ -3,10 +3,11 @@
 
 Drives the port's main path — sparse decode serving of StableLM-1.6B at its
 published width and depth (24 layers, d_model 2048, vocab 100352) in bf16
-with four slots, then (phase 15) of DeepSeek-MoE-16B and (phases 16-17)
-of Yi-9B, Gemma-2B, ChatGLM3-6B and RecurrentGemma-9B — through
-``repro_torch.serve.ServeEngine``, with random weights from a seeded
-generator, block-magnitude-pruned at (256, 256):
+with four slots, then (phase 15) of DeepSeek-MoE-16B, (phases 16-17)
+of Yi-9B, Gemma-2B, ChatGLM3-6B and RecurrentGemma-9B and (phases 19-20)
+of Mamba2-1.3B and Whisper-tiny — through ``repro_torch.serve.ServeEngine``,
+with random weights from a seeded generator, block-magnitude-pruned at
+(256, 256) (Mamba2's are not: no plan reaches an SSM site):
 
   1. the card (``torch.cuda``, ``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
@@ -254,8 +255,52 @@ generator, block-magnitude-pruned at (256, 256):
      ``block_sparse`` and ``flex_output`` rows add ``launches_phase18``
      (the switch-off drain's).
 
+ 19. the SSM family: ``mamba2-1.3b`` at its published width and depth (48
+     SSD layers, d 2048, d_inner 4096, 64 SSD heads of 64, d_state 128,
+     chunk 256, vocab 50280, tied head; 1.34 B parameters, bf16): (a) the
+     tied head's ``fm_output`` against its plain version; (b) layer 0's
+     ``ssd_forward`` at 2 x 4096 in bf16 and float32 against the same
+     function in float64 on the CPU, under bounds derived from the chunk
+     decays' exponent sensitivity (``p19_ssd``; rows the function's own
+     float32 gated norm zeroes by overflow are counted, and rows at that
+     threshold left out), with a TF32 control; the SSD after the
+     in-projection (``ssd_from_proj``, ``p19_ssd_tail``) fed the card's
+     projection, against float64 fed the same: float32 under a rounding
+     bound that must reject TF32 and a dropped inter-chunk term, bf16 on
+     each chunk's last token within 15 bf16 roundings; chunk 1 against the
+     stepwise recurrence in float32 (1e-5); (c) 4 slots, ``max_seq`` 64,
+     4 greedy requests of 8-16 prompt tokens x 16 new: fused == ``step()``,
+     the sparse config's (empty-plan) logits == the dense table's bit for
+     bit, ``prefill_chunk`` 4 and 8, async dispatch and a reused slot
+     (against a fresh 1-slot engine) give the same streams, the plain
+     route within 5% of max |logit|, one profiled step and its model
+     call's ``device_ms``; (d) ``model.prefill`` at 2 x 4096 and 1 x 32768
+     (the reference's ``long_500k`` cut): ms per prompt token, profiles,
+     peak memory, where the chunked form first overflows float32
+     (``p19_overflow``), and the prefill cut to the layers before that
+     against the plain route (finite logits required, within 5%); (e)
+     ``quantize=True`` raises.  The matmul and ``flash_attention`` rows add
+     ``launches_phase19`` (every counter read after the phase's run), and
+     ``flex_output``, the one kernel the phase compares, adds
+     ``max_abs_err_phase19``.
+ 20. the encoder-decoder: ``whisper-tiny`` at its published width (4 + 4
+     layers, d 384, 6 heads, d_ff 1536, vocab 51865, LayerNorm, plain
+     GELU), pruned as above: every planned site at layer 0 of the encoder
+     and the decoder, cross-attention and the untied head included, as
+     in phase 3 (``check_sites``); ``forward_hidden`` and ``prefill`` (the
+     encoder pass) on Whisper's window, 2 x 1500 frames and 2 x 448
+     tokens: planned == dense table bit for bit, plain within 5%; the
+     decode gates (``family_serve``); int8: unplanned raises, planned
+     with bf16 weights raises (the residual stream's dtype changes, which
+     the reference's scan refuses), planned with float32 weights and
+     state serves (the int8 kernels at layer 0's sites, fused ==
+     ``step()``).  The matmul and ``flash_attention`` rows add
+     ``launches_phase20``; the matmul rows the phase compares add
+     ``max_abs_err_phase20``.
+
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
-of the repository.  The last line is the device JSON.
+of the repository.  The last line is the device JSON; the whole report
+is also written to ``build/chip_smoke.log`` in the checkout.
 
     python3 chip_smoke.py
 """
@@ -2947,7 +2992,7 @@ def p15_profile(eng, report) -> None:
          f"expert launches per step {step}, not {3 * n_moe}")
 
 
-def p15_step_device(eng, report, step_busy_ms) -> None:
+def p15_step_device(eng, report, step_busy_ms, label="MoE") -> None:
     """The profiled step's model call — ``masked_decode_step`` under the
     plan on a copy of the engine's state, every slot live — timed by
     ``torch.profiler`` (summed kernel time) and by ``device_ms`` (a CUDA
@@ -2982,8 +3027,8 @@ def p15_step_device(eng, report, step_busy_ms) -> None:
     graph = "not measured" if d_ms is None else f"{d_ms:.3f} ms"
     diff = ("" if d_ms is None or not busy else
             f" (profiler / graph {busy / 1e3 / d_ms:.4f})")
-    report(f"MoE decode step's model call (masked_decode_step, planned, "
-           f"{len(live)} live rows): profiler {busy / 1e3:.3f} ms over "
+    report(f"{label} decode step's model call (masked_decode_step, "
+           f"planned, {len(live)} live rows): profiler {busy / 1e3:.3f} ms over "
            f"{n_kernels} kernels (the engine step's profile: "
            f"{step_busy_ms} ms); device_ms (CUDA graph replay) {graph}"
            f"{diff}; synchronizing calls {syncs}")
@@ -3250,15 +3295,17 @@ def check_tied_head(params, dense, report) -> float:
     return worst
 
 
-def family_engine(cfg, params, exec_cfg, fused=True, max_new=FAMILY_NEW):
-    """The decode gates' engine: 4 slots, ``max_seq`` 64, fused blocks of
-    ``max_new`` (one block per request)."""
+def family_engine(cfg, params, exec_cfg, fused=True, max_new=FAMILY_NEW,
+                  **kw):
+    """The decode gates' engine: 4 slots, ``max_seq`` 64, a bf16 decode
+    state, fused blocks of ``max_new`` (one block per request), blocks read
+    synchronously; ``kw`` overrides any of these."""
     import torch
     from repro_torch.serve.engine import ServeEngine
-    return ServeEngine(cfg, params, n_slots=N_SLOTS,
-                       max_seq=FAMILY_MAX_SEQ, dtype=torch.bfloat16,
-                       exec_cfg=exec_cfg, fused=fused, decode_block=max_new,
-                       async_dispatch=False, device="cuda")
+    kw = {"n_slots": N_SLOTS, "max_seq": FAMILY_MAX_SEQ,
+          "dtype": torch.bfloat16, "async_dispatch": False, **kw}
+    return ServeEngine(cfg, params, exec_cfg=exec_cfg, fused=fused,
+                       decode_block=max_new, device="cuda", **kw)
 
 
 def family_prompts(cfg, seed=16):
@@ -3269,34 +3316,36 @@ def family_prompts(cfg, seed=16):
 
 
 def first_step(cfg, params, exec_cfg, prompts, fused=True,
-               max_new=FAMILY_NEW):
+               max_new=FAMILY_NEW, **kw):
     """An engine with ``prompts`` submitted after one ``step()`` (all
     admitted, one decode step): (engine, uids, that step's logits)."""
-    eng = family_engine(cfg, params, exec_cfg, fused=fused, max_new=max_new)
+    eng = family_engine(cfg, params, exec_cfg, fused=fused, max_new=max_new,
+                        **kw)
     uids = [eng.submit(p, max_new=max_new) for p in prompts]
     eng.step()
     return eng, uids, eng.last_logits.clone()
 
 
 def family_serve(cfg, params, planned, dense, report, card, label="bf16",
-                 prompts=None, max_new=FAMILY_NEW, on_oracle=None):
+                 prompts=None, max_new=FAMILY_NEW, on_oracle=None, **kw):
     """The decode gates of phases 4-5 (and 7 for int8), shared by phases
-    15-17: the planned engine's fused streams equal its ``step()``
+    15-20: the planned engine's fused streams equal its ``step()``
     oracle's (``on_oracle`` sees the oracle after its first step), and,
     unless ``dense`` is None, the dense table's first-step logits and
-    streams equal the plan's bit for bit.  Launches are counted by the
-    caller.  Returns (prompts, streams, the oracle's first-step logits)."""
+    streams equal the plan's bit for bit.  ``kw`` goes to every engine
+    (``family_engine``).  Launches are counted by the caller.  Returns
+    (prompts, streams, the oracle's first-step logits)."""
     import torch
     if prompts is None:
         prompts = family_prompts(cfg)
-    eng = family_engine(cfg, params, planned, max_new=max_new)
+    eng = family_engine(cfg, params, planned, max_new=max_new, **kw)
     streams, wall, timing = drain_timed(eng, prompts, max_new)
     report(f"{cfg.name} {label} planned engine (fused blocks of "
            f"{max_new}): {rate_line(streams, wall, timing)} ({card})")
     del eng
     free()
     oracle, ouids, logits_p = first_step(cfg, params, planned, prompts,
-                                         fused=False, max_new=max_new)
+                                         fused=False, max_new=max_new, **kw)
     if on_oracle is not None:
         on_oracle(oracle)
     ores = oracle.run_until_drained()
@@ -3312,7 +3361,7 @@ def family_serve(cfg, params, planned, dense, report, card, label="bf16",
     if dense is None:
         return prompts, streams, logits_p
     de, duids, logits_d = first_step(cfg, params, dense, prompts,
-                                     max_new=max_new)
+                                     max_new=max_new, **kw)
     dres = de.run_until_drained()
     same_l = torch.equal(logits_p, logits_d)
     same_s = [dres[u] for u in duids] == streams
@@ -3813,6 +3862,684 @@ def run_analytic(report) -> tuple:
                       "gates": gates, "device": torch.cuda.get_device_name(0)}
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: the SSM family (Mamba-2) and the Whisper encoder-decoder
+# ---------------------------------------------------------------------------
+
+P19_ARCH = "mamba2-1.3b"
+P19_NEW = 16
+# the prefill cells: 2 x 4096 tokens (the dense family's) and one prompt of
+# 32768 (the reference's long_500k shape cut to 32768: PERF.md section 4)
+P19_PREFILLS = ((2, 4096), (1, 32768))
+P19_STEP_TOKENS = 256      # gate (b)'s chunk-1 recurrence, 2 prompts
+P20_ARCH = "whisper-tiny"
+# Whisper's window: 30 s of audio is 1500 encoder frames, and its decoder
+# context 448 tokens
+P20_FRAMES, P20_TOKENS = 1500, 448
+U_BF16, U_F32 = 2.0 ** -8, 2.0 ** -24     # unit roundoffs
+# bf16 roundings in series on the SSD's longest path: the in-projection,
+# the four conv taps and their sum, the silu, the chunk scores, the chunk
+# weights, the intra- and inter-chunk products, the chunk states, the
+# sum, the D skip, the gated norm, the out-projection (PERF.md section 6)
+SSD_BF16_ROUNDINGS = 16
+
+
+def _drain(eng, prompts, max_new):
+    uids = [eng.submit(p, max_new=max_new) for p in prompts]
+    res = eng.run_until_drained()
+    return [res[u] for u in uids]
+
+
+def p19_bring_up(report):
+    """mamba2-1.3b at its published width and depth: bf16 weights from
+    seed 0 (not pruned: no plan reaches an SSM site), the sparse config's
+    exec config (its plan is empty, so None) and the dense table."""
+    import torch
+    from repro_torch.configs import SparsityConfig, get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.ssm import d_inner, n_ssd_heads
+    from repro_torch.serve.engine import decode_exec_config
+    cfg = get_config(P19_ARCH)
+    sp_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        weight_sparsity=0.5, activation_threshold=0.05))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    planned = decode_exec_config(sp_cfg, N_SLOTS, params=params,
+                                 use_kernels=True, device="cuda")
+    dense = decode_exec_config(cfg, N_SLOTS, use_kernels=True, device="cuda")
+    need(planned.plan is None, f"{P19_ARCH}: the sparse config compiled a "
+         f"plan, but no SSM site is plannable and the tied head never is")
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    h, s = n_ssd_heads(cfg), cfg.ssm
+    ssm_mb = cfg.n_layers * h * s.head_dim * s.d_state * 4 / 1e6
+    conv_mb = cfg.n_layers * (s.d_conv - 1) * (
+        d_inner(cfg) + 2 * s.n_groups * s.d_state) * 4 / 1e6
+    report(f"{P19_ARCH}: {cfg.n_layers} SSD layers, d {cfg.d_model}, "
+           f"d_inner {d_inner(cfg)}, {h} SSD heads of {s.head_dim}, d_state "
+           f"{s.d_state}, conv {s.d_conv}, chunk {s.chunk}, vocab "
+           f"{cfg.vocab}, tied head {cfg.tie_embeddings}; "
+           f"{n_params / 1e9:.3f} B parameters, init {t_init:.1f} s; decode "
+           f"state per slot {ssm_mb:.1f} MB (SSD) + {conv_mb:.1f} MB (conv "
+           f"window), float32; the sparse config's plan: none (no plannable "
+           f"site)")
+    report(dense.schedules.describe())
+    return cfg, sp_cfg, params, planned, dense
+
+
+def p19_ssd(cfg, params, report) -> None:
+    """Gate (b).  Layer 0's ``ssd_forward`` on the card at 2 x 4096, on the
+    input the path gives it (the normed embeddings of seeded tokens), in
+    bf16 and in float32 (TF32 off), against the same function evaluated in
+    float64 on the CPU (float64 wherever the function does not pin float32
+    itself: its dt, chunk states and gated norm are float32 as written).
+
+    The reference's intra-chunk mask keeps the decays of later tokens,
+    exp of sums of |dt·A| over up to a chunk (exponents near 100 here), so
+    pre-norm outputs reach ~1e30 and the gated norm's float32 sum of
+    squares overflows: those rows come out zero, in the reference's
+    function as in every evaluation of it.  A row whose float64 sum of
+    squares lies within an evaluation's error band of the float32 maximum
+    may fall either way; such rows are counted and left out of that
+    evaluation's gate.  The bounds, relative to the output's scale
+    s = max|y64|:
+
+    - a rounding of the raw dt by a relative r moves dt = softplus(raw +
+      b) by sigmoid(raw + b)·r·|raw|, so a decay's exponent by up to
+      r·E, E = max over (row, chunk, head) of |A|·Σ sigmoid(raw + b)·|raw|
+      over the chunk, and the output by expm1(r·E)·s;
+    - bf16 (r = u16 = 2⁻⁸, the in-projection's output rounding), plus
+      ``SSD_BF16_ROUNDINGS`` roundings of u16 in series, first order:
+      tol16 = (expm1(u16·E) + 16·u16)·s;
+    - float32: r = √d·u32 (a float32 dot product over d terms, the form of
+      ``matmul_tol``), plus the sums in series (in_proj over d, the two
+      chunk sums, the inter-chunk sum over d_state, out_proj over
+      d_inner) each √K·u32 and 16 roundings: tol32 = (expm1(√d·u32·E) +
+      (Σ√K + 16)·u32)·s.  Its control, the same float32 call with TF32
+      allowed, must exceed tol32.
+
+    Then chunk 1 against the stepwise recurrence (``ssd_decode_step``
+    token by token) in float32 on 2 x 256 tokens, within the reference's
+    1e-5 (rtol = atol)."""
+    import math
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import apply_norm, embed
+    from repro_torch.models.transformer import index_tree
+    lp = index_tree(params["stack"]["layers"], 0)
+    b, s = P19_PREFILLS[0]
+    toks = torch.as_tensor(np.random.default_rng(19).integers(
+        0, cfg.vocab, size=(b, s)), device="cuda")
+    p16 = lp["ssm"]
+    p32 = {k: v.float() for k, v in p16.items()}
+    prenorm = []
+    norm = ssm._gated_norm
+
+    def spy(y, z, scale):           # the float64 evaluation's norm input
+        prenorm.append(((y.double() * F.silu(z.double())) ** 2).sum(-1))
+        return norm(y, z, scale)
+    with torch.no_grad():
+        x = apply_norm(lp["ln1"], cfg, embed(cfg, params["embed"], toks))
+        ssm.ssd_forward(cfg, p16, x)
+        out16, t16 = _timed(lambda: ssm.ssd_forward(cfg, p16, x))
+        out32 = ssm.ssd_forward(cfg, p32, x.float())
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            out_tf32 = ssm.ssd_forward(cfg, p32, x.float())
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        t0 = time.perf_counter()
+        p64 = {k: v.double().cpu() for k, v in p16.items()}
+        x64 = x.double().cpu()
+        ssm._gated_norm = spy
+        try:
+            out64 = ssm.ssd_forward(cfg, p64, x64)
+        finally:
+            ssm._gated_norm = norm
+        h = ssm.n_ssd_heads(cfg)
+        raw = x64 @ p64["in_proj"][:, -h:]
+        sens = torch.sigmoid(raw + p64["dt_bias"]) * raw.abs() \
+            * torch.exp(p64["A_log"])
+        chunk = min(cfg.ssm.chunk, s)
+        e_sum = sens.reshape(b, s // chunk, chunk, h).sum(2).max().item()
+        t64 = time.perf_counter() - t0
+    scale = out64.abs().max().item()
+    sqrt_k = sum(math.sqrt(k) for k in (
+        cfg.d_model, chunk, chunk, cfg.ssm.d_state, ssm.d_inner(cfg)))
+    rel16 = math.expm1(U_BF16 * e_sum) + SSD_BF16_ROUNDINGS * U_BF16
+    rel32 = math.expm1(math.sqrt(cfg.d_model) * U_F32 * e_sum) \
+        + (sqrt_k + 16) * U_F32
+    sumsq = prenorm[0]
+    fmax = torch.finfo(torch.float32).max
+    zeroed = int((sumsq >= fmax).sum())
+    row_err = {}
+    for name, out in (("bf16", out16), ("float32", out32),
+                      ("TF32", out_tf32)):
+        row_err[name] = (out.double().cpu() - out64).abs().amax(-1)
+
+    def gate(name, rel):
+        band = (sumsq > fmax / (1 + rel) ** 2) & (sumsq < fmax
+                                                  * (1 + rel) ** 2)
+        return row_err[name][~band].max().item(), int(band.sum())
+    e16, band16 = gate("bf16", rel16)
+    e32, band32 = gate("float32", rel32)
+    etf, _ = gate("TF32", rel32)
+    tol16, tol32 = rel16 * scale, rel32 * scale
+    finite = bool(torch.isfinite(out16).all()) and out16.shape == x.shape
+    report(f"{P19_ARCH} layer 0 ssd_forward at {b} x {s} (chunk {chunk}): "
+           f"bf16 {t16 * 1e3:.2f} ms on the card; vs float64 on the CPU "
+           f"({t64:.1f} s): max |y64| {scale:.4e}, exponent sensitivity E "
+           f"{e_sum:.2f}; rows the float32 norm zeroes (sum of squares past "
+           f"the float32 maximum) {zeroed} of {b * s}, rows in the error "
+           f"band bf16 {band16}, float32 {band32}; outside the bands: bf16 "
+           f"max err {e16:.4e} (tol {tol16:.4e}), float32 {e32:.4e} (tol "
+           f"{tol32:.4e}), TF32 control {etf:.4e} (must exceed the float32 "
+           f"tol); in all rows bf16 {row_err['bf16'].max().item():.4e}, "
+           f"float32 {row_err['float32'].max().item():.4e}")
+    need(finite, f"{P19_ARCH}: layer 0's bf16 SSD is not finite")
+    need(e16 <= tol16, f"{P19_ARCH}: bf16 SSD error {e16} > {tol16}")
+    need(e32 <= tol32, f"{P19_ARCH}: float32 SSD error {e32} > {tol32}")
+    need(etf > tol32, f"{P19_ARCH}: the float32 SSD bound does not reject "
+         f"TF32 ({etf} <= {tol32})")
+    del out16, out32, out_tf32, out64, x64, raw, sens, prenorm
+    p19_ssd_tail(cfg, x, p16, p32, p64, report)
+    del p64
+    # chunk 1 is the recurrence
+    cfg1 = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                            chunk=1))
+    xs = x[:, :P19_STEP_TOKENS].float()
+    with torch.no_grad():
+        full = ssm.ssd_forward(cfg1, p32, xs)
+        st = ssm.init_ssm_state(cfg1, b, device="cuda")
+        steps = []
+        for t in range(xs.shape[1]):
+            y, st = ssm.ssd_decode_step(cfg1, p32, xs[:, t:t + 1], st)
+            steps.append(y)
+        steps = torch.cat(steps, 1)
+    gap = ((full - steps).abs() - 1e-5 * steps.abs()).max().item()
+    report(f"{P19_ARCH} layer 0, chunk 1, float32, {b} x "
+           f"{P19_STEP_TOKENS}: chunked form vs the stepwise recurrence "
+           f"max |diff| {(full - steps).abs().max().item():.3e} (bound "
+           f"1e-5 + 1e-5·|y|)")
+    need(gap <= 1e-5, f"{P19_ARCH}: chunk 1 differs from the recurrence")
+    free()
+
+
+def _ssd_cumsum(fn, replay=None):
+    """``fn()`` with the SSD's one ``torch.cumsum`` (the decay exponents
+    dA_cum) recorded, or replaced by ``replay``: (fn(), dA_cum)."""
+    import torch
+    real, seen = torch.cumsum, []
+
+    def hook(t, *args, **kw):
+        out = real(t, *args, **kw) if replay is None else replay.to(
+            t.device, torch.promote_types(t.dtype, replay.dtype))
+        seen.append(out)
+        return out
+    torch.cumsum = hook
+    try:
+        out = fn()
+    finally:
+        torch.cumsum = real
+    need(len(seen) == 1, f"the SSD took {len(seen)} cumsums, not one")
+    return out, seen[0]
+
+
+def _ssd_f64(cfg, p64, zx, cum):
+    """``ssd_from_proj`` in float64 on the CPU from the projection ``zx``
+    and the decay exponents ``cum``, with each row's sum of squares at its
+    gated norm."""
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    norm, sumsq = ssm._gated_norm, []
+
+    def spy(y, z, scale):
+        sumsq.append(((y * F.silu(z)) ** 2).sum(-1))
+        return norm(y, z, scale)
+    ssm._gated_norm = spy
+    try:
+        out, _ = _ssd_cumsum(lambda: ssm.ssd_from_proj(
+            cfg, p64, zx.double().cpu()), replay=cum.double().cpu())
+    finally:
+        ssm._gated_norm = norm
+    return out, sumsq[0]
+
+
+def p19_ssd_tail(cfg, x, p16, p32, p64, report) -> None:
+    """Gate (b) after the in-projection: ``ssd_from_proj`` on the card fed
+    the projection the card computed, in float32 (TF32 off) and in bf16,
+    against float64 on the CPU fed the same projection.  The
+    in-projection's rounding of dt, which the decays' exponents amplify
+    (``p19_ssd``), drops out.  So does the float32 rounding of the
+    exponents themselves (a cumsum over the chunk of dt·A, up to ~80
+    here), which moves every decay alike: the exponents are checked on
+    their own, and the float64 evaluation replays the card's.
+
+    - exponents: max |dA_cum - dA_cum64| <= (chunk - 1)·u32·max|dA_cum64|,
+      the bound of a sum of same-signed terms in any order.
+    - float32: tol = (Σ√K + 16)·u32·s, K the tail's sums (the two chunk
+      sums, d_state, d_inner), s = max|y64|, over the rows outside the
+      norm's overflow band.  It must reject the same call with TF32
+      allowed, and the same call with the inter-chunk term (``y_inter``)
+      dropped: at these inputs that term moves the output by less than
+      one bf16 rounding, so only a float32 bound sees it.
+    - bf16: on the last token of each chunk, whose intra-chunk term is its
+      own (the mask keeps j >= i) and whose decays are all exps of sums
+      <= 0: tol = (SSD_BF16_ROUNDINGS - 1)·u16·s_last, the roundings in
+      series after the in-projection, at condition 1."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    b, s = x.shape[:2]
+    h, chunk = ssm.n_ssd_heads(cfg), min(cfg.ssm.chunk, s)
+    real_einsum = torch.einsum
+
+    def no_inter(eq, *ops):     # the inter-chunk output term, dropped
+        out = real_einsum(eq, *ops)
+        return torch.zeros_like(out) if eq == "bnchx,bnhpx,bnch->bnchp" \
+            else out
+    with torch.no_grad():
+        zx32 = torch.matmul(x.float(), p32["in_proj"])
+        t32, cum32 = _ssd_cumsum(lambda: ssm.ssd_from_proj(cfg, p32, zx32))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            t_tf32 = ssm.ssd_from_proj(cfg, p32, zx32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        torch.einsum = no_inter
+        try:
+            t_noint = ssm.ssd_from_proj(cfg, p32, zx32)
+        finally:
+            torch.einsum = real_einsum
+        ref32, sumsq = _ssd_f64(cfg, p64, zx32, cum32)
+        dt64 = F.softplus(zx32[..., -h:].cpu().double() + p64["dt_bias"])
+        cum64 = torch.cumsum((dt64 * -torch.exp(p64["A_log"])).reshape(
+            b, s // chunk, chunk, h), dim=2)
+        zx16 = torch.matmul(x, p16["in_proj"])
+        t16, cum16 = _ssd_cumsum(lambda: ssm.ssd_from_proj(cfg, p16, zx16))
+        ref16, _ = _ssd_f64(cfg, p64, zx16, cum16)
+    exp_err = (cum32.double().cpu() - cum64).abs().max().item()
+    exp_max = cum64.abs().max().item()
+    exp_tol = (chunk - 1) * U_F32 * exp_max
+    scale = ref32.abs().max().item()
+    rel32 = (sum(math.sqrt(k) for k in (chunk, chunk, cfg.ssm.d_state,
+                                        ssm.d_inner(cfg))) + 16) * U_F32
+    fmax = torch.finfo(torch.float32).max
+    band = (sumsq > fmax / (1 + rel32) ** 2) & (sumsq < fmax
+                                                * (1 + rel32) ** 2)
+
+    def err(out, ref, rows):
+        return (out.double().cpu() - ref).abs().amax(-1)[rows].max().item()
+    e32, etf, eni = (err(o, ref32, ~band) for o in (t32, t_tf32, t_noint))
+    tol32 = rel32 * scale
+    last = torch.zeros(b, s, dtype=torch.bool)
+    last[:, chunk - 1::chunk] = True
+    scale16 = ref16[last].abs().max().item()
+    e16 = err(t16, ref16, last)
+    tol16 = (SSD_BF16_ROUNDINGS - 1) * U_BF16 * scale16
+    report(f"{P19_ARCH} layer 0 SSD after the in-projection (fed the card's "
+           f"projection; float64 on the CPU fed the same): decay exponents "
+           f"max err {exp_err:.4e} (tol {exp_tol:.4e}, max |dA_cum| "
+           f"{exp_max:.2f}); with the card's exponents replayed, float32 "
+           f"max err {e32:.4e} (tol {tol32:.4e}, max |y64| {scale:.4e}, rows "
+           f"in the norm's band {int(band.sum())}); controls it must reject: "
+           f"TF32 {etf:.4e}, inter-chunk term dropped {eni:.4e}; bf16 on the "
+           f"{int(last.sum())} chunk-end rows max err {e16:.4e} (tol "
+           f"{tol16:.4e}, max |y64| there {scale16:.4e})")
+    need(exp_err <= exp_tol, f"{P19_ARCH}: SSD decay exponents off by "
+         f"{exp_err} > {exp_tol}")
+    need(e32 <= tol32, f"{P19_ARCH}: float32 SSD tail error {e32} > {tol32}")
+    need(etf > tol32 and eni > tol32, f"{P19_ARCH}: the float32 SSD tail "
+         f"bound does not reject TF32 ({etf}) or a dropped inter-chunk term "
+         f"({eni}) at tol {tol32}")
+    need(e16 <= tol16, f"{P19_ARCH}: bf16 SSD chunk-end error {e16} > "
+         f"{tol16}")
+
+
+def p19_profile(eng, report, label) -> None:
+    """One profiled ``step()`` of an engine (its first decode step after
+    admission): device busy share, by kernel family, the top device
+    operations; then its model call by ``device_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy, n_kernels, fam = device_breakdown(prof)
+    tops = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = tops.get(ev.name, (0.0, 0))
+            tops[ev.name] = (us + ev.device_time_total, n + 1)
+    top = sorted(tops.items(), key=lambda kv: -kv[1][0])[:8]
+    if not busy:
+        report(f"profiled {label} decode step: the profiler recorded no "
+               "device time (not measured)")
+    else:
+        report(f"profiled {label} decode step: wall {wall * 1e3:.2f} ms, "
+               f"device busy {busy / 1e3:.2f} ms "
+               f"({100 * busy / 1e3 / (wall * 1e3):.1f}% of wall, "
+               f"{n_kernels} kernels); by family {fam}; top device "
+               f"operations {[(n[:60], round(us / 1e3, 3), c) for n, (us, c) in top]}")
+    p15_step_device(eng, report, round(busy / 1e3, 3) if busy else None,
+                    label=label)
+
+
+def p19_serve(cfg, params, planned, dense, report, card) -> None:
+    """Gate (c): the decode gates (``family_serve``: fused == ``step()``,
+    the sparse config's logits == the dense table's bit for bit), chunked
+    admission at 4 and 8 tokens, async dispatch, a reused slot and the
+    plain route, all on the same 4 greedy requests."""
+    prompts = family_prompts(cfg, seed=19)
+    _, streams, logits_p = family_serve(
+        cfg, params, planned, dense, report, card, prompts=prompts,
+        max_new=P19_NEW, on_oracle=lambda o: p19_profile(o, report,
+                                                         cfg.name))
+    for chunk in (4, 8):
+        got = _drain(family_engine(cfg, params, planned, max_new=P19_NEW,
+                                   prefill_chunk=chunk), prompts, P19_NEW)
+        report(f"{cfg.name}: prefill_chunk {chunk} streams == whole-prompt "
+               f"admission: {got == streams}")
+        need(got == streams, f"{cfg.name}: chunked admission ({chunk}) "
+             f"changed the streams")
+        free()
+    eng = family_engine(cfg, params, planned, max_new=P19_NEW,
+                        async_dispatch=True)
+    got, wall, timing = drain_timed(eng, prompts, P19_NEW)
+    report(f"{cfg.name} async dispatch: {rate_line(got, wall, timing)}; "
+           f"streams == sync: {got == streams} ({card})")
+    need(got == streams, f"{cfg.name}: async dispatch changed the streams")
+    del eng
+    free()
+    # a slot reused by a second request starts from a zero state: the
+    # second request's stream equals its stream in a fresh 1-slot engine
+    # (the same row count, so the same matmul kernels and bits)
+    one = family_engine(cfg, params, planned, max_new=P19_NEW, n_slots=1)
+    _, second = _drain(one, prompts[:2], P19_NEW)
+    fresh = family_engine(cfg, params, planned, max_new=P19_NEW, n_slots=1)
+    alone = _drain(fresh, prompts[1:2], P19_NEW)[0]
+    report(f"{cfg.name}: a reused slot's stream == the request's stream in "
+           f"a fresh 1-slot engine: {second == alone}; (not a gate) its "
+           f"stream beside three others in the 4-slot engine == alone: "
+           f"{streams[1] == alone}")
+    need(second == alone, f"{cfg.name}: a reused slot carried state into "
+         f"the next request")
+    del one, fresh
+    free()
+    family_plain(cfg, params, prompts, logits_p, report)
+
+
+def p19_overflow(cfg, params, tokens, report):
+    """Where a full-width chunked prefill goes non-finite: the stack layer
+    by layer on ``tokens``, with each layer's largest intra-chunk decay
+    exponent (Σ|dt·A| over a chunk's later tokens, which the reference's
+    mask keeps; float32's exp overflows above log(FLT_MAX) = 88.72).
+    Returns the number of layers whose outputs are all finite."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import apply_norm, embed
+    from repro_torch.models.transformer import index_tree
+    b, s = tokens.shape
+    h, chunk = ssm.n_ssd_heads(cfg), min(cfg.ssm.chunk, s)
+    first, worst = None, 0.0
+    with torch.no_grad():
+        x = embed(cfg, params["embed"], tokens)
+        for i in range(cfg.n_layers):
+            lp = index_tree(params["stack"]["layers"], i)
+            y = apply_norm(lp["ln1"], cfg, x)
+            raw = torch.matmul(y, lp["ssm"]["in_proj"])[..., -h:]
+            da = F.softplus(raw.float() + lp["ssm"]["dt_bias"]) \
+                * torch.exp(lp["ssm"]["A_log"])
+            ex = da.reshape(b, s // chunk, chunk, h)[:, :, 1:].sum(2) \
+                .max().item()
+            worst = max(worst, ex)
+            x = x + ssm.ssd_forward(cfg, lp["ssm"], y)
+            if first is None and not bool(torch.isfinite(x).all()):
+                first = (i, ex, int((~torch.isfinite(x)).any(-1).sum()))
+    where = ("every layer's output finite" if first is None else
+             f"first non-finite output at layer {first[0]} (largest decay "
+             f"exponent there {first[1]:.2f}; {first[2]} of {b * s} "
+             f"positions non-finite)")
+    report(f"{cfg.name} {b} x {s} chunked prefill, layer by layer: {where}; "
+           f"largest decay exponent over the layers {worst:.2f} (float32 "
+           f"exp overflows above {math.log(torch.finfo(torch.float32).max):.2f})")
+    return cfg.n_layers if first is None else first[0]
+
+
+def p19_prefill(cfg, params, report, card) -> None:
+    """Gate (d): ``model.prefill`` under the dense prefill table at 2 x 4096
+    and 1 x 32768 tokens (the second call of each timed, the first warms):
+    ms per prompt token, one profiled call, peak memory.  At full width the
+    reference's chunked SSD overflows float32 (its mask keeps the decays
+    of later tokens), so the full stack's logits are gated on their shape
+    only; ``p19_overflow`` finds the first layer with a non-finite output,
+    and the prefill cut to the layers before it (the same tokens, finite
+    logits required) is held against the plain path within 5% of max
+    |logit|."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import shape_exec_config
+    for b, s in P19_PREFILLS:
+        pf = shape_exec_config(cfg, ShapeConfig(f"p19_{s}", "prefill", s, b),
+                               use_kernels=True, device="cuda")
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(s).integers(
+            0, cfg.vocab, size=(b, s)), device="cuda")}
+
+        def call(ec=pf, c=cfg):
+            return _under(ec, lambda: model_lib.prefill(params, c, batch))
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        logits, wall = _timed(call)
+        ok = torch.isfinite(logits).all(-1)[:, 0]
+        need(logits.shape == (b, 1, cfg.vocab),
+             f"{cfg.name}: prefill logits of shape {tuple(logits.shape)}")
+        report(f"{cfg.name} bf16 prefill {b} x {s}, dense table: {wall:.3f} "
+               f"s = {1e3 * wall / (b * s):.5f} ms per prompt token; rows "
+               f"with finite logits {int(ok.sum())} of {b}; peak "
+               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+        profile_prefill(call, report, f"{cfg.name} bf16 prefill {b} x {s} "
+                        f"(dense table)")
+        del logits
+        depth = p19_overflow(cfg, params, batch["tokens"], report)
+        need(depth > 0, f"{cfg.name}: layer 0's prefill output is not finite")
+        cut = dataclasses.replace(cfg, n_layers=depth)
+        got, plain = call(c=cut), call(None, cut)
+        ok = torch.isfinite(got).all(-1)[:, 0]
+        same_rows = torch.equal(torch.isfinite(plain).all(-1)[:, 0], ok)
+        diff = tol = float("nan")
+        if bool(ok.any()):
+            diff = (plain[ok] - got[ok]).abs().max().item()
+            tol = 0.05 * got[ok].abs().max().item()
+        report(f"{cfg.name} bf16 prefill {b} x {s} cut to its {depth} finite "
+               f"layer(s): rows with finite logits {int(ok.sum())} of {b}, "
+               f"the plain path's the same {same_rows}; vs the dense table "
+               f"max |diff| {diff:.3e}, tol {tol:.3e}")
+        need(bool(ok.any()) and same_rows and diff <= tol,
+             f"{cfg.name}: the {depth}-layer prefill's plain path differs "
+             f"from the dense table's ({int(ok.sum())} finite rows, "
+             f"{same_rows}, {diff} > {tol})")
+        del got, plain, pf, batch
+        free()
+
+
+def p19_int8(cfg, params, report) -> None:
+    """Gate (e): ``quantize=True`` refuses an SSM stack (the reference's
+    bare products cannot take its QuantizedLinear leaves)."""
+    try:
+        family_engine(cfg, params, None, quantize=True)
+    except NotImplementedError as exc:
+        report(f"{cfg.name} quantize=True raises NotImplementedError: {exc}")
+    else:
+        need(False, f"{cfg.name}: quantize=True served an SSM stack")
+
+
+def run_ssm(report, card):
+    """Phase 19.  Returns its main-path launches and the tied head's
+    worst error."""
+    import torch
+    t0 = time.perf_counter()
+    cfg, _, params, planned, dense = p19_bring_up(report)
+    err = check_tied_head(params, dense, report)
+    p19_ssd(cfg, params, report)
+    reset_launches()
+    p19_serve(cfg, params, planned, dense, report, card)
+    p19_prefill(cfg, params, report, card)
+    p19_int8(cfg, params, report)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    report(f"main-path launches (phase 19): {launches}")
+    need(launches["output"] > 0, "fm_output never launched in phase 19")
+    report(f"phase 19 peak memory: max_memory_allocated "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
+           f"{time.perf_counter() - t0:.1f} s ({card})")
+    del params, planned, dense
+    free()
+    return launches, err
+
+
+def p20_forward(cfg, sp_cfg, params, report, card) -> None:
+    """``forward_hidden`` and ``prefill`` (the encoder pass) on Whisper's
+    window (2 x 1500 frames, 2 x 448 decoder tokens) under the dense
+    prefill table, the planned prefill plan (equal bit for bit) and the
+    plain path (within 5% of the largest magnitude)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import shape_exec_config
+    b = 2
+    shape = ShapeConfig("p20", "prefill", P20_TOKENS, b)
+    dense_pf = shape_exec_config(cfg, shape, use_kernels=True, device="cuda")
+    planned_pf = shape_exec_config(sp_cfg, shape, use_kernels=True,
+                                   params=params, device="cuda")
+    attached = planned_pf.plan.attach(params)
+    rng = np.random.default_rng(20)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab, size=(b, P20_TOKENS)), device="cuda"),
+             "frames": torch.as_tensor(rng.normal(size=(
+                 b, P20_FRAMES, cfg.d_model)).astype(np.float32),
+                 device="cuda").to(torch.bfloat16)}
+    for fn in ("forward_hidden", "prefill"):
+        def call(ec, p):
+            return _under(ec, lambda: getattr(model_lib, fn)(p, cfg, batch))
+        call(dense_pf, params)
+        out, wall = _timed(lambda: call(dense_pf, params))
+        want = (b, P20_TOKENS if fn == "forward_hidden" else 1, cfg.d_model)
+        need(bool(torch.isfinite(out).all()) and tuple(out.shape) == want,
+             f"{cfg.name}: bad {fn} output")
+        out_p, wall_p = _timed(lambda: call(planned_pf, attached))
+        out_0 = call(None, params)
+        same = torch.equal(out_p, out)
+        diff = (out_0.float() - out.float()).abs().max().item()
+        tol = 0.05 * out.float().abs().max().item()
+        report(f"{cfg.name} bf16 {fn} ({b} x {P20_FRAMES} frames, {b} x "
+               f"{P20_TOKENS} tokens): dense table {wall * 1e3:.2f} ms, "
+               f"planned {wall_p * 1e3:.2f} ms, equal bit for bit {same}; "
+               f"plain max |diff| {diff:.3e}, tol {tol:.3e} ({card})")
+        need(same, f"{cfg.name}: planned {fn} differs from the dense table")
+        need(diff <= tol, f"{cfg.name}: plain {fn} off by {diff}")
+        if fn == "forward_hidden":
+            profile_prefill(lambda: call(dense_pf, params), report,
+                            f"{cfg.name} bf16 forward_hidden (dense table)")
+    del dense_pf, planned_pf, attached
+    free()
+
+
+def p20_int8(cfg, sp_cfg, params, report, card) -> dict:
+    """int8 where the reference serves it: unplanned ``quantize=True``
+    raises; under the int8 plan bf16 weights raise too (the cross-
+    attention's bare products meet float32 dequantized weights and the
+    residual stream changes dtype, which the reference's scan refuses);
+    float32 weights and state serve: the int8 kernels against their plain
+    versions at layer 0's sites (``check_sites_int8``, not counted), the
+    planned int8 engine's fused streams equal its ``step()`` oracle's.
+    Returns the int8 kernels' worst errors."""
+    import torch
+    from repro_torch.serve.engine import decode_exec_config
+    try:
+        family_engine(cfg, params, None, quantize=True)
+    except NotImplementedError as exc:
+        report(f"{cfg.name} unplanned quantize=True raises "
+               f"NotImplementedError: {exc}")
+    else:
+        need(False, f"{cfg.name}: unplanned int8 served")
+    q8 = decode_exec_config(sp_cfg, N_SLOTS, params=params, quantize=True,
+                            use_kernels=True, device="cuda")
+    eng = family_engine(cfg, params, q8)
+    eng.submit(family_prompts(cfg)[0], max_new=2)
+    try:
+        eng.run_until_drained()
+    except TypeError as exc:
+        report(f"{cfg.name} planned int8 with bf16 weights raises "
+               f"TypeError: {exc}")
+    else:
+        need(False, f"{cfg.name}: planned int8 served bf16 weights, where "
+             f"the reference's scan refuses the carry")
+    del eng, q8
+    free()
+    params32 = {}
+    for path, leaf in _leaves(params):
+        d = params32
+        for key in path[:-1]:
+            d = d.setdefault(key, {})
+        d[path[-1]] = leaf.float()
+    q8 = decode_exec_config(sp_cfg, N_SLOTS, params=params32, quantize=True,
+                            use_kernels=True, device="cuda")
+    saved = launch_counts()
+    errs = check_sites_int8(cfg, params32, q8, report)["errs"]
+    reset_launches(saved)
+    free()
+    family_serve(cfg, params32, q8, None, report, card,
+                 label="int8 (float32 weights and state)",
+                 dtype=torch.float32)
+    del params32, q8
+    free()
+    return errs
+
+
+def run_whisper(report, card):
+    """Phase 20.  Returns its main-path launches and the kernels' worst
+    errors at its sites."""
+    import torch
+    t0 = time.perf_counter()
+    cfg, sp_cfg, params, planned, dense = family_bring_up(P20_ARCH, report)
+    report(f"{P20_ARCH}: the matmul kernels vs their plain versions at "
+           f"encoder and decoder layer 0's sites, cross-attention included")
+    errs = check_sites(params, planned, dense, report)["errs"]
+    free()
+    reset_launches()
+    p20_forward(cfg, sp_cfg, params, report, card)
+    family_serve(cfg, params, planned, dense, report, card)
+    errs.update(p20_int8(cfg, sp_cfg, params, report, card))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    report(f"main-path launches (phase 20): {launches}")
+    for name in ("block_sparse", "output", "block_sparse_scaled"):
+        need(launches[name] > 0, f"kernel {name} never launched in phase 20")
+    report(f"phase 20 peak memory: max_memory_allocated "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; wall "
+           f"{time.perf_counter() - t0:.1f} s ({card})")
+    del params, planned, dense
+    free()
+    report(f"{P20_ARCH} matmul kernels' worst errors: {errs}")
+    return launches, errs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3826,9 +4553,14 @@ def main() -> int:
     sys.path.insert(0, src)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the whole report, which outgrows what a caller keeps of the output
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    log_file = open(os.path.join(ROOT, "build", "chip_smoke.log"), "w")
 
     def report(msg):
         print(msg, flush=True)
+        log_file.write(msg + "\n")
+        log_file.flush()
 
     try:
         t_start = time.perf_counter()
@@ -4026,6 +4758,28 @@ def main() -> int:
             if key is not None:
                 row["launches_phase18"] = launches18[key]
         done("phase 18")
+        # phases 19-20: the SSM family and the Whisper encoder-decoder
+        launches19, err19 = run_ssm(report, card)
+        done("phase 19")
+        launches20, errs20 = run_whisper(report, card)
+        done("phase 20")
+        for row in rows:
+            key = {"block_sparse": "block_sparse", "flex_output": "output",
+                   "flex_weight": "weight", "flex_input": "input",
+                   "block_sparse_scaled": "block_sparse_scaled",
+                   "int8_matmul": "int8_matmul",
+                   "flash_attention": "flash_attention"}.get(row["name"])
+            if key is None:
+                continue
+            # the errors only of kernels the phase compared
+            if key == "output":
+                row["max_abs_err_phase19"] = err19
+            if key in errs20:
+                row["max_abs_err_phase20"] = errs20[key]
+            row.update(max_abs_err=max(row["max_abs_err"], err19 if key ==
+                                       "output" else 0.0, errs20.get(key, 0.0)),
+                       launches_phase19=launches19[key],
+                       launches_phase20=launches20[key])
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)
@@ -4033,7 +4787,10 @@ def main() -> int:
         report(json.dumps({"kernels": rows}))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        log_file.write(f"FAILED: {exc}\n")
         return 1
+    finally:
+        log_file.close()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

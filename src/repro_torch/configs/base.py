@@ -195,6 +195,8 @@ ARCH_IDS = [
     "gemma-2b",
     "chatglm3-6b",
     "recurrentgemma-9b",
+    "mamba2-1.3b",
+    "whisper-tiny",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

@@ -62,6 +62,8 @@ from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
 SITE_KEYS: Dict[str, Dict[str, str]] = {
     "mlp": {"w_in": "mlp.in", "w_gate": "mlp.gate", "w_out": "mlp.out"},
     "attn": {"wq": "attn.q", "wkv": "attn.kv", "wo": "attn.out"},
+    # the encoder-decoder's cross-attention shares the attention sites
+    "xattn": {"wq": "attn.q", "wkv": "attn.kv", "wo": "attn.out"},
     "rglru": {"w_x": "rglru.in", "w_gate": "rglru.gate",
               "w_out": "rglru.out"},
     "moe": {"router": "moe.router", "experts_in": "moe.experts_in",
@@ -537,6 +539,17 @@ class PlannedWeight:
             return dequantize_leaf(QuantizedLinear(self.w, self.qscale),
                                    torch.float32)
         return self.kn
+
+    def __rmatmul__(self, other: torch.Tensor) -> torch.Tensor:
+        """``other @ self``: the dense product with ``w_kn``, as the
+        reference's ``PlannedWeight.__rmatmul__`` — the route of a bare
+        product that no ``ops`` site dispatches (the encoder-decoder's
+        cross-attention at decode).  The operands meet in their promoted
+        dtype, as JAX's ``@`` promotes them: float32 against the
+        dequantized weight of an int8 plan."""
+        w = self.w_kn
+        dt = torch.promote_types(other.dtype, w.dtype)
+        return torch.matmul(other.to(dt), w.to(dt))
 
     def index(self, i: int) -> "PlannedWeight":
         """The slice of a stacked leaf at leading index ``i``."""

@@ -1,7 +1,8 @@
 """Attention: MHA / GQA / MQA projections, masked dense attention, the
 full-sequence forward of a prefill (dense up to 2048 tokens, above it the
 online softmax, which is the flash-attention kernel under ``use_kernels``;
-a sliding window shorter than the sequence takes the windowed branch),
+a sliding window shorter than the sequence takes the windowed branch;
+a cross-attention pass takes its keys and values from another sequence),
 the per-slot KV cache of decode (full length, or rolling for sliding
 windows) and the W-position decode of a speculative verify window."""
 from __future__ import annotations
@@ -20,7 +21,10 @@ NEG_INF = -1e30
 
 
 def init_attention(cfg: ArchConfig, gen: torch.Generator,
-                   dtype=torch.bfloat16, lead=()) -> Params:
+                   dtype=torch.bfloat16, lead=(),
+                   cross: bool = False) -> Params:
+    """``cross`` (a cross-attention block) changes nothing, as in the
+    reference: its k / v projection has the same shape."""
     d, hd = cfg.d_model, cfg.head_dim
     s = d ** -0.5
     return {
@@ -30,13 +34,17 @@ def init_attention(cfg: ArchConfig, gen: torch.Generator,
     }
 
 
-def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor):
-    """x (B,S,D) -> q (B,S,KVH,G,hd), k/v (B,S,KVH,hd)."""
+def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 kv_x: Optional[torch.Tensor] = None):
+    """x (B,S,D) -> q (B,S,KVH,G,hd), k/v (B,Skv,KVH,hd); k and v are
+    projected from ``kv_x`` (B,Skv,D) when given (cross-attention), else
+    from x."""
     b, s, _ = x.shape
     hd, kvh, g = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
     q = ops.flex_matmul(x, p["wq"], site="attn.q").reshape(b, s, kvh, g, hd)
-    kv = ops.flex_matmul(x, p["wkv"], site="attn.kv")
-    kv = kv.reshape(b, s, 2, kvh, hd)
+    src = x if kv_x is None else kv_x
+    kv = ops.flex_matmul(src, p["wkv"], site="attn.kv")
+    kv = kv.reshape(b, src.shape[1], 2, kvh, hd)
     return q, kv[:, :, 0], kv[:, :, 1]
 
 
@@ -79,10 +87,11 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                       positions: torch.Tensor, causal: bool = True,
-                      window: int = 0, q_chunk: int = 512,
+                      window: int = 0, kv_x: Optional[torch.Tensor] = None,
+                      q_chunk: int = 512,
                       use_flash: Optional[bool] = None,
                       return_kv: bool = False):
-    """Full-sequence self-attention (prefill).  x (B,S,D), ``positions``
+    """Full-sequence attention (prefill).  x (B,S,D), ``positions``
     (B,S).  Dense masked attention up to 2048 tokens, above it (or with
     ``use_flash``) the flash branch (``flash_attention_xla``).
     ``return_kv=True`` also returns the (post-RoPE) k and the raw v
@@ -92,13 +101,18 @@ def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     branch (``flash_attention_xla`` with the window): the flash-attention
     kernel under ``use_kernels``, else the reference's
     ``windowed_attention``.
-    Cross-attention is not ported (ROADMAP queue A)."""
+
+    ``kv_x`` (B,Skv,D) makes it cross-attention: k and v come from
+    ``kv_x``, no rotary is applied (as in the reference), and the caller
+    passes ``causal=False``, which the dense branch runs unmasked."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x)
-    qf = rope.apply_rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim),
-                         positions, kind=cfg.rope, theta=cfg.rope_theta)
-    q = qf.reshape(q.shape)
-    k = rope.apply_rope(k, positions, kind=cfg.rope, theta=cfg.rope_theta)
+    q, k, v = _project_qkv(p, cfg, x, kv_x)
+    if kv_x is None:      # self-attention: rotary on q and k
+        qf = rope.apply_rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim),
+                             positions, kind=cfg.rope, theta=cfg.rope_theta)
+        q = qf.reshape(q.shape)
+        k = rope.apply_rope(k, positions, kind=cfg.rope,
+                            theta=cfg.rope_theta)
 
     if use_flash is None:
         use_flash = s > 2048

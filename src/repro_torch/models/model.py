@@ -10,7 +10,13 @@ updated in place; params are nested dicts in the reference's tree layout
 ``lm_head``; a MoE stack has ``stack.layers.{ln1,attn,ln2,moe}`` and
 ``stack.dense_layers``, and its state the same two groups; a Griffin
 stack has ``stack.groups.b{i}_{kind}`` and ``stack.trailing``, and its
-state the same)."""
+state the same; an SSM stack ``stack.layers.{ln1,ssm}``; an
+encoder-decoder ``stack.encoder`` and ``stack.decoder``, its state
+``self`` and ``memory``).
+
+An encoder-decoder's prompt batch carries ``frames`` (B, S_f, D), the
+precomputed frame embeddings its encoder reads (the conv front end is a
+stub, as in the reference), beside the decoder's ``tokens``."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -58,20 +64,34 @@ def head_matrix(p: Params, cfg: ArchConfig):
     return p["embed"] if cfg.tie_embeddings else p["lm_head"]
 
 
+def _on_params_device(p: Params, t, name: str, ndim: int) -> torch.Tensor:
+    dev = p["embed"].device
+    if not isinstance(t, torch.Tensor) or t.dim() != ndim:
+        raise TypeError(f"batch[{name!r}] must be a {ndim}-D torch tensor")
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, params on {dev}")
+    return t
+
+
 def _prompt_tokens(p: Params, cfg: ArchConfig, batch) -> torch.Tensor:
     """The (B, S) token tensor of a prompt batch, on the params' device.
-    Only token input is ported: the vision and encoder-decoder inputs
-    raise."""
-    if cfg.encoder_decoder or "frames" in batch or "vis_embeds" in batch:
+    The vision inputs are not ported and raise, as do ``frames`` for a
+    config without an encoder (it takes token input only)."""
+    if "vis_embeds" in batch or ("frames" in batch
+                                 and not cfg.encoder_decoder):
         raise NotImplementedError(
-            f"{cfg.name}: only token input is ported (ROADMAP queue A)")
-    tokens = batch["tokens"]
-    dev = p["embed"].device
-    if not isinstance(tokens, torch.Tensor) or tokens.dim() != 2:
-        raise TypeError("batch['tokens'] must be a (B, S) torch tensor")
-    if tokens.device != dev:
-        raise ValueError(f"tokens on {tokens.device}, params on {dev}")
-    return tokens
+            f"{cfg.name}: only token input is ported for this config "
+            f"(ROADMAP queue A)")
+    return _on_params_device(p, batch["tokens"], "tokens", 2)
+
+
+def _frames(p: Params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """An encoder-decoder's (B, S_f, D) frame embeddings, on the params'
+    device."""
+    if "frames" not in batch:
+        raise ValueError(f"{cfg.name}: an encoder-decoder's batch needs "
+                         f"'frames' (B, S_f, {cfg.d_model})")
+    return _on_params_device(p, batch["frames"], "frames", 3)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
@@ -82,19 +102,32 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 def forward_hidden(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                    *, remat: str = "none", q_chunk: int = 512
                    ) -> torch.Tensor:
-    """Token inputs → final-norm hidden states (B, S, D)."""
+    """Token inputs (and an encoder-decoder's ``frames``) → final-norm
+    hidden states (B, S, D)."""
     tokens = _prompt_tokens(p, cfg, batch)
+    frames = _frames(p, cfg, batch) if cfg.encoder_decoder else None
     x = embed(cfg, p["embed"], tokens)
     x = transformer.apply_stack(p["stack"], cfg, x,
                                 positions=_positions(tokens), remat=remat,
-                                q_chunk=q_chunk)
+                                q_chunk=q_chunk, frames=frames)
     return apply_norm(p["final_norm"], cfg, x)
 
 
 def prefill(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             q_chunk: int = 512) -> torch.Tensor:
     """Prompt pass returning the last position's logits (B, 1, V) float32.
-    ``batch["tokens"]`` (B, S) lies on the params' device."""
+    ``batch["tokens"]`` (B, S) lies on the params' device.
+
+    For an encoder-decoder it is the encoder pass over ``batch["frames"]``
+    and returns the encoder's last hidden (B, 1, D), as the reference's
+    does (its ``prefill_32k`` cell lowers the encoder)."""
+    if cfg.encoder_decoder:
+        if "vis_embeds" in batch:
+            raise NotImplementedError(
+                f"{cfg.name}: vision inputs are not ported (ROADMAP queue A)")
+        mem = transformer.encode(p["stack"], cfg, _frames(p, cfg, batch),
+                                 q_chunk=q_chunk)
+        return mem[:, -1:, :]
     x = forward_hidden(p, cfg, batch, q_chunk=q_chunk)
     return logits_head(cfg, head_matrix(p, cfg), x[:, -1:, :])
 

@@ -1,5 +1,6 @@
 """Rotary position embeddings: full, half (ChatGLM 2d) and partial
-(StableLM, 25% of the head dims)."""
+(StableLM, 25% of the head dims); Whisper's sinusoidal absolute
+positions."""
 from __future__ import annotations
 
 import torch
@@ -41,3 +42,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]       # (B, S, 1, rot/2)
     xr = _rot_half(xr, cos.to(x.dtype), sin.to(x.dtype))
     return torch.cat([xr, xp], dim=-1) if rot_dim < hd else xr
+
+
+def sinusoidal_positions(seq: int, dim: int, device="cpu") -> torch.Tensor:
+    """Whisper-style sinusoidal absolute embeddings (S, D) float32:
+    [sin | cos] of pos / 10000^(2i / D), i < D / 2."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.full((), 10_000.0, dtype=torch.float32,
+                                     device=device), 2 * i / dim)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -2,14 +2,18 @@
 full-sequence forward of a prefill, one-token decode through every layer
 and the W-token decode of a speculative verify window.
 
-Three families are ported: the dense decoder (``layers``); the MoE
+Five families are ported: the dense decoder (``layers``); the MoE
 decoder — ``dense_layers`` (the first ``moe.first_dense_layers`` layers,
-dense) then ``layers`` (attention and ``models.moe`` in each); and the
+dense) then ``layers`` (attention and ``models.moe`` in each); the
 Griffin hybrid — ``groups`` of ``rglru.block_pattern`` blocks (two RG-LRU
 recurrent layers, then one sliding-window attention layer, keyed
-``b{i}_{kind}``) then the ``trailing`` recurrent layers.  The decode state
-is split the same way.  The full-cache prefill and the verify window take
-dense stacks only, as the reference's."""
+``b{i}_{kind}``) then the ``trailing`` recurrent layers; the Mamba-2 SSM
+(``layers`` of one SSD block each, ``models.ssm``); and the Whisper
+encoder-decoder — an ``encoder`` stack (bidirectional attention and MLP
+over frame embeddings plus sinusoidal positions) and a ``decoder`` stack
+(causal self-attention, cross-attention to the encoder's output, MLP).
+The decode state is split the same way.  The full-cache prefill and the
+verify window take dense stacks only, as the reference's."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -21,6 +25,8 @@ from repro_torch.core.sparsity import PlannedWeight
 from repro_torch.models import attention
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.rope import sinusoidal_positions
 from repro_torch.quant.quantize import QuantizedLinear
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        apply_norm_per_position, init_mlp,
@@ -40,16 +46,9 @@ def index_tree(tree, i: int):
     return tree[i]
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.ssm.enabled or cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE and Griffin families are "
-            f"ported so far")
-
-
 def _check_dense(cfg: ArchConfig) -> None:
-    _check_ported(cfg)
-    if cfg.moe.enabled or cfg.rglru.enabled:
+    if (cfg.moe.enabled or cfg.rglru.enabled or cfg.ssm.enabled
+            or cfg.encoder_decoder):
         raise NotImplementedError(
             f"{cfg.name}: the cache-filling prefill takes dense stacks only")
 
@@ -119,6 +118,27 @@ def decode_moe_layer(p: Params, cfg: ArchConfig, x, cache, pos, *,
     x = x + o
     h = apply_norm(p["ln2"], cfg, x)
     return x + moe_mod.apply_moe(p["moe"], cfg, h), cache
+
+
+def init_ssm_layer(cfg: ArchConfig, gen: torch.Generator,
+                   dtype=torch.bfloat16, lead=()) -> Params:
+    return {
+        "ln1": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "ssm": ssm_mod.init_ssm(cfg, gen, dtype, lead),
+    }
+
+
+def apply_ssm_layer(p: Params, cfg: ArchConfig,
+                    x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(p["ln1"], cfg, x)
+    return x + ssm_mod.ssd_forward(cfg, p["ssm"], h)
+
+
+def decode_ssm_layer(p: Params, cfg: ArchConfig, x, state, *, active=None):
+    h = apply_norm(p["ln1"], cfg, x)
+    o, state = ssm_mod.ssd_decode_step(cfg, p["ssm"], h, state,
+                                       active=active)
+    return x + o, state
 
 
 def init_rec_layer(cfg: ArchConfig, gen: torch.Generator,
@@ -202,8 +222,16 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator,
     """Stacked (L, ...) layer weights, drawn leaf by leaf for all layers;
     a MoE stack holds its MoE layers in ``layers`` and its leading dense
     ones in ``dense_layers``, a Griffin stack its groups in ``groups``
-    and its last recurrent layers in ``trailing``."""
-    _check_ported(cfg)
+    and its last recurrent layers in ``trailing``, an SSM stack its SSD
+    blocks in ``layers``, an encoder-decoder its ``encoder`` and
+    ``decoder`` layers."""
+    if cfg.encoder_decoder:
+        return {"encoder": init_dense_layer(cfg, gen, dtype,
+                                            (cfg.n_layers,)),
+                "decoder": init_whisper_dec_layer(cfg, gen, dtype,
+                                                  (cfg.n_layers,))}
+    if cfg.ssm.enabled:
+        return {"layers": init_ssm_layer(cfg, gen, dtype, (cfg.n_layers,))}
     if cfg.rglru.enabled:
         n_groups, n_trail = griffin_layout(cfg)
         p = {"groups": init_griffin_group(cfg, gen, dtype, (n_groups,))}
@@ -221,11 +249,23 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator,
 
 def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                 positions: torch.Tensor, remat: str = "none",
-                q_chunk: int = 512) -> torch.Tensor:
-    """Run the full stack over x (B,S,D).  ``remat`` is accepted for the
-    reference's signature and ignored: there is no backward pass to save
-    memory for yet."""
-    _check_ported(cfg)
+                q_chunk: int = 512,
+                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the full stack over x (B,S,D); ``frames`` (B, S_f, D) feed the
+    encoder of an encoder-decoder, whose decoder then runs over x.
+    ``remat`` is accepted for the reference's signature and ignored: there
+    is no backward pass to save memory for yet."""
+    if cfg.encoder_decoder:
+        memory = encode(p, cfg, frames, q_chunk=q_chunk)
+        for i in range(cfg.n_layers):
+            x = apply_whisper_dec_layer(index_tree(p["decoder"], i), cfg, x,
+                                        memory=memory, positions=positions,
+                                        q_chunk=q_chunk)
+        return x
+    if cfg.ssm.enabled:
+        for i in range(cfg.n_layers):
+            x = apply_ssm_layer(index_tree(p["layers"], i), cfg, x)
+        return x
     if cfg.rglru.enabled:
         n_groups, n_trail = griffin_layout(cfg)
         for i in range(n_groups):
@@ -250,14 +290,133 @@ def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     return x
 
 
+# ---------------------------------------------------------------------------
+# The Whisper encoder-decoder
+# ---------------------------------------------------------------------------
+
+def init_whisper_dec_layer(cfg: ArchConfig, gen: torch.Generator,
+                           dtype=torch.bfloat16, lead=()) -> Params:
+    return {
+        "ln1": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "attn": attention.init_attention(cfg, gen, dtype, lead),
+        "lnx": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "xattn": attention.init_attention(cfg, gen, dtype, lead, cross=True),
+        "ln2": init_norm(cfg, cfg.d_model, gen.device, lead),
+        "mlp": init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, dtype, lead),
+    }
+
+
+def apply_whisper_dec_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                            memory: torch.Tensor, positions: torch.Tensor,
+                            q_chunk: int = 512) -> torch.Tensor:
+    """Causal self-attention, cross-attention to ``memory`` (the encoder's
+    output, (B, S_f, D)) and the MLP, each behind its norm."""
+    h = apply_norm(p["ln1"], cfg, x)
+    x = x + attention.attention_forward(p["attn"], cfg, h,
+                                        positions=positions, causal=True,
+                                        q_chunk=q_chunk)
+    h = apply_norm(p["lnx"], cfg, x)
+    x = x + attention.attention_forward(p["xattn"], cfg, h,
+                                        positions=positions, causal=False,
+                                        kv_x=memory, q_chunk=q_chunk)
+    h = apply_norm(p["ln2"], cfg, x)
+    return x + apply_mlp(p["mlp"], cfg, h)
+
+
+def encode(p: Params, cfg: ArchConfig, frames: torch.Tensor, *,
+           remat: str = "none", q_chunk: int = 512) -> torch.Tensor:
+    """The encoder over precomputed frame embeddings (B, S_f, D) (the
+    conv front end is a stub, as in the reference) plus sinusoidal
+    positions."""
+    b, s, d = frames.shape
+    x = frames + sinusoidal_positions(s, d, frames.device).to(
+        frames.dtype)[None]
+    positions = torch.arange(s, device=frames.device)[None].expand(b, s)
+    for i in range(cfg.n_layers):
+        x = _enc_layer(index_tree(p["encoder"], i), cfg, x, positions,
+                       q_chunk)
+    return x
+
+
+def _enc_layer(lp: Params, cfg: ArchConfig, h: torch.Tensor,
+               positions: torch.Tensor, q_chunk: int = 512) -> torch.Tensor:
+    """Encoder layer: bidirectional self-attention + MLP."""
+    y = apply_norm(lp["ln1"], cfg, h)
+    h = h + attention.attention_forward(lp["attn"], cfg, y,
+                                        positions=positions, causal=False,
+                                        q_chunk=q_chunk)
+    y = apply_norm(lp["ln2"], cfg, h)
+    return h + apply_mlp(lp["mlp"], cfg, y)
+
+
+def _decode_whisper(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                    state: Params, pos: torch.Tensor,
+                    active: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Params]:
+    """One token through the decoder layers: self-attention on the
+    ``self`` caches (in place at the ``active`` rows), then
+    cross-attention to the ``memory`` k / v of the layer, unmasked, with
+    the reference's bare products on ``xattn`` (no ``ops`` site: a
+    planned leaf takes its dense route, ``PlannedWeight.__rmatmul__``; a
+    ``QuantizedLinear`` raises ``TypeError``, as the reference's does),
+    then the MLP.  The memory meets q in their promoted dtype, as JAX's
+    einsum promotes them.
+
+    The reference scans the layers with the residual stream as the carry,
+    and a scan refuses a carry whose dtype changes (an int8 plan's
+    dequantized float32 weight promotes bf16 activations): the same
+    raises ``TypeError`` here."""
+    b = x.shape[0]
+    kvh, g, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    caches, mem = state["self"], state["memory"]
+    for i in range(cfg.n_layers):
+        lp = index_tree(p["decoder"], i)
+        h = x
+        y = apply_norm(lp["ln1"], cfg, h)
+        cache = {"k": caches["k"][i], "v": caches["v"][i]}
+        o, _ = attention.decode_step(lp["attn"], cfg, y, cache, pos,
+                                     active=active)
+        h = h + o
+        y = apply_norm(lp["lnx"], cfg, h)
+        q = (y @ lp["xattn"]["wq"]).reshape(b, 1, kvh, g, hd)
+        dt = torch.promote_types(q.dtype, mem["k"].dtype)
+        o = attention.dense_attention(q.to(dt), mem["k"][i].to(dt),
+                                      mem["v"][i].to(dt), None)
+        h = h + o.reshape(b, 1, -1) @ lp["xattn"]["wo"]
+        if h.dtype != x.dtype:
+            raise TypeError(
+                f"{cfg.name}: decoder layer {i} turns a {x.dtype} residual "
+                f"stream into {h.dtype} (cross-attention memory "
+                f"{mem['k'].dtype}); the reference's scan over the decoder "
+                f"layers refuses a carry whose dtype changes")
+        y = apply_norm(lp["ln2"], cfg, h)
+        x = h + apply_mlp(lp["mlp"], cfg, y)
+    return x, state
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       dtype=torch.bfloat16, device="cpu") -> Params:
     """Stacked per-layer KV caches, (L, B, S, KVH, hd); a MoE stack's are
     split as its weights are (``layers``, ``dense_layers``).  A Griffin
     stack's ``groups`` hold an RG-LRU state ({h, conv}, (G, B, ...)) per
     recurrent block and a rolling cache per attention block, its
-    ``trailing`` the recurrent layers' states."""
-    _check_ported(cfg)
+    ``trailing`` the recurrent layers' states.  An SSM stack's ``layers``
+    hold {ssm (L, B, H, P, N) float32, conv (L, B, K-1, C) float32} (the
+    reference gives its SSM state no other dtype); an encoder-decoder's
+    ``self`` the decoder's caches and ``memory`` a zero k / v of the
+    cross-attention per layer, (L, B, S, KVH, hd), which no decode path
+    fills (as in the reference)."""
+    if cfg.encoder_decoder:
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "self": attention.init_cache(cfg, batch, max_seq, dtype, device,
+                                         (cfg.n_layers,)),
+            "memory": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)},
+        }
+    if cfg.ssm.enabled:
+        return {"layers": ssm_mod.init_ssm_state(cfg, batch, device=device,
+                                                 lead=(cfg.n_layers,))}
     if cfg.rglru.enabled:
         n_groups, n_trail = griffin_layout(cfg)
         group = {}
@@ -292,7 +451,16 @@ def decode_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, state: Params,
     layer's cache is a view of the stacked state, updated in place at the
     ``active`` rows.  A MoE stack runs its dense layers, then its MoE
     layers, whose routing takes every row of the batch; a Griffin stack
-    its groups, then its trailing recurrent layers."""
+    its groups, then its trailing recurrent layers; an SSM stack its SSD
+    blocks; an encoder-decoder its decoder layers (``_decode_whisper``)."""
+    if cfg.encoder_decoder:
+        return _decode_whisper(p, cfg, x, state, pos, active)
+    if cfg.ssm.enabled:
+        for i in range(cfg.n_layers):
+            x, _ = decode_ssm_layer(index_tree(p["layers"], i), cfg, x,
+                                    index_tree(state["layers"], i),
+                                    active=active)
+        return x, state
     if cfg.rglru.enabled:
         n_groups, n_trail = griffin_layout(cfg)
         for i in range(n_groups):

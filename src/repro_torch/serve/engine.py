@@ -63,7 +63,8 @@ table when they drift from the densities it was selected under.
 ``quantize`` serves int8 weights (``quant.quantize_params``): planned sites
 run the scaled block-sparse kernel on the int8 payload, unplanned dense
 sites the int8 matmul kernel (``use_kernels``) or, without kernels, the
-weight dequantized to the activation dtype.
+weight dequantized to the activation dtype.  An SSM stack, and an
+unplanned encoder-decoder, refuse it (``_check_quantizable``).
 """
 from __future__ import annotations
 
@@ -144,6 +145,26 @@ def decode_exec_config(cfg: ArchConfig, n_slots: int, **kw) -> ops.ExecConfig:
     shape = ShapeConfig(name="serve_decode", kind="decode", seq_len=1,
                         global_batch=n_slots)
     return shape_exec_config(cfg, shape, **kw)
+
+
+def _check_quantizable(cfg: ArchConfig, quantize: bool, plan) -> None:
+    """int8 serving where the reference cannot serve it raises here, not
+    with an answer the reference cannot give.  Its ``quantize_params``
+    turns the SSM's ``in_proj`` / ``out_proj`` and the encoder-decoder's
+    cross-attention ``wq`` / ``wo`` into ``QuantizedLinear`` leaves, which
+    its bare ``@`` products cannot take (``TypeError``; ROADMAP queue C).
+    A plan wraps the cross-attention leaves in ``PlannedWeight``s, whose
+    dense route takes them, so a planned encoder-decoder serves int8;
+    nothing plans the SSM's projections."""
+    if not quantize:
+        return
+    if cfg.ssm.enabled or (cfg.encoder_decoder and plan is None):
+        what = ("the SSD block's in_proj / out_proj" if cfg.ssm.enabled
+                else "the unplanned cross-attention's wq / wo")
+        raise NotImplementedError(
+            f"{cfg.name}: int8 serving is not available: the reference "
+            f"multiplies {what} with a bare '@', which a QuantizedLinear "
+            f"leaf does not take (TypeError in the reference)")
 
 
 def activation_density_drift(baseline: Optional[Dict[str, float]],
@@ -413,6 +434,8 @@ class ServeEngine:
         self._mask_cache: Dict[tuple, torch.Tensor] = {}
         self.quantize = bool(quantize) or bool(getattr(exec_cfg, "quantize",
                                                        False))
+        _check_quantizable(cfg, self.quantize, getattr(exec_cfg, "plan",
+                                                       None))
         if self.quantize:
             self._serve_params, self.quant_stats = quantize_params(
                 params, tie_embeddings=cfg.tie_embeddings)

@@ -553,25 +553,35 @@ def test_converted_tree_carries_the_moe_layout():
 
 
 def test_unported_families_still_refuse():
-    # the Griffin family (rglru) is ported: tests/test_torch_griffin.py
+    # the Griffin family (rglru), the SSM and the encoder-decoder are
+    # ported (tests/test_torch_griffin.py, test_torch_ssm.py,
+    # test_torch_whisper.py) and build their stacks and states; what they
+    # and the MoE stack still refuse is the dense-only cache-filling
+    # prefill and verify window, and vision inputs are not ported at all
     cfg = smoke()
-    refused = {
+    others = {
         "ssm": dataclasses.replace(cfg, moe=pt_base.MoEConfig(),
                                    ssm=pt_base.SSMConfig(d_state=16)),
         "whisper": dataclasses.replace(cfg, moe=pt_base.MoEConfig(),
                                        encoder_decoder=True),
     }
-    for name, bad in refused.items():
-        assert bad.ssm.enabled or bad.encoder_decoder
-        for fn in (lambda: pt_tr.init_stack(bad, torch.Generator()),
-                   lambda: pt_tr.init_decode_state(bad, 1, 8)):
-            with pytest.raises(NotImplementedError):
-                fn()
     pp = pt_model.init_params(cfg, torch.Generator().manual_seed(0),
                               dtype=torch.float32, device="cpu")
+    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    for name, other in others.items():
+        assert other.ssm.enabled or other.encoder_decoder
+        pt_tr.init_stack(other, torch.Generator())
+        pt_tr.init_decode_state(other, 1, 8)
+        with pytest.raises(NotImplementedError):
+            pt_model.prefill_with_cache(pp, other, tokens, 8)
+        with pytest.raises(ValueError):
+            pt_tr.decode_stack_window(None, other,
+                                      torch.zeros((1, 2, cfg.d_model)), None,
+                                      torch.zeros(1, dtype=torch.long))
     with pytest.raises(NotImplementedError):
-        pt_model.prefill_with_cache(
-            pp, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, 8)
+        pt_model.prefill_with_cache(pp, cfg, tokens, 8)
+    with pytest.raises(NotImplementedError, match="token input"):
+        pt_model.prefill(pp, cfg, {**tokens, "vis_embeds": torch.zeros(1)})
     st = pt_model.init_decode_state(cfg, 1, 8, device="cpu")
     with pytest.raises(ValueError):
         pt_tr.decode_stack_window(pp["stack"], cfg,
