@@ -7,7 +7,8 @@ with four slots, then (phase 15) of DeepSeek-MoE-16B, (phases 16-17)
 of Yi-9B, Gemma-2B, ChatGLM3-6B and RecurrentGemma-9B and (phases 19-20)
 of Mamba2-1.3B and Whisper-tiny — through ``repro_torch.serve.ServeEngine``,
 with random weights from a seeded generator, block-magnitude-pruned at
-(256, 256) (Mamba2's are not: no plan reaches an SSM site):
+(256, 256) (Mamba2's are not: no plan reaches an SSM site), and (phase 21)
+trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
 
   1. the card (``torch.cuda``, ``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
@@ -27,7 +28,7 @@ with random weights from a seeded generator, block-magnitude-pruned at
      all-live run of the same inputs; the bf16 input-stationary run bitwise
      against the weight-stationary one; and a TF32 control that the float32
      tolerance must reject;
-  4. the planned two-sided engine: 8 requests (prompts of 8-48 tokens,
+  4. the planned two-sided engine: 8 requests (prompts of 8-16 tokens,
      32 new tokens each, fused blocks of 16), tokens/s, ms per decode step,
      the plan's weight-block skip fraction and each kernel's launches; the
      fused streams must equal the engine's per-token ``step()`` oracle;
@@ -186,7 +187,7 @@ with random weights from a seeded generator, block-magnitude-pruned at
      set flips with their probability margins; (d) the first MoE layer's
      ``apply_moe`` (kernels) against ``apply_moe_gshard`` routed by the same
      logits, within 2⁻⁶ of max |y|; (e) 4 slots, ``max_seq`` 64, 4 greedy
-     requests of 8-16 prompt tokens and 16 new: the planned engine's fused
+     requests of 8-16 prompt tokens and 8 new: the planned engine's fused
      streams equal its ``step()`` oracle's, the dense table's first-step
      logits and streams equal the plan's bit for bit, and the planned int8
      engine's fused streams (first 2 requests) equal its oracle's.
@@ -269,7 +270,7 @@ with random weights from a seeded generator, block-magnitude-pruned at
      bound that must reject TF32 and a dropped inter-chunk term, bf16 on
      each chunk's last token within 15 bf16 roundings; chunk 1 against the
      stepwise recurrence in float32 (1e-5); (c) 4 slots, ``max_seq`` 64,
-     4 greedy requests of 8-16 prompt tokens x 16 new: fused == ``step()``,
+     4 greedy requests of 8-16 prompt tokens x 8 new: fused == ``step()``,
      the sparse config's (empty-plan) logits == the dense table's bit for
      bit, ``prefill_chunk`` 4 and 8, async dispatch and a reused slot
      (against a fresh 1-slot engine) give the same streams, the plain
@@ -297,6 +298,32 @@ with random weights from a seeded generator, block-magnitude-pruned at
      ``step()``).  The matmul and ``flash_attention`` rows add
      ``launches_phase20``; the matmul rows the phase compares add
      ``max_abs_err_phase20``.
+ 21. training (``run_training``), StableLM-1.6B at full width under the
+     train table compiled for ``train_4k`` cut to 4 x 4096 in 2
+     microbatches (M = 8192 rows a site), remat ``full``: (a) at every
+     site shape the dense route's autograd Function — dX = dY·Wᵀ and dW =
+     Xᵀ·dY through ``fm_output`` — against autograd of the plain product,
+     float32 within ``matmul_tol`` (TF32 control rejected), bf16 within
+     it plus one bf16 rounding; (b) ``fa_backward`` at BH 64, S 4096, hd 64
+     and 128, causal, window 1024 and Sq < Skv: float32 against the float64
+     plain backward (tolerance 4x the float32 plain version's own error;
+     TF32 control rejected), bf16 against ``flash_attention_backward_plain``
+     under ``ref.flash_backward_check`` (truncated P and dS rejected), two
+     runs bit-equal, the forward's O with lse equal to O without; (c) at
+     depth 2 one AdamW step under the kernels (the table, then every site
+     forced weight- and input-stationary) against the plain step, float32
+     and bf16, loss, every gradient and the updated parameters, and remat
+     ``none`` == ``full`` bit for bit; (d) at depth 2, 2 steps + a
+     checkpoint under ``build/``, a fresh ``Trainer`` resumed to step 4 and
+     a straight 4-step run, bit-equal (files deleted); (e) the published 24
+     layers through ``launch.train.make_trainer`` (lr 1e-4, warmup 1): 4
+     steps on one fixed batch (the loss must fall by 0.05 nats), one
+     profiled, then 2 from the
+     ``TokenPipeline``: ms a step, tokens/s, peak memory, busy share, top
+     kernels; ``fm_output``, ``flash_attention`` and ``flash_backward`` must
+     have launched.  The ``kernels`` line gains ``flash_backward`` and the
+     backward products at mlp.in (``flex_output_backward_dx`` / ``_dw``),
+     and every matmul and flash row ``launches_phase21``.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON; the whole report
@@ -323,7 +350,9 @@ TINY32 = 1.1754943508222875e-38   # float32's smallest normal
 SLICE1_KERNELS = ("block_sparse", "block_sparse_sum", "output", "output_sum",
                   "weight", "weight_sum", "input", "input_sum")
 # the bf16 tensor-core kernels each library must hold (phase 2)
-TENSOR_CORE_KERNELS = {"flash_attention": ("fa_kernel_mma",),
+TENSOR_CORE_KERNELS = {"flash_attention": ("fa_kernel_mma",
+                                           "fab_kv_kernel_mma",
+                                           "fab_q_kernel_mma"),
                        "flex_matmul": ("ws_kernel_mma", "is_kernel_mma",
                                        "os_kernel_mma", "os_wg_kernel_mma"),
                        "block_sparse": ("bs_kernel_mma", "bs_wg_kernel_mma",
@@ -343,7 +372,7 @@ KERNEL_FAMILIES = (("bs_kernel_mma", "bs_matmul"),
                    ("seg_sum_kernel", "segment sums"),
                    ("ws_kernel", "fm_weight"), ("is_kernel", "fm_input"),
                    ("tile_kernel", "tile.cuh (float32)"),
-                   ("fa_kernel", "flash"))
+                   ("fab_", "flash backward"), ("fa_kernel", "flash"))
 # the int8 kernels; ``*_sum`` add (and scale) a split grid's partials
 INT8_KERNELS = ("block_sparse_scaled", "block_sparse_scaled_sum",
                 "int8_matmul", "int8_matmul_sum")
@@ -822,7 +851,10 @@ def profile_step(engine, report, label="planned") -> None:
 def make_prompts(cfg):
     import numpy as np
     rng = np.random.default_rng(0)
-    return [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 49)))
+    # 8-16 prompt tokens (8-48 up to PR 23): every engine of phases 4-7
+    # feeds them a token at a time, host-paced, so they set those phases'
+    # wall time
+    return [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 17)))
             for _ in range(8)]
 
 
@@ -2650,7 +2682,7 @@ def run_speculative(cfg, params, planned, dense, traffic, report,
 # ---------------------------------------------------------------------------
 
 P15_ARCH = "deepseek-moe-16b"
-P15_NEW = 16
+P15_NEW = 8           # 16 up to PR 24: host-paced, it sets phase 15's wall
 EXPERT_SITES = ("experts_in", "experts_gate", "experts_out")
 # the expert-batched kernels; ``*_sum`` add (and scale) their partials
 EXPERT_KERNELS = ("block_sparse_experts", "block_sparse_experts_sum",
@@ -3867,7 +3899,7 @@ def run_analytic(report) -> tuple:
 # ---------------------------------------------------------------------------
 
 P19_ARCH = "mamba2-1.3b"
-P19_NEW = 16
+P19_NEW = 8           # 16 up to PR 24: host-paced, it sets phase 19's wall
 # the prefill cells: 2 x 4096 tokens (the dense family's) and one prompt of
 # 32768 (the reference's long_500k shape cut to 32768: PERF.md section 4)
 P19_PREFILLS = ((2, 4096), (1, 32768))
@@ -4540,6 +4572,631 @@ def run_whisper(report, card):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 21: training — gradients through the kernels, fa_backward, the train
+# step at full width, resume, and the published 24 layers through the
+# launcher's path
+# ---------------------------------------------------------------------------
+
+P21_SEQ = 4096         # StableLM-1.6B's context; above the flash threshold
+P21_BATCH = 4          # train_4k's global batch (256) cut to 4
+P21_MICRO = 2          # microbatches of 2 x 4096: M = 8192 rows per site
+P21_FIXED_STEPS = 4
+P21_PIPE_STEPS = 2
+P21_MIN_FALL = 0.05    # nats the fixed-batch loss must fall
+# the 24-layer run's peak learning rate, warmup 1 step: at 3e-4 the
+# fixed-batch loss fell 0.148 nats after one step and then rose to 12.53
+# by the fourth (AdamW's first steps move every bf16 weight by ~lr with no
+# warmup to damp them; the kernel step equals the plain one, gate c)
+P21_LR = 1e-4
+
+
+def train_shape(layers_note=None):
+    """``SHAPES["train_4k"]`` cut to P21_BATCH x P21_SEQ in P21_MICRO
+    microbatches, remat "full", with the launcher's chunks."""
+    from repro_torch.configs import SHAPES
+    return dataclasses.replace(
+        SHAPES["train_4k"], global_batch=P21_BATCH, n_micro=P21_MICRO,
+        remat="full", loss_chunk=128, attn_chunk=128)
+
+
+def p21_matmul_grads(ec, report) -> dict:
+    """(a) Each site shape of the training path at M = 8192: the dense
+    Function's dX and dW (``ops.flex_matmul`` under autograd, the site's
+    schedule) against autograd of the plain product, float32 within
+    ``matmul_tol`` with a TF32 control it must reject, bf16 within
+    ``matmul_tol`` plus one bf16 step of the value (≤ 2⁻⁷ of it: the two
+    float32 sums may round to neighbouring bf16 values).  Returns the worst
+    error and the mlp.in operands for the rows."""
+    import torch
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    m = (P21_BATCH // P21_MICRO) * P21_SEQ
+    shapes = {"attn.q": (2048, 2048), "attn.kv": (2048, 4096),
+              "attn.out": (2048, 2048), "mlp.in": (2048, 5632),
+              "mlp.gate": (2048, 5632), "mlp.out": (5632, 2048)}
+    worst, keep = 0.0, {}
+    for site, (k, n) in shapes.items():
+        x0 = torch.randn((m, k), generator=gen, device=dev)
+        w0 = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        g0 = torch.randn((m, n), generator=gen, device=dev)
+        line = [f"{site} ({m} x {k} @ {k} x {n})"]
+        for dt in (torch.float32, torch.bfloat16):
+            x = x0.to(dt).clone().requires_grad_()
+            w = w0.to(dt).clone().requires_grad_()
+            g = g0.to(dt)
+            with ops.exec_config(ec):
+                out = ops.flex_matmul(x, w, site=site)
+            out.backward(g)
+            xp = x.detach().clone().requires_grad_()
+            wp = w.detach().clone().requires_grad_()
+            ref = torch.matmul(xp.float(), wp.float()).to(dt)
+            ref.backward(g)
+            for label, got, want, (a, b) in (
+                    ("dX", x.grad, xp.grad, (g, w.detach().t())),
+                    ("dW", w.grad, wp.grad, (x.detach().t(), g))):
+                tol = matmul_tol(a, b)
+                err = (got.float() - want.float()).abs()
+                if dt == torch.bfloat16:
+                    # two float32 sums tol apart may round to neighbouring
+                    # bf16 values: one bf16 step, ≤ 2⁻⁷ of the value
+                    bound = tol + 2.0 ** -7 * torch.maximum(
+                        want.float().abs(), got.float().abs())
+                    need(bool((err <= bound).all()),
+                         f"{site} bf16 {label}: {(err - bound).max().item()}"
+                         f" over matmul_tol + one bf16 rounding")
+                    line.append(f"bf16 {label} {err.max().item():.3e}")
+                else:
+                    e = err.max().item()
+                    need(e <= tol, f"{site} float32 {label}: {e} > {tol}")
+                    ctrl = (torch.matmul(tf32(a.float()), tf32(b.float()))
+                            - want).abs().max().item()
+                    need(ctrl > tol, f"{site} {label}: matmul_tol does not "
+                         f"reject TF32 operands ({ctrl} <= {tol})")
+                    line.append(f"float32 {label} {e:.3e} (tol {tol:.3e}, "
+                                f"TF32 {ctrl:.3e})")
+                    worst = max(worst, e)
+            if site == "mlp.in" and dt == torch.bfloat16:
+                keep = dict(x=x.detach(), w=w.detach(), g=g)
+            del x, w, g, xp, wp, out, ref
+        report("  " + "; ".join(line))
+    torch.cuda.synchronize()
+    keep["err"] = worst
+    return keep
+
+
+def p21_flash_tol(plain32, exact) -> float:
+    """Float32 ``fa_backward`` against float64: the plain version run in
+    float32 on the card sums the same products in other orders, so its own
+    error against float64 is the scale; four times it (and one float32
+    rounding of the largest output) is the bound.  TF32 products err ~2⁻¹¹
+    per product and land outside it (checked)."""
+    err = max((p.double() - e).abs().max().item()
+              for p, e in zip(plain32, exact))
+    top = max(e.abs().max().item() for e in exact)
+    return 4 * err + 2.0 ** -24 * top
+
+
+P21_FLASH_CASES = (  # (label, sq, skv, causal, window)
+    ("causal", 4096, 4096, True, 0),
+    ("window 1024", 4096, 4096, True, 1024),
+    ("Sq<Skv", 2048, 4096, True, 0))
+
+
+def p21_flash(report) -> dict:
+    """(b) ``fa_backward`` against ``flash_attention_backward_plain`` at
+    BH 64, S 4096, hd 64 and 128, causal / window / Sq < Skv: float32
+    against the float64 plain version under ``p21_flash_tol`` with a TF32
+    control; bf16 under ``ref.flash_backward_check`` (the rounding scale
+    of P̂ and dŜ) with P and dS truncated toward zero as the control it must
+    reject; two runs bit-equal; the forward's O with lse equal to O
+    without.  Returns the worst errors and the bf16 hd-64 causal operands
+    for the row."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import (flash_attention_backward_plain,
+                                         flash_backward_check)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    bh = 64
+    worst32 = worstb = 0.0
+    keep = {}
+    for hd in fa.BACKWARD_HEAD_DIMS:
+        for label, sq, skv, causal, window in P21_FLASH_CASES:
+            kw = dict(causal=causal, window=window)
+            q = torch.randn((bh, sq, hd), generator=gen, device=dev)
+            k, v = (torch.randn((bh, skv, hd), generator=gen, device=dev)
+                    for _ in range(2))
+            do = torch.randn((bh, sq, hd), generator=gen, device=dev)
+            # float32
+            o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            need(torch.equal(o, fa.flash_attention(q, k, v, **kw)),
+                 f"fa_forward hd {hd} {label} float32: O with lse differs")
+            got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            exact = flash_attention_backward_plain(
+                q.double(), k.double(), v.double(), o.double(), lse.double(),
+                do.double(), **kw)
+            plain32 = flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                     **kw)
+            tol = p21_flash_tol(plain32, exact)
+            err = max((a.double() - e).abs().max().item()
+                      for a, e in zip(got, exact))
+            need(err <= tol, f"fa_backward hd {hd} {label} float32: {err} "
+                 f"> {tol}")
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf = flash_attention_backward_plain(q, k, v, o, lse, do,
+                                                    **kw)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            ctrl = max((a.double() - e).abs().max().item()
+                       for a, e in zip(tf, exact))
+            need(ctrl > tol, f"fa_backward hd {hd} {label}: the float32 "
+                 f"tolerance does not reject TF32 ({ctrl} <= {tol})")
+            del tf, plain32, exact
+            # bf16
+            qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+            ob, lseb = fa.flash_attention(qb, kb, vb, return_lse=True, **kw)
+            need(torch.equal(ob, fa.flash_attention(qb, kb, vb, **kw)),
+                 f"fa_forward hd {hd} {label} bf16: O with lse differs")
+            gb = fa.flash_attention_backward(qb, kb, vb, ob, lseb, dob, **kw)
+            again = fa.flash_attention_backward(qb, kb, vb, ob, lseb, dob,
+                                                **kw)
+            need(all(torch.equal(a, b) for a, b in zip(gb, again)),
+                 f"fa_backward hd {hd} {label} bf16: two runs differ")
+            plain = flash_attention_backward_plain(qb, kb, vb, ob, lseb, dob,
+                                                   **kw)
+            weight = flash_attention_backward_plain(
+                qb, kb, vb, ob, lseb, dob, magnitudes=True, **kw)
+            checks = [flash_backward_check(a, p, w)
+                      for a, p, w in zip(gb, plain, weight)]
+            need(all(c.ok() for c in checks),
+                 f"fa_backward hd {hd} {label} bf16: {checks}")
+            trunc = flash_attention_backward_plain(
+                qb, kb, vb, ob, lseb, dob, truncate=True, **kw)
+            ctrls = [flash_backward_check(a, p, w)
+                     for a, p, w in zip(trunc, plain, weight)]
+            need(not all(c.ok() for c in ctrls),
+                 f"fa_backward hd {hd} {label} bf16: the check does not "
+                 f"reject truncated P and dS: {ctrls}")
+            errb = max((a - p).abs().max().item() for a, p in zip(gb, plain))
+            report(f"  fa_backward hd {hd} {label} (BH {bh}, Sq {sq}, Skv "
+                   f"{skv}): float32 vs float64 {err:.3e} (tol {tol:.3e}, "
+                   f"TF32 {ctrl:.3e}); bf16 vs plain {errb:.3e}, "
+                   f"(worst, rms) in units of 2^-8 W for dQ/dK/dV "
+                   + ", ".join(f"({c.worst:.3f}, {c.rms:.4f})"
+                               for c in checks)
+                   + " (limits 4, 0.05); truncated control "
+                   + ", ".join(f"({c.worst:.3f}, {c.rms:.4f})"
+                               for c in ctrls)
+                   + "; two runs bit-equal; O with lse == O without")
+            worst32, worstb = max(worst32, err), max(worstb, errb)
+            if hd == 64 and label == "causal":
+                keep = dict(q=qb, k=kb, v=vb, o=ob, lse=lseb, do=dob, kw=kw)
+            del q, k, v, do, o, lse, got, qb, kb, vb, dob, ob, lseb, gb
+            del again, plain, weight, trunc
+    torch.cuda.synchronize()
+    keep["err"] = max(worst32, worstb)
+    return keep
+
+
+def _step_parts(cfg, shape, ec, params, batch):
+    """(loss, grads, updated params, grad norm) of one AdamW step under
+    ``ec`` (None: the plain path), the optimizer fresh."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as step_lib
+    fn = step_lib.loss_for(cfg, shape)
+    with ops.exec_config(ec or ops.ExecConfig()):
+        loss, grads = step_lib.value_and_grad(fn, params, batch)
+    new, _, metrics = opt_lib.adamw_update(
+        opt_lib.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=6), params,
+        grads, opt_lib.init_opt_state(params))
+    torch.cuda.synchronize()
+    return loss, grads, new, metrics["grad_norm"]
+
+
+def p21_step_vs_plain(ec, report) -> dict:
+    """(c) StableLM-1.6B at full width and depth 2, one microbatch of
+    2 x 4096: one step under the kernels (the train table, then every site
+    forced weight- and input-stationary) against the plain step, float32
+    and bf16, for the loss, every gradient and the updated parameters; and
+    remat "none" == "full" bit for bit.  Tolerances: float32 — loss rtol
+    1e-5, each gradient within 1e-4·max|plain| (the sums run over 8192 rows
+    and two layers in other orders); bf16 — loss rtol
+    2⁻⁷, each gradient's RMS difference within 2⁻⁴ of the plain one's
+    RMS (activations round to bf16 at every site, and an element that
+    lands next to a rounding boundary rounds apart); parameters, in both
+    types, within lr times ``adamw_first_step_spread`` of the two runs'
+    clipped gradients plus 2⁻²² of the parameter (float32 roundings), and
+    in bf16 one bf16 step of the value (≤ 2⁻⁷ of it)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2)
+    shape = dataclasses.replace(train_shape(), global_batch=2, n_micro=1)
+    dev = torch.device("cuda")
+    toks = torch.randint(0, cfg.vocab, (2, P21_SEQ + 1),
+                         generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    lr = 3e-4
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        params = model_lib.init_params(cfg, gen, dtype=dt, device=dev)
+        pl, pg, pnew, pnorm = _step_parts(cfg, shape, None, params, batch)
+        names = [n for n in _leaf_names(params)]
+        for stat in ("output", "weight", "input"):
+            ek = ec if stat == "output" else forced(ec, stat)
+            kl, kg, knew, knorm = _step_parts(cfg, shape, ek, params, batch)
+            f32 = dt == torch.float32
+            rl = abs(kl.item() - pl.item()) / abs(pl.item())
+            need(rl <= (1e-5 if f32 else 2.0 ** -7),
+                 f"step {stat} {dt}: loss {kl.item()} vs plain {pl.item()}")
+            gw = 0.0
+            for name, a, b in zip(names, tree_leaves(kg), tree_leaves(pg)):
+                a, b = a.float(), b.float()
+                if f32:
+                    r = ((a - b).abs().max() / b.abs().max()).item()
+                    lim = 1e-4
+                else:
+                    r = ((a - b).pow(2).mean().sqrt()
+                         / b.pow(2).mean().sqrt()).item()
+                    lim = 2.0 ** -4
+                need(r <= lim, f"step {stat} {dt}: gradient {name} {r} > "
+                     f"{lim}")
+                gw = max(gw, r)
+            pw = 0.0
+            sk = torch.clamp(1.0 / torch.clamp(knorm, min=1e-9), max=1.0)
+            sp = torch.clamp(1.0 / torch.clamp(pnorm, min=1e-9), max=1.0)
+            for name, a, b, ga, gb, p0 in zip(
+                    names, tree_leaves(knew), tree_leaves(pnew),
+                    tree_leaves(kg), tree_leaves(pg), tree_leaves(params)):
+                a, b = a.float(), b.float()
+                # the clipped gradients as AdamW takes them (rounded to
+                # the gradient's dtype)
+                bound = lr * adamw_first_step_spread(
+                    (ga * sk.to(ga.dtype)).float(),
+                    (gb * sp.to(gb.dtype)).float()) \
+                    + 2.0 ** -22 * p0.float().abs()
+                if not f32:
+                    bound = bound + 2.0 ** -7 * torch.maximum(a.abs(),
+                                                              b.abs())
+                over = (a - b).abs() - bound
+                need(bool((over <= 0).all()), f"step {stat} {dt}: updated "
+                     f"{name} {over.max().item()} over its bound")
+                pw = max(pw, ((a - b).abs().max() / lr).item())
+            report(f"  step at depth 2, {str(dt)[6:]}, {stat}-stationary "
+                   f"kernels vs plain: loss {kl.item():.6f} / "
+                   f"{pl.item():.6f}, worst gradient "
+                   f"{'max' if f32 else 'rms'}-relative {gw:.3e}, worst "
+                   f"updated parameter {pw:.3e} lr")
+            worst[(str(dt), stat)] = gw
+            del kg, knew
+        del pg, pnew
+        if dt == torch.bfloat16:
+            # remat none == full, bit for bit, under the kernels
+            none = dataclasses.replace(shape, remat="none")
+            l0, g0, _, _ = _step_parts(cfg, none, ec, params, batch)
+            l1, g1, _, _ = _step_parts(cfg, shape, ec, params, batch)
+            need(torch.equal(l0, l1) and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(g0),
+                                                  tree_leaves(g1))),
+                "remat none and full differ under the kernels")
+            report(f"  remat none == full bit for bit (loss {l0.item():.6f})")
+            del g0, g1
+        del params
+        free()
+    return worst
+
+
+def adamw_first_step_spread(ga, gb, eps: float = 1e-8):
+    """How far AdamW's first update direction u(g) = g / (|g| + ε) (the
+    bias-corrected m̂ / (√v̂ + ε) of a first step) can move between two
+    runs whose clipped gradients are ``ga`` and ``gb``, per element: by the
+    mean value theorem |u(a) − u(b)| ≤ |a − b|·ε / (min(|a|, |b|) + ε)²
+    when the signs agree, at most 2 when they differ, plus 2⁻²⁰ for the
+    float32 roundings of the update.  Where a gradient is near ε a
+    last-bit difference moves the update by a visible share of lr; where
+    it is large nothing does."""
+    import torch
+    m = torch.minimum(ga.abs(), gb.abs())
+    spread = (ga - gb).abs() * eps / (m + eps) ** 2
+    spread = torch.where(ga * gb < 0, torch.full_like(spread, 2.0),
+                         torch.clamp(spread, max=2.0))
+    return spread + 2.0 ** -20
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_names(tree[k], f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix
+
+
+def p21_resume(ec, report) -> None:
+    """(d) Depth 2, the cut train shape, bf16: 2 steps and a checkpoint
+    under build/, a fresh Trainer resumed to step 4, and a straight 4-step
+    run — every parameter, moment and the step-4 loss equal bit for bit.
+    The checkpoint files are deleted afterwards."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.train.optimizer import AdamWConfig, tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), n_layers=2)
+    shape = train_shape()
+    ckpt_dir = os.path.join(ROOT, "build", "p21_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=4)
+
+    def trainer(steps, d):
+        data = DataConfig(vocab=cfg.vocab, seq_len=P21_SEQ,
+                          global_batch=P21_BATCH, seed=11)
+        tc = TrainerConfig(steps=steps, ckpt_dir=d, ckpt_every=100, keep=1,
+                           log_every=100, seed=4)
+        return Trainer(cfg, shape, opt, tc, pipeline=TokenPipeline(data),
+                       dtype=torch.bfloat16, exec_cfg=ec, device="cuda")
+
+    try:
+        t0 = time.perf_counter()
+        trainer(2, ckpt_dir).run()
+        t_save = time.perf_counter()
+        t2 = trainer(4, ckpt_dir)
+        log2 = t2.run()
+        t_resumed = time.perf_counter()
+        need([r["step"] for r in log2] == [3, 4],
+             f"resume: steps {[r['step'] for r in log2]}")
+        t3 = trainer(4, None)
+        log3 = t3.run()
+        need(log3[-1]["loss"] == log2[-1]["loss"],
+             f"resume: step-4 loss {log2[-1]['loss']} vs straight "
+             f"{log3[-1]['loss']}")
+        for state in ("params", "mu", "nu"):
+            a = t2.params if state == "params" else getattr(t2.opt_state,
+                                                            state)
+            b = t3.params if state == "params" else getattr(t3.opt_state,
+                                                            state)
+            need(all(torch.equal(x, y) for x, y in
+                     zip(tree_leaves(a), tree_leaves(b))),
+                 f"resume: {state} differ from the straight run")
+        need(int(t2.opt_state.step) == int(t3.opt_state.step) == 4,
+             "resume: optimizer step")
+        report(f"  resume at depth 2: 2 steps + checkpoint "
+               f"{t_save - t0:.1f} s, restore + 2 steps + checkpoint "
+               f"{t_resumed - t_save:.1f} s; step-4 loss "
+               f"{log2[-1]['loss']:.6f} == straight run's, every parameter "
+               f"and moment bit-equal")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def p21_full(report, card) -> dict:
+    """(e) The published 24 layers through the launcher's path
+    (``launch.train.make_trainer``, peak lr ``P21_LR``, warmup 1): 4 AdamW
+    steps on one fixed batch (the loss must fall by P21_MIN_FALL nats,
+    grad_norm finite), one profiled, then 2 steps from the TokenPipeline.  Launch counts are reset just
+    before and read just after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as launch
+    from repro_torch.train.optimizer import tree_leaves
+
+    args = launch.parse_args([
+        "--arch", "stablelm-1.6b", "--steps",
+        str(P21_FIXED_STEPS + P21_PIPE_STEPS), "--batch", str(P21_BATCH),
+        "--seq", str(P21_SEQ), "--n-micro", str(P21_MICRO), "--remat",
+        "full", "--lr", str(P21_LR), "--log-every", "1"])
+    t0 = time.perf_counter()
+    trainer = launch.make_trainer(args)
+    trainer.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(trainer.params))
+    report(f"  24-layer bring-up ({n_params / 1e9:.3f} B parameters, bf16, "
+           f"AdamW float32 moments): {time.perf_counter() - t0:.1f} s")
+    batch = trainer._next_batch()
+    tokens = P21_BATCH * P21_SEQ
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times = [], [], []
+    for i in range(P21_FIXED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i == 1:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                m = trainer.train_step(batch)
+                torch.cuda.synchronize()
+        else:
+            m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        trainer.step += 1
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    fixed_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log = trainer.run()
+    launches = launch_counts()
+    need(all(torch.isfinite(torch.tensor(norms + [r["grad_norm"]
+                                                  for r in log]))),
+         f"24 layers: grad_norm not finite: {norms}")
+    need(all(v == v for v in losses) and losses[0] - losses[-1]
+         >= P21_MIN_FALL,
+         f"24 layers: fixed-batch loss {losses} did not fall by "
+         f"{P21_MIN_FALL}")
+    need([r["step"] for r in log] == [5, 6], "24 layers: pipeline steps")
+    busy, n_kernels, fam = device_breakdown(prof)
+    top = sorted(((ev.key, ev.device_time_total / 1e3, ev.count)
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ev.device_time_total > 0),
+                 key=lambda r: -r[1])[:6]
+    steady = sorted(times[2:] + [r["dt"] for r in log])
+    ms = 1e3 * steady[len(steady) // 2]
+    report(f"  24 layers, {P21_BATCH} x {P21_SEQ} tokens a step in "
+           f"{P21_MICRO} microbatches, remat full ({card}): fixed-batch "
+           f"losses {[round(x, 4) for x in losses]} (fell "
+           f"{losses[0] - losses[-1]:.4f} nats), grad_norm "
+           f"{[round(x, 4) for x in norms]}; pipeline steps "
+           f"{[(r['step'], round(r['loss'], 4)) for r in log]}; step times "
+           f"{[round(1e3 * x, 1) for x in times + [r['dt'] for r in log]]} "
+           f"ms; median of the steady steps {ms:.1f} ms, "
+           f"{tokens / ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB")
+    if busy:
+        # the profiler slows the host, so the busy share is taken against
+        # the unprofiled steps' median wall
+        report(f"  profiled step: wall {1e3 * times[1]:.1f} ms under the "
+               f"profiler, device busy {busy / 1e3:.1f} ms, "
+               f"{100 * busy / 1e3 / ms:.1f}% of the median unprofiled step "
+               f"({n_kernels} kernels); by family {fam}; top kernels (ms, "
+               f"count) {[(k[:60], round(t, 2), c) for k, t, c in top]}")
+    else:
+        report("  profiled step: the profiler recorded no device time (not "
+               "measured)")
+    for key in ("output", "flash_attention", "flash_backward"):
+        need(launches[key] > 0, f"24 layers: {key} never launched")
+    report(f"  launches in the 24-layer run (4 fixed + 2 pipeline steps): "
+           f"{ {k: v for k, v in launches.items() if v} }; the 4 fixed "
+           f"steps: { {k: v for k, v in fixed_launches.items() if v} }")
+    out = dict(launches=launches, ms=ms, tokens_per_s=tokens / ms * 1e3,
+               peak_gib=peak, busy=busy / 1e3 / ms if busy else None,
+               losses=losses)
+    del trainer
+    free()
+    return out
+
+
+def p21_rows(mm, flash, launches) -> list:
+    """The ``kernels`` rows of phase 21: ``fa_backward`` (bf16, BH 64, S
+    4096, hd 64, causal) and the backward products dX and dW at mlp.in
+    (M = 8192), beside the plain versions and PyTorch's own calls (the
+    backward of ``scaled_dot_product_attention``; ``torch.matmul``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels.ref import (flash_attention_backward_plain,
+                                         matmul_ref)
+
+    saved = launch_counts()
+    rows = []
+    q, k, v, o, lse, do = (flash[n] for n in ("q", "k", "v", "o", "lse",
+                                              "do"))
+    kw = flash["kw"]
+    bh, sq, hd = q.shape
+    pairs = flash_pairs(bh, sq, k.shape[1], **kw)
+    el = q.element_size()
+    n_bytes = 5 * q.numel() * el + 3 * q.numel() * 4 + 2 * bh * sq * 4
+    b_ms, b_by = bound_ms(n_bytes, 5 * 2.0 * hd * pairs)
+
+    def call():
+        return fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+
+    qs, ks, vs = (t.detach()[None].requires_grad_() for t in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qs, ks, vs,
+                                             is_causal=kw["causal"])
+
+        def library():
+            return torch.autograd.grad(out, (qs, ks, vs), do[None],
+                                       retain_graph=True)
+        lib_ms = cuda_ms(library, iters=5)
+    except RuntimeError as err:      # a yardstick only
+        print(f"flash_backward: SDPA's backward refused ({str(err)[:160]})",
+              file=sys.stderr)
+        lib_ms = None
+    rows.append({
+        "name": "flash_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "note": "the gradient of _fa_kernel's function, which has no "
+                "Pallas backward: the reference differentiates its XLA "
+                "twin; launches: fa_backward calls (three kernels each) "
+                "in phase 21's 24-layer run",
+        "launches": launches["flash_backward"],
+        "max_abs_err": flash["err"],
+        "ms": cuda_ms(call, iters=10),
+        "plain_ms": cuda_ms(lambda: flash_attention_backward_plain(
+            q, k, v, o, lse, do, **kw), iters=2),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "device_ms": device_ms(call, calls=5),
+        "head_dim": hd, "bh": bh, "seq": sq, **kw})
+    x, w, g = mm["x"], mm["w"], mm["g"]
+    m, kk = x.shape
+    n = w.shape[1]
+    xt = x.t().contiguous()
+    for label, a, b in (("dx", g, w.t()), ("dw", xt, g)):
+        mm_ms, by = bound_ms(
+            (a.numel() + b.numel()) * el + a.shape[0] * b.shape[1] * 4,
+            2.0 * a.shape[0] * a.shape[1] * b.shape[1])
+
+        def kcall(a=a, b=b):
+            return fm.flex_matmul(a, b, out_dtype=torch.float32)
+        rows.append({
+            "name": f"flex_output_backward_{label}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flex_matmul.cu",
+            "replaces": "src/repro/kernels/flex_matmul.py:52",
+            "launches": launches["output"],
+            "max_abs_err": mm["err"],
+            "ms": cuda_ms(kcall, iters=10),
+            "plain_ms": cuda_ms(lambda a=a, b=b: matmul_ref(a, b), iters=3),
+            "bound_ms": mm_ms, "bound_by": by,
+            "library_ms": cuda_ms(lambda a=a, b=b: torch.matmul(a, b),
+                                  iters=10),
+            "device_ms": device_ms(kcall, calls=10),
+            "shape": [a.shape[0], a.shape[1], b.shape[1]],
+            "note": "fm_output at the backward product of mlp.in (M = "
+                    f"{m}, K = {kk}, N = {n}); launches: every fm_output "
+                    "launch of phase 21's 24-layer run, forward and "
+                    "backward"})
+    reset_launches(saved)
+    return rows
+
+
+def run_training(report, card):
+    """Phase 21: training on the card (the module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import shape_exec_config
+
+    free()
+    t0 = time.perf_counter()
+    cfg = get_config("stablelm-1.6b")
+    shape = train_shape()
+    report(f"phase 21 train shape: train_4k ({256} x {P21_SEQ}) cut to "
+           f"{shape.global_batch} x {shape.seq_len} in {shape.n_micro} "
+           f"microbatches (M = {shape.global_batch // shape.n_micro * P21_SEQ}"
+           f" rows a site), remat {shape.remat}")
+    ec = shape_exec_config(cfg, shape, use_kernels=True, device="cuda")
+    report(ec.schedules.describe())
+    mm = p21_matmul_grads(ec, report)
+    report(f"[phase 21a: {time.perf_counter() - t0:.1f} s]")
+    flash = p21_flash(report)
+    report(f"[phase 21b: {time.perf_counter() - t0:.1f} s]")
+    p21_step_vs_plain(ec, report)
+    report(f"[phase 21c: {time.perf_counter() - t0:.1f} s]")
+    p21_resume(ec, report)
+    report(f"[phase 21d: {time.perf_counter() - t0:.1f} s]")
+    full = p21_full(report, card)
+    report(f"[phase 21e: {time.perf_counter() - t0:.1f} s]")
+    rows = p21_rows(mm, flash, full["launches"])
+    torch.cuda.synchronize()
+    return full, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4763,6 +5420,9 @@ def main() -> int:
         done("phase 19")
         launches20, errs20 = run_whisper(report, card)
         done("phase 20")
+        # phase 21: training
+        full21, rows21 = run_training(report, card)
+        done("phase 21")
         for row in rows:
             key = {"block_sparse": "block_sparse", "flex_output": "output",
                    "flex_weight": "weight", "flex_input": "input",
@@ -4779,7 +5439,9 @@ def main() -> int:
             row.update(max_abs_err=max(row["max_abs_err"], err19 if key ==
                                        "output" else 0.0, errs20.get(key, 0.0)),
                        launches_phase19=launches19[key],
-                       launches_phase20=launches20[key])
+                       launches_phase20=launches20[key],
+                       launches_phase21=full21["launches"][key])
+        rows += rows21
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)

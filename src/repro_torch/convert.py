@@ -1,4 +1,5 @@
-"""Parameter trees from the reference's numpy form into the port's.
+"""Parameter and optimizer-state trees between the reference's numpy form
+and the port's.
 
 The JAX package's parameter tree, turned into nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``), becomes the same tree of torch
@@ -6,6 +7,11 @@ tensors on ``device``.  bf16 leaves (ml_dtypes arrays) cross bit for bit
 through an int16 view, without importing ml_dtypes.  A quantized leaf (the
 reference's ``QuantizedLinear`` named tuple of numpy arrays) becomes the
 port's ``QuantizedLinear`` with an int8 payload and float32 scales.
+
+The other way (``params_to_numpy``, ``opt_state_to_numpy``), tensors
+become numpy arrays; a bf16 tensor comes back widened to float32 (exact:
+numpy has no bfloat16 of its own), and casting it to bfloat16 gives its
+bits back.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.quant.quantize import QuantizedLinear
+from repro_torch.train.optimizer import OptState
 
 
 def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
@@ -39,3 +46,32 @@ def params_from_numpy(tree: Mapping, device="cuda"):
                 scale=tensor_from_numpy(np.asarray(x.scale, np.float32), dev))
         return tensor_from_numpy(np.asarray(x), dev)
     return conv(tree)
+
+
+def opt_state_from_numpy(state, device="cuda") -> OptState:
+    """The reference's ``OptState`` (step, mu, nu), turned into numpy
+    (``jax.tree.map(np.asarray, state)``), as the port's."""
+    dev = resolve_device(device)
+    step, mu, nu = state
+    return OptState(
+        step=tensor_from_numpy(np.asarray(step, np.int32), dev),
+        mu=params_from_numpy(mu, dev), nu=params_from_numpy(nu, dev))
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(tree):
+    """Nested dict of tensors → the same nested dict of numpy arrays."""
+    if isinstance(tree, Mapping):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tensor_to_numpy(tree)
+
+
+def opt_state_to_numpy(state: OptState):
+    """The port's ``OptState`` as (step, mu, nu) of numpy arrays, the
+    fields of the reference's."""
+    return (tensor_to_numpy(state.step), params_to_numpy(state.mu),
+            params_to_numpy(state.nu))

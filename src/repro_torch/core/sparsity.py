@@ -83,6 +83,20 @@ TRANSPOSED_SITES = frozenset({"lm_head"})
 # ZVC codec
 # ---------------------------------------------------------------------------
 
+def zvc_encode_np(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact variable-length ZVC on the host: (non-zero values, bool
+    bitmap) — the reference's codec, which checkpoints store at rest."""
+    flat = x.reshape(-1)
+    bitmap = flat != 0
+    return flat[bitmap], bitmap.reshape(x.shape)
+
+
+def zvc_decode_np(values: np.ndarray, bitmap: np.ndarray) -> np.ndarray:
+    out = np.zeros(bitmap.size, dtype=values.dtype)
+    out[bitmap.reshape(-1)] = values
+    return out.reshape(bitmap.shape)
+
+
 def zvc_encode(x: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ZVC with a fixed-size output buffer, on ``x``'s device.

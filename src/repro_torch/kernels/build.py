@@ -45,7 +45,8 @@ SIGNATURES = {
         "i8_matmul": [_P] * 5 + [_I] * 13 + [_P],
     },
     "flash_attention": {
-        "fa_forward": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+        "fa_forward": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+        "fa_backward": [_P] * 10 + [_I] * 6 + [_F, _I, _P],
     },
 }
 

@@ -107,8 +107,8 @@ __device__ __forceinline__ float row_sum16(float x) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 fa_kernel(const T* __restrict__ Q, const T* __restrict__ K,
-          const T* __restrict__ V, T* __restrict__ O, int sq, int skv, int nq,
-          int causal, int window, float scale) {
+          const T* __restrict__ V, T* __restrict__ O, float* __restrict__ LSE,
+          int sq, int skv, int nq, int causal, int window, float scale) {
   constexpr int CO = HD / kGX;     // output columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);     // [HD][kLD], d-major
@@ -240,6 +240,9 @@ fa_kernel(const T* __restrict__ Q, const T* __restrict__ K,
     for (int c = 0; c < CO; ++c)
       o[(size_t)(ty + r * kGY) * HD + tx + c * kGX] =
           rt::from_f<T>(__fdiv_rn(acc[r][c], den));
+    if (LSE != nullptr && tx == 0)
+      LSE[(size_t)bh * sq + qi * kBQ + ty + r * kGY] =
+          __fadd_rn(m[r], logf(l[r]));
   }
 }
 
@@ -281,8 +284,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
               const __nv_bfloat16* __restrict__ K,
               const __nv_bfloat16* __restrict__ V,
-              __nv_bfloat16* __restrict__ O, int nbh, int sq, int skv, int nq,
-              int causal, int window, float scale) {
+              __nv_bfloat16* __restrict__ O, float* __restrict__ LSE, int nbh,
+              int sq, int skv, int nq, int causal, int window, float scale) {
   using mma::bf16;
   constexpr int LD = HD + 8;         // padded q rows: conflict-free ldmatrix
   constexpr int CH = HD / 8;         // 16-byte chunks per row
@@ -534,13 +537,16 @@ fa_kernel_mma(const __nv_bfloat16* __restrict__ Q,
                                          n * 8 + 2 * t) =
           __floats2bfloat162_rn(__fdiv_rn(acc[n][2 * r], den),
                                 __fdiv_rn(acc[n][2 * r + 1], den));
+    if (LSE != nullptr && t == 0)
+      LSE[(size_t)bh * sq + row0 + warp * 16 + g + 8 * r] =
+          __fadd_rn(m[r], logf(l[r]));
   }
 }
 
 template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
-               int sq, int skv, int causal, int window, float scale,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int sq, int skv, int causal, int window,
+               float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<HD>();
   static_assert(smem <= (size_t)rt::kSmemLimit, "tile too large");
   auto kern = fa_kernel_mma<HD>;
@@ -552,13 +558,13 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      bh, sq, skv, nq, causal, window, scale);
+      lse, bh, sq, skv, nq, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int skv, int causal, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int sq, int skv, int causal, int window, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   static_assert(smem <= (size_t)rt::kSmemLimit, "tile too large");
@@ -569,59 +575,473 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   const int nq = sq / kBQ;
   kern<<<dim3((unsigned)bh * nq), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, nq, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, nq, causal,
       window, scale);
   return (int)cudaGetLastError();
 }
 
 // float32: the scalar kernel; bf16: the tensor-core kernel.
 template <bool kBF16>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int bh,
-                int sq, int skv, int hd, int causal, int window, float scale,
-                cudaStream_t s) {
+int dispatch_hd(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int sq, int skv, int hd, int causal,
+                int window, float scale, cudaStream_t s) {
+#define FA_CASE(HD)                                                        \
+  case HD:                                                                 \
+    return kBF16 ? launch_mma<HD>(q, k, v, o, lse, bh, sq, skv, causal,    \
+                                  window, scale, s)                        \
+                 : launch<float, HD>(q, k, v, o, lse, bh, sq, skv, causal, \
+                                     window, scale, s);
   switch (hd) {
-    case 32:
-      return kBF16 ? launch_mma<32>(q, k, v, o, bh, sq, skv, causal, window,
-                                    scale, s)
-                   : launch<float, 32>(q, k, v, o, bh, sq, skv, causal,
-                                       window, scale, s);
-    case 64:
-      return kBF16 ? launch_mma<64>(q, k, v, o, bh, sq, skv, causal, window,
-                                    scale, s)
-                   : launch<float, 64>(q, k, v, o, bh, sq, skv, causal,
-                                       window, scale, s);
-    case 128:
-      return kBF16 ? launch_mma<128>(q, k, v, o, bh, sq, skv, causal, window,
-                                     scale, s)
-                   : launch<float, 128>(q, k, v, o, bh, sq, skv, causal,
-                                        window, scale, s);
-    case 256:
-      return kBF16 ? launch_mma<256>(q, k, v, o, bh, sq, skv, causal, window,
-                                     scale, s)
-                   : launch<float, 256>(q, k, v, o, bh, sq, skv, causal,
-                                        window, scale, s);
+    FA_CASE(32)
+    FA_CASE(64)
+    FA_CASE(128)
+    FA_CASE(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FA_CASE
 }
 
 }  // namespace fa
 
+// ---------------------------------------------------------------------------
+// backward (no Pallas counterpart: the reference differentiates its XLA twin,
+// ``models.attention.flash_attention_xla``, with autodiff)
+// ---------------------------------------------------------------------------
+//
+// fa_backward computes dQ, dK, dV of fa_forward's function from q, k, v, o,
+// dO (all of one type) and the forward's row log-sum-exp, in float32,
+// without atomics, in three passes:
+//   fab_dot : D = rowsum(dO∘O), one warp a row;
+//   fab_kv  : one CUDA block per (kv tile of 64, head) walks its live q
+//             tiles in ascending order (the forward's liveness), recomputes
+//             S = Q·Kᵀ and P = exp(S·scale − lse) (0 where masked), dP = dO·Vᵀ
+//             and dS = P∘(dP − D), and sums dV += Pᵀ·dO and dK += dSᵀ·Q in
+//             registers; dK is scaled once at the end;
+//   fab_q   : one CUDA block per (q tile of 64, head) walks its live kv tiles
+//             ascending, recomputes P and dS the same way, and sums
+//             dQ += dS·K.
+// Every output element has one owner that sums its terms in a fixed order,
+// so two runs give the same bits.  The price is that S, P, dP and dS are
+// computed twice (the first two passes' products S and dP again in the
+// third): seven 64 x 64 x hd products per live tile pair where an
+// atomics-based backward takes five.
+//
+// bf16: the products are mma.sync m16n8k16 (mma.cuh) on tiles staged in
+// shared memory with padded rows (ldmatrix, transposed where an operand is
+// read across its rows), float32 accumulators; P and dS are rounded to bf16
+// (nearest even) before their products, as the plain version does
+// (``ref.flash_attention_backward_plain``).  float32: the same loop with
+// scalar FMAs in the same accumulator layout (no tensor cores, no TF32).
+// A block has 8 warps: warp w owns rows 16·(w % 4) .. + 16 of a 64-row
+// product and the column half w / 4.
+//
+// What bounds it on the H100: at StableLM-1.6B's training cell (BH 64,
+// S 4096, hd 64, causal) the seven products over the ~64·4096²/2 live pairs
+// are 7·2·64·8.4e6·64 = 4.8e11 FLOPs, 0.49 ms at 989 TFLOP/s (the five that
+// the gradient needs: 0.35 ms); the bytes (q, k, v, o, dO in, dQ, dK, dV
+// out in float32, lse, D) ~0.23 GB, 0.07 ms: bound by operations.
+
+namespace fab {
+
+using mma::bf16;
+
+constexpr int kB = 64;             // q and kv rows of a tile (the forward's)
+constexpr int kThreads = 256;      // 8 warps
+
+template <typename T>
+constexpr int kPad = sizeof(T) == 2 ? 8 : 4;   // row padding, elements
+
+// smem: k, v, q, dO tiles [64][HD + pad], then P and dS [64][64 + pad] in T,
+// then lse and D of the q tile (float)
+template <typename T, int HD>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * ((size_t)4 * kB * (HD + kPad<T>) +
+                      (size_t)2 * kB * (kB + kPad<T>)) +
+         2 * kB * sizeof(float);
+}
+
+// acc (this warp's 16 x N/2 slice of a 64 x N product, in the m16n8k16
+// accumulator layout: acc[j] holds rows g, g + 8 and columns 2t, 2t + 1 of
+// the warp's j-th 8-column tile) += A · B over KD, operands in shared
+// memory: A(r, k) = a[r·lda + k], or a[k·lda + r] when AT; B(k, n) =
+// b[n·ldb + k] when BN (stored n-major), else b[k·ldb + n].
+template <int N, int KD, bool AT, bool BN>
+__device__ __forceinline__ void warp_mm(float (&acc)[N / 16][4],
+                                        const bf16* a, int lda,
+                                        const bf16* b, int ldb) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * (N / 2);
+  const int mi = lane >> 3, li = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < KD; kk += 16) {
+    uint32_t af[4];
+    if (!AT)
+      mma::ldsm_x4(af, mma::smem_u32(a + (r0 + (lane & 15)) * lda + kk +
+                                     (lane >> 4) * 8));
+    else
+      mma::ldsm_x4_t(af, mma::smem_u32(a + (kk + (mi >> 1) * 8 + li) * lda +
+                                       r0 + (mi & 1) * 8));
+#pragma unroll
+    for (int j = 0; j < N / 16; j += 2) {
+      const int n0 = c0 + j * 8;
+      uint32_t bf[4];
+      if (BN)
+        mma::ldsm_x4(bf, mma::smem_u32(b + (n0 + (mi >> 1) * 8 + li) * ldb +
+                                       kk + (mi & 1) * 8));
+      else
+        mma::ldsm_x4_t(bf, mma::smem_u32(b + (kk + (mi & 1) * 8 + li) * ldb +
+                                         n0 + (mi >> 1) * 8));
+      mma::mma_bf16(acc[j], af, bf[0], bf[1]);
+      mma::mma_bf16(acc[j + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+template <int N, int KD, bool AT, bool BN>
+__device__ __forceinline__ void warp_mm(float (&acc)[N / 16][4],
+                                        const float* a, int lda,
+                                        const float* b, int ldb) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = (warp & 3) * 16 + (lane >> 2);
+  const int c0 = (warp >> 2) * (N / 2) + 2 * (lane & 3);
+#pragma unroll 4
+  for (int k = 0; k < KD; ++k) {
+    const float x0 = AT ? a[k * lda + r] : a[r * lda + k];
+    const float x1 = AT ? a[k * lda + r + 8] : a[(r + 8) * lda + k];
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      const int n = c0 + j * 8;
+      const float y0 = BN ? b[n * ldb + k] : b[k * ldb + n];
+      const float y1 = BN ? b[(n + 1) * ldb + k] : b[k * ldb + n + 1];
+      acc[j][0] = fmaf(x0, y0, acc[j][0]);
+      acc[j][1] = fmaf(x0, y1, acc[j][1]);
+      acc[j][2] = fmaf(x1, y0, acc[j][2]);
+      acc[j][3] = fmaf(x1, y1, acc[j][3]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// 64 rows of HD from a row-major (., HD) tensor into a padded tile
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(T* dst, const T* src) {
+  constexpr int E = 16 / sizeof(T), CH = HD / E, LD = HD + kPad<T>;
+  for (int c = threadIdx.x; c < kB * CH; c += kThreads) {
+    const int r = c / CH, d = (c % CH) * E;
+    *reinterpret_cast<uint4*>(dst + r * LD + d) =
+        *reinterpret_cast<const uint4*>(src + (size_t)r * HD + d);
+  }
+}
+
+__device__ __forceinline__ bool live(int q_lo, int k_lo, int causal,
+                                     int window) {
+  if (causal && k_lo > q_lo + kB - 1) return false;
+  if (window && q_lo - (k_lo + kB - 1) >= window) return false;
+  return true;
+}
+
+// P = exp(S·scale − lse) (0 where masked) and dS = P∘(dP − D) for the
+// tile pair (q_lo, k_lo), in place of s and dp; P and dS (rounded to T)
+// stored in ps (when not null) and dss, [64][64 + pad]
+template <typename T>
+__device__ __forceinline__ void softmax_grad(float (&s)[4][4],
+                                             float (&dp)[4][4], T* ps,
+                                             T* dss, const float* ls,
+                                             const float* dl, int q_lo,
+                                             int k_lo, int causal,
+                                             int window, float scale) {
+  constexpr int LP = kB + kPad<T>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = (warp & 3) * 16 + (lane >> 2);
+  const int c0 = (warp >> 2) * 32 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r + (e >> 1) * 8, col = c0 + j * 8 + (e & 1);
+      const int qp = q_lo + row, kp = k_lo + col;
+      bool ok = true;
+      if (causal) ok = qp >= kp;
+      if (window) ok = ok && (qp - kp) < window;
+      const float p =
+          ok ? expf(__fsub_rn(__fmul_rn(s[j][e], scale), ls[row])) : 0.f;
+      const float ds = __fmul_rn(p, __fsub_rn(dp[j][e], dl[row]));
+      if (ps != nullptr) ps[row * LP + col] = rt::from_f<T>(p);
+      dss[row * LP + col] = rt::from_f<T>(ds);
+    }
+}
+
+// this warp's slice of a 64 x HD float32 result (times ``mul``) into rows
+// [0, 64) of a row-major (., HD) output
+template <int HD>
+__device__ __forceinline__ void store(float* out, const float (&acc)[HD / 16][4],
+                                      float mul) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = (warp & 3) * 16 + (lane >> 2);
+  const int c0 = (warp >> 2) * (HD / 2) + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < HD / 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[(size_t)(r + (e >> 1) * 8) * HD + c0 + j * 8 + (e & 1)] =
+          __fmul_rn(acc[j][e], mul);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+fab_dot_kernel(const T* __restrict__ O, const T* __restrict__ dO,
+        float* __restrict__ D, int rows) {
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float s = 0.f;
+  for (int d = lane; d < HD; d += 32)
+    s = fmaf(rt::to_f(O[(size_t)row * HD + d]),
+             rt::to_f(dO[(size_t)row * HD + d]), s);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+  if (lane == 0) D[row] = s;
+}
+
+// Block b: kv tile b / nbh (ascending: the longest causal q ranges first)
+// of head b % nbh.
+template <typename T, int HD>
+__device__ __forceinline__ void
+fab_kv(const T* __restrict__ Q, const T* __restrict__ K,
+       const T* __restrict__ V, const T* __restrict__ dO,
+       const float* __restrict__ LSE, const float* __restrict__ D,
+       float* __restrict__ dK, float* __restrict__ dV, int nbh, int sq,
+       int skv, int causal, int window, float scale) {
+  constexpr int LD = HD + kPad<T>, LP = kB + kPad<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + kB * LD;
+  T* qs = vs + kB * LD;
+  T* dos = qs + kB * LD;
+  T* ps = dos + kB * LD;
+  T* dss = ps + kB * LP;
+  float* ls = reinterpret_cast<float*>(dss + kB * LP);
+  float* dl = ls + kB;
+
+  const int bh = blockIdx.x % nbh, k_lo = (blockIdx.x / nbh) * kB;
+  const int offset = skv - sq;
+  load_tile<T, HD>(ks, K + ((size_t)bh * skv + k_lo) * HD);
+  load_tile<T, HD>(vs, V + ((size_t)bh * skv + k_lo) * HD);
+  float dk[HD / 16][4], dv[HD / 16][4];
+  zero(dk);
+  zero(dv);
+  for (int qi = 0; qi < sq / kB; ++qi) {
+    const int q_lo = qi * kB + offset;
+    if (!live(q_lo, k_lo, causal, window)) continue;
+    __syncthreads();               // the last tile's readers are done
+    const size_t row0 = (size_t)bh * sq + qi * kB;
+    load_tile<T, HD>(qs, Q + row0 * HD);
+    load_tile<T, HD>(dos, dO + row0 * HD);
+    if (threadIdx.x < kB) {
+      ls[threadIdx.x] = LSE[row0 + threadIdx.x];
+      dl[threadIdx.x] = D[row0 + threadIdx.x];
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    zero(s);
+    zero(dp);
+    warp_mm<kB, HD, false, true>(s, qs, LD, ks, LD);     // Q·Kᵀ
+    warp_mm<kB, HD, false, true>(dp, dos, LD, vs, LD);   // dO·Vᵀ
+    softmax_grad<T>(s, dp, ps, dss, ls, dl, q_lo, k_lo, causal, window,
+                    scale);
+    __syncthreads();
+    warp_mm<HD, kB, true, false>(dv, ps, LP, dos, LD);   // Pᵀ·dO
+    warp_mm<HD, kB, true, false>(dk, dss, LP, qs, LD);   // dSᵀ·Q
+  }
+  store<HD>(dK + ((size_t)bh * skv + k_lo) * HD, dk, scale);
+  store<HD>(dV + ((size_t)bh * skv + k_lo) * HD, dv, 1.f);
+}
+
+// Block b: q tile nq − 1 − b / nbh (the longest causal kv ranges first) of
+// head b % nbh.
+template <typename T, int HD>
+__device__ __forceinline__ void
+fab_q(const T* __restrict__ Q, const T* __restrict__ K,
+      const T* __restrict__ V, const T* __restrict__ dO,
+      const float* __restrict__ LSE, const float* __restrict__ D,
+      float* __restrict__ dQ, int nbh, int sq, int skv, int causal,
+      int window, float scale) {
+  constexpr int LD = HD + kPad<T>, LP = kB + kPad<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + kB * LD;
+  T* qs = vs + kB * LD;
+  T* dos = qs + kB * LD;
+  T* dss = dos + kB * LD + kB * LP;
+  float* ls = reinterpret_cast<float*>(dss + kB * LP);
+  float* dl = ls + kB;
+
+  const int nq = sq / kB;
+  const int bh = blockIdx.x % nbh, qi = nq - 1 - blockIdx.x / nbh;
+  const int q_lo = qi * kB + (skv - sq);
+  const size_t row0 = (size_t)bh * sq + qi * kB;
+  load_tile<T, HD>(qs, Q + row0 * HD);
+  load_tile<T, HD>(dos, dO + row0 * HD);
+  if (threadIdx.x < kB) {
+    ls[threadIdx.x] = LSE[row0 + threadIdx.x];
+    dl[threadIdx.x] = D[row0 + threadIdx.x];
+  }
+  float dq[HD / 16][4];
+  zero(dq);
+  for (int ki = 0; ki < skv / kB; ++ki) {
+    const int k_lo = ki * kB;
+    if (!live(q_lo, k_lo, causal, window)) continue;
+    __syncthreads();               // the last tile's readers are done
+    load_tile<T, HD>(ks, K + ((size_t)bh * skv + k_lo) * HD);
+    load_tile<T, HD>(vs, V + ((size_t)bh * skv + k_lo) * HD);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    zero(s);
+    zero(dp);
+    warp_mm<kB, HD, false, true>(s, qs, LD, ks, LD);     // Q·Kᵀ
+    warp_mm<kB, HD, false, true>(dp, dos, LD, vs, LD);   // dO·Vᵀ
+    softmax_grad<T>(s, dp, nullptr, dss, ls, dl, q_lo, k_lo, causal, window,
+                    scale);
+    __syncthreads();
+    warp_mm<HD, kB, false, false>(dq, dss, LP, ks, LD);  // dS·K
+  }
+  store<HD>(dQ + row0 * HD, dq, scale);
+}
+
+// the kernels: float32 (scalar) and bf16 (``*_mma``, mma.sync)
+#define FAB_ARGS                                                             \
+  const T *__restrict__ Q, const T *__restrict__ K, const T *__restrict__ V, \
+      const T *__restrict__ dO, const float *__restrict__ LSE,               \
+      const float *__restrict__ D
+template <int HD, typename T = float>
+__global__ void __launch_bounds__(kThreads)
+fab_kv_kernel(FAB_ARGS, float* __restrict__ dK, float* __restrict__ dV,
+              int nbh, int sq, int skv, int causal, int window, float scale) {
+  fab_kv<T, HD>(Q, K, V, dO, LSE, D, dK, dV, nbh, sq, skv, causal, window,
+                scale);
+}
+template <int HD, typename T = bf16>
+__global__ void __launch_bounds__(kThreads)
+fab_kv_kernel_mma(FAB_ARGS, float* __restrict__ dK, float* __restrict__ dV,
+                  int nbh, int sq, int skv, int causal, int window,
+                  float scale) {
+  fab_kv<T, HD>(Q, K, V, dO, LSE, D, dK, dV, nbh, sq, skv, causal, window,
+                scale);
+}
+template <int HD, typename T = float>
+__global__ void __launch_bounds__(kThreads)
+fab_q_kernel(FAB_ARGS, float* __restrict__ dQ, int nbh, int sq, int skv,
+             int causal, int window, float scale) {
+  fab_q<T, HD>(Q, K, V, dO, LSE, D, dQ, nbh, sq, skv, causal, window, scale);
+}
+template <int HD, typename T = bf16>
+__global__ void __launch_bounds__(kThreads)
+fab_q_kernel_mma(FAB_ARGS, float* __restrict__ dQ, int nbh, int sq, int skv,
+                 int causal, int window, float scale) {
+  fab_q<T, HD>(Q, K, V, dO, LSE, D, dQ, nbh, sq, skv, causal, window, scale);
+}
+#undef FAB_ARGS
+
+template <typename K>
+int set_smem(K kern, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* dsum, float* dq,
+           float* dk, float* dv, int bh, int sq, int skv, int causal,
+           int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, HD>();
+  static_assert(smem <= (size_t)rt::kSmemLimit, "tiles too large");
+  const T* Q = static_cast<const T*>(q);
+  const T* K = static_cast<const T*>(k);
+  const T* V = static_cast<const T*>(v);
+  const T* dO = static_cast<const T*>(dout);
+  const int rows = bh * sq;
+  fab_dot_kernel<T, HD><<<(rows + kThreads / 32 - 1) / (kThreads / 32),
+                           kThreads, 0, stream>>>(static_cast<const T*>(o),
+                                                  dO, dsum, rows);
+  int e = (int)cudaGetLastError();
+  if (e) return e;
+  auto run = [&](auto kv, auto qk) -> int {
+    int err;
+    if ((err = set_smem(kv, smem))) return err;
+    kv<<<(unsigned)bh * (skv / kB), kThreads, smem, stream>>>(
+        Q, K, V, dO, lse, dsum, dk, dv, bh, sq, skv, causal, window, scale);
+    if ((err = (int)cudaGetLastError())) return err;
+    if ((err = set_smem(qk, smem))) return err;
+    qk<<<(unsigned)bh * (sq / kB), kThreads, smem, stream>>>(
+        Q, K, V, dO, lse, dsum, dq, bh, sq, skv, causal, window, scale);
+    return (int)cudaGetLastError();
+  };
+  // only the matching pair is instantiated: bf16 on the tensor cores
+  if constexpr (sizeof(T) == 2)
+    return run(fab_kv_kernel_mma<HD, T>, fab_q_kernel_mma<HD, T>);
+  else
+    return run(fab_kv_kernel<HD, T>, fab_q_kernel<HD, T>);
+}
+
+}  // namespace fab
+
 // q (bh, sq, hd), k / v (bh, skv, hd) and o (bh, sq, hd), contiguous, all of
 // ``dtype`` (rt::Dtype: float32 or bfloat16); sq and skv multiples of 64,
-// sq <= skv; hd 32, 64, 128 or 256.  Returns the cudaError_t of the launch.
+// sq <= skv; hd 32, 64, 128 or 256.  ``lse`` (float32 (bh, sq)) receives
+// each row's m + log(l) when it is not null; o's bits do not depend on it.
+// Returns the cudaError_t of the launch.
 extern "C" int fa_forward(const void* q, const void* k, const void* v,
-                          void* o, int bh, int sq, int skv, int hd,
+                          void* o, void* lse, int bh, int sq, int skv, int hd,
                           int causal, int window, float scale, int dtype,
                           void* stream) {
   if (sq % fa::kBQ || skv % fa::kBKV || sq > skv || bh <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == rt::kF32)
-    return fa::dispatch_hd<false>(q, k, v, o, bh, sq, skv, hd, causal, window,
-                                  scale, s);
+    return fa::dispatch_hd<false>(q, k, v, o, l, bh, sq, skv, hd, causal,
+                                  window, scale, s);
   if (dtype == rt::kBF16)
-    return fa::dispatch_hd<true>(q, k, v, o, bh, sq, skv, hd, causal, window,
-                                 scale, s);
+    return fa::dispatch_hd<true>(q, k, v, o, l, bh, sq, skv, hd, causal,
+                                 window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gradient of fa_forward: q, o, dout (bh, sq, hd), k, v (bh, skv, hd),
+// contiguous, all of ``dtype`` (float32 or bfloat16), lse (bh, sq) float32
+// from fa_forward; writes the float32 workspace dsum (bh, sq) = rowsum(dO∘O)
+// and dq (bh, sq, hd), dk and dv (bh, skv, hd) in float32.  sq and skv
+// multiples of 64, sq <= skv; hd 64 or 128.  Three kernels on ``stream``;
+// returns the first cudaError_t.
+extern "C" int fa_backward(const void* q, const void* k, const void* v,
+                           const void* o, const void* dout, const void* lse,
+                           void* dsum, void* dq, void* dk, void* dv, int bh,
+                           int sq, int skv, int hd, int causal, int window,
+                           float scale, int dtype, void* stream) {
+  if (sq % fab::kB || skv % fab::kB || sq > skv || bh <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* ds = static_cast<float*>(dsum);
+  float* gq = static_cast<float*>(dq);
+  float* gk = static_cast<float*>(dk);
+  float* gv = static_cast<float*>(dv);
+#define FAB_CASE(T, HD)                                                     \
+  return fab::launch<T, HD>(q, k, v, o, dout, l, ds, gq, gk, gv, bh, sq,    \
+                            skv, causal, window, scale, s);
+  if (dtype == rt::kF32 && hd == 64) FAB_CASE(float, 64)
+  if (dtype == rt::kF32 && hd == 128) FAB_CASE(float, 128)
+  if (dtype == rt::kBF16 && hd == 64) FAB_CASE(__nv_bfloat16, 64)
+  if (dtype == rt::kBF16 && hd == 128) FAB_CASE(__nv_bfloat16, 128)
+#undef FAB_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -51,6 +51,24 @@ device counter; ``active_rows`` restricts the count to live rows.  The
 counters are read only by ``SparsityStatsCollector.densities`` — recording
 adds no host sync to a step.
 
+Gradients.  Under autograd (grad mode on and an operand that requires
+grad) the dense route (4 or 5) and the flash branch run as
+``torch.autograd.Function``s: the forward is the same call as without
+grad; the backward of a matmul is dX = dY·Wᵀ and dW = Xᵀ·dY through the
+same route (the schedule-flexible kernel at the site's schedule, Wᵀ read in
+place as the transposed view of the row-major weight, Xᵀ copied row-major;
+or the plain float32-accumulated product), and the flash branch's is
+``fa_backward`` (or its plain version), both counted in the wrappers'
+``LAUNCHES``.  Each Function keeps the route it took in its context, so its
+backward, which PyTorch may run on another thread, does not read the
+thread-local config.  Routes with no backward raise
+``NotImplementedError`` naming the site: a ``PlannedWeight``, a
+``weight`` / ``two_sided`` descriptor, an int8 leaf and
+``flex_expert_matmul``; so does the flash kernel at a head dim
+``fa_backward`` does not take.  ``DotsTape`` (``recording`` /
+``replaying``) is how ``remat="dots"`` keeps the matmul and flash outputs
+of a layer's forward and hands them back, in order, to its recomputation.
+
 ``decode_rows`` cuts every site's rows into chunks of at most
 ``flex_matmul.OS_SKINNY_ROWS``: a speculative verify window scores B·(k+1)
 rows, and the kernels pick their regime (and so each element's summation
@@ -74,7 +92,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flex_matmul as fm
 from repro_torch.kernels.flex_matmul import DEFAULT_BLOCKS, pad_to_blocks
 from repro_torch.kernels.int8_matmul import int8_matmul
-from repro_torch.kernels.ref import flash_attention_plain, windowed_attention
+from repro_torch.kernels.ref import (flash_attention_backward_plain,
+                                     flash_attention_plain,
+                                     windowed_attention)
 from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
 
 _state = threading.local()
@@ -97,6 +117,12 @@ class ExecConfig:
 
 def _cfg() -> ExecConfig:
     return getattr(_state, "cfg", None) or ExecConfig()
+
+
+def current_exec_config() -> ExecConfig:
+    """The ExecConfig installed on this thread (the default without one);
+    a recomputation on another thread installs it again."""
+    return _cfg()
 
 
 @contextlib.contextmanager
@@ -354,6 +380,127 @@ def _plain_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float()).to(x.dtype)
 
 
+class DotsTape:
+    """The matmul and flash outputs of one ``remat="dots"`` segment: its
+    forward appends them (``recording``) and its recomputation takes them
+    back in the same order (``replaying``) instead of computing them."""
+
+    def __init__(self):
+        self.saved = []
+        self.pos = 0
+        self.replay = False
+
+    def take(self):
+        out = self.saved[self.pos]
+        self.pos += 1
+        return out
+
+
+@contextlib.contextmanager
+def recording(tape: DotsTape):
+    prev = getattr(_state, "tape", None)
+    tape.replay = False
+    _state.tape = tape
+    try:
+        yield tape
+    finally:
+        _state.tape = prev
+
+
+@contextlib.contextmanager
+def replaying(tape: DotsTape):
+    prev = getattr(_state, "tape", None)
+    tape.replay, tape.pos = True, 0
+    _state.tape = tape
+    try:
+        yield tape
+    finally:
+        _state.tape = prev
+
+
+def _tape_saved():
+    """What the active tape hands back (under replay), else None."""
+    tape = getattr(_state, "tape", None)
+    return tape.take() if tape is not None and tape.replay else None
+
+
+def _tape_record(value) -> None:
+    tape = getattr(_state, "tape", None)
+    if tape is not None and not tape.replay:
+        tape.saved.append(value)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def _no_backward(site: str, route: str):
+    return NotImplementedError(
+        f"{site or 'matmul'}: {route} has no backward; train with no plan, "
+        f"no sparsity descriptor and unquantized weights")
+
+
+def _dense_product(x2: torch.Tensor, w: torch.Tensor, sched,
+                   kernels: bool) -> torch.Tensor:
+    """(M, K) @ (K, N) → float32 through the dense route: the
+    schedule-flexible kernel under ``sched``, or the plain product."""
+    if kernels:
+        return fm.flex_matmul(*_common_dtype(x2, w), schedule=sched,
+                              out_dtype=torch.float32)
+    return torch.matmul(x2.float(), w.float())
+
+
+class _DenseMatmul(torch.autograd.Function):
+    """x2 (M, K) @ w (K, N) → float32 (M, N) on the dense route, with dX and
+    dW through the same route (module docstring).  ``saved``: the output a
+    ``remat="dots"`` recomputation is handed back."""
+
+    @staticmethod
+    def forward(ctx, x2, w, sched, kernels, saved):
+        ctx.save_for_backward(x2, w)
+        ctx.sched, ctx.kernels = sched, kernels
+        if saved is not None:
+            return saved
+        return _dense_product(x2, w, sched, kernels)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.kernels:
+            gk = g.to(x2.dtype)
+            if ctx.needs_input_grad[0]:
+                dx = fm.flex_matmul(gk, w.t(), schedule=ctx.sched,
+                                    out_dtype=torch.float32)
+            if ctx.needs_input_grad[1]:
+                dw = fm.flex_matmul(x2.t().contiguous(), gk,
+                                    schedule=ctx.sched,
+                                    out_dtype=torch.float32)
+        else:
+            if ctx.needs_input_grad[0]:
+                dx = torch.matmul(g, w.float().t())
+            if ctx.needs_input_grad[1]:
+                dw = torch.matmul(x2.float().t(), g)
+        return (None if dx is None else dx.to(x2.dtype),
+                None if dw is None else dw.to(w.dtype), None, None, None)
+
+
+def _dense_site(x: torch.Tensor, w: torch.Tensor, site: str,
+                cfg: ExecConfig) -> torch.Tensor:
+    """Routes 4 and 5 under autograd or a dots tape: ``_DenseMatmul`` over
+    the flattened rows, in x's dtype."""
+    if x.dtype != w.dtype:
+        raise TypeError(f"{site}: operands {x.dtype} and {w.dtype} differ; "
+                        f"the dense route's backward takes one dtype")
+    sched = site_schedule(site) if cfg.use_kernels else None
+    x2 = x.reshape(-1, x.shape[-1])
+    out = _DenseMatmul.apply(x2.contiguous() if cfg.use_kernels else x2, w,
+                             sched, cfg.use_kernels, _tape_saved())
+    _tape_record(out.detach())
+    return out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+
+
 def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
     """x (..., K) @ w (K, N) through the site dispatch (module docstring)."""
     cap = getattr(_state, "row_cap", None)
@@ -365,13 +512,18 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
         return out.reshape(*x.shape[:-1], out.shape[-1])
     cfg = _cfg()
     lead = x.shape[:-1]
+    grad = _needs_grad(x, w)
     if isinstance(w, PlannedWeight):
         if cfg.sparse_dispatch:
+            if grad:
+                raise _no_backward(site, "a planned weight")
             out = _planned_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
             return out.reshape(*lead, out.shape[-1]).to(x.dtype)
         w = w.w_kn                     # plan disabled → dense fallback
     desc = _site_descriptor(site, cfg) if cfg.sparse_dispatch else None
     if isinstance(w, QuantizedLinear):
+        if grad:
+            raise _no_backward(site, "an int8 weight")
         if (cfg.use_kernels and w.q.dim() == 2
                 and (desc is None or desc.sparsity_mode == "dense")):
             out = int8_matmul(x.reshape(-1, x.shape[-1]), w,
@@ -381,6 +533,12 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
         w = dequantize_leaf(w, x.dtype)
     sparse = (desc is not None and w.dim() == 2
               and desc.sparsity_mode in ("weight", "two_sided"))
+    if grad or getattr(_state, "tape", None) is not None:
+        if sparse:
+            raise _no_backward(site, f"a {desc.sparsity_mode} descriptor")
+        if w.dim() != 2:
+            raise _no_backward(site, f"a {w.dim()}-D weight")
+        return _dense_site(x, w, site, cfg)
     if sparse or cfg.use_kernels:
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         if sparse:
@@ -412,7 +570,10 @@ def flex_expert_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
     ``x`` is the capacity-padded dispatch buffer: rows no token was routed
     to are zero, so under two-sided sparsity their activation blocks are
     dead and skipped; the recorded popcounts fold routing occupancy into
-    the activation density, as the reference's do."""
+    the activation density, as the reference's do.  No route has a
+    backward: under autograd it raises."""
+    if _needs_grad(x, w):
+        raise _no_backward(site, "flex_expert_matmul")
     cfg = _cfg()
     if isinstance(w, PlannedWeight):
         if w.w.dim() != 3 or x.dim() != 3 or x.shape[0] != w.w.shape[0]:
@@ -437,6 +598,45 @@ def flex_expert_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
     return _plain_matmul(x, w)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The flash branch with its gradient: the kernel (``kernels``) or the
+    plain online softmax over (bq, bkv) blocks forward, keeping the rows'
+    log-sum-exp, and ``fa_backward`` or its plain version backward.
+    Returns (o, lse); lse has no gradient.  ``saved``: the (o, lse) a
+    ``remat="dots"`` recomputation is handed back."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kernels, bq, bkv, saved):
+        if saved is not None:
+            o, lse = saved
+        elif kernels:
+            o, lse = fa.flash_attention(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, bq=bq, bkv=bkv,
+                                           return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, window, kernels, bq, bkv)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, kernels, bq, bkv = ctx.args
+        if kernels:
+            dq, dk, dv = fa.flash_attention_backward(
+                q, k, v, o, lse, do.contiguous(), causal=causal,
+                window=window)
+        else:
+            dq, dk, dv = flash_attention_backward_plain(
+                q, k, v, o, lse, do, causal=causal, window=window, bq=bq,
+                bkv=bkv)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int = 0, bq: int = fa.BQ,
                     bkv: int = fa.BKV) -> torch.Tensor:
@@ -445,12 +645,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``use_kernels`` the flash-attention kernel (its blocks are fixed at
     64); otherwise, for a causal window over one sequence, the
     reference's ``windowed_attention`` in query chunks of ``bq``, else the
-    plain online softmax over blocks of (bq, bkv)."""
-    if _cfg().use_kernels:
+    plain online softmax over blocks of (bq, bkv).  Under autograd (or a
+    dots tape) the kernel and the online softmax run as
+    ``_FlashAttention``; the windowed plain branch is differentiated by
+    autograd itself."""
+    kernels = _cfg().use_kernels
+    windowed = window and causal and q.shape[1] == k.shape[1]
+    grad = _needs_grad(q, k, v)
+    if (grad or getattr(_state, "tape", None) is not None) and (
+            kernels or not windowed):
+        if kernels and grad and q.shape[-1] not in fa.BACKWARD_HEAD_DIMS:
+            raise NotImplementedError(
+                f"flash_attention: the kernel's backward takes head dims "
+                f"{fa.BACKWARD_HEAD_DIMS}, not {q.shape[-1]} (ROADMAP)")
+        if kernels:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = _FlashAttention.apply(q, k, v, causal, window, kernels, bq,
+                                       bkv, _tape_saved())
+        _tape_record((o.detach(), lse))
+        return o
+    if kernels:
         return fa.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
                                   window=window)
-    if window and causal and q.shape[1] == k.shape[1]:
+    if windowed:
         return windowed_attention(q[:, :, None, None], k[:, :, None],
                                   v[:, :, None], window=window,
                                   q_chunk=bq)[:, :, 0, 0]

@@ -190,7 +190,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bq: int = 64, bkv: int = 64,
                           scale: Optional[float] = None,
                           tc_scores: bool = False,
-                          truncate_p: bool = False) -> torch.Tensor:
+                          truncate_p: bool = False,
+                          return_lse: bool = False):
     """Plain version in the kernel's order: the online softmax over the
     live kv blocks of (bq, bkv), ascending, with the Pallas kernel's
     arithmetic — float32 scores scaled after the dot, p = exp(s - m), alpha
@@ -204,7 +205,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Two variants serve the bf16 checks: ``tc_scores`` sums the scores as
     ``tensor_core_scores`` models the tensor cores (bf16 q and k), and
     ``truncate_p`` rounds p toward zero instead of to nearest (a fault the
-    checks must reject)."""
+    checks must reject).  ``return_lse`` also returns each row's
+    log-sum-exp m + log(l) (BH, Sq) in the accumulator's type, which the
+    backward reads (``flash_attention_backward_plain``)."""
     bh, sq, hd = q.shape
     skv = k.shape[1]
     bq, bkv = min(bq, sq), min(bkv, skv)
@@ -248,7 +251,140 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc[:, r0:r1] = acc[:, r0:r1] * alpha[..., None] + pv
         m[:, r0:r1] = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
+    if return_lse:
+        return out.to(q.dtype), m + torch.log(l)
     return out.to(q.dtype)
+
+
+
+def _round_toward_zero(x: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 ``x`` rounded toward zero to ``dtype`` (bf16: the low 16
+    bits dropped), kept in float32 — the faulty rounding the checks must
+    reject."""
+    if dtype != torch.bfloat16:
+        return x
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   lse: torch.Tensor, do: torch.Tensor, *,
+                                   causal: bool = True, window: int = 0,
+                                   bq: int = 64, bkv: int = 64,
+                                   scale: Optional[float] = None,
+                                   tc_scores: bool = False,
+                                   truncate: bool = False,
+                                   magnitudes: bool = False):
+    """dQ, dK, dV (float32; float64 for float64 inputs) of the flash
+    forward, the plain version of ``fa_backward`` in its block order:
+    D = rowsum(dO∘O); for each kv block, ascending, over the q blocks it is
+    live for (the forward's skip): P = exp(S·scale − lse) (0 where masked),
+    dP = dO·Vᵀ, dS = P∘(dP − D); dV += Pᵀ·dO, dK += dSᵀ·Q, dQ += dS·K, with
+    P and dS rounded to q's type before their products (bf16: the kernel's
+    tensor-core operands); dK and dQ are scaled once at the end.
+
+    ``tc_scores`` sums S and dP as ``tensor_core_scores`` models the tensor
+    cores (bf16), ``truncate`` rounds P and dS toward zero (a fault the
+    checks must reject), and ``magnitudes`` returns instead the sums of
+    the absolute products, |P̂|ᵀ·|dO|, scale·|dŜ|ᵀ·|Q| and scale·|dŜ|·|K|,
+    the scale of each output's rounding (``flash_backward_check``; each
+    |dŜ| there carries an allowance for the cancellation in dP − D)."""
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    bq, bkv = min(bq, sq), min(bkv, skv)
+    if sq % bq or skv % bkv:
+        raise ValueError(f"Sq={sq} / Skv={skv} are not multiples of the "
+                         f"blocks ({bq}, {bkv})")
+    scale = hd ** -0.5 if scale is None else scale
+    offset = skv - sq
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    dsum = (do.to(acc_t) * o.to(acc_t)).sum(-1)
+    dabs = (do.to(acc_t) * o.to(acc_t)).abs().sum(-1)
+    dq = torch.zeros((bh, sq, hd), dtype=acc_t, device=q.device)
+    dk = torch.zeros((bh, skv, hd), dtype=acc_t, device=q.device)
+    dv = torch.zeros((bh, skv, hd), dtype=acc_t, device=q.device)
+    lse = lse.to(acc_t)
+
+    def rounded(x):
+        if truncate:
+            return _round_toward_zero(x, q.dtype)
+        return x.to(q.dtype).to(acc_t)
+
+    def mag(x):
+        return x.abs() if magnitudes else x
+
+    for ki in range(skv // bkv):
+        rows = _live_q_blocks(sq // bq, ki, bq, bkv, offset, causal, window)
+        if not rows:
+            continue
+        r0, r1 = rows.start * bq, rows.stop * bq
+        k_lo = ki * bkv
+        kb = k[:, k_lo:k_lo + bkv].to(acc_t)
+        vb = v[:, k_lo:k_lo + bkv].to(acc_t)
+        qb = q[:, r0:r1].to(acc_t)
+        dob = do[:, r0:r1].to(acc_t)
+        if tc_scores:
+            s = tensor_core_scores(q[:, r0:r1], k[:, k_lo:k_lo + bkv])
+            dp = tensor_core_scores(do[:, r0:r1], v[:, k_lo:k_lo + bkv])
+        else:
+            s = torch.matmul(qb, kb.transpose(1, 2))
+            dp = torch.matmul(dob, vb.transpose(1, 2))
+        p = torch.exp(s * scale - lse[:, r0:r1, None])
+        mask = _attention_mask(r1 - r0, bkv, causal, window, q.device,
+                               r0 + offset, k_lo)
+        if mask is not None:
+            p = torch.where(mask[None], p, torch.zeros((), dtype=acc_t,
+                                                       device=q.device))
+        ds = p * (dp - dsum[:, r0:r1, None])
+        pr, dsr = mag(rounded(p)), mag(rounded(ds))
+        if magnitudes:
+            # dP - D cancels where dS is small: allow each dS the float32
+            # rounding of its two hd-term dot products, 2⁻¹⁰·P·(|dO|·|V|ᵀ
+            # + Σ|dO∘O|) (≥ hd·2⁻²⁴ of them over 2⁻⁸, with room 2)
+            dsr = dsr + 2.0 ** -10 * p * (
+                torch.matmul(dob.abs(), vb.abs().transpose(1, 2))
+                + dabs[:, r0:r1, None])
+        dv[:, k_lo:k_lo + bkv] += torch.matmul(pr.transpose(1, 2), mag(dob))
+        dk[:, k_lo:k_lo + bkv] += torch.matmul(dsr.transpose(1, 2), mag(qb))
+        dq[:, r0:r1] += torch.matmul(dsr, mag(kb))
+    return dq * scale, dk * scale, dv
+
+
+class BackwardCheck(NamedTuple):
+    """How far a bf16 flash backward output is from the plain version, in
+    units of its rounding scale 2⁻⁸·W (W: ``magnitudes=True``): the worst
+    element, and the root mean square over all elements."""
+    worst: float
+    rms: float
+
+    def ok(self) -> bool:
+        return self.worst <= BWD_WORST and self.rms <= BWD_RMS
+
+
+# A bf16 backward that rounds P and dS to nearest even as the plain version
+# does, but sums S, dP, D and the products in another order, moves an
+# output by one bf16 step (2⁻⁸..2⁻⁷ relative) of each P̂ / dŜ that lands
+# across a rounding boundary, and by float32 rounding otherwise: at most
+# 2⁻⁷·W, 2 in units of 2⁻⁸·W (the worst element is allowed 4); only a small
+# share of the P̂ and dŜ lie that close to a boundary, so the root mean
+# square stays far below one unit.  P and dS truncated toward zero move
+# every term by about half a step, all one way.  On the CPU at BH 2, S 512
+# (tests/test_torch_flash_grad.py) the tensor-core model of S and dP
+# (``tc_scores``) gives an RMS of at most 0.003 and a worst element of at
+# most 0.19, truncation an RMS of at least 0.13: the RMS limit sits 16x
+# above the one and 2.6x below the other.
+BWD_WORST = 4.0
+BWD_RMS = 0.05
+
+
+def flash_backward_check(out: torch.Tensor, plain: torch.Tensor,
+                         weight: torch.Tensor) -> BackwardCheck:
+    """``out`` (a bf16 flash backward's float32 dQ, dK or dV) against
+    ``plain`` (``flash_attention_backward_plain`` on the same bf16
+    operands), scaled by 2⁻⁸·``weight`` (its ``magnitudes=True`` twin)."""
+    unit = 2.0 ** -8 * weight.double() + 1e-30
+    r = (out.double() - plain.double()) / unit
+    return BackwardCheck(r.abs().max().item(), r.pow(2).mean().sqrt().item())
 
 
 class FlipBounds(NamedTuple):

@@ -1,0 +1,93 @@
+"""End-to-end training launcher, the reference's ``launch/train.py`` with
+``--device`` (default ``cuda``):
+
+    python -m repro_torch.launch.train --arch stablelm-1.6b --steps 4 \\
+        --batch 4 --seq 4096 --n-micro 2 --remat full
+
+``--smoke`` selects the reduced config of the same family (CPU-scale; with
+``--device cpu``).  On CUDA the parameters are bf16 and every matmul site
+and the flash branch run the hand-written kernels, forward and backward,
+under the descriptor table compiled for the train shape (M = batch · seq,
+the H100 selector); on the CPU the parameters are float32 and the plain
+path runs, as in the reference.  The trainer provides auto-resume, atomic
+keep-k checkpoints and the step watchdog (``train.trainer``).
+``--model-shards`` above 1 waits for distribution (ROADMAP A5).
+"""
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-scale)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--n-micro", type=int, default=1)
+    ap.add_argument("--remat", default="none",
+                    choices=["none", "dots", "full"])
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="TP degree (not ported: raises above 1)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap.parse_args(argv)
+
+
+def make_trainer(args: argparse.Namespace):
+    """The ``Trainer`` the command line describes (not yet run)."""
+    import torch
+
+    from repro_torch.configs.base import (ShapeConfig, get_config,
+                                          get_smoke_config)
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.serve.engine import shape_exec_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    if args.model_shards > 1:
+        raise NotImplementedError(
+            "--model-shards > 1: tensor parallelism waits for distribution "
+            "(ROADMAP A5)")
+    dev = resolve_device(args.device)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    shape = ShapeConfig(name="cli", kind="train", seq_len=args.seq,
+                        global_batch=args.batch, n_micro=args.n_micro,
+                        remat=args.remat, loss_chunk=min(128, args.seq),
+                        attn_chunk=min(128, args.seq))
+    exec_cfg = None
+    if dev.type == "cuda":
+        exec_cfg = shape_exec_config(cfg, shape, use_kernels=True,
+                                     device=dev)
+    pipeline = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                        global_batch=args.batch,
+                                        seed=args.seed))
+    opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                      total_steps=args.steps)
+    tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
+                         ckpt_every=args.ckpt_every,
+                         log_every=args.log_every, seed=args.seed)
+    return Trainer(cfg, shape, opt, tcfg, pipeline=pipeline,
+                   dtype=torch.bfloat16 if dev.type == "cuda"
+                   else torch.float32,
+                   exec_cfg=exec_cfg, device=dev)
+
+
+def main(argv: Optional[List[str]] = None) -> list:
+    trainer = make_trainer(parse_args(argv))
+    log = trainer.run()
+    print(f"done: {len(log)} steps, "
+          f"final loss {log[-1]['loss']:.4f}" if log else "no steps run")
+    return log
+
+
+if __name__ == "__main__":
+    main()

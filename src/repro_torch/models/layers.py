@@ -1,4 +1,5 @@
-"""Common layers: norms, gated MLPs, embeddings, the logits head."""
+"""Common layers: norms, gated MLPs, embeddings, the logits head and the
+chunked cross-entropy of training."""
 from __future__ import annotations
 
 import math
@@ -6,6 +7,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.stacks import leading_slices
@@ -127,3 +129,41 @@ def logits_head(cfg: ArchConfig, head, x: torch.Tensor) -> torch.Tensor:
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def _xent_chunk(xc: torch.Tensor, head: torch.Tensor,
+                lc: torch.Tensor) -> torch.Tensor:
+    """Σ (log-sum-exp − label logit) over one (B, C) chunk: the bare
+    product x·headᵀ in the parameters' dtype, then float32."""
+    logits = torch.matmul(xc, head.t()).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = logits.gather(-1, lc[..., None].long())[..., 0]
+    return (lse - lab).sum()
+
+
+def chunked_softmax_xent(cfg: ArchConfig, head: torch.Tensor,
+                         x: torch.Tensor, labels: torch.Tensor,
+                         chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy of x (B, S, D) against ``labels`` (B, S) under the
+    (V, D) ``head`` without the (B, S, V) logits: ``S // chunk`` chunks
+    (the tail that does not divide is dropped, as in the reference), each
+    under ``torch.utils.checkpoint`` so that only one chunk's logits are
+    ever live, even in the backward; the sum over chunks in float32,
+    divided by B·n_chunks·chunk.  The logits are a plain matrix product,
+    outside any site (the reference's ``einsum``)."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    n_chunks = max(s // chunk, 1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    grad = torch.is_grad_enabled() and (x.requires_grad
+                                        or head.requires_grad)
+    for c in range(n_chunks):
+        xc = x[:, c * chunk:(c + 1) * chunk]
+        lc = labels[:, c * chunk:(c + 1) * chunk]
+        if grad:
+            part = torch.utils.checkpoint.checkpoint(
+                _xent_chunk, xc, head, lc, use_reentrant=False)
+        else:
+            part = _xent_chunk(xc, head, lc)
+        total = total + part
+    return total / (b * n_chunks * chunk)

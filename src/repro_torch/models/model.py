@@ -1,4 +1,5 @@
-"""Top-level model API: init, the full-sequence prompt pass (``prefill``,
+"""Top-level model API: init, the training loss (``train_loss``), the
+full-sequence prompt pass (``prefill``,
 and ``prefill_with_cache``, which also fills the decode state), one decode
 step, per-row token sampling (``sample_tokens``), the fused decode block
 (``decode_many``), the self-speculative block (``verify_window``,
@@ -30,12 +31,22 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import prng, transformer
 from repro_torch.models.layers import (apply_norm, apply_norm_per_position,
-                                       embed, init_embedding, init_norm,
-                                       logits_head)
+                                       chunked_softmax_xent, embed,
+                                       init_embedding, init_norm, logits_head)
 
 Params = Dict[str, torch.Tensor]
 
 _BIG_BUDGET = (2 ** 31 - 1) // 2
+
+N_VIS_STUB = 1024       # patch-embedding prefix length of a vision config
+
+
+def n_vis(cfg: ArchConfig, seq_len: int) -> int:
+    """The vision stub's prefix length (the reference's ``n_vis``); the
+    vision inputs themselves are not ported (ROADMAP queue A)."""
+    if cfg.frontend != "vision":
+        return 0
+    return min(N_VIS_STUB, seq_len // 4)
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
@@ -111,6 +122,18 @@ def forward_hidden(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                                 positions=_positions(tokens), remat=remat,
                                 q_chunk=q_chunk, frames=frames)
     return apply_norm(p["final_norm"], cfg, x)
+
+
+def train_loss(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+               *, remat: str = "none", loss_chunk: int = 512,
+               q_chunk: int = 512) -> torch.Tensor:
+    """The training objective: ``forward_hidden`` then the chunked
+    cross-entropy against ``batch["labels"]`` (B, S) under the head
+    (``embed`` when tied); a float32 scalar."""
+    x = forward_hidden(p, cfg, batch, remat=remat, q_chunk=q_chunk)
+    labels = _on_params_device(p, batch["labels"], "labels", 2)
+    return chunked_softmax_xent(cfg, head_matrix(p, cfg), x, labels,
+                                chunk=loss_chunk)
 
 
 def prefill(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,

@@ -16,12 +16,15 @@ The decode state is split the same way.  The full-cache prefill and the
 verify window take dense stacks only, as the reference's."""
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.sparsity import PlannedWeight
+from repro_torch.kernels import ops
 from repro_torch.models import attention
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru
@@ -247,46 +250,108 @@ def init_stack(cfg: ArchConfig, gen: torch.Generator,
     return {"layers": init_dense_layer(cfg, gen, dtype, (cfg.n_layers,))}
 
 
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+@contextlib.contextmanager
+def _entered(*managers):
+    with contextlib.ExitStack() as stack:
+        for cm in managers:
+            stack.enter_context(cm)
+        yield
+
+
+def _remat(fn, policy: str):
+    """``fn`` (one layer) under the reference's remat ``policy``:
+    ``none`` keeps every activation its backward needs; ``full`` saves
+    only the layer's inputs and recomputes the rest in the backward
+    (``torch.utils.checkpoint``, non-reentrant); ``dots`` also keeps the
+    outputs of the layer's matmul and flash calls (``ops.DotsTape``) and
+    recomputes only the rest.  The recomputation runs under the ExecConfig
+    the forward ran under (PyTorch may run it on another thread), so it
+    takes the same routes and gives the same bits: the policies change
+    memory, never results.  Without autograd ``fn`` runs as it is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat {policy!r} not in {REMAT_POLICIES}")
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn
+
+    def run(*args, **kw):
+        ec = ops.current_exec_config()
+        if policy == "full":
+            def contexts():
+                return contextlib.nullcontext(), ops.exec_config(ec)
+        else:
+            tape = ops.DotsTape()
+
+            def contexts():
+                return (ops.recording(tape),
+                        _entered(ops.exec_config(ec), ops.replaying(tape)))
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=contexts, **kw)
+    return run
+
+
+def layer_trees(tree, n: int):
+    """The n per-layer slices of a stacked params tree, each stacked
+    tensor cut with one ``torch.unbind`` (views, as ``index_tree``'s),
+    whose backward stacks the layers' gradients in one pass; indexing
+    layer by layer would add a zero-filled full-stack gradient per layer.
+    ``PlannedWeight`` and ``QuantizedLinear`` leaves slice as in
+    ``index_tree``."""
+    def cut(t):
+        if isinstance(t, dict):
+            parts = {k: cut(v) for k, v in t.items()}
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        if isinstance(t, torch.Tensor):
+            return list(torch.unbind(t))
+        return [index_tree(t, i) for i in range(n)]
+    return cut(tree)
+
+
 def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                 positions: torch.Tensor, remat: str = "none",
                 q_chunk: int = 512,
                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run the full stack over x (B,S,D); ``frames`` (B, S_f, D) feed the
     encoder of an encoder-decoder, whose decoder then runs over x.
-    ``remat`` is accepted for the reference's signature and ignored: there
-    is no backward pass to save memory for yet."""
+    ``remat`` (``none`` / ``dots`` / ``full``) wraps each layer as the
+    reference's ``_remat`` does (``_remat`` here)."""
     if cfg.encoder_decoder:
         memory = encode(p, cfg, frames, q_chunk=q_chunk)
-        for i in range(cfg.n_layers):
-            x = apply_whisper_dec_layer(index_tree(p["decoder"], i), cfg, x,
-                                        memory=memory, positions=positions,
-                                        q_chunk=q_chunk)
+        layer = _remat(apply_whisper_dec_layer, remat)
+        for lp in layer_trees(p["decoder"], cfg.n_layers):
+            x = layer(lp, cfg, x, memory=memory, positions=positions,
+                      q_chunk=q_chunk)
         return x
     if cfg.ssm.enabled:
-        for i in range(cfg.n_layers):
-            x = apply_ssm_layer(index_tree(p["layers"], i), cfg, x)
+        layer = _remat(apply_ssm_layer, remat)
+        for lp in layer_trees(p["layers"], cfg.n_layers):
+            x = layer(lp, cfg, x)
         return x
     if cfg.rglru.enabled:
         n_groups, n_trail = griffin_layout(cfg)
-        for i in range(n_groups):
-            x = apply_griffin_group(index_tree(p["groups"], i), cfg, x,
-                                    positions=positions, q_chunk=q_chunk)
-        for i in range(n_trail):
-            x = apply_rec_layer(index_tree(p["trailing"], i), cfg, x)
+        group = _remat(apply_griffin_group, remat)
+        for lp in layer_trees(p["groups"], n_groups):
+            x = group(lp, cfg, x, positions=positions, q_chunk=q_chunk)
+        layer = _remat(apply_rec_layer, remat)
+        for lp in (layer_trees(p["trailing"], n_trail) if n_trail else []):
+            x = layer(lp, cfg, x)
         return x
+    dense = _remat(apply_dense_layer, remat)
     if cfg.moe.enabled:
         n_dense, n_moe = _moe_layout(cfg)
-        for i in range(n_dense):
-            x = apply_dense_layer(index_tree(p["dense_layers"], i), cfg, x,
-                                  positions=positions, q_chunk=q_chunk)
-        for i in range(n_moe):
-            x = apply_moe_layer(index_tree(p["layers"], i), cfg, x,
-                                positions=positions, q_chunk=q_chunk)
+        for lp in (layer_trees(p["dense_layers"], n_dense) if n_dense
+                   else []):
+            x = dense(lp, cfg, x, positions=positions, q_chunk=q_chunk)
+        layer = _remat(apply_moe_layer, remat)
+        for lp in layer_trees(p["layers"], n_moe):
+            x = layer(lp, cfg, x, positions=positions, q_chunk=q_chunk)
         return x
-    for i in range(cfg.n_layers):      # the reference's scan over layers
-        x = apply_dense_layer(index_tree(p["layers"], i), cfg, x,
-                              positions=positions, window=cfg.window,
-                              q_chunk=q_chunk)
+    # the reference's scan over layers
+    for lp in layer_trees(p["layers"], cfg.n_layers):
+        x = dense(lp, cfg, x, positions=positions, window=cfg.window,
+                  q_chunk=q_chunk)
     return x
 
 

@@ -1194,3 +1194,78 @@ def test_cuda_sparse_dispatch_off_runs_fm_output(cuda):
     assert pt_bs.LAUNCHES["block_sparse"] == bs0
     assert pt_fm.LAUNCHES["output"] == os0 + 1
     assert torch.equal(off, planned)
+
+
+# ---------------------------------------------------------------------------
+# gradients: fa_backward and the dense route's autograd Function
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (512, 512, True, 0), (512, 512, True, 128), (256, 512, True, 0),
+    (256, 512, False, 0)])
+def test_cuda_flash_backward_against_plain(cuda, hd, sq, skv, causal,
+                                           window):
+    """``fa_backward``: float32 within four times the float32 plain
+    version's own error against float64; bf16 under
+    ``ref.flash_backward_check``, which truncated P and dS fail; two runs
+    bit-equal; O with lse equal to O without."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import (flash_attention_backward_plain,
+                                         flash_backward_check)
+    gen = torch.Generator(device=cuda).manual_seed(hd + sq + window)
+    kw = dict(causal=causal, window=window)
+    q = torch.randn((4, sq, hd), generator=gen, device=cuda)
+    k, v = (torch.randn((4, skv, hd), generator=gen, device=cuda)
+            for _ in range(2))
+    do = torch.randn((4, sq, hd), generator=gen, device=cuda)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    exact = flash_attention_backward_plain(
+        *(t.double() for t in (q, k, v, o, lse, do)), **kw)
+    plain = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    for a, p, e in zip(got, plain, exact):
+        tol = 4 * (p.double() - e).abs().max().item() \
+            + 2.0 ** -24 * e.abs().max().item()
+        assert (a.double() - e).abs().max().item() <= tol
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    ob, lseb = fa.flash_attention(qb, kb, vb, return_lse=True, **kw)
+    assert torch.equal(ob, fa.flash_attention(qb, kb, vb, **kw))
+    gb = fa.flash_attention_backward(qb, kb, vb, ob, lseb, dob, **kw)
+    again = fa.flash_attention_backward(qb, kb, vb, ob, lseb, dob, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(gb, again))
+    pb = flash_attention_backward_plain(qb, kb, vb, ob, lseb, dob, **kw)
+    w = flash_attention_backward_plain(qb, kb, vb, ob, lseb, dob,
+                                       magnitudes=True, **kw)
+    assert all(flash_backward_check(a, p, m).ok()
+               for a, p, m in zip(gb, pb, w))
+    tr = flash_attention_backward_plain(qb, kb, vb, ob, lseb, dob,
+                                        truncate=True, **kw)
+    assert not all(flash_backward_check(a, p, m).ok()
+                   for a, p, m in zip(tr, pb, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stationarity", ["output", "weight", "input"])
+@pytest.mark.parametrize("k,n", [(2048, 5632), (5632, 2048)])
+def test_cuda_matmul_function_grads(cuda, stationarity, k, n):
+    """The dense route under autograd at M = 512: dX and dW through the
+    kernels against autograd of the plain float32 product, within
+    √K·2⁻²⁴·max(|A|@|B|) of each backward product."""
+    from repro_torch.kernels.ops import _DenseMatmul
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn((512, k), generator=gen, device=cuda).requires_grad_()
+    w = (torch.randn((k, n), generator=gen, device=cuda) * k ** -0.5
+         ).requires_grad_()
+    g = torch.randn((512, n), generator=gen, device=cuda)
+    sched = MatmulSchedule(stationarity, 128, 128, 128)
+    before = dict(pt_fm.LAUNCHES)
+    _DenseMatmul.apply(x, w, sched, True, None).backward(g)
+    assert sum(pt_fm.LAUNCHES.values()) > sum(before.values())
+    xp, wp = (t.detach().clone().requires_grad_() for t in (x, w))
+    torch.matmul(xp, wp).backward(g)
+    assert (x.grad - xp.grad).abs().max().item() <= _cuda_tol(g, w.t())
+    assert (w.grad - wp.grad).abs().max().item() <= _cuda_tol(
+        x.detach().t(), g)
