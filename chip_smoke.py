@@ -324,6 +324,33 @@ trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
      have launched.  The ``kernels`` line gains ``flash_backward`` and the
      backward products at mlp.in (``flex_output_backward_dx`` / ``_dw``),
      and every matmul and flash row ``launches_phase21``.
+ 22. the other families train (``run_families_training``): (a)
+     ``fa_backward`` at hd 256 at gemma-2b's cell (BH 16, S 4096, causal),
+     recurrentgemma-9b's (BH 32, S 4096, window 2048) and Sq < Skv, with
+     phase 21's gates (float32 against float64 with the TF32 control,
+     bf16 under ``ref.flash_backward_check`` with the truncation control,
+     two runs bit-equal); (b) the expert route's backward at
+     DeepSeek-MoE-16B's layer-1 experts_in / experts_gate / experts_out
+     shapes at C = 961 (one 2 x 4096 microbatch's capacity): dX and dW
+     against autograd of the plain batched product per expert, float32
+     (TF32 control rejected) and bf16, and at C = 2 the batched dX launch
+     (Wᵀ read in place) equal to per-expert launches bit for bit; (c) at
+     full width and cut depth — deepseek-moe-16b at 2 layers, gemma-2b at
+     2, recurrentgemma-9b at 3 (one Griffin group), whisper-tiny uncut
+     (2 x 448 tokens, 2 x 1500 frames), mamba2-1.3b at 1 — one AdamW step
+     under the kernels against the plain step with phase 21's tolerances,
+     float32 and bf16, and for the MoE remat none == full bit for bit
+     (mamba2-1.3b's gradients that are non-finite on the plain side, the
+     reference's SSD overflow, are counted and left out; the kernel step
+     must be finite wherever the plain one is); (d) gemma-2b at its 18
+     layers, deepseek-moe-16b cut to 4 and recurrentgemma-9b cut to 6, at
+     full width through ``launch.train.make_trainer`` (4 x 4096 tokens a
+     step in 2 microbatches, remat full, lr 1e-4): 4 steps on one fixed
+     batch (the loss must fall by 0.05 nats), one profiled: ms a step,
+     tokens/s, peak memory, busy share, launches.  The ``kernels`` line
+     gains ``flash_backward_hd256`` / ``_hd256_window`` and
+     ``flex_output_experts_backward_dx`` / ``_dw``, and the
+     ``flex_output`` and ``flash_attention`` rows ``launches_phase22``.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON; the whole report
@@ -333,6 +360,7 @@ is also written to ``build/chip_smoke.log`` in the checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -4685,99 +4713,104 @@ P21_FLASH_CASES = (  # (label, sq, skv, causal, window)
     ("Sq<Skv", 2048, 4096, True, 0))
 
 
-def p21_flash(report) -> dict:
-    """(b) ``fa_backward`` against ``flash_attention_backward_plain`` at
-    BH 64, S 4096, hd 64 and 128, causal / window / Sq < Skv: float32
-    against the float64 plain version under ``p21_flash_tol`` with a TF32
-    control; bf16 under ``ref.flash_backward_check`` (the rounding scale
-    of P̂ and dŜ) with P and dS truncated toward zero as the control it must
-    reject; two runs bit-equal; the forward's O with lse equal to O
-    without.  Returns the worst errors and the bf16 hd-64 causal operands
-    for the row."""
+def flash_backward_case(report, gen, hd, label, bh, sq, skv, causal,
+                        window) -> tuple:
+    """One ``fa_backward`` case: float32 against the float64 plain version
+    under ``p21_flash_tol`` with a TF32 control; bf16 under
+    ``ref.flash_backward_check`` (the rounding scale of P̂ and dŜ) with P
+    and dS truncated toward zero as the control it must reject; two runs
+    bit-equal; the forward's O with lse equal to O without.  Returns
+    (float32 error, bf16 error against plain, the bf16 operands)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import (flash_attention_backward_plain,
                                          flash_backward_check)
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(22)
-    bh = 64
+    kw = dict(causal=causal, window=window)
+    q = torch.randn((bh, sq, hd), generator=gen, device=dev)
+    k, v = (torch.randn((bh, skv, hd), generator=gen, device=dev)
+            for _ in range(2))
+    do = torch.randn((bh, sq, hd), generator=gen, device=dev)
+    # float32
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    need(torch.equal(o, fa.flash_attention(q, k, v, **kw)),
+         f"fa_forward hd {hd} {label} float32: O with lse differs")
+    got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    exact = flash_attention_backward_plain(
+        q.double(), k.double(), v.double(), o.double(), lse.double(),
+        do.double(), **kw)
+    plain32 = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    tol = p21_flash_tol(plain32, exact)
+    err = max((a.double() - e).abs().max().item()
+              for a, e in zip(got, exact))
+    need(err <= tol, f"fa_backward hd {hd} {label} float32: {err} > {tol}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf = flash_attention_backward_plain(q, k, v, o, lse, do, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ctrl = max((a.double() - e).abs().max().item()
+               for a, e in zip(tf, exact))
+    need(ctrl > tol, f"fa_backward hd {hd} {label}: the float32 tolerance "
+         f"does not reject TF32 ({ctrl} <= {tol})")
+    del tf, plain32, exact, got, o, lse
+    # bf16
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    del q, k, v, do
+    ob, lseb = fa.flash_attention(qb, kb, vb, return_lse=True, **kw)
+    need(torch.equal(ob, fa.flash_attention(qb, kb, vb, **kw)),
+         f"fa_forward hd {hd} {label} bf16: O with lse differs")
+    gb = fa.flash_attention_backward(qb, kb, vb, ob, lseb, dob, **kw)
+    again = fa.flash_attention_backward(qb, kb, vb, ob, lseb, dob, **kw)
+    need(all(torch.equal(a, b) for a, b in zip(gb, again)),
+         f"fa_backward hd {hd} {label} bf16: two runs differ")
+    plain = flash_attention_backward_plain(qb, kb, vb, ob, lseb, dob, **kw)
+    weight = flash_attention_backward_plain(
+        qb, kb, vb, ob, lseb, dob, magnitudes=True, **kw)
+    checks = [flash_backward_check(a, p, w)
+              for a, p, w in zip(gb, plain, weight)]
+    need(all(c.ok() for c in checks),
+         f"fa_backward hd {hd} {label} bf16: {checks}")
+    trunc = flash_attention_backward_plain(
+        qb, kb, vb, ob, lseb, dob, truncate=True, **kw)
+    ctrls = [flash_backward_check(a, p, w)
+             for a, p, w in zip(trunc, plain, weight)]
+    need(not all(c.ok() for c in ctrls),
+         f"fa_backward hd {hd} {label} bf16: the check does not reject "
+         f"truncated P and dS: {ctrls}")
+    errb = max((a - p).abs().max().item() for a, p in zip(gb, plain))
+    report(f"  fa_backward hd {hd} {label} (BH {bh}, Sq {sq}, Skv {skv}): "
+           f"float32 vs float64 {err:.3e} (tol {tol:.3e}, TF32 "
+           f"{ctrl:.3e}); bf16 vs plain {errb:.3e}, (worst, rms) in units "
+           f"of 2^-8 W for dQ/dK/dV "
+           + ", ".join(f"({c.worst:.3f}, {c.rms:.4f})" for c in checks)
+           + " (limits 4, 0.05); truncated control "
+           + ", ".join(f"({c.worst:.3f}, {c.rms:.4f})" for c in ctrls)
+           + "; two runs bit-equal; O with lse == O without")
+    operands = dict(q=qb, k=kb, v=vb, o=ob, lse=lseb, do=dob, kw=kw)
+    del gb, again, plain, weight, trunc
+    return err, errb, operands
+
+
+def p21_flash(report) -> dict:
+    """(b) ``fa_backward`` against ``flash_attention_backward_plain`` at
+    BH 64, S 4096, hd 64 and 128, causal / window / Sq < Skv
+    (``flash_backward_case``).  Returns the worst errors and the bf16
+    hd-64 causal operands for the row."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
     worst32 = worstb = 0.0
     keep = {}
-    for hd in fa.BACKWARD_HEAD_DIMS:
+    for hd in (64, 128):
         for label, sq, skv, causal, window in P21_FLASH_CASES:
-            kw = dict(causal=causal, window=window)
-            q = torch.randn((bh, sq, hd), generator=gen, device=dev)
-            k, v = (torch.randn((bh, skv, hd), generator=gen, device=dev)
-                    for _ in range(2))
-            do = torch.randn((bh, sq, hd), generator=gen, device=dev)
-            # float32
-            o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-            need(torch.equal(o, fa.flash_attention(q, k, v, **kw)),
-                 f"fa_forward hd {hd} {label} float32: O with lse differs")
-            got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
-            exact = flash_attention_backward_plain(
-                q.double(), k.double(), v.double(), o.double(), lse.double(),
-                do.double(), **kw)
-            plain32 = flash_attention_backward_plain(q, k, v, o, lse, do,
-                                                     **kw)
-            tol = p21_flash_tol(plain32, exact)
-            err = max((a.double() - e).abs().max().item()
-                      for a, e in zip(got, exact))
-            need(err <= tol, f"fa_backward hd {hd} {label} float32: {err} "
-                 f"> {tol}")
-            torch.backends.cuda.matmul.allow_tf32 = True
-            try:
-                tf = flash_attention_backward_plain(q, k, v, o, lse, do,
-                                                    **kw)
-            finally:
-                torch.backends.cuda.matmul.allow_tf32 = False
-            ctrl = max((a.double() - e).abs().max().item()
-                       for a, e in zip(tf, exact))
-            need(ctrl > tol, f"fa_backward hd {hd} {label}: the float32 "
-                 f"tolerance does not reject TF32 ({ctrl} <= {tol})")
-            del tf, plain32, exact
-            # bf16
-            qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
-            ob, lseb = fa.flash_attention(qb, kb, vb, return_lse=True, **kw)
-            need(torch.equal(ob, fa.flash_attention(qb, kb, vb, **kw)),
-                 f"fa_forward hd {hd} {label} bf16: O with lse differs")
-            gb = fa.flash_attention_backward(qb, kb, vb, ob, lseb, dob, **kw)
-            again = fa.flash_attention_backward(qb, kb, vb, ob, lseb, dob,
-                                                **kw)
-            need(all(torch.equal(a, b) for a, b in zip(gb, again)),
-                 f"fa_backward hd {hd} {label} bf16: two runs differ")
-            plain = flash_attention_backward_plain(qb, kb, vb, ob, lseb, dob,
-                                                   **kw)
-            weight = flash_attention_backward_plain(
-                qb, kb, vb, ob, lseb, dob, magnitudes=True, **kw)
-            checks = [flash_backward_check(a, p, w)
-                      for a, p, w in zip(gb, plain, weight)]
-            need(all(c.ok() for c in checks),
-                 f"fa_backward hd {hd} {label} bf16: {checks}")
-            trunc = flash_attention_backward_plain(
-                qb, kb, vb, ob, lseb, dob, truncate=True, **kw)
-            ctrls = [flash_backward_check(a, p, w)
-                     for a, p, w in zip(trunc, plain, weight)]
-            need(not all(c.ok() for c in ctrls),
-                 f"fa_backward hd {hd} {label} bf16: the check does not "
-                 f"reject truncated P and dS: {ctrls}")
-            errb = max((a - p).abs().max().item() for a, p in zip(gb, plain))
-            report(f"  fa_backward hd {hd} {label} (BH {bh}, Sq {sq}, Skv "
-                   f"{skv}): float32 vs float64 {err:.3e} (tol {tol:.3e}, "
-                   f"TF32 {ctrl:.3e}); bf16 vs plain {errb:.3e}, "
-                   f"(worst, rms) in units of 2^-8 W for dQ/dK/dV "
-                   + ", ".join(f"({c.worst:.3f}, {c.rms:.4f})"
-                               for c in checks)
-                   + " (limits 4, 0.05); truncated control "
-                   + ", ".join(f"({c.worst:.3f}, {c.rms:.4f})"
-                               for c in ctrls)
-                   + "; two runs bit-equal; O with lse == O without")
+            err, errb, ops_ = flash_backward_case(report, gen, hd, label, 64,
+                                                  sq, skv, causal, window)
             worst32, worstb = max(worst32, err), max(worstb, errb)
             if hd == 64 and label == "causal":
-                keep = dict(q=qb, k=kb, v=vb, o=ob, lse=lseb, do=dob, kw=kw)
-            del q, k, v, do, o, lse, got, qb, kb, vb, dob, ob, lseb, gb
-            del again, plain, weight, trunc
+                keep = ops_
+            del ops_
     torch.cuda.synchronize()
     keep["err"] = max(worst32, worstb)
     return keep
@@ -4836,51 +4869,11 @@ def p21_step_vs_plain(ec, report) -> dict:
         names = [n for n in _leaf_names(params)]
         for stat in ("output", "weight", "input"):
             ek = ec if stat == "output" else forced(ec, stat)
-            kl, kg, knew, knorm = _step_parts(cfg, shape, ek, params, batch)
-            f32 = dt == torch.float32
-            rl = abs(kl.item() - pl.item()) / abs(pl.item())
-            need(rl <= (1e-5 if f32 else 2.0 ** -7),
-                 f"step {stat} {dt}: loss {kl.item()} vs plain {pl.item()}")
-            gw = 0.0
-            for name, a, b in zip(names, tree_leaves(kg), tree_leaves(pg)):
-                a, b = a.float(), b.float()
-                if f32:
-                    r = ((a - b).abs().max() / b.abs().max()).item()
-                    lim = 1e-4
-                else:
-                    r = ((a - b).pow(2).mean().sqrt()
-                         / b.pow(2).mean().sqrt()).item()
-                    lim = 2.0 ** -4
-                need(r <= lim, f"step {stat} {dt}: gradient {name} {r} > "
-                     f"{lim}")
-                gw = max(gw, r)
-            pw = 0.0
-            sk = torch.clamp(1.0 / torch.clamp(knorm, min=1e-9), max=1.0)
-            sp = torch.clamp(1.0 / torch.clamp(pnorm, min=1e-9), max=1.0)
-            for name, a, b, ga, gb, p0 in zip(
-                    names, tree_leaves(knew), tree_leaves(pnew),
-                    tree_leaves(kg), tree_leaves(pg), tree_leaves(params)):
-                a, b = a.float(), b.float()
-                # the clipped gradients as AdamW takes them (rounded to
-                # the gradient's dtype)
-                bound = lr * adamw_first_step_spread(
-                    (ga * sk.to(ga.dtype)).float(),
-                    (gb * sp.to(gb.dtype)).float()) \
-                    + 2.0 ** -22 * p0.float().abs()
-                if not f32:
-                    bound = bound + 2.0 ** -7 * torch.maximum(a.abs(),
-                                                              b.abs())
-                over = (a - b).abs() - bound
-                need(bool((over <= 0).all()), f"step {stat} {dt}: updated "
-                     f"{name} {over.max().item()} over its bound")
-                pw = max(pw, ((a - b).abs().max() / lr).item())
-            report(f"  step at depth 2, {str(dt)[6:]}, {stat}-stationary "
-                   f"kernels vs plain: loss {kl.item():.6f} / "
-                   f"{pl.item():.6f}, worst gradient "
-                   f"{'max' if f32 else 'rms'}-relative {gw:.3e}, worst "
-                   f"updated parameter {pw:.3e} lr")
-            worst[(str(dt), stat)] = gw
-            del kg, knew
+            kernel = _step_parts(cfg, shape, ek, params, batch)
+            worst[(str(dt), stat)] = compare_steps(
+                f"step at depth 2, {str(dt)[6:]}, {stat}-stationary",
+                kernel, (pl, pg, pnew, pnorm), params, names, lr, report)
+            del kernel
         del pg, pnew
         if dt == torch.bfloat16:
             # remat none == full, bit for bit, under the kernels
@@ -4896,6 +4889,89 @@ def p21_step_vs_plain(ec, report) -> dict:
         del params
         free()
     return worst
+
+
+def compare_steps(label, kernel, plain, params, names, lr, report,
+                  finite_only=False) -> float:
+    """One AdamW step under the kernels against the plain step (each
+    ``_step_parts``' (loss, grads, updated params, grad norm)) on the same
+    params and batch, with ``p21_step_vs_plain``'s tolerances: float32 —
+    loss rtol 1e-5, each gradient within 1e-4·max|plain|; bf16 — loss
+    rtol 2⁻⁷, each gradient's RMS difference within 2⁻⁴ of the plain
+    one's RMS; parameters within lr times ``adamw_first_step_spread`` plus
+    2⁻²² of the parameter, in bf16 plus one bf16 step.  ``finite_only``
+    (a model whose float32 overflows where the reference's does): the
+    gradients non-finite on the plain side are left out, the kernel step
+    must be finite wherever the plain one is, and with a non-finite plain
+    gradient the updated parameters (all moved by the global norm) are not
+    compared.  Returns the worst gradient ratio."""
+    import torch
+    from repro_torch.train.optimizer import tree_leaves
+
+    pl, pg, pnew, pnorm = plain
+    kl, kg, knew, knorm = kernel
+    f32 = params_dtype(params) == torch.float32
+    if not finite_only or bool(torch.isfinite(pl)):
+        need(bool(torch.isfinite(kl)), f"{label}: loss {kl.item()} not "
+             f"finite (plain {pl.item()})")
+        rl = abs(kl.item() - pl.item()) / abs(pl.item())
+        need(rl <= (1e-5 if f32 else 2.0 ** -7),
+             f"{label}: loss {kl.item()} vs plain {pl.item()}")
+    gw, skipped = 0.0, 0
+    for name, a, b in zip(names, tree_leaves(kg), tree_leaves(pg)):
+        a, b = a.to(b.device).float(), b.float()
+        if finite_only:
+            fin = torch.isfinite(b)
+            need(bool(torch.isfinite(a)[fin].all()), f"{label}: gradient "
+                 f"{name} not finite where the plain one is")
+            if not bool(fin.all()):
+                skipped += 1
+                continue
+        if f32:
+            r = ((a - b).abs().max() / b.abs().max()).item()
+            lim = 1e-4
+        else:
+            r = ((a - b).pow(2).mean().sqrt()
+                 / b.pow(2).mean().sqrt()).item()
+            lim = 2.0 ** -4
+        need(r <= lim, f"{label}: gradient {name} {r} > {lim}")
+        gw = max(gw, r)
+    pw = None
+    if not finite_only or bool(torch.isfinite(pnorm)):
+        pw = 0.0
+        sk = torch.clamp(1.0 / torch.clamp(knorm, min=1e-9), max=1.0)
+        sp = torch.clamp(1.0 / torch.clamp(pnorm, min=1e-9), max=1.0)
+        for name, a, b, ga, gb, p0 in zip(
+                names, tree_leaves(knew), tree_leaves(pnew),
+                tree_leaves(kg), tree_leaves(pg), tree_leaves(params)):
+            a, b, ga = a.to(b.device).float(), b.float(), ga.to(gb.device)
+            # the clipped gradients as AdamW takes them (rounded to the
+            # gradient's dtype)
+            bound = lr * adamw_first_step_spread(
+                (ga * sk.to(ga.dtype)).float(),
+                (gb * sp.to(gb.dtype)).float()) \
+                + 2.0 ** -22 * p0.float().abs()
+            if not f32:
+                bound = bound + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+            over = (a - b).abs() - bound
+            need(bool((over <= 0).all()), f"{label}: updated {name} "
+                 f"{over.max().item()} over its bound")
+            pw = max(pw, ((a - b).abs().max() / lr).item())
+    report(f"  {label} kernels vs plain: loss {kl.item():.6f} / "
+           f"{pl.item():.6f}, worst gradient "
+           f"{'max' if f32 else 'rms'}-relative {gw:.3e}, worst updated "
+           f"parameter "
+           + ("not compared (plain grad_norm not finite)" if pw is None
+              else f"{pw:.3e} lr")
+           + (f"; {skipped} of {len(names)} gradient leaves non-finite on "
+              f"the plain side too (left out)" if finite_only else ""))
+    return gw
+
+
+def params_dtype(params):
+    """The dtype of a params tree's matrices (its first 2-D leaf)."""
+    from repro_torch.train.optimizer import tree_leaves
+    return next(x.dtype for x in tree_leaves(params) if x.dim() >= 2)
 
 
 def adamw_first_step_spread(ga, gb, eps: float = 1e-8):
@@ -4987,10 +5063,9 @@ def p21_full(report, card) -> dict:
     """(e) The published 24 layers through the launcher's path
     (``launch.train.make_trainer``, peak lr ``P21_LR``, warmup 1): 4 AdamW
     steps on one fixed batch (the loss must fall by P21_MIN_FALL nats,
-    grad_norm finite), one profiled, then 2 steps from the TokenPipeline.  Launch counts are reset just
-    before and read just after."""
+    grad_norm finite), one profiled, then 2 steps from the TokenPipeline.
+    Launch counts are reset just before and read just after."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import train as launch
     from repro_torch.train.optimizer import tree_leaves
 
@@ -5009,9 +5084,55 @@ def p21_full(report, card) -> dict:
     batch = trainer._next_batch()
     tokens = P21_BATCH * P21_SEQ
     reset_launches()
+    losses, norms, times, prof, peak = fixed_batch_steps(
+        trainer, batch, P21_FIXED_STEPS)
+    fixed_launches = launch_counts()
+    log = trainer.run()
+    launches = launch_counts()
+    need(all(torch.isfinite(torch.tensor(norms + [r["grad_norm"]
+                                                  for r in log]))),
+         f"24 layers: grad_norm not finite: {norms}")
+    need(all(v == v for v in losses) and losses[0] - losses[-1]
+         >= P21_MIN_FALL,
+         f"24 layers: fixed-batch loss {losses} did not fall by "
+         f"{P21_MIN_FALL}")
+    need([r["step"] for r in log] == [5, 6], "24 layers: pipeline steps")
+    steady = sorted(times[2:] + [r["dt"] for r in log])
+    ms = 1e3 * steady[len(steady) // 2]
+    report(f"  24 layers, {P21_BATCH} x {P21_SEQ} tokens a step in "
+           f"{P21_MICRO} microbatches, remat full ({card}): fixed-batch "
+           f"losses {[round(x, 4) for x in losses]} (fell "
+           f"{losses[0] - losses[-1]:.4f} nats), grad_norm "
+           f"{[round(x, 4) for x in norms]}; pipeline steps "
+           f"{[(r['step'], round(r['loss'], 4)) for r in log]}; step times "
+           f"{[round(1e3 * x, 1) for x in times + [r['dt'] for r in log]]} "
+           f"ms; median of the steady steps {ms:.1f} ms, "
+           f"{tokens / ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB")
+    busy = report_step_profile(prof, times[1], ms, report)
+    for key in ("output", "flash_attention", "flash_backward"):
+        need(launches[key] > 0, f"24 layers: {key} never launched")
+    report(f"  launches in the 24-layer run (4 fixed + 2 pipeline steps): "
+           f"{ {k: v for k, v in launches.items() if v} }; the 4 fixed "
+           f"steps: { {k: v for k, v in fixed_launches.items() if v} }")
+    out = dict(launches=launches, ms=ms, tokens_per_s=tokens / ms * 1e3,
+               peak_gib=peak, busy=busy / 1e3 / ms if busy else None,
+               losses=losses)
+    del trainer
+    free()
+    return out
+
+
+def fixed_batch_steps(trainer, batch, steps) -> tuple:
+    """``steps`` AdamW steps of ``trainer`` on one fixed ``batch``, the
+    second under ``torch.profiler``: (losses, grad norms, step seconds,
+    the profile, peak GiB)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.reset_peak_memory_stats()
     losses, norms, times = [], [], []
-    for i in range(P21_FIXED_STEPS):
+    prof = None
+    for i in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         if i == 1:
@@ -5026,39 +5147,26 @@ def p21_full(report, card) -> dict:
         trainer.step += 1
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
-    fixed_launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log = trainer.run()
-    launches = launch_counts()
-    need(all(torch.isfinite(torch.tensor(norms + [r["grad_norm"]
-                                                  for r in log]))),
-         f"24 layers: grad_norm not finite: {norms}")
-    need(all(v == v for v in losses) and losses[0] - losses[-1]
-         >= P21_MIN_FALL,
-         f"24 layers: fixed-batch loss {losses} did not fall by "
-         f"{P21_MIN_FALL}")
-    need([r["step"] for r in log] == [5, 6], "24 layers: pipeline steps")
+    return (losses, norms, times, prof,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def report_step_profile(prof, wall_s, ms, report):
+    """Report a profiled train step (``wall_s`` its wall under the
+    profiler) against the unprofiled steps' median ``ms``: device busy
+    time and share, kernels, families, top kernels.  Returns the busy
+    microseconds (0: the profiler recorded no device time)."""
+    import torch
     busy, n_kernels, fam = device_breakdown(prof)
     top = sorted(((ev.key, ev.device_time_total / 1e3, ev.count)
                   for ev in prof.key_averages()
                   if ev.device_type == torch.autograd.DeviceType.CUDA
                   and ev.device_time_total > 0),
                  key=lambda r: -r[1])[:6]
-    steady = sorted(times[2:] + [r["dt"] for r in log])
-    ms = 1e3 * steady[len(steady) // 2]
-    report(f"  24 layers, {P21_BATCH} x {P21_SEQ} tokens a step in "
-           f"{P21_MICRO} microbatches, remat full ({card}): fixed-batch "
-           f"losses {[round(x, 4) for x in losses]} (fell "
-           f"{losses[0] - losses[-1]:.4f} nats), grad_norm "
-           f"{[round(x, 4) for x in norms]}; pipeline steps "
-           f"{[(r['step'], round(r['loss'], 4)) for r in log]}; step times "
-           f"{[round(1e3 * x, 1) for x in times + [r['dt'] for r in log]]} "
-           f"ms; median of the steady steps {ms:.1f} ms, "
-           f"{tokens / ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB")
     if busy:
         # the profiler slows the host, so the busy share is taken against
         # the unprofiled steps' median wall
-        report(f"  profiled step: wall {1e3 * times[1]:.1f} ms under the "
+        report(f"  profiled step: wall {1e3 * wall_s:.1f} ms under the "
                f"profiler, device busy {busy / 1e3:.1f} ms, "
                f"{100 * busy / 1e3 / ms:.1f}% of the median unprofiled step "
                f"({n_kernels} kernels); by family {fam}; top kernels (ms, "
@@ -5066,17 +5174,7 @@ def p21_full(report, card) -> dict:
     else:
         report("  profiled step: the profiler recorded no device time (not "
                "measured)")
-    for key in ("output", "flash_attention", "flash_backward"):
-        need(launches[key] > 0, f"24 layers: {key} never launched")
-    report(f"  launches in the 24-layer run (4 fixed + 2 pipeline steps): "
-           f"{ {k: v for k, v in launches.items() if v} }; the 4 fixed "
-           f"steps: { {k: v for k, v in fixed_launches.items() if v} }")
-    out = dict(launches=launches, ms=ms, tokens_per_s=tokens / ms * 1e3,
-               peak_gib=peak, busy=busy / 1e3 / ms if busy else None,
-               losses=losses)
-    del trainer
-    free()
-    return out
+    return busy
 
 
 def p21_rows(mm, flash, launches) -> list:
@@ -5193,6 +5291,473 @@ def run_training(report, card):
     full = p21_full(report, card)
     report(f"[phase 21e: {time.perf_counter() - t0:.1f} s]")
     rows = p21_rows(mm, flash, full["launches"])
+    torch.cuda.synchronize()
+    return full, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the other families train — fa_backward at hd 256, the expert
+# route's backward, the kernel step against the plain step per family, and
+# three families at full width through the launcher
+# ---------------------------------------------------------------------------
+
+P22_FLASH_CASES = (  # (label, BH, Sq, Skv, causal, window); hd 256
+    ("causal", 16, 4096, 4096, True, 0),            # gemma-2b's cell
+    ("window 2048", 32, 4096, 4096, True, 2048),    # recurrentgemma-9b's
+    ("Sq<Skv", 16, 2048, 4096, True, 0))
+P22_MOE = "deepseek-moe-16b"
+# the expert capacity of one 2 x 4096 microbatch: _capacity(8192, 6, 64,
+# 1.25) = 961 rows an expert
+P22_CAPACITY = 961
+P22_STEP_CASES = (  # (arch, layers: None = published, batch, seq)
+    (P22_MOE, 2, 1, 4096),             # the dense first layer + one MoE
+    ("gemma-2b", 2, 1, 4096),
+    ("recurrentgemma-9b", 3, 1, 4096),  # one Griffin group
+    ("whisper-tiny", None, 2, 448),    # 2 x 1500 frames (30 s) feed it
+    ("mamba2-1.3b", 1, 1, 4096))       # phase 19's finite prefix
+P22_WHISPER_FRAMES = 1500
+P22_FULL = (  # (arch, layers: None = published); 4 x 4096 in 2 micro
+    ("gemma-2b", None),
+    (P22_MOE, 4),                      # the dense first + 3 MoE layers
+    ("recurrentgemma-9b", 6))          # two Griffin groups
+P22_STEPS = 4
+
+
+def cut_config(arch, layers):
+    """``arch``'s published config at ``layers`` layers (None: uncut)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def p22_flash(report) -> dict:
+    """(a) ``fa_backward`` at hd 256 (``flash_backward_case``) at
+    gemma-2b's and recurrentgemma-9b's cells and one Sq < Skv case.
+    Returns the worst error and the bf16 operands of the first two."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    worst, keep = 0.0, {}
+    for label, bh, sq, skv, causal, window in P22_FLASH_CASES:
+        err, errb, operands = flash_backward_case(report, gen, 256, label,
+                                                  bh, sq, skv, causal, window)
+        worst = max(worst, err, errb)
+        if label != "Sq<Skv":
+            keep[label] = operands
+        del operands
+        free()
+    keep["err"] = worst
+    return keep
+
+
+def p22_expert(report) -> dict:
+    """(b) The expert route under autograd (``ops.flex_expert_matmul``'s
+    dense Function under DeepSeek-MoE-16B's train table) at its layer-1
+    experts_in / experts_gate / experts_out shapes, C = 961: dX and dW
+    against autograd of the plain batched float32 product, per expert
+    within ``expert_tols`` of each backward product, float32 with a TF32
+    control it must reject, bf16 plus one bf16 step of the value; at
+    C = 2 the batched dX (one launch over the experts, Wᵀ read in place)
+    equals per-expert launches bit for bit.  Returns the worst float32
+    error and the bf16 experts_in operands for the rows."""
+    import torch
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import shape_exec_config
+
+    cfg = cut_config(P22_MOE, 2)
+    ec = shape_exec_config(cfg, train_shape(), use_kernels=True,
+                           device="cuda")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.expert_d_ff
+    worst, keep = 0.0, {}
+    for site, (k, n) in (("moe.experts_in", (d, f)),
+                         ("moe.experts_gate", (d, f)),
+                         ("moe.experts_out", (f, d))):
+        x0 = torch.randn((e, P22_CAPACITY, k), generator=gen, device=dev)
+        w0 = torch.randn((e, k, n), generator=gen, device=dev) * k ** -0.5
+        g0 = torch.randn((e, P22_CAPACITY, n), generator=gen, device=dev)
+        line = [f"{site} ({e} x {P22_CAPACITY} x {k} @ {k} x {n})"]
+        for dt in (torch.float32, torch.bfloat16):
+            x, w = (t.to(dt).clone().requires_grad_() for t in (x0, w0))
+            g = g0.to(dt)
+            with ops.exec_config(ec):
+                out = ops.flex_expert_matmul(x, w, site=site)
+            out.backward(g)
+            xp, wp = (t.detach().clone().requires_grad_() for t in (x, w))
+            torch.matmul(xp.float(), wp.float()).to(dt).backward(g)
+            for label, got, want, (a, b) in (
+                    ("dX", x.grad, xp.grad, (g, w.detach().transpose(-1, -2))),
+                    ("dW", w.grad, wp.grad,
+                     (x.detach().transpose(-1, -2), g))):
+                tol = expert_tols(a, b)
+                err = (got.float() - want.float()).abs()
+                if dt == torch.bfloat16:
+                    bound = tol + 2.0 ** -7 * torch.maximum(
+                        want.float().abs(), got.float().abs())
+                    need(bool((err <= bound).all()),
+                         f"{site} bf16 {label}: {(err - bound).max().item()}"
+                         f" over expert_tols + one bf16 rounding")
+                    line.append(f"bf16 {label} {err.max().item():.3e}")
+                else:
+                    need(bool((err <= tol).all()), f"{site} float32 {label}:"
+                         f" {(err - tol).max().item()} over expert_tols")
+                    ctrl = (torch.matmul(tf32(a.float()), tf32(b.float()))
+                            - want).abs()
+                    need(bool((ctrl > tol).any()), f"{site} {label}: "
+                         f"expert_tols does not reject TF32 operands")
+                    e32 = err.max().item()
+                    line.append(f"float32 {label} {e32:.3e} (tol "
+                                f"{tol.max().item():.3e}, TF32 "
+                                f"{ctrl.max().item():.3e})")
+                    worst = max(worst, e32)
+            if site == "moe.experts_in" and dt == torch.bfloat16:
+                keep = dict(x=x.detach(), w=w.detach(), g=g)
+            del x, w, g, xp, wp, out
+        report("  " + "; ".join(line))
+        del x0, w0, g0
+    # decode capacity: the batched dX launch equals per-expert launches
+    a = torch.randn((e, 2, f), generator=gen, device=dev).bfloat16()
+    wt = (torch.randn((e, d, f), generator=gen, device=dev)
+          * d ** -0.5).bfloat16().transpose(-1, -2)
+    n0 = fm.LAUNCHES["output_experts"]
+    batched = fm.flex_matmul(a, wt, out_dtype=torch.float32)
+    need(fm.LAUNCHES["output_experts"] == n0 + 1,
+         "C = 2: the transposed expert B did not take one batched launch")
+    need(all(torch.equal(batched[i], fm.flex_matmul(
+        a[i], wt[i], out_dtype=torch.float32)) for i in range(e)),
+        "C = 2: the batched dX differs from per-expert launches")
+    report(f"  C = 2: dX = dY·Wᵀ over {e} experts in one launch (Wᵀ the "
+           f"transposed view of the stored (E, K, N)) == {e} per-expert "
+           f"launches bit for bit")
+    torch.cuda.synchronize()
+    keep["err"] = worst
+    return keep
+
+
+def p22_batch(cfg, batch, seq, seed=5):
+    """A fixed training batch on the card: random tokens and next-token
+    labels, and for an encoder-decoder 30 s of stub frame embeddings."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=gen,
+                         device=dev)
+    out = {"tokens": toks[:, :-1].contiguous(),
+           "labels": toks[:, 1:].contiguous()}
+    if cfg.encoder_decoder:
+        out["frames"] = 0.02 * torch.randn(
+            (batch, P22_WHISPER_FRAMES, cfg.d_model), generator=gen,
+            device=dev)
+    return out
+
+
+@contextlib.contextmanager
+def same_routing(tape, replay):
+    """Route every MoE layer as ``tape`` says: record each ``moe.top_k``
+    choice (``replay`` False) or take the recorded expert indices back in
+    order (True), the gate values gathered from this run's own router
+    probabilities — so a run whose router logits differ from the
+    recording run's in their last bits sends every token to the same
+    experts, as phase 15's oracle routes as the path under test
+    (``router_logits``).  ``tape["flips"]`` counts the tokens whose expert
+    set the replaying run would have chosen otherwise."""
+    import torch
+    from repro_torch.models import moe
+
+    own = moe.top_k
+    pos = [0]
+
+    def top_k(probs, k):
+        vals, idx = own(probs, k)
+        if not replay:
+            tape["idx"].append(idx)
+            return vals, idx
+        want = tape["idx"][pos[0]]
+        pos[0] += 1
+        tape["flips"] += int((torch.sort(want, -1)[0]
+                              != torch.sort(idx, -1)[0]).any(-1).sum())
+        return probs.gather(-1, want), want
+    moe.top_k = top_k
+    try:
+        yield tape
+    finally:
+        moe.top_k = own
+
+
+def p22_steps(report) -> dict:
+    """(c) At full width and cut depth (``P22_STEP_CASES``), one AdamW step
+    under the kernels (the train table) against the plain step, float32
+    and bf16 (``compare_steps``), the plain step routed as the kernel step
+    (``same_routing``: in bf16 the two hidden states differ by roundings,
+    which move a share of the MoE's top-k choices, each moving a token's
+    whole contribution between experts; the flips are reported); for the
+    MoE, remat none == full bit for bit under the kernels.  mamba2-1.3b inherits the reference's SSD mask,
+    whose float32 decays overflow at full width: its gradients non-finite
+    on the plain side are counted and left out, and the kernel step must
+    be finite wherever the plain one is.  Returns the worst gradient ratio
+    per (arch, dtype)."""
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import shape_exec_config
+
+    dev = torch.device("cuda")
+    lr = 3e-4
+    worst = {}
+    for arch, layers, b, seq in P22_STEP_CASES:
+        t0 = time.perf_counter()
+        cfg = cut_config(arch, layers)
+        shape = dataclasses.replace(train_shape(), global_batch=b,
+                                    n_micro=1, seq_len=seq)
+        ec = shape_exec_config(cfg, shape, use_kernels=True, device="cuda")
+        batch = p22_batch(cfg, b, seq)
+        finite_only = cfg.ssm.enabled
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(3)
+            params = model_lib.init_params(cfg, gen, dtype=dt, device=dev)
+            names = list(_leaf_names(params))
+            tape = {"idx": [], "flips": 0}
+            with same_routing(tape, replay=False):
+                kernel = _step_parts(cfg, shape, ec, params, batch)
+            if dt == torch.float32:
+                # the first step's float32 trees wait on the host, so the
+                # second step fits beside the params (recurrentgemma-9b at
+                # 3 layers: 1.75 B parameters)
+                kernel = _host_parts(kernel)
+            with same_routing(tape, replay=True):
+                plain = _step_parts(cfg, shape, None, params, batch)
+            label = (f"{arch} at {cfg.n_layers} layers, {b} x {seq}, "
+                     f"{str(dt)[6:]}")
+            if cfg.moe.enabled:
+                label += (f" (plain routed as the kernels; it would route "
+                          f"{tape['flips']} of {len(tape['idx']) * b * seq}"
+                          f" token choices otherwise)")
+            worst[(arch, str(dt))] = compare_steps(
+                label, kernel, plain, params, names, lr, report,
+                finite_only=finite_only)
+            del plain, kernel, tape
+            if cfg.moe.enabled and dt == torch.bfloat16:
+                none = dataclasses.replace(shape, remat="none")
+                l0, g0, _, _ = _step_parts(cfg, none, ec, params, batch)
+                l1, g1, _, _ = _step_parts(cfg, shape, ec, params, batch)
+                need(torch.equal(l0, l1) and all(
+                    torch.equal(x, y) for x, y in
+                    zip(_leaves_of(g0), _leaves_of(g1))),
+                    f"{arch}: remat none and full differ under the kernels")
+                report(f"  {arch}: remat none == full bit for bit (loss "
+                       f"{l0.item():.6f})")
+                del g0, g1
+            del params
+            free()
+        report(f"  [{arch}: {time.perf_counter() - t0:.1f} s]")
+    return worst
+
+
+def _host_parts(parts):
+    """``_step_parts``' (loss, grads, updated params, grad norm) with the
+    two trees moved to host memory (``compare_steps`` brings each leaf
+    back beside its counterpart)."""
+    loss, grads, new, norm = parts
+
+    def host(t):
+        return ({k: host(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to("cpu"))
+    return loss, host(grads), host(new), norm
+
+
+def _leaves_of(tree):
+    from repro_torch.train.optimizer import tree_leaves
+    return tree_leaves(tree)
+
+
+def p22_full(report, card) -> dict:
+    """(d) ``P22_FULL`` at full width through the launcher's path
+    (``launch.train.make_trainer`` with the cut config, peak lr
+    ``P21_LR``, warmup 1, 4 x 4096 tokens a step in 2 microbatches, remat
+    full): 4 AdamW steps on one fixed batch, the second profiled; the loss
+    must fall by P21_MIN_FALL nats and every grad_norm be finite.  Launch
+    counts are reset just before each run and read just after; fm_output,
+    the flash forward and (with attention) ``fa_backward`` must have
+    launched.  Returns per arch the launches, ms a step, tokens/s, peak
+    GiB and busy share."""
+    import torch
+    from repro_torch.launch import train as launch
+    from repro_torch.train.optimizer import tree_leaves
+
+    out = {}
+    for arch, layers in P22_FULL:
+        cfg = cut_config(arch, layers)
+        args = launch.parse_args([
+            "--arch", arch, "--steps", str(P22_STEPS), "--batch",
+            str(P21_BATCH), "--seq", str(P21_SEQ), "--n-micro",
+            str(P21_MICRO), "--remat", "full", "--lr", str(P21_LR),
+            "--log-every", "1"])
+        t0 = time.perf_counter()
+        trainer = launch.make_trainer(args, cfg=cfg)
+        trainer.init_state()
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in tree_leaves(trainer.params))
+        batch = trainer._next_batch()
+        report(f"  {arch} at {cfg.n_layers} layers: bring-up "
+               f"({n_params / 1e9:.3f} B parameters, bf16, AdamW float32 "
+               f"moments) {time.perf_counter() - t0:.1f} s")
+        reset_launches()
+        losses, norms, times, prof, peak = fixed_batch_steps(
+            trainer, batch, P22_STEPS)
+        launches = launch_counts()
+        need(all(torch.isfinite(torch.tensor(norms))),
+             f"{arch}: grad_norm not finite: {norms}")
+        need(all(v == v for v in losses) and losses[0] - losses[-1]
+             >= P21_MIN_FALL, f"{arch}: fixed-batch loss {losses} did not "
+             f"fall by {P21_MIN_FALL}")
+        for key in ("output", "flash_attention", "flash_backward"):
+            need(launches[key] > 0, f"{arch}: {key} never launched")
+        tokens = P21_BATCH * P21_SEQ
+        steady = sorted(times[2:])
+        ms = 1e3 * steady[len(steady) // 2]
+        report(f"  {arch} at {cfg.n_layers} layers, {P21_BATCH} x {P21_SEQ}"
+               f" tokens a step in {P21_MICRO} microbatches, remat full "
+               f"({card}): fixed-batch losses {[round(x, 4) for x in losses]}"
+               f" (fell {losses[0] - losses[-1]:.4f} nats), grad_norm "
+               f"{[round(x, 4) for x in norms]}; step times "
+               f"{[round(1e3 * x, 1) for x in times]} ms; median of the "
+               f"steady steps {ms:.1f} ms, {tokens / ms * 1e3:.0f} tokens/s;"
+               f" peak {peak:.2f} GiB")
+        busy = report_step_profile(prof, times[1], ms, report)
+        report(f"  launches in the {P22_STEPS} steps: "
+               f"{ {k: v for k, v in launches.items() if v} }")
+        out[arch] = dict(launches=launches, ms=ms,
+                         tokens_per_s=tokens / ms * 1e3, peak_gib=peak,
+                         busy=busy / 1e3 / ms if busy else None,
+                         losses=losses, layers=cfg.n_layers)
+        del trainer, batch, prof
+        free()
+    return out
+
+
+def p22_rows(flash, expert, full) -> list:
+    """The ``kernels`` rows of phase 22: ``fa_backward`` at hd 256 (bf16)
+    at gemma-2b's and recurrentgemma-9b's cells, beside SDPA's backward
+    (the window as a boolean mask), and the expert backward products dX and
+    dW at experts_in (C = 961, bf16) beside ``torch.bmm``.  Launches are
+    those of the (d) runs: ``fa_backward`` calls in gemma-2b's /
+    recurrentgemma-9b's, every ``fm_output`` launch in DeepSeek-MoE-16B's
+    (the expert products at C = 961 loop the 2-D kernel per expert)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels.ref import (expert_matmul_ref,
+                                         flash_attention_backward_plain)
+
+    saved = launch_counts()
+    rows = []
+    for label, arch, name in (("causal", "gemma-2b", "flash_backward_hd256"),
+                              ("window 2048", "recurrentgemma-9b",
+                               "flash_backward_hd256_window")):
+        op = flash[label]
+        q, k, v, o, lse, do = (op[n] for n in ("q", "k", "v", "o", "lse",
+                                               "do"))
+        kw = op["kw"]
+        bh, sq, hd = q.shape
+        pairs = flash_pairs(bh, sq, k.shape[1], **kw)
+        el = q.element_size()
+        n_bytes = 5 * q.numel() * el + 3 * q.numel() * 4 + 2 * bh * sq * 4
+        b_ms, b_by = bound_ms(n_bytes, 5 * 2.0 * hd * pairs)
+
+        def call(q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw):
+            return fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+        qs, ks, vs = (t.detach()[None].requires_grad_() for t in (q, k, v))
+        try:
+            if kw["window"]:
+                pos = torch.arange(sq, device=q.device)
+                mask = ((pos[:, None] >= pos[None]) & (
+                    pos[:, None] - pos[None] < kw["window"]))
+                sdpa = F.scaled_dot_product_attention(qs, ks, vs,
+                                                      attn_mask=mask)
+            else:
+                sdpa = F.scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=True)
+
+            def library(sdpa=sdpa, qs=qs, ks=ks, vs=vs, do=do):
+                return torch.autograd.grad(sdpa, (qs, ks, vs), do[None],
+                                           retain_graph=True)
+            lib_ms = cuda_ms(library, iters=5)
+            del sdpa
+        except RuntimeError as err:      # a yardstick only
+            print(f"{name}: SDPA's backward refused ({str(err)[:160]})",
+                  file=sys.stderr)
+            lib_ms = None
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:25",
+            "note": "the gradient of _fa_kernel's function at hd 256 (no "
+                    "Pallas backward: the reference differentiates its XLA "
+                    f"twin); {arch}'s cell; launches: fa_backward calls in "
+                    f"phase 22's {arch} run",
+            "launches": full[arch]["launches"]["flash_backward"],
+            "max_abs_err": flash["err"],
+            "ms": cuda_ms(call, iters=5),
+            "plain_ms": cuda_ms(lambda q=q, k=k, v=v, o=o, lse=lse, do=do,
+                                kw=kw: flash_attention_backward_plain(
+                                    q, k, v, o, lse, do, **kw), iters=2),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "device_ms": device_ms(call, calls=3),
+            "head_dim": hd, "bh": bh, "seq": sq, **kw})
+        del qs, ks, vs
+    x, w, g = expert["x"], expert["w"], expert["g"]
+    e, c, kk = x.shape
+    n = w.shape[-1]
+    el = x.element_size()
+    xt = x.transpose(-1, -2).contiguous()
+    for label, a, b in (("dx", g, w.transpose(-1, -2)), ("dw", xt, g)):
+        m_, k_, n_ = a.shape[1], a.shape[2], b.shape[2]
+        mm_ms, by = bound_ms((a.numel() + b.numel()) * el + e * m_ * n_ * 4,
+                             2.0 * e * m_ * k_ * n_)
+
+        def kcall(a=a, b=b):
+            return fm.flex_matmul(a, b, out_dtype=torch.float32)
+        rows.append({
+            "name": f"flex_output_experts_backward_{label}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flex_matmul.cu",
+            "replaces": "src/repro/kernels/flex_matmul.py:52",
+            "launches": full[P22_MOE]["launches"]["output"],
+            "max_abs_err": expert["err"],
+            "ms": cuda_ms(kcall, iters=5),
+            "plain_ms": cuda_ms(lambda a=a, b=b: expert_matmul_ref(a, b),
+                                iters=2),
+            "bound_ms": mm_ms, "bound_by": by,
+            "library_ms": cuda_ms(lambda a=a, b=b: torch.bmm(a, b),
+                                  iters=5),
+            "device_ms": device_ms(kcall, calls=3),
+            "shape": [e, m_, k_, n_],
+            "note": f"fm_output over the experts at the backward product of "
+                    f"experts_in (E = {e}, C = {c}, K = {kk}, N = {n}; 2-D "
+                    f"launches expert by expert above 16 rows); launches: "
+                    f"every fm_output launch of phase 22's {P22_MOE} run"})
+    reset_launches(saved)
+    return rows
+
+
+def run_families_training(report, card):
+    """Phase 22: the other families train on the card (the module
+    docstring)."""
+    import torch
+
+    free()
+    t0 = time.perf_counter()
+    flash = p22_flash(report)
+    report(f"[phase 22a: {time.perf_counter() - t0:.1f} s]")
+    expert = p22_expert(report)
+    report(f"[phase 22b: {time.perf_counter() - t0:.1f} s]")
+    p22_steps(report)
+    report(f"[phase 22c: {time.perf_counter() - t0:.1f} s]")
+    full = p22_full(report, card)
+    report(f"[phase 22d: {time.perf_counter() - t0:.1f} s]")
+    rows = p22_rows(flash, expert, full)
     torch.cuda.synchronize()
     return full, rows
 
@@ -5442,6 +6007,16 @@ def main() -> int:
                        launches_phase20=launches20[key],
                        launches_phase21=full21["launches"][key])
         rows += rows21
+        # phase 22: the other families train
+        full22, rows22 = run_families_training(report, card)
+        done("phase 22")
+        for row in rows:
+            key = {"flex_output": "output",
+                   "flash_attention": "flash_attention"}.get(row["name"])
+            if key is not None:
+                row["launches_phase22"] = sum(
+                    r["launches"][key] for r in full22.values())
+        rows += rows22
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)

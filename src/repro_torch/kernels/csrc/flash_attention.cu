@@ -636,11 +636,29 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o,
 // A block has 8 warps: warp w owns rows 16·(w % 4) .. + 16 of a 64-row
 // product and the column half w / 4.
 //
+// hd 256: a warp's 16 x 128 slices of both dK and dV (2 x 64 float32
+// accumulators a thread) beside S, dP and the fragments would pass the 255
+// registers a thread may hold, so ``fab_kv`` splits dK / dV into two
+// column halves of 128, one CUDA block each: a block recomputes S and dP
+// over all 256 columns and sums only its half, which makes its accumulators
+// those of the hd-128 instance (two more 64 x 64 x 256 products per live
+// pair).  ``fab_q`` keeps dQ whole (64 accumulators a thread, as
+// ``fab_kv`` at hd 128).  bf16 stages the four 64 x 256 tiles in shared
+// memory with the smaller heads' padding (154,112 bytes); float32's would
+// take 301,568, so at hd 256 the float32 blocks stage only the tiles they
+// own (k and v in ``fab_kv``, q and dO in ``fab_q``) and read the tiles
+// they walk in place from device memory (168,448 bytes).  The order of
+// every sum is that of the smaller heads; hd 64 and 128 compile to the
+// code they had (one column part, every tile staged).
+//
 // What bounds it on the H100: at StableLM-1.6B's training cell (BH 64,
 // S 4096, hd 64, causal) the seven products over the ~64·4096²/2 live pairs
 // are 7·2·64·8.4e6·64 = 4.8e11 FLOPs, 0.49 ms at 989 TFLOP/s (the five that
 // the gradient needs: 0.35 ms); the bytes (q, k, v, o, dO in, dQ, dK, dV
-// out in float32, lse, D) ~0.23 GB, 0.07 ms: bound by operations.
+// out in float32, lse, D) ~0.23 GB, 0.07 ms: bound by operations.  At hd
+// 256 the five products are 0.35 ms at Gemma-2B's cell (BH 16, S 4096,
+// causal) and 0.52 ms at RecurrentGemma-9B's (BH 32, S 4096, window 2048),
+// where the split dK / dV makes the kernels do nine.
 
 namespace fab {
 
@@ -652,11 +670,25 @@ constexpr int kThreads = 256;      // 8 warps
 template <typename T>
 constexpr int kPad = sizeof(T) == 2 ? 8 : 4;   // row padding, elements
 
-// smem: k, v, q, dO tiles [64][HD + pad], then P and dS [64][64 + pad] in T,
-// then lse and D of the q tile (float)
+// column parts of dK / dV, one CUDA block of ``fab_kv`` each
+template <int HD>
+constexpr int kParts = HD > 128 ? 2 : 1;
+
+// float32 at hd 256: the walked tiles are read in place from device memory
+template <typename T, int HD>
+constexpr bool kWalkInPlace = sizeof(T) == 4 && HD > 128;
+
+// elements of a staged walked tile (none when read in place)
+template <typename T, int HD>
+constexpr int kWalkTile = kWalkInPlace<T, HD> ? 0 : kB * (HD + kPad<T>);
+
+// smem: the owned and the walked pairs of tiles [64][HD + pad] (fab_kv: k,
+// v, then q, dO; fab_q: k, v, then q, dO, k and v being the walked ones),
+// then P and dS [64][64 + pad] in T, then lse and D of the q tile (float)
 template <typename T, int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * ((size_t)4 * kB * (HD + kPad<T>) +
+  return sizeof(T) * ((size_t)2 * kB * (HD + kPad<T>) +
+                      (size_t)2 * kWalkTile<T, HD> +
                       (size_t)2 * kB * (kB + kPad<T>)) +
          2 * kB * sizeof(float);
 }
@@ -779,16 +811,16 @@ __device__ __forceinline__ void softmax_grad(float (&s)[4][4],
     }
 }
 
-// this warp's slice of a 64 x HD float32 result (times ``mul``) into rows
-// [0, 64) of a row-major (., HD) output
-template <int HD>
-__device__ __forceinline__ void store(float* out, const float (&acc)[HD / 16][4],
+// this warp's slice of a 64 x N float32 result (times ``mul``) into rows
+// [0, 64) and columns [0, N) of a row-major (., HD) output
+template <int N, int HD>
+__device__ __forceinline__ void store(float* out, const float (&acc)[N / 16][4],
                                       float mul) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = (warp & 3) * 16 + (lane >> 2);
-  const int c0 = (warp >> 2) * (HD / 2) + 2 * (lane & 3);
+  const int c0 = (warp >> 2) * (N / 2) + 2 * (lane & 3);
 #pragma unroll
-  for (int j = 0; j < HD / 16; ++j)
+  for (int j = 0; j < N / 16; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       out[(size_t)(r + (e >> 1) * 8) * HD + c0 + j * 8 + (e & 1)] =
@@ -812,8 +844,9 @@ fab_dot_kernel(const T* __restrict__ O, const T* __restrict__ dO,
   if (lane == 0) D[row] = s;
 }
 
-// Block b: kv tile b / nbh (ascending: the longest causal q ranges first)
-// of head b % nbh.
+// Block b: column part b % kParts of kv tile (b / kParts) / nbh
+// (ascending: the longest causal q ranges first) of head (b / kParts) %
+// nbh.
 template <typename T, int HD>
 __device__ __forceinline__ void
 fab_kv(const T* __restrict__ Q, const T* __restrict__ K,
@@ -822,21 +855,25 @@ fab_kv(const T* __restrict__ Q, const T* __restrict__ K,
        float* __restrict__ dK, float* __restrict__ dV, int nbh, int sq,
        int skv, int causal, int window, float scale) {
   constexpr int LD = HD + kPad<T>, LP = kB + kPad<T>;
+  constexpr int HP = HD / kParts<HD>;            // dK / dV columns summed
+  constexpr bool kInPlace = kWalkInPlace<T, HD>;
+  constexpr int LW = kInPlace ? HD : LD;         // the walked rows' stride
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
   T* vs = ks + kB * LD;
   T* qs = vs + kB * LD;
-  T* dos = qs + kB * LD;
-  T* ps = dos + kB * LD;
+  T* dos = qs + kWalkTile<T, HD>;
+  T* ps = dos + kWalkTile<T, HD>;
   T* dss = ps + kB * LP;
   float* ls = reinterpret_cast<float*>(dss + kB * LP);
   float* dl = ls + kB;
 
-  const int bh = blockIdx.x % nbh, k_lo = (blockIdx.x / nbh) * kB;
+  const int part = blockIdx.x % kParts<HD>, b = blockIdx.x / kParts<HD>;
+  const int bh = b % nbh, k_lo = (b / nbh) * kB;
   const int offset = skv - sq;
   load_tile<T, HD>(ks, K + ((size_t)bh * skv + k_lo) * HD);
   load_tile<T, HD>(vs, V + ((size_t)bh * skv + k_lo) * HD);
-  float dk[HD / 16][4], dv[HD / 16][4];
+  float dk[HP / 16][4], dv[HP / 16][4];
   zero(dk);
   zero(dv);
   for (int qi = 0; qi < sq / kB; ++qi) {
@@ -844,8 +881,15 @@ fab_kv(const T* __restrict__ Q, const T* __restrict__ K,
     if (!live(q_lo, k_lo, causal, window)) continue;
     __syncthreads();               // the last tile's readers are done
     const size_t row0 = (size_t)bh * sq + qi * kB;
-    load_tile<T, HD>(qs, Q + row0 * HD);
-    load_tile<T, HD>(dos, dO + row0 * HD);
+    const T* qt = qs;
+    const T* dot = dos;
+    if constexpr (kInPlace) {
+      qt = Q + row0 * HD;
+      dot = dO + row0 * HD;
+    } else {
+      load_tile<T, HD>(qs, Q + row0 * HD);
+      load_tile<T, HD>(dos, dO + row0 * HD);
+    }
     if (threadIdx.x < kB) {
       ls[threadIdx.x] = LSE[row0 + threadIdx.x];
       dl[threadIdx.x] = D[row0 + threadIdx.x];
@@ -854,16 +898,17 @@ fab_kv(const T* __restrict__ Q, const T* __restrict__ K,
     float s[4][4], dp[4][4];
     zero(s);
     zero(dp);
-    warp_mm<kB, HD, false, true>(s, qs, LD, ks, LD);     // Q·Kᵀ
-    warp_mm<kB, HD, false, true>(dp, dos, LD, vs, LD);   // dO·Vᵀ
+    warp_mm<kB, HD, false, true>(s, qt, LW, ks, LD);     // Q·Kᵀ
+    warp_mm<kB, HD, false, true>(dp, dot, LW, vs, LD);   // dO·Vᵀ
     softmax_grad<T>(s, dp, ps, dss, ls, dl, q_lo, k_lo, causal, window,
                     scale);
     __syncthreads();
-    warp_mm<HD, kB, true, false>(dv, ps, LP, dos, LD);   // Pᵀ·dO
-    warp_mm<HD, kB, true, false>(dk, dss, LP, qs, LD);   // dSᵀ·Q
+    warp_mm<HP, kB, true, false>(dv, ps, LP, dot + part * HP, LW);  // Pᵀ·dO
+    warp_mm<HP, kB, true, false>(dk, dss, LP, qt + part * HP, LW);  // dSᵀ·Q
   }
-  store<HD>(dK + ((size_t)bh * skv + k_lo) * HD, dk, scale);
-  store<HD>(dV + ((size_t)bh * skv + k_lo) * HD, dv, 1.f);
+  const size_t out0 = ((size_t)bh * skv + k_lo) * HD + part * HP;
+  store<HP, HD>(dK + out0, dk, scale);
+  store<HP, HD>(dV + out0, dv, 1.f);
 }
 
 // Block b: q tile nq − 1 − b / nbh (the longest causal kv ranges first) of
@@ -876,10 +921,12 @@ fab_q(const T* __restrict__ Q, const T* __restrict__ K,
       float* __restrict__ dQ, int nbh, int sq, int skv, int causal,
       int window, float scale) {
   constexpr int LD = HD + kPad<T>, LP = kB + kPad<T>;
+  constexpr bool kInPlace = kWalkInPlace<T, HD>;
+  constexpr int LW = kInPlace ? HD : LD;         // the walked rows' stride
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kB * LD;
-  T* qs = vs + kB * LD;
+  T* vs = ks + kWalkTile<T, HD>;
+  T* qs = vs + kWalkTile<T, HD>;
   T* dos = qs + kB * LD;
   T* dss = dos + kB * LD + kB * LP;
   float* ls = reinterpret_cast<float*>(dss + kB * LP);
@@ -901,20 +948,27 @@ fab_q(const T* __restrict__ Q, const T* __restrict__ K,
     const int k_lo = ki * kB;
     if (!live(q_lo, k_lo, causal, window)) continue;
     __syncthreads();               // the last tile's readers are done
-    load_tile<T, HD>(ks, K + ((size_t)bh * skv + k_lo) * HD);
-    load_tile<T, HD>(vs, V + ((size_t)bh * skv + k_lo) * HD);
+    const T* kt = ks;
+    const T* vt = vs;
+    if constexpr (kInPlace) {
+      kt = K + ((size_t)bh * skv + k_lo) * HD;
+      vt = V + ((size_t)bh * skv + k_lo) * HD;
+    } else {
+      load_tile<T, HD>(ks, K + ((size_t)bh * skv + k_lo) * HD);
+      load_tile<T, HD>(vs, V + ((size_t)bh * skv + k_lo) * HD);
+    }
     __syncthreads();
     float s[4][4], dp[4][4];
     zero(s);
     zero(dp);
-    warp_mm<kB, HD, false, true>(s, qs, LD, ks, LD);     // Q·Kᵀ
-    warp_mm<kB, HD, false, true>(dp, dos, LD, vs, LD);   // dO·Vᵀ
+    warp_mm<kB, HD, false, true>(s, qs, LD, kt, LW);     // Q·Kᵀ
+    warp_mm<kB, HD, false, true>(dp, dos, LD, vt, LW);   // dO·Vᵀ
     softmax_grad<T>(s, dp, nullptr, dss, ls, dl, q_lo, k_lo, causal, window,
                     scale);
     __syncthreads();
-    warp_mm<HD, kB, false, false>(dq, dss, LP, ks, LD);  // dS·K
+    warp_mm<HD, kB, false, false>(dq, dss, LP, kt, LW);  // dS·K
   }
-  store<HD>(dQ + row0 * HD, dq, scale);
+  store<HD, HD>(dQ + row0 * HD, dq, scale);
 }
 
 // the kernels: float32 (scalar) and bf16 (``*_mma``, mma.sync)
@@ -977,7 +1031,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   auto run = [&](auto kv, auto qk) -> int {
     int err;
     if ((err = set_smem(kv, smem))) return err;
-    kv<<<(unsigned)bh * (skv / kB), kThreads, smem, stream>>>(
+    kv<<<(unsigned)bh * (skv / kB) * kParts<HD>, kThreads, smem, stream>>>(
         Q, K, V, dO, lse, dsum, dk, dv, bh, sq, skv, causal, window, scale);
     if ((err = (int)cudaGetLastError())) return err;
     if ((err = set_smem(qk, smem))) return err;
@@ -1020,8 +1074,8 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v,
 // contiguous, all of ``dtype`` (float32 or bfloat16), lse (bh, sq) float32
 // from fa_forward; writes the float32 workspace dsum (bh, sq) = rowsum(dO∘O)
 // and dq (bh, sq, hd), dk and dv (bh, skv, hd) in float32.  sq and skv
-// multiples of 64, sq <= skv; hd 64 or 128.  Three kernels on ``stream``;
-// returns the first cudaError_t.
+// multiples of 64, sq <= skv; hd 64, 128 or 256.  Three kernels on
+// ``stream``; returns the first cudaError_t.
 extern "C" int fa_backward(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const void* lse,
                            void* dsum, void* dq, void* dk, void* dv, int bh,
@@ -1041,7 +1095,9 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v,
   if (dtype == rt::kF32 && hd == 64) FAB_CASE(float, 64)
   if (dtype == rt::kF32 && hd == 128) FAB_CASE(float, 128)
   if (dtype == rt::kBF16 && hd == 64) FAB_CASE(__nv_bfloat16, 64)
+  if (dtype == rt::kF32 && hd == 256) FAB_CASE(float, 256)
   if (dtype == rt::kBF16 && hd == 128) FAB_CASE(__nv_bfloat16, 128)
+  if (dtype == rt::kBF16 && hd == 256) FAB_CASE(__nv_bfloat16, 256)
 #undef FAB_CASE
   return (int)cudaErrorInvalidValue;
 }

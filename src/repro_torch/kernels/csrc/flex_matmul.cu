@@ -473,10 +473,11 @@ int dispatch_mma(const void* a, const void* b, float* out, float* ws, int m,
 // ``output_grid``: ``rows`` and ``seg``, and ``ws`` the (segments, m, n)
 // float32 partials when there is more than one segment.  ``experts``
 // products of one shape (the dense MoE expert contraction, bf16, skinny
-// regime, B row-major) run in one launch, the grid's y axis over the
-// experts (expert e's A ``ea`` and B ``eb`` elements after expert e-1's,
-// outputs and partials following each other), each equal to its own
-// launch bit for bit; a single product passes ``experts`` 1.
+// regime, B row-major or, under ``b_trans``, each expert's B the
+// transpose of a row-major (n, k) matrix) run in one launch, the grid's y
+// axis over the experts (expert e's A ``ea`` and B ``eb`` elements after
+// expert e-1's, outputs and partials following each other), each equal to
+// its own launch bit for bit; a single product passes ``experts`` 1.
 extern "C" int fm_output(const void* a, const void* b, void* out, float* ws,
                          int m, int n, int k, int lda, int ldb, int bm, int bn,
                          int bk, int rows, int seg, int b_trans, int in_dtype,

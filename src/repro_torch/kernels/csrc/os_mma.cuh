@@ -805,16 +805,17 @@ int launch_typed(const OsArgs& p, cudaStream_t s) {
 // int8 payload (``p.scale`` its column scales; row-major only).  Operands
 // need 16-byte aligned bases and row strides (TMA's and cp.async's unit).
 // ``p.experts`` > 1 batches that many products of the skinny regime (B
-// row-major; every expert's operands 16-byte aligned, lists and scales
-// non-null as for one).  Refuses anything else.
+// row-major, or each expert's B the transpose of a row-major (n, k) matrix
+// (``b_trans``: the backward's Wᵀ); every expert's operands 16-byte
+// aligned, lists and scales non-null as for one).  Refuses anything else.
 template <bool kSparse, typename TB = bf16>
 int launch(const OsArgs& p, int b_trans, int out_dtype, cudaStream_t s) {
   if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.bm <= 0 || p.bn <= 0 ||
       p.bk <= 0 || p.experts <= 0 || p.experts > 65535)
     return (int)cudaErrorInvalidValue;
   if (p.experts > 1 &&
-      (p.rows != kSkinnyRows || b_trans || p.ea < (long long)p.m * p.lda ||
-       p.eb < (long long)p.k * p.ldb || (p.ea * 2) % 16 ||
+      (p.rows != kSkinnyRows || p.ea < (long long)p.m * p.lda ||
+       p.eb < (long long)(b_trans ? p.n : p.k) * p.ldb || (p.ea * 2) % 16 ||
        (p.eb * (long long)sizeof(TB)) % 16 ||
        (kSparse && (p.ekidx <= 0 || p.ekcnt <= 0))))
     return (int)cudaErrorInvalidValue;

@@ -20,7 +20,8 @@ The gradient (``flash_attention_backward``, the C entry ``fa_backward``)
 has no Pallas counterpart: the reference differentiates its XLA twin.  It
 reads the forward's row log-sum-exp (``return_lse=True``) and runs three
 kernels without atomics (csrc/flash_attention.cu), so two runs give the
-same bits; head dims 64 and 128 only (hd 256 is queued).  CPU tensors take
+same bits; head dims 64, 128 and 256 (at 256 the dK / dV pass runs each
+kv tile as two blocks of 128 columns).  CPU tensors take
 ``ref.flash_attention_backward_plain``.
 """
 from __future__ import annotations
@@ -33,7 +34,7 @@ from repro_torch.kernels.ref import (flash_attention_backward_plain,
 
 BQ = BKV = 64                      # the kernel's q and kv block rows
 HEAD_DIMS = (32, 64, 128, 256)
-BACKWARD_HEAD_DIMS = (64, 128)
+BACKWARD_HEAD_DIMS = (64, 128, 256)
 
 # launches of the CUDA kernels (bumped only where they are launched):
 # ``flash_backward`` counts calls of ``fa_backward``, each three kernels

@@ -389,7 +389,10 @@ def flex_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule=None,
     output-stationary product of at most ``OS_SKINNY_ROWS`` rows is one
     launch over every expert, each expert bit-equal to its own launch;
     other stationarities, float32 and more rows launch the 2-D kernels
-    expert by expert.  CPU tensors take the plain version."""
+    expert by expert.  ``b`` may be the transposed view of a row-major
+    (E, N, K) stack (the backward's Wᵀ), which either reads in place; on
+    CUDA a B that is neither is refused (``build.b_layout``).  CPU tensors
+    take the plain version."""
     if schedule is None:
         stationarity, (bm, bn, bk) = "output", DEFAULT_BLOCKS
     else:

@@ -52,22 +52,25 @@ counters are read only by ``SparsityStatsCollector.densities`` — recording
 adds no host sync to a step.
 
 Gradients.  Under autograd (grad mode on and an operand that requires
-grad) the dense route (4 or 5) and the flash branch run as
+grad) the dense route (4 or 5) of ``flex_matmul`` and of
+``flex_expert_matmul`` and the flash branch run as
 ``torch.autograd.Function``s: the forward is the same call as without
-grad; the backward of a matmul is dX = dY·Wᵀ and dW = Xᵀ·dY through the
-same route (the schedule-flexible kernel at the site's schedule, Wᵀ read in
-place as the transposed view of the row-major weight, Xᵀ copied row-major;
-or the plain float32-accumulated product), and the flash branch's is
-``fa_backward`` (or its plain version), both counted in the wrappers'
-``LAUNCHES``.  Each Function keeps the route it took in its context, so its
-backward, which PyTorch may run on another thread, does not read the
+grad; the backward of a matmul is dX = dY·Wᵀ and dW = Xᵀ·dY (per expert
+over a leading expert axis) through the same route (the schedule-flexible
+kernel at the site's schedule, Wᵀ read in place as the transposed view of
+the row-major weight, Xᵀ copied row-major; or the plain float32-accumulated
+product), and the flash branch's is ``fa_backward`` (or its plain
+version), both counted in the wrappers' ``LAUNCHES``.  Operands of two
+dtypes meet in the promoted one, as without grad, and the casts carry the
+gradients back.  Each Function keeps the route it took in its context, so
+its backward, which PyTorch may run on another thread, does not read the
 thread-local config.  Routes with no backward raise
 ``NotImplementedError`` naming the site: a ``PlannedWeight``, a
-``weight`` / ``two_sided`` descriptor, an int8 leaf and
-``flex_expert_matmul``; so does the flash kernel at a head dim
-``fa_backward`` does not take.  ``DotsTape`` (``recording`` /
-``replaying``) is how ``remat="dots"`` keeps the matmul and flash outputs
-of a layer's forward and hands them back, in order, to its recomputation.
+``weight`` / ``two_sided`` descriptor and an int8 leaf, in both entry
+points; so does the flash kernel at a head dim ``fa_backward`` does not
+take.  ``DotsTape`` (``recording`` / ``replaying``) is how
+``remat="dots"`` keeps the matmul and flash outputs of a layer's forward
+and hands them back, in order, to its recomputation.
 
 ``decode_rows`` cuts every site's rows into chunks of at most
 ``flex_matmul.OS_SKINNY_ROWS``: a speculative verify window scores B·(k+1)
@@ -241,9 +244,11 @@ def site_sparsity_mode(site: str) -> str:
     return desc.sparsity_mode
 
 
-def _common_dtype(x: torch.Tensor, w: torch.Tensor):
-    """Both operands in one dtype: a bf16 activation meets the float32
-    weight of a quantized plan's dense fallback in float32."""
+def common_dtype(x: torch.Tensor, w: torch.Tensor):
+    """Both operands in their promoted dtype, as a jnp product of two
+    dtypes computes: a bf16 activation meets the float32 weight of a
+    quantized plan's dense fallback in float32, a float32 activation (an
+    encoder over float32 frames) bf16 weights in float32."""
     if x.dtype == w.dtype:
         return x, w
     dt = torch.promote_types(x.dtype, w.dtype)
@@ -443,17 +448,19 @@ def _no_backward(site: str, route: str):
 
 def _dense_product(x2: torch.Tensor, w: torch.Tensor, sched,
                    kernels: bool) -> torch.Tensor:
-    """(M, K) @ (K, N) → float32 through the dense route: the
-    schedule-flexible kernel under ``sched``, or the plain product."""
+    """(M, K) @ (K, N), or (E, M, K) @ (E, K, N), → float32 through the
+    dense route: the schedule-flexible kernel under ``sched``, or the plain
+    product."""
     if kernels:
-        return fm.flex_matmul(*_common_dtype(x2, w), schedule=sched,
+        return fm.flex_matmul(*common_dtype(x2, w), schedule=sched,
                               out_dtype=torch.float32)
     return torch.matmul(x2.float(), w.float())
 
 
 class _DenseMatmul(torch.autograd.Function):
-    """x2 (M, K) @ w (K, N) → float32 (M, N) on the dense route, with dX and
-    dW through the same route (module docstring).  ``saved``: the output a
+    """x2 (M, K) @ w (K, N) → float32 (M, N) on the dense route, or x2
+    (E, C, K) @ w (E, K, N) → (E, C, N) over the experts, with dX and dW
+    through the same route (module docstring).  ``saved``: the output a
     ``remat="dots"`` recomputation is handed back."""
 
     @staticmethod
@@ -469,19 +476,20 @@ class _DenseMatmul(torch.autograd.Function):
         x2, w = ctx.saved_tensors
         dx = dw = None
         if ctx.kernels:
-            gk = g.to(x2.dtype)
+            gk = g.to(x2.dtype).contiguous()
             if ctx.needs_input_grad[0]:
-                dx = fm.flex_matmul(gk, w.t(), schedule=ctx.sched,
+                dx = fm.flex_matmul(gk, w.transpose(-1, -2),
+                                    schedule=ctx.sched,
                                     out_dtype=torch.float32)
             if ctx.needs_input_grad[1]:
-                dw = fm.flex_matmul(x2.t().contiguous(), gk,
+                dw = fm.flex_matmul(x2.transpose(-1, -2).contiguous(), gk,
                                     schedule=ctx.sched,
                                     out_dtype=torch.float32)
         else:
             if ctx.needs_input_grad[0]:
-                dx = torch.matmul(g, w.float().t())
+                dx = torch.matmul(g, w.float().transpose(-1, -2))
             if ctx.needs_input_grad[1]:
-                dw = torch.matmul(x2.float().t(), g)
+                dw = torch.matmul(x2.float().transpose(-1, -2), g)
         return (None if dx is None else dx.to(x2.dtype),
                 None if dw is None else dw.to(w.dtype), None, None, None)
 
@@ -489,16 +497,16 @@ class _DenseMatmul(torch.autograd.Function):
 def _dense_site(x: torch.Tensor, w: torch.Tensor, site: str,
                 cfg: ExecConfig) -> torch.Tensor:
     """Routes 4 and 5 under autograd or a dots tape: ``_DenseMatmul`` over
-    the flattened rows, in x's dtype."""
-    if x.dtype != w.dtype:
-        raise TypeError(f"{site}: operands {x.dtype} and {w.dtype} differ; "
-                        f"the dense route's backward takes one dtype")
+    the flattened rows (a 2-D ``w``) or over the experts (a 3-D one), in
+    x's dtype; operands of two dtypes meet in the promoted one."""
+    dtype = x.dtype
+    x, w = common_dtype(x, w)
     sched = site_schedule(site) if cfg.use_kernels else None
-    x2 = x.reshape(-1, x.shape[-1])
+    x2 = x.reshape(-1, x.shape[-1]) if w.dim() == 2 else x
     out = _DenseMatmul.apply(x2.contiguous() if cfg.use_kernels else x2, w,
                              sched, cfg.use_kernels, _tape_saved())
     _tape_record(out.detach())
-    return out.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+    return out.reshape(*x.shape[:-1], w.shape[-1]).to(dtype)
 
 
 def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
@@ -545,7 +553,7 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
             out = _sparse_site_matmul(x2, w, desc.sparsity_mode,
                                       desc.schedule, site)
         else:
-            out = fm.flex_matmul(*_common_dtype(x2, w),
+            out = fm.flex_matmul(*common_dtype(x2, w),
                                  schedule=site_schedule(site),
                                  out_dtype=torch.float32)
         return out.reshape(*lead, w.shape[-1]).to(x.dtype)
@@ -570,30 +578,38 @@ def flex_expert_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
     ``x`` is the capacity-padded dispatch buffer: rows no token was routed
     to are zero, so under two-sided sparsity their activation blocks are
     dead and skipped; the recorded popcounts fold routing occupancy into
-    the activation density, as the reference's do.  No route has a
-    backward: under autograd it raises."""
-    if _needs_grad(x, w):
-        raise _no_backward(site, "flex_expert_matmul")
+    the activation density, as the reference's do.  Under autograd (or a
+    dots tape) route 4 (and the plain product) runs as ``_DenseMatmul``
+    over the experts; routes 1–3 raise ``NotImplementedError``."""
     cfg = _cfg()
+    grad = _needs_grad(x, w)
     if isinstance(w, PlannedWeight):
         if w.w.dim() != 3 or x.dim() != 3 or x.shape[0] != w.w.shape[0]:
             raise ValueError(f"{w.site}: expert operands {tuple(x.shape)} "
                              f"@ {tuple(w.w.shape)}")
         if cfg.sparse_dispatch:
+            if grad:
+                raise _no_backward(site, "a planned expert weight")
             return _planned_matmul(x.contiguous(), w).to(x.dtype)
         w = w.w_kn                     # plan disabled → dense fallback
     if isinstance(w, QuantizedLinear):
+        if grad:
+            raise _no_backward(site, "an int8 expert weight")
         w = dequantize_leaf(w, x.dtype)
     if w.dim() != 3 or x.dim() != 3 or x.shape[0] != w.shape[0]:
         raise ValueError(f"{site}: expert operands {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
     desc = _site_descriptor(site, cfg) if cfg.sparse_dispatch else None
     if desc is not None and desc.sparsity_mode in ("weight", "two_sided"):
+        if grad:
+            raise _no_backward(site, f"a {desc.sparsity_mode} descriptor")
         return _sparse_site_matmul(x.contiguous(), w, desc.sparsity_mode,
                                    desc.schedule, site).to(x.dtype)
+    if grad or getattr(_state, "tape", None) is not None:
+        return _dense_site(x, w, site, cfg)
     if cfg.use_kernels:
         return fm.flex_matmul(
-            *_common_dtype(x.contiguous(), w), schedule=site_schedule(site),
+            *common_dtype(x.contiguous(), w), schedule=site_schedule(site),
             out_dtype=torch.float32).to(x.dtype)
     return _plain_matmul(x, w)
 

@@ -5,13 +5,15 @@
         --batch 4 --seq 4096 --n-micro 2 --remat full
 
 ``--smoke`` selects the reduced config of the same family (CPU-scale; with
-``--device cpu``).  On CUDA the parameters are bf16 and every matmul site
+``--device cpu``).  Every ported family trains: dense, MoE, Griffin, SSM
+and the Whisper encoder-decoder (its ``frames`` are the pipeline's stub
+frontend inputs).  On CUDA the parameters are bf16 and every matmul site
 and the flash branch run the hand-written kernels, forward and backward,
 under the descriptor table compiled for the train shape (M = batch · seq,
 the H100 selector); on the CPU the parameters are float32 and the plain
 path runs, as in the reference.  The trainer provides auto-resume, atomic
 keep-k checkpoints and the step watchdog (``train.trainer``).
-``--model-shards`` above 1 waits for distribution (ROADMAP A5).
+``--model-shards`` above 1 waits for distribution (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -41,8 +43,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def make_trainer(args: argparse.Namespace):
-    """The ``Trainer`` the command line describes (not yet run)."""
+def make_trainer(args: argparse.Namespace, cfg=None):
+    """The ``Trainer`` the command line describes (not yet run); ``cfg``,
+    when given, is trained in place of the config ``--arch`` names (the
+    same model at a cut depth, say)."""
     import torch
 
     from repro_torch.configs.base import (ShapeConfig, get_config,
@@ -56,9 +60,11 @@ def make_trainer(args: argparse.Namespace):
     if args.model_shards > 1:
         raise NotImplementedError(
             "--model-shards > 1: tensor parallelism waits for distribution "
-            "(ROADMAP A5)")
+            "(ROADMAP A4)")
     dev = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = (get_smoke_config(args.arch) if args.smoke
+               else get_config(args.arch))
     shape = ShapeConfig(name="cli", kind="train", seq_len=args.seq,
                         global_batch=args.batch, n_micro=args.n_micro,
                         remat=args.remat, loss_chunk=min(128, args.seq),

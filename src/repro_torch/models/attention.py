@@ -52,13 +52,16 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor]) -> torch.Tensor:
     """q (B,Sq,KVH,G,hd), k/v (B,Skv,KVH,hd), mask broadcastable to
     (B,KVH,G,Sq,Skv) bool.  Masked scores are -1e30 (not -inf); the
-    softmax runs in float32 and is cast back to q's dtype."""
+    softmax runs in float32 and is cast back to q's dtype.  Operands of
+    two dtypes (a bf16 decoder's queries on a float32 encoder memory) meet
+    in the promoted one, as ``jnp.einsum``'s do."""
     hd = q.shape[-1]
-    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float() * (hd ** -0.5)
+    scores = torch.einsum("bqkgh,bskh->bkgqs",
+                          *ops.common_dtype(q, k)).float() * (hd ** -0.5)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    return torch.einsum("bkgqs,bskh->bqkgh", *ops.common_dtype(w, v))
 
 
 def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -134,7 +134,8 @@ def logits_head(cfg: ArchConfig, head, x: torch.Tensor) -> torch.Tensor:
 def _xent_chunk(xc: torch.Tensor, head: torch.Tensor,
                 lc: torch.Tensor) -> torch.Tensor:
     """Σ (log-sum-exp − label logit) over one (B, C) chunk: the bare
-    product x·headᵀ in the parameters' dtype, then float32."""
+    product x·headᵀ in the operands' promoted dtype, then float32."""
+    xc, head = ops.common_dtype(xc, head)
     logits = torch.matmul(xc, head.t()).float()
     lse = torch.logsumexp(logits, dim=-1)
     lab = logits.gather(-1, lc[..., None].long())[..., 0]

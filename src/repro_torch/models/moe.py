@@ -23,8 +23,13 @@ card); ``.at[idx].set(mode="drop")`` — here a write into n_rows + 1 rows
 whose last is dropped; and the top-k combine forms its products and sums
 in float32 and rounds once, as XLA fuses it.
 
-Out of scope: the expert-parallel ``shard_map`` path and the load-balance
-loss (training).
+Under autograd (training) the expert contractions run as
+``ops.flex_expert_matmul``'s dense Function; gradients reach the router
+only through the gate values, as in the reference: the dispatch indices
+carry none.  ``load_balance_loss`` is ported as the reference has it, a
+function that its ``train_loss`` does not call (nor does the port's).
+
+Out of scope: the expert-parallel ``shard_map`` path (distribution).
 """
 from __future__ import annotations
 
@@ -263,3 +268,17 @@ def apply_moe_gshard(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                       _einsum(xt[None], _dense_w(sp["w_in"])[None])[0])
         y = y + _einsum(hs[None], _dense_w(sp["w_out"])[None])[0]
     return y.reshape(b, s, d)
+
+
+def load_balance_loss(logits: torch.Tensor,
+                      dispatch: torch.Tensor) -> torch.Tensor:
+    """Auxiliary load-balancing loss (Switch §2.2): E · Σ_e (share of the
+    dispatched (token, slot) pairs that expert e holds) · (mean router
+    probability of e).  ``logits`` (T, E), ``dispatch`` (T, E, C) as
+    ``_top_k_gating`` gives it."""
+    probs = torch.softmax(logits, dim=-1)
+    e = probs.shape[-1]
+    frac_tokens = dispatch.sum((0, 2)) / torch.clamp_min(dispatch.sum(),
+                                                         1e-9)
+    frac_probs = probs.mean(0)
+    return e * torch.sum(frac_tokens * frac_probs)

@@ -318,7 +318,7 @@ def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     ``remat`` (``none`` / ``dots`` / ``full``) wraps each layer as the
     reference's ``_remat`` does (``_remat`` here)."""
     if cfg.encoder_decoder:
-        memory = encode(p, cfg, frames, q_chunk=q_chunk)
+        memory = encode(p, cfg, frames, remat=remat, q_chunk=q_chunk)
         layer = _remat(apply_whisper_dec_layer, remat)
         for lp in layer_trees(p["decoder"], cfg.n_layers):
             x = layer(lp, cfg, x, memory=memory, positions=positions,
@@ -392,14 +392,14 @@ def encode(p: Params, cfg: ArchConfig, frames: torch.Tensor, *,
            remat: str = "none", q_chunk: int = 512) -> torch.Tensor:
     """The encoder over precomputed frame embeddings (B, S_f, D) (the
     conv front end is a stub, as in the reference) plus sinusoidal
-    positions."""
+    positions; each layer under ``remat`` as ``apply_stack``'s."""
     b, s, d = frames.shape
     x = frames + sinusoidal_positions(s, d, frames.device).to(
         frames.dtype)[None]
     positions = torch.arange(s, device=frames.device)[None].expand(b, s)
-    for i in range(cfg.n_layers):
-        x = _enc_layer(index_tree(p["encoder"], i), cfg, x, positions,
-                       q_chunk)
+    layer = _remat(_enc_layer, remat)
+    for lp in layer_trees(p["encoder"], cfg.n_layers):
+        x = layer(lp, cfg, x, positions, q_chunk)
     return x
 
 

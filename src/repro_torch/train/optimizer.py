@@ -90,8 +90,13 @@ def clip_by_global_norm(grads, max_norm: float
 
 def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
                  ) -> Tuple[Dict, OptState, Dict[str, torch.Tensor]]:
-    """One AdamW step.  Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    """One AdamW step.  Returns (new_params, new_state, metrics).  The
+    gradients are clipped as ``clip_by_global_norm`` clips them, one leaf
+    at a time inside the update, so that no clipped copy of the whole
+    tree is held beside the old and the new moments."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -99,15 +104,18 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
     bc2 = 1 - b2 ** step.float()
 
     def upd(p, g, m, v):
-        gf = g.float()
+        # the reference's arithmetic, operation for operation; the
+        # in-place steps act on fresh temporaries only, so that a large
+        # leaf (an embedding) holds few float32 copies at once
+        gf = (g * scale.to(g.dtype)).float()
         m = b1 * m + (1 - b1) * gf
         v = b2 * v + (1 - b2) * gf * gf
-        mh = m / bc1
-        vh = v / bc2
-        delta = mh / (torch.sqrt(vh) + cfg.eps)
+        del gf
+        delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
         if p.dim() >= 2:           # decay matrices only (standard practice)
-            delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+            delta.add_(p.to(torch.float32, copy=True).mul_(cfg.weight_decay))
+        new = p.to(torch.float32, copy=True).sub_(delta.mul_(lr))
+        return new.to(p.dtype), m, v
 
     out = tree_map(lambda p, g, m, v: upd(p, g, m, v), params, grads,
                    state.mu, state.nu)

@@ -97,12 +97,14 @@ def make_step_fn(cfg: ArchConfig, shape: ShapeConfig, opt_cfg: AdamWConfig):
                 for a, b in zip(grads, tree_leaves(g)):
                     a.add_(b.to(acc_dtype))
                 loss = loss + l
+                del g              # held no longer than its sums need
             grads = _unflatten(params, [g / n_micro for g in grads])
             loss = loss / n_micro
         else:
             loss, g = value_and_grad(loss_fn, params, batch)
             grads = _unflatten(params, [x.to(acc_dtype)
                                         for x in tree_leaves(g)])
+            del g
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
                                                   opt_state)
         metrics["loss"] = loss
@@ -120,6 +122,6 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig,
     the caller drops it."""
     if mesh is not None or rules is not None:
         raise NotImplementedError(
-            "the sharded train step waits for distribution (ROADMAP A5)")
+            "the sharded train step waits for distribution (ROADMAP A4)")
     del donate
     return make_step_fn(cfg, shape, opt_cfg)

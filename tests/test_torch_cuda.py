@@ -1201,7 +1201,7 @@ def test_cuda_sparse_dispatch_off_runs_fm_output(cuda):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("sq,skv,causal,window", [
     (512, 512, True, 0), (512, 512, True, 128), (256, 512, True, 0),
     (256, 512, False, 0)])
@@ -1269,3 +1269,50 @@ def test_cuda_matmul_function_grads(cuda, stationarity, k, n):
     assert (x.grad - xp.grad).abs().max().item() <= _cuda_tol(g, w.t())
     assert (w.grad - wp.grad).abs().max().item() <= _cuda_tol(
         x.detach().t(), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [2, 16, 961])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_expert_function_grads(cuda, c, dtype):
+    """The expert route under autograd at DeepSeek-MoE-16B's experts_in
+    shape (E 64 there; 4 experts here at C 961, the training capacity of
+    2 x 4096 tokens): dX and dW through ``fm_output`` over E against
+    autograd of the plain batched float32 product, float32 within
+    √K·2⁻²⁴·max(|A|@|B|) of each expert's backward product, bf16 within it
+    plus one bf16 step; at C ≤ 16 dX is one launch over the experts (Wᵀ
+    read in place) and equals per-expert launches bit for bit."""
+    from repro_torch.kernels import ops
+    e = 64 if c <= 16 else 4
+    k, n = 2048, 1408
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    x0 = torch.randn((e, c, k), generator=gen, device=cuda)
+    w0 = torch.randn((e, k, n), generator=gen, device=cuda) * k ** -0.5
+    g = torch.randn((e, c, n), generator=gen, device=cuda).to(dtype)
+    x, w = (t.to(dtype).requires_grad_() for t in (x0, w0))
+    ec = ops.ExecConfig(use_kernels=True)
+    before = dict(pt_fm.LAUNCHES)
+    with ops.exec_config(ec):
+        out = ops.flex_expert_matmul(x, w, site="moe.experts_in")
+    out.backward(g)
+    key = "output_experts" if c <= 16 and dtype == torch.bfloat16 \
+        else "output"
+    assert pt_fm.LAUNCHES[key] > before[key]
+    xp, wp = (t.detach().clone().requires_grad_() for t in (x, w))
+    torch.matmul(xp.float(), wp.float()).to(dtype).backward(g)
+    for got, want, (a, b) in ((x.grad, xp.grad, (g, w.detach().transpose(
+            -1, -2))), (w.grad, wp.grad, (x.detach().transpose(-1, -2), g))):
+        for i in range(e):
+            tol = _cuda_tol(a[i], b[i])
+            err = (got[i].float() - want[i].float()).abs()
+            if dtype == torch.bfloat16:
+                tol = tol + 2.0 ** -7 * torch.maximum(
+                    got[i].float().abs(), want[i].float().abs())
+            assert bool((err <= tol).all()), i
+    if c <= 16 and dtype == torch.bfloat16:
+        wt = w.detach().transpose(-1, -2)
+        batched = pt_fm.flex_matmul(g, wt, out_dtype=torch.float32)
+        for i in range(e):
+            assert torch.equal(batched[i], pt_fm.flex_matmul(
+                g[i], wt[i], out_dtype=torch.float32))
+

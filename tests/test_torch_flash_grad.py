@@ -29,6 +29,7 @@ CASES = [  # (bh, sq, skv, hd, causal, window)
     (2, 256, 256, 64, True, 64),
     (2, 128, 256, 64, True, 0),
     (2, 128, 256, 128, False, 0),
+    (2, 128, 256, 256, True, 64),
 ]
 
 
@@ -119,7 +120,25 @@ def test_plain_backward_is_exact_in_float64():
 
 @pytest.mark.parametrize("hd", [32, 256])
 def test_kernel_backward_head_dims_raise_under_grad(hd):
+    """hd 32 has no kernel backward and raises under grad; hd 256 has one
+    (both kernel passes take it): the kernel branch's gradient on the CPU
+    equals the plain branch's."""
     q = torch.randn(2, 64, hd, requires_grad=True)
+    if hd in pt_fa.BACKWARD_HEAD_DIMS:
+        grads = []
+        for kernels in (True, False):
+            qa = q.detach().clone().requires_grad_()
+            with pt_ops.exec_config(pt_ops.ExecConfig(use_kernels=kernels)):
+                o = pt_ops.flash_attention(qa, qa, qa, causal=True, bq=64,
+                                           bkv=64)
+            o.sum().backward()
+            grads.append(qa.grad)
+        assert torch.equal(grads[0], grads[1])
+        o, lse = pt_fa.flash_attention(q.detach(), q.detach(), q.detach(),
+                                       return_lse=True)
+        assert all(g.shape == q.shape for g in pt_fa.flash_attention_backward(
+            q.detach(), q.detach(), q.detach(), o, lse, q.detach()))
+        return
     with pt_ops.exec_config(pt_ops.ExecConfig(use_kernels=True)):
         with pytest.raises(NotImplementedError, match="head dims"):
             pt_ops.flash_attention(q, q, q, causal=True)

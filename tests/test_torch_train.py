@@ -332,9 +332,26 @@ def test_no_backward_routes_raise_under_grad():
                          scale=torch.ones(32))
     with pytest.raises(NotImplementedError, match="attn.q"):
         pt_ops.flex_matmul(x, q8, site="attn.q")
-    with pytest.raises(NotImplementedError, match="experts"):
-        pt_ops.flex_expert_matmul(torch.randn(2, 3, 64, requires_grad=True),
-                                  torch.randn(2, 64, 8), site="experts.in")
+    # the expert route: a dense expert weight has a backward (tests/
+    # test_torch_train_families.py); a planned one and a two_sided
+    # descriptor do not
+    xe = torch.randn(2, 3, 64, requires_grad=True)
+    pwe = PlannedWeight(w=torch.randn(2, 64, 8),
+                        wkidx=torch.zeros(2, 1, 1, dtype=torch.int32),
+                        wkcnt=torch.zeros(2, 1, dtype=torch.int32),
+                        b_bitmap=torch.ones(2, 1, 1, dtype=torch.bool),
+                        site="moe.experts_in")
+    with pytest.raises(NotImplementedError, match="moe.experts_in"):
+        pt_ops.flex_expert_matmul(xe, pwe, site="moe.experts_in")
+    mcfg = pt_base.get_smoke_config("deepseek-moe-16b")
+    mec = _site_table(mcfg, "output")
+    mtwo = dataclasses.replace(mec, schedules=dataclasses.replace(
+        mec.schedules, sites={s: dataclasses.replace(d, sparsity_mode=(
+            "two_sided")) for s, d in mec.schedules.sites.items()}))
+    with pt_ops.exec_config(mtwo), pytest.raises(NotImplementedError,
+                                                 match="moe.experts_gate"):
+        pt_ops.flex_expert_matmul(xe, torch.randn(2, 64, 8),
+                                  site="moe.experts_gate")
     pw = object.__new__(PlannedWeight)
     with pytest.raises(NotImplementedError, match="lm_head"):
         pt_ops.flex_matmul(x, pw, site="lm_head")
