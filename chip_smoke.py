@@ -141,8 +141,8 @@ trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
      (``serve.faults.poison_slot_state``, dense table) ends its request
      ``failed`` on a clean prefix and leaves the other streams unchanged;
      ``activation_densities`` gives every planned site a density in
-     (0, 1], and a decode block counting popcounts makes no more
-     synchronizing calls than one without (``set_sync_debug_mode``);
+     (0, 1], and a replayed decode block makes no synchronizing call,
+     counting popcounts or not (``set_sync_debug_mode``);
      ``warmup`` leaves the state bit for bit; ms per decode step async
      against sync and sampled against greedy; and, at 2 layers under a
      ``VirtualClock``, a cancel in mid-decode, a missed deadline and a
@@ -351,6 +351,30 @@ trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
      gains ``flash_backward_hd256`` / ``_hd256_window`` and
      ``flex_output_experts_backward_dx`` / ``_dw``, and the
      ``flex_output`` and ``flash_attention`` rows ``launches_phase22``.
+
+ 23. the serve executables (``serve/executables.py``: every model call of
+     the engine a replayed CUDA graph), run after phase 8 on StableLM-1.6B
+     (bf16 and int8 planned, 4 slots, blocks of 16) and inside phase 15
+     on DeepSeek-MoE-16B (bf16 planned): ``warmup`` captures every shape
+     and leaves the state bit for bit (seconds, graphs, pool bytes); from
+     4 live rows a replayed block of 16 equals ``model.decode_many`` on a
+     copy of the state (tokens, carries, every state leaf bit for bit)
+     and credits the kernels' ``LAUNCHES`` as the eager call counts them;
+     ms per decode step and tokens/s eager against replayed (each twice,
+     in turns); the busy share of a profiled replay; 0 synchronizing
+     calls per replayed block; a 21-token feed replayed as 16 + 8
+     positions equals one unpadded eager feed; ms per prompt token of
+     admitting 16, 64 and 512 tokens; phase 4's first wave on the eager
+     entry points (``eager_entries``, 16 tokens) gives phase 4's streams;
+     a planted ``.item()`` raises ``CaptureError`` at capture, and the
+     allocator releases memory after it.  Phase 13 adds run A's first 4
+     requests on the eager entry points (streams equal) and 0
+     synchronizing calls per replayed block, stats on and off; phase 14
+     the replayed greedy verify block against ``model.verify_block``
+     (state, tokens, launches) and the speculative engine's first 4
+     requests x 8 on the eager entry points.  An ``executables`` JSON
+     line holds the figures.  Phase 22's full-width runs allocate in
+     expandable segments (``expandable_segments``).
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON; the whole report
@@ -1312,6 +1336,349 @@ def time_int8_kernels(t, launches) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 23: the serve executables — every entry point of the engine a
+# replayed CUDA graph (StableLM-1.6B after phase 8, DeepSeek-MoE-16B in
+# phase 15)
+# ---------------------------------------------------------------------------
+
+P23_BLOCK = 16               # decode_block: blocks of 16, feeds of <= 16
+P23_NEW = 64                 # new tokens a request may take (stays live)
+P23_ADMIT = (16, 64, 512)    # prompt tokens of the admission timings
+P23_ADMIT_EAGER = (16,)      # ... also timed on the eager entry points
+
+
+def eager_entries(eng):
+    """``eng`` with every entry point run by its eager function: the plain
+    version of a replay.  A switch of this script's, not of the engine,
+    which has no eager path on the card."""
+    import torch
+    from repro_torch.serve.executables import Executable
+    cpu = torch.device("cpu")        # an Executable off CUDA calls fn
+
+    def entry(key, fn, warm):
+        if key not in eng._executables:
+            eng._executables[key] = Executable(key[0], key[1:], fn, warm,
+                                               cpu)
+        return eng._executables[key]
+    eng._entry = entry
+    return eng
+
+
+def p23_engine(cfg, params, exec_cfg, **kw):
+    """Phase 23's engine: 4 slots, blocks of 16, synchronous reads."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    kw.setdefault("max_seq", 96)
+    return ServeEngine(cfg, params, n_slots=N_SLOTS, dtype=torch.bfloat16,
+                       exec_cfg=exec_cfg, decode_block=P23_BLOCK,
+                       async_dispatch=False, device="cuda", **kw)
+
+
+def tree_copy(tree):
+    from repro_torch.core.sparsity import map_leaves
+    return map_leaves(lambda _, t: t.clone(), tree)
+
+
+def tree_load(dst, src) -> None:
+    from repro_torch.core.sparsity import iter_leaves
+    for (_, a), (_, b) in zip(iter_leaves(dst), iter_leaves(src)):
+        a.copy_(b)
+
+
+def same_tree(a, b) -> bool:
+    import torch
+    from repro_torch.core.sparsity import iter_leaves
+    return all(torch.equal(bits(x), bits(y)) for (_, x), (_, y) in
+               zip(iter_leaves(a), iter_leaves(b)))
+
+
+def graph_stats(eng) -> dict:
+    """Captured graphs of ``eng``: count, seconds of warm runs, captures
+    and instantiation, and the graph pool's bytes."""
+    exs = [e for e in eng._executables.values() if e.graph is not None]
+    return {"graphs": len(exs),
+            "capture_s": round(sum(e.capture_s for e in exs), 3),
+            "pool_bytes": sum(e.pool_bytes for e in exs)}
+
+
+def p23_block(eng, report, card, label, t=P23_BLOCK) -> dict:
+    """From ``eng``'s live rows, one fused block of ``t`` steps: the replay
+    against ``model.decode_many`` on a copy of the state (block, carries,
+    every state leaf bit for bit; the launches the replay credits == those
+    the eager call counts); ms per decode step eager and replayed from the
+    same state, each twice in turns; one profiled replay; synchronizing
+    calls of a replayed block launched and read by the engine.  The state
+    is put back after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as model_lib
+    live = eng._live()
+    args = (eng._to_device(eng._current_tokens(live)),
+            eng._to_device(eng._slot_positions()), eng._live_mask(live),
+            eng._to_device(eng._slot_budgets(live)))
+    tier = eng._block_tier(live)
+    ex = eng._block_exec(tier, t, False)
+    snap = tree_copy(eng.state)
+    eng._run(ex, *eng._dead_rows(False))      # captured if it was not
+
+    def eager(st):
+        with eng._scope():
+            return model_lib.decode_many(
+                eng._tier_params[tier], eng.cfg, args[0], st, args[1],
+                args[2], t, rem=args[3], eos_id=eng.eos_id,
+                nan_guard=eng.nan_guard)
+    torch.cuda.synchronize()
+    c0 = launch_counts()
+    got = eng._run(ex, *args)
+    c1 = launch_counts()
+    want_block, want_st, *want_car = eager(tree_copy(snap))
+    c2 = launch_counts()
+    torch.cuda.synchronize()
+    same_tok = all(torch.equal(a, b) for a, b in
+                   zip(got, (want_block, *want_car)))
+    same_st = same_tree(eng.state, want_st)
+    d_replay = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    d_eager = {k: c2[k] - c1[k] for k in c2 if c2[k] != c1[k]}
+    report(f"{label}: replayed block of {t} == model.decode_many on a copy "
+           f"of the state: tokens and carries {same_tok}, every state leaf "
+           f"bit for bit {same_st}; launches credited by the replay "
+           f"{d_replay} == the eager call's: {d_replay == d_eager}")
+    need(same_tok and same_st, f"{label}: the replayed block differs from "
+         f"the eager one")
+    need(d_replay == d_eager and d_replay, f"{label}: the replay credited "
+         f"{d_replay}, the eager call launched {d_eager}")
+    scratch = tree_copy(snap)
+    ms = {"eager": [], "replayed": []}
+    for mode in ("eager", "replayed", "replayed", "eager"):
+        tree_load(scratch if mode == "eager" else eng.state, snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "eager":
+            eager(scratch)
+        else:
+            eng._run(ex, *args)
+        torch.cuda.synchronize()
+        ms[mode].append(1e3 * (time.perf_counter() - t0) / t)
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    tree_load(eng.state, snap)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._run(ex, *args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n_kernels, fam = device_breakdown(prof)
+    tree_load(eng.state, snap)
+    busy_step = busy / 1e3 / t
+    share = busy_step / mean["replayed"] if busy else None
+    report(f"{label}: ms per decode step ({len(live)} live rows, blocks of "
+           f"{t}): eager {[round(x, 3) for x in ms['eager']]}, replayed "
+           f"{[round(x, 3) for x in ms['replayed']]}; means eager "
+           f"{mean['eager']:.3f}, replayed {mean['replayed']:.3f} "
+           f"({mean['eager'] / mean['replayed']:.2f}x), tokens/s eager "
+           f"{1e3 * len(live) / mean['eager']:.1f}, replayed "
+           f"{1e3 * len(live) / mean['replayed']:.1f} ({card})")
+    report(f"{label}: one profiled replayed block: device busy "
+           f"{busy / 1e3:.2f} ms over {n_kernels} kernels = {busy_step:.3f} "
+           f"ms a step, {100 * share:.1f}% of the unprofiled replay's "
+           f"{mean['replayed']:.3f} ms (under the profiler the block's wall "
+           f"was {1e3 * wall:.1f} ms: {100 * busy / 1e3 / (1e3 * wall):.1f}"
+           f"%); by family {fam} ({card})" if busy else
+           f"{label}: profiled replay recorded no device time (not "
+           f"measured)")
+    torch.cuda.synchronize()
+    sites = []
+    syncs = count_syncs(lambda: (eng._launch(live, t), eng._account_one()),
+                        sites)
+    report(f"{label}: synchronizing calls in one replayed block launched "
+           f"and read by the engine: {syncs} {sites}")
+    need(syncs == 0, f"{label}: a replayed block made {syncs} "
+         f"synchronizing calls")
+    return {"eager_ms": round(mean["eager"], 3),
+            "replayed_ms": round(mean["replayed"], 3),
+            "tokens_per_s_eager": round(1e3 * len(live) / mean["eager"], 1),
+            "tokens_per_s_replayed": round(1e3 * len(live)
+                                           / mean["replayed"], 1),
+            "busy_ms_per_step": round(busy_step, 3) if busy else None,
+            "busy_share": round(share, 4) if busy else None,
+            "kernels_per_step": n_kernels // t if busy else None}
+
+
+def p23_live(eng, prompts):
+    """Submit ``prompts`` (``P23_NEW`` new tokens each) and tick until every
+    slot decodes: admission and the first block replayed."""
+    for p in prompts:
+        eng.submit(p, max_new=P23_NEW)
+    while len(eng._live()) < len(prompts):
+        eng.decode_block_step()
+
+
+def p23_feed(eng, report, label, n_prompt=22) -> None:
+    """A free slot takes an ``n_prompt``-token prompt: its feed of
+    ``n_prompt`` - 1 tokens runs as a replay of 16 positions and one of 8
+    (5 tokens padded); the state equals one unpadded eager
+    ``prefill_into_slot`` on a copy, bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as model_lib
+    uid = eng.slots[N_SLOTS - 1].req.uid
+    eng.cancel(uid)
+    prompt = np.arange(100, 100 + n_prompt)
+    eng.submit(prompt, max_new=P23_NEW)
+    copy = tree_copy(eng.state)
+    slot_pos = eng._to_device(eng._slot_positions())
+    before = {k: e.replays for k, e in eng._executables.items()}
+    eng._admit()
+    fed = {k[1]: e.replays - before.get(k, 0)
+           for k, e in eng._executables.items()
+           if k[0] == "feed" and e.replays != before.get(k, 0)}
+    with eng._scope():
+        model_lib.prefill_into_slot(
+            eng._exec_params, eng.cfg, prompt[:-1], np.ones(n_prompt - 1,
+                                                            bool),
+            N_SLOTS - 1, copy, slot_pos, 0, True)
+    torch.cuda.synchronize()
+    same = same_tree(eng.state, copy)
+    report(f"{label}: a {n_prompt - 1}-token feed replayed as {fed} (length:"
+           f" replays) == one unpadded eager prefill_into_slot, every state "
+           f"leaf bit for bit: {same}")
+    need(same and fed == {16: 1, 8: 1}, f"{label}: the padded, split feed "
+         f"({fed}) differs from the eager feed")
+
+
+def p23_admission(cfg, params, exec_cfg, report, card) -> dict:
+    """ms per prompt token of admitting one prompt of each ``P23_ADMIT``
+    length into an engine of ``max_seq`` 640 whose feed is captured (after
+    one 16-token admission), and of ``P23_ADMIT_EAGER`` on the eager entry
+    points."""
+    import numpy as np
+    import torch
+    out = {}
+    for mode in ("replayed", "eager"):
+        eng = p23_engine(cfg, params, exec_cfg, max_seq=640)
+        if mode == "eager":
+            eager_entries(eng)
+        lens = P23_ADMIT if mode == "replayed" else P23_ADMIT_EAGER
+        for n in (16,) + lens:
+            uid = eng.submit(np.arange(7, 7 + n) % cfg.vocab, max_new=1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._admit()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            eng.cancel(uid)
+            out[(mode, n)] = 1e3 * dt / n
+        del eng
+        free()
+    ms = {f"{m} {n}": round(v, 3) for (m, n), v in out.items()}
+    report(f"admission, ms per prompt token (whole prompt, feeds of <= "
+           f"{P23_BLOCK}; the first of each mode captures or warms): {ms} "
+           f"({card})")
+    return {f"{m}_{n}": round(v, 4) for (m, n), v in out.items()}
+
+
+def p23_planted_sync(cfg, params, exec_cfg, report) -> None:
+    """The control that must fail: ``model.decode_many`` with a planted
+    ``.item()`` cannot be captured, and the engine raises ``CaptureError``
+    naming the entry point (no eager fallback)."""
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.executables import CaptureError
+    eng = p23_engine(cfg, params, exec_cfg)
+    real = model_lib.decode_many
+
+    def planted(*a, **kw):
+        out = real(*a, **kw)
+        out[0].sum().item()
+        return out
+    model_lib.decode_many = planted
+    try:
+        eng._run(eng._block_exec(0, 2, False), *eng._dead_rows(False))
+        raised = None
+    except CaptureError as err:
+        raised = str(err)
+    finally:
+        model_lib.decode_many = real
+    report(f"control: a planted .item() in decode_many raises at capture: "
+           f"{raised is not None} ({(raised or '')[:160]})")
+    need(raised is not None and "decode_many" in raised,
+         "the planted synchronizing call was captured or ran eagerly")
+    # the failed capture must leave the allocator out of capture mode
+    # (else empty_cache releases nothing and a later phase runs out of
+    # memory): a freed GiB goes back with empty_cache
+    del eng
+    free()
+    x = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    held = torch.cuda.memory_reserved()
+    del x
+    free()
+    after = torch.cuda.memory_reserved()
+    report(f"after the failed capture, a freed GiB is released: reserved "
+           f"{held / 2**30:.2f} GiB while held, {after / 2**30:.2f} after")
+    need(after < held, "a failed capture left the allocator holding freed "
+         "memory")
+
+
+def run_executables(cfg, params, planned, q8, bf16, report, card) -> dict:
+    """Phase 23 on StableLM-1.6B (24 layers, 4 slots): the bf16 planned
+    two-sided engine's warmup (every shape captured: seconds, graphs, pool
+    bytes, state bit-unchanged), block gates and times (``p23_block``), the
+    padded split feed (``p23_feed``), admission times, the first wave of
+    phase 4's prompts on the eager entry points (streams equal phase 4's
+    replayed ones), the int8 planned engine's block gates and times, and
+    the planted-sync control.  The launches of the phase are put back."""
+    import torch
+    saved = launch_counts()
+    t_phase = time.perf_counter()
+    out = {}
+    eng = p23_engine(cfg, params, planned)
+    before = tree_copy(eng.state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    stats = graph_stats(eng)
+    same = same_tree(eng.state, before)
+    report(f"bf16 planned warmup: {warm_s:.2f} s, {stats} (blocks of 1-16, "
+           f"feeds of 1-16, the step), state bit-unchanged {same} ({card})")
+    need(same, "phase 23: warmup changed the decode state")
+    out["bf16_warmup"] = dict(stats, warmup_s=round(warm_s, 3))
+    p23_live(eng, bf16["prompts"][:N_SLOTS])
+    out["bf16"] = p23_block(eng, report, card, "bf16 planned")
+    p23_feed(eng, report, "bf16 planned")
+    del eng
+    free()
+    out["admission"] = p23_admission(cfg, params, planned, report, card)
+    # the first wave of phase 4's traffic on the eager entry points, 16 of
+    # its 32 tokens
+    eng = eager_entries(make_engine(cfg, params, planned, True))
+    streams, wall, _ = drain_timed(eng, bf16["prompts"][:N_SLOTS], 16)
+    same = streams == [x[:16] for x in bf16["streams"][:N_SLOTS]]
+    report(f"phase 4's first {N_SLOTS} prompts x 16 on the eager entry "
+           f"points ({wall:.2f} s): streams == the replayed engine's: "
+           f"{same}")
+    need(same, "phase 23: eager streams differ from the replayed ones")
+    del eng
+    free()
+    eng = p23_engine(cfg, params, q8)
+    t0 = time.perf_counter()
+    p23_live(eng, bf16["prompts"][:N_SLOTS])
+    report(f"int8 planned engine: admission and the first block "
+           f"{time.perf_counter() - t0:.2f} s, {graph_stats(eng)}")
+    out["int8"] = p23_block(eng, report, card, "int8 planned")
+    out["int8_graphs"] = graph_stats(eng)
+    del eng
+    free()
+    p23_planted_sync(cfg, params, planned, report)
+    reset_launches(saved)
+    report(f"phase 23 (StableLM-1.6B) wall time: "
+           f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 9-11: long-prompt prefill at B·S = 8192
 # ---------------------------------------------------------------------------
 
@@ -2057,14 +2424,13 @@ def check_sampling(report, card) -> None:
            f"{cuda_ms(lambda: torch.argmax(args[0], dim=-1)):.3f} ms ({card})")
 
 
-def p13_decode_rate(cfg, params, exec_cfg, traffic, report, card, label,
-                    sampled, **kw) -> float:
+def p13_decode_rate(eng, traffic, report, card, label, sampled) -> float:
     """ms per decode step and tokens/s of 4 live requests (4-token prompts,
     24 new tokens) once all four stream: the blocks after every first
-    token, ticked by ``decode_block_step`` to the end."""
+    token, ticked by ``decode_block_step`` to the end.  The caller runs it
+    once first on the same engine, so its shapes are captured."""
     import torch
     from repro_torch.serve.engine import SamplingParams
-    eng = p13_engine(cfg, params, exec_cfg, **kw)
     for i, (p, _) in enumerate(traffic[:N_SLOTS]):
         eng.submit(p[:4], max_new=24,
                    sampling=SamplingParams(0.8, 40, i + 1) if sampled
@@ -2090,20 +2456,44 @@ def p13_decode_rate(cfg, params, exec_cfg, traffic, report, card, label,
     return ms
 
 
-def count_syncs(fn) -> int:
+# the warning ``set_sync_debug_mode("warn")`` gives for each synchronizing
+# call; its other warning, once a process, says the mode is a prototype
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def count_syncs(fn, sites=None) -> int:
     """Synchronizing CUDA calls made by ``fn()``, counted from the
-    warnings of ``torch.cuda.set_sync_debug_mode("warn")``."""
+    warnings of ``torch.cuda.set_sync_debug_mode("warn")`` (``SYNC_WARNING``
+    only: the mode's own first warning, which also names synchronization,
+    is not a call).  With a ``sites`` list,
+    the Python frames that made each call are appended to it (a warning is
+    raised in the calling thread, so the stack at that moment names the
+    line)."""
+    import traceback
     import warnings
     import torch
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
+    seen = []
+    shown = warnings.showwarning
+
+    def show(message, *args, **kw):
+        if SYNC_WARNING in str(message):
+            seen.append(" <- ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                for f in reversed(traceback.extract_stack()[-9:-1])
+                if f.filename != warnings.__file__))
+    with warnings.catch_warnings():
         warnings.simplefilter("always")
+        warnings.showwarning = show
         torch.cuda.set_sync_debug_mode("warn")
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+            warnings.showwarning = shown
+    if sites is not None:
+        sites.extend(seen)
+    return len(seen)
 
 
 def p13_lifecycle(cfg, params, traffic, report) -> None:
@@ -2177,9 +2567,18 @@ def run_full_engine(cfg, params, planned, dense, report, card) -> dict:
              for p, sp in traffic]
     ores = oracle.run_until_drained()
     streams_a = runs["A"][1]
+    # the first N_SLOTS requests (a stream does not depend on its
+    # batchmates)
+    eager = eager_entries(p13_engine(cfg, params, stats_ec))
+    streams_e, _, wall_e, _ = p13_serve(eager, traffic[:N_SLOTS])
+    report(f"  run A's configuration on the eager entry points, its first "
+           f"{N_SLOTS} requests: {wall_e:.2f} s")
+    del eager
     same = {"B (sync, whole)": runs["B"][1] == streams_a,
             "C (step() oracle)": [ores[u] for u in ouids] == streams_a,
-            "D (dense table)": runs["D"][1] == streams_a}
+            "D (dense table)": runs["D"][1] == streams_a,
+            "A on the eager entry points":
+                streams_e == streams_a[:N_SLOTS]}
     report(f"streams of run A (planned, async, chunked) equal: {same}")
     for what, ok in same.items():
         need(ok, f"phase 13: run A's streams differ from {what}")
@@ -2245,23 +2644,32 @@ def run_full_engine(cfg, params, planned, dense, report, card) -> dict:
             same_state = all(torch.equal(before[k].view(torch.int16),
                                          v.view(torch.int16))
                              for k, v in eng.state["layers"].items())
-            report(f"warmup: {warm_s:.2f} s (kernels built, block lengths "
-                   f"1-{P13_BLOCK} and the step with every row dead), state "
+            report(f"warmup: {warm_s:.2f} s (kernels built; blocks of "
+                   f"1-{P13_BLOCK}, feeds of 1-{P13_BLOCK} and the step "
+                   f"captured, every row dead: {graph_stats(eng)}), state "
                    f"bit-unchanged: {same_state} ({card})")
             need(same_state, "warmup changed the decode state")
-    report(f"synchronizing calls in one decode block: {syncs}")
-    need(syncs["with stats"] <= syncs["without stats"],
-         "collect_stats added a synchronizing call to a decode block")
+    report(f"synchronizing calls in one replayed decode block: {syncs}")
+    need(syncs["with stats"] == syncs["without stats"] == 0,
+         "a replayed decode block made a synchronizing call")
 
     # host-paced times spread from run to run: each mode twice, in turns
-    report("decode rate, 4 live requests (planned):")
+    report("decode rate, 4 live requests (planned; one engine a mode, its "
+           "shapes captured by a first, unreported run):")
     ms = {"greedy, async": [], "sampled, async": [], "greedy, sync": []}
+    engines = {}
     for label in ("greedy, async", "sampled, async", "greedy, sync",
                   "greedy, sync", "sampled, async", "greedy, async"):
-        ms[label].append(p13_decode_rate(
-            cfg, params, planned, traffic, report, card, label,
-            label.startswith("sampled"),
-            async_dispatch=label.endswith("async")))
+        sampled = label.startswith("sampled")
+        if label not in engines:
+            engines[label] = p13_engine(
+                cfg, params, planned, async_dispatch=label.endswith("async"))
+            p13_decode_rate(engines[label], traffic, lambda _: None, card,
+                            label, sampled)
+        ms[label].append(p13_decode_rate(engines[label], traffic, report,
+                                         card, label, sampled))
+    del engines
+    free()
     mean = {k: sum(v) / len(v) for k, v in ms.items()}
     report(f"  means: {({k: round(v, 2) for k, v in mean.items()})} ms; "
            f"async / sync {mean['greedy, async'] / mean['greedy, sync']:.3f}"
@@ -2402,6 +2810,37 @@ def p14_window(cfg, params, wo, traffic, report, card) -> dict:
     need(same_state, "gate 3: windowed and sequential states differ")
     need(all(equal) and steps_state,
          "gate 3: window logits or state differ from the decode steps")
+    # the engine's replayed verify block from the same state (phase 23)
+    ex = eng._block_exec(0, P14_K + 1, False, P14_K)
+    eng._run(ex, *eng._dead_rows(False))      # captured if it was not
+    snap = state_copy(eng)
+    before = launch_counts()
+    got = eng._run(ex, toks, pos, mask, rem)
+    credited = launch_counts()
+    with eng._scope():
+        model_lib.verify_block(full, draft, cfg, toks, state_copy(eng), pos,
+                               mask, P14_K, rem=rem, windowed=True,
+                               nan_guard=eng.nan_guard)
+    counted = launch_counts()
+    torch.cuda.synchronize()
+    same_replay = (all(torch.equal(a, b) for a, b in zip(got, (blk_w,
+                                                               *car_w)))
+                   and all(torch.equal(bits(eng.state["layers"][n]),
+                                       bits(st_w["layers"][n]))
+                           for n in ("k", "v")))
+    d_replay = {k: credited[k] - before[k] for k in before
+                if credited[k] != before[k]}
+    d_eager = {k: counted[k] - credited[k] for k in before
+               if counted[k] != credited[k]}
+    for n in ("k", "v"):
+        eng.state["layers"][n].copy_(snap["layers"][n])
+    report(f"phase 23: the replayed greedy verify block (k {P14_K}) == "
+           f"model.verify_block windowed from the same state: tokens, "
+           f"carries and state bit for bit {same_replay}; launches credited "
+           f"{d_replay} == the eager call's {d_replay == d_eager}")
+    need(same_replay, "phase 23: the replayed verify block differs")
+    need(d_replay == d_eager and d_replay,
+         "phase 23: the verify replay's launches differ from the eager ones")
 
     def profiled(fn):
         fn()
@@ -2530,12 +2969,14 @@ def p14_host(cfg, wo_cfg, params, traffic, report) -> None:
     need(same, "gate 6: warmup changed the decode state")
 
 
-def p14_rate(cfg, params, wo, traffic, report, card, label, **kw):
+def p14_rate(eng, traffic, report, card, label):
     """ms per emitted token of 4 live requests (4-token prompts, 12 new
     tokens, greedy) once all four stream, ticked by ``decode_block_step``
-    to the end.  Returns (ms per emitted token, acceptance or None)."""
+    to the end.  The caller runs it once first on the same engine, so its
+    shapes are captured.  Returns (ms per emitted token, acceptance of
+    this run or None)."""
     import torch
-    eng = p14_engine(cfg, params, wo, **kw)
+    stats0 = dict(eng.spec_stats)
     for p, _ in traffic[:N_SLOTS]:
         eng.submit(p[:4], max_new=12)
     while len(eng._live()) < N_SLOTS or any(
@@ -2552,7 +2993,9 @@ def p14_rate(cfg, params, wo, traffic, report, card, label, **kw):
     wall = time.perf_counter() - t
     n_tok = sum(len(s.req.out) for s in eng.slots) - n0
     need(n_tok == N_SLOTS * 12 - n0, f"{label}: lost tokens")
-    acc = eng.speculative_acceptance() if eng.speculate_k else None
+    drafted = eng.spec_stats["drafted"] - stats0["drafted"]
+    acc = ((eng.spec_stats["accepted"] - stats0["accepted"]) / drafted
+           if eng.speculate_k and drafted else None)
     ms = 1e3 * wall / n_tok
     report(f"  {label}: {ms:.3f} ms per emitted token ({n_tok} tokens in "
            f"{wall:.3f} s; {1e3 * wall / (n_tok / N_SLOTS):.2f} ms per "
@@ -2589,8 +3032,14 @@ def run_speculative(cfg, params, planned, dense, traffic, report,
     # 8 tokens of the others'
     s3 = p14_engine(cfg, params, wo, speculate_k=3)
     streams3, wall3 = p14_served(s3, traffic[:N_SLOTS], "k = 3", max_new=8)
+    eager4, wall_e = p14_served(eager_entries(p14_engine(
+        cfg, params, wo, speculate_k=P14_K)), traffic[:N_SLOTS],
+        "k = 4, eager", max_new=8)
     same = {"k = 0": streams0 == streams4, "step() oracle": oracle == streams4,
-            "k = 3": streams3 == [x[:8] for x in streams4[:N_SLOTS]]}
+            "k = 3": streams3 == [x[:8] for x in streams4[:N_SLOTS]],
+            f"k = 4 on the eager entry points, the first {N_SLOTS} "
+            f"requests x 8 ({wall_e:.2f} s)":
+                eager4 == [x[:8] for x in streams4[:N_SLOTS]]}
     report(f"gate 1: streams of the speculative engine (k {P14_K}, windows "
            f"of M = {N_SLOTS * (P14_K + 1)}) equal: {same}; acceptance "
            f"k 4 {s4.speculative_acceptance():.4f} {s4.spec_stats}, k 3 "
@@ -2677,12 +3126,18 @@ def run_speculative(cfg, params, planned, dense, traffic, report,
     p14_host(cfg, wo_cfg, params, traffic, report)
 
     # ms per emitted token, speculative against plain, each twice in turns
-    report("ms per emitted token, 4 live greedy requests (tiered engine):")
+    report("ms per emitted token, 4 live greedy requests (tiered engine; one "
+           "engine a mode, its shapes captured by a first, unreported "
+           "run):")
     ms = {"speculative k 4": [], "plain": []}
     accs = []
+    engines = {}
     for label in ("speculative k 4", "plain", "plain", "speculative k 4"):
-        t, a = p14_rate(cfg, params, wo, traffic, report, card, label,
-                        speculate_k=P14_K if label != "plain" else 0)
+        if label not in engines:
+            engines[label] = p14_engine(
+                cfg, params, wo, speculate_k=P14_K if label != "plain" else 0)
+            p14_rate(engines[label], traffic, lambda _: None, card, label)
+        t, a = p14_rate(engines[label], traffic, report, card, label)
         ms[label].append(t)
         if a is not None:
             accs.append(a)
@@ -2691,6 +3146,8 @@ def run_speculative(cfg, params, planned, dense, traffic, report,
            f"emitted token; speculative / plain "
            f"{mean['speculative k 4'] / mean['plain']:.3f}; acceptance "
            f"{[round(a, 4) for a in accs]}; device ms {prof}")
+    del engines
+    free()
     torch.cuda.synchronize()
     counts = launch_counts()
     launches = {k: counts[k] for k in ("block_sparse", "block_sparse_sum",
@@ -3096,9 +3553,12 @@ def p15_step_device(eng, report, step_busy_ms, label="MoE") -> None:
 
 def p15_empty_lists(eng) -> float:
     """Share of the expert kernels' tile lists that were empty (kcnt 0:
-    no live activation block met a live weight block) over one ``step()``
-    — the router acting as FlexNN's activation bitmap."""
+    no live activation block met a live weight block) over one decode
+    step's model call — the router acting as FlexNN's activation bitmap.
+    The call runs eagerly on a copy of the engine's state (a replayed
+    ``step()`` runs no Python to watch); its launches are put back."""
     from repro_torch.kernels import block_sparse as bs
+    from repro_torch.models import model as model_lib
     orig = bs.block_sparse_matmul
     seen = []
 
@@ -3106,11 +3566,19 @@ def p15_empty_lists(eng) -> float:
         if a.dim() == 3:                  # the expert sites
             seen.append(((meta.kcnt == 0).sum(), meta.kcnt.numel()))
         return orig(a, b, meta, **kw)
+    saved = launch_counts()
+    live = eng._live()
     bs.block_sparse_matmul = spy
     try:
-        eng.step()
+        with eng._scope():
+            model_lib.masked_decode_step(
+                eng._tier_params[0], eng.cfg,
+                eng._to_device(eng._current_tokens(live)[:, None]),
+                tree_copy(eng.state), eng._to_device(eng._slot_positions()),
+                eng._live_mask(live))
     finally:
         bs.block_sparse_matmul = orig
+    reset_launches(saved)
     empty = sum(int(e) for e, _ in seen)
     return empty / max(sum(n for _, n in seen), 1)
 
@@ -3233,13 +3701,34 @@ def run_moe(report, card):
     p15_layer(cfg, params, planned, report)
     launches = p15_serve(cfg, params, planned, dense, q8, report, card)
     rows = time_expert_kernels(checked, launches)
+    executables = p23_moe(cfg, params, planned, report, card)
     report(f"phase 15 peak memory: max_memory_allocated "
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
            f" GiB ({card})")
     report(f"phase 15 wall time: {time.perf_counter() - t_phase:.1f} s "
            f"({card})")
-    return launches, rows
+    return launches, rows, executables
+
+
+def p23_moe(cfg, params, planned, report, card) -> dict:
+    """Phase 23 on DeepSeek-MoE-16B (28 layers uncut, 4 slots, bf16
+    planned): admission and the first block captured (seconds, graphs,
+    pool bytes), then ``p23_block``.  The launches are put back."""
+    saved = launch_counts()
+    t0 = time.perf_counter()
+    eng = p23_engine(cfg, params, planned)
+    p23_live(eng, family_prompts(cfg, seed=15))
+    report(f"MoE planned engine: admission and the first block "
+           f"{time.perf_counter() - t0:.2f} s, {graph_stats(eng)} ({card})")
+    out = p23_block(eng, report, card, "MoE planned")
+    out["graphs"] = graph_stats(eng)
+    del eng
+    free()
+    reset_launches(saved)
+    report(f"phase 23 (DeepSeek-MoE-16B) wall time: "
+           f"{time.perf_counter() - t0:.1f} s ({card})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5742,6 +6231,26 @@ def p22_rows(flash, expert, full) -> list:
     return rows
 
 
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator's expandable segments for what runs inside:
+    gemma-2b's 18-layer step peaks ~9 GiB below the card's 79 GiB, and
+    fixed segments can fragment that margin away (a 2.25 GiB AdamW
+    temporary refused with 7.55 GiB reserved but unallocated).  Set back
+    after, with the cache emptied on both sides (CUDA-graph captures run
+    outside it)."""
+    import torch
+    setting = torch.cuda.memory._set_allocator_settings
+    free()
+    setting("expandable_segments:True")
+    try:
+        yield
+    finally:
+        free()
+        setting("expandable_segments:False")
+        free()
+
+
 def run_families_training(report, card):
     """Phase 22: the other families train on the card (the module
     docstring)."""
@@ -5755,7 +6264,8 @@ def run_families_training(report, card):
     report(f"[phase 22b: {time.perf_counter() - t0:.1f} s]")
     p22_steps(report)
     report(f"[phase 22c: {time.perf_counter() - t0:.1f} s]")
-    full = p22_full(report, card)
+    with expandable_segments():
+        full = p22_full(report, card)
     report(f"[phase 22d: {time.perf_counter() - t0:.1f} s]")
     rows = p22_rows(flash, expert, full)
     torch.cuda.synchronize()
@@ -5799,6 +6309,7 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip().splitlines()
+        card = smi[0] if smi else name
         report(f"device: {name}, torch {torch.__version__}, "
                f"CUDA {torch.version.cuda}")
         # phase 2: build
@@ -5839,6 +6350,10 @@ def main() -> int:
         # phase 8: the decode kernels' rows
         rows += time_int8_kernels(checked8, launches8)
         done("phases 7-8")
+        # phase 23 on StableLM-1.6B: the serve executables
+        executables = {cfg.name: run_executables(cfg, params, planned, q8,
+                                                 bf16, report, card)}
+        done("phase 23 (StableLM-1.6B)")
         del q8, dense8
         # phase 9: the prefill-shaped kernel checks
         shape = prefill_shape(report)
@@ -5902,7 +6417,6 @@ def main() -> int:
         rows.append(time_flash(flash, pf))
         done("phase 12")
         # phase 13: the full engine
-        card = smi[0] if smi else name
         launches13 = run_full_engine(cfg, params, planned, dense, report,
                                      card)
         for row in rows:
@@ -5930,7 +6444,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         report(f"memory before phase 15: "
                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-        launches15, rows15 = run_moe(report, card)
+        launches15, rows15, executables[P15_ARCH] = run_moe(report, card)
         for row in rows:
             key = {"block_sparse": "block_sparse",
                    "block_sparse_scaled": "block_sparse_scaled",
@@ -5986,6 +6500,10 @@ def main() -> int:
         launches20, errs20 = run_whisper(report, card)
         done("phase 20")
         # phase 21: training
+        free()
+        report(f"memory before phase 21: "
+               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         full21, rows21 = run_training(report, card)
         done("phase 21")
         for row in rows:
@@ -6008,6 +6526,10 @@ def main() -> int:
                        launches_phase21=full21["launches"][key])
         rows += rows21
         # phase 22: the other families train
+        free()
+        report(f"memory before phase 22: "
+               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
         full22, rows22 = run_families_training(report, card)
         done("phase 22")
         for row in rows:
@@ -6021,6 +6543,7 @@ def main() -> int:
         for line in smi:
             report(line)
         report(json.dumps({"analytic": analytic}))
+        report(json.dumps({"executables": executables}))
         report(json.dumps({"kernels": rows}))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

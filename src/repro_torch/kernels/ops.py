@@ -141,13 +141,30 @@ def exec_config(cfg: ExecConfig):
 class SparsityStatsCollector:
     """Per-site activation popcounts, accumulated on the device: each site
     holds one int64 (live, total) tensor, added to in place by every
-    recorded matmul and read only by ``densities``."""
+    recorded matmul and read only by ``densities``.  A site's tensor lives
+    as long as the collector, so a captured CUDA graph that adds into it
+    keeps adding into the tensor ``densities`` reads: ``reset`` zeroes the
+    counts in place."""
 
     def __init__(self):
         self._acc: Dict[str, torch.Tensor] = {}
 
     def reset(self) -> None:
-        self._acc.clear()
+        for acc in self._acc.values():
+            acc.zero_()
+
+    def snapshot(self) -> Dict[str, torch.Tensor]:
+        """A copy of every site's counts, for ``restore``."""
+        return {s: acc.clone() for s, acc in self._acc.items()}
+
+    def restore(self, snap: Dict[str, torch.Tensor]) -> None:
+        """Put back the counts of ``snapshot``; sites created since then
+        count nothing."""
+        for site, acc in self._acc.items():
+            if site in snap:
+                acc.copy_(snap[site])
+            else:
+                acc.zero_()
 
     def record(self, site: str, live: torch.Tensor, total) -> None:
         acc = self._acc.get(site)

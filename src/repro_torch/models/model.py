@@ -22,7 +22,6 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -442,29 +441,36 @@ def verify_block(p_full: Params, p_draft: Params, cfg: ArchConfig,
     return torch.stack(emits), state, tok, ps, rm
 
 
-def prefill_into_slot(p: Params, cfg: ArchConfig, tokens, valid,
-                      slot: int, state: Params, slot_pos: torch.Tensor,
-                      start: int = 0, reset: bool = True) -> Params:
+def prefill_into_slot(p: Params, cfg: ArchConfig, tokens, valid, slot,
+                      state: Params, slot_pos: torch.Tensor, start=0,
+                      reset=True) -> Params:
     """Feed one admitted prompt segment into batch row ``slot``.
 
-    ``tokens`` (P,) is the segment, ``valid`` (P,) marks real positions
-    (host arrays), ``slot_pos`` (B,) every slot's position; the other rows
-    run as masked filler and keep their state.  ``reset`` zero-resets the
-    row first.  Each valid position runs one masked decode step with the
-    head skipped (its logits are discarded); fully masked (padding)
-    positions change nothing and are skipped."""
+    ``tokens`` (P,) is the segment, ``valid`` (P,) marks real positions,
+    ``slot`` the row, ``start`` the sequence position of the segment's
+    first token and ``reset`` whether the row is zero-reset first; each may
+    be a host value or a tensor on ``slot_pos``'s device, so a captured
+    feed reads them all from its input buffers.  ``slot_pos`` (B,) holds
+    every slot's position; the other rows run as masked filler and keep
+    their state.  All P positions run, each one masked decode step with the
+    head skipped (its logits are discarded): a padding position commits
+    nothing, so a segment padded to any length leaves the state as the
+    unpadded one does, bit for bit."""
     b = slot_pos.shape[0]
     dev = slot_pos.device
-    if reset:     # every leaf, at any depth (Griffin's state has three)
-        for _, leaf in iter_leaves(state):
-            leaf[:, slot] = 0
-    onehot = torch.arange(b, device=dev) == slot
-    toks = np.asarray(tokens).reshape(-1)
-    ok = np.asarray(valid, bool).reshape(-1)
+    toks = torch.as_tensor(tokens, device=dev).reshape(-1)
+    ok = torch.as_tensor(valid, device=dev).reshape(-1).to(torch.bool)
+    onehot = torch.arange(b, device=dev) == torch.as_tensor(slot, device=dev)
+    start = torch.as_tensor(start, device=dev).to(torch.int64)
+    reset_row = onehot & torch.as_tensor(reset, device=dev).to(torch.bool)
+    for _, leaf in iter_leaves(state):   # every leaf, at any depth
+        leaf.masked_fill_(reset_row.view((1, b) + (1,) * (leaf.dim() - 2)),
+                          0)
     other = slot_pos.to(torch.int64)
-    for t in np.nonzero(ok)[0]:
-        feed = torch.where(onehot, int(toks[t]), 0)[:, None]
-        ps = torch.where(onehot, start + int(t), other)
-        _, state = masked_decode_step(p, cfg, feed, state, ps, onehot,
+    for t in range(toks.shape[0]):
+        merge = onehot & ok[t]
+        feed = torch.where(merge, toks[t].to(torch.int64), 0)[:, None]
+        ps = torch.where(onehot, start + t, other)
+        _, state = masked_decode_step(p, cfg, feed, state, ps, merge,
                                       with_logits=False)
     return state

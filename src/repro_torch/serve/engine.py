@@ -11,6 +11,16 @@ NaN quarantine stop each row on the device, and greedy or sampled tokens
 (``SamplingParams``, position-keyed) are picked there.  ``step()`` is the
 per-token oracle — the fused block is computation-identical to T steps.
 
+**Entry points** (``serve.executables``): every model call the engine
+makes — the oracle step, a fused block of T steps, a prompt feed of P
+positions, a verify block — goes through an ``Executable`` per (entry
+point, static shape), the counterpart of the reference's jitted
+executables.  On CUDA each is captured as a CUDA graph at ``warmup`` or at
+its first use and replayed after that; a capture failure raises.  The
+decode state is written in place (``donate_state``); prompt-feed segments
+are padded to powers of two, as the reference pads them.  On the CPU the
+entry points run eagerly.
+
 **Async dispatch** (``async_dispatch``, the default): block k+1 launches
 from block k's device (token, pos, rem) carries before block k's token
 block reaches the host, so block k's host accounting overlaps block k+1's
@@ -80,10 +90,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.scheduler import H100, TPU_V5E
+from repro_torch.core.sparsity import iter_leaves, map_leaves
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops
 from repro_torch.models import model as model_lib
 from repro_torch.quant.quantize import quantize_params
+from repro_torch.serve.executables import Executable
 
 
 def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
@@ -178,6 +190,12 @@ def activation_density_drift(baseline: Optional[Dict[str, float]],
     return drift
 
 
+def _next_pow2(n: int) -> int:
+    """The least power of two >= n (1 for n <= 1): a prompt-feed segment's
+    padded length."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
 @dataclass(frozen=True)
 class SamplingParams:
     """Per-request sampling: ``temperature`` 0 (the default) is greedy
@@ -248,8 +266,9 @@ class AdmissionPolicy:
     """Pluggable admission: queue ordering, prefill chunk sizing and the
     overload valve.  ``pick`` returns the index of the queued request the
     next freed slot takes (FIFO here); ``chunk`` the prefill chunk of the
-    next feed (None = whole prompt); ``shed`` — asked only when a bounded
-    queue is
+    next feed (None = whole prompt); ``chunk_cap`` the largest chunk
+    ``chunk`` may return (None = unbounded: ``warmup`` then prepares feeds
+    up to ``max_seq``); ``shed`` — asked only when a bounded queue is
     full at submit — the index of a queued request to evict for
     ``incoming``, or None to reject ``incoming`` (the base policy).
     Policies read the engine and never change what a stream is."""
@@ -258,6 +277,9 @@ class AdmissionPolicy:
         return 0
 
     def chunk(self, engine: "ServeEngine") -> Optional[int]:
+        return engine.prefill_chunk
+
+    def chunk_cap(self, engine: "ServeEngine") -> Optional[int]:
         return engine.prefill_chunk
 
     def shed(self, queue: Deque[Request], engine: "ServeEngine",
@@ -322,6 +344,9 @@ class AdaptiveAdmission(AdmissionPolicy):
         span = (self.max_chunk // self.min_chunk).bit_length() - 1
         return max(self.min_chunk, self.max_chunk >> round(occ * span))
 
+    def chunk_cap(self, engine: "ServeEngine") -> Optional[int]:
+        return self.max_chunk
+
 
 @dataclass(frozen=True)
 class PriorityAdmission(AdmissionPolicy):
@@ -338,12 +363,62 @@ class PriorityAdmission(AdmissionPolicy):
         return _lowest_priority_victim(queue, incoming)
 
 
+@contextlib.contextmanager
+def _model_scope(exec_cfg, stats, dead: bool = False):
+    """``no_grad``, the exec config and the stats collector around a model
+    call.  ``dead`` marks a warm run (every row dead): the popcounts are
+    put back after it, so a capture leaves the measured densities as they
+    were."""
+    snap = stats.snapshot() if dead and stats is not None else None
+    with contextlib.ExitStack() as scopes:
+        scopes.enter_context(torch.no_grad())
+        if exec_cfg is not None:
+            scopes.enter_context(ops.exec_config(exec_cfg))
+        if stats is not None:
+            scopes.enter_context(ops.sparsity_stats(stats))
+        yield
+    if snap is not None:
+        stats.restore(snap)
+
+
+def _dead_rows(n_slots: int, device, sampled: bool) -> tuple:
+    """(tokens, pos, live, rem[, temp, top_k, seeds]) with every row dead:
+    the inputs of a block that leaves the state as it was."""
+    z = torch.zeros((n_slots,), dtype=torch.int64, device=device)
+    args = (z, z, torch.zeros_like(z, dtype=torch.bool),
+            torch.zeros_like(z, dtype=torch.int32))
+    if sampled:
+        args += (torch.zeros_like(z, dtype=torch.float32), z, z)
+    return args
+
+
+def _dead_feed(n_slots: int, device, p_len: int) -> tuple:
+    """A prompt feed's inputs (tokens, valid, slot, slot_pos, start,
+    reset) of ``p_len`` padding positions and no reset."""
+    z = torch.zeros((), dtype=torch.int64, device=device)
+    return (torch.zeros((p_len,), dtype=torch.int32, device=device),
+            torch.zeros((p_len,), dtype=torch.bool, device=device),
+            z, torch.zeros((n_slots,), dtype=torch.int64, device=device),
+            z, torch.zeros((), dtype=torch.bool, device=device))
+
+
+def _check_in_place(state, buffers) -> None:
+    if state is not buffers:
+        raise RuntimeError("a model entry point returned a new state tree; "
+                           "the engine's entry points write the state in "
+                           "place")
+
+
 class ServeEngine:
     """Continuous-batching engine over the fused decode block.
 
     ``fused`` selects the block loop in ``run_until_drained`` (False = the
     per-token ``step()`` oracle loop); ``decode_block`` caps the block
-    length T; ``prefill_chunk`` feeds prompts in chunks (None = whole);
+    length T (and a prompt feed's graph, ``warmup``); ``donate_state``
+    (default True) lets the entry points write ``state`` in place — False
+    hands back a copy after every call, so a state tree the caller holds
+    is never written (``_run``); ``prefill_chunk`` feeds prompts in chunks
+    (None = whole);
     ``async_dispatch`` double-buffers blocks (module docstring);
     ``admission`` plugs the policy (default ``FIFOAdmission``);
     ``max_queue`` bounds the queue; ``clock`` is the engine clock of
@@ -369,7 +444,8 @@ class ServeEngine:
                  max_seq: int = 256, dtype=torch.float32,
                  exec_cfg: Optional[ops.ExecConfig] = None,
                  verify_plan: bool = True, fused: bool = True,
-                 decode_block: int = 16, eos_id: Optional[int] = None,
+                 decode_block: int = 16, donate_state: bool = True,
+                 eos_id: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  async_dispatch: bool = True,
                  admission: Optional[AdmissionPolicy] = None,
@@ -390,6 +466,7 @@ class ServeEngine:
         self.exec_cfg = exec_cfg
         self.fused = fused
         self.decode_block = decode_block
+        self.donate_state = bool(donate_state)
         self.eos_id = eos_id
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, "
@@ -428,6 +505,11 @@ class ServeEngine:
         self.state = model_lib.init_decode_state(cfg, n_slots, max_seq,
                                                  dtype=dtype,
                                                  device=self.device)
+        # the buffers every entry point writes in place (``_run``); an
+        # undonating engine hands out copies of them only
+        self._state_buffers = self.state
+        if not self.donate_state:
+            self.state = map_leaves(lambda _, t: t.clone(), self.state)
         self.slots = [_Slot() for _ in range(n_slots)]
         self.queue: Deque[Request] = collections.deque()
         self._uid = 0
@@ -485,6 +567,9 @@ class ServeEngine:
                        if exec_cfg is not None and exec_cfg.collect_stats
                        else None)
         self.last_logits: Optional[torch.Tensor] = None
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._build_executables()
 
     def _compile_tiers(self, *, verify: bool = False) -> None:
         """(Re)compile the pruned tiers of ``tier_ratios`` over the served
@@ -507,58 +592,197 @@ class ServeEngine:
         self.plan_tiers = tiers
         self._tier_params = tier_params
 
-    @contextlib.contextmanager
     def _scope(self):
         """The exec config and stats collector around a model call."""
-        with contextlib.ExitStack() as scopes:
-            scopes.enter_context(torch.no_grad())
-            if self.exec_cfg is not None:
-                scopes.enter_context(ops.exec_config(self.exec_cfg))
-            if self._stats is not None:
-                scopes.enter_context(ops.sparsity_stats(self._stats))
-            yield
+        return _model_scope(self.exec_cfg, self._stats)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device; on CUDA through pinned
-        memory, queued on the stream without waiting for it."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        """A host array on the engine's device, in its own shape (a 0-d
+        array stays 0-d: an entry point's inputs have static shapes); on
+        CUDA through pinned memory, queued on the stream without waiting
+        for it."""
+        t = torch.from_numpy(np.ascontiguousarray(a).reshape(np.shape(a)))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    # ---- the entry points (``serve.executables``) ----
+    def _build_executables(self) -> None:
+        """(Re)start the registry of entry points, one ``Executable`` per
+        (entry point, static shape), each built at its first use.  Called
+        at bring-up and after ``maybe_recalibrate`` swaps the table: a
+        captured graph bakes in the descriptor table and the plan tiers'
+        lists it was captured under, so every graph is dropped with them,
+        with a new graph pool; the live masks and device carries of the old
+        executables go too (callers flush in-flight blocks first)."""
+        self._executables: Dict[tuple, Executable] = {}
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+        self._mask_cache.clear()
+        self._carry = None
+
+    def _entry(self, key: tuple, fn, warm) -> Executable:
+        ex = self._executables.get(key)
+        if ex is None:
+            ex = self._executables[key] = Executable(
+                key[0], key[1:], fn, warm, self.device, pool=self._pool,
+                stream=self._stream)
+        return ex
+
+    def _dead_rows(self, sampled: bool) -> tuple:
+        return _dead_rows(self.n_slots, self.device, sampled)
+
+    def _dead_feed(self, p_len: int) -> tuple:
+        return _dead_feed(self.n_slots, self.device, p_len)
+
+    # The entry points' functions close over what they read (params, the
+    # state buffers, the exec config), never over the engine: an engine
+    # is freed when its last reference goes, graphs and all.
+    def _step_exec(self, tier: int, sampled: bool) -> Executable:
+        """The oracle step under ``tier``: (tokens (B, 1), pos, live[,
+        temp, top_k, seeds]) → (logits (B, V), next tokens, finite rows or
+        None)."""
+        p, cfg, st = self._tier_params[tier], self.cfg, self._state_buffers
+        nan_guard, n, dev = self.nan_guard, self.n_slots, self.device
+        ec, stats = self.exec_cfg, self._stats
+
+        def fn(toks, pos, live, temp=None, top_k=None, seeds=None):
+            with _model_scope(ec, stats):
+                logits, state = model_lib.masked_decode_step(
+                    p, cfg, toks, st, pos, live)
+                lg = logits[:, 0, :]
+                if temp is None:
+                    nxt = torch.argmax(lg, dim=-1)
+                else:
+                    nxt = model_lib.sample_tokens(lg, temp, top_k, seeds,
+                                                  pos)
+                finite = (torch.isfinite(lg).all(dim=-1) if nan_guard
+                          else None)
+            _check_in_place(state, st)
+            return lg, nxt, finite
+
+        def warm():
+            toks, pos, live, _, *samp = _dead_rows(n, dev, sampled)
+            with _model_scope(ec, stats, dead=True):
+                fn(toks[:, None], pos, live, *samp)
+        return self._entry(("step", tier, sampled), fn, warm)
+
+    def _block_exec(self, tier: int, t_block: int, sampled: bool,
+                    spec_k: int = 0) -> Executable:
+        """A fused block under ``tier``: ``t_block`` decode steps
+        (``decode_many``), or with ``spec_k`` a verify block drafting
+        ``spec_k`` tokens on the last tier (``verify_block``, windowed).
+        (tokens, pos, live, rem[, temp, top_k, seeds]) → (token block,
+        token, position and budget carries)."""
+        p, draft = self._tier_params[tier], self._tier_params[-1]
+        cfg, st, n, dev = self.cfg, self._state_buffers, self.n_slots, \
+            self.device
+        ec, stats = self.exec_cfg, self._stats
+        common = dict(eos_id=self.eos_id, nan_guard=self.nan_guard)
+
+        def run(n_steps, toks, pos, live, rem, temp=None, top_k=None,
+                seeds=None):
+            with _model_scope(ec, stats):
+                if spec_k:
+                    block, state, tok, ps, rm = model_lib.verify_block(
+                        p, draft, cfg, toks, st, pos, live, spec_k,
+                        rem=rem, temp=temp, top_k=top_k, seeds=seeds,
+                        windowed=True, **common)
+                else:
+                    block, state, tok, ps, rm = model_lib.decode_many(
+                        p, cfg, toks, st, pos, live, n_steps, rem=rem,
+                        temp=temp, top_k=top_k, seeds=seeds, **common)
+            _check_in_place(state, st)
+            return block, tok, ps, rm
+
+        def warm():       # one step reaches every site T steps reach
+            with _model_scope(ec, stats, dead=True):
+                run(1, *_dead_rows(n, dev, sampled))
+        key = (("verify", tier, spec_k, True, sampled) if spec_k
+               else ("decode_many", tier, t_block, sampled))
+        return self._entry(key, lambda *a: run(t_block, *a), warm)
+
+    def _feed_exec(self, p_len: int) -> Executable:
+        """The prompt feed of ``p_len`` positions (``prefill_into_slot``
+        under the full plan): (tokens, valid, slot, slot_pos, start,
+        reset) → ()."""
+        p, cfg, st, n, dev = (self._exec_params, self.cfg,
+                              self._state_buffers, self.n_slots, self.device)
+        ec, stats = self.exec_cfg, self._stats
+
+        def fn(toks, valid, slot, slot_pos, start, reset):
+            with _model_scope(ec, stats):
+                state = model_lib.prefill_into_slot(
+                    p, cfg, toks, valid, slot, st, slot_pos, start, reset)
+            _check_in_place(state, st)
+            return ()
+
+        def warm():
+            with _model_scope(ec, stats, dead=True):
+                fn(*_dead_feed(n, dev, 1))
+        return self._entry(("feed", p_len), fn, warm)
+
+    def _run(self, ex: Executable, *args) -> tuple:
+        """Call an entry point on the engine's state buffers.  A
+        ``self.state`` that is another tree (a copy the caller installed,
+        or the copy ``donate_state=False`` handed out) is copied into them
+        first; with ``donate_state`` the buffers are ``self.state`` and are
+        written in place, without it ``self.state`` becomes a copy of them,
+        so a tree the caller holds is never written (the reference's
+        undonated calls)."""
+        if self.state is not self._state_buffers:
+            for (_, dst), (_, src) in zip(iter_leaves(self._state_buffers),
+                                          iter_leaves(self.state)):
+                dst.copy_(src)
+        out = ex(*args)
+        self.state = (self._state_buffers if self.donate_state
+                      else map_leaves(lambda _, t: t.clone(),
+                                      self._state_buffers))
+        return out
+
+    def _feed_cap(self) -> int:
+        """The longest prompt-feed graph: the largest power of two within
+        ``decode_block``."""
+        return 1 << (max(self.decode_block, 1).bit_length() - 1)
+
     def warmup(self) -> None:
-        """Build every CUDA kernel (``build.build_all``) and run, with every
-        row dead so that the decode state is left bit for bit as it was,
-        each power-of-two block length up to ``decode_block`` under every
-        tier, the greedy verify block of every tier a block can verify
-        under (with speculation), the oracle step and the prefill feed's
-        step (one masked step per prompt token, no head).  Flushes any
-        in-flight block first.  A later capture of these shapes as CUDA
-        graphs goes here."""
+        """Prepare every entry point the serving loop can dispatch, with
+        every row dead so that the decode state is left bit for bit as it
+        was: each power-of-two block length up to ``decode_block`` under
+        every tier, the greedy verify block of every tier a block can
+        verify under (with speculation), the oracle step and each
+        power-of-two prompt feed up to ``_next_pow2`` of the policy's
+        ``chunk_cap`` (``max_seq`` for whole prompts), but no longer than
+        ``decode_block`` positions.  On CUDA this builds every kernel
+        (``build.build_all``) and captures each entry point as a CUDA graph
+        (sampled variants are captured at their first dispatch); on the
+        CPU it runs each once.  A graph holds every launch of every step
+        it runs (a StableLM-1.6B step is ~5.7k kernels), so a feed graph
+        of thousands of positions could not be instantiated: a longer
+        segment is fed as consecutive replays of the longest feed plus one
+        power-of-two remainder (``_feed_prefill``), which leaves the same
+        state bit for bit.  Flushes any in-flight block first."""
         self.flush()
         if self.device.type == "cuda":
             build.build_all()
-        zero = self._to_device(np.zeros((self.n_slots,), np.int64))
-        dead = self._to_device(np.zeros((self.n_slots,), bool))
-        with self._scope():
-            for tier_p in self._tier_params:
-                t = 1
-                while t <= self.decode_block:
-                    _, self.state, *_ = model_lib.decode_many(
-                        tier_p, self.cfg, zero, self.state, zero, dead, t,
-                        rem=zero, eos_id=self.eos_id,
-                        nan_guard=self.nan_guard)
-                    t *= 2
-            if self.speculate_k and self._spec_windowed:
-                for tier_p in self._tier_params[:-1] or self._tier_params:
-                    _, self.state, *_ = model_lib.verify_block(
-                        tier_p, self._tier_params[-1], self.cfg, zero,
-                        self.state, zero, dead, self.speculate_k, rem=zero,
-                        eos_id=self.eos_id, nan_guard=self.nan_guard)
-            for with_logits in (True, False):
-                model_lib.masked_decode_step(
-                    self._exec_params, self.cfg, zero[:, None], self.state,
-                    zero, dead, with_logits=with_logits)
+        dead = self._dead_rows(False)
+        for tier in range(len(self._tier_params)):
+            t = 1
+            while t <= self.decode_block:
+                self._run(self._block_exec(tier, t, False), *dead)
+                t *= 2
+        if self.speculate_k and self._spec_windowed:
+            for tier in range(max(len(self._tier_params) - 1, 1)):
+                self._run(self._block_exec(tier, self.speculate_k + 1, False,
+                                           self.speculate_k), *dead)
+        toks, pos, live, _ = dead
+        self._run(self._step_exec(0, False), toks[:, None], pos, live)
+        cap = min(_next_pow2(self.admission.chunk_cap(self) or self.max_seq),
+                  self._feed_cap())
+        p_len = 1
+        while p_len <= cap:
+            self._run(self._feed_exec(p_len), *self._dead_feed(p_len))
+            p_len *= 2
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -631,9 +855,8 @@ class ServeEngine:
                     if self.plan is not None else self._serve_params)
                 # new blocks invalidate every tier's lists: rebuild them all
                 self._compile_tiers()
-            # nothing built under the old table survives (flushed above)
-            self._mask_cache.clear()
-            self._carry = None
+            # nothing captured under the old table survives (flushed above)
+            self._build_executables()
         return measured
 
     # ---- request management ----
@@ -822,14 +1045,30 @@ class ServeEngine:
     def _feed_prefill(self, i: int, start: int, count: int) -> None:
         """Feed ``count`` prompt-feed tokens from ``start`` into slot ``i``
         (the row zero-reset on the first segment); the other rows run as
-        masked filler and keep their state."""
+        masked filler and keep their state.  The segment is padded to a
+        power of two with masked positions, as the reference pads it (a
+        length-1 prompt's empty segment runs one padding position: only the
+        zero-reset); a segment longer than the longest feed (``warmup``)
+        runs as consecutive feeds of that length and one padded
+        remainder."""
         s = self.slots[i]
         seg = np.asarray(s.req.prompt[:-1], np.int32)[start:start + count]
-        with self._scope():
-            model_lib.prefill_into_slot(
-                self._exec_params, self.cfg, seg, np.ones(len(seg), bool),
-                i, self.state, self._to_device(self._slot_positions()),
-                start, start == 0)
+        slot_pos = self._to_device(self._slot_positions())
+        slot = self._to_device(np.asarray(i, np.int64))
+        cap, off = self._feed_cap(), 0
+        while True:
+            piece = seg[off:off + cap]
+            p_len = _next_pow2(len(piece))
+            toks = np.zeros((p_len,), np.int32)
+            toks[:len(piece)] = piece
+            self._run(self._feed_exec(p_len), self._to_device(toks),
+                      self._to_device(np.arange(p_len) < len(piece)), slot,
+                      slot_pos, self._to_device(np.asarray(start + off,
+                                                           np.int64)),
+                      self._to_device(np.asarray(start + off == 0)))
+            off += len(piece)
+            if off >= len(seg):
+                break
         s.prefill_cursor = start + len(seg)
         s.pos = s.prefill_cursor
         if not s.req.done:
@@ -965,24 +1204,16 @@ class ServeEngine:
         live = self._live()
         if not live:
             return {}
-        pos = self._to_device(self._slot_positions())
-        with self._scope():
-            logits, self.state = model_lib.masked_decode_step(
-                self._tier_params[self._block_tier(live)], self.cfg,
-                self._to_device(self._current_tokens(live)[:, None]),
-                self.state, pos, self._live_mask(live))
-            lg = logits[:, 0, :]
-            samp = self._sampling_arrays(live)
-            if samp is None:
-                nxt = torch.argmax(lg, dim=-1)
-            else:
-                temp, topk, seeds = (self._to_device(a) for a in samp)
-                nxt = model_lib.sample_tokens(lg, temp, topk, seeds, pos)
+        samp = self._sampling_arrays(live)
+        lg, nxt, finite = self._run(
+            self._step_exec(self._block_tier(live), samp is not None),
+            self._to_device(self._current_tokens(live)[:, None]),
+            self._to_device(self._slot_positions()), self._live_mask(live),
+            *(self._to_device(a) for a in samp or ()))
         self.last_logits = lg
         self._carry = None            # the device carries are a step behind
         nxt = nxt.cpu().numpy()
-        finite = (torch.isfinite(lg).all(dim=-1).cpu().numpy()
-                  if self.nan_guard else None)
+        finite = finite.cpu().numpy() if finite is not None else None
         out: Dict[int, int] = {}
         for i in live:
             s = self.slots[i]
@@ -1051,23 +1282,12 @@ class ServeEngine:
         tier = self._block_tier(live)
         spec_k = self._spec_k_for(t_block, tier)
         samp = self._sampling_arrays(live)
-        temp, topk, seeds = ((self._to_device(a) for a in samp)
-                             if samp is not None else (None, None, None))
-        with self._scope():
-            if spec_k:
-                t_block = spec_k + 1
-                block, self.state, tok, pos, rem = model_lib.verify_block(
-                    self._tier_params[tier], self._tier_params[-1],
-                    self.cfg, toks_in, self.state, pos_in,
-                    self._live_mask(live), spec_k, rem=rem_in,
-                    eos_id=self.eos_id, temp=temp, top_k=topk, seeds=seeds,
-                    nan_guard=self.nan_guard)
-            else:
-                block, self.state, tok, pos, rem = model_lib.decode_many(
-                    self._tier_params[tier], self.cfg, toks_in, self.state,
-                    pos_in, self._live_mask(live), t_block, rem=rem_in,
-                    eos_id=self.eos_id, temp=temp, top_k=topk, seeds=seeds,
-                    nan_guard=self.nan_guard)
+        if spec_k:
+            t_block = spec_k + 1
+        block, tok, pos, rem = self._run(
+            self._block_exec(tier, t_block, samp is not None, spec_k),
+            toks_in, pos_in, self._live_mask(live), rem_in,
+            *(self._to_device(a) for a in samp or ()))
         key = self._live_key(live)
         self._carry = (key, tok, pos, rem)
         if self.device.type == "cuda":

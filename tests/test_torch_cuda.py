@@ -890,7 +890,8 @@ def test_cuda_stats_add_no_sync_to_a_decode_block(cuda):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         eng._account_one()
-        counts[stats] = sum("synchroniz" in str(w.message) for w in caught)
+        counts[stats] = sum("called a synchronizing CUDA operation"
+                            in str(w.message) for w in caught)
         if stats:
             dens = eng.activation_densities()
             assert set(dens) == {e.site for e in ec.plan.entries.values()}
@@ -1316,3 +1317,188 @@ def test_cuda_expert_function_grads(cuda, c, dtype):
             assert torch.equal(batched[i], pt_fm.flex_matmul(
                 g[i], wt[i], out_dtype=torch.float32))
 
+
+
+# ---------------------------------------------------------------------------
+# the serve executables: every model call of the engine a CUDA-graph replay
+# (StableLM-1.6B's full width at 2 layers, ``spec_setup``'s weight-only plan
+# and tiers)
+# ---------------------------------------------------------------------------
+
+def _exec_engine(spec_setup, **kw):
+    from repro_torch.serve import ServeEngine
+    cfg, params, ec, _ = spec_setup
+    kw.setdefault("exec_cfg", ec)
+    return ServeEngine(cfg, params, n_slots=4, max_seq=64,
+                       dtype=torch.bfloat16, decode_block=8,
+                       async_dispatch=False, device="cuda", **kw)
+
+
+def _state_copy(state):
+    return pt_sp.map_leaves(lambda _, t: t.clone(), state)
+
+
+def _same_state(a, b) -> bool:
+    return all(torch.equal(_bits(x), _bits(y)) for (_, x), (_, y) in
+               zip(pt_sp.iter_leaves(a), pt_sp.iter_leaves(b)))
+
+
+def _launch_delta(before, after):
+    return {m: {k: n - before[m].get(k, 0) for k, n in c.items()
+                if n != before[m].get(k, 0)} for m, c in after.items()}
+
+
+@pytest.mark.cuda
+def test_cuda_replayed_entry_points_equal_eager(spec_setup):
+    """Mid-traffic, a replayed ``decode_many`` block and a replayed greedy
+    verify block equal the eager functions on a copy of the state bit for
+    bit (tokens, carries, every state leaf), and each replay credits the
+    kernels' ``LAUNCHES`` exactly as the eager call counts them; a 13-token
+    prompt feed, padded and split into two replays of 8 positions, leaves
+    the state of one unpadded eager ``prefill_into_slot`` bit for bit."""
+    from repro_torch.models import model as pt_model
+    from repro_torch.serve.executables import launch_counts
+    cfg = spec_setup[0]
+    eng = _exec_engine(spec_setup, plan_tiers=(0.0, 0.5), speculate_k=4)
+    for i in range(3):
+        eng.submit([3 + i, 5, 7, 9], max_new=32)
+    eng.decode_block_step()
+    live = eng._live()
+    assert len(live) == 3
+    args = (eng._to_device(eng._current_tokens(live)),
+            eng._to_device(eng._slot_positions()), eng._live_mask(live),
+            eng._to_device(eng._slot_budgets(live)))
+    full, draft = eng._tier_params[0], eng._tier_params[-1]
+    common = dict(rem=args[3], eos_id=None, nan_guard=True)
+    for ex, eager in (
+            (eng._block_exec(0, 8, False),
+             lambda st: pt_model.decode_many(full, cfg, args[0], st, args[1],
+                                             args[2], 8, **common)),
+            (eng._block_exec(0, 5, False, spec_k=4),
+             lambda st: pt_model.verify_block(full, draft, cfg, args[0], st,
+                                              args[1], args[2], 4,
+                                              windowed=True, **common))):
+        eng._run(ex, *eng._dead_rows(False))          # capture, dead rows
+        assert ex.graph is not None
+        copy = _state_copy(eng.state)
+        c0 = launch_counts()
+        got = eng._run(ex, *args)
+        c1 = launch_counts()
+        with eng._scope():
+            block, st, *carries = eager(copy)
+        c2 = launch_counts()
+        torch.cuda.synchronize()
+        for a, b in zip(got, (block, *carries)):
+            assert torch.equal(a, b), ex
+        assert _same_state(eng.state, st), ex
+        assert _launch_delta(c0, c1) == _launch_delta(c1, c2), ex
+        assert _launch_delta(c0, c1)["repro_torch.kernels.block_sparse"]
+    eng.submit(list(range(10, 24)), max_new=4)
+    copy = _state_copy(eng.state)
+    slot_pos = eng._to_device(eng._slot_positions())
+    eng._admit()
+    assert eng.slots[3].prefill_cursor == 13
+    assert eng._executables[("feed", 8)].replays == 2
+    with eng._scope():
+        pt_model.prefill_into_slot(full, cfg, list(range(10, 23)),
+                                   [True] * 13, 3, copy, slot_pos, 0, True)
+    torch.cuda.synchronize()
+    assert _same_state(eng.state, copy)
+
+
+@pytest.mark.cuda
+def test_cuda_planted_sync_raises_at_capture(spec_setup, monkeypatch):
+    """An entry point that reads a value back to the host (a planted
+    ``.item()``) cannot be captured: the engine raises ``CaptureError``
+    naming it, and does not run it eagerly; the card serves on after."""
+    from repro_torch.models import model as pt_model
+    from repro_torch.serve.executables import CaptureError
+    eng = _exec_engine(spec_setup)
+    real = pt_model.decode_many
+
+    def planted(*a, **kw):
+        out = real(*a, **kw)
+        out[0].sum().item()
+        return out
+    monkeypatch.setattr(pt_model, "decode_many", planted)
+    with pytest.raises(CaptureError, match="decode_many"):
+        eng._run(eng._block_exec(0, 2, False), *eng._dead_rows(False))
+    monkeypatch.undo()
+    # the failed capture left the allocator out of capture: a freed GiB is
+    # released by empty_cache (while a capture counts as underway, it
+    # releases nothing)
+    torch.cuda.empty_cache()
+    x = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    held = torch.cuda.memory_reserved()
+    del x
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() < held
+    fresh = _exec_engine(spec_setup)
+    uid = fresh.submit([3, 5, 7], max_new=4)
+    assert len(fresh.run_until_drained()[uid]) == 4
+
+
+@pytest.mark.cuda
+def test_cuda_recapture_after_recalibration(spec_setup):
+    """``maybe_recalibrate`` with a changed table drops every captured
+    graph; the entry points are captured again under the new table and
+    serve the same streams."""
+    from repro_torch.configs import SparsityConfig
+    from repro_torch.serve import decode_exec_config
+    cfg, params, _, _ = spec_setup
+    ts_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        weight_sparsity=0.5, activation_threshold=0.05))
+    ec = decode_exec_config(ts_cfg, 4, params=params, collect_stats=True,
+                            device="cuda")
+    eng = _exec_engine(spec_setup, exec_cfg=ec)
+    prompts = [[3 + i, 5, 7, 9] for i in range(3)]
+    uids = [eng.submit(p, max_new=6) for p in prompts]
+    first = eng.run_until_drained()
+    old = list(eng._executables.values())
+    assert old and all(ex.graph is not None for ex in old)
+    assert eng.maybe_recalibrate(drift_threshold=-1.0) is not None
+    assert not eng._executables
+    again = [eng.submit(p, max_new=6) for p in prompts]
+    res = eng.run_until_drained()
+    assert [res[u] for u in again] == [first[u] for u in uids]
+    new = list(eng._executables.values())
+    assert new and all(ex.graph is not None and ex.replays for ex in new)
+    assert not any(ex in old for ex in new)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+def test_cuda_replayed_block_makes_no_synchronizing_call(spec_setup, stats):
+    """Launching a decode block from the carries, once its graph is
+    captured, and reading it makes no synchronizing call
+    (``torch.cuda.set_sync_debug_mode``), popcounts on or off."""
+    import warnings
+    from repro_torch.configs import SparsityConfig
+    from repro_torch.serve import decode_exec_config
+    cfg, params, _, _ = spec_setup
+    ts_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        weight_sparsity=0.5, activation_threshold=0.05))
+    ec = decode_exec_config(ts_cfg, 4, params=params, collect_stats=stats,
+                            device="cuda")
+    eng = _exec_engine(spec_setup, exec_cfg=ec)
+    for i in range(4):
+        eng.submit([3 + i, 5, 7], max_new=24)
+    eng.decode_block_step()
+    eng.decode_block_step()
+    live = eng._live()
+    assert len(live) == 4 and eng._carry is not None
+    assert eng._executables[("decode_many", 0, 8, False)].replays == 2
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng._launch(live, 8)
+            eng._account_one()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # one warning a process says the debug mode is a prototype: count the
+    # synchronizing calls' own
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs
