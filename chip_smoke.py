@@ -17,7 +17,12 @@ trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
      (mma.sync), and the output-stationary and block-sparse matmuls, bf16
      and bf16 x int8 (one template: mma.sync at M <= 16, wgmma above)
      multiply on the tensor cores (HMMA/HGMMA); every other kernel — the
-     float32 instantiations and the summing passes — does not;
+     float32 instantiations and the summing passes — does not; the bf16
+     ``fa_backward`` kernels (``fab_kv_kernel_mma`` / ``fab_q_kernel_mma``,
+     hd 64 / 128 / 256) multiply with HGMMA only, load tiles with TMA
+     (UTMALDG), hold no atomics and draw no ptxas note (C75xx) that their
+     wgmma pipeline is serialised; every kernel's ``ptxas -v`` registers
+     and spills are printed under its entry-function name;
   3. bring-up (weights, the weight-sparsity plan, the dense descriptor
      table), then every matmul site the main path runs, on layer 0's pruned
      weight at M = 4: the block-sparse kernel under the plan's blocks and
@@ -633,6 +638,26 @@ def check_tensor_cores(build, report) -> None:
     need(bool(hd256) and all(c > 0 for c in hd256.values()),
          f"flash_attention: no HGMMA in the hd-256 instance: {hd256}")
     report(f"    fa_kernel_mma<256>: {sum(hd256.values())} HGMMA")
+
+
+def check_backward_kernels(build, report) -> None:
+    """Phase 2c: the six bf16 ``fa_backward`` kernels (``fab_kv_kernel_mma``,
+    ``fab_q_kernel_mma``, hd 64 / 128 / 256) hold their design, as
+    ``build.backward_kernel_faults`` reads it from the SASS and this build's
+    ptxas log: wgmma alone, TMA loads, no atomics, no serialised wgmma
+    pipeline.  Their ``ptxas -v`` lines are phase 2's."""
+    ops = build.sass_ops("flash_attention")
+    log = build.BUILD_LOG.get("flash_attention", "")
+    faults = build.backward_kernel_faults(ops, log)
+    notes = "no C75xx note" if log else "ptxas log not of this run"
+    need(len(faults) == 6, f"flash_attention: expected 6 bf16 fa_backward "
+         f"kernels in the SASS, found {sorted(faults)}")
+    for fn in sorted(faults):
+        need(not faults[fn], f"{fn}: {faults[fn]}")
+        c = ops[fn]
+        report(f"  [flash_attention] {fn}: SASS HGMMA {c.get('HGMMA', 0)}, "
+               f"HMMA 0, UTMALDG {c.get('UTMALDG', 0)}, UBLKCP "
+               f"{c.get('UBLKCP', 0)}, atomics 0, {notes}")
 
 
 # ---------------------------------------------------------------------------
@@ -6318,9 +6343,11 @@ def main() -> int:
         report(f"kernel build: {secs:.1f} s")
         for lib, log in build.BUILD_LOG.items():
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry function" in line):
                     report(f"  [{lib}] {line.strip()}")
         check_tensor_cores(build, report)
+        check_backward_kernels(build, report)
         done("phases 1-2")
         # phase 3: bring-up, then the kernels vs plain versions
         cfg, sp_cfg, params, planned, dense = bring_up(report)

@@ -122,23 +122,68 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def parse_sass(text: str) -> Dict[str, Dict[str, int]]:
+    """Instruction counts by opcode (its first dotted part: ``HGMMA``,
+    ``UTMALDG``, ``ATOMG``, ...; a guard predicate skipped) in each kernel
+    of ``cuobjdump -sass`` output, by mangled kernel name."""
+    counts: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = {}
+        elif fn is not None and line.startswith("/*") and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words:
+                op = words[0].split(".")[0]
+                counts[fn][op] = counts[fn].get(op, 0) + 1
+    return counts
+
+
+def sass_ops(name: str) -> Dict[str, Dict[str, int]]:
+    """``parse_sass`` of the library built from ``csrc/<name>.cu`` (builds
+    it first)."""
+    library(name)
+    return parse_sass(subprocess.run(
+        [_cuobjdump(), "-sass", str(_target(name))], capture_output=True,
+        text=True, check=True).stdout)
+
+
+def backward_kernel_faults(ops: Dict[str, Dict[str, int]],
+                           log: str = "") -> Dict[str, List[str]]:
+    """What each bf16 ``fa_backward`` kernel (``fab_kv_kernel_mma`` /
+    ``fab_q_kernel_mma``) among ``ops`` (``parse_sass`` counts) breaks of
+    its design, empty when nothing: products on HGMMA alone (no HMMA),
+    tiles loaded by TMA (UTMALDG), no atomic instruction (ATOM / ATOMG /
+    ATOMS / RED: every output element has one owner), and no ptxas note
+    (C75xx) in the build ``log`` that its wgmma pipeline is serialised."""
+    faults: Dict[str, List[str]] = {}
+    for fn, c in ops.items():
+        if "fab_kv_kernel_mma" not in fn and "fab_q_kernel_mma" not in fn:
+            continue
+        bad = faults[fn] = []
+        if not c.get("HGMMA") or c.get("HMMA"):
+            bad.append(f"products not on wgmma alone: HGMMA "
+                       f"{c.get('HGMMA', 0)}, HMMA {c.get('HMMA', 0)}")
+        if not c.get("UTMALDG"):
+            bad.append("no TMA load (UTMALDG)")
+        atomics = sum(c.get(op, 0) for op in ("ATOM", "ATOMG", "ATOMS",
+                                              "RED"))
+        if atomics:
+            bad.append(f"{atomics} atomic instructions")
+        bad.extend(line.strip() for line in log.splitlines()
+                   if "(C75" in line and f"'{fn}'" in line)
+    return faults
+
+
 def tensor_core_ops(name: str) -> Dict[str, int]:
     """Tensor-core instructions (SASS ``HMMA`` / ``HGMMA``) in each kernel
-    of the library built from ``csrc/<name>.cu``, by mangled kernel name
-    (``cuobjdump -sass``; builds the library first)."""
-    library(name)
-    out = subprocess.run([_cuobjdump(), "-sass", str(_target(name))],
-                         capture_output=True, text=True, check=True).stdout
-    counts: Dict[str, int] = {}
-    fn = None
-    for line in out.splitlines():
-        text = line.strip()
-        if text.startswith("Function :"):
-            fn = text.split(":", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in text or "HGMMA" in text):
-            counts[fn] += 1
-    return counts
+    of the library built from ``csrc/<name>.cu``, by mangled kernel name."""
+    return {fn: ops.get("HMMA", 0) + ops.get("HGMMA", 0)
+            for fn, ops in sass_ops(name).items()}
 
 
 def check(err: int, what: str) -> None:

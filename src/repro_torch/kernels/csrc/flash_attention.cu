@@ -65,6 +65,7 @@
 // scalar float32 FMAs from shared memory, synchronous staging; thread
 // (ty, tx) owns score rows ty + 16r and columns tx + 16c (r, c < 4).
 #include "mma.cuh"
+#include "os_mma.cuh"   // TMA: make_tmap, tma_load, bulk_load
 #include "tile.cuh"
 
 namespace fa {
@@ -613,123 +614,137 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o,
 // dO (all of one type) and the forward's row log-sum-exp, in float32,
 // without atomics, in three passes:
 //   fab_dot : D = rowsum(dO∘O), one warp a row;
-//   fab_kv  : one CUDA block per (kv tile of 64, head) walks its live q
-//             tiles in ascending order (the forward's liveness), recomputes
+//   fab_kv  : one CUDA block per kv tile (and head) walks its live q tiles
+//             in ascending order (the forward's liveness), recomputes
 //             S = Q·Kᵀ and P = exp(S·scale − lse) (0 where masked), dP = dO·Vᵀ
 //             and dS = P∘(dP − D), and sums dV += Pᵀ·dO and dK += dSᵀ·Q in
 //             registers; dK is scaled once at the end;
-//   fab_q   : one CUDA block per (q tile of 64, head) walks its live kv tiles
+//   fab_q   : one CUDA block per q tile (and head) walks its live kv tiles
 //             ascending, recomputes P and dS the same way, and sums
-//             dQ += dS·K.
+//             dQ += dS·K; dQ is scaled once at the end.
 // Every output element has one owner that sums its terms in a fixed order,
 // so two runs give the same bits.  The price is that S, P, dP and dS are
 // computed twice (the first two passes' products S and dP again in the
 // third): seven 64 x 64 x hd products per live tile pair where an
-// atomics-based backward takes five.
-//
-// bf16: the products are mma.sync m16n8k16 (mma.cuh) on tiles staged in
-// shared memory with padded rows (ldmatrix, transposed where an operand is
-// read across its rows), float32 accumulators; P and dS are rounded to bf16
-// (nearest even) before their products, as the plain version does
-// (``ref.flash_attention_backward_plain``).  float32: the same loop with
-// scalar FMAs in the same accumulator layout (no tensor cores, no TF32).
-// A block has 8 warps: warp w owns rows 16·(w % 4) .. + 16 of a 64-row
-// product and the column half w / 4.
-//
-// hd 256: a warp's 16 x 128 slices of both dK and dV (2 x 64 float32
-// accumulators a thread) beside S, dP and the fragments would pass the 255
-// registers a thread may hold, so ``fab_kv`` splits dK / dV into two
-// column halves of 128, one CUDA block each: a block recomputes S and dP
-// over all 256 columns and sums only its half, which makes its accumulators
-// those of the hd-128 instance (two more 64 x 64 x 256 products per live
-// pair).  ``fab_q`` keeps dQ whole (64 accumulators a thread, as
-// ``fab_kv`` at hd 128).  bf16 stages the four 64 x 256 tiles in shared
-// memory with the smaller heads' padding (154,112 bytes); float32's would
-// take 301,568, so at hd 256 the float32 blocks stage only the tiles they
-// own (k and v in ``fab_kv``, q and dO in ``fab_q``) and read the tiles
-// they walk in place from device memory (168,448 bytes).  The order of
-// every sum is that of the smaller heads; hd 64 and 128 compile to the
-// code they had (one column part, every tile staged).
+// atomics-based backward takes five.  P and dS are rounded to the operands'
+// type (bf16: nearest even) before their products, as the plain version
+// does (``ref.flash_attention_backward_plain``); the per-element arithmetic
+// is a true expf of (s·scale − lse) and dS = p·(dP − D), each rounding
+// written out (__fmul_rn / __fsub_rn).
 //
 // What bounds it on the H100: at StableLM-1.6B's training cell (BH 64,
 // S 4096, hd 64, causal) the seven products over the ~64·4096²/2 live pairs
 // are 7·2·64·8.4e6·64 = 4.8e11 FLOPs, 0.49 ms at 989 TFLOP/s (the five that
 // the gradient needs: 0.35 ms); the bytes (q, k, v, o, dO in, dQ, dK, dV
-// out in float32, lse, D) ~0.23 GB, 0.07 ms: bound by operations.  At hd
-// 256 the five products are 0.35 ms at Gemma-2B's cell (BH 16, S 4096,
-// causal) and 0.52 ms at RecurrentGemma-9B's (BH 32, S 4096, window 2048),
-// where the split dK / dV makes the kernels do nine.
+// out in float32, lse, D) ~0.23 GB, 0.07 ms: bound by operations.  Beside
+// the tensor cores sits the element work, done in both passes: each of the
+// ~5.4e8 (P, dS) elements takes a true expf (~10 instructions) and ~5
+// more, ~0.25 ms of the SMs' issue slots a pass at hd 64 — as much as a
+// pass's products, so at hd 64 a warpgroup's chain of scores →
+// element work → products, not either unit, sets the pace, and the design
+// below is about keeping both units fed from several chains.  At hd 256
+// the five products are 0.35 ms at Gemma-2B's cell (BH 16, S 4096, causal)
+// and 0.52 ms at RecurrentGemma-9B's (BH 32, S 4096, window 2048), and the
+// products dominate.
+//
+// bf16 (``fab_kv_kernel_mma`` / ``fab_q_kernel_mma``): the forward's
+// structure turned to the gradient.  A block is two (fab_q at hd 64: three)
+// consumer warpgroups and one producer warpgroup, one block an SM.  The
+// producer hands its registers back (setmaxnreg 24) so the consumers may
+// hold 240 (160 with three), and one of its threads streams the walked
+// tiles with TMA (64-row boxes of 128-byte-swizzled 64-column panels, the
+// layout wgmma's descriptors read) into a ring of single-tile slots guarded
+// by full / empty mbarriers (the full barrier's transaction count tracks
+// the boxes' bytes); the tiles a block owns are staged once the same way.
+// Every product is wgmma.mma_async.m64n64k16 with float32 accumulators:
+//   fab_kv (warpgroup = 64 kv rows): Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with both
+//     operands from shared memory (K / V k-major as A, Q / dO k-major as
+//     B), then Pᵀ and dSᵀ in the accumulator registers (lse and D per
+//     column, from the ring slot where the producer copied them beside Q
+//     and dO with a 1-D bulk copy), rounded to bf16 and fed straight back
+//     as wgmma's register A operand of dV += Pᵀ·dO and dK += dSᵀ·Q (dO and
+//     Q read n-major from the same slots).  At hd 64 and 128 a block owns
+//     two kv tiles, one warpgroup each; the ring carries every q tile live
+//     for either.
+//   fab_q (warpgroup = 64 q rows, the heaviest causal tiles first): S =
+//     Q·Kᵀ, dP = dO·Vᵀ (Q and dO staged once), dS in registers, dQ += dS·K
+//     (K n-major); the ring carries K and V.
+// So P and dS never touch shared memory, and the loop has no __syncthreads:
+// a warpgroup waits only on its slots' barriers and its own products, and
+// the warpgroups' element work and products overlap on the SM.  A score's
+// first k-step overwrites its accumulator (wgmma's scale-d), the mask is
+// computed only on a warp's diagonal or window-edge tiles and selects
+// expf's argument (no branch), and where registers allow (fab_kv at hd 64,
+// fab_q at hd 64 and 128) a pair's products run on while the next pair's
+// scores are issued.  Control flow is uniform to ptxas (the warp index
+// read from lane 0, barrier waits and arrivals without branches, constant
+// wait counts, the first pair of an overlapped walk peeled): it serialised
+// every product of the earlier drafts (C7511 / C7514 / C7520).
+//
+// hd 256: a warpgroup's dK and dV of a 64-row kv tile would take 256
+// float32 registers a thread, more than a thread may hold, so the dK / dV
+// block owns one kv tile and splits the work by output, not by column:
+// warpgroup 0 sums dV (Sᵀ, Pᵀ, Pᵀ·dO), warpgroup 1 sums dK (Sᵀ, dPᵀ, dSᵀ,
+// dSᵀ·Q), each 128 accumulators.  Sᵀ is computed in both: five products per
+// live pair in this pass (the column halves of the first version took six),
+// eight in all.
+//
+// ptxas -v (sm_90a): every bf16 kernel 168 registers at entry (fab_q at
+// hd 64: 128, 512 threads) and 240 / 160 for consumers after setmaxnreg, no
+// spills, no serialisation note; shared memory fab_kv 101,512 / 199,816 /
+// 231,768 bytes at hd 64 / 128 / 256 (K and V once, a ring of eight, eight
+// and five slots), fab_q 115,848 / 197,768 / 230,456 (Q and dO once, eight,
+// eight and three slots).
+//
+// float32 (``fab_kv_kernel`` / ``fab_q_kernel``): the first version, kept as
+// the reference's float32 arithmetic — scalar FMAs (no tensor cores, no
+// TF32) in the m16n8k16 accumulator layout, tiles staged synchronously with
+// padded rows.  A block has 8 warps: warp w owns rows 16·(w % 4) .. + 16 of
+// a 64-row product and the column half w / 4.  At hd 256 a warp's 16 x 128
+// slices of both dK and dV beside S, dP would pass the 255 registers a
+// thread may hold, so ``fab_kv`` splits dK / dV into two column halves of
+// 128, one CUDA block each (a block recomputes S and dP over all 256
+// columns and sums only its half); the four 64 x 256 float32 tiles would
+// take 301,568 bytes, so those blocks stage only the tiles they own (k and
+// v in ``fab_kv``, q and dO in ``fab_q``) and read the tiles they walk in
+// place from device memory (168,448 bytes).
 
 namespace fab {
 
 using mma::bf16;
 
 constexpr int kB = 64;             // q and kv rows of a tile (the forward's)
-constexpr int kThreads = 256;      // 8 warps
+constexpr int kThreads = 256;      // 8 warps (float32)
 
-template <typename T>
-constexpr int kPad = sizeof(T) == 2 ? 8 : 4;   // row padding, elements
+constexpr int kPad = 4;            // float32 row padding, elements
 
-// column parts of dK / dV, one CUDA block of ``fab_kv`` each
+// column parts of dK / dV, one CUDA block of ``fab_kv`` each (float32)
 template <int HD>
 constexpr int kParts = HD > 128 ? 2 : 1;
 
 // float32 at hd 256: the walked tiles are read in place from device memory
-template <typename T, int HD>
-constexpr bool kWalkInPlace = sizeof(T) == 4 && HD > 128;
+template <int HD>
+constexpr bool kWalkInPlace = HD > 128;
 
 // elements of a staged walked tile (none when read in place)
-template <typename T, int HD>
-constexpr int kWalkTile = kWalkInPlace<T, HD> ? 0 : kB * (HD + kPad<T>);
+template <int HD>
+constexpr int kWalkTile = kWalkInPlace<HD> ? 0 : kB * (HD + kPad);
 
 // smem: the owned and the walked pairs of tiles [64][HD + pad] (fab_kv: k,
 // v, then q, dO; fab_q: k, v, then q, dO, k and v being the walked ones),
-// then P and dS [64][64 + pad] in T, then lse and D of the q tile (float)
-template <typename T, int HD>
+// then P and dS [64][64 + pad], then lse and D of the q tile
+template <int HD>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * ((size_t)2 * kB * (HD + kPad<T>) +
-                      (size_t)2 * kWalkTile<T, HD> +
-                      (size_t)2 * kB * (kB + kPad<T>)) +
-         2 * kB * sizeof(float);
+  return sizeof(float) * ((size_t)2 * kB * (HD + kPad) +
+                          (size_t)2 * kWalkTile<HD> +
+                          (size_t)2 * kB * (kB + kPad) + 2 * kB);
 }
 
 // acc (this warp's 16 x N/2 slice of a 64 x N product, in the m16n8k16
 // accumulator layout: acc[j] holds rows g, g + 8 and columns 2t, 2t + 1 of
-// the warp's j-th 8-column tile) += A · B over KD, operands in shared
-// memory: A(r, k) = a[r·lda + k], or a[k·lda + r] when AT; B(k, n) =
+// the warp's j-th 8-column tile) += A · B over KD, operands in shared or
+// device memory: A(r, k) = a[r·lda + k], or a[k·lda + r] when AT; B(k, n) =
 // b[n·ldb + k] when BN (stored n-major), else b[k·ldb + n].
-template <int N, int KD, bool AT, bool BN>
-__device__ __forceinline__ void warp_mm(float (&acc)[N / 16][4],
-                                        const bf16* a, int lda,
-                                        const bf16* b, int ldb) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * (N / 2);
-  const int mi = lane >> 3, li = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < KD; kk += 16) {
-    uint32_t af[4];
-    if (!AT)
-      mma::ldsm_x4(af, mma::smem_u32(a + (r0 + (lane & 15)) * lda + kk +
-                                     (lane >> 4) * 8));
-    else
-      mma::ldsm_x4_t(af, mma::smem_u32(a + (kk + (mi >> 1) * 8 + li) * lda +
-                                       r0 + (mi & 1) * 8));
-#pragma unroll
-    for (int j = 0; j < N / 16; j += 2) {
-      const int n0 = c0 + j * 8;
-      uint32_t bf[4];
-      if (BN)
-        mma::ldsm_x4(bf, mma::smem_u32(b + (n0 + (mi >> 1) * 8 + li) * ldb +
-                                       kk + (mi & 1) * 8));
-      else
-        mma::ldsm_x4_t(bf, mma::smem_u32(b + (kk + (mi & 1) * 8 + li) * ldb +
-                                         n0 + (mi >> 1) * 8));
-      mma::mma_bf16(acc[j], af, bf[0], bf[1]);
-      mma::mma_bf16(acc[j + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
 template <int N, int KD, bool AT, bool BN>
 __device__ __forceinline__ void warp_mm(float (&acc)[N / 16][4],
                                         const float* a, int lda,
@@ -763,13 +778,13 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 }
 
 // 64 rows of HD from a row-major (., HD) tensor into a padded tile
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src) {
-  constexpr int E = 16 / sizeof(T), CH = HD / E, LD = HD + kPad<T>;
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src) {
+  constexpr int CH = HD / 4, LD = HD + kPad;
   for (int c = threadIdx.x; c < kB * CH; c += kThreads) {
-    const int r = c / CH, d = (c % CH) * E;
-    *reinterpret_cast<uint4*>(dst + r * LD + d) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * HD + d);
+    const int r = c / CH, d = (c % CH) * 4;
+    *reinterpret_cast<float4*>(dst + r * LD + d) =
+        *reinterpret_cast<const float4*>(src + (size_t)r * HD + d);
   }
 }
 
@@ -780,17 +795,32 @@ __device__ __forceinline__ bool live(int q_lo, int k_lo, int causal,
   return true;
 }
 
+// P = exp(S·scale − lse) of one score, 0 where masked: the mask selects
+// expf's argument (expf(−inf) is +0 exactly), so it costs no branch
+__device__ __forceinline__ float prob(float s, float lse, float scale,
+                                      bool ok) {
+  const float x = __fsub_rn(__fmul_rn(s, scale), lse);
+  return expf(ok ? x : -INFINITY);
+}
+
+__device__ __forceinline__ bool unmasked(int qp, int kp, int causal,
+                                         int window) {
+  bool ok = true;
+  if (causal) ok = qp >= kp;
+  if (window) ok = ok && (qp - kp) < window;
+  return ok;
+}
+
 // P = exp(S·scale − lse) (0 where masked) and dS = P∘(dP − D) for the
-// tile pair (q_lo, k_lo), in place of s and dp; P and dS (rounded to T)
-// stored in ps (when not null) and dss, [64][64 + pad]
-template <typename T>
+// tile pair (q_lo, k_lo), in place of s and dp; P and dS stored in ps
+// (when not null) and dss, [64][64 + pad]
 __device__ __forceinline__ void softmax_grad(float (&s)[4][4],
-                                             float (&dp)[4][4], T* ps,
-                                             T* dss, const float* ls,
+                                             float (&dp)[4][4], float* ps,
+                                             float* dss, const float* ls,
                                              const float* dl, int q_lo,
                                              int k_lo, int causal,
                                              int window, float scale) {
-  constexpr int LP = kB + kPad<T>;
+  constexpr int LP = kB + kPad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = (warp & 3) * 16 + (lane >> 2);
   const int c0 = (warp >> 2) * 32 + 2 * (lane & 3);
@@ -799,15 +829,11 @@ __device__ __forceinline__ void softmax_grad(float (&s)[4][4],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r + (e >> 1) * 8, col = c0 + j * 8 + (e & 1);
-      const int qp = q_lo + row, kp = k_lo + col;
-      bool ok = true;
-      if (causal) ok = qp >= kp;
-      if (window) ok = ok && (qp - kp) < window;
-      const float p =
-          ok ? expf(__fsub_rn(__fmul_rn(s[j][e], scale), ls[row])) : 0.f;
+      const float p = prob(s[j][e], ls[row], scale,
+                           unmasked(q_lo + row, k_lo + col, causal, window));
       const float ds = __fmul_rn(p, __fsub_rn(dp[j][e], dl[row]));
-      if (ps != nullptr) ps[row * LP + col] = rt::from_f<T>(p);
-      dss[row * LP + col] = rt::from_f<T>(ds);
+      if (ps != nullptr) ps[row * LP + col] = p;
+      dss[row * LP + col] = ds;
     }
 }
 
@@ -844,35 +870,41 @@ fab_dot_kernel(const T* __restrict__ O, const T* __restrict__ dO,
   if (lane == 0) D[row] = s;
 }
 
+// ---------------------------------------------------------------------------
+// float32: scalar FMAs
+// ---------------------------------------------------------------------------
+
+#define FAB_ARGS                                                          \
+  const float *__restrict__ Q, const float *__restrict__ K,               \
+      const float *__restrict__ V, const float *__restrict__ dO,          \
+      const float *__restrict__ LSE, const float *__restrict__ D
+
 // Block b: column part b % kParts of kv tile (b / kParts) / nbh
 // (ascending: the longest causal q ranges first) of head (b / kParts) %
 // nbh.
-template <typename T, int HD>
-__device__ __forceinline__ void
-fab_kv(const T* __restrict__ Q, const T* __restrict__ K,
-       const T* __restrict__ V, const T* __restrict__ dO,
-       const float* __restrict__ LSE, const float* __restrict__ D,
-       float* __restrict__ dK, float* __restrict__ dV, int nbh, int sq,
-       int skv, int causal, int window, float scale) {
-  constexpr int LD = HD + kPad<T>, LP = kB + kPad<T>;
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+fab_kv_kernel(FAB_ARGS, float* __restrict__ dK, float* __restrict__ dV,
+              int nbh, int sq, int skv, int causal, int window, float scale) {
+  constexpr int LD = HD + kPad, LP = kB + kPad;
   constexpr int HP = HD / kParts<HD>;            // dK / dV columns summed
-  constexpr bool kInPlace = kWalkInPlace<T, HD>;
+  constexpr bool kInPlace = kWalkInPlace<HD>;
   constexpr int LW = kInPlace ? HD : LD;         // the walked rows' stride
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kB * LD;
-  T* qs = vs + kB * LD;
-  T* dos = qs + kWalkTile<T, HD>;
-  T* ps = dos + kWalkTile<T, HD>;
-  T* dss = ps + kB * LP;
-  float* ls = reinterpret_cast<float*>(dss + kB * LP);
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + kB * LD;
+  float* qs = vs + kB * LD;
+  float* dos = qs + kWalkTile<HD>;
+  float* ps = dos + kWalkTile<HD>;
+  float* dss = ps + kB * LP;
+  float* ls = dss + kB * LP;
   float* dl = ls + kB;
 
   const int part = blockIdx.x % kParts<HD>, b = blockIdx.x / kParts<HD>;
   const int bh = b % nbh, k_lo = (b / nbh) * kB;
   const int offset = skv - sq;
-  load_tile<T, HD>(ks, K + ((size_t)bh * skv + k_lo) * HD);
-  load_tile<T, HD>(vs, V + ((size_t)bh * skv + k_lo) * HD);
+  load_tile<HD>(ks, K + ((size_t)bh * skv + k_lo) * HD);
+  load_tile<HD>(vs, V + ((size_t)bh * skv + k_lo) * HD);
   float dk[HP / 16][4], dv[HP / 16][4];
   zero(dk);
   zero(dv);
@@ -881,14 +913,14 @@ fab_kv(const T* __restrict__ Q, const T* __restrict__ K,
     if (!live(q_lo, k_lo, causal, window)) continue;
     __syncthreads();               // the last tile's readers are done
     const size_t row0 = (size_t)bh * sq + qi * kB;
-    const T* qt = qs;
-    const T* dot = dos;
+    const float* qt = qs;
+    const float* dot = dos;
     if constexpr (kInPlace) {
       qt = Q + row0 * HD;
       dot = dO + row0 * HD;
     } else {
-      load_tile<T, HD>(qs, Q + row0 * HD);
-      load_tile<T, HD>(dos, dO + row0 * HD);
+      load_tile<HD>(qs, Q + row0 * HD);
+      load_tile<HD>(dos, dO + row0 * HD);
     }
     if (threadIdx.x < kB) {
       ls[threadIdx.x] = LSE[row0 + threadIdx.x];
@@ -900,8 +932,7 @@ fab_kv(const T* __restrict__ Q, const T* __restrict__ K,
     zero(dp);
     warp_mm<kB, HD, false, true>(s, qt, LW, ks, LD);     // Q·Kᵀ
     warp_mm<kB, HD, false, true>(dp, dot, LW, vs, LD);   // dO·Vᵀ
-    softmax_grad<T>(s, dp, ps, dss, ls, dl, q_lo, k_lo, causal, window,
-                    scale);
+    softmax_grad(s, dp, ps, dss, ls, dl, q_lo, k_lo, causal, window, scale);
     __syncthreads();
     warp_mm<HP, kB, true, false>(dv, ps, LP, dot + part * HP, LW);  // Pᵀ·dO
     warp_mm<HP, kB, true, false>(dk, dss, LP, qt + part * HP, LW);  // dSᵀ·Q
@@ -913,31 +944,28 @@ fab_kv(const T* __restrict__ Q, const T* __restrict__ K,
 
 // Block b: q tile nq − 1 − b / nbh (the longest causal kv ranges first) of
 // head b % nbh.
-template <typename T, int HD>
-__device__ __forceinline__ void
-fab_q(const T* __restrict__ Q, const T* __restrict__ K,
-      const T* __restrict__ V, const T* __restrict__ dO,
-      const float* __restrict__ LSE, const float* __restrict__ D,
-      float* __restrict__ dQ, int nbh, int sq, int skv, int causal,
-      int window, float scale) {
-  constexpr int LD = HD + kPad<T>, LP = kB + kPad<T>;
-  constexpr bool kInPlace = kWalkInPlace<T, HD>;
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+fab_q_kernel(FAB_ARGS, float* __restrict__ dQ, int nbh, int sq, int skv,
+             int causal, int window, float scale) {
+  constexpr int LD = HD + kPad, LP = kB + kPad;
+  constexpr bool kInPlace = kWalkInPlace<HD>;
   constexpr int LW = kInPlace ? HD : LD;         // the walked rows' stride
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kWalkTile<T, HD>;
-  T* qs = vs + kWalkTile<T, HD>;
-  T* dos = qs + kB * LD;
-  T* dss = dos + kB * LD + kB * LP;
-  float* ls = reinterpret_cast<float*>(dss + kB * LP);
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + kWalkTile<HD>;
+  float* qs = vs + kWalkTile<HD>;
+  float* dos = qs + kB * LD;
+  float* dss = dos + kB * LD + kB * LP;
+  float* ls = dss + kB * LP;
   float* dl = ls + kB;
 
   const int nq = sq / kB;
   const int bh = blockIdx.x % nbh, qi = nq - 1 - blockIdx.x / nbh;
   const int q_lo = qi * kB + (skv - sq);
   const size_t row0 = (size_t)bh * sq + qi * kB;
-  load_tile<T, HD>(qs, Q + row0 * HD);
-  load_tile<T, HD>(dos, dO + row0 * HD);
+  load_tile<HD>(qs, Q + row0 * HD);
+  load_tile<HD>(dos, dO + row0 * HD);
   if (threadIdx.x < kB) {
     ls[threadIdx.x] = LSE[row0 + threadIdx.x];
     dl[threadIdx.x] = D[row0 + threadIdx.x];
@@ -948,14 +976,14 @@ fab_q(const T* __restrict__ Q, const T* __restrict__ K,
     const int k_lo = ki * kB;
     if (!live(q_lo, k_lo, causal, window)) continue;
     __syncthreads();               // the last tile's readers are done
-    const T* kt = ks;
-    const T* vt = vs;
+    const float* kt = ks;
+    const float* vt = vs;
     if constexpr (kInPlace) {
       kt = K + ((size_t)bh * skv + k_lo) * HD;
       vt = V + ((size_t)bh * skv + k_lo) * HD;
     } else {
-      load_tile<T, HD>(ks, K + ((size_t)bh * skv + k_lo) * HD);
-      load_tile<T, HD>(vs, V + ((size_t)bh * skv + k_lo) * HD);
+      load_tile<HD>(ks, K + ((size_t)bh * skv + k_lo) * HD);
+      load_tile<HD>(vs, V + ((size_t)bh * skv + k_lo) * HD);
     }
     __syncthreads();
     float s[4][4], dp[4][4];
@@ -963,47 +991,641 @@ fab_q(const T* __restrict__ Q, const T* __restrict__ K,
     zero(dp);
     warp_mm<kB, HD, false, true>(s, qs, LD, kt, LW);     // Q·Kᵀ
     warp_mm<kB, HD, false, true>(dp, dos, LD, vt, LW);   // dO·Vᵀ
-    softmax_grad<T>(s, dp, nullptr, dss, ls, dl, q_lo, k_lo, causal, window,
-                    scale);
+    softmax_grad(s, dp, nullptr, dss, ls, dl, q_lo, k_lo, causal, window,
+                 scale);
     __syncthreads();
     warp_mm<HD, kB, false, false>(dq, dss, LP, kt, LW);  // dS·K
   }
   store<HD, HD>(dQ + row0 * HD, dq, scale);
 }
-
-// the kernels: float32 (scalar) and bf16 (``*_mma``, mma.sync)
-#define FAB_ARGS                                                             \
-  const T *__restrict__ Q, const T *__restrict__ K, const T *__restrict__ V, \
-      const T *__restrict__ dO, const float *__restrict__ LSE,               \
-      const float *__restrict__ D
-template <int HD, typename T = float>
-__global__ void __launch_bounds__(kThreads)
-fab_kv_kernel(FAB_ARGS, float* __restrict__ dK, float* __restrict__ dV,
-              int nbh, int sq, int skv, int causal, int window, float scale) {
-  fab_kv<T, HD>(Q, K, V, dO, LSE, D, dK, dV, nbh, sq, skv, causal, window,
-                scale);
-}
-template <int HD, typename T = bf16>
-__global__ void __launch_bounds__(kThreads)
-fab_kv_kernel_mma(FAB_ARGS, float* __restrict__ dK, float* __restrict__ dV,
-                  int nbh, int sq, int skv, int causal, int window,
-                  float scale) {
-  fab_kv<T, HD>(Q, K, V, dO, LSE, D, dK, dV, nbh, sq, skv, causal, window,
-                scale);
-}
-template <int HD, typename T = float>
-__global__ void __launch_bounds__(kThreads)
-fab_q_kernel(FAB_ARGS, float* __restrict__ dQ, int nbh, int sq, int skv,
-             int causal, int window, float scale) {
-  fab_q<T, HD>(Q, K, V, dO, LSE, D, dQ, nbh, sq, skv, causal, window, scale);
-}
-template <int HD, typename T = bf16>
-__global__ void __launch_bounds__(kThreads)
-fab_q_kernel_mma(FAB_ARGS, float* __restrict__ dQ, int nbh, int sq, int skv,
-                 int causal, int window, float scale) {
-  fab_q<T, HD>(Q, K, V, dO, LSE, D, dQ, nbh, sq, skv, causal, window, scale);
-}
 #undef FAB_ARGS
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma, TMA rings, P and dS in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kPanelBytes = kB * 128; // a 64-row x 64-column bf16 panel
+constexpr int kProducerRegs = 24;     // the producer warpgroup's registers
+
+// A pass's block (kKV: fab_kv, else fab_q): kConsumers warpgroups of 64
+// rows and a producer warpgroup (the last), the consumers' registers after
+// setmaxnreg (the SM's 65,536 less the producer's 128 x 24, shared), and
+// its shared memory: the tiles staged once (two tensors — K and V, or Q and
+// dO — of kOwnRows rows), a ring of kSlots tiles (64 x HD as HD / 64
+// swizzled panels) with, in fab_kv, each slot's 64 floats of lse or D,
+// then the full / empty barriers and the staged tiles' barrier.  fab_q at
+// hd 64 runs three consumer warpgroups (its dQ, S, dP and dS take ~140 of
+// the 160 registers each then gets); every other pass two, with 240.
+template <int HD, bool kKV>
+struct Plan {
+  static constexpr int kConsumers = !kKV && HD == 64 ? 3 : 2;
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  static constexpr int kTile = HD / 64 * kPanelBytes;
+  static constexpr bool kSplit = kKV && HD > 128;   // dV / dK warpgroups
+  static constexpr int kOwnRows = kSplit ? kB : kConsumers * kB;
+  static constexpr int kOwn = 2 * (kOwnRows / kB) * kTile;
+  static constexpr int kVec = kKV ? kB * (int)sizeof(float) : 0;
+  static constexpr int kFree = rt::kSmemLimit - 1024 - kOwn - 512;
+  static constexpr int kSlots =
+      kFree / (kTile + kVec) < 8 ? kFree / (kTile + kVec) : 8;
+  static constexpr size_t kSmem = 1024 + (size_t)kOwn +
+                                  (size_t)kSlots * (kTile + kVec) +
+                                  (2 * kSlots + 1) * sizeof(uint64_t);
+};
+
+// k-step kk (16 columns) of a 64-row tile read k-major
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return mma::sw128_desc(tile + (kk >> 2) * kPanelBytes + (kk & 3) * 32, 16,
+                         1024);
+}
+
+// rows [16kk, 16kk + 16) x columns [64pn, 64pn + 64) of a 64-row tile read
+// n-major
+__device__ __forceinline__ uint64_t nmajor(uint32_t tile, int kk, int pn) {
+  return mma::sw128_desc(tile + pn * kPanelBytes + kk * 16 * 128,
+                         kPanelBytes, 1024);
+}
+
+// acc (64 x 64, this warpgroup) = A · Bᵀ over HD: A, B 64-row tiles, both
+// read k-major; issued and committed as one group, not waited for (the
+// first k-step overwrites acc, so it needs no zeroing)
+template <int HD>
+__device__ __forceinline__ void issue_scores(float (&acc)[32], uint32_t a,
+                                             uint32_t b) {
+  mma::pin(acc);
+  mma::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    mma::wgmma64_ss<0>(acc, kmajor(a, kk), kmajor(b, kk), kk > 0);
+  mma::wgmma_commit();
+}
+
+// x (a 64 x 64 accumulator) rounded to bf16, nearest even, as wgmma's
+// register A operand: f[kk] holds columns [16kk, 16kk + 16)
+__device__ __forceinline__ void pack(uint32_t (&f)[4][4],
+                                     const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[kk][i] = mma::pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// acc (64 x HD, panels of 64 columns) += f (64 x 64, registers) · B (a
+// 64-row tile, read n-major), for the output ``a`` and, when kTwo, ``b``
+template <int NP, bool kTwo>
+__device__ __forceinline__ void issue_rs(float (&a)[NP][32],
+                                         const uint32_t (&fa)[4][4],
+                                         uint32_t ta, float (&b)[NP][32],
+                                         const uint32_t (&fb)[4][4],
+                                         uint32_t tb) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      mma::wgmma64<1>(a[pn], fa[kk], nmajor(ta, kk, pn));
+      if constexpr (kTwo) mma::wgmma64<1>(b[pn], fb[kk], nmajor(tb, kk, pn));
+    }
+}
+
+// this warp's rows of a 64 x HD float32 accumulator (times ``mul``) at
+// ``out`` (the tile's first row, row stride HD)
+template <int HD>
+__device__ __forceinline__ void store_acc(float* out,
+                                          const float (&acc)[HD / 64][32],
+                                          float mul) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int pn = 0; pn < HD / 64; ++pn)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(
+            out + (size_t)(warp * 16 + g + 8 * hh) * HD + pn * 64 + 8 * j +
+            2 * t) = make_float2(__fmul_rn(acc[pn][4 * j + 2 * hh], mul),
+                                 __fmul_rn(acc[pn][4 * j + 2 * hh + 1], mul));
+}
+
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&acc)[N][32]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+}
+
+// What a block of either pass shares with its consumers.
+struct Ring {
+  unsigned char* tiles;   // slot s at tiles + s · kTile
+  const float* vec;       // fab_kv: slot s's lse or D at vec + 64 s
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* own;          // the staged tiles have landed
+};
+
+__device__ __forceinline__ Ring carve(unsigned char* smem_raw, int own_bytes,
+                                      int slots, int tile, int vec) {
+  // swizzled panels need 1024-byte alignment
+  unsigned char* smem =
+      smem_raw + ((1024 - (mma::smem_u32(smem_raw) & 1023)) & 1023);
+  Ring r;
+  r.tiles = smem + own_bytes;
+  r.vec = reinterpret_cast<const float*>(r.tiles + slots * tile);
+  r.full = reinterpret_cast<uint64_t*>(r.tiles + slots * (tile + vec));
+  r.empty = r.full + slots;
+  r.own = r.empty + slots;
+  return r;
+}
+
+// Warp index, uniform in the compiler's eyes (read from lane 0): branches on
+// it are not divergent, so ptxas keeps the wgmma pipelines it guards.
+__device__ __forceinline__ int uniform_warp() {
+  return __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+}
+
+// Wait for the barrier's phase of parity ``parity``: the spin loop inside
+// the asm, so the compiler sees no divergent branch.
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra.uni WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Arrive on the barrier from lane 0 of the warp (predicated, no branch).
+__device__ __forceinline__ void arrive_lane0(uint32_t bar) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.u32 p, %1, 0;\n"
+      " @p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(threadIdx.x & 31)
+      : "memory");
+}
+
+// A walked tile and its partner (Q with dO, or K with V) sit in the slot
+// pair at ring position ``at``: slots at % SL and (at + 1) % SL.
+template <int SL>
+__device__ __forceinline__ void wait_pair(const Ring& r, int at) {
+  wait_phase(mma::smem_u32(&r.full[at % SL]), (at / SL) & 1);
+  wait_phase(mma::smem_u32(&r.full[(at + 1) % SL]), ((at + 1) / SL) & 1);
+}
+
+// This warp is done with the pair (each consumer warp arrives once).
+template <int SL>
+__device__ __forceinline__ void release_pair(const Ring& r, int at) {
+  __syncwarp();
+  arrive_lane0(mma::smem_u32(&r.empty[at % SL]));
+  arrive_lane0(mma::smem_u32(&r.empty[(at + 1) % SL]));
+}
+
+// A consumer warpgroup's walk over its live pairs: per pair the scores S
+// (and, kDP, dP) are issued and waited for, ``prob`` turns S into P,
+// ``dgrad`` forms dS and packs the operands and ``products`` issues the
+// gradient products.  ``next(lo)`` returns the ring position of the next
+// pair this warpgroup computes on (the walked tile's first position in
+// lo), or -1, passing the pairs that only the block's other warpgroup
+// needs.  With kOverlap a pair's products run on while the next pair's
+// scores are issued, and the pair is released once they are done (the
+// wait for the next S retires them: groups complete in issue order); else
+// they are waited for at once.  kOverlap holds three pairs of the ring,
+// and registers for the products' operands beside the next scores (ptxas
+// serialises the products otherwise: C7512).
+template <int SL, bool kDP, bool kOverlap, class Next, class Scores,
+          class DScores, class Prob, class DGrad, class Products,
+          class Settle>
+__device__ __forceinline__ void walk(const Ring& r, Next&& next,
+                                     Scores&& scores, DScores&& dscores,
+                                     Prob&& prob, DGrad&& dgrad,
+                                     Products&& products, Settle&& settle) {
+  static_assert(!kOverlap || SL >= 6, "the ring must hold three pairs");
+  float sc[32];
+  int lo;
+  // issue the pair's scores and wait for S (and what was issued before it)
+  auto head = [&](int at) {
+    wait_pair<SL>(r, at);
+    scores(sc, at, lo);
+    if constexpr (kDP) dscores(at, lo);
+    mma::wgmma_wait<kDP ? 1 : 0>();
+  };
+  // P, dS, the products issued
+  auto tail = [&](int at) {
+    mma::pin(sc);
+    prob(sc, at, lo);
+    if constexpr (kDP) mma::wgmma_wait<0>();
+    dgrad(sc, at, lo);
+    products(at);
+  };
+  if constexpr (!kOverlap) {
+    for (int at = next(lo); at >= 0; at = next(lo)) {
+      head(at);
+      tail(at);
+      mma::wgmma_wait<0>();
+      settle();
+      release_pair<SL>(r, at);
+    }
+  } else {
+    // the first pair peeled, so every iteration of the loop starts with
+    // one group (the last products) in flight: ptxas serialises the
+    // products of a loop whose first iteration differs (C7514)
+    int prev = next(lo);
+    if (prev < 0) return;
+    head(prev);
+    tail(prev);
+    for (int at = next(lo); at >= 0; at = next(lo)) {
+      head(at);                     // retires products(prev) too
+      settle();
+      release_pair<SL>(r, prev);
+      tail(at);
+      prev = at;
+    }
+    mma::wgmma_wait<0>();
+    settle();
+    release_pair<SL>(r, prev);
+  }
+}
+
+// Pᵀ = exp(Sᵀ·scale − lse) in place of sc for the kv pass: rows kv (this
+// thread's kw + g, + 8), columns q (q_lo + 8j + 2t, + 1), lse per column;
+// the mask is computed only on a warp's diagonal or window-edge tiles
+template <bool kMask>
+__device__ __forceinline__ void kv_prob(float (&sc)[32], const float* ls,
+                                        int q_lo, int kw, int causal,
+                                        int window, float scale) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[4 * j + e] = prob(
+          sc[4 * j + e], (e & 1) ? l2.y : l2.x, scale,
+          !kMask || unmasked(q_lo + 8 * j + 2 * t + (e & 1),
+                             kw + g + 8 * (e >> 1), causal, window));
+  }
+}
+
+// dSᵀ = Pᵀ∘(dPᵀ − D) in place of dp for the kv pass, D per column
+__device__ __forceinline__ void kv_dgrad(float (&dp)[32],
+                                         const float (&sc)[32],
+                                         const float* dl) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[4 * j + e] = __fmul_rn(
+          sc[4 * j + e], __fsub_rn(dp[4 * j + e], (e & 1) ? d2.y : d2.x));
+  }
+}
+
+// One consumer warpgroup of fab_kv: the kv tile at k_lo (its K and V at
+// shared addresses kt, vt), summing dV (kDV) and / or dK (kDK) over the q
+// tiles live for it, in ascending order, in the ring's sequence: a slot
+// pair (Q with lse, dO with D) for every q tile live for k_first or
+// k_last, the block's kv tiles.  Writes its sums at dK / dV (the tile's
+// first row).
+template <int HD, bool kDV, bool kDK>
+__device__ __forceinline__ void kv_consumer(const Ring& r, uint32_t kt,
+                                            uint32_t vt, int k_lo,
+                                            int k_first, int k_last, int nq,
+                                            int offset, int causal,
+                                            int window, float scale,
+                                            float* dK, float* dV) {
+  using P = Plan<HD, true>;
+  constexpr int NP = HD / 64, SL = P::kSlots;
+  const int kw = k_lo + (uniform_warp() & 3) * 16;   // warp's first row
+  float dv[NP][32], dk[NP][32], dp[32];
+  uint32_t pf[4][4], sf[4][4];
+  if constexpr (kDV) zero_acc(dv);
+  if constexpr (kDK) zero_acc(dk);
+  wait_phase(mma::smem_u32(r.own), 0);
+  const uint32_t ring = mma::smem_u32(r.tiles);
+  auto slot = [&](int at, int x) {
+    return ring + (at + x) % SL * P::kTile;
+  };
+  int n = 0, qi = 0;
+  auto next = [&](int& q_lo) -> int {
+    for (; qi < nq; ++qi) {
+      q_lo = qi * kB + offset;
+      if (!live(q_lo, k_first, causal, window) &&
+          !live(q_lo, k_last, causal, window))
+        continue;
+      const int at = n;
+      n += 2;
+      if (live(q_lo, k_lo, causal, window)) {
+        ++qi;
+        return at;
+      }
+      wait_pair<SL>(r, at);
+      release_pair<SL>(r, at);
+    }
+    return -1;
+  };
+  // Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ (rows: kv; columns: q)
+  auto scores = [&](float (&sc)[32], int at, int) {
+    issue_scores<HD>(sc, kt, slot(at, 0));
+  };
+  auto dscores = [&](int at, int) {
+    if constexpr (kDK) issue_scores<HD>(dp, vt, slot(at, 1));
+  };
+  auto prob_ = [&](float (&sc)[32], int at, int q_lo) {
+    const float* ls = r.vec + at % SL * kB;
+    if ((causal && kw + 15 > q_lo) || (window && q_lo + kB - 1 - kw >= window))
+      kv_prob<true>(sc, ls, q_lo, kw, causal, window, scale);
+    else
+      kv_prob<false>(sc, ls, q_lo, kw, causal, window, scale);
+  };
+  auto dgrad = [&](float (&sc)[32], int at, int) {
+    if constexpr (kDK) {
+      mma::pin(dp);
+      kv_dgrad(dp, sc, r.vec + (at + 1) % SL * kB);
+      pack(sf, dp);
+    }
+    if constexpr (kDV) pack(pf, sc);
+  };
+  // dV += Pᵀ·dO, dK += dSᵀ·Q: A from the registers just packed, B the
+  // slots' dO and Q read n-major
+  auto products = [&](int at) {
+    if constexpr (kDV) { mma::pin(dv); mma::pin(pf); }
+    if constexpr (kDK) { mma::pin(dk); mma::pin(sf); }
+    mma::wgmma_fence();
+    if constexpr (kDV && kDK)
+      issue_rs<NP, true>(dv, pf, slot(at, 1), dk, sf, slot(at, 0));
+    else if constexpr (kDV)
+      issue_rs<NP, false>(dv, pf, slot(at, 1), dv, pf, 0);
+    else
+      issue_rs<NP, false>(dk, sf, slot(at, 0), dk, sf, 0);
+    mma::wgmma_commit();
+  };
+  auto settle = [&] {
+    if constexpr (kDV) { mma::pin(dv); mma::pin(pf); }
+    if constexpr (kDK) { mma::pin(dk); mma::pin(sf); }
+  };
+  // the products overlap the next scores where registers allow: hd 64
+  walk<SL, kDK, kDV && kDK && HD == 64>(r, next, scores, dscores, prob_,
+                                        dgrad, products, settle);
+  settle();
+  if constexpr (kDV) store_acc<HD>(dV, dv, 1.f);
+  if constexpr (kDK) store_acc<HD>(dK, dk, scale);
+}
+
+// Block b: kv tiles c·T .. c·T + T − 1 (T = kOwnRows / 64; c = b / nbh
+// ascending: the longest causal q ranges first) of head b % nbh.
+template <int HD>
+__global__ void __launch_bounds__(Plan<HD, true>::kThreads, 1)
+fab_kv_kernel_mma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ LSE, const float* __restrict__ D,
+                  float* __restrict__ dK, float* __restrict__ dV, int nbh,
+                  int sq, int skv, int causal, int window, float scale) {
+  using P = Plan<HD, true>;
+  constexpr int NP = HD / 64, SL = P::kSlots, T = P::kOwnRows / kB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Ring r = carve(smem_raw, P::kOwn, SL, P::kTile, P::kVec);
+  unsigned char* ks = r.tiles - P::kOwn;     // T tiles of K, then of V
+  unsigned char* vs = ks + T * P::kTile;
+  const int warp = uniform_warp();
+  const int bh = blockIdx.x % nbh, kt0 = (blockIdx.x / nbh) * T;
+  const int ntiles = min(T, skv / kB - kt0);
+  const int offset = skv - sq, nq = sq / kB;
+  const int k_first = kt0 * kB, k_last = (kt0 + ntiles - 1) * kB;
+  // consumer warpgroups: pair mode one per kv tile; split both on one
+  const int consumers = P::kSplit ? 2 : ntiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SL; ++s) {
+      mma::mbar_init(mma::smem_u32(&r.full[s]), 1);
+      mma::mbar_init(mma::smem_u32(&r.empty[s]), 4 * consumers);
+    }
+    mma::mbar_init(mma::smem_u32(r.own), 1);
+    mma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * P::kConsumers) {
+    // producer: K and V of the block's tiles once, then for every q tile
+    // live for one of them, in order, Q with its lse and dO with its D
+    mma::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 128 * P::kConsumers) return;
+    const uint32_t ob = mma::smem_u32(r.own);
+    osm::mbar_expect_tx(ob, 2 * ntiles * P::kTile);
+    for (int h = 0; h < ntiles; ++h)
+      for (int p = 0; p < NP; ++p) {
+        const int row = bh * skv + (kt0 + h) * kB;
+        const int off = h * P::kTile + p * kPanelBytes;
+        osm::tma_load(mma::smem_u32(ks + off), &tk, ob, 64 * p, row);
+        osm::tma_load(mma::smem_u32(vs + off), &tv, ob, 64 * p, row);
+      }
+    int n = 0;
+    for (int qi = 0; qi < nq; ++qi) {
+      const int q_lo = qi * kB + offset;
+      if (!live(q_lo, k_first, causal, window) &&
+          !live(q_lo, k_last, causal, window))
+        continue;
+      const int row = bh * sq + qi * kB;
+      for (int x = 0; x < 2; ++x, ++n) {
+        const int s = n % SL;
+        mma::mbar_wait(mma::smem_u32(&r.empty[s]), ((n / SL) & 1) ^ 1);
+        const uint32_t bar = mma::smem_u32(&r.full[s]);
+        const uint32_t dst = mma::smem_u32(r.tiles + s * P::kTile);
+        osm::mbar_expect_tx(bar, P::kTile + P::kVec);
+        for (int p = 0; p < NP; ++p)
+          osm::tma_load(dst + p * kPanelBytes, x ? &tdo : &tq, bar, 64 * p,
+                        row);
+        osm::bulk_load(mma::smem_u32(r.vec + s * kB), (x ? D : LSE) + row,
+                       P::kVec, bar);
+      }
+    }
+    return;
+  }
+  const int h = warp >> 2;
+  if (h >= consumers) return;
+  mma::setmaxnreg_inc<P::kConsumerRegs>();
+  const int tile = P::kSplit ? 0 : h;
+  const int k_lo = (kt0 + tile) * kB;
+  const uint32_t kt = mma::smem_u32(ks + tile * P::kTile);
+  const uint32_t vt = mma::smem_u32(vs + tile * P::kTile);
+  float* dk = dK + ((size_t)bh * skv + k_lo) * HD;
+  float* dv = dV + ((size_t)bh * skv + k_lo) * HD;
+  if constexpr (P::kSplit) {
+    if (h == 0)
+      kv_consumer<HD, true, false>(r, kt, vt, k_lo, k_first, k_last, nq,
+                                   offset, causal, window, scale, dk, dv);
+    else
+      kv_consumer<HD, false, true>(r, kt, vt, k_lo, k_first, k_last, nq,
+                                   offset, causal, window, scale, dk, dv);
+  } else {
+    kv_consumer<HD, true, true>(r, kt, vt, k_lo, k_first, k_last, nq,
+                                offset, causal, window, scale, dk, dv);
+  }
+}
+
+// Block b: q rows [R·qt, R·qt + R) (R = kOwnRows, 64 per consumer
+// warpgroup) of head b % nbh with qt = nq − 1 − b / nbh (the longest causal
+// kv ranges first); warpgroup h the q tile (R / 64)·qt + h (a last, shorter
+// block runs only the warpgroups it has tiles for).
+template <int HD>
+__global__ void __launch_bounds__(Plan<HD, false>::kThreads, 1)
+fab_q_kernel_mma(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ LSE, const float* __restrict__ D,
+                 float* __restrict__ dQ, int nbh, int sq, int skv,
+                 int causal, int window, float scale) {
+  using P = Plan<HD, false>;
+  constexpr int NP = HD / 64, SL = P::kSlots;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Ring r = carve(smem_raw, P::kOwn, SL, P::kTile, 0);
+  constexpr int NC = P::kConsumers;
+  unsigned char* qs = r.tiles - P::kOwn;     // NC tiles of Q, then of dO
+  unsigned char* dos = qs + NC * P::kTile;
+  const int warp = uniform_warp(), lane = threadIdx.x & 31;
+  const int nq = (sq + NC * kB - 1) / (NC * kB);
+  const int bh = blockIdx.x % nbh;
+  const int row0 = (nq - 1 - blockIdx.x / nbh) * NC * kB;
+  const int parts = min(NC * kB, sq - row0) / kB;   // q tiles of the block
+  const int offset = skv - sq, nkv = skv / kB;
+  const int q_first = row0 + offset;
+  // kv tile at k_lo live for one of the block's q tiles
+  auto any_live = [&](int k_lo) {
+    for (int h = 0; h < parts; ++h)
+      if (live(q_first + h * kB, k_lo, causal, window)) return true;
+    return false;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SL; ++s) {
+      mma::mbar_init(mma::smem_u32(&r.full[s]), 1);
+      mma::mbar_init(mma::smem_u32(&r.empty[s]), 4 * parts);
+    }
+    mma::mbar_init(mma::smem_u32(r.own), 1);
+    mma::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * NC) {
+    // producer: Q and dO of the block's rows once, then for every kv tile
+    // live for one of its q tiles, in order, K and V
+    mma::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 128 * NC) return;
+    const uint32_t ob = mma::smem_u32(r.own);
+    osm::mbar_expect_tx(ob, 2 * parts * P::kTile);
+    for (int h = 0; h < parts; ++h)
+      for (int p = 0; p < NP; ++p) {
+        const int row = bh * sq + row0 + h * kB;
+        const int off = h * P::kTile + p * kPanelBytes;
+        osm::tma_load(mma::smem_u32(qs + off), &tq, ob, 64 * p, row);
+        osm::tma_load(mma::smem_u32(dos + off), &tdo, ob, 64 * p, row);
+      }
+    int n = 0;
+    for (int ki = 0; ki < nkv; ++ki) {
+      const int k_lo = ki * kB;
+      if (!any_live(k_lo)) continue;
+      for (int x = 0; x < 2; ++x, ++n) {
+        const int s = n % SL;
+        mma::mbar_wait(mma::smem_u32(&r.empty[s]), ((n / SL) & 1) ^ 1);
+        const uint32_t bar = mma::smem_u32(&r.full[s]);
+        const uint32_t dst = mma::smem_u32(r.tiles + s * P::kTile);
+        osm::mbar_expect_tx(bar, P::kTile);
+        for (int p = 0; p < NP; ++p)
+          osm::tma_load(dst + p * kPanelBytes, x ? &tv : &tk, bar, 64 * p,
+                        bh * skv + k_lo);
+      }
+    }
+    return;
+  }
+  const int h = warp >> 2;
+  if (h >= parts) return;
+  mma::setmaxnreg_inc<P::kConsumerRegs>();
+  // consumer warpgroup: q rows [q_lo, q_lo + 64); thread (g, t) of warp w
+  // holds rows qw + g (+ 8) and kv columns 8j + 2t (+ 1)
+  const int w = warp & 3, g = lane >> 2, t = lane & 3;
+  const int q_lo = q_first + h * kB, qw = q_lo + w * 16;
+  const size_t grow = (size_t)bh * sq + row0 + h * kB + w * 16 + g;
+  const float lse[2] = {LSE[grow], LSE[grow + 8]};
+  const float dd[2] = {D[grow], D[grow + 8]};
+  const uint32_t qa = mma::smem_u32(qs + h * P::kTile);
+  const uint32_t da = mma::smem_u32(dos + h * P::kTile);
+  const uint32_t ring = mma::smem_u32(r.tiles);
+  auto slot = [&](int at, int x) {
+    return ring + (at + x) % SL * P::kTile;
+  };
+  float dq[NP][32], dp[32];
+  uint32_t sf[4][4];
+  zero_acc(dq);
+  wait_phase(mma::smem_u32(r.own), 0);
+  int n = 0, ki = 0;
+  auto next = [&](int& k_lo) -> int {
+    for (; ki < nkv; ++ki) {
+      k_lo = ki * kB;
+      if (!any_live(k_lo)) continue;
+      const int at = n;
+      n += 2;
+      if (live(q_lo, k_lo, causal, window)) {
+        ++ki;
+        return at;
+      }
+      wait_pair<SL>(r, at);
+      release_pair<SL>(r, at);
+    }
+    return -1;
+  };
+  // S = Q·Kᵀ, dP = dO·Vᵀ
+  auto scores = [&](float (&sc)[32], int at, int) {
+    issue_scores<HD>(sc, qa, slot(at, 0));
+  };
+  auto dscores = [&](int at, int) { issue_scores<HD>(dp, da, slot(at, 1)); };
+  auto prob_ = [&](float (&sc)[32], int, int k_lo) {
+    auto row = [&](auto mask) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = prob(
+              sc[4 * j + e], lse[e >> 1], scale,
+              !mask.value || unmasked(qw + g + 8 * (e >> 1),
+                                      k_lo + 8 * j + 2 * t + (e & 1),
+                                      causal, window));
+    };
+    if ((causal && k_lo + kB - 1 > qw) || (window && qw + 15 - k_lo >= window))
+      row(std::true_type{});
+    else
+      row(std::false_type{});
+  };
+  auto dgrad = [&](float (&sc)[32], int, int) {
+    mma::pin(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = __fmul_rn(sc[i], __fsub_rn(dp[i], dd[(i >> 1) & 1]));
+    pack(sf, dp);
+  };
+  // dQ += dS·K: A the dS just packed, B the slot's K read n-major
+  auto products = [&](int at) {
+    mma::pin(dq);
+    mma::pin(sf);
+    mma::wgmma_fence();
+    issue_rs<NP, false>(dq, sf, slot(at, 0), dq, sf, 0);
+    mma::wgmma_commit();
+  };
+  auto settle = [&] {
+    mma::pin(dq);
+    mma::pin(sf);
+  };
+  // the products overlap the next scores where registers allow: hd <= 128
+  walk<SL, true, HD <= 128>(r, next, scores, dscores, prob_, dgrad,
+                            products, settle);
+  settle();
+  store_acc<HD>(dQ + ((size_t)bh * sq + row0 + h * kB) * HD, dq, scale);
+}
 
 template <typename K>
 int set_smem(K kern, size_t bytes) {
@@ -1011,39 +1633,68 @@ int set_smem(K kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* dsum, float* dq,
-           float* dk, float* dv, int bh, int sq, int skv, int causal,
-           int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, HD>();
+template <int HD>
+int launch_f32(const float* Q, const float* K, const float* V,
+               const float* O, const float* dO, const float* lse,
+               float* dsum, float* dq, float* dk, float* dv, int bh, int sq,
+               int skv, int causal, int window, float scale,
+               cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD>();
   static_assert(smem <= (size_t)rt::kSmemLimit, "tiles too large");
-  const T* Q = static_cast<const T*>(q);
-  const T* K = static_cast<const T*>(k);
-  const T* V = static_cast<const T*>(v);
-  const T* dO = static_cast<const T*>(dout);
   const int rows = bh * sq;
-  fab_dot_kernel<T, HD><<<(rows + kThreads / 32 - 1) / (kThreads / 32),
-                           kThreads, 0, stream>>>(static_cast<const T*>(o),
-                                                  dO, dsum, rows);
-  int e = (int)cudaGetLastError();
-  if (e) return e;
-  auto run = [&](auto kv, auto qk) -> int {
-    int err;
-    if ((err = set_smem(kv, smem))) return err;
-    kv<<<(unsigned)bh * (skv / kB) * kParts<HD>, kThreads, smem, stream>>>(
-        Q, K, V, dO, lse, dsum, dk, dv, bh, sq, skv, causal, window, scale);
-    if ((err = (int)cudaGetLastError())) return err;
-    if ((err = set_smem(qk, smem))) return err;
-    qk<<<(unsigned)bh * (sq / kB), kThreads, smem, stream>>>(
-        Q, K, V, dO, lse, dsum, dq, bh, sq, skv, causal, window, scale);
-    return (int)cudaGetLastError();
-  };
-  // only the matching pair is instantiated: bf16 on the tensor cores
-  if constexpr (sizeof(T) == 2)
-    return run(fab_kv_kernel_mma<HD, T>, fab_q_kernel_mma<HD, T>);
-  else
-    return run(fab_kv_kernel<HD, T>, fab_q_kernel<HD, T>);
+  fab_dot_kernel<float, HD><<<(rows + kThreads / 32 - 1) / (kThreads / 32),
+                               kThreads, 0, stream>>>(O, dO, dsum, rows);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  if ((err = set_smem(fab_kv_kernel<HD>, smem))) return err;
+  fab_kv_kernel<HD><<<(unsigned)bh * (skv / kB) * kParts<HD>, kThreads, smem,
+                      stream>>>(Q, K, V, dO, lse, dsum, dk, dv, bh, sq, skv,
+                                causal, window, scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = set_smem(fab_q_kernel<HD>, smem))) return err;
+  fab_q_kernel<HD><<<(unsigned)bh * (sq / kB), kThreads, smem, stream>>>(
+      Q, K, V, dO, lse, dsum, dq, bh, sq, skv, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_mma(const bf16* Q, const bf16* K, const bf16* V, const bf16* O,
+               const bf16* dO, const float* lse, float* dsum, float* dq,
+               float* dk, float* dv, int bh, int sq, int skv, int causal,
+               int window, float scale, cudaStream_t stream) {
+  using PK = Plan<HD, true>;
+  using PQ = Plan<HD, false>;
+  static_assert(PK::kSmem <= (size_t)rt::kSmemLimit &&
+                    PQ::kSmem <= (size_t)rt::kSmemLimit && PK::kSlots >= 2 &&
+                    PQ::kSlots >= 2,
+                "tiles too large");
+  // TMA and the bulk copies read 16-byte aligned rows
+  if (!mma::aligned16(Q) || !mma::aligned16(K) || !mma::aligned16(V) ||
+      !mma::aligned16(dO) || !mma::aligned16(lse) || !mma::aligned16(dsum))
+    return (int)cudaErrorInvalidValue;
+  const int rows = bh * sq;
+  fab_dot_kernel<bf16, HD><<<(rows + kThreads / 32 - 1) / (kThreads / 32),
+                              kThreads, 0, stream>>>(O, dO, dsum, rows);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  CUtensorMap tq{}, tk{}, tv{}, tdo{};
+  if ((err = osm::make_tmap<bf16>(&tq, Q, HD, bh * sq, HD, kB)) ||
+      (err = osm::make_tmap<bf16>(&tk, K, HD, bh * skv, HD, kB)) ||
+      (err = osm::make_tmap<bf16>(&tv, V, HD, bh * skv, HD, kB)) ||
+      (err = osm::make_tmap<bf16>(&tdo, dO, HD, bh * sq, HD, kB)))
+    return err;
+  if ((err = set_smem(fab_kv_kernel_mma<HD>, PK::kSmem))) return err;
+  const int kv_blocks = (skv + PK::kOwnRows - 1) / PK::kOwnRows;
+  fab_kv_kernel_mma<HD><<<(unsigned)bh * kv_blocks, PK::kThreads, PK::kSmem,
+                          stream>>>(tq, tk, tv, tdo, lse, dsum, dk, dv, bh,
+                                    sq, skv, causal, window, scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  if ((err = set_smem(fab_q_kernel_mma<HD>, PQ::kSmem))) return err;
+  const int q_blocks = (sq + PQ::kOwnRows - 1) / PQ::kOwnRows;
+  fab_q_kernel_mma<HD><<<(unsigned)bh * q_blocks, PQ::kThreads, PQ::kSmem,
+                         stream>>>(
+      tq, tk, tv, tdo, lse, dsum, dq, bh, sq, skv, causal, window, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fab
@@ -1074,8 +1725,9 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v,
 // contiguous, all of ``dtype`` (float32 or bfloat16), lse (bh, sq) float32
 // from fa_forward; writes the float32 workspace dsum (bh, sq) = rowsum(dO∘O)
 // and dq (bh, sq, hd), dk and dv (bh, skv, hd) in float32.  sq and skv
-// multiples of 64, sq <= skv; hd 64, 128 or 256.  Three kernels on
-// ``stream``; returns the first cudaError_t.
+// multiples of 64, sq <= skv; hd 64, 128 or 256; bf16 operands, lse and
+// dsum 16-byte aligned (TMA).  Three kernels on ``stream``; returns the
+// first cudaError_t.
 extern "C" int fa_backward(const void* q, const void* k, const void* v,
                            const void* o, const void* dout, const void* lse,
                            void* dsum, void* dq, void* dk, void* dv, int bh,
@@ -1089,15 +1741,29 @@ extern "C" int fa_backward(const void* q, const void* k, const void* v,
   float* gq = static_cast<float*>(dq);
   float* gk = static_cast<float*>(dk);
   float* gv = static_cast<float*>(dv);
-#define FAB_CASE(T, HD)                                                     \
-  return fab::launch<T, HD>(q, k, v, o, dout, l, ds, gq, gk, gv, bh, sq,    \
-                            skv, causal, window, scale, s);
-  if (dtype == rt::kF32 && hd == 64) FAB_CASE(float, 64)
-  if (dtype == rt::kF32 && hd == 128) FAB_CASE(float, 128)
-  if (dtype == rt::kBF16 && hd == 64) FAB_CASE(__nv_bfloat16, 64)
-  if (dtype == rt::kF32 && hd == 256) FAB_CASE(float, 256)
-  if (dtype == rt::kBF16 && hd == 128) FAB_CASE(__nv_bfloat16, 128)
-  if (dtype == rt::kBF16 && hd == 256) FAB_CASE(__nv_bfloat16, 256)
+#define FAB_CASE(HD)                                                        \
+  case HD:                                                                  \
+    if (dtype == rt::kF32)                                                  \
+      return fab::launch_f32<HD>(                                           \
+          static_cast<const float*>(q), static_cast<const float*>(k),       \
+          static_cast<const float*>(v), static_cast<const float*>(o),       \
+          static_cast<const float*>(dout), l, ds, gq, gk, gv, bh, sq, skv,  \
+          causal, window, scale, s);                                        \
+    if (dtype == rt::kBF16)                                                 \
+      return fab::launch_mma<HD>(                                           \
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),         \
+          static_cast<const bf16*>(v), static_cast<const bf16*>(o),         \
+          static_cast<const bf16*>(dout), l, ds, gq, gk, gv, bh, sq, skv,   \
+          causal, window, scale, s);                                        \
+    break;
+  using mma::bf16;
+  switch (hd) {
+    FAB_CASE(64)
+    FAB_CASE(128)
+    FAB_CASE(256)
+    default:
+      break;
+  }
 #undef FAB_CASE
   return (int)cudaErrorInvalidValue;
 }

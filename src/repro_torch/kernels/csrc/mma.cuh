@@ -190,6 +190,22 @@ __device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
+template <int M, int N>
+__device__ __forceinline__ void pin(float (&d)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) pin(d[i]);
+}
+
+// Hand registers back to the SM (``dec``) or take them (``inc``): every warp
+// of the warpgroup runs the same instruction; N a multiple of 8 in [24, 256].
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
 // Order this thread's generic-proxy shared-memory writes (st.shared,
 // cp.async) before the async-proxy reads of a later wgmma.
@@ -226,10 +242,11 @@ __device__ __forceinline__ void wgmma64(float (&d)[32], const uint32_t (&a)[4],
 
 // d (64 x 64, float32, this warpgroup) += A (64 x 16 bf16 in shared memory,
 // k-major, ``da``) · B (16 x 64 bf16 in shared memory, ``db``); TB as for
-// ``wgmma64``.  No A registers to keep intact while the product runs.
+// ``wgmma64``.  No A registers to keep intact while the product runs.  With
+// ``acc`` 0 the product overwrites d instead (d's values are not read).
 template <int TB>
 __device__ __forceinline__ void wgmma64_ss(float (&d)[32], uint64_t da,
-                                           uint64_t db) {
+                                           uint64_t db, int acc = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -246,7 +263,7 @@ __device__ __forceinline__ void wgmma64_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+      : "l"(da), "l"(db), "r"(acc), "n"(TB));
 }
 
 // Element offset of (row, col) in a panel of 64-element rows, the 16-byte

@@ -20,9 +20,10 @@ The gradient (``flash_attention_backward``, the C entry ``fa_backward``)
 has no Pallas counterpart: the reference differentiates its XLA twin.  It
 reads the forward's row log-sum-exp (``return_lse=True``) and runs three
 kernels without atomics (csrc/flash_attention.cu), so two runs give the
-same bits; head dims 64, 128 and 256 (at 256 the dK / dV pass runs each
-kv tile as two blocks of 128 columns).  CPU tensors take
-``ref.flash_attention_backward_plain``.
+same bits; head dims 64, 128 and 256.  bf16 runs on ``wgmma`` with
+TMA-fed tile rings, P and dS kept in registers (at hd 256 the dK / dV
+pass sums dV and dK in two warpgroups); it needs 16-byte aligned operands.
+CPU tensors take ``ref.flash_attention_backward_plain``.
 """
 from __future__ import annotations
 
@@ -122,6 +123,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             q, k, v, o, lse, do, causal=causal, window=window, bq=BQ,
             bkv=BKV)
     _contiguous(q, k, v, o, do, lse)
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, do, lse)):
+        raise ValueError("fa_backward reads 16-byte aligned rows (TMA): "
+                         "an operand's storage offset is not")
     f32 = dict(dtype=torch.float32, device=q.device)
     dsum = torch.empty((bh, sq), **f32)
     dq = torch.empty((bh, sq, hd), **f32)

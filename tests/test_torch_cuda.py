@@ -594,6 +594,34 @@ def test_cuda_flash_hd256_runs_on_the_tensor_cores(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_backward_refuses_misaligned_rows(cuda):
+    """TMA reads 16-byte aligned rows: a contiguous operand whose storage
+    offset is not is refused by the wrapper, not read wrongly."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (t.bfloat16() for t in _flash_inputs(cuda, 2, 128, 128, 64,
+                                                    0))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_backward(shifted, k, v, o, lse, o)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_on_wgmma_tma_without_atomics(cuda):
+    """The bf16 ``fa_backward`` kernels (dK / dV and dQ passes, hd 64, 128,
+    256) multiply with HGMMA only, load their tiles with TMA (UTMALDG),
+    hold no atomic instruction and, where this process built them, draw no
+    ptxas note that their wgmma pipeline is serialised."""
+    faults = build.backward_kernel_faults(
+        build.sass_ops("flash_attention"),
+        build.BUILD_LOG.get("flash_attention", ""))
+    assert len(faults) == 6 and not any(faults.values()), faults
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES,
                          ids=[f"{c[0]}x{c[1]}x{c[2]}x{c[3]}-"
@@ -1205,7 +1233,11 @@ def test_cuda_sparse_dispatch_off_runs_fm_output(cuda):
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("sq,skv,causal,window", [
     (512, 512, True, 0), (512, 512, True, 128), (256, 512, True, 0),
-    (256, 512, False, 0)])
+    (256, 512, False, 0),
+    # the tiling's edges: one 64-row tile; a 128-row block with a ragged
+    # half; Sq < Skv by 64; windows of 64 and 100; non-causal
+    (64, 64, True, 0), (192, 192, True, 0), (128, 192, True, 0),
+    (512, 512, True, 64), (512, 512, True, 100), (192, 192, False, 0)])
 def test_cuda_flash_backward_against_plain(cuda, hd, sq, skv, causal,
                                            window):
     """``fa_backward``: float32 within four times the float32 plain

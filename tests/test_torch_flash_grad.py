@@ -30,6 +30,14 @@ CASES = [  # (bh, sq, skv, hd, causal, window)
     (2, 128, 256, 64, True, 0),
     (2, 128, 256, 128, False, 0),
     (2, 128, 256, 256, True, 64),
+    # the bf16 kernels' tiling edges: one 64-row tile, a 128-row block with
+    # a ragged half (S 192), Sq < Skv by 64, windows of 64 and 100,
+    # non-causal at hd 256
+    (1, 64, 64, 64, True, 0),
+    (2, 192, 192, 64, True, 100),
+    (1, 192, 192, 128, True, 64),
+    (1, 64, 128, 256, True, 0),
+    (1, 128, 128, 256, False, 0),
 ]
 
 
@@ -183,3 +191,47 @@ def test_dots_tape_replays_flash():
     with pt_ops.exec_config(ec):
         pt_ops.flash_attention(q2, k, v, causal=True).backward(do)
     assert torch.equal(qr.grad, q2.grad)
+
+
+def test_parse_sass_counts_opcodes_per_kernel():
+    """``build.parse_sass``, which the card's gates on the bf16 backward
+    read (wgmma only, TMA loads, no atomics): opcodes by their first dotted
+    part, guard predicates skipped, encoding lines ignored."""
+    from repro_torch.kernels import build
+    text = """
+        Function : _ZN3fab16fab_q_kernel_mmaILi64EEEv
+        .headerflags    @"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+                                                               /* 0x000a0000ff017b82 */
+        /*0fb0*/                   HGMMA.64x64x16.F32.BF16 R184, gdesc[UR4], RZ, !UPT, gsb0 ;
+        /*0fc0*/              @!P0 UTMALDG.2D [UR8], [UR4] ;
+        /*0fd0*/                   HGMMA.64x64x16.F32.BF16 R184, gdesc[UR4], R184, gsb0 ;
+        Function : _ZN3fab12fab_q_kernelILi64EEEv
+        /*0000*/                   FFMA R0, R1, R2, R0 ;
+        /*0010*/               @P1 RED.E.ADD.F32.FTZ.RN.STRONG.GPU [R2.64], R5 ;
+"""
+    got = build.parse_sass(text)
+    assert got == {"_ZN3fab16fab_q_kernel_mmaILi64EEEv":
+                   {"LDC": 1, "HGMMA": 2, "UTMALDG": 1},
+                   "_ZN3fab12fab_q_kernelILi64EEEv": {"FFMA": 1, "RED": 1}}
+
+
+def test_backward_kernel_faults_reads_sass_and_ptxas_notes():
+    """``build.backward_kernel_faults``, the card's one rule for the bf16
+    backward kernels: a kernel on HGMMA with TMA loads and no atomics is
+    clean; HMMA, a missing UTMALDG, an atomic or a C75xx note naming it is
+    a fault; other kernels are not judged."""
+    from repro_torch.kernels import build
+    good, bad = "_ZN3fab17fab_kv_kernel_mmaILi64EEEv", \
+        "_ZN3fab16fab_q_kernel_mmaILi64EEEv"
+    ops = {good: {"HGMMA": 4, "UTMALDG": 2},
+           bad: {"HGMMA": 2, "HMMA": 1, "RED": 3},
+           "_ZN3fab12fab_q_kernelILi64EEEv": {"RED": 1}}
+    log = ("ptxas info    : (C7511) Potential Performance Loss: "
+           "wgmma.mma_async instructions are serialized due to insufficient "
+           f"register resources in the function '{bad}'\n")
+    got = build.backward_kernel_faults(ops, log)
+    assert sorted(got) == sorted([good, bad]) and got[good] == []
+    assert len(got[bad]) == 4 and "(C7511)" in got[bad][3], got[bad]
+    assert build.backward_kernel_faults({bad: ops[bad]})[bad][:3] == \
+        got[bad][:3]
