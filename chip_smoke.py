@@ -5,10 +5,13 @@ Drives the port's main path — sparse decode serving of StableLM-1.6B at its
 published width and depth (24 layers, d_model 2048, vocab 100352) in bf16
 with four slots, then (phase 15) of DeepSeek-MoE-16B, (phases 16-17)
 of Yi-9B, Gemma-2B, ChatGLM3-6B and RecurrentGemma-9B and (phases 19-20)
-of Mamba2-1.3B and Whisper-tiny — through ``repro_torch.serve.ServeEngine``,
-with random weights from a seeded generator, block-magnitude-pruned at
-(256, 256) (Mamba2's are not: no plan reaches an SSM site), and (phase 21)
-trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
+of Mamba2-1.3B and Whisper-tiny, and (phase 24) of Qwen2-VL-72B and
+Llama-4-Scout at published width and cut depth — through
+``repro_torch.serve.ServeEngine`` (phase 24 also through the serving CLI,
+``repro_torch.launch.serve``), with random weights from a seeded
+generator, block-magnitude-pruned at (256, 256) (Mamba2's are not: no
+plan reaches an SSM site), and (phase 21) trains StableLM-1.6B at full
+width through ``repro_torch.launch.train``:
 
   1. the card (``torch.cuda``, ``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
@@ -175,8 +178,10 @@ trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
      launch; their rows add ``launches_phase14``.
 
  15. the MoE family, with StableLM's weights freed: DeepSeek-MoE-16B at
-     its published width and depth (28 layers, the first dense; 64 routed
-     experts top-6 and 2 shared per MoE layer; 16.4 B parameters in bf16)
+     its published width, cut to 14 of its 28 layers since PR 28 for the
+     wall (the first dense; 64 routed experts top-6 and 2 shared per MoE
+     layer; 8.15 B parameters in bf16; every gate reads the first MoE layer
+     or the whole stack alike)
      from a seeded generator, every stacked leaf (router and experts
      included) block-magnitude-pruned to 50% at (256, 256); the planned
      two-sided config, the dense table and the int8 plan, each timed, with
@@ -205,11 +210,13 @@ trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
      expert-batched kernels must launch; their rows join the ``kernels``
      line, and the 2-D rows add ``launches_phase15``.
 
- 16. the rest of the dense family at published width and depth, one
-     config at a time, each freed before the next: ``yi-9b`` (48 layers,
-     GQA kv 4), ``gemma-2b`` (18 layers, MQA, head dim 256, GeGLU, tied
-     and √d-scaled embeddings, vocab 256000) and ``chatglm3-6b`` (28
-     layers, GQA kv 2, RoPE on half the head dims), weights from seed 0,
+ 16. the rest of the dense family at published width, one config at a
+     time, each freed before the next: ``yi-9b`` (GQA kv 4) cut to 6 of
+     its 48 layers, ``gemma-2b`` (its 18 layers, MQA, head dim 256, GeGLU,
+     tied and √d-scaled embeddings, vocab 256000) and ``chatglm3-6b``
+     (GQA kv 2, RoPE on half the head dims) cut to 4 of its 28 (PR 28,
+     for the wall: every gate reads layer 0 or the whole stack alike, so
+     depth changes no check), weights from seed 0,
      every stacked matmul weight pruned to 50% at (256, 256), the head
      dense; 4 slots, ``max_seq`` 64, 4 greedy requests of 8-16 prompt
      tokens and 8 new: the planned engine's fused streams equal its
@@ -370,7 +377,7 @@ trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
      calls per replayed block; a 21-token feed replayed as 16 + 8
      positions equals one unpadded eager feed; ms per prompt token of
      admitting 16, 64 and 512 tokens; phase 4's first wave on the eager
-     entry points (``eager_entries``, 16 tokens) gives phase 4's streams;
+     entry points (``eager_entries``, 8 tokens) gives phase 4's streams;
      a planted ``.item()`` raises ``CaptureError`` at capture, and the
      allocator releases memory after it.  Phase 13 adds run A's first 4
      requests on the eager entry points (streams equal) and 0
@@ -380,6 +387,34 @@ trains StableLM-1.6B at full width through ``repro_torch.launch.train``:
      requests x 8 on the eager entry points.  An ``executables`` JSON
      line holds the figures.  Phase 22's full-width runs allocate in
      expandable segments (``expandable_segments``).
+ 24. after phase 22, the earlier weights freed: the flash kernel at hd
+     128 at the prefill cell (16 of Qwen2-VL's 128 (batch, head) rows, S
+     4096, causal) under phase 9's gates; (a) the serving CLI as a user
+     starts it, ``launch.serve.main`` at StableLM-1.6B's published config
+     (4 requests x 8 new tokens, bf16, the dense table): every request
+     served, ``fm_output`` launched; then Qwen2-VL-72B (M-RoPE, GQA 64 /
+     8, d_ff 29568: ragged at 256-blocks) at 20 of its 80 layers and
+     Llama-4-Scout (top-1 over 16 experts plus a shared one, vocab 202048)
+     at 12 of its 48, at published width (``P24_LAYERS``): phase 3's site
+     checks at layer 0 (the ragged edge tiles included; Llama-4's expert
+     sites and router as phase 15 holds them, its oracle step profiled
+     with the expert-batched launches counted, and top-1 flips between
+     the kernel and the plain router counted), the planned engine (4
+     slots, 4 requests x 8 new) == its ``step()`` oracle (then the same
+     requests on the warm engine: tokens/s and ms per replayed decode
+     step), one step of the dense table == the plan bit for bit, the
+     plain engine within 5% (Llama-4's routed as the planned engine, its
+     flips counted, as phase 22's plain step);
+     then a 2 x 4096 prefill with the vision prefix (1024 rows of patch
+     embeddings, a 32 x 32 grid's distinct t / h / w streams) through
+     the flash kernel: dense table (twice, bit for bit), plan (bit for
+     bit), plain (5%; Llama-4's routed as the table's run), and a
+     control with t = h = w that must move Qwen2-VL's logits and must not
+     move Llama-4's.  Per config: depth, peak memory, tokens/s, ms per
+     decode step, prefill seconds and wall (a ``last_configs`` JSON
+     line); the ``kernels`` line gains ``flash_attention_hd128`` and
+     ``launches_phase24`` / ``max_abs_err_phase24`` on the rows phase 24
+     launches or compares.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON; the whole report
@@ -699,8 +734,10 @@ def bring_up(report):
 
 def check_sites(params, planned, dense, report) -> dict:
     """Every planned weight leaf (one per site) at layer 0, the shapes and
-    blocks the main path launches.  Returns the worst error per kernel and
-    the bf16 mlp.in operands for the ``kernels`` line."""
+    blocks the main path launches (a MoE stack's expert leaves and its
+    float32 router are ``p15_kernels``' and ``p15_router``'s).  Returns
+    the worst error per kernel and the bf16 mlp.in operands, if the stack
+    has that site, for the ``kernels`` line."""
     import torch
     from repro_torch.kernels import block_sparse as bs
     from repro_torch.kernels import flex_matmul as fm
@@ -714,6 +751,8 @@ def check_sites(params, planned, dense, report) -> dict:
     worst = dict.fromkeys(("block_sparse",) + stats, 0.0)
     keep = {}
     for e in planned.plan.entries.values():
+        if len(e.lead) > 1 or e.site == "moe.router":
+            continue            # p15_kernels and p15_router hold these
         pw = attached
         for key in e.path:
             pw = pw[key]
@@ -808,7 +847,8 @@ def check_sites(params, planned, dense, report) -> dict:
         report(f"  {e.site} bf16 ms: block_sparse {t_bs:.4f} (bound "
                f"{b_ms:.5f}), flex_{sched.stationarity} {t_fm:.4f}, plain "
                f"{t_plain:.4f}, torch.matmul {t_lib:.4f}")
-    need(bool(keep), "no mlp.in site in the plan")
+    need(bool(keep) or "mlp.in" not in dense.schedules.sites,
+         "no mlp.in site in the plan")
     torch.cuda.synchronize()
     keep["errs"] = worst
     return keep
@@ -881,30 +921,114 @@ def time_kernels(t, launches) -> list:
 # phases 4-5: the serving engine at full width
 # ---------------------------------------------------------------------------
 
-def device_breakdown(prof):
-    """(device-busy µs, kernel launches, {family: (ms, launches)}) of a
-    ``torch.profiler`` run, the port's kernels by ``KERNEL_FAMILIES`` and
-    everything else as "other"."""
+# host-side profiler records that ``prof.events()`` leaves out
+PROFILER_SKIPPED = ("[memory]", "[OutOfMemory]",
+                    "profiler::_record_function_enter",
+                    "profiler::_record_function_enter_new",
+                    "profiler::_record_function_exit", "aten::is_leaf",
+                    "aten::output_nr", "aten::_version")
+
+
+def device_events(prof) -> list:
+    """(name, µs) of each device event of a ``torch.profiler`` run: the
+    CUDA events ``prof.events()`` lists, with their
+    ``device_time_total`` (an async one counts 0), read from the raw
+    kineto results.  ``prof.events()`` first builds an event for every
+    host op as well, which took ~18 s for 300k host events and set much
+    of the wall of each phase that reports a profile (PR 28)."""
     import torch
-    busy, n_kernels, fam = 0.0, 0, {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    cached = getattr(prof, "_device_events", None)
+    if cached is not None:
+        return cached
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() != torch.autograd.DeviceType.CUDA
+                or ev.name() in PROFILER_SKIPPED
+                or getattr(ev, "is_hidden_event", lambda: False)()):
             continue
-        busy += ev.device_time_total
+        idle = ev.is_async() or ev.start_thread_id() != ev.end_thread_id()
+        out.append((torch._C._demangle(ev.name()),
+                    0.0 if idle else (ev.end_ns() - ev.start_ns()) / 1e3))
+    prof._device_events = out
+    return out
+
+
+def device_tops(prof, n) -> list:
+    """The ``n`` device event names of most summed time: (name, (µs,
+    count)), as ``prof.key_averages()`` groups them."""
+    tops = {}
+    for name, us in device_events(prof):
+        t, c = tops.get(name, (0.0, 0))
+        tops[name] = (t + us, c + 1)
+    return sorted(tops.items(), key=lambda kv: -kv[1][0])[:n]
+
+
+def _families(pairs):
+    """(busy µs, events, {family: (µs, events)}) of (name, µs) pairs, the
+    port's kernels by ``KERNEL_FAMILIES`` and everything else as
+    "other"."""
+    busy, n_kernels, fam = 0.0, 0, {}
+    for name, t in pairs:
+        busy += t
         n_kernels += 1
-        key = next((f for frag, f in KERNEL_FAMILIES if frag in ev.name),
+        key = next((f for frag, f in KERNEL_FAMILIES if frag in name),
                    "other")
         us, n = fam.get(key, (0.0, 0))
-        fam[key] = (us + ev.device_time_total, n + 1)
+        fam[key] = (us + t, n + 1)
+    return busy, n_kernels, fam
+
+
+def device_breakdown(prof):
+    """(device-busy µs, kernel launches, {family: (ms, launches)}) of a
+    ``torch.profiler`` run."""
+    busy, n_kernels, fam = _families(device_events(prof))
     return busy, n_kernels, {k: (round(us / 1e3, 3), n)
                              for k, (us, n) in fam.items()}
 
 
-def profile_step(engine, report, label="planned") -> None:
+def check_device_events(prof, report) -> None:
+    """``device_events`` against the profiler's own readings of the same
+    run: the busy time, event count and families through
+    ``prof.events()`` and the per-name sums and counts of
+    ``prof.key_averages()`` must equal ``device_breakdown``'s and
+    ``device_tops``' (to float rounding of the µs)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def close(a, b):
+        return abs(a - b) <= 1e-6 * max(abs(a), abs(b)) + 1e-3
+
+    busy, n_kernels, fam = _families(device_events(prof))
+    busy_e, n_e, fam_e = _families((ev.name, ev.device_time_total)
+                                   for ev in prof.events()
+                                   if ev.device_type == cuda)
+    need(n_kernels == n_e and close(busy, busy_e)
+         and fam.keys() == fam_e.keys()
+         and all(fam[k][1] == fam_e[k][1] and close(fam[k][0], fam_e[k][0])
+                 for k in fam),
+         f"device events: raw kineto {busy} µs / {n_kernels} / {fam}, "
+         f"prof.events() {busy_e} µs / {n_e} / {fam_e}")
+    tops = dict(device_tops(prof, n_kernels))
+    avgs = {ev.key: (ev.device_time_total, ev.count)
+            for ev in prof.key_averages() if ev.device_type == cuda}
+    need(tops.keys() == avgs.keys()
+         and all(tops[k][1] == avgs[k][1] and close(tops[k][0], avgs[k][0])
+                 for k in tops),
+         f"device events: {len(tops)} names from raw kineto, "
+         f"{len(avgs)} from key_averages(), or their sums differ")
+    report(f"device events read from the raw kineto results == the "
+           f"profiler's: busy {busy:.3f} µs (prof.events() "
+           f"{busy_e:.3f}), {n_kernels} events, families "
+           f"{sorted(fam)}, {len(tops)} names with equal sums and counts "
+           f"in key_averages()")
+
+
+def profile_step(engine, report, label="planned",
+                 witness=False) -> None:
     """One decode step under ``torch.profiler``: wall time, device busy
     time (sum of kernel time) and its breakdown by kernel family.  A
     measurement only — a profiler that records nothing is reported, not
-    fatal."""
+    fatal.  ``witness``: ``check_device_events`` on this profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -919,6 +1043,8 @@ def profile_step(engine, report, label="planned") -> None:
         report(f"profiled {label} decode step: the profiler recorded no "
                "device time (not measured)")
         return
+    if witness:
+        check_device_events(prof, report)
     report(f"profiled {label} decode step: wall {wall * 1e3:.2f} ms, device "
            f"busy {busy / 1e3:.2f} ms ({100 * busy / 1e3 / (wall * 1e3):.1f}%"
            f" of wall, {n_kernels} kernels); device ms and launches by "
@@ -1014,7 +1140,7 @@ def run_engines(cfg, params, planned, dense, report):
     ouids = [oracle.submit(p, max_new=max_new) for p in prompts]
     oracle.step()                          # admits 4, decodes one step
     logits0 = oracle.last_logits.clone()
-    profile_step(oracle, report)
+    profile_step(oracle, report, witness=True)
     ores = oracle.run_until_drained()
     same = all(ores[o] == fused[i] for i, o in enumerate(ouids))
     report(f"fused streams == step() oracle: {same}")
@@ -1676,12 +1802,12 @@ def run_executables(cfg, params, planned, q8, bf16, report, card) -> dict:
     del eng
     free()
     out["admission"] = p23_admission(cfg, params, planned, report, card)
-    # the first wave of phase 4's traffic on the eager entry points, 16 of
-    # its 32 tokens
+    # the first wave of phase 4's traffic on the eager entry points, 8 of
+    # its 32 tokens (16 up to PR 27)
     eng = eager_entries(make_engine(cfg, params, planned, True))
-    streams, wall, _ = drain_timed(eng, bf16["prompts"][:N_SLOTS], 16)
-    same = streams == [x[:16] for x in bf16["streams"][:N_SLOTS]]
-    report(f"phase 4's first {N_SLOTS} prompts x 16 on the eager entry "
+    streams, wall, _ = drain_timed(eng, bf16["prompts"][:N_SLOTS], 8)
+    same = streams == [x[:8] for x in bf16["streams"][:N_SLOTS]]
+    report(f"phase 4's first {N_SLOTS} prompts x 8 on the eager entry "
            f"points ({wall:.2f} s): streams == the replayed engine's: "
            f"{same}")
     need(same, "phase 23: eager streams differ from the replayed ones")
@@ -3192,6 +3318,7 @@ def run_speculative(cfg, params, planned, dense, traffic, report,
 # ---------------------------------------------------------------------------
 
 P15_ARCH = "deepseek-moe-16b"
+P15_LAYERS = 14       # of 28; uncut up to PR 27, cut for the wall (PR 28)
 P15_NEW = 8           # 16 up to PR 24: host-paced, it sets phase 15's wall
 EXPERT_SITES = ("experts_in", "experts_gate", "experts_out")
 # the expert-batched kernels; ``*_sum`` add (and scale) their partials
@@ -3221,7 +3348,7 @@ def p15_bring_up(report):
     from repro_torch.configs import SparsityConfig, get_config
     from repro_torch.models import model as model_lib
     from repro_torch.serve.engine import decode_exec_config
-    cfg = get_config(P15_ARCH)
+    cfg = cut_config(P15_ARCH, P15_LAYERS)
     sp_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
         weight_sparsity=0.5, activation_threshold=0.05))
     secs = {}
@@ -3247,7 +3374,8 @@ def p15_bring_up(report):
     torch.cuda.synchronize()
     secs["quantize + int8 plan"] = time.perf_counter() - t0
     n_params = sum(t.numel() for _, t in _leaves(params))
-    report(f"{P15_ARCH}: {cfg.n_layers} layers ({cfg.moe.first_dense_layers}"
+    report(f"{P15_ARCH}: {cfg.n_layers} layers (cut from "
+           f"{get_config(P15_ARCH).n_layers}; {cfg.moe.first_dense_layers}"
            f" dense), d {cfg.d_model}, {cfg.moe.n_experts} experts top-"
            f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared, {n_params / 1e9:.3f}"
            f" B parameters; bring-up seconds "
@@ -3299,19 +3427,46 @@ def p15_dispatch(cfg, moe_p, planned, gen):
     return xe, empty
 
 
-def p15_kernels(cfg, params, planned, dense, q8, report) -> dict:
-    """Gates (a) and (b) at the first MoE layer's three expert sites, and
-    the times of the expert kernels at experts_in for the kernels line."""
+def p15_expert_bs(key, site, a, p_w, wd):
+    """One expert site through ``bs_matmul`` over the experts (``p_w`` the
+    attached leaf of its first MoE layer, ``wd`` the weights the tolerance
+    reads), held per element to the per-expert tolerance of the plain
+    version, and (gate b) equal bit for bit to E launches of one expert
+    each.  Returns (out, meta, operands, worst error, largest tol)."""
     import torch
     from repro_torch.kernels import block_sparse as bs
-    from repro_torch.kernels import flex_matmul as fm
-    from repro_torch.kernels import ops
     from repro_torch.kernels.ops import planned_operands
     from repro_torch.kernels.ref import (block_sparse_expert_matmul_ref,
-                                         expert_matmul_ref, meta_at)
+                                         meta_at)
+    xp, wp, meta, scale = planned_operands(a, p_w)
+    out = bs.block_sparse_matmul(xp, wp, meta, scale=scale,
+                                 out_dtype=torch.float32, rows=a.shape[1])
+    plain = block_sparse_expert_matmul_ref(xp, wp, meta, scale)
+    tol = expert_tols(a, wd)
+    err = (out - plain).abs()
+    need(bool((err <= tol).all()), f"{key} {site}: error "
+         f"{err.max().item()} over the per-expert tolerance")
+    for i in range(a.shape[0]):
+        one = bs.block_sparse_matmul(
+            xp[i], wp[i], meta_at(meta, i), out_dtype=torch.float32,
+            scale=None if scale is None else scale[i], rows=a.shape[1])
+        need(torch.equal(out[i], one),
+             f"{key} {site}: expert {i} differs from its own launch")
+    return out, meta, (xp, wp, meta, scale), err.max().item(), \
+        tol.max().item()
+
+
+def p15_kernels(cfg, params, planned, dense, report) -> dict:
+    """Gates (a) and (b) at the first MoE layer's three expert sites in
+    bf16 (``bs_matmul`` and ``fm_output`` over the experts, the dense table
+    == the plan), and the operands of the expert kernels' times at
+    experts_in for the kernels line.  ``acts`` keeps each site's
+    operand for ``p15_kernels_int8``."""
+    import torch
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels.ref import expert_matmul_ref
     from repro_torch.models import moe
     from repro_torch.models.transformer import index_tree
-    from repro_torch.quant.quantize import dequantize_leaf, quantize_params
     gen = torch.Generator(device="cuda").manual_seed(15)
     att = planned.plan.attach(params, verify=False)
     moe_p = index_tree(att["stack"]["layers"]["moe"], 0)
@@ -3322,43 +3477,16 @@ def p15_kernels(cfg, params, planned, dense, q8, report) -> dict:
     g = expert_matmul_ref(xe, raw["experts_gate"]).to(torch.bfloat16)
     acts = {"experts_in": xe, "experts_gate": xe,
             "experts_out": moe._act_mul(g, h)}
-    q8p = quantize_params(params)[0]
-    att8 = q8.plan.attach(q8p, verify=False)
-    worst = dict.fromkeys(("block_sparse_experts", "output_experts",
-                           "block_sparse_scaled_experts"), 0.0)
-    keep = {}
+    worst = dict.fromkeys(("block_sparse_experts", "output_experts"), 0.0)
+    keep = {"acts": acts}
     for site in EXPERT_SITES:
         a, w = acts[site], raw[site]
         pw = moe_p[site]
-        pw8 = att8["stack"]["layers"]["moe"][site].index(0)
         sched = dense.schedules.sites[f"moe.{site}"].schedule
-        res = {}
-        for key, p_w, wd in (("block_sparse_experts", pw, w),
-                             ("block_sparse_scaled_experts", pw8,
-                              pw8.w_kn)):
-            xp, wp, meta, scale = planned_operands(a, p_w)
-            out = bs.block_sparse_matmul(xp, wp, meta, scale=scale,
-                                         out_dtype=torch.float32,
-                                         rows=a.shape[1])
-            plain = block_sparse_expert_matmul_ref(xp, wp, meta, scale)
-            tol = expert_tols(a, wd)
-            err = (out - plain).abs()
-            need(bool((err <= tol).all()), f"{key} {site}: error "
-                 f"{err.max().item()} over the per-expert tolerance")
-            # (b): one launch over the experts == E launches, bit for bit
-            for i in range(a.shape[0]):
-                one = bs.block_sparse_matmul(
-                    xp[i], wp[i], meta_at(meta, i), out_dtype=torch.float32,
-                    scale=None if scale is None else scale[i],
-                    rows=a.shape[1])
-                need(torch.equal(out[i], one),
-                     f"{key} {site}: expert {i} differs from its own launch")
-            worst[key] = max(worst[key], err.max().item())
-            res[key] = (out, meta, err.max().item(), tol.max().item())
-            if site == "experts_in":
-                # a copy of the layer's slice: a view would keep the whole
-                # int8 leaf of ``q8p`` alive
-                keep[key] = (xp, wp.clone(), meta, scale, wd)
+        out, meta, operands, err_bs, tol_bs = p15_expert_bs(
+            "block_sparse_experts", site, a, pw, w)
+        worst["block_sparse_experts"] = max(worst["block_sparse_experts"],
+                                            err_bs)
         dense_out = fm.flex_matmul(a, w, schedule=sched,
                                    out_dtype=torch.float32)
         err = (dense_out - expert_matmul_ref(a, w)).abs()
@@ -3371,8 +3499,53 @@ def p15_kernels(cfg, params, planned, dense, q8, report) -> dict:
                 f"fm_output launch")
         worst["output_experts"] = max(worst["output_experts"],
                                       err.max().item())
-        same = torch.equal(dense_out, res["block_sparse_experts"][0])
-        need(same, f"{site}: the dense table differs from the plan")
+        need(torch.equal(dense_out, out),
+             f"{site}: the dense table differs from the plan")
+        empty_lists = (meta.kcnt == 0).float().mean().item()
+        if site == "experts_in":
+            xp, wp, meta_in, scale = operands
+            keep["block_sparse_experts"] = (xp, wp.clone(), meta_in, scale,
+                                            w)
+            keep["output_experts"] = (a, w, sched)
+        report(f"  {site} (E {a.shape[0]}, C {a.shape[1]}, K {a.shape[2]}, "
+               f"N {w.shape[-1]}): bs_matmul experts ({pw.bm},{pw.bk},"
+               f"{pw.bn}) err {err_bs:.3e} (tol up to {tol_bs:.3e}), "
+               f"fm_output experts ({sched.bm},{sched.bn},{sched.bk}) err "
+               f"{err.max().item():.3e}; batched == per-expert launches bit "
+               f"for bit; dense table == plan bitwise; empty tile lists "
+               f"{empty_lists:.4f}")
+    report(f"dispatch buffer from the real router: {empty:.4f} of the "
+           f"experts got no token")
+    keep["errs"] = worst
+    keep["empty"] = empty
+    return keep
+
+
+def p15_kernels_int8(params, q8, dense, acts, report) -> dict:
+    """Gates (a) and (b) of the int8 kernels at the first MoE layer's three
+    expert sites, on ``p15_kernels``' operands ``acts``:
+    ``bs_matmul_scaled`` over the experts, and int8 at the dense table.
+    Returns the experts_in operands and the worst error under the key
+    block_sparse_scaled_experts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import expert_matmul_ref
+    from repro_torch.quant.quantize import dequantize_leaf, quantize_params
+    key = "block_sparse_scaled_experts"
+    q8p = quantize_params(params)[0]
+    att8 = q8.plan.attach(q8p, verify=False)
+    worst, keep = 0.0, {}
+    for site in EXPERT_SITES:
+        a = acts[site]
+        pw8 = att8["stack"]["layers"]["moe"][site].index(0)
+        _, _, operands, err_bs, tol_bs = p15_expert_bs(
+            key, site, a, pw8, pw8.w_kn)
+        worst = max(worst, err_bs)
+        if site == "experts_in":
+            # a copy of the layer's slice: a view would keep the whole
+            # int8 leaf of ``q8p`` alive
+            xp, wp, meta, scale = operands
+            keep[key] = (xp, wp.clone(), meta, scale, pw8.w_kn)
         # int8 at the dense table: an unplanned int8 stack is dequantized
         # to the activation's dtype first (as the reference's), then the
         # batched fm_output runs on it.  Both sides round a float32 sum to
@@ -3388,26 +3561,12 @@ def p15_kernels(cfg, params, planned, dense, q8, report) -> dict:
                                         ref8.float().abs())
         need(bool((err8 <= expert_tols(a, w8) + ulp).all()),
              f"int8 dense table {site}: error {err8.max().item()}")
-        meta = res["block_sparse_experts"][1]
-        empty_lists = (meta.kcnt == 0).float().mean().item()
-        report(f"  {site} (E {a.shape[0]}, C {a.shape[1]}, K {a.shape[2]}, "
-               f"N {w.shape[-1]}): bs_matmul experts ({pw.bm},{pw.bk},"
-               f"{pw.bn}) err {res['block_sparse_experts'][2]:.3e} (tol up "
-               f"to {res['block_sparse_experts'][3]:.3e}), bs_matmul_scaled "
-               f"experts ({pw8.bm},{pw8.bk},{pw8.bn}) err "
-               f"{res['block_sparse_scaled_experts'][2]:.3e}, fm_output "
-               f"experts ({sched.bm},{sched.bn},{sched.bk}) err "
-               f"{err.max().item():.3e}, int8 at the dense table "
-               f"(dequantized to bf16 first) err {err8.max().item():.3e}; "
-               f"batched == per-expert launches bit for bit (all three); "
-               f"dense table == plan bitwise; empty tile lists "
-               f"{empty_lists:.4f}")
-        if site == "experts_in":
-            keep["output_experts"] = (a, w, sched)
-    report(f"dispatch buffer from the real router: {empty:.4f} of the "
-           f"experts got no token")
-    keep["errs"] = worst
-    keep["empty"] = empty
+        report(f"  {site} int8: bs_matmul_scaled experts ({pw8.bm},"
+               f"{pw8.bk},{pw8.bn}) err {err_bs:.3e} (tol up to "
+               f"{tol_bs:.3e}), batched == per-expert launches bit for bit;"
+               f" int8 at the dense table (dequantized to bf16 first) err "
+               f"{err8.max().item():.3e}")
+    keep["errs"] = {key: worst}
     return keep
 
 
@@ -3510,12 +3669,7 @@ def p15_profile(eng, report) -> None:
     step = {k: after[k] - before[k] for k in EXPERT_KERNELS + (
         "block_sparse", "block_sparse_sum") if after[k] != before[k]}
     busy, n_kernels, fam = device_breakdown(prof)
-    tops = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = tops.get(ev.name, (0.0, 0))
-            tops[ev.name] = (us + ev.device_time_total, n + 1)
-    top = sorted(tops.items(), key=lambda kv: -kv[1][0])[:8]
+    top = device_tops(prof, 8)
     if not busy:
         report("profiled MoE decode step: the profiler recorded no device "
                "time (not measured)")
@@ -3721,7 +3875,12 @@ def run_moe(report, card):
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     cfg, sp_cfg, params, planned, dense, q8 = p15_bring_up(report)
-    checked = p15_kernels(cfg, params, planned, dense, q8, report)
+    checked = p15_kernels(cfg, params, planned, dense, report)
+    checked8 = p15_kernels_int8(params, q8, dense, checked.pop("acts"),
+                                report)
+    checked["errs"].update(checked8.pop("errs"))
+    checked.update(checked8)
+    del checked8
     p15_router(cfg, params, planned, dense, report)
     p15_layer(cfg, params, planned, report)
     launches = p15_serve(cfg, params, planned, dense, q8, report, card)
@@ -3737,7 +3896,7 @@ def run_moe(report, card):
 
 
 def p23_moe(cfg, params, planned, report, card) -> dict:
-    """Phase 23 on DeepSeek-MoE-16B (28 layers uncut, 4 slots, bf16
+    """Phase 23 on DeepSeek-MoE-16B (phase 15's 14 layers, 4 slots, bf16
     planned): admission and the first block captured (seconds, graphs,
     pool bytes), then ``p23_block``.  The launches are put back."""
     saved = launch_counts()
@@ -3761,6 +3920,9 @@ def p23_moe(cfg, params, planned, report, card) -> dict:
 # ---------------------------------------------------------------------------
 
 P16_ARCHS = ("yi-9b", "gemma-2b", "chatglm3-6b")
+# the depth phase 16 keeps of the configs it cuts (published: 48, 28),
+# which holds the script within its time limit with phase 24 added
+P16_LAYERS = {"yi-9b": 6, "chatglm3-6b": 4}
 P17_ARCH = "recurrentgemma-9b"
 FAMILY_NEW = 8
 FAMILY_MAX_SEQ = 64
@@ -3783,8 +3945,9 @@ FLASH256_CASES = {
 FAMILY_KERNELS = ("block_sparse", "block_sparse_sum", "output", "output_sum")
 
 
-def family_bring_up(arch, report):
-    """One config at its published width and depth: weights (seed 0),
+def family_bring_up(arch, report, layers=None):
+    """One config at its published width and depth (``layers``: cut to
+    that many): weights (seed 0),
     every stacked matmul weight pruned to 50% at (256, 256) (the head and
     the embedding dense), the planned two-sided config and the dense
     table, each timed.  Both run the kernels (``use_kernels``): a tied
@@ -3794,7 +3957,7 @@ def family_bring_up(arch, report):
     from repro_torch.configs import SparsityConfig, get_config
     from repro_torch.models import model as model_lib
     from repro_torch.serve.engine import decode_exec_config
-    cfg = get_config(arch)
+    cfg = cut_config(arch, layers)
     sp_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
         weight_sparsity=0.5, activation_threshold=0.05))
     torch.cuda.reset_peak_memory_stats()
@@ -3816,7 +3979,10 @@ def family_bring_up(arch, report):
     torch.cuda.synchronize()
     secs["plan"] = time.perf_counter() - t0
     n_params = sum(t.numel() for _, t in _leaves(params))
-    report(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+    cut = (f" (cut from {get_config(arch).n_layers})" if layers is not None
+           else "")
+    report(f"{arch}: {cfg.n_layers} layers{cut}, d {cfg.d_model}, "
+           f"{cfg.n_heads} "
            f"heads of {cfg.head_dim} over {cfg.n_kv_heads} kv, d_ff "
            f"{cfg.d_ff}, vocab {cfg.vocab}, tied head {cfg.tie_embeddings}; "
            f"{n_params / 1e9:.3f} B parameters; bring-up seconds "
@@ -3901,14 +4067,16 @@ def first_step(cfg, params, exec_cfg, prompts, fused=True,
 
 
 def family_serve(cfg, params, planned, dense, report, card, label="bf16",
-                 prompts=None, max_new=FAMILY_NEW, on_oracle=None, **kw):
+                 prompts=None, max_new=FAMILY_NEW, on_oracle=None,
+                 rates=None, **kw):
     """The decode gates of phases 4-5 (and 7 for int8), shared by phases
-    15-20: the planned engine's fused streams equal its ``step()``
+    15-20 and 24: the planned engine's fused streams equal its ``step()``
     oracle's (``on_oracle`` sees the oracle after its first step), and,
     unless ``dense`` is None, the dense table's first-step logits and
     streams equal the plan's bit for bit.  ``kw`` goes to every engine
-    (``family_engine``).  Launches are counted by the caller.  Returns
-    (prompts, streams, the oracle's first-step logits)."""
+    (``family_engine``).  Launches are counted by the caller; ``rates``,
+    a dict, gets the planned engine's tokens/s and ms per decode step.
+    Returns (prompts, streams, the oracle's first-step logits)."""
     import torch
     if prompts is None:
         prompts = family_prompts(cfg)
@@ -3916,6 +4084,19 @@ def family_serve(cfg, params, planned, dense, report, card, label="bf16",
     streams, wall, timing = drain_timed(eng, prompts, max_new)
     report(f"{cfg.name} {label} planned engine (fused blocks of "
            f"{max_new}): {rate_line(streams, wall, timing)} ({card})")
+    if rates is not None:
+        # the same requests again on the warm engine: every entry point
+        # replays its captured graph
+        again, wall, timing = drain_timed(eng, prompts, max_new)
+        need(again == streams, f"{cfg.name} {label}: the warm engine's "
+             f"streams differ from the first drain's")
+        rates.update(tokens_per_s=sum(len(st) for st in again) / wall,
+                     ms_per_decode_step=1e3 * timing["decode"]
+                     / timing["steps"], feed_s=timing["prefill"])
+        report(f"{cfg.name} {label} planned engine, the same requests "
+               f"replayed on the warm engine: "
+               f"{rate_line(again, wall, timing)}; streams equal the "
+               f"first drain's ({card})")
     del eng
     free()
     oracle, ouids, logits_p = first_step(cfg, params, planned, prompts,
@@ -3951,18 +4132,50 @@ def family_serve(cfg, params, planned, dense, report, card, label="bf16",
 
 
 def family_plain(cfg, params, prompts, logits_p, report, exec_cfg=None,
-                 label="plain torch.matmul, no kernels"):
+                 label="plain torch.matmul, no kernels", routed_as=None):
     """The plain engine's first-step logits within 5% of max |logit| of
     the plan's (every matmul's bf16 output is re-rounded, so 1-ulp
-    differences compound through the layers, as in phase 5)."""
-    eng, _, logits = first_step(cfg, params, exec_cfg, prompts, fused=False)
+    differences compound through the layers, as in phase 5).  With
+    ``routed_as`` (a MoE stack's planned exec config) bf16 roundings flip
+    top-k choices between the kernel and the plain router, and a flipped
+    token takes another expert's output: the plain first step then takes
+    the planned one's expert choices (``same_routing``, as phase 22's
+    plain step does), both run eagerly (``eager_entries``: a replayed
+    graph runs no Python to route), the eager planned step must equal the
+    replayed oracle's ``logits_p`` bit for bit, and the flips are
+    counted."""
+    import torch
+    tape = {"idx": [], "flips": 0}
+    runs = [(exec_cfg, True)]
+    if routed_as is not None:
+        runs.insert(0, (routed_as, False))
+    for ec, replay in runs:
+        eng = family_engine(cfg, params, ec, fused=False)
+        if routed_as is not None:
+            eager_entries(eng)
+        for p in prompts:
+            eng.submit(p, max_new=FAMILY_NEW)
+        with (same_routing(tape, replay=replay) if routed_as is not None
+              else contextlib.nullcontext()):
+            eng.step()
+        logits = eng.last_logits.clone()
+        del eng
+        free()
+        if not replay:
+            need(torch.equal(logits, logits_p), f"{cfg.name}: the eager "
+                 f"planned step differs from the replayed oracle's")
     diff = (logits - logits_p).abs().max().item()
     tol = 0.05 * logits_p.abs().max().item()
+    if routed_as is not None:
+        label += (f", routed as the planned engine (its own router would "
+                  f"send {tape['flips']} of "
+                  f"{sum(t.shape[0] for t in tape['idx'])} (row, layer) "
+                  f"choices of admission and the first step to another "
+                  f"expert; the eager planned step == the replayed oracle's"
+                  f" bit for bit)")
     report(f"{cfg.name} {label}: first-step logits vs planned max |diff| = "
            f"{diff:.3e}, tol {tol:.3e}")
     need(diff <= tol, f"{cfg.name} {label}: logits off by {diff}")
-    del eng
-    free()
 
 
 def family_prefill(cfg, sp_cfg, params, report, card, with_cache):
@@ -4073,7 +4286,8 @@ def run_family(arch, report, card, flash_rows):
     t0 = time.perf_counter()
     if arch in FLASH256_CASES:
         checked = check_flash(report, FLASH256_CASES[arch], hd=256, seed=16)
-    cfg, sp_cfg, params, planned, dense = family_bring_up(arch, report)
+    cfg, sp_cfg, params, planned, dense = family_bring_up(
+        arch, report, layers=P16_LAYERS.get(arch))
     report(f"{arch}: the matmul kernels vs their plain versions at layer "
            f"0's sites")
     errs = check_sites(params, planned, dense, report)["errs"]
@@ -4791,12 +5005,7 @@ def p19_profile(eng, report, label) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     busy, n_kernels, fam = device_breakdown(prof)
-    tops = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = tops.get(ev.name, (0.0, 0))
-            tops[ev.name] = (us + ev.device_time_total, n + 1)
-    top = sorted(tops.items(), key=lambda kv: -kv[1][0])[:8]
+    top = device_tops(prof, 8)
     if not busy:
         report(f"profiled {label} decode step: the profiler recorded no "
                "device time (not measured)")
@@ -5670,13 +5879,8 @@ def report_step_profile(prof, wall_s, ms, report):
     profiler) against the unprofiled steps' median ``ms``: device busy
     time and share, kernels, families, top kernels.  Returns the busy
     microseconds (0: the profiler recorded no device time)."""
-    import torch
     busy, n_kernels, fam = device_breakdown(prof)
-    top = sorted(((ev.key, ev.device_time_total / 1e3, ev.count)
-                  for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and ev.device_time_total > 0),
-                 key=lambda r: -r[1])[:6]
+    top = [(k, us / 1e3, c) for k, (us, c) in device_tops(prof, 6) if us > 0]
     if busy:
         # the profiler slows the host, so the busy share is taken against
         # the unprofiled steps' median wall
@@ -6297,6 +6501,278 @@ def run_families_training(report, card):
     return full, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the serving CLI, and the last two configs — Qwen2-VL-72B
+# (M-RoPE, the vision prefix) and Llama-4-Scout (top-1 MoE with a shared
+# expert) — at published width, cut in depth
+# ---------------------------------------------------------------------------
+
+# the layers each config keeps: its bf16 weights, the plan's zero-padded
+# copies of the ragged sites (``wpad``: Qwen2-VL's three MLP leaves, whose
+# d_ff 29568 is 115.5 blocks of 256, and Llama-4's head, vocab 202048) and
+# the 2 x 4096 prefill's temporaries within the card's 80 GB
+P24_LAYERS = {"qwen2-vl-72b": 20, "llama4-scout-17b-a16e": 12}
+P24_CLI = ["--arch", "stablelm-1.6b", "--requests", "4", "--max-new", "8",
+           "--device", "cuda"]
+# the vision prefix of a 2 x 4096 prefill: a 32 x 32 patch grid, N_VIS_STUB
+# rows (``model.n_vis``)
+P24_GRID = 32
+# the flash kernel at hd 128 at the prefill cell (S 4096, causal), at the
+# (batch, head) rows each config's 2 x 4096 prefill gives it: Qwen2-VL's
+# 2 x 64 and Llama-4's 2 x 40 (GQA repeats k / v to every q head)
+FLASH128_CASES = (
+    ("hd-128 prefill cell (Qwen2-VL's 2 x 64 B.H), causal", 128, 4096,
+     4096, True, 0),
+    ("hd-128 prefill cell (Llama-4's 2 x 40 B.H), causal", 80, 4096, 4096,
+     True, 0))
+P24_KERNELS = ("block_sparse", "block_sparse_sum", "output", "output_sum",
+               "flash_attention")
+
+
+def p24_front_door(report, card) -> dict:
+    """(a) ``repro_torch.launch.serve.main`` at StableLM-1.6B's published
+    config, as a user starts it: bf16 weights, the dense table's kernels.
+    Returns its launches."""
+    import torch
+    from repro_torch.launch import serve
+    reset_launches()
+    t0 = time.perf_counter()
+    res = serve.main(P24_CLI)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_req, n_new = int(P24_CLI[3]), int(P24_CLI[5])
+    need(sorted(res) == list(range(1, n_req + 1))
+         and all(len(t) == n_new for t in res.values()),
+         f"the serving CLI served {[len(t) for t in res.values()]}")
+    launched = {k: v for k, v in counts.items() if v}
+    report(f"phase 24 (a): python -m repro_torch.launch.serve "
+           f"{' '.join(P24_CLI)}: {len(res)} requests x {n_new} tokens in "
+           f"{wall:.1f} s (engine build and graph capture included); "
+           f"launches {launched} ({card})")
+    need(counts["output"] > 0, "the serving CLI launched no fm_output")
+    del res
+    free()
+    return counts
+
+
+def p24_batch(cfg, b, s, streams):
+    """A 2 x 4096 prompt batch of a vision config: tokens, ``vis_embeds``
+    (the patch embeddings of a ``P24_GRID``-square grid, N_VIS_STUB rows)
+    and ``mrope_positions``: ``streams="grid"`` numbers the patches t 0,
+    h their row, w their column and the text after them at 32 + i on all
+    three streams, as Qwen2-VL does; ``"text"`` gives every stream the
+    text position (t = h = w)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as model_lib
+    n_vis = model_lib.n_vis(cfg, s)
+    need(n_vis == P24_GRID ** 2, f"n_vis {n_vis} is not a "
+         f"{P24_GRID} x {P24_GRID} grid")
+    rng = np.random.default_rng(SEED + 24)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    if streams == "grid":
+        side = P24_GRID
+        text = side + np.arange(s - n_vis)
+        pos = np.stack([
+            np.concatenate([np.zeros(n_vis, np.int64), text]),
+            np.concatenate([np.repeat(np.arange(side), side), text]),
+            np.concatenate([np.tile(np.arange(side), side), text])])
+    else:
+        pos = np.broadcast_to(np.arange(s), (3, s))
+    return {
+        "tokens": torch.as_tensor(rng.integers(0, cfg.vocab, size=(b, s)),
+                                  device="cuda"),
+        "vis_embeds": 0.02 * torch.randn((b, n_vis, cfg.d_model),
+                                         generator=gen, device="cuda"),
+        "mrope_positions": torch.as_tensor(
+            np.ascontiguousarray(np.broadcast_to(pos[:, None], (3, b, s))),
+            device="cuda")}
+
+
+def p24_prefill(cfg, sp_cfg, params, report, card) -> dict:
+    """A 2 x 4096 prefill with the vision prefix (1024 rows of patch
+    embeddings) and a patch grid's t / h / w streams, through the flash
+    kernel at hd 128: the dense prefill table (flash launches = layers),
+    the planned plan (logits equal bit for bit), the plain path (within
+    5% of max |logit|; a MoE stack's plain run takes the kernel run's
+    expert choices, ``same_routing``, as phase 22's plain step does, and
+    the tokens its own router would send elsewhere are counted), and the
+    control: with t = h = w the logits of an
+    M-RoPE stack must differ, those of a full-rotary one (Llama-4 ignores
+    the streams) must not.  Returns the flash launches and the seconds."""
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import shape_exec_config
+    shape = prefill_shape()
+    b, s = shape.global_batch, shape.seq_len
+    t0 = time.perf_counter()
+    dense_pf = shape_exec_config(cfg, shape, use_kernels=True, device="cuda")
+    planned_pf = shape_exec_config(sp_cfg, shape, use_kernels=True,
+                                   params=params, device="cuda")
+    attached = planned_pf.plan.attach(params)
+    report(f"{cfg.name} prefill table and plan bring-up: "
+           f"{time.perf_counter() - t0:.1f} s")
+    batch = p24_batch(cfg, b, s, "grid")
+
+    def prefill(ec, p, bt=batch):
+        return _under(ec, lambda: model_lib.prefill(p, cfg, bt))
+
+    moe = cfg.moe.enabled
+    tape = {"idx": [], "flips": 0}
+    before = launch_counts()["flash_attention"]
+    logits, cold = _timed(lambda: prefill(dense_pf, params))
+    per_prefill = launch_counts()["flash_attention"] - before
+    # a MoE stack records this run's expert choices for the plain run
+    with (same_routing(tape, replay=False) if moe
+          else contextlib.nullcontext()):
+        again, wall = _timed(lambda: prefill(dense_pf, params))
+    out = {"per_prefill": per_prefill, "prefill_s": wall}
+    report(f"{cfg.name} bf16 prefill with the vision prefix ({P24_GRID} x "
+           f"{P24_GRID} patches, distinct t/h/w streams), dense table: "
+           f"{wall:.3f} s warm ({cold:.3f} s the first) for {b} x {s} "
+           f"tokens = {1e3 * wall / (b * s):.4f} ms per prompt token; "
+           f"{per_prefill} flash launches at hd {cfg.head_dim}; a second "
+           f"run's logits equal bit for bit: {torch.equal(again, logits)} "
+           f"({card})")
+    need(torch.equal(again, logits), f"{cfg.name}: two prefills differ")
+    need(per_prefill == cfg.n_layers, f"{cfg.name}: flash kernel launched "
+         f"{per_prefill} times in one prefill, not {cfg.n_layers}")
+    need(bool(torch.isfinite(logits).all())
+         and logits.shape == (b, 1, cfg.vocab),
+         f"{cfg.name}: bad prefill logits")
+    logits_p, wall = _timed(lambda: prefill(planned_pf, attached))
+    out["planned_prefill_s"] = wall
+    same = torch.equal(logits_p, logits)
+    report(f"{cfg.name} bf16 prefill, planned (skip fraction "
+           f"{planned_pf.plan.block_skip_fraction():.4f}): {wall:.3f} s; "
+           f"logits == dense table bit for bit: {same}")
+    need(same, f"{cfg.name}: planned prefill logits differ from the dense "
+         f"table's")
+    del planned_pf, attached, logits_p
+    free()
+    with (same_routing(tape, replay=True) if moe
+          else contextlib.nullcontext()):
+        logits_0, wall = _timed(lambda: prefill(None, params))
+    diff = (logits_0 - logits).abs().max().item()
+    tol = 0.05 * logits.abs().max().item()
+    routed = ""
+    if moe:
+        free_0, _ = _timed(lambda: prefill(None, params))
+        routed = (f" (routed as the kernel run: its own router would send "
+                  f"{tape['flips']} of {b * s * cfg.n_layers} (token, layer)"
+                  f" pairs to another expert; routed freely, max |diff| "
+                  f"{(free_0 - logits).abs().max().item():.3e}, not gated)")
+        del free_0
+    report(f"{cfg.name} bf16 prefill, plain: {wall:.3f} s; logits vs dense "
+           f"table max |diff| = {diff:.3e}, tol {tol:.3e}{routed}")
+    need(diff <= tol, f"{cfg.name}: plain prefill logits off by {diff}")
+    text = p24_batch(cfg, b, s, "text")
+    logits_t, _ = _timed(lambda: prefill(dense_pf, params, text))
+    moved = (logits_t - logits).abs().max().item()
+    mrope = cfg.rope == "mrope"
+    report(f"{cfg.name} control: the same prefill with t = h = w (rope "
+           f"{cfg.rope}): max |logit change| {moved:.3e} (must be "
+           f"{'> 0' if mrope else '0'})")
+    need((moved > 0) == mrope, f"{cfg.name}: the t/h/w streams "
+         f"{'do not move' if mrope else 'move'} the logits")
+    out["total"] = launch_counts()["flash_attention"] - before
+    del dense_pf
+    free()
+    return out
+
+
+def p24_config(arch, report, card) -> dict:
+    """One of the two configs at published width, ``P24_LAYERS`` deep:
+    layer 0's sites against their plain versions (the MoE's expert sites
+    and router as in phase 15), the planned engine (4 slots, 4 requests x
+    8 new) == its ``step()`` oracle, the dense table == the plan bit for
+    bit, the plain engine within 5% (phase 16's harness; the MoE's oracle
+    step profiled, its expert-batched launches counted, its plain engine
+    routed as the planned one), then ``p24_prefill``.  Returns its
+    launches, worst errors and figures."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, sp_cfg, params, planned, dense = family_bring_up(
+        arch, report, layers=P24_LAYERS[arch])
+    report(f"{arch}: the matmul kernels vs their plain versions at layer "
+           f"0's sites")
+    errs = check_sites(params, planned, dense, report)["errs"]
+    moe = cfg.moe.enabled
+    kernels = P24_KERNELS
+    if moe:
+        checked = p15_kernels(cfg, params, planned, dense, report)
+        errs.update(checked["errs"])
+        p15_router(cfg, params, planned, dense, report)
+        kernels += ("block_sparse_experts", "block_sparse_experts_sum",
+                    "output_experts", "output_experts_sum")
+        del checked
+    free()
+    report(f"{arch}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+           f"allocated after the site checks")
+    reset_launches()
+    rates = {}
+    prompts, _, logits_p = family_serve(
+        cfg, params, planned, dense, report, card, rates=rates,
+        on_oracle=(lambda eng: p15_profile(eng, report)) if moe else None)
+    family_plain(cfg, params, prompts, logits_p, report,
+                 routed_as=planned if moe else None)
+    del planned, dense
+    free()
+    report(f"{arch}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+           f"allocated after the engines, the decode plan dropped")
+    pf = p24_prefill(cfg, sp_cfg, params, report, card)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {k: counts[k] for k in kernels}
+    report(f"main-path launches ({arch}, phase 24): {launches}")
+    for name, count in launches.items():
+        need(count > 0, f"kernel {name} never launched in {arch}'s run")
+    figures = {
+        "layers": cfg.n_layers, "peak_gib": round(
+            torch.cuda.max_memory_allocated() / 2**30, 2),
+        **{k: round(v, 4) for k, v in rates.items()},
+        "prefill_s": round(pf["prefill_s"], 4),
+        "planned_prefill_s": round(pf["planned_prefill_s"], 4),
+        "wall_s": round(time.perf_counter() - t0, 1)}
+    report(f"{arch} (phase 24): {json.dumps(figures)} ({card})")
+    del params
+    free()
+    report(f"{arch}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+           f"allocated after its weights were dropped")
+    return {"launches": launches, "errs": errs, "figures": figures,
+            "flash": pf}
+
+
+def run_last_configs(report, card):
+    """Phase 24.  Returns (launches over the phase, worst errors per
+    kernel, the hd-128 flash row, the per-config figures)."""
+    t0 = time.perf_counter()
+    checked = check_flash(report, FLASH128_CASES, hd=128, seed=24)
+    free()
+    launches = p24_front_door(report, card)
+    report(f"[phase 24a: {time.perf_counter() - t0:.1f} s]")
+    errs, figures, flash = {}, {}, {"per_prefill": 0, "total": 0}
+    for arch in P24_LAYERS:
+        t1 = time.perf_counter()
+        run = p24_config(arch, report, card)
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in run["errs"].items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        figures[arch] = run["figures"]
+        flash["total"] += run["flash"]["total"]
+        if arch == "qwen2-vl-72b":
+            flash["per_prefill"] = run["flash"]["per_prefill"]
+        report(f"[phase 24 {arch}: {time.perf_counter() - t1:.1f} s]")
+    row = time_flash(checked, flash, name="flash_attention_hd128")
+    row["launches_phase24"] = flash["total"]
+    del checked
+    free()
+    return launches, errs, row, figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6566,11 +7042,34 @@ def main() -> int:
                 row["launches_phase22"] = sum(
                     r["launches"][key] for r in full22.values())
         rows += rows22
+        # phase 24: the serving CLI, Qwen2-VL-72B and Llama-4-Scout
+        free()
+        report(f"memory before phase 24: "
+               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        launches24, errs24, flash24, last_configs = run_last_configs(
+            report, card)
+        done("phase 24")
+        for row in rows:
+            key = {"block_sparse": "block_sparse", "flex_output": "output",
+                   "flex_weight": "weight", "flex_input": "input",
+                   "block_sparse_experts": "block_sparse_experts",
+                   "flex_output_experts": "output_experts"}.get(row["name"])
+            if key is None:
+                continue
+            if key in errs24:
+                row.update(max_abs_err_phase24=errs24[key],
+                           max_abs_err=max(row["max_abs_err"],
+                                           errs24[key]))
+            if key in launches24:
+                row["launches_phase24"] = launches24[key]
+        rows.append(flash24)
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)
         report(json.dumps({"analytic": analytic}))
         report(json.dumps({"executables": executables}))
+        report(json.dumps({"last_configs": last_configs}))
         report(json.dumps({"kernels": rows}))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

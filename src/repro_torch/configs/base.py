@@ -197,6 +197,8 @@ ARCH_IDS = [
     "recurrentgemma-9b",
     "mamba2-1.3b",
     "whisper-tiny",
+    "qwen2-vl-72b",
+    "llama4-scout-17b-a16e",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")

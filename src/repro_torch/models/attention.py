@@ -92,6 +92,7 @@ def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                       positions: torch.Tensor, causal: bool = True,
                       window: int = 0, kv_x: Optional[torch.Tensor] = None,
                       q_chunk: int = 512,
+                      mrope_positions: Optional[torch.Tensor] = None,
                       use_flash: Optional[bool] = None,
                       return_kv: bool = False):
     """Full-sequence attention (prefill).  x (B,S,D), ``positions``
@@ -107,15 +108,20 @@ def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
 
     ``kv_x`` (B,Skv,D) makes it cross-attention: k and v come from
     ``kv_x``, no rotary is applied (as in the reference), and the caller
-    passes ``causal=False``, which the dense branch runs unmasked."""
+    passes ``causal=False``, which the dense branch runs unmasked.
+
+    ``mrope_positions`` (3,B,S) are M-RoPE's t/h/w streams (a
+    ``rope="mrope"`` config; others ignore them, as the reference does)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     if kv_x is None:      # self-attention: rotary on q and k
         qf = rope.apply_rope(q.reshape(b, s, cfg.n_heads, cfg.head_dim),
-                             positions, kind=cfg.rope, theta=cfg.rope_theta)
+                             positions, kind=cfg.rope, theta=cfg.rope_theta,
+                             mrope_positions=mrope_positions)
         q = qf.reshape(q.shape)
         k = rope.apply_rope(k, positions, kind=cfg.rope,
-                            theta=cfg.rope_theta)
+                            theta=cfg.rope_theta,
+                            mrope_positions=mrope_positions)
 
     if use_flash is None:
         use_flash = s > 2048

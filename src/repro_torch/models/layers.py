@@ -31,6 +31,12 @@ def normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
     (the draws themselves differ between frameworks)."""
     if len(shape) > 2 and math.prod(shape) > DRAW_ELEMS:
         out = torch.empty(shape, dtype=dtype, device=gen.device)
+        if math.prod(shape[1:]) > DRAW_ELEMS:
+            # one leading index is itself too large (a layer of Llama-4's
+            # experts, 16 x 5120 x 8192): each is drawn by its own slices
+            for i in range(shape[0]):
+                out[i] = normal(gen, tuple(shape[1:]), scale, dtype)
+            return out
         for s in leading_slices(shape[0], math.prod(shape[1:]), DRAW_ELEMS):
             out[s] = normal(gen, (s.stop - s.start,) + tuple(shape[1:]),
                             scale, dtype)

@@ -17,7 +17,11 @@ encoder-decoder ``stack.encoder`` and ``stack.decoder``, its state
 
 An encoder-decoder's prompt batch carries ``frames`` (B, S_f, D), the
 precomputed frame embeddings its encoder reads (the conv front end is a
-stub, as in the reference), beside the decoder's ``tokens``."""
+stub, as in the reference), beside the decoder's ``tokens``.  A vision
+config's (``frontend == "vision"``) may carry ``vis_embeds`` (B, n_vis,
+D), precomputed patch embeddings that overwrite the leading positions
+(the vision tower is a stub, as in the reference), and
+``mrope_positions`` (3, B, S), the t/h/w position streams M-RoPE reads."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -41,8 +45,10 @@ N_VIS_STUB = 1024       # patch-embedding prefix length of a vision config
 
 
 def n_vis(cfg: ArchConfig, seq_len: int) -> int:
-    """The vision stub's prefix length (the reference's ``n_vis``); the
-    vision inputs themselves are not ported (ROADMAP queue A)."""
+    """The length of the ``vis_embeds`` prefix the data pipeline attaches
+    to a vision config's batch of ``seq_len`` tokens (the reference's
+    ``n_vis``): ``N_VIS_STUB`` rows, at most a quarter of the sequence;
+    0 for any other config."""
     if cfg.frontend != "vision":
         return 0
     return min(N_VIS_STUB, seq_len // 4)
@@ -85,14 +91,40 @@ def _on_params_device(p: Params, t, name: str, ndim: int) -> torch.Tensor:
 
 def _prompt_tokens(p: Params, cfg: ArchConfig, batch) -> torch.Tensor:
     """The (B, S) token tensor of a prompt batch, on the params' device.
-    The vision inputs are not ported and raise, as do ``frames`` for a
-    config without an encoder (it takes token input only)."""
-    if "vis_embeds" in batch or ("frames" in batch
-                                 and not cfg.encoder_decoder):
-        raise NotImplementedError(
-            f"{cfg.name}: only token input is ported for this config "
-            f"(ROADMAP queue A)")
+    Vision inputs on a config without the vision frontend raise, as do
+    ``frames`` on a config without an encoder (it takes token input
+    only)."""
+    _refuse_foreign_inputs(cfg, batch)
     return _on_params_device(p, batch["tokens"], "tokens", 2)
+
+
+def _refuse_foreign_inputs(cfg: ArchConfig, batch) -> None:
+    if ((cfg.frontend != "vision"
+         and ("vis_embeds" in batch or "mrope_positions" in batch))
+            or ("frames" in batch and not cfg.encoder_decoder)):
+        raise NotImplementedError(
+            f"{cfg.name}: takes token input only (vision inputs need "
+            f"frontend='vision', frames an encoder-decoder)")
+
+
+def _vision_inputs(p: Params, cfg: ArchConfig, batch, x: torch.Tensor):
+    """x (B, S, D) with a vision config's ``vis_embeds`` written over its
+    leading positions (out of place: autograd sees a concatenation), and
+    the batch's ``mrope_positions`` (3, B, S) or None."""
+    mrope = batch.get("mrope_positions")
+    if mrope is not None:
+        mrope = _on_params_device(p, mrope, "mrope_positions", 3)
+        if mrope.shape[0] != 3 or mrope.shape[1:] != x.shape[:2]:
+            raise ValueError(f"mrope_positions {tuple(mrope.shape)}, want "
+                             f"(3, {x.shape[0]}, {x.shape[1]})")
+    if "vis_embeds" not in batch:
+        return x, mrope
+    vis = _on_params_device(p, batch["vis_embeds"], "vis_embeds", 3)
+    b, s, d = x.shape
+    if vis.shape[0] != b or vis.shape[2] != d or vis.shape[1] > s:
+        raise ValueError(f"vis_embeds {tuple(vis.shape)} do not fit a "
+                         f"prefix of ({b}, {s}, {d})")
+    return torch.cat([vis.to(x.dtype), x[:, vis.shape[1]:]], dim=1), mrope
 
 
 def _frames(p: Params, cfg: ArchConfig, batch) -> torch.Tensor:
@@ -112,14 +144,17 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
 def forward_hidden(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                    *, remat: str = "none", q_chunk: int = 512
                    ) -> torch.Tensor:
-    """Token inputs (and an encoder-decoder's ``frames``) → final-norm
-    hidden states (B, S, D)."""
+    """Token inputs (with an encoder-decoder's ``frames``, or a vision
+    config's ``vis_embeds`` and ``mrope_positions``) → final-norm hidden
+    states (B, S, D)."""
     tokens = _prompt_tokens(p, cfg, batch)
     frames = _frames(p, cfg, batch) if cfg.encoder_decoder else None
     x = embed(cfg, p["embed"], tokens)
+    x, mrope = _vision_inputs(p, cfg, batch, x)
     x = transformer.apply_stack(p["stack"], cfg, x,
                                 positions=_positions(tokens), remat=remat,
-                                q_chunk=q_chunk, frames=frames)
+                                q_chunk=q_chunk, mrope_positions=mrope,
+                                frames=frames)
     return apply_norm(p["final_norm"], cfg, x)
 
 
@@ -144,9 +179,7 @@ def prefill(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     and returns the encoder's last hidden (B, 1, D), as the reference's
     does (its ``prefill_32k`` cell lowers the encoder)."""
     if cfg.encoder_decoder:
-        if "vis_embeds" in batch:
-            raise NotImplementedError(
-                f"{cfg.name}: vision inputs are not ported (ROADMAP queue A)")
+        _refuse_foreign_inputs(cfg, batch)
         mem = transformer.encode(p["stack"], cfg, _frames(p, cfg, batch),
                                  q_chunk=q_chunk)
         return mem[:, -1:, :]

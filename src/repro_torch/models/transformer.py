@@ -68,13 +68,15 @@ def init_dense_layer(cfg: ArchConfig, gen: torch.Generator,
 
 def apply_dense_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                       positions: torch.Tensor, window: int = 0,
+                      mrope_positions: Optional[torch.Tensor] = None,
                       q_chunk: int = 512, return_kv: bool = False):
     """One layer over x (B,S,D); ``return_kv=True`` also returns the
     attention's (post-RoPE k, raw v), as ``attention_forward`` does."""
     h = apply_norm(p["ln1"], cfg, x)
     o = attention.attention_forward(
         p["attn"], cfg, h, positions=positions, window=window,
-        q_chunk=q_chunk, return_kv=return_kv)
+        q_chunk=q_chunk, mrope_positions=mrope_positions,
+        return_kv=return_kv)
     if return_kv:
         o, kv = o
     x = x + o
@@ -104,11 +106,13 @@ def init_moe_layer(cfg: ArchConfig, gen: torch.Generator,
 
 
 def apply_moe_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
-                    positions: torch.Tensor,
-                    q_chunk: int = 512) -> torch.Tensor:
+                    positions: torch.Tensor, q_chunk: int = 512,
+                    mrope_positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     h = apply_norm(p["ln1"], cfg, x)
     x = x + attention.attention_forward(p["attn"], cfg, h,
-                                        positions=positions, q_chunk=q_chunk)
+                                        positions=positions, q_chunk=q_chunk,
+                                        mrope_positions=mrope_positions)
     h = apply_norm(p["ln2"], cfg, x)
     return x + moe_mod.apply_moe(p["moe"], cfg, h)
 
@@ -312,9 +316,12 @@ def layer_trees(tree, n: int):
 def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                 positions: torch.Tensor, remat: str = "none",
                 q_chunk: int = 512,
+                mrope_positions: Optional[torch.Tensor] = None,
                 frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Run the full stack over x (B,S,D); ``frames`` (B, S_f, D) feed the
-    encoder of an encoder-decoder, whose decoder then runs over x.
+    encoder of an encoder-decoder, whose decoder then runs over x;
+    ``mrope_positions`` (3,B,S) reach every attention layer of a dense or
+    MoE stack (only ``rope="mrope"`` reads them).
     ``remat`` (``none`` / ``dots`` / ``full``) wraps each layer as the
     reference's ``_remat`` does (``_remat`` here)."""
     if cfg.encoder_decoder:
@@ -343,15 +350,17 @@ def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
         n_dense, n_moe = _moe_layout(cfg)
         for lp in (layer_trees(p["dense_layers"], n_dense) if n_dense
                    else []):
-            x = dense(lp, cfg, x, positions=positions, q_chunk=q_chunk)
+            x = dense(lp, cfg, x, positions=positions, q_chunk=q_chunk,
+                      mrope_positions=mrope_positions)
         layer = _remat(apply_moe_layer, remat)
         for lp in layer_trees(p["layers"], n_moe):
-            x = layer(lp, cfg, x, positions=positions, q_chunk=q_chunk)
+            x = layer(lp, cfg, x, positions=positions, q_chunk=q_chunk,
+                      mrope_positions=mrope_positions)
         return x
     # the reference's scan over layers
     for lp in layer_trees(p["layers"], cfg.n_layers):
         x = dense(lp, cfg, x, positions=positions, window=cfg.window,
-                  q_chunk=q_chunk)
+                  q_chunk=q_chunk, mrope_positions=mrope_positions)
     return x
 
 

@@ -17,7 +17,7 @@ from repro_torch.core.sparsity import iter_leaves
 from repro_torch.models import model as pt_model
 
 ARCHS = ["edge-tiny", "stablelm-1.6b", "yi-9b", "gemma-2b",
-         "chatglm3-6b"]
+         "chatglm3-6b", "qwen2-vl-72b", "llama4-scout-17b-a16e"]
 
 
 def ref_config(cfg):

@@ -1534,3 +1534,106 @@ def test_cuda_replayed_block_makes_no_synchronizing_call(spec_setup, stats):
     syncs = [str(w.message) for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
     assert not syncs
+
+
+# ---------------------------------------------------------------------------
+# the last two configs and the serving CLI on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_mrope_decode_block_replays_without_a_sync(cuda):
+    """Qwen2-VL's smoke config (M-RoPE) under a two-sided plan: a decode
+    block, once captured, replays from the carries and is read with no
+    synchronizing call (the rotary frequencies and the three streams are
+    built on the card)."""
+    import warnings
+    from repro_torch.configs import SparsityConfig, get_smoke_config
+    from repro_torch.models import model as pt_model
+    from repro_torch.serve import ServeEngine, decode_exec_config
+    cfg = get_smoke_config("qwen2-vl-72b")
+    assert cfg.rope == "mrope"
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = pt_sp.map_leaves(
+        lambda _, leaf: pt_sp.prune_stacked_magnitude(leaf, 0.5, (16, 16)),
+        pt_model.init_params(cfg, gen, dtype=torch.bfloat16, device=cuda))
+    sp_cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+        weight_sparsity=0.5, activation_threshold=0.05))
+    ec = decode_exec_config(sp_cfg, 4, params=params, use_kernels=True,
+                            device=cuda)
+    eng = ServeEngine(cfg, params, n_slots=4, max_seq=64,
+                      dtype=torch.bfloat16, exec_cfg=ec, decode_block=8,
+                      async_dispatch=False, device=cuda)
+    for i in range(4):
+        eng.submit([3 + i, 5, 7], max_new=24)
+    eng.decode_block_step()
+    eng.decode_block_step()
+    live = eng._live()
+    assert len(live) == 4 and eng._carry is not None
+    assert eng._executables[("decode_many", 0, 8, False)].replays == 2
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng._launch(live, 8)
+            eng._account_one()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["mlp.in", "mlp.out"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_qwen2_vl_ragged_sites_match_plain(cuda, site, dtype):
+    """Qwen2-VL-72B's layer-0 MLP sites at decode (M 4): d_ff 29568 is
+    115.5 blocks of 256, so mlp.in's last N-block and mlp.out's last
+    K-block are ragged (the plan's zero-padded ``wpad``).  ``bs_matmul``
+    on the pruned plan against its plain version and its all-live run,
+    ``fm_output`` under the dense table's schedule against ``matmul_ref``
+    (``_cuda_tol``), and in bf16 the two bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import planned_operands
+    from repro_torch.serve import decode_exec_config
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=1)
+    k, n = ((cfg.d_model, cfg.d_ff) if site == "mlp.in"
+            else (cfg.d_ff, cfg.d_model))
+    assert (k if site == "mlp.out" else n) % 256 == 128
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    w = pt_sp.prune_magnitude(
+        torch.randn((k, n), generator=gen, device=cuda) * 0.02, 0.5,
+        (256, 256)).to(dtype)
+    pw = pt_sp.plan_weight(w, site=site, mode="two_sided", bm=16, bk=256,
+                           bn=256)
+    assert pw.wpad is not None
+    a = torch.randn((4, k), generator=gen, device=cuda).to(dtype)
+    xp, wp, meta, _ = planned_operands(a, pw)
+    out = pt_bs.block_sparse_matmul(xp, wp, meta, out_dtype=torch.float32,
+                                    rows=4)
+    tol = _cuda_tol(a, w)
+    plain = block_sparse_matmul_ref(xp, wp, meta)[:4]
+    assert (out - plain).abs().max() <= tol
+    assert torch.equal(out, pt_bs.block_sparse_matmul(
+        xp, wp, _all_live(meta), out_dtype=torch.float32, rows=4))
+    sched = decode_exec_config(cfg, 4, use_kernels=True, device=cuda) \
+        .schedules.sites[site].schedule
+    dense = pt_fm.flex_matmul(a, w, schedule=sched, out_dtype=torch.float32)
+    assert (dense - matmul_ref(a, w)).abs().max() <= tol
+    if dtype is torch.bfloat16:          # one K order fixed by K alone
+        assert torch.equal(dense, out[:, :n])
+
+
+@pytest.mark.cuda
+def test_cuda_serve_cli_launches_fm_output(cuda, capsys):
+    """``launch.serve.main`` on the card serves every request through the
+    dense table's kernels: ``fm_output`` launches, bf16 weights."""
+    from repro_torch.launch import serve
+    before = pt_fm.LAUNCHES["output"]
+    res = serve.main(["--arch", "stablelm-1.6b", "--smoke", "--requests",
+                      "3", "--max-new", "4", "--device", "cuda"])
+    assert sorted(res) == [1, 2, 3] and all(len(t) == 4
+                                            for t in res.values())
+    assert pt_fm.LAUNCHES["output"] > before
+    assert "served 3 requests, 12 tokens" in capsys.readouterr().out
