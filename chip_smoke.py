@@ -10,8 +10,9 @@ Llama-4-Scout at published width and cut depth — through
 ``repro_torch.serve.ServeEngine`` (phase 24 also through the serving CLI,
 ``repro_torch.launch.serve``), with random weights from a seeded
 generator, block-magnitude-pruned at (256, 256) (Mamba2's are not: no
-plan reaches an SSM site), and (phase 21) trains StableLM-1.6B at full
-width through ``repro_torch.launch.train``:
+plan reaches an SSM site), (phase 21) trains StableLM-1.6B at full
+width through ``repro_torch.launch.train`` and (phase 25) through the
+sharded train step on a one-rank NCCL group:
 
   1. the card (``torch.cuda``, ``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
@@ -415,6 +416,31 @@ width through ``repro_torch.launch.train``:
      line); the ``kernels`` line gains ``flash_attention_hd128`` and
      ``launches_phase24`` / ``max_abs_err_phase24`` on the rows phase 24
      launches or compares.
+ 25. distribution (``run_distribution``), after phase 22 with the earlier
+     weights freed, on a process group of one NCCL rank (a ``file://``
+     init under ``build/``; the card's one H100 cannot hold two ranks, so
+     the multi-rank arithmetic is held on the CPU): an all-reduce of 64
+     MiB leaves its tensor as it was (timed); (a) StableLM-1.6B at its 24
+     layers on phase 21's cell (4 x 4096 in 2 microbatches, remat full,
+     bf16, the train table): 3 steps of ``build_train_step(mesh, rules)``
+     on ``make_host_mesh(model=1)`` equal 3 unsharded kernel steps from
+     the same weights bit for bit — loss, grad norm, every parameter and
+     moment (the unsharded result held on the host) — and one step with
+     one embedding row moved must move the loss; ms a step, tokens/s,
+     peak memory, device busy time and the NCCL kernels' time of a
+     profiled step; ``fm_output``, ``flash_attention`` and
+     ``flash_backward`` must have launched; (b)
+     ``build_dp_compressed_step`` in ``int8`` and ``zvc_topk`` at 2
+     layers, full width, 2 x 2048: the update bit-equal to the
+     in-process composition (quantize -> dequantize -> the mean of one,
+     or the top-k mask, -> AdamW), the error feedback nonzero and equal
+     to what was dropped; (c) ``pipeline_apply`` with one stage on CUDA
+     tensors equal to the sequential loop; (d) ``python -m
+     repro_torch.launch.train`` in a subprocess under torchrun's
+     environment of a world of one (the launcher opens the NCCL group),
+     3 steps of the published 24 layers.  The matmul and flash rows of
+     the ``kernels`` line gain ``launches_phase25``; a ``distribution``
+     JSON line holds the figures.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON; the whole report
@@ -6773,6 +6799,351 @@ def run_last_configs(report, card):
     return launches, errs, row, figures
 
 
+# ---------------------------------------------------------------------------
+# phase 25: distribution — the sharded train step, the compressed data-
+# parallel step and the pipeline on a process group of one NCCL rank, and
+# the launcher under the torchrun environment
+# ---------------------------------------------------------------------------
+
+P25_STEPS = 3         # the second timed, the third profiled
+P25_DP_LAYERS = 2
+P25_DP_BATCH, P25_DP_SEQ = 2, 2048
+P25_LAUNCH = ["--arch", "stablelm-1.6b", "--model-shards", "1", "--steps",
+              "3", "--batch", "2", "--seq", "2048", "--remat", "full",
+              "--log-every", "1"]
+
+
+def _to_host(tree):
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda x: x.to("cpu"), tree)
+
+
+def _bits_equal(dev_tree, host_tree) -> bool:
+    """Every leaf of a device tree equal bit for bit to a host tree's (one
+    leaf on the host at a time)."""
+    import torch
+    from repro_torch.train.optimizer import tree_leaves
+    return all(torch.equal(a.to("cpu"), b) for a, b in
+               zip(tree_leaves(dev_tree), tree_leaves(host_tree)))
+
+
+def p25_sharded(report, card) -> dict:
+    """(a) StableLM-1.6B at its 24 layers on phase 21's cell (4 x 4096 in
+    2 microbatches, remat full, bf16, the train table): three steps of
+    ``build_train_step(mesh, rules)`` on ``make_host_mesh(model=1)`` of the
+    one-rank NCCL group against three of the unsharded kernel step from
+    the same weights — loss, grad norm and every parameter and moment bit
+    for bit (the unsharded result held on the host); the control: one
+    sharded step from the weights with one embedding row moved must move
+    the loss.  Launches are counted over the sharded steps; the second of
+    each run is the one timed, the sharded run's third is profiled."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import shape_exec_config
+    from repro_torch.sharding.partition import make_rules
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import build_train_step, make_step_fn
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config("stablelm-1.6b")
+    shape = train_shape()
+    mesh = make_host_mesh(model=1)
+    rules = make_rules(mesh, kind="train", n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads)
+    ec = shape_exec_config(cfg, shape, use_kernels=True, model_shards=1,
+                           device="cuda")
+    opt = AdamWConfig(lr=P21_LR, warmup_steps=1, total_steps=4)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16,
+                                   device=dev)
+    toks = torch.randint(0, cfg.vocab, (P21_BATCH, P21_SEQ + 1),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    tokens = P21_BATCH * P21_SEQ
+
+    def steps(step, p, label, prof_step=None, n=P25_STEPS):
+        st = init_opt_state(p)
+        out, times, prof = [], [], None
+        for i in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with ops.exec_config(ec):
+                if i == prof_step:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        p, st, m = step(p, st, batch)
+                        torch.cuda.synchronize()
+                else:
+                    p, st, m = step(p, st, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        report(f"  {label}: (loss, grad_norm) {out}; step times "
+               f"{[round(1e3 * x, 1) for x in times]} ms")
+        return p, st, out, times, prof
+
+    torch.cuda.reset_peak_memory_stats()
+    p_u, st_u, m_u, t_u, _ = steps(make_step_fn(cfg, shape, opt), params,
+                                   "unsharded kernel step")
+    host = _to_host({"p": p_u, "mu": st_u.mu, "nu": st_u.nu})
+    del p_u, st_u
+    free()
+    peak_u = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    step = build_train_step(cfg, shape, opt, mesh, rules)
+    reset_launches()
+    p_s, st_s, m_s, t_s, prof = steps(step, params, "sharded step on "
+                                      f"{mesh}", prof_step=2)
+    launches = launch_counts()
+    peak_s = torch.cuda.max_memory_allocated() / 2 ** 30
+    need(m_s == m_u, f"phase 25 (a): sharded (loss, grad_norm) {m_s} != "
+         f"unsharded {m_u}")
+    need(_bits_equal({"p": p_s, "mu": st_s.mu, "nu": st_s.nu}, host),
+         "phase 25 (a): a parameter or moment of the sharded step differs "
+         "from the unsharded step's")
+    for key in ("output", "flash_attention", "flash_backward"):
+        need(launches[key] > 0, f"phase 25 (a): {key} never launched")
+    del p_s, st_s, host
+    free()
+    # the control: one embedding row of the first token moved
+    row = int(batch["tokens"][0, 0])
+    params["embed"][row] += 0.5
+    _, _, m_c, _, _ = steps(step, params, "control (one embedding row "
+                            "moved)", n=1)
+    need(m_c[0][0] != m_s[0][0], "phase 25 (a): the control's loss did not "
+         "move")
+    del params
+    free()
+    busy, n_kernels, fam = device_breakdown(prof)
+    nccl = [(n, us) for n, us in device_events(prof) if "nccl" in n.lower()]
+    nccl_ms = sum(us for _, us in nccl) / 1e3
+    ms = 1e3 * t_s[1]
+    report(f"  24 layers, {P21_BATCH} x {P21_SEQ} tokens a step in "
+           f"{P21_MICRO} microbatches, remat full ({card}): sharded step "
+           f"{ms:.1f} ms (the second; the unsharded second "
+           f"{1e3 * t_u[1]:.1f}), {tokens / ms * 1e3:.0f} tokens/s; peak "
+           f"{peak_s:.2f} GiB sharded, {peak_u:.2f} GiB unsharded; device "
+           f"busy {busy / 1e3:.1f} ms over {n_kernels} kernels; NCCL "
+           f"kernels {len(nccl)}, {nccl_ms:.3f} ms (a mesh of one rank "
+           f"runs no collective); launches "
+           f"{ {k: v for k, v in launches.items() if v} }")
+    return dict(launches=launches, ms=ms, unsharded_ms=1e3 * t_u[1],
+                tokens_per_s=tokens / ms * 1e3, peak_gib=peak_s,
+                peak_unsharded_gib=peak_u, busy_ms=busy / 1e3,
+                nccl_ms=nccl_ms, nccl_kernels=len(nccl),
+                losses=[x for x, _ in m_s])
+
+
+def p25_nccl(report, card) -> float:
+    """The one-rank NCCL group itself: an all-reduce of 64 MiB (float32),
+    which must leave the tensor as it was, timed with CUDA events."""
+    import torch
+    import torch.distributed as dist
+    x = torch.randn(16 << 20, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(0))
+    y = x.clone()
+    dist.all_reduce(y)
+    torch.cuda.synchronize()
+    need(torch.equal(x, y), "phase 25: a one-rank all_reduce changed the "
+         "tensor")
+    ms = cuda_ms(lambda: dist.all_reduce(y), iters=10)
+    report(f"  NCCL all_reduce of 64 MiB on the one-rank group: {ms:.4f} ms "
+           f"({card})")
+    return ms
+
+
+def p25_dp(report) -> None:
+    """(b) ``build_dp_compressed_step`` in int8 and zvc_topk on the
+    one-rank mesh, StableLM-1.6B at full width cut to P25_DP_LAYERS
+    layers, one microbatch of P25_DP_BATCH x P25_DP_SEQ under the train
+    table: the update equal bit for bit to the composition in this process
+    (the kernel gradients, quantize -> dequantize -> the mean of one, or
+    the top-k mask, -> AdamW), the error-feedback state nonzero and equal
+    to (gradient - what was kept)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import shape_exec_config
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train import train_step as step_lib
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             init_opt_state, tree_leaves)
+
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              n_layers=P25_DP_LAYERS)
+    shape = dataclasses.replace(train_shape(), global_batch=P25_DP_BATCH,
+                                seq_len=P25_DP_SEQ, n_micro=1)
+    ec = shape_exec_config(cfg, shape, use_kernels=True, device="cuda")
+    opt = AdamWConfig(lr=P21_LR, warmup_steps=1, total_steps=4)
+    mesh = make_host_mesh(model=1)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    params = model_lib.init_params(cfg, gen, dtype=torch.bfloat16,
+                                   device=dev)
+    toks = torch.randint(0, cfg.vocab, (P25_DP_BATCH, P25_DP_SEQ + 1),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    with ops.exec_config(ec):
+        loss, grads = step_lib.value_and_grad(
+            step_lib.loss_for(cfg, shape), params, batch)
+    for mode in ("int8", "zvc_topk"):
+        t = time.perf_counter()
+        step = step_lib.build_dp_compressed_step(
+            cfg, shape, opt, mesh, gc.CompressConfig(mode=mode))
+        with ops.exec_config(ec):
+            new, _, err, m = step(params, init_opt_state(params),
+                                  gc.init_error_state(params), batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        kept, want_err = [], []
+        for g in tree_leaves(grads):
+            u = g.float() + torch.zeros(g.shape, dtype=torch.float32,
+                                        device=dev)
+            if mode == "int8":
+                q, s = gc.quantize_int8(u)
+                k = gc.dequantize_int8(q, s)
+            else:
+                flat = u.reshape(-1)
+                thr = torch.topk(flat.abs(), max(int(flat.numel() * 0.05),
+                                                 1)).values[-1]
+                k = torch.where(u.abs() >= thr, u, torch.zeros_like(u))
+            kept.append((k / 1).to(g.dtype))
+            want_err.append(u - k)
+        want, _, _ = adamw_update(opt, params, step_lib._unflatten(
+            params, kept), init_opt_state(params))
+        need(torch.equal(m["loss"], loss), f"phase 25 (b) {mode}: loss "
+             f"{m['loss'].item()} != {loss.item()}")
+        need(all(torch.equal(a, b) for a, b in
+                 zip(tree_leaves(new), tree_leaves(want))),
+             f"phase 25 (b) {mode}: the update differs from the in-process "
+             f"composition")
+        need(all(torch.equal(a, b) for a, b in
+                 zip(tree_leaves(err), want_err)),
+             f"phase 25 (b) {mode}: the error feedback differs")
+        nz = sum(int((e != 0).sum()) for e in tree_leaves(err))
+        need(nz > 0, f"phase 25 (b) {mode}: the error-feedback state is 0")
+        report(f"  DP {mode} step at {P25_DP_LAYERS} layers, "
+               f"{P25_DP_BATCH} x {P25_DP_SEQ}: loss {loss.item():.6f}, "
+               f"update == the composition bit for bit, {nz} nonzero "
+               f"error-feedback elements; wall {wall:.2f} s")
+        del new, err, want, kept, want_err
+        free()
+    del params, grads
+    free()
+
+
+def p25_pipeline(report) -> None:
+    """(c) ``pipeline_apply`` with one stage (a "pod" axis of the one-rank
+    group) on CUDA tensors: the reference's single-stage test (each layer
+    adds its index: every output is the sum) and a tanh stack against the
+    sequential loop, bit for bit."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.pipeline import pipeline_apply, split_stages
+
+    mesh = Mesh((1,), ("pod",))
+    dev = torch.device("cuda")
+    n_layers, d, b = 4, 8, 8
+    stacked = {"w": torch.arange(n_layers, dtype=torch.float32,
+                                 device=dev)[:, None].repeat(1, d)}
+    out = pipeline_apply(lambda lp, h: h + lp["w"],
+                         split_stages(stacked, 1),
+                         torch.zeros(b, d, device=dev), mesh=mesh,
+                         axis_name="pod", n_micro=2)
+    need(bool((out == float(sum(range(n_layers)))).all()),
+         "phase 25 (c): the single-stage pipeline is not the sum")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    n_layers, d, b = 8, 256, 12
+    tanh = {"w": torch.randn(n_layers, d, d, device=dev, generator=gen)
+            * d ** -0.5, "b": torch.zeros(n_layers, d, device=dev)}
+    x = torch.randn(b, d, device=dev, generator=gen)
+
+    def layer(lp, h):
+        return torch.tanh(h @ lp["w"] + lp["b"])
+    ref = x
+    for i in range(n_layers):
+        ref = layer({k: v[i] for k, v in tanh.items()}, ref)
+    got = pipeline_apply(layer, split_stages(tanh, 1), x, mesh=mesh,
+                         axis_name="pod", n_micro=3)
+    need(torch.equal(got, ref), "phase 25 (c): the single-stage pipeline "
+         "differs from the sequential loop")
+    report("  pipeline_apply, one stage on CUDA: the single-stage sum and "
+           "an 8-layer tanh stack (3 microbatches) == the sequential loop "
+           "bit for bit")
+
+
+def p25_launcher(report, card) -> dict:
+    """(d) ``python -m repro_torch.launch.train`` in a subprocess under the
+    torchrun environment of a world of one (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR, a free MASTER_PORT): the launcher initialises the NCCL
+    group itself and trains the published 24 layers for 3 steps."""
+    import socket
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        env["MASTER_PORT"] = str(sock.getsockname()[1])
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *P25_LAUNCH],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=400)
+    wall = time.perf_counter() - t
+    lines = proc.stdout.strip().splitlines()
+    need(proc.returncode == 0, f"phase 25 (d): the launcher exited "
+         f"{proc.returncode}: {proc.stderr[-2000:]}")
+    logs = [json.loads(x) for x in lines if x.startswith("{")]
+    need([r["step"] for r in logs] == [1, 2, 3]
+         and all(r["loss"] == r["loss"] for r in logs)
+         and lines[-1].startswith("done: 3 steps"),
+         f"phase 25 (d): launcher output {lines[-4:]}")
+    report(f"  launcher under torchrun's environment (world 1, --model-shards"
+           f" 1, {' '.join(P25_LAUNCH)}): {[(r['step'], r['loss'], round(1e3 * r['dt'], 1)) for r in logs]} "
+           f"(step, loss, ms); wall {wall:.1f} s ({card})")
+    return {"losses": [r["loss"] for r in logs], "wall_s": wall}
+
+
+def run_distribution(report, card):
+    """Phase 25: distribution on the card (the module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    free()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                            rank=0, world_size=1)
+    try:
+        nccl_ms = p25_nccl(report, card)
+        with expandable_segments():
+            sharded = p25_sharded(report, card)
+        report(f"[phase 25a: {time.perf_counter() - t0:.1f} s]")
+        p25_dp(report)
+        report(f"[phase 25b: {time.perf_counter() - t0:.1f} s]")
+        p25_pipeline(report)
+        report(f"[phase 25c: {time.perf_counter() - t0:.1f} s]")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    free()
+    launcher = p25_launcher(report, card)
+    report(f"[phase 25d: {time.perf_counter() - t0:.1f} s]")
+    torch.cuda.synchronize()
+    return {**sharded, "nccl_allreduce_64mib_ms": nccl_ms,
+            "launcher": launcher}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7042,6 +7413,21 @@ def main() -> int:
                 row["launches_phase22"] = sum(
                     r["launches"][key] for r in full22.values())
         rows += rows22
+        # phase 25: distribution on a one-rank NCCL group
+        free()
+        report(f"memory before phase 25: "
+               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        distribution = run_distribution(report, card)
+        done("phase 25")
+        for row in rows:
+            key = {"flex_output": "output",
+                   "flash_attention": "flash_attention",
+                   "flash_backward": "flash_backward",
+                   "flex_output_backward_dx": "output",
+                   "flex_output_backward_dw": "output"}.get(row["name"])
+            if key is not None:
+                row["launches_phase25"] = distribution["launches"][key]
         # phase 24: the serving CLI, Qwen2-VL-72B and Llama-4-Scout
         free()
         report(f"memory before phase 24: "
@@ -7070,6 +7456,8 @@ def main() -> int:
         report(json.dumps({"analytic": analytic}))
         report(json.dumps({"executables": executables}))
         report(json.dumps({"last_configs": last_configs}))
+        report(json.dumps({"distribution": {
+            k: v for k, v in distribution.items() if k != "launches"}}))
         report(json.dumps({"kernels": rows}))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

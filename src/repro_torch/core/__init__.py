@@ -1,4 +1,5 @@
 """FlexNN core, ported: the access-count energy model and the per-layer
 schedule search, the descriptor table and matmul schedule selector,
-FlexTree's analytic half, the §V-C sparsity profiles, and the sparsity
-machinery (ZVC codec, CSB, weight-sparsity plans)."""
+FlexTree's cycle models and its mesh combine (``reduce_psum``), the §V-C
+sparsity profiles, and the sparsity machinery (ZVC codec, CSB,
+weight-sparsity plans)."""

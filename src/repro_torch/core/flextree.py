@@ -4,15 +4,17 @@
 1. the cycle model of the hardware adder tree — flexible output tap points
    at every level (``IC_P`` 1..16, non-powers-of-2 zero-padded) against a
    neighbor-to-neighbor psum chain and a fixed root-only tree;
-2. the mesh-level reduction strategies' link-traffic model and the
-   strategy choice the descriptor compiler records per site.
-
-The collectives themselves (the reference's ``reduce_psum``) belong to the
-distribution slice of the port."""
+2. the mesh-level reduction strategies: their link-traffic model, the
+   strategy choice the descriptor compiler records per site, and the
+   combine itself (``reduce_psum``) over a ``torch.distributed`` group.
+"""
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
 
 MAX_EXTRACT_PER_ROUND = 4     # ≤4 OF points drained from FlexTree per round
 TREE_FANIN = 16               # 16 PEs per column feed the tree
@@ -62,6 +64,55 @@ class ReduceConfig:
     axis_name: str
     ic_p: int                     # devices participating (1 = no reduction)
     strategy: str = "allreduce"   # allreduce | scatter | tree
+
+
+def reduce_psum(x: torch.Tensor, cfg: ReduceConfig, scatter_dim: int = 0,
+                *, group=None) -> torch.Tensor:
+    """Combine the partial sums ``x`` of the ``cfg.ic_p`` ranks of ``group``
+    (the world when None) under the strategy, into a new tensor:
+    ``allreduce`` → every rank the sum; ``scatter`` → this rank's block of
+    the sum along ``scatter_dim``; ``tree`` → FlexTree's log-depth combine
+    as recursive doubling (``_tree_allreduce``).  ``ic_p <= 1`` returns
+    ``x``."""
+    if cfg.ic_p <= 1:
+        return x
+    if cfg.strategy == "allreduce":
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+    if cfg.strategy == "scatter":
+        front = x.movedim(scatter_dim, 0).contiguous()
+        out = torch.empty((front.shape[0] // cfg.ic_p,) + front.shape[1:],
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, front, group=group)
+        return out.movedim(0, scatter_dim)
+    if cfg.strategy == "tree":
+        return _tree_allreduce(x, group, cfg.ic_p)
+    raise ValueError(f"unknown strategy {cfg.strategy!r}")
+
+
+def _tree_allreduce(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Log-depth recursive-doubling all-reduce: round d exchanges with the
+    group rank at XOR distance 2^d (one ``batch_isend_irecv`` pair) and
+    adds — the adder-tree levels of Fig 7.  Partners add the same two
+    values, so every rank ends with the same bits.  A size that is not a
+    power of 2 falls back to ``all_reduce``, as in the reference."""
+    if size & (size - 1):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+    me = dist.get_rank(group)
+    x = x.contiguous()
+    for d in range(int(math.log2(size))):
+        peer = dist.get_global_rank(group, me ^ (1 << d)) \
+            if group is not None else me ^ (1 << d)
+        buf = torch.empty_like(x)
+        for req in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x, peer, group=group),
+                 dist.P2POp(dist.irecv, buf, peer, group=group)]):
+            req.wait()
+        x = x + buf
+    return x
 
 
 def link_bytes(strategy: str, payload_bytes: float, ic_p: int) -> float:

@@ -72,6 +72,18 @@ take.  ``DotsTape`` (``recording`` / ``replaying``) is how
 ``remat="dots"`` keeps the matmul and flash outputs of a layer's forward
 and hands them back, in order, to its recomputation.
 
+Tensor parallelism.  Under a model axis above 1
+(``sharding.partition.tensor_parallel``) the layers pass this rank's
+shard of a weight: a column-parallel site (``attn.q``, ``attn.kv``,
+``mlp.in``, ``mlp.gate``) runs the same routes on its N columns (its
+input entered through ``collectives.to_model``, whose backward
+all-reduces dX); a row-parallel site (``attn.out``, ``mlp.out``: the
+descriptor's ``reduce.ic_p`` above 1) runs them on its K rows and,
+with ``partial=True``, combines the partial sums by
+``flextree.reduce_psum`` under the descriptor's strategy (the table must
+be compiled for as many shards, ``ExecConfig.model_shards``); the
+combine's backward passes dY through.
+
 ``decode_rows`` cuts every site's rows into chunks of at most
 ``flex_matmul.OS_SKINNY_ROWS``: a speculative verify window scores B·(k+1)
 rows, and the kernels pick their regime (and so each element's summation
@@ -89,6 +101,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import sparsity as sparsity_lib
+from repro_torch.core.flextree import ReduceConfig
 from repro_torch.core.sparsity import PlannedWeight
 from repro_torch.kernels import block_sparse as bs
 from repro_torch.kernels import flash_attention as fa
@@ -99,6 +112,7 @@ from repro_torch.kernels.ref import (flash_attention_backward_plain,
                                      flash_attention_plain,
                                      windowed_attention)
 from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
+from repro_torch.sharding import collectives, partition
 
 _state = threading.local()
 
@@ -116,6 +130,7 @@ class ExecConfig:
     # ArchConfig it was compiled from, so the engine can recompile it
     act_densities: Optional[Dict[str, float]] = None
     arch_cfg: Optional[object] = None
+    model_shards: int = 1             # TP degree the table was compiled for
 
 
 def _cfg() -> ExecConfig:
@@ -526,8 +541,18 @@ def _dense_site(x: torch.Tensor, w: torch.Tensor, site: str,
     return out.reshape(*x.shape[:-1], w.shape[-1]).to(dtype)
 
 
-def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
-    """x (..., K) @ w (K, N) through the site dispatch (module docstring)."""
+def flex_matmul(x: torch.Tensor, w, *, site: str = "",
+                partial: bool = False) -> torch.Tensor:
+    """x (..., K) @ w (K, N) through the site dispatch (module docstring).
+
+    ``partial``: ``w`` holds this rank's K rows of a row-parallel site
+    (tensor parallelism, ``sharding.partition.tensor_parallel``), so the
+    product is a partial sum, combined over the model axis by
+    ``flextree.reduce_psum`` under the site descriptor's ``reduce``
+    strategy (all-reduce without a table); the backward passes dY
+    through."""
+    if partial:
+        return _row_parallel(flex_matmul(x, w, site=site), site)
     cap = getattr(_state, "row_cap", None)
     rows = x.numel() // max(x.shape[-1], 1)
     if cap is not None and rows > cap:
@@ -575,6 +600,22 @@ def flex_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:
                                  out_dtype=torch.float32)
         return out.reshape(*lead, w.shape[-1]).to(x.dtype)
     return _plain_matmul(x, w)
+
+
+def _row_parallel(out: torch.Tensor, site: str) -> torch.Tensor:
+    tp = partition.tensor_parallel()
+    if tp is None:
+        raise ValueError(f"{site}: a partial product needs a model axis "
+                         f"above 1 (sharding.partition.use_rules)")
+    desc = _site_descriptor(site, _cfg())
+    red = ReduceConfig(axis_name="model", ic_p=tp.size)
+    if desc is not None:
+        if desc.reduce.ic_p != tp.size:
+            raise ValueError(
+                f"{site}: the table was compiled for {desc.reduce.ic_p} "
+                f"model shards, the mesh has {tp.size}")
+        red = desc.reduce
+    return collectives.from_model(out, red, tp.group)
 
 
 def flex_expert_matmul(x: torch.Tensor, w, *, site: str = "") -> torch.Tensor:

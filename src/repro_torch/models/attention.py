@@ -4,9 +4,13 @@ online softmax, which is the flash-attention kernel under ``use_kernels``;
 a sliding window shorter than the sequence takes the windowed branch;
 a cross-attention pass takes its keys and values from another sequence),
 the per-slot KV cache of decode (full length, or rolling for sliding
-windows) and the W-position decode of a speculative verify window."""
+windows) and the W-position decode of a speculative verify window.
+
+Under tensor parallelism (a model axis above 1) the self-attention of the
+full-sequence forward runs this rank's heads (``_local_heads``)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -15,6 +19,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import rope
 from repro_torch.models.layers import normal
+from repro_torch.sharding import collectives, partition
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -46,6 +51,29 @@ def _project_qkv(p: Params, cfg: ArchConfig, x: torch.Tensor,
     kv = ops.flex_matmul(src, p["wkv"], site="attn.kv")
     kv = kv.reshape(b, src.shape[1], 2, kvh, hd)
     return q, kv[:, :, 0], kv[:, :, 1]
+
+
+def _local_heads(p: Params, cfg: ArchConfig, tp):
+    """(params, config) of this rank's heads: its n_heads / model q heads
+    (``wq``'s columns and ``wo``'s rows are split by heads) and the kv
+    heads they read.  With kv heads split over the model axis too, its
+    ``wkv`` shard already holds the K and V columns of its kv heads;
+    otherwise (fewer kv heads than shards: yi-9b or chatglm3-6b at 4)
+    the kv projection is gathered and this rank keeps the one kv head
+    its q heads share."""
+    h, kvh, m = cfg.n_heads, cfg.n_kv_heads, tp.size
+    if h % m or (kvh % m and m % kvh):
+        raise NotImplementedError(
+            f"{cfg.name}: {h} q / {kvh} kv heads over {m} model shards")
+    if kvh % m == 0:
+        return p, dataclasses.replace(cfg, n_heads=h // m,
+                                      n_kv_heads=kvh // m)
+    hd = cfg.head_dim
+    wkv = partition.model_gather(p["wkv"], tp, halves=True)
+    j = tp.index * (h // m) // cfg.q_per_kv
+    kv = wkv.unflatten(-1, (2, kvh, hd))[..., j, :].flatten(-2)
+    return ({**p, "wkv": kv},
+            dataclasses.replace(cfg, n_heads=h // m, n_kv_heads=1))
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,6 +140,10 @@ def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
 
     ``mrope_positions`` (3,B,S) are M-RoPE's t/h/w streams (a
     ``rope="mrope"`` config; others ignore them, as the reference does)."""
+    tp = partition.tensor_parallel() if kv_x is None else None
+    if tp is not None:    # this rank's heads
+        p, cfg = _local_heads(p, cfg, tp)
+        x = collectives.to_model(x, tp.group)
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     if kv_x is None:      # self-attention: rotary on q and k
@@ -141,7 +173,8 @@ def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
             mask = mask[:, None, None]
         o = dense_attention(q, k, v, mask)
     o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    out = ops.flex_matmul(o, p["wo"], site="attn.out")
+    out = ops.flex_matmul(o, p["wo"], site="attn.out",
+                          partial=tp is not None)
     if return_kv:
         return out, (k, v)
     return out

@@ -1,5 +1,12 @@
 """Common layers: norms, gated MLPs, embeddings, the logits head and the
-chunked cross-entropy of training."""
+chunked cross-entropy of training.
+
+Under tensor parallelism (``sharding.partition.tensor_parallel``: a model
+axis above 1) a layer whose weight is split over ``model`` runs on its
+shard: the MLP on this rank's d_ff columns (column-parallel in, row-
+parallel out, the partial sums combined in ``ops``), the embedding lookup
+and the cross-entropy on this rank's vocabulary rows.  At one shard the
+arithmetic is the unsharded one."""
 from __future__ import annotations
 
 import math
@@ -10,8 +17,10 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.flextree import ReduceConfig
 from repro_torch.core.stacks import leading_slices
 from repro_torch.kernels import ops
+from repro_torch.sharding import collectives, partition
 
 Params = Dict[str, torch.Tensor]
 
@@ -28,7 +37,10 @@ def normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
            dtype: torch.dtype) -> torch.Tensor:
     """N(0, scale²) draws on the generator's device, cast to ``dtype`` —
     the reference's ``jax.random.normal(k, shape) * scale`` distribution
-    (the draws themselves differ between frameworks)."""
+    (the draws themselves differ between frameworks); on the meta device
+    (``model.param_shapes``) an empty tensor of the shape."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     if len(shape) > 2 and math.prod(shape) > DRAW_ELEMS:
         out = torch.empty(shape, dtype=dtype, device=gen.device)
         if math.prod(shape[1:]) > DRAW_ELEMS:
@@ -102,13 +114,17 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    tp = partition.tensor_parallel()
+    split = tp is not None and p["w_in"].shape[-1] * tp.size == cfg.d_ff
+    if split:             # this rank's d_ff columns
+        x = collectives.to_model(x, tp.group)
     h = ops.flex_matmul(x, p["w_in"], site="mlp.in")
     if "w_gate" in p:
         g = ops.flex_matmul(x, p["w_gate"], site="mlp.gate")
         h = _act(cfg, g) * h
     else:
         h = _act(cfg, h)
-    return ops.flex_matmul(h, p["w_out"], site="mlp.out")
+    return ops.flex_matmul(h, p["w_out"], site="mlp.out", partial=split)
 
 
 # ---------------------------------------------------------------------------
@@ -120,9 +136,27 @@ def init_embedding(cfg: ArchConfig, gen: torch.Generator,
     return normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype)
 
 
+def _vocab_shard(cfg: ArchConfig, table: torch.Tensor):
+    """(tensor parallelism, first row) when ``table`` holds this rank's
+    rows of the vocabulary, else None."""
+    tp = partition.tensor_parallel()
+    if tp is None or table.shape[0] * tp.size != cfg.vocab:
+        return None
+    return tp, tp.index * table.shape[0]
+
+
 def embed(cfg: ArchConfig, emb: torch.Tensor,
           tokens: torch.Tensor) -> torch.Tensor:
-    x = emb[tokens]
+    shard = _vocab_shard(cfg, emb)
+    if shard is None:
+        x = emb[tokens]
+    else:                 # vocab-parallel: rows this rank owns, summed
+        tp, lo = shard
+        idx = tokens.long() - lo
+        own = (idx >= 0) & (idx < emb.shape[0])
+        x = emb[torch.where(own, idx, 0)] * own[..., None].to(emb.dtype)
+        x = collectives.from_model(x, ReduceConfig("model", tp.size),
+                                   tp.group)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -148,6 +182,27 @@ def _xent_chunk(xc: torch.Tensor, head: torch.Tensor,
     return (lse - lab).sum()
 
 
+def _xent_chunk_vocab(xc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+                      lo: int, tp) -> torch.Tensor:
+    """``_xent_chunk`` with ``head`` this rank's vocabulary rows from
+    ``lo``: a local max and an all-reduce MAX, a local sum of exponentials
+    and an all-reduce SUM, the label logit from the rank that owns it.
+    Only (B, C, V / model) logits are live."""
+    xc = collectives.to_model(xc, tp.group)
+    xc, head = ops.common_dtype(xc, head)
+    logits = torch.matmul(xc, head.t()).float()
+    red = ReduceConfig("model", tp.size)
+    mx = collectives.all_reduce(logits.detach().amax(-1), tp.group,
+                                torch.distributed.ReduceOp.MAX)
+    se = collectives.from_model(torch.exp(logits - mx[..., None]).sum(-1),
+                                red, tp.group)
+    idx = lc.long() - lo
+    own = (idx >= 0) & (idx < head.shape[0])
+    lab = logits.gather(-1, torch.where(own, idx, 0)[..., None])[..., 0]
+    lab = collectives.from_model(torch.where(own, lab, 0.0), red, tp.group)
+    return (mx + torch.log(se) - lab).sum()
+
+
 def chunked_softmax_xent(cfg: ArchConfig, head: torch.Tensor,
                          x: torch.Tensor, labels: torch.Tensor,
                          chunk: int = 512) -> torch.Tensor:
@@ -157,20 +212,26 @@ def chunked_softmax_xent(cfg: ArchConfig, head: torch.Tensor,
     under ``torch.utils.checkpoint`` so that only one chunk's logits are
     ever live, even in the backward; the sum over chunks in float32,
     divided by B·n_chunks·chunk.  The logits are a plain matrix product,
-    outside any site (the reference's ``einsum``)."""
+    outside any site (the reference's ``einsum``).  A ``head`` of this
+    rank's vocabulary rows (tensor parallelism) takes
+    ``_xent_chunk_vocab``."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     n_chunks = max(s // chunk, 1)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     grad = torch.is_grad_enabled() and (x.requires_grad
                                         or head.requires_grad)
+    fn, extra = _xent_chunk, ()
+    shard = _vocab_shard(cfg, head)
+    if shard is not None:
+        fn, extra = _xent_chunk_vocab, (shard[1], shard[0])
     for c in range(n_chunks):
         xc = x[:, c * chunk:(c + 1) * chunk]
         lc = labels[:, c * chunk:(c + 1) * chunk]
         if grad:
             part = torch.utils.checkpoint.checkpoint(
-                _xent_chunk, xc, head, lc, use_reentrant=False)
+                fn, xc, head, lc, *extra, use_reentrant=False)
         else:
-            part = _xent_chunk(xc, head, lc)
+            part = fn(xc, head, lc, *extra)
         total = total + part
     return total / (b * n_chunks * chunk)

@@ -33,6 +33,7 @@ from repro_torch.core.sparsity import iter_leaves
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import prng, transformer
+from repro_torch.sharding import partition
 from repro_torch.models.layers import (apply_norm, apply_norm_per_position,
                                        chunked_softmax_xent, embed,
                                        init_embedding, init_norm, logits_head)
@@ -64,14 +65,29 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
         gen = torch.Generator(device=dev).manual_seed(0)
     elif gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, params on {dev}")
+    return _init_tree(cfg, gen, dtype)
+
+
+def _init_tree(cfg: ArchConfig, gen, dtype) -> Params:
     p: Params = {
         "embed": init_embedding(cfg, gen, dtype),
         "stack": transformer.init_stack(cfg, gen, dtype),
-        "final_norm": init_norm(cfg, cfg.d_model, dev),
+        "final_norm": init_norm(cfg, cfg.d_model, gen.device),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = init_embedding(cfg, gen, dtype)
     return p
+
+
+class _MetaDraws:
+    """Stands in for a generator: ``layers.normal`` draws nothing on it."""
+    device = torch.device("meta")
+
+
+def param_shapes(cfg: ArchConfig, *, dtype=torch.bfloat16) -> Params:
+    """The parameter tree of ``init_params`` as meta tensors: shapes and
+    dtypes at any width, no storage (the partition rules resolve on it)."""
+    return _init_tree(cfg, _MetaDraws(), dtype)
 
 
 def head_matrix(p: Params, cfg: ArchConfig):
@@ -146,7 +162,15 @@ def forward_hidden(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                    ) -> torch.Tensor:
     """Token inputs (with an encoder-decoder's ``frames``, or a vision
     config's ``vis_embeds`` and ``mrope_positions``) → final-norm hidden
-    states (B, S, D)."""
+    states (B, S, D).  On local shards (``sharding.partition.use_rules``
+    with specs) the embedding's and the final norm's FSDP shards are
+    gathered first."""
+    return _forward_hidden(partition.gather_top(p), cfg, batch, remat=remat,
+                           q_chunk=q_chunk)
+
+
+def _forward_hidden(p: Params, cfg: ArchConfig, batch, *, remat: str,
+                    q_chunk: int) -> torch.Tensor:
     tokens = _prompt_tokens(p, cfg, batch)
     frames = _frames(p, cfg, batch) if cfg.encoder_decoder else None
     x = embed(cfg, p["embed"], tokens)
@@ -164,7 +188,8 @@ def train_loss(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     """The training objective: ``forward_hidden`` then the chunked
     cross-entropy against ``batch["labels"]`` (B, S) under the head
     (``embed`` when tied); a float32 scalar."""
-    x = forward_hidden(p, cfg, batch, remat=remat, q_chunk=q_chunk)
+    p = partition.gather_top(p)
+    x = _forward_hidden(p, cfg, batch, remat=remat, q_chunk=q_chunk)
     labels = _on_params_device(p, batch["labels"], "labels", 2)
     return chunked_softmax_xent(cfg, head_matrix(p, cfg), x, labels,
                                 chunk=loss_chunk)

@@ -31,6 +31,7 @@ from repro_torch.models import rglru
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.rope import sinusoidal_positions
 from repro_torch.quant.quantize import QuantizedLinear
+from repro_torch.sharding import partition
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        apply_norm_per_position, init_mlp,
                                        init_norm)
@@ -274,7 +275,10 @@ def _remat(fn, policy: str):
     recomputes only the rest.  The recomputation runs under the ExecConfig
     the forward ran under (PyTorch may run it on another thread), so it
     takes the same routes and gives the same bits: the policies change
-    memory, never results.  Without autograd ``fn`` runs as it is."""
+    memory, never results.  The sharding rules installed at the forward
+    are installed again around the recomputation, so a layer's FSDP
+    gathers and tensor-parallel collectives run again there.  Without
+    autograd ``fn`` runs as it is."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"remat {policy!r} not in {REMAT_POLICIES}")
     if policy == "none" or not torch.is_grad_enabled():
@@ -282,18 +286,30 @@ def _remat(fn, policy: str):
 
     def run(*args, **kw):
         ec = ops.current_exec_config()
+        rules, specs = partition.current_rules(), partition.current_specs()
         if policy == "full":
             def contexts():
-                return contextlib.nullcontext(), ops.exec_config(ec)
+                return contextlib.nullcontext(), _entered(
+                    ops.exec_config(ec), partition.use_rules(rules, specs))
         else:
             tape = ops.DotsTape()
 
             def contexts():
                 return (ops.recording(tape),
-                        _entered(ops.exec_config(ec), ops.replaying(tape)))
+                        _entered(ops.exec_config(ec), ops.replaying(tape),
+                                 partition.use_rules(rules, specs)))
         return torch.utils.checkpoint.checkpoint(
             fn, *args, use_reentrant=False, context_fn=contexts, **kw)
     return run
+
+
+def _layer(fn, group: str, remat: str):
+    """``fn`` for each layer of the stack's ``group`` under ``remat``;
+    on local shards (``sharding.partition.use_rules`` with specs) it first
+    gathers the layer's FSDP shards, inside the remat segment, so they are
+    freed after the layer and gathered again by its recomputation."""
+    return _remat(partition.fsdp_gathered(fn, partition.stack_specs(group)),
+                  remat)
 
 
 def layer_trees(tree, n: int):
@@ -326,38 +342,39 @@ def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     reference's ``_remat`` does (``_remat`` here)."""
     if cfg.encoder_decoder:
         memory = encode(p, cfg, frames, remat=remat, q_chunk=q_chunk)
-        layer = _remat(apply_whisper_dec_layer, remat)
+        layer = _layer(apply_whisper_dec_layer, "decoder", remat)
         for lp in layer_trees(p["decoder"], cfg.n_layers):
             x = layer(lp, cfg, x, memory=memory, positions=positions,
                       q_chunk=q_chunk)
         return x
     if cfg.ssm.enabled:
-        layer = _remat(apply_ssm_layer, remat)
+        layer = _layer(apply_ssm_layer, "layers", remat)
         for lp in layer_trees(p["layers"], cfg.n_layers):
             x = layer(lp, cfg, x)
         return x
     if cfg.rglru.enabled:
         n_groups, n_trail = griffin_layout(cfg)
-        group = _remat(apply_griffin_group, remat)
+        group = _layer(apply_griffin_group, "groups", remat)
         for lp in layer_trees(p["groups"], n_groups):
             x = group(lp, cfg, x, positions=positions, q_chunk=q_chunk)
-        layer = _remat(apply_rec_layer, remat)
+        layer = _layer(apply_rec_layer, "trailing", remat)
         for lp in (layer_trees(p["trailing"], n_trail) if n_trail else []):
             x = layer(lp, cfg, x)
         return x
-    dense = _remat(apply_dense_layer, remat)
     if cfg.moe.enabled:
         n_dense, n_moe = _moe_layout(cfg)
+        dense = _layer(apply_dense_layer, "dense_layers", remat)
         for lp in (layer_trees(p["dense_layers"], n_dense) if n_dense
                    else []):
             x = dense(lp, cfg, x, positions=positions, q_chunk=q_chunk,
                       mrope_positions=mrope_positions)
-        layer = _remat(apply_moe_layer, remat)
+        layer = _layer(apply_moe_layer, "layers", remat)
         for lp in layer_trees(p["layers"], n_moe):
             x = layer(lp, cfg, x, positions=positions, q_chunk=q_chunk,
                       mrope_positions=mrope_positions)
         return x
     # the reference's scan over layers
+    dense = _layer(apply_dense_layer, "layers", remat)
     for lp in layer_trees(p["layers"], cfg.n_layers):
         x = dense(lp, cfg, x, positions=positions, window=cfg.window,
                   q_chunk=q_chunk, mrope_positions=mrope_positions)
@@ -406,7 +423,7 @@ def encode(p: Params, cfg: ArchConfig, frames: torch.Tensor, *,
     x = frames + sinusoidal_positions(s, d, frames.device).to(
         frames.dtype)[None]
     positions = torch.arange(s, device=frames.device)[None].expand(b, s)
-    layer = _remat(_enc_layer, remat)
+    layer = _layer(_enc_layer, "encoder", remat)
     for lp in layer_trees(p["encoder"], cfg.n_layers):
         x = layer(lp, cfg, x, positions, q_chunk)
     return x

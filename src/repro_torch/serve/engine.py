@@ -99,6 +99,7 @@ from repro_torch.serve.executables import Executable
 
 
 def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
+                      model_shards: int = 1,
                       use_kernels: bool = False, params=None, hw=None,
                       quantize: bool = False, collect_stats: bool = False,
                       act_densities: Optional[Dict[str, float]] = None,
@@ -107,7 +108,9 @@ def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
     """ExecConfig carrying the descriptor table for ``cfg`` at ``shape``
     (M = global_batch for a decode shape, global_batch · seq_len for a
     prefill or train shape), selected under ``hw`` — ``H100`` on CUDA and
-    the reference's ``TPU_V5E`` on the CPU unless given.
+    the reference's ``TPU_V5E`` on the CPU unless given.  ``model_shards``
+    compiles it at one tensor-parallel rank's shapes (N or K divided by
+    it, the K-sharded sites' FlexTree combine over that many ranks).
 
     With ``params`` and a sparse config, the weight densities are measured,
     the table re-selected under them, and a ``WeightSparsityPlan`` compiled
@@ -128,7 +131,8 @@ def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
     dev = resolve_device(device)
     if hw is None:
         hw = H100 if dev.type == "cuda" else TPU_V5E
-    ns = compile_network_schedule(cfg, shape, hw=hw, quantize=quantize,
+    ns = compile_network_schedule(cfg, shape, model_shards=model_shards,
+                                  hw=hw, quantize=quantize,
                                   act_densities=act_densities,
                                   wt_densities=wt_densities)
     if quantize and params is not None:
@@ -138,7 +142,8 @@ def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
     if params is not None and sparsity_mode_for(cfg) != "dense":
         measured = measure_weight_densities(params, ns)
         if measured:
-            ns = compile_network_schedule(cfg, shape, hw=hw,
+            ns = compile_network_schedule(cfg, shape,
+                                          model_shards=model_shards, hw=hw,
                                           wt_densities=measured,
                                           act_densities=act_densities,
                                           quantize=quantize)
@@ -148,7 +153,7 @@ def shape_exec_config(cfg: ArchConfig, shape: ShapeConfig, *,
                           quantize=quantize, collect_stats=collect_stats,
                           act_densities=(dict(act_densities)
                                          if act_densities else None),
-                          arch_cfg=cfg)
+                          arch_cfg=cfg, model_shards=model_shards)
 
 
 def decode_exec_config(cfg: ArchConfig, n_slots: int, **kw) -> ops.ExecConfig:
@@ -828,7 +833,7 @@ class ServeEngine:
             common = dict(use_kernels=old.use_kernels,
                           collect_stats=old.collect_stats,
                           act_densities=measured, quantize=old.quantize,
-                          device=self.device)
+                          model_shards=old.model_shards, device=self.device)
             new_ec = decode_exec_config(
                 old.arch_cfg, self.n_slots,
                 wt_densities=(self.plan.wt_densities()

@@ -17,6 +17,8 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.sharding import collectives
+
 
 class OptState(NamedTuple):
     step: torch.Tensor          # () int32
@@ -73,12 +75,38 @@ def init_opt_state(params) -> OptState:
                                           device=p.device), params))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """The L2 norm of every leaf together.  On local shards (``mesh`` and
+    the tree's ``specs``) each leaf's sum of squares is summed over the
+    mesh axes it is split on and counted once over those it is
+    replicated on; the leaves are then added in tree order, as on one
+    device."""
     leaves = tree_leaves(tree)
+    sums = [torch.sum(torch.square(x.float())) for x in leaves]
+    if mesh is not None:
+        sums = _sum_over_shards(sums, tree_leaves(specs), mesh)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for x in leaves:
-        total = total + torch.sum(torch.square(x.float()))
+    for x in sums:
+        total = total + x
     return torch.sqrt(total)
+
+
+def _sum_over_shards(sums, specs, mesh) -> List[torch.Tensor]:
+    """Each leaf's ``sums`` entry summed over the ranks of the mesh axes
+    its spec splits it on: one all-reduce per set of axes."""
+    by_axes: Dict[Tuple[str, ...], List[int]] = {}
+    for i, spec in enumerate(specs):
+        axes = tuple(a for a in mesh.axis_names if any(
+            a == ax or (isinstance(ax, tuple) and a in ax) for ax in spec))
+        if mesh.axis_size(axes) > 1:
+            by_axes.setdefault(axes, []).append(i)
+    sums = list(sums)
+    for axes, idx in by_axes.items():
+        red = collectives.all_reduce(torch.stack([sums[i] for i in idx]),
+                                     mesh.group(axes))
+        for j, i in enumerate(idx):
+            sums[i] = red[j]
+    return sums
 
 
 def clip_by_global_norm(grads, max_norm: float
@@ -88,13 +116,16 @@ def clip_by_global_norm(grads, max_norm: float
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
+def adamw_update(cfg: AdamWConfig, params, grads, state: OptState, *,
+                 mesh=None, specs=None
                  ) -> Tuple[Dict, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (new_params, new_state, metrics).  The
     gradients are clipped as ``clip_by_global_norm`` clips them, one leaf
     at a time inside the update, so that no clipped copy of the whole
-    tree is held beside the old and the new moments."""
-    gnorm = global_norm(grads)
+    tree is held beside the old and the new moments.  On local shards
+    (``mesh``, ``specs``) the norm is the whole tree's and every leaf is
+    updated where it lies."""
+    gnorm = global_norm(grads, mesh, specs)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1

@@ -1,27 +1,30 @@
-"""The train step, the reference's ``train/train_step.py`` (its
-single-device path): ``loss_for``, ``_microbatch``, ``make_step_fn`` with
-gradient accumulation over ``n_micro`` microbatches, and
-``build_train_step``.
+"""The train step, the reference's ``train/train_step.py``:
+``loss_for``, ``_microbatch``, ``make_step_fn`` with gradient
+accumulation over ``n_micro`` microbatches, ``build_train_step`` (on one
+device, or sharded over a ``Mesh``: FSDP over the batch axes and tensor
+parallelism over ``model``) and ``build_dp_compressed_step`` (pure data
+parallelism over ``grad_compress``'s wire formats).
 
 The step is eager PyTorch: ``torch.autograd.grad`` of ``train_loss`` for
 each microbatch, accumulated in ``acc_dtype`` (float32, or bf16 under
 ``grad_dtype="bf16"``), then ``adamw_update``.  The routes the model's
 matmuls and attention take — and their backwards — follow the ExecConfig
-installed around the call (``ops.exec_config``).  The sharded step and
-the compressed data-parallel step (``build_dp_compressed_step``,
-``train/grad_compress.py``) are collectives and wait for distribution
-(ROADMAP queue A).
+installed around the call (``ops.exec_config``).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as model_lib
+from repro_torch.sharding import collectives, partition
+from repro_torch.sharding.partition import Rules, partition_params
+from repro_torch.train.grad_compress import CompressConfig, compressed_mean
 from repro_torch.train.optimizer import (AdamWConfig, OptState, adamw_update,
-                                         tree_leaves)
+                                         tree_leaves, tree_map)
 
 
 def loss_for(cfg: ArchConfig, shape: ShapeConfig) -> Callable:
@@ -71,40 +74,47 @@ def value_and_grad(loss_fn, params, batch) -> Tuple[torch.Tensor, Dict]:
     return loss.detach(), _unflatten(params, grads)
 
 
+def _accumulate(loss_fn, params, batch, n_micro: int, acc_dtype
+                ) -> Tuple[torch.Tensor, Dict]:
+    """(loss, gradients) of ``loss_fn`` at ``params`` over ``batch``, in
+    ``n_micro`` microbatches: the gradients summed in ``acc_dtype`` and
+    divided by ``n_micro``, the loss the mean of the microbatches'."""
+    if n_micro == 1:
+        loss, g = value_and_grad(loss_fn, params, batch)
+        return loss, _unflatten(params, [x.to(acc_dtype)
+                                         for x in tree_leaves(g)])
+    micro = _microbatch(batch, n_micro)
+    grads = None
+    loss = torch.zeros((), dtype=torch.float32,
+                       device=tree_leaves(params)[0].device)
+    for i in range(n_micro):
+        l, g = value_and_grad(loss_fn, params,
+                              {k: v[i] for k, v in micro.items()})
+        if grads is None:
+            grads = [torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
+                     for x in tree_leaves(params)]
+        # in place: the same sums as the reference's a + b
+        for a, b in zip(grads, tree_leaves(g)):
+            a.add_(b.to(acc_dtype))
+        loss = loss + l
+        del g                  # held no longer than its sums need
+    return loss / n_micro, _unflatten(params, [g / n_micro for g in grads])
+
+
+def _acc_dtype(shape: ShapeConfig) -> torch.dtype:
+    # grad accumulation dtype: bf16 halves the reduction bytes, the
+    # optimizer's float32 moments restore precision downstream
+    return torch.bfloat16 if shape.grad_dtype == "bf16" else torch.float32
+
+
 def make_step_fn(cfg: ArchConfig, shape: ShapeConfig, opt_cfg: AdamWConfig):
     """The step: (params, opt_state, batch) -> (params, opt_state, m)."""
     loss_fn = loss_for(cfg, shape)
     n_micro = max(shape.n_micro, 1)
-    # grad accumulation dtype: bf16 halves the reduction bytes, the
-    # optimizer's float32 moments restore precision downstream
-    acc_dtype = torch.bfloat16 if shape.grad_dtype == "bf16" \
-        else torch.float32
+    acc_dtype = _acc_dtype(shape)
 
     def step(params, opt_state: OptState, batch):
-        if n_micro > 1:
-            micro = _microbatch(batch, n_micro)
-            grads = None
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=tree_leaves(params)[0].device)
-            for i in range(n_micro):
-                l, g = value_and_grad(loss_fn, params,
-                                      {k: v[i] for k, v in micro.items()})
-                if grads is None:
-                    grads = [torch.zeros(x.shape, dtype=acc_dtype,
-                                         device=x.device)
-                             for x in tree_leaves(params)]
-                # in place: the same sums as the reference's a + b
-                for a, b in zip(grads, tree_leaves(g)):
-                    a.add_(b.to(acc_dtype))
-                loss = loss + l
-                del g              # held no longer than its sums need
-            grads = _unflatten(params, [g / n_micro for g in grads])
-            loss = loss / n_micro
-        else:
-            loss, g = value_and_grad(loss_fn, params, batch)
-            grads = _unflatten(params, [x.to(acc_dtype)
-                                        for x in tree_leaves(g)])
-            del g
+        loss, grads = _accumulate(loss_fn, params, batch, n_micro, acc_dtype)
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
                                                   opt_state)
         metrics["loss"] = loss
@@ -113,15 +123,114 @@ def make_step_fn(cfg: ArchConfig, shape: ShapeConfig, opt_cfg: AdamWConfig):
     return step
 
 
+def param_specs(cfg: ArchConfig, rules: Rules):
+    """The spec of every parameter of ``cfg`` under ``rules``
+    (``partition_params`` over the full-width shapes)."""
+    return partition_params(model_lib.param_shapes(cfg), rules)
+
+
+def _batch_mean(g: torch.Tensor, spec, mesh: Mesh, batch_axes) -> torch.Tensor:
+    """A leaf's gradient summed over this rank's batch rows → the global
+    batch's mean: summed over the batch axes the leaf is not split on
+    (those it is split on were reduce-scattered by its FSDP gather) and
+    divided by the batch ranks."""
+    split = {a for ax in spec if ax is not None
+             for a in ((ax,) if isinstance(ax, str) else ax)}
+    missing = tuple(a for a in batch_axes if a not in split)
+    g = collectives.all_reduce(g, mesh.group(missing))
+    n = mesh.axis_size(batch_axes)
+    return g / n if n > 1 else g
+
+
 def build_train_step(cfg: ArchConfig, shape: ShapeConfig,
-                     opt_cfg: AdamWConfig, mesh=None, rules=None, *,
+                     opt_cfg: AdamWConfig, mesh: Optional[Mesh] = None,
+                     rules: Optional[Rules] = None, *,
                      donate: bool = True):
-    """The step on one device.  ``mesh`` / ``rules`` (the sharded step)
-    raise until distribution is ported; ``donate`` is accepted for the
-    reference's signature — an eager step frees the old state as soon as
-    the caller drops it."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "the sharded train step waits for distribution (ROADMAP A4)")
+    """The train step.  Without a mesh, the step on one device.
+
+    With ``mesh`` and ``rules`` (the reference's pjit step) the parameters
+    and moments it takes and returns are this rank's shards as
+    ``param_specs`` places them (``partition.shard_tree``); the global
+    batch, the same on every rank, is cut to this rank's rows by
+    ``batch_shardings``; every layer gathers its FSDP shards and, over a
+    model axis above 1, runs its heads, MLP columns and vocabulary rows
+    on this rank (the dense decoders only); the gradients are
+    reduce-scattered to their shards and averaged over the batch axes.
+    The metrics are global.  A mesh of one rank runs the unsharded
+    arithmetic.  ``donate`` is accepted for the reference's signature —
+    an eager step frees the old state as soon as the caller drops it."""
     del donate
-    return make_step_fn(cfg, shape, opt_cfg)
+    if mesh is None or rules is None:
+        return make_step_fn(cfg, shape, opt_cfg)
+    if mesh.shape.get("model", 1) > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over a model axis of "
+            f"{mesh.shape['model']} runs the dense decoders only; the other "
+            f"families' sharded step waits (ROADMAP A4)")
+    specs = param_specs(cfg, rules)
+    loss_fn = loss_for(cfg, shape)
+    n_micro = max(shape.n_micro, 1)
+    acc_dtype = _acc_dtype(shape)
+    batch_axes = _axes(rules.logical["batch"])
+
+    def step(params, opt_state: OptState, batch):
+        rows = partition.batch_shardings(batch, mesh)
+        local = {k: partition.shard_leaf(v, rows[k], mesh)
+                 for k, v in batch.items()}
+        with partition.use_rules(rules, specs):
+            loss, grads = _accumulate(loss_fn, params, local, n_micro,
+                                      acc_dtype)
+        grads = tree_map(lambda g, s: _batch_mean(g, s, mesh, batch_axes),
+                         grads, specs)
+        loss = _batch_mean(loss, (), mesh, batch_axes)
+        params, opt_state, metrics = adamw_update(
+            opt_cfg, params, grads, opt_state, mesh=mesh, specs=specs)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return step
+
+
+def _axes(ax) -> Tuple[str, ...]:
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel step with compressed gradient collectives
+# ---------------------------------------------------------------------------
+
+def build_dp_compressed_step(cfg: ArchConfig, shape: ShapeConfig,
+                             opt_cfg: AdamWConfig, mesh: Mesh,
+                             compress: CompressConfig):
+    """Pure data parallelism: parameters replicated, the global batch cut
+    over every mesh axis, each rank's gradients combined by the compressed
+    wire format (``grad_compress.compressed_mean``).  Runs every family.
+
+    State = (params, opt_state, err) — err is the error-feedback carry
+    (``init_error_state``); the step returns (params, opt_state, err,
+    metrics), the loss the mean over the ranks."""
+    loss_fn = loss_for(cfg, shape)
+    axes = tuple(mesh.axis_names)
+    compress = CompressConfig(mode=compress.mode,
+                              topk_frac=compress.topk_frac, axis_name=axes)
+    group = mesh.group(axes)
+
+    def step(params, opt_state: OptState, err, batch):
+        local = {k: partition.shard_leaf(
+            v, (None, axes) if k == "mrope_positions" else (axes,), mesh)
+            for k, v in batch.items()}
+        loss, grads = value_and_grad(loss_fn, params, local)
+        red, new_e = [], []
+        for g, e in zip(tree_leaves(grads), tree_leaves(err)):
+            r, ne = compressed_mean(g, e, compress, group)
+            red.append(r.to(g.dtype))
+            new_e.append(ne)
+        grads = _unflatten(params, red)
+        err = _unflatten(params, new_e)
+        loss = collectives.all_reduce(loss, group) / mesh.size
+        params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
+                                                  opt_state)
+        metrics["loss"] = loss
+        return params, opt_state, err, metrics
+
+    return step

@@ -16,6 +16,12 @@ counterpart of ``block_until_ready``).  Parameters are drawn on
 reference's parameters across instead).  ``exec_cfg``, when given, is
 installed around every step, backward included (remat recomputes under
 it).
+
+On a ``mesh`` (with ``rules``) the trainer keeps this rank's shards of
+the parameters and moments (``train_step.param_specs``); a checkpoint is
+written by rank 0 from the gathered full leaves, in the reference's
+files, and every rank restores its own shards from them.  Only rank 0
+prints.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.configs.base import ArchConfig, ShapeConfig
@@ -34,8 +41,9 @@ from repro_torch.data.pipeline import TokenPipeline, with_frontend_inputs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
-from repro_torch.train.optimizer import AdamWConfig, init_opt_state
-from repro_torch.train.train_step import build_train_step
+from repro_torch.sharding import partition
+from repro_torch.train.optimizer import AdamWConfig, OptState, init_opt_state
+from repro_torch.train.train_step import build_train_step, param_specs
 
 
 @dataclass
@@ -94,6 +102,9 @@ class Trainer:
         self.exec_cfg = exec_cfg
         self.step_fn = build_train_step(cfg, shape, opt_cfg, mesh, rules,
                                         donate=False)
+        self.mesh = mesh if rules is not None else None
+        self.specs = (param_specs(cfg, rules) if self.mesh is not None
+                      else None)
         self.pipeline = pipeline
         self.watchdog = Watchdog(tcfg.watchdog)
         self.metrics_log: List[Dict] = []
@@ -104,10 +115,26 @@ class Trainer:
     # ---- state ----
     def init_state(self):
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        self.params = model_lib.init_params(self.cfg, gen, dtype=self.dtype,
-                                            device=self.device)
+        self.params = self._local(model_lib.init_params(
+            self.cfg, gen, dtype=self.dtype, device=self.device))
         self.opt_state = init_opt_state(self.params)
         self.step = 0
+
+    def _local(self, tree):
+        """This rank's shards of a full parameter-shaped tree."""
+        if self.specs is None:
+            return tree
+        return partition.shard_tree(tree, self.specs, self.mesh)
+
+    def _full(self, tree):
+        if self.specs is None:
+            return tree
+        return partition.gather_tree(tree, self.specs, self.mesh)
+
+    @property
+    def rank0(self) -> bool:
+        return self.mesh is None or self.mesh.axis_index(
+            self.mesh.axis_names) == 0
 
     def try_restore(self) -> bool:
         d = self.tcfg.ckpt_dir
@@ -115,7 +142,10 @@ class Trainer:
             return False
         like = {"params": self.params, "opt": self.opt_state}
         state, extra = ckpt_lib.restore(d, like)
-        self.params, self.opt_state = state["params"], state["opt"]
+        opt = state["opt"]
+        self.params = self._local(state["params"])
+        self.opt_state = OptState(step=opt.step, mu=self._local(opt.mu),
+                                  nu=self._local(opt.nu))
         self.step = int(extra["step"])
         if self.pipeline is not None and "data" in extra:
             self.pipeline.restore(extra["data"])
@@ -127,9 +157,15 @@ class Trainer:
         extra = {"step": self.step}
         if self.pipeline is not None:
             extra["data"] = self.pipeline.snapshot()
-        ckpt_lib.save(self.tcfg.ckpt_dir, self.step,
-                      {"params": self.params, "opt": self.opt_state},
-                      extra=extra, keep=self.tcfg.keep)
+        opt = self.opt_state
+        state = {"params": self._full(self.params),
+                 "opt": OptState(step=opt.step, mu=self._full(opt.mu),
+                                 nu=self._full(opt.nu))}
+        if self.rank0:
+            ckpt_lib.save(self.tcfg.ckpt_dir, self.step, state, extra=extra,
+                          keep=self.tcfg.keep)
+        if self.mesh is not None and self.mesh.size > 1:
+            dist.barrier()
 
     # ---- loop ----
     def _next_batch(self):
@@ -171,7 +207,7 @@ class Trainer:
             rec = {"step": self.step, "dt": dt,
                    **{k: float(v) for k, v in metrics.items()}}
             self.metrics_log.append(rec)
-            if self.step % self.tcfg.log_every == 0:
+            if self.step % self.tcfg.log_every == 0 and self.rank0:
                 print(json.dumps({k: (round(v, 5) if isinstance(v, float)
                                       else v) for k, v in rec.items()}))
             if self.step % self.tcfg.ckpt_every == 0:
