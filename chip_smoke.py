@@ -12,7 +12,8 @@ Llama-4-Scout at published width and cut depth — through
 generator, block-magnitude-pruned at (256, 256) (Mamba2's are not: no
 plan reaches an SSM site), (phase 21) trains StableLM-1.6B at full
 width through ``repro_torch.launch.train`` and (phase 25) through the
-sharded train step on a one-rank NCCL group:
+sharded train step on a one-rank NCCL group, and (phase 26) runs the
+expert-parallel MoE body and every other family's sharded step there:
 
   1. the card (``torch.cuda``, ``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
@@ -263,9 +264,11 @@ sharded train step on a one-rank NCCL group:
      prompt tokens x 8 new) with the switch off and on give the same
      streams, four ``step()``s' logits are bit-equal under the switch-off
      table, the plan and the dense table, and ``site_plan_estimate`` is
-     printed beside each site's measured plan stats.  An ``analytic`` JSON
-     line holds the phase's seconds, the card's and the CPU's search
-     seconds per network, the Fig 16 summary and the gate counts; the
+     printed beside each site's measured plan stats.  The CPU's searches
+     of (a) and (b) run in 6 worker processes while the card searches.
+     An ``analytic`` JSON line holds the phase's seconds, the card's and
+     the CPU's search seconds per network, the Fig 16 summary and the
+     gate counts; the
      ``block_sparse`` and ``flex_output`` rows add ``launches_phase18``
      (the switch-off drain's).
 
@@ -441,6 +444,32 @@ sharded train step on a one-rank NCCL group:
      3 steps of the published 24 layers.  The matmul and flash rows of
      the ``kernels`` line gain ``launches_phase25``; a ``distribution``
      JSON line holds the figures.
+ 26. expert parallelism and every family's sharded step
+     (``run_expert_parallel``), after phase 25 on a new one-rank NCCL
+     group: (a) ``moe._apply_moe_ep`` at ep = 1 on one full-width MoE
+     layer of DeepSeek-MoE-16B (E 64, top-6) and Llama-4-Scout (E 16,
+     top-1), 2 x 4096 tokens, bf16, the train table, forward and the
+     gradients of x and every routed leaf: against ``_apply_moe_local``
+     the expert leaves bit for bit, the output bit for bit at top-1 and
+     within the combine's bf16 bound at top-6, router and x within 2⁻⁶;
+     against the plain route (routed as the kernels) within 2⁻⁵; the
+     expert kernels must launch at least once per expert and site; (b)
+     experts_in's forward, dX and dW at a 4-way expert-parallel rank's
+     shapes ((16, 961, 2048) @ (16, 2048, 1408) and (4, 641, 5120) @
+     (4, 5120, 8192)) against the plain batched product, each timed
+     beside its bound, the plain version and ``torch.bmm`` (six rows of
+     the ``kernels`` line); (c) the one-rank sharded step of
+     deepseek-moe-16b (2 layers), recurrentgemma-9b (3), mamba2-1.3b (1)
+     and whisper-tiny (4) — and the gradients of llama4-scout and
+     qwen2-vl-72b (1 layer each, vision prefix), whose AdamW state does
+     not fit beside them — bit-equal to the unsharded kernel step at
+     full width, 2 x 4096 tokens in 2 microbatches (whisper 2 x 448 over
+     1500 frames), every loss, grad norm, parameter, moment and gradient
+     finite on both sides; ms a step (the median of 3 warm calls a side,
+     alternating) and peak GiB; ``fm_output``, ``flash_attention`` and
+     ``flash_backward`` must have launched.  The matmul and flash rows
+     gain ``launches_phase26``; an ``expert_parallel`` JSON line holds
+     the figures.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON; the whole report
@@ -4364,6 +4393,9 @@ ZOO_VARIANTS = ("two_sided", "weight", "none")
 # card searches every layer), so the phase keeps within its 90 s
 ZOO_SAMPLED = ("googlenet", "inception_v3")
 P18_NEW = 8
+# the CPU cross-checks run in this many worker processes (the card's host
+# has 8 cores) while the card searches: the phase's wall is the card's
+P18_CPU_WORKERS = 6
 
 
 def fig16_accelerators():
@@ -4397,12 +4429,27 @@ def timed_search(layers, acc, sps, device):
     return costs, time.perf_counter() - t
 
 
-def p18_fig16(report, gates, seconds) -> dict:
+def _cpu_search(layers, acc, sps):
+    """``timed_search`` on the CPU in a worker process of phase 18's pool:
+    spawned, it finds the package itself, and runs torch on one thread
+    beside its siblings."""
+    import torch
+    src = os.path.join(ROOT, "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    torch.set_num_threads(1)
+    return timed_search(layers, acc, sps, "cpu")
+
+
+def p18_fig16(report, gates, seconds, pool) -> dict:
     """(a) Fig 16: the per-layer optimal flexible schedule against the
     Eyeriss-RS and TPU-NLR baselines, searched on the card and on the
-    CPU; modelled energies in Table I's units (not joules)."""
+    CPU (in ``pool``'s workers, all submitted before the card starts);
+    modelled energies in Table I's units (not joules)."""
     from repro_torch.configs.cnn_zoo import NETWORKS
     accs = fig16_accelerators()
+    cpu = {(net, name): pool.submit(_cpu_search, NETWORKS[net](), acc, None)
+           for net in FIG16_NETS for name, acc in accs.items()}
     summary = {}
     for net in FIG16_NETS:
         layers = NETWORKS[net]()
@@ -4410,7 +4457,7 @@ def p18_fig16(report, gates, seconds) -> dict:
         secs = {"cuda": 0.0, "cpu": 0.0}
         for name, acc in accs.items():
             got, t_cuda = timed_search(layers, acc, None, "cuda")
-            want, t_cpu = timed_search(layers, acc, None, "cpu")
+            want, t_cpu = cpu[(net, name)].result()
             secs["cuda"] += t_cuda
             secs["cpu"] += t_cpu
             ok = same_costs(got, want)
@@ -4441,31 +4488,37 @@ def p18_fig16(report, gates, seconds) -> dict:
     return summary
 
 
-def p18_zoo(report, gates, seconds) -> dict:
+def p18_zoo(report, gates, seconds, pool) -> dict:
     """(b) The four profiled networks under two-sided, weight-only and no
-    sparsity support: the card's search held to the CPU's, on every layer
-    of resnet50 and mobilenet_v2 and every 3rd (0, 3, 6, ...) of
+    sparsity support: the card's search held to the CPU's (in ``pool``'s
+    workers, all submitted before the card starts), on every layer of
+    resnet50 and mobilenet_v2 and every 3rd (0, 3, 6, ...) of
     ``ZOO_SAMPLED``.  The §V-C profiles are seeded from
-    ``hash(network)``, so the energies change from process to process;
-    the gate does not."""
+    ``hash(network)``, so the energies change from process to process
+    (the workers are sent this process's); the gate does not."""
     from repro_torch.configs.cnn_zoo import NETWORKS
     from repro_torch.core.energy_model import flexnn_variant
     from repro_torch.core.sparsity_profiles import (_NETWORK_STATS,
                                                     network_sparsity,
                                                     profiles_for)
-    out = {}
+    nets = {}
     for net in _NETWORK_STATS:
         layers = NETWORKS[net]()
-        sps = profiles_for(net, layers)
+        nets[net] = (layers, profiles_for(net, layers),
+                     3 if net in ZOO_SAMPLED else 1)
+    cpu = {(net, v): pool.submit(_cpu_search, layers[::step],
+                                 flexnn_variant(v), sps[::step])
+           for net, (layers, sps, step) in nets.items()
+           for v in ZOO_VARIANTS}
+    out = {}
+    for net, (layers, sps, step) in nets.items():
         wt_sp, act_sp = network_sparsity(sps, layers)
-        step = 3 if net in ZOO_SAMPLED else 1
         secs = {"cuda": 0.0, "cpu": 0.0, "cpu_layers": len(layers[::step])}
         energy = {}
         for v in ZOO_VARIANTS:
             acc = flexnn_variant(v)
             got, t_cuda = timed_search(layers, acc, sps, "cuda")
-            want, t_cpu = timed_search(layers[::step], acc, sps[::step],
-                                       "cpu")
+            want, t_cpu = cpu[(net, v)].result()
             secs["cuda"] += t_cuda
             secs["cpu"] += t_cpu
             ok = same_costs(got[::step], want)
@@ -4654,11 +4707,17 @@ def p18_dispatch(cfg, sp_cfg, params, planned, dense, report,
 def run_analytic(report) -> tuple:
     """Phase 18 (a)-(d).  Returns the switch-off drain's launches and the
     ``analytic`` JSON object."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import torch
     t0 = time.perf_counter()
     gates, seconds = {}, {}
-    fig16 = p18_fig16(report, gates, seconds)
-    zoo = p18_zoo(report, gates, seconds)
+    with ProcessPoolExecutor(
+            P18_CPU_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        fig16 = p18_fig16(report, gates, seconds, pool)
+        zoo = p18_zoo(report, gates, seconds, pool)
     t_search = time.perf_counter() - t0
     cfg, sp_cfg, params, planned, dense = bring_up(report)
     zvc = p18_zvc(cfg, params, planned.plan, report, gates)
@@ -4795,9 +4854,9 @@ def p19_ssd(cfg, params, report) -> None:
     prenorm = []
     norm = ssm._gated_norm
 
-    def spy(y, z, scale):           # the float64 evaluation's norm input
+    def spy(y, z, scale, *tp):      # the float64 evaluation's norm input
         prenorm.append(((y.double() * F.silu(z.double())) ** 2).sum(-1))
-        return norm(y, z, scale)
+        return norm(y, z, scale, *tp)
     with torch.no_grad():
         x = apply_norm(lp["ln1"], cfg, embed(cfg, params["embed"], toks))
         ssm.ssd_forward(cfg, p16, x)
@@ -4913,9 +4972,9 @@ def _ssd_f64(cfg, p64, zx, cum):
     from repro_torch.models import ssm
     norm, sumsq = ssm._gated_norm, []
 
-    def spy(y, z, scale):
+    def spy(y, z, scale, *tp):
         sumsq.append(((y * F.silu(z)) ** 2).sum(-1))
-        return norm(y, z, scale)
+        return norm(y, z, scale, *tp)
     ssm._gated_norm = spy
     try:
         out, _ = _ssd_cumsum(lambda: ssm.ssd_from_proj(
@@ -6818,13 +6877,23 @@ def _to_host(tree):
     return tree_map(lambda x: x.to("cpu"), tree)
 
 
-def _bits_equal(dev_tree, host_tree) -> bool:
-    """Every leaf of a device tree equal bit for bit to a host tree's (one
-    leaf on the host at a time)."""
+def _bits_equal(tree_a, tree_b) -> bool:
+    """Every leaf of ``tree_a`` equal bit for bit to ``tree_b``'s, compared
+    where ``tree_b``'s lies (a device tree against a host one: one leaf on
+    the host at a time); a NaN equals nothing."""
     import torch
     from repro_torch.train.optimizer import tree_leaves
-    return all(torch.equal(a.to("cpu"), b) for a, b in
-               zip(tree_leaves(dev_tree), tree_leaves(host_tree)))
+    a, b = tree_leaves(tree_a), tree_leaves(tree_b)
+    return len(a) == len(b) and all(
+        torch.equal(x.to(y.device), y) for x, y in zip(a, b))
+
+
+def _nonfinite(tree) -> dict:
+    """The count of non-finite elements under each top-level key of a
+    result tree."""
+    import torch
+    return {k: sum(int((~torch.isfinite(x)).sum()) for x in _leaves_of(v))
+            for k, v in tree.items()}
 
 
 def p25_sharded(report, card) -> dict:
@@ -7144,6 +7213,466 @@ def run_distribution(report, card):
             "launcher": launcher}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: expert parallelism and the sharded step of every family — the
+# expert-parallel body at one NCCL rank against the local path and the
+# plain route, the expert kernels at a 4-way expert-parallel rank's shapes,
+# and the one-rank sharded step of each non-dense family against the
+# unsharded kernel step
+# ---------------------------------------------------------------------------
+
+P26_EP = (  # (arch, batch, seq): one full-width MoE layer, bf16
+    ("deepseek-moe-16b", 2, 4096),
+    ("llama4-scout-17b-a16e", 2, 4096))
+# a (1 x 4) mesh's rank under 2 x 4096 tokens: t_l = 2048, e_loc = E / 4,
+# c_loc = int(t_l·k / e_loc · 1.25) + 1
+P26_RANK_SHAPES = (("deepseek-moe-16b", 16, 961),
+                   ("llama4-scout-17b-a16e", 4, 641))
+P26_STEPS = (  # (arch, layers: None = published, seq, the whole step?)
+    ("deepseek-moe-16b", 2, 4096, True),       # the dense first + one MoE
+    ("llama4-scout-17b-a16e", 1, 4096, False),
+    ("recurrentgemma-9b", 3, 4096, True),      # one Griffin group
+    ("mamba2-1.3b", 1, 4096, True),            # phase 19's finite prefix
+    ("whisper-tiny", None, 448, True),         # 2 x 1500 frames feed it
+    ("qwen2-vl-72b", 1, 4096, False))
+P26_LR = 3e-4
+
+
+def _ep_leaves(p):
+    return {k: p[k] for k in ("router", "experts_in", "experts_gate",
+                              "experts_out")}
+
+
+def _layer_grads(fn, p, x, gy, ec):
+    """(y, {name: gradient}) of ``fn(p, x)`` against the cotangent ``gy``
+    under ``ec`` (None: the plain route), for x and the routed leaves."""
+    import torch
+    from repro_torch.kernels import ops
+    leaves = {k: v.detach().requires_grad_() for k, v in
+              _ep_leaves(p).items()}
+    xr = x.detach().requires_grad_()
+    with ops.exec_config(ec or ops.ExecConfig()):
+        y = fn(leaves, xr)
+        names = ["x"] + list(leaves)
+        grads = torch.autograd.grad(y, [xr] + list(leaves.values()), gy)
+    torch.cuda.synchronize()
+    return y.detach(), dict(zip(names, grads))
+
+
+def p26_ep(report, card) -> dict:
+    """(a) ``moe._apply_moe_ep`` on a one-rank mesh (ep = 1: every slot is
+    sent and c_loc is the local path's capacity, so dispatch is the local
+    path's) at one full-width MoE layer of each ``P26_EP`` config, bf16,
+    the train table: the forward and the gradients of x and every routed
+    leaf against ``_apply_moe_local`` — the expert leaves bit for bit, the
+    output bit for bit at top-1 and within the combine's bound
+    (2k + 1)·2⁻⁸·Σ_j|g_j·y_j| above it (the reference's combine adds the
+    gate-weighted rows in the rows' dtype, one rounding a slot; the local
+    path sums in float32 and rounds once), the router and x within 2⁻⁶ of
+    their largest element (the gate's gradient rounds to bf16 on the
+    expert-parallel side; a top-1 gate is p / p = 1, so its router's
+    gradient is rounding on both sides, held to 2⁻⁶ of the largest dx) —
+    and against its plain route, routed as the kernels
+    (``same_routing``), each within 2⁻⁵ of the plain value's largest (the
+    top-1 router's of the largest dx).  The expert kernels' launches are
+    counted over the expert-parallel call."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import shape_exec_config
+    from repro_torch.sharding.partition import make_rules
+
+    mesh = make_host_mesh(model=1)
+    dev = torch.device("cuda")
+    out = {}
+    for arch, b, s in P26_EP:
+        t0 = time.perf_counter()
+        cfg = cut_config(arch, 2)
+        m = cfg.moe
+        d = cfg.d_model
+        rules = make_rules(mesh, kind="train", n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads)
+        shape = dataclasses.replace(train_shape(), global_batch=b,
+                                    seq_len=s, n_micro=1)
+        ec = shape_exec_config(cfg, shape, use_kernels=True, device="cuda")
+        gen = torch.Generator(device=dev).manual_seed(26)
+        p = moe.init_moe(cfg, gen, torch.bfloat16)
+        x = torch.randn((b, s, d), generator=gen, device=dev).bfloat16()
+        gy = torch.randn((b, s, d), generator=gen, device=dev).bfloat16()
+
+        def ep(lv, xr):
+            return moe._apply_moe_ep(lv, cfg, xr, rules)
+
+        def local(lv, xr):
+            return moe._apply_moe_local(lv, cfg, xr.reshape(-1, d)).reshape(
+                b, s, d)
+        tape = {"idx": [], "flips": 0}
+        reset_launches()
+        with same_routing(tape, replay=False):
+            y_ep, g_ep = _layer_grads(ep, p, x, gy, ec)
+        launches = launch_counts()
+        e_launch = launches["output"] + launches["output_experts"]
+        need(e_launch >= 3 * m.n_experts, f"phase 26 (a) {arch}: "
+             f"{e_launch} fm_output launches, fewer than one per expert and "
+             f"expert site ({3 * m.n_experts})")
+        y_lo, g_lo = _layer_grads(local, p, x, gy, ec)
+        # the combine's magnitude: Σ_j |g_j · y_j| per element
+        with torch.no_grad(), ops.exec_config(ec):
+            xt = x.reshape(-1, d)
+            gates, idx = moe._route(p["router"], xt, m.top_k)
+            t, f = xt.shape[0], xt.shape[0] * m.top_k
+            cap = moe._capacity(t, m.top_k, m.n_experts, m.capacity_factor)
+            f_sel, valid = moe._dispatch_indices(idx.reshape(f), m.n_experts,
+                                                 cap)
+            xe = torch.where(valid[..., None], xt[f_sel // m.top_k],
+                             torch.zeros((), dtype=x.dtype, device=dev))
+            rows = moe._scatter_rows(f, f_sel, valid, moe._expert_ffn(xe, p))
+            mag = (rows.float().abs().reshape(t, m.top_k, d)
+                   * gates.to(x.dtype).float()[..., None]).sum(1)
+            del xe, rows
+        err_y = (y_ep.float() - y_lo.float()).abs().reshape(t, d)
+        if m.top_k == 1:
+            need(torch.equal(y_ep, y_lo), f"phase 26 (a) {arch}: top-1 "
+                 f"expert-parallel output differs from the local path's")
+        else:
+            bound = (2 * m.top_k + 1) * 2.0 ** -8 * mag
+            need(bool((err_y <= bound).all()), f"phase 26 (a) {arch}: "
+                 f"output {(err_y - bound).max().item()} over the combine's "
+                 f"bound")
+        errs = {"y": err_y.max().item()}
+        for name in g_ep:
+            diff = (g_ep[name].float() - g_lo[name].float()).abs().max()
+            errs[name] = diff.item()
+            if name.startswith("experts"):
+                need(torch.equal(g_ep[name], g_lo[name]), f"phase 26 (a) "
+                     f"{arch}: d{name} differs from the local path's")
+            elif name == "router" and m.top_k == 1:
+                # a top-1 gate is p / p = 1: the router's gradient is zero
+                # but for rounding on both sides, held to the layer's scale
+                top = max(g_ep[name].float().abs().max().item(),
+                          g_lo[name].float().abs().max().item())
+                scale = g_lo["x"].float().abs().max().item()
+                need(top <= 2.0 ** -6 * scale, f"phase 26 (a) {arch}: "
+                     f"top-1 drouter {top} over 2^-6 of max |dx| {scale}")
+            else:
+                scale = g_lo[name].float().abs().max().item()
+                need(errs[name] <= 2.0 ** -6 * scale, f"phase 26 (a) {arch}"
+                     f": d{name} {errs[name]} over 2^-6 of {scale}")
+        del y_lo, g_lo
+        with same_routing(tape, replay=True):
+            y_pl, g_pl = _layer_grads(ep, p, x, gy, None)
+        plain = {"y": ((y_ep.float() - y_pl.float()).abs().max().item(),
+                       y_pl.float().abs().max().item())}
+        for name in g_pl:
+            plain[name] = ((g_ep[name].float() - g_pl[name].float()).abs()
+                           .max().item(),
+                           g_pl[name].float().abs().max().item())
+        for name, (e, scale) in plain.items():
+            if name == "router" and m.top_k == 1:
+                scale = plain["x"][1]       # rounding on both sides, as above
+            need(e <= 2.0 ** -5 * scale, f"phase 26 (a) {arch}: {name} "
+                 f"{e} from the plain route, over 2^-5 of {scale}")
+        report(f"  {arch} MoE layer (E {m.n_experts}, top-{m.top_k}, d {d},"
+               f" ff {m.expert_d_ff}), {b} x {s} tokens, bf16: expert-"
+               f"parallel vs local max |diff| "
+               f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } "
+               f"(expert leaves bit for bit"
+               f"{', output bit for bit' if m.top_k == 1 else ''}); vs the "
+               f"plain route (routed as the kernels; it would route "
+               f"{tape['flips']} of {t} tokens otherwise) "
+               f"{ {k: float(f'{v[0]:.3e}') for k, v in plain.items()} }; "
+               f"fm_output launches {e_launch} "
+               f"[{time.perf_counter() - t0:.1f} s] ({card})")
+        out[arch] = dict(launches=launches, err_local=errs,
+                         err_plain={k: v[0] for k, v in plain.items()},
+                         flips=tape["flips"])
+        del p, x, gy, y_ep, g_ep, y_pl, g_pl, tape
+        free()
+    return out
+
+
+def p26_rank_kernels(report, ep_out) -> list:
+    """(b) The expert kernels at a 4-way expert-parallel rank's shapes
+    (``P26_RANK_SHAPES``, experts_in's product (e_loc, c_loc, d) @
+    (e_loc, d, ff), bf16): forward, dX and dW of ``ops.flex_expert_matmul``
+    under autograd and the train table against autograd of the plain
+    float32 batched product, within ``expert_tols`` plus one bf16 step of
+    the value; each product timed (CUDA events and a captured graph)
+    beside its bound, the plain version and ``torch.bmm``.  Returns the
+    ``kernels`` rows."""
+    import torch
+    from repro_torch.kernels import flex_matmul as fm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import expert_matmul_ref
+    from repro_torch.serve.engine import shape_exec_config
+
+    saved = launch_counts()
+    rows = []
+    dev = torch.device("cuda")
+    for arch, e, c in P26_RANK_SHAPES:
+        cfg = cut_config(arch, 2)
+        d, f = cfg.d_model, cfg.moe.expert_d_ff
+        ec = shape_exec_config(cfg, train_shape(), use_kernels=True,
+                               device="cuda")
+        gen = torch.Generator(device=dev).manual_seed(261)
+        x = torch.randn((e, c, d), generator=gen, device=dev).bfloat16()
+        w = (torch.randn((e, d, f), generator=gen, device=dev)
+             * d ** -0.5).bfloat16()
+        g = torch.randn((e, c, f), generator=gen, device=dev).bfloat16()
+        xk, wk = (t.clone().requires_grad_() for t in (x, w))
+        with ops.exec_config(ec):
+            yk = ops.flex_expert_matmul(xk, wk, site="moe.experts_in")
+        yk.backward(g)
+        xp, wp = (t.clone().requires_grad_() for t in (x, w))
+        yp = torch.matmul(xp.float(), wp.float()).to(torch.bfloat16)
+        yp.backward(g)
+        wt = w.transpose(-1, -2)
+        xt = x.transpose(-1, -2).contiguous()
+        errs = {}
+        for label, got, want, (a, b_) in (
+                ("fwd", yk, yp, (x, w)), ("dx", xk.grad, xp.grad, (g, wt)),
+                ("dw", wk.grad, wp.grad, (xt, g))):
+            tol = expert_tols(a, b_)
+            err = (got.float() - want.float()).abs()
+            bound = tol + 2.0 ** -7 * torch.maximum(want.float().abs(),
+                                                    got.float().abs())
+            need(bool((err <= bound).all()), f"phase 26 (b) {arch} {label}:"
+                 f" {(err - bound).max().item()} over expert_tols + one bf16"
+                 f" rounding")
+            errs[label] = err.max().item()
+        del xk, wk, xp, wp, yk, yp
+        for label, a, b_ in (("fwd", x, w), ("dx", g, wt), ("dw", xt, g)):
+            m_, k_, n_ = a.shape[1], a.shape[2], b_.shape[2]
+            b_ms, b_by = bound_ms((a.numel() + b_.numel()) * 2
+                                  + e * m_ * n_ * 4, 2.0 * e * m_ * k_ * n_)
+
+            def kcall(a=a, b_=b_):
+                return fm.flex_matmul(a, b_, out_dtype=torch.float32)
+            row = {
+                "name": f"flex_output_experts_ep4_{arch.split('-')[0]}_"
+                        f"{label}",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flex_matmul.cu",
+                "replaces": "src/repro/kernels/flex_matmul.py:52",
+                "launches": ep_out[arch]["launches"]["output"],
+                "max_abs_err": errs[label],
+                "ms": cuda_ms(kcall, iters=5),
+                "plain_ms": cuda_ms(lambda a=a, b_=b_: expert_matmul_ref(
+                    a, b_), iters=2),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_ms(lambda a=a, b_=b_: torch.bmm(a, b_),
+                                      iters=5),
+                "device_ms": device_ms(kcall, calls=3),
+                "shape": [e, m_, k_, n_],
+                "note": f"fm_output over a 4-way expert-parallel rank's "
+                        f"{e} experts of {arch} (c_loc {c}), experts_in's "
+                        f"{label}; launches: fm_output launches of phase 26 "
+                        f"(a)'s expert-parallel {arch} layer"}
+            rows.append(row)
+            report(f"  {row['name']} {row['shape']}: {row['ms']:.3f} ms "
+                   f"(device {row['device_ms']}), bound {b_ms:.3f} "
+                   f"({b_by}), bmm {row['library_ms']:.3f}, plain "
+                   f"{row['plain_ms']:.3f}; max |err| {errs[label]:.3e}")
+        del x, w, g, wt, xt
+        free()
+    reset_launches(saved)
+    return rows
+
+
+def p26_batch(cfg, b, seq):
+    """The launcher's batch of a config on the card: tokens, next-token
+    labels and the data pipeline's frontend stubs (a vision prefix and
+    M-RoPE streams); an encoder-decoder's 30 s of frames as phase 22's."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import with_frontend_inputs
+    from repro_torch.models import model as model_lib
+    if cfg.encoder_decoder:
+        return p22_batch(cfg, b, seq, seed=26)
+    rng = np.random.default_rng(26)
+    toks = rng.integers(0, cfg.vocab, (b, seq + 1))
+    raw = {"tokens": np.ascontiguousarray(toks[:, :-1]),
+           "labels": np.ascontiguousarray(toks[:, 1:])}
+    raw = with_frontend_inputs(raw, cfg, n_vis=model_lib.n_vis(cfg, seq))
+    return {k: torch.as_tensor(v, device="cuda") for k, v in raw.items()}
+
+
+P26_TIMED = 3       # timed calls a side, alternating, after the compared
+
+
+def p26_steps(report, card) -> dict:
+    """(c) Each non-dense family at full width and cut depth
+    (``P26_STEPS``), 2 x 4096 tokens in 2 microbatches (whisper-tiny 2 x
+    448 over 2 x 1500 frames), remat full, bf16, the train table: the
+    sharded step on ``make_host_mesh(model=1)`` of the one-rank NCCL group
+    against the unsharded kernel step from the same weights, loss, grad
+    norm and every parameter and moment bit for bit, and every one of them
+    finite on both sides (the count of non-finite elements of each tree
+    is reported; a NaN equals nothing).  The vision configs run at one
+    layer and compare the step's gradients (``build_grad_fn``) bit for
+    bit: at 2 layers they hold 4.2 B and 6.5 B parameters, whose AdamW
+    update (float32 moments, old and new, ~24 bytes a parameter) does not
+    fit 80 GB, and at one layer (3.4 B, 4.3 B) the unsharded gradients
+    stay on the card beside the sharded run.  The compared calls come
+    first and are not timed; then ``P26_TIMED`` calls a side, unsharded
+    and sharded alternating, each result dropped at once and the
+    allocator's cache kept (emptied, the next call would pay its
+    regrowth): ms a step is the median of a side's.  The peak is the
+    compared sharded call's own (what was held before it, the first
+    call's garbage collected, not counted; the weights counted).
+    Launches are counted over the compared sharded call.  Returns per
+    arch ms and peak GiB."""
+    import gc
+    import statistics
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import shape_exec_config
+    from repro_torch.sharding.partition import make_rules
+    from repro_torch.train import train_step as step_lib
+    from repro_torch.train.optimizer import AdamWConfig
+
+    mesh = make_host_mesh(model=1)
+    opt = AdamWConfig(lr=P26_LR, warmup_steps=1, total_steps=4)
+    dev = torch.device("cuda")
+    out, total = {}, None
+    for arch, layers, seq, whole in P26_STEPS:
+        t0 = time.perf_counter()
+        cfg = cut_config(arch, layers)
+        shape = dataclasses.replace(train_shape(), global_batch=2,
+                                    seq_len=seq, n_micro=2)
+        ec = shape_exec_config(cfg, shape, use_kernels=True, model_shards=1,
+                               device="cuda")
+        rules = make_rules(mesh, kind="train", n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads)
+        params = model_lib.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(26),
+            dtype=torch.bfloat16, device=dev)
+        weights = sum(v.nbytes for v in _leaves_of(params))
+        n_params = sum(v.numel() for v in _leaves_of(params))
+        batch = p26_batch(cfg, 2, seq)
+        if whole:
+            runs = (make_step_fn_of(step_lib.make_step_fn(cfg, shape, opt)),
+                    make_step_fn_of(step_lib.build_train_step(
+                        cfg, shape, opt, mesh, rules)))
+        else:
+            runs = tuple(_named_grads(step_lib.build_grad_fn(*args)) for args
+                         in ((cfg, shape), (cfg, shape, mesh, rules)))
+
+        def call(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with ops.exec_config(ec):
+                res = fn(params, batch)
+            torch.cuda.synchronize()
+            return res, 1e3 * (time.perf_counter() - t)
+
+        free()
+        first, _ = call(runs[0])
+        free()            # the first call's garbage, else counted as held
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        got, _ = call(runs[1])
+        launches = launch_counts()
+        # the run's own peak: what was held before it (the weights, the
+        # first run's result) subtracted, the weights added back
+        peak = (torch.cuda.max_memory_allocated() - held + weights) / 2 ** 30
+        bad = {"unsharded": _nonfinite(first), "sharded": _nonfinite(got)}
+        need(not any(n for side in bad.values() for n in side.values()),
+             f"phase 26 (c) {arch}: non-finite elements {bad}")
+        need(_bits_equal(got, first), f"phase 26 (c) {arch}: the one-rank "
+             f"sharded {'step' if whole else 'gradients'} differ from the "
+             f"unsharded")
+        loss = float(got["loss"])
+        norm = float(got["grad_norm"]) if whole else None
+        del got, first
+        gc.collect()      # the cache kept: empty, it would regrow in a call
+        times = ([], [])
+        for _ in range(P26_TIMED):
+            for side, fn in enumerate(runs):
+                res, ms = call(fn)
+                times[side].append(ms)
+                del res
+        ms_u, ms = (statistics.median(t) for t in times)
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+        report(f"  {arch} at {cfg.n_layers} layers ({n_params / 1e9:.3f} B "
+               f"parameters, bf16), 2 x {seq} tokens in 2 microbatches: "
+               f"sharded {'step' if whole else 'gradients'} == unsharded bit"
+               f" for bit (loss {loss!r}, grad norm {norm!r}; non-finite "
+               f"elements {bad['sharded']}); median of {P26_TIMED} warm "
+               f"calls a side, alternating: sharded {ms:.1f} ms, unsharded "
+               f"{ms_u:.1f} (sharded {[round(x, 1) for x in times[1]]}, "
+               f"unsharded {[round(x, 1) for x in times[0]]}); peak "
+               f"{peak:.2f} GiB; launches "
+               f"{ {k: v for k, v in launches.items() if v} } "
+               f"[{time.perf_counter() - t0:.1f} s] ({card})")
+        out[arch] = dict(ms=ms, unsharded_ms=ms_u, ms_all=times[1],
+                         unsharded_ms_all=times[0], peak_gib=peak,
+                         whole_step=whole, layers=cfg.n_layers, seq=seq,
+                         params_b=n_params / 1e9, loss=loss, grad_norm=norm,
+                         nonfinite=bad["sharded"])
+        del params, batch, runs
+        free()
+    for key in ("output", "flash_attention", "flash_backward"):
+        need(total[key] > 0, f"phase 26 (c): {key} never launched")
+    return out, total
+
+
+def _named_grads(grad_fn):
+    """``grad_fn``'s (loss, gradients) as one tree."""
+    def run(params, batch):
+        loss, grads = grad_fn(params, batch)
+        return {"loss": loss, "g": grads}
+    return run
+
+
+def make_step_fn_of(step):
+    """A step from fresh moments as a function of (params, batch) with one
+    result tree: the new parameters, moments and metrics."""
+    from repro_torch.train.optimizer import init_opt_state
+
+    def run(params, batch):
+        p, st, m = step(params, init_opt_state(params), batch)
+        return {"p": p, "mu": st.mu, "nu": st.nu,
+                "loss": m["loss"], "grad_norm": m["grad_norm"]}
+    return run
+
+
+def run_expert_parallel(report, card):
+    """Phase 26: expert parallelism and every family's sharded step on a
+    one-rank NCCL group (the module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    free()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                            rank=0, world_size=1)
+    try:
+        ep = p26_ep(report, card)
+        report(f"[phase 26a: {time.perf_counter() - t0:.1f} s]")
+        rows = p26_rank_kernels(report, ep)
+        report(f"[phase 26b: {time.perf_counter() - t0:.1f} s]")
+        with expandable_segments():
+            steps, launches = p26_steps(report, card)
+        report(f"[phase 26c: {time.perf_counter() - t0:.1f} s]")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    free()
+    torch.cuda.synchronize()
+    return {"ep": ep, "steps": steps, "launches": launches}, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7428,6 +7957,22 @@ def main() -> int:
                    "flex_output_backward_dw": "output"}.get(row["name"])
             if key is not None:
                 row["launches_phase25"] = distribution["launches"][key]
+        # phase 26: expert parallelism and every family's sharded step
+        free()
+        report(f"memory before phase 26: "
+               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        expert_parallel, rows26 = run_expert_parallel(report, card)
+        done("phase 26")
+        for row in rows:
+            key = {"flex_output": "output",
+                   "flash_attention": "flash_attention",
+                   "flash_backward": "flash_backward",
+                   "flex_output_backward_dx": "output",
+                   "flex_output_backward_dw": "output"}.get(row["name"])
+            if key is not None:
+                row["launches_phase26"] = expert_parallel["launches"][key]
+        rows += rows26
         # phase 24: the serving CLI, Qwen2-VL-72B and Llama-4-Scout
         free()
         report(f"memory before phase 24: "
@@ -7458,6 +8003,10 @@ def main() -> int:
         report(json.dumps({"last_configs": last_configs}))
         report(json.dumps({"distribution": {
             k: v for k, v in distribution.items() if k != "launches"}}))
+        report(json.dumps({"expert_parallel": {
+            "ep": {a: {k: v for k, v in r.items() if k != "launches"}
+                   for a, r in expert_parallel["ep"].items()},
+            "steps": expert_parallel["steps"]}}))
         report(json.dumps({"kernels": rows}))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

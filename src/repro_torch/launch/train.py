@@ -19,11 +19,12 @@ Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``nccl`` on CUDA (device ``cuda:LOCAL_RANK``), ``gloo`` on the CPU — unless
 the caller already did; with more than one rank, or ``--model-shards``
 above 1, the step is sharded over ``make_host_mesh(model=model_shards)``
-(FSDP over ``data``, tensor parallelism over ``model``, the dense
-decoders only above 1), as the reference builds its mesh:
+(FSDP over ``data``, tensor parallelism over ``model`` for every
+family, expert parallelism over ``model`` for a MoE whose experts and
+sequence split over it), as the reference builds its mesh:
 
     torchrun --nproc_per_node 4 -m repro_torch.launch.train \
-        --arch stablelm-1.6b --smoke --device cpu --model-shards 2
+        --arch deepseek-moe-16b --smoke --device cpu --model-shards 2
 """
 from __future__ import annotations
 

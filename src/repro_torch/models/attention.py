@@ -6,8 +6,11 @@ a cross-attention pass takes its keys and values from another sequence),
 the per-slot KV cache of decode (full length, or rolling for sliding
 windows) and the W-position decode of a speculative verify window.
 
-Under tensor parallelism (a model axis above 1) the self-attention of the
-full-sequence forward runs this rank's heads (``_local_heads``)."""
+Under tensor parallelism (a model axis above 1) the full-sequence forward
+runs this rank's heads (``_local_heads``): a self-attention's, and a
+cross-attention's too — its queries from the decoder stream, its keys and
+values from the replicated encoder memory through this rank's ``wkv``
+columns, ``wo`` row-parallel with the combine."""
 from __future__ import annotations
 
 import dataclasses
@@ -140,10 +143,12 @@ def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
 
     ``mrope_positions`` (3,B,S) are M-RoPE's t/h/w streams (a
     ``rope="mrope"`` config; others ignore them, as the reference does)."""
-    tp = partition.tensor_parallel() if kv_x is None else None
+    tp = partition.tensor_parallel()
     if tp is not None:    # this rank's heads
         p, cfg = _local_heads(p, cfg, tp)
         x = collectives.to_model(x, tp.group)
+        if kv_x is not None:
+            kv_x = collectives.to_model(kv_x, tp.group)
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     if kv_x is None:      # self-attention: rotary on q and k

@@ -29,7 +29,15 @@ only through the gate values, as in the reference: the dispatch indices
 carry none.  ``load_balance_loss`` is ported as the reference has it, a
 function that its ``train_loss`` does not call (nor does the port's).
 
-Out of scope: the expert-parallel ``shard_map`` path (distribution).
+Under the sharding rules of a sharded step (``sharding.partition
+.use_rules`` with specs) ``apply_moe`` takes the reference's expert-
+parallel path exactly where its ``_ep_applicable`` holds: ``_apply_moe_ep``
+runs on this rank's block of the sequence and its E / ep experts, with
+``collectives.all_to_all`` dispatch and return; each shard drops tokens
+against its own capacities, as the reference's ``shard_map`` body does,
+so the layer is not the unsharded one.  Otherwise, at a model axis above
+1, the experts are gathered over it and the local path runs replicated.
+The shared experts are column- / row-parallel like the dense MLP.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from repro_torch.core.sparsity import PlannedWeight
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal
 from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
+from repro_torch.sharding import collectives, partition
 
 Params = Dict[str, torch.Tensor]
 
@@ -197,19 +206,151 @@ def _apply_moe_local(p: Params, cfg: ArchConfig,
     return _combine(out_flat, gates, t, m.top_k, xt.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Expert parallelism (SP in → all_to_all dispatch → all_to_all return →
+# combine → SP out), the reference's shard_map body
+# ---------------------------------------------------------------------------
+
+def _apply_moe_ep(p: Params, cfg: ArchConfig, x: torch.Tensor, rules
+                  ) -> torch.Tensor:
+    """x (b, s, D), this rank's batch rows and the whole sequence (the
+    same on every rank of the expert axis) → y (b, s, D), the same on
+    every rank.  The body runs on this rank's s / ep positions and its
+    E / ep experts (``p``'s expert leaves are this rank's block of them,
+    gathered over the FSDP axes only); the router's gradient, partial on
+    each rank, is summed over the expert axis."""
+    mesh = rules.mesh
+    m = cfg.moe
+    k = m.top_k
+    ep_axis = rules.logical.get("expert") or "model"
+    ep = mesh.shape[ep_axis]
+    group = mesh.group(ep_axis)
+    e_loc = m.n_experts // ep
+    cf = m.capacity_factor
+    xb = collectives.sp_in(x, group, 1)              # (b, s / ep, D)
+    bl, sl, d = xb.shape
+    t_l = bl * sl
+    xt = xb.reshape(t_l, d)
+    zero = torch.zeros((), dtype=xt.dtype, device=xt.device)
+    gates, gate_idx = _route(collectives.to_model(_dense_w(p["router"]),
+                                                  group), xt, k)
+    f = t_l * k
+    fid = gate_idx.reshape(f)
+    gflat = gates.reshape(f)
+
+    # ---- bucket by destination shard, exchange ----
+    dest = fid // e_loc
+    c_send = _capacity(t_l, k, ep, cf)
+    f_sel, valid = _dispatch_indices(dest, ep, c_send)         # (ep, C_s)
+    send_x = torch.where(valid[..., None], xt[f_sel // k], zero)
+    send_le = torch.where(valid, fid[f_sel] % e_loc, e_loc)    # sentinel
+    recv_x = collectives.all_to_all(send_x, group, 0)
+    recv_le = collectives.exchange(send_le, group, 0)
+
+    # ---- this rank's experts ----
+    n_recv = ep * c_send
+    rf = recv_x.reshape(n_recv, d)
+    c_loc = min(int(t_l * k / e_loc * cf) + 1, n_recv)
+    r_sel, valid2 = _dispatch_indices(recv_le.reshape(n_recv), e_loc, c_loc)
+    xe = torch.where(valid2[..., None], rf[r_sel], zero)      # (E_l, C, D)
+    ye = _expert_ffn(xe, p)
+
+    # ---- back to the source shard, combine ----
+    out_rf = _scatter_rows(n_recv, r_sel, valid2, ye)
+    back = collectives.all_to_all(out_rf.reshape(ep, c_send, d), group, 0)
+    y = _combine_sent(back, valid, f_sel, gflat, dest, t_l, k)
+    return collectives.sp_out(y.reshape(bl, sl, d).to(x.dtype), group, 1)
+
+
+def _combine_sent(back: torch.Tensor, valid: torch.Tensor,
+                  f_sel: torch.Tensor, gflat: torch.Tensor,
+                  dest: torch.Tensor, t: int, k: int) -> torch.Tensor:
+    """Σ over each token's returned slots of gate × row, in ``back``'s
+    dtype, added in the reference's order — its scatter-add takes the
+    (ep, C_s) send buffer in order, so a token's slots come by destination
+    shard, then slot — as a fixed sequence of k adds (a scatter-add's
+    atomics on the card would order them by chance).  A dropped slot adds
+    an exact zero."""
+    d = back.shape[-1]
+    f = t * k
+    pos = torch.full((f + 1,), valid.numel(), dtype=torch.int64,
+                     device=back.device)
+    pos[torch.where(valid, f_sel, f).reshape(-1)] = torch.arange(
+        valid.numel(), device=back.device)
+    pos = pos[:f]                                  # flat slot → send row
+    rows = torch.cat([back.reshape(-1, d),
+                      torch.zeros((1, d), dtype=back.dtype,
+                                  device=back.device)])
+    contrib = rows[pos] * gflat.to(back.dtype)[:, None]           # (F, D)
+    order = torch.argsort((dest * k + torch.arange(
+        f, device=back.device) % k).reshape(t, k), dim=-1, stable=True)
+    contrib = contrib.reshape(t, k, d).gather(
+        1, order[..., None].expand(t, k, d))
+    y = torch.zeros((t, d), dtype=back.dtype, device=back.device)
+    for j in range(k):
+        y = y + contrib[:, j]
+    return y
+
+
+def _ep_applicable(cfg: ArchConfig, x: torch.Tensor, rules) -> bool:
+    """The reference's condition on the global batch: rules with a mesh and
+    installed specs, an expert axis above 1 that divides E, and a distinct
+    token block per rank (the batch over the batch axes, the sequence over
+    the expert axis).  ``x`` holds this rank's rows; the global batch is
+    them times the ranks of the axes the step cut its rows over
+    (``partition.batch_rows``: none where every rank holds the whole
+    batch)."""
+    if (rules is None or rules.mesh is None
+            or partition.current_specs() is None):
+        return False
+    mesh = rules.mesh
+    ep_axis = rules.logical.get("expert")
+    if ep_axis is None or ep_axis not in mesh.axis_names:
+        return False
+    ep = mesh.shape[ep_axis]
+    if ep <= 1 or cfg.moe.n_experts % ep:
+        return False
+    b, s, _ = x.shape
+    b *= mesh.axis_size(partition.batch_rows())
+    dp = mesh.axis_size(rules.logical.get("batch"))
+    return b % dp == 0 and s % ep == 0 and (b // dp) * (s // ep) >= 1
+
+
+# ---------------------------------------------------------------------------
+# Public entry
+# ---------------------------------------------------------------------------
+
+EXPERT_LEAVES = ("experts_in", "experts_gate", "experts_out")
+
+
 def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, D) → (B, S, D): routed experts plus shared experts (the
-    ``moe.shared_*`` sites)."""
+    ``moe.shared_*`` sites).  Under a sharded step's rules: the expert-
+    parallel path where ``_ep_applicable`` holds, else at a model axis
+    above 1 the local path on the experts gathered over it (its gradient
+    whole on every rank: each takes its own block); the shared experts on
+    this rank's columns (module docstring)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    y = _apply_moe_local(p, cfg, xt).reshape(b, s, d)
+    rules = partition.current_rules()
+    tp = partition.tensor_parallel()
+    if _ep_applicable(cfg, x, rules):
+        y = _apply_moe_ep(p, cfg, x, rules)
+    else:
+        if tp is not None:
+            p = {**p, **{n: collectives.sp_out(p[n], tp.group, 0)
+                         for n in EXPERT_LEAVES
+                         if partition.model_dim(p, n) == 0}}
+        y = _apply_moe_local(p, cfg, xt).reshape(b, s, d)
     if "shared" in p:
         sp = p["shared"]
-        hs = _act_mul(ops.flex_matmul(xt, sp["w_gate"],
+        split = tp is not None and partition.model_dim(sp, "w_in") == 1
+        xs = collectives.to_model(xt, tp.group) if split else xt
+        hs = _act_mul(ops.flex_matmul(xs, sp["w_gate"],
                                       site="moe.shared_gate"),
-                      ops.flex_matmul(xt, sp["w_in"], site="moe.shared_in"))
-        y = y + ops.flex_matmul(hs, sp["w_out"],
-                                site="moe.shared_out").reshape(b, s, d)
+                      ops.flex_matmul(xs, sp["w_in"], site="moe.shared_in"))
+        y = y + ops.flex_matmul(hs, sp["w_out"], site="moe.shared_out",
+                                partial=split).reshape(b, s, d)
     return y
 
 

@@ -13,6 +13,14 @@ their product projects back to d_model.  The three projections are the
 matmul sites ``rglru.in`` / ``rglru.gate`` / ``rglru.out``; the gate
 products ``xw @ w_a`` and ``xw @ w_i`` are plain matmuls, as the reference
 computes them outside any kernel.
+
+Under tensor parallelism (a model axis above 1) the block is channel-
+parallel over ``lru_width``: ``w_x`` / ``w_gate`` column-parallel, the
+conv, the gates' biases, Λ and the scan on this rank's channels, and
+``rglru.out`` row-parallel with FlexTree's combine.  The gates read the
+whole conv'd ``xw``: it is all-gathered over the model axis and meets
+this rank's columns of the replicated ``w_a`` / ``w_i``
+(``_local_params``).
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal
+from repro_torch.sharding import collectives, partition
 
 Params = Dict[str, torch.Tensor]
 C_FACTOR = 8.0
@@ -52,11 +61,14 @@ def init_rglru(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16,
     }
 
 
-def _gates(p: Params, xw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _gates(p: Params, xw: torch.Tensor, xg: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gate values for the conv'd x-branch ``xw`` (..., W): (a, gated_in),
-    both float32."""
-    r = torch.sigmoid(torch.matmul(xw, p["w_a"]).float() + p["b_a"])
-    i = torch.sigmoid(torch.matmul(xw, p["w_i"]).float() + p["b_i"])
+    both float32.  ``xg`` (tensor parallelism: the whole ``xw`` gathered
+    over the model axis) is what the gate products read, else ``xw``."""
+    xg = xw if xg is None else xg
+    r = torch.sigmoid(torch.matmul(xg, p["w_a"]).float() + p["b_a"])
+    i = torch.sigmoid(torch.matmul(xg, p["w_i"]).float() + p["b_i"])
     log_a = -C_FACTOR * F.softplus(p["lam"]) * r          # log a_t
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)) \
@@ -89,15 +101,39 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _local_params(cfg: ArchConfig, p: Params, tp) -> Params:
+    """This rank's ``lru_width`` channels of every leaf (module docstring),
+    as the installed specs store them (``partition.model_block``): a leaf
+    stored otherwise — ``conv_w`` split over its taps, the replicated
+    ``w_a`` / ``w_i`` / ``b_i`` / Λ — is made whole with its gradient
+    summed over ``model`` and cut."""
+    w = cfg.rglru.lru_width
+    if w % tp.size:
+        raise NotImplementedError(f"{cfg.name}: lru_width {w} over "
+                                  f"{tp.size} model shards")
+    out = {name: partition.model_block(p, name, tp, -1)
+           for name in ("w_x", "w_gate", "conv_w", "conv_b", "w_a", "b_a",
+                        "w_i", "b_i", "lam")}
+    out["w_out"] = partition.model_block(p, "w_out", tp, 0)
+    return out
+
+
 def rglru_forward(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence recurrent block.  x (B, S, D) → (B, S, D)."""
+    """Full-sequence recurrent block.  x (B, S, D) → (B, S, D); under
+    tensor parallelism on this rank's channels (module docstring)."""
+    tp = partition.tensor_parallel()
+    if tp is not None:
+        p = _local_params(cfg, p, tp)
+        x = collectives.to_model(x, tp.group)
     xb = ops.flex_matmul(x, p["w_x"], site="rglru.in")
     gate = ops.flex_matmul(x, p["w_gate"], site="rglru.gate")
     xb = _causal_conv(xb, p["conv_w"], p["conv_b"])
-    a, gated = _gates(p, xb)
+    xg = None if tp is None else collectives.all_gather(xb, tp.group, -1)
+    a, gated = _gates(p, xb, xg)
     h = linear_scan(a, gated)
     h = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
-    return ops.flex_matmul(h, p["w_out"], site="rglru.out")
+    return ops.flex_matmul(h, p["w_out"], site="rglru.out",
+                           partial=tp is not None)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,14 @@ i <= j (``causal.at[jj, ii].set(False)`` over the upper triangle's indices),
 so with chunks longer than one token a position sees the later positions
 of its chunk and the chunked form differs from the recurrence (ROADMAP
 queue C).  At chunk 1 only the diagonal is left and the two agree.
+
+Under tensor parallelism (a model axis above 1) the block is channel-
+parallel: this rank runs its n_heads / model SSD heads — the z, x and dt
+columns of its heads and every B and C column of ``in_proj`` (one group
+does not split), its x channels and all B / C channels of the conv —
+the gated norm's mean of squares is summed over the model axis before
+its rsqrt, and ``out_proj`` is row-parallel, its partial sums combined
+by FlexTree's reduction (``_local_params``).
 """
 from __future__ import annotations
 
@@ -26,7 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.flextree import ReduceConfig
 from repro_torch.models.layers import normal
+from repro_torch.sharding import collectives, partition
 
 Params = Dict[str, torch.Tensor]
 
@@ -67,8 +77,8 @@ def init_ssm(cfg: ArchConfig, gen: torch.Generator, dtype=torch.bfloat16,
     }
 
 
-def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
-    di = d_inner(cfg)
+def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor, di: int = 0):
+    di = di or d_inner(cfg)
     gn2 = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
     return (zxbcdt[..., :di], zxbcdt[..., di:2 * di],
             zxbcdt[..., 2 * di:2 * di + gn2], zxbcdt[..., 2 * di + gn2:])
@@ -85,19 +95,65 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
+def _local_params(cfg: ArchConfig, params: Params, tp) -> Params:
+    """This rank's share of a block's leaves under tensor parallelism
+    (module docstring), as the installed specs store them
+    (``partition.model_block`` / ``model_columns`` / ``model_whole``):
+    each leaf's gradient summed over ``model`` where ranks share it."""
+    di, h = d_inner(cfg), n_ssd_heads(cfg)
+    if h % tp.size:
+        raise NotImplementedError(f"{cfg.name}: {h} SSD heads over "
+                                  f"{tp.size} model shards")
+    dl, hl = di // tp.size, h // tp.size
+    gn2 = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+    dev = params["in_proj"].device
+
+    def span(lo, n):
+        return torch.arange(lo, lo + n, device=dev)
+
+    def conv(r):                                            # [x_r | B C]
+        return torch.cat([span(r * dl, dl), span(di, gn2)])
+
+    def proj(r):                                  # [z_r | x_r | B C | dt_r]
+        return torch.cat([span(r * dl, dl), span(di + r * dl, dl),
+                          span(2 * di, gn2),
+                          span(2 * di + gn2 + r * hl, hl)])
+    block = partition.model_block
+    out = {
+        "in_proj": partition.model_columns(params, "in_proj", tp, proj),
+        "conv_w": partition.model_whole(params, "conv_w", tp).index_select(
+            -1, conv(tp.index)),
+        "conv_b": partition.model_columns(params, "conv_b", tp, conv),
+        "norm_scale": block(params, "norm_scale", tp, -1),
+        "out_proj": block(params, "out_proj", tp, 0),
+    }
+    for name in ("A_log", "D", "dt_bias"):
+        out[name] = block(params, name, tp, -1)
+    return out
+
+
 def ssd_forward(cfg: ArchConfig, params: Params,
                 x_in: torch.Tensor) -> torch.Tensor:
     """Full-sequence SSD.  x_in (B, S, D) -> (B, S, D).  S must be a
-    multiple of min(chunk, S), as the reference's reshapes need."""
-    return ssd_from_proj(cfg, params, torch.matmul(x_in, params["in_proj"]))
+    multiple of min(chunk, S), as the reference's reshapes need.  Under
+    tensor parallelism, this rank's heads (module docstring)."""
+    tp = partition.tensor_parallel()
+    if tp is not None:
+        params = _local_params(cfg, params, tp)
+        x_in = collectives.to_model(x_in, tp.group)
+    return ssd_from_proj(cfg, params, torch.matmul(x_in, params["in_proj"]),
+                         tp=tp)
 
 
-def ssd_from_proj(cfg: ArchConfig, params: Params,
-                  zxbcdt: torch.Tensor) -> torch.Tensor:
+def ssd_from_proj(cfg: ArchConfig, params: Params, zxbcdt: torch.Tensor, *,
+                  tp=None) -> torch.Tensor:
     """``ssd_forward`` after its in-projection: the fused [z, x, B, C, dt]
-    activations (B, S, 2·d_inner + 2·G·N + H) -> (B, S, D)."""
+    activations (B, S, 2·d_inner + 2·G·N + H) -> (B, S, D); with ``tp``
+    (tensor parallelism) this rank's heads' activations under its
+    ``_local_params``."""
     b, s, _ = zxbcdt.shape
-    di, h = d_inner(cfg), n_ssd_heads(cfg)
+    m = 1 if tp is None else tp.size
+    di, h = d_inner(cfg) // m, n_ssd_heads(cfg) // m
     g, n, p_hd = cfg.ssm.n_groups, cfg.ssm.d_state, cfg.ssm.head_dim
     chunk = min(cfg.ssm.chunk, s)
     if s % chunk:
@@ -105,7 +161,7 @@ def ssd_from_proj(cfg: ArchConfig, params: Params,
                          f"multiple of the SSD chunk {chunk}")
     nc = s // chunk
 
-    z, xc, bc, dt = _split_proj(cfg, zxbcdt)
+    z, xc, bc, dt = _split_proj(cfg, zxbcdt, di)
     xbc = torch.cat([xc, bc], dim=-1)
     xbc = F.silu(_causal_conv(xbc, params["conv_w"], params["conv_b"]))
     xc, bc = xbc[..., :di], xbc[..., di:]
@@ -158,15 +214,24 @@ def ssd_from_proj(cfg: ArchConfig, params: Params,
 
     y = (y_intra + y_inter).reshape(b, s, h, p_hd)
     y = y + params["D"][None, None, :, None].to(y.dtype) * xh
-    y = _gated_norm(y.reshape(b, s, di), z, params["norm_scale"])
-    return torch.matmul(y, params["out_proj"])
+    y = _gated_norm(y.reshape(b, s, di), z, params["norm_scale"], tp)
+    out = torch.matmul(y, params["out_proj"])
+    if tp is None:
+        return out
+    return collectives.from_model(out, ReduceConfig("model", tp.size),
+                                  tp.group)
 
 
-def _gated_norm(y: torch.Tensor, z: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
-    """Gated RMSNorm in float32: norm(y · silu(z)) · scale, in y's dtype."""
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                tp=None) -> torch.Tensor:
+    """Gated RMSNorm in float32: norm(y · silu(z)) · scale, in y's dtype.
+    With ``tp`` the mean of squares is over every rank's channels."""
     yf = y.float() * F.silu(z.float())
-    var = (yf ** 2).mean(-1, keepdim=True)
+    if tp is None:
+        var = (yf ** 2).mean(-1, keepdim=True)
+    else:
+        var = collectives.psum((yf ** 2).sum(-1, keepdim=True),
+                               tp.group) / (y.shape[-1] * tp.size)
     return (yf * torch.rsqrt(var + 1e-6) * scale).to(y.dtype)
 
 

@@ -286,18 +286,18 @@ def _remat(fn, policy: str):
 
     def run(*args, **kw):
         ec = ops.current_exec_config()
-        rules, specs = partition.current_rules(), partition.current_specs()
+        state = partition.installed()
         if policy == "full":
             def contexts():
                 return contextlib.nullcontext(), _entered(
-                    ops.exec_config(ec), partition.use_rules(rules, specs))
+                    ops.exec_config(ec), partition.use_rules(*state))
         else:
             tape = ops.DotsTape()
 
             def contexts():
                 return (ops.recording(tape),
                         _entered(ops.exec_config(ec), ops.replaying(tape),
-                                 partition.use_rules(rules, specs)))
+                                 partition.use_rules(*state)))
         return torch.utils.checkpoint.checkpoint(
             fn, *args, use_reentrant=False, context_fn=contexts, **kw)
     return run
@@ -357,17 +357,18 @@ def apply_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
         group = _layer(apply_griffin_group, "groups", remat)
         for lp in layer_trees(p["groups"], n_groups):
             x = group(lp, cfg, x, positions=positions, q_chunk=q_chunk)
-        layer = _layer(apply_rec_layer, "trailing", remat)
-        for lp in (layer_trees(p["trailing"], n_trail) if n_trail else []):
-            x = layer(lp, cfg, x)
+        if n_trail:
+            layer = _layer(apply_rec_layer, "trailing", remat)
+            for lp in layer_trees(p["trailing"], n_trail):
+                x = layer(lp, cfg, x)
         return x
     if cfg.moe.enabled:
         n_dense, n_moe = _moe_layout(cfg)
-        dense = _layer(apply_dense_layer, "dense_layers", remat)
-        for lp in (layer_trees(p["dense_layers"], n_dense) if n_dense
-                   else []):
-            x = dense(lp, cfg, x, positions=positions, q_chunk=q_chunk,
-                      mrope_positions=mrope_positions)
+        if n_dense:
+            dense = _layer(apply_dense_layer, "dense_layers", remat)
+            for lp in layer_trees(p["dense_layers"], n_dense):
+                x = dense(lp, cfg, x, positions=positions, q_chunk=q_chunk,
+                          mrope_positions=mrope_positions)
         layer = _layer(apply_moe_layer, "layers", remat)
         for lp in layer_trees(p["layers"], n_moe):
             x = layer(lp, cfg, x, positions=positions, q_chunk=q_chunk,

@@ -6,7 +6,27 @@ with its adjoint:
   ``to_model``     identity (a column-parallel site's replicated input);
                    backward: all-reduce of dX over the model axis;
   ``from_model``   the partial sums of a row-parallel site combined by
-                   ``flextree.reduce_psum``; backward: identity.
+                   ``flextree.reduce_psum``; backward: identity;
+  ``psum``         the group's sum, for a value whose every rank then uses
+                   it on its own share (the SSM's gated norm over its
+                   channels); backward: the sum of the gradient;
+  ``all_to_all``   chunk r of a dim to rank r, the received chunks in
+                   rank order (``jax.lax.all_to_all(..., tiled=True)``,
+                   expert parallelism's dispatch and return); backward:
+                   the same exchange of the gradient;
+  ``sp_in``        this rank's block of a dim of a tensor replicated over
+                   the group (the sequence entering the expert-parallel
+                   body); backward: all-gather of the gradient blocks;
+  ``sp_out``       the group's blocks gathered along a dim for a use that
+                   is the same on every rank (the expert-parallel body's
+                   output; the experts gathered for the replicated local
+                   path); backward: this rank's block of the gradient;
+  ``fetch_columns`` the columns each rank uses of a leaf whose last dim is
+                   cut in blocks over the group, sent by their owners (an
+                   all-to-all of uneven parts: no rank holds more than its
+                   own columns and its blocks); backward: each column's
+                   gradient sent back to its owner and summed there over
+                   the ranks that used it.
 
 A group of None (an axis of size 1) makes every one of them the identity,
 so a mesh of one rank runs the unsharded arithmetic.
@@ -47,6 +67,46 @@ def scatter_sum_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
                       dtype=x.dtype, device=x.device)
     dist.reduce_scatter_tensor(out, front, group=group)
     return out.movedim(0, dim)
+
+
+def exchange(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``dim`` cut into the group's size of equal chunks, chunk r sent to
+    rank r; the received chunks concatenated in rank order (no
+    gradient)."""
+    if group_size(group) == 1:
+        return x
+    front = x.movedim(dim, 0).contiguous()
+    out = torch.empty_like(front)
+    dist.all_to_all_single(out, front, group=group)
+    return out.movedim(0, dim)
+
+
+def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` cut over the group."""
+    n = x.shape[dim] // group_size(group)
+    return x.narrow(dim, dist.get_rank(group) * n, n)
+
+
+def _column_plan(want, n: int, rank: int):
+    """For ``fetch_columns``: this rank's block [rank·n, rank·n + n) of
+    the columns, the local indices it sends to each rank (in that rank's
+    order) and the count it receives from each."""
+    lo = rank * n
+    send = [w[(w >= lo) & (w < lo + n)] - lo for w in want]
+    mine = want[rank]
+    recv = [int(((mine >= q * n) & (mine < q * n + n)).sum())
+            for q in range(len(want))]
+    return send, recv
+
+
+def _exchange_parts(x: torch.Tensor, send_sizes, recv_sizes, group):
+    """The rows of ``x`` cut into ``send_sizes`` parts, part r sent to rank
+    r; what comes back, ``recv_sizes[q]`` rows from rank q, in rank
+    order."""
+    out = x.new_empty((sum(recv_sizes),) + x.shape[1:])
+    dist.all_to_all_single(out, x.contiguous(), list(recv_sizes),
+                           list(send_sizes), group=group)
+    return out
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM
@@ -91,6 +151,72 @@ class _FromModel(torch.autograd.Function):
         return g, None, None
 
 
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return exchange(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange(g, ctx.group, ctx.dim), None, None
+
+
+class _SPIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(x, group, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _SPOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.group, ctx.dim).contiguous(), None, None
+
+
+class _FetchColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, want):
+        n = x.shape[-1]
+        send, recv = _column_plan(want, n, dist.get_rank(group))
+        ctx.group, ctx.n, ctx.send, ctx.recv = group, n, send, recv
+        rows = x.movedim(-1, 0)
+        parts = torch.cat([rows.index_select(0, i) for i in send])
+        out = _exchange_parts(parts, [len(i) for i in send], recv, group)
+        return out.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        sizes = [len(i) for i in ctx.send]
+        back = _exchange_parts(g.movedim(-1, 0), ctx.recv, sizes, ctx.group)
+        gx = back.new_zeros((ctx.n,) + back.shape[1:])
+        # rank by rank, so a column used by several ranks sums in rank order
+        for idx, part in zip(ctx.send, back.split(sizes)):
+            gx.index_add_(0, idx, part)
+        return gx.movedim(0, -1), None, None
+
+
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if group_size(group) == 1:
         return x
@@ -110,3 +236,41 @@ def from_model(x: torch.Tensor, cfg: ReduceConfig, group) -> torch.Tensor:
         raise ValueError("a row-parallel site's consumer is replicated: its "
                          "combine cannot be a reduce-scatter")
     return _FromModel.apply(x, cfg, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    return _PSum.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    if x.shape[dim] % group_size(group):
+        raise ValueError(f"all_to_all: dim {dim} of {tuple(x.shape)} over "
+                         f"{group_size(group)} ranks")
+    return _AllToAll.apply(x, group, dim % x.dim())
+
+
+def sp_in(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    return _SPIn.apply(x, group, dim % x.dim())
+
+
+def sp_out(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    if group_size(group) == 1:
+        return x
+    return _SPOut.apply(x, group, dim % x.dim())
+
+
+def fetch_columns(x: torch.Tensor, group, want) -> torch.Tensor:
+    """``x``: this rank's block of a leaf's last dim, cut in equal blocks
+    over ``group``; ``want[r]``: the ascending column indices (of the
+    whole leaf) that rank r uses, the same list on every rank.  Returns
+    this rank's columns, in their order, each sent by the rank that holds
+    it."""
+    if group_size(group) == 1:
+        return x.index_select(-1, want[0])
+    return _FetchColumns.apply(x, group, list(want))

@@ -24,6 +24,37 @@ layer gathers its FSDP dims (every mesh axis but ``model``) as it starts
 ``model`` shards their heads, MLP columns and vocabulary rows are split
 into.  ``shard`` — the reference's sharding constraint — changes nothing
 in the port: its tensors are already local.
+
+The stored blocks are the reference's specs' (so checkpoints, gathers and
+the global grad norm see plain block splits).  A layer asks the installed
+specs how each of its leaves is stored (``model_dim``: ``fsdp_gathered``
+installs the running layer's specs) and takes its share through one of
+three helpers: ``model_block`` (this rank's block of a dim: the stored
+block where the leaf is so split), ``model_whole`` (the whole leaf) and
+``model_columns`` (any ascending set of columns per rank, fetched from
+their owners: the SSM's packed ``in_proj`` [z | x | B C | dt], whose
+blocks cross the packing).  Where the share is not the stored block —
+the RG-LRU's ``conv_w``, stored split over its 4 taps; a leaf the rules
+keep replicated over ``model`` but each rank uses a slice of; columns
+that every rank uses — each rank's use is a partial one, and the
+backward of the collective that brought the leaf sums the gradient over
+``model``: all-gather → reduce-scatter, replicated → all-reduce, fetched
+columns → summed at their owner.  The leaves so summed:
+
+  ``moe.router`` (expert parallelism: each rank routes its own tokens);
+  ``ssm.in_proj`` (B and C columns used whole on every rank),
+  ``ssm.conv_w`` / ``ssm.conv_b`` (the B and C channels),
+  ``ssm.norm_scale``;
+  ``rglru.conv_w``, ``rglru.w_a``, ``rglru.w_i``, ``rglru.b_i``,
+  ``rglru.lam`` (each rank's channel columns).
+
+The sum lives in the graph, not in a list the step applies afterwards:
+the same router is used replicated — its gradient whole on every rank —
+when expert parallelism does not apply (``moe.apply_moe``).
+
+``use_rules`` also installs the batch axes the step cut its inputs over
+(``batch_rows``): the MoE's choice of expert parallelism depends on the
+global batch, of which a layer sees only its rows.
 """
 from __future__ import annotations
 
@@ -75,16 +106,30 @@ def current_specs():
     return getattr(_state, "specs", None)
 
 
+def batch_rows() -> MeshAxes:
+    """The mesh axes the installed step cut its inputs' batch dim over
+    (``batch_shardings``' spec of the tokens); None where every rank holds
+    the whole batch."""
+    return getattr(_state, "batch", None)
+
+
+def installed():
+    """What ``use_rules`` installed, as its arguments: (rules, specs,
+    batch)."""
+    return current_rules(), current_specs(), batch_rows()
+
+
 @contextlib.contextmanager
-def use_rules(rules: Optional[Rules], specs=None):
+def use_rules(rules: Optional[Rules], specs=None, batch: MeshAxes = None):
     """Install ``rules`` and, for a step on local shards, the spec tree of
-    the parameters (``partition_params``) the model gathers by."""
-    prev = current_rules(), current_specs()
-    _state.rules, _state.specs = rules, specs
+    the parameters (``partition_params``) the model gathers by and the
+    axes its batch rows are cut over."""
+    prev = installed()
+    _state.rules, _state.specs, _state.batch = rules, specs, batch
     try:
         yield rules
     finally:
-        _state.rules, _state.specs = prev
+        _state.rules, _state.specs, _state.batch = prev
 
 
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
@@ -430,8 +475,24 @@ def fsdp_gathered(fn, specs):
     mesh = rules.mesh
 
     def run(lp, *args, **kw):
-        return fn(_fsdp_gather(lp, specs, mesh), *args, **kw)
+        lp = _fsdp_gather(lp, specs, mesh)
+        prev = getattr(_state, "layer", None)
+        _state.layer = {}
+        _index_dicts(lp, specs, _state.layer)
+        try:
+            return fn(lp, *args, **kw)
+        finally:
+            _state.layer = prev
     return run
+
+
+def _index_dicts(tree, specs, out: Dict[int, object]) -> None:
+    """Every dict of a layer's gathered parameters → its spec tree, for
+    ``model_dim`` while the layer runs."""
+    if isinstance(tree, dict):
+        out[id(tree)] = specs
+        for k, v in tree.items():
+            _index_dicts(v, specs[k], out)
 
 
 def gather_top(params):
@@ -468,3 +529,52 @@ def model_gather(x: torch.Tensor, tp: TensorParallel,
         return full
     c = x.shape[-1] // 2
     return full.unflatten(-1, (tp.size, 2, c)).transpose(-3, -2).flatten(-3)
+
+
+def model_dim(p, name: str) -> Optional[int]:
+    """The dim of the leaf ``p[name]`` stored split over ``model`` under
+    the installed specs (``p``: a dict of the parameters of the layer that
+    ``fsdp_gathered`` runs), None where the leaf is whole on every model
+    rank."""
+    layer = getattr(_state, "layer", None) or {}
+    if id(p) not in layer:
+        raise ValueError(f"{name}: not a leaf of a layer running under "
+                         f"fsdp_gathered with installed specs")
+    for dim, ax in enumerate(layer[id(p)][name]):
+        if ax == "model":
+            return dim
+    return None
+
+
+def model_whole(p, name: str, tp: TensorParallel) -> torch.Tensor:
+    """The whole leaf ``p[name]`` on every model rank, for a use of part
+    of it on each: gathered from the ranks' blocks (backward: reduce-
+    scatter), or the replicated leaf through ``to_model`` (backward:
+    all-reduce) — the ranks' partial gradients summed either way."""
+    dim = model_dim(p, name)
+    if dim is None:
+        return collectives.to_model(p[name], tp.group)
+    return collectives.all_gather(p[name], tp.group, dim)
+
+
+def model_block(p, name: str, tp: TensorParallel, dim: int) -> torch.Tensor:
+    """This rank's block of the leaf ``p[name]`` along ``dim``: the stored
+    block where the leaf is split so, else cut from ``model_whole``."""
+    x = p[name]
+    if model_dim(p, name) == dim % x.dim():
+        return x
+    n = x.shape[dim] // tp.size
+    return model_whole(p, name, tp).narrow(dim, tp.index * n, n)
+
+
+def model_columns(p, name: str, tp: TensorParallel, cols) -> torch.Tensor:
+    """The columns ``cols(r)`` (ascending indices into the whole leaf's
+    last dim) of ``p[name]`` that model rank r uses, on this rank: fetched
+    from their owners where the leaf's columns are stored split over
+    ``model`` (``collectives.fetch_columns``: no rank gathers the whole
+    leaf), else cut from the whole leaf."""
+    x = p[name]
+    if model_dim(p, name) == x.dim() - 1:
+        return collectives.fetch_columns(
+            x, tp.group, [cols(r) for r in range(tp.size)])
+    return model_whole(p, name, tp).index_select(-1, cols(tp.index))

@@ -1,8 +1,9 @@
 """The train step, the reference's ``train/train_step.py``:
 ``loss_for``, ``_microbatch``, ``make_step_fn`` with gradient
 accumulation over ``n_micro`` microbatches, ``build_train_step`` (on one
-device, or sharded over a ``Mesh``: FSDP over the batch axes and tensor
-parallelism over ``model``) and ``build_dp_compressed_step`` (pure data
+device, or sharded over a ``Mesh``: FSDP over the batch axes, tensor
+parallelism over ``model`` and expert parallelism over the MoE's expert
+axis, for every family) and ``build_dp_compressed_step`` (pure data
 parallelism over ``grad_compress``'s wire formats).
 
 The step is eager PyTorch: ``torch.autograd.grad`` of ``train_loss`` for
@@ -109,12 +110,10 @@ def _acc_dtype(shape: ShapeConfig) -> torch.dtype:
 
 def make_step_fn(cfg: ArchConfig, shape: ShapeConfig, opt_cfg: AdamWConfig):
     """The step: (params, opt_state, batch) -> (params, opt_state, m)."""
-    loss_fn = loss_for(cfg, shape)
-    n_micro = max(shape.n_micro, 1)
-    acc_dtype = _acc_dtype(shape)
+    grad_fn = build_grad_fn(cfg, shape)
 
     def step(params, opt_state: OptState, batch):
-        loss, grads = _accumulate(loss_fn, params, batch, n_micro, acc_dtype)
+        loss, grads = grad_fn(params, batch)
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
                                                   opt_state)
         metrics["loss"] = loss
@@ -153,42 +152,62 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig,
     ``param_specs`` places them (``partition.shard_tree``); the global
     batch, the same on every rank, is cut to this rank's rows by
     ``batch_shardings``; every layer gathers its FSDP shards and, over a
-    model axis above 1, runs its heads, MLP columns and vocabulary rows
-    on this rank (the dense decoders only); the gradients are
-    reduce-scattered to their shards and averaged over the batch axes.
+    model axis above 1, runs its heads, MLP columns, vocabulary rows,
+    SSD heads, RG-LRU channels and shared-expert columns on this rank,
+    and a MoE layer its experts under expert parallelism (``models.moe``)
+    where the reference's ``_ep_applicable`` holds — every family.  The
+    gradients are reduce-scattered to their shards and averaged over the
+    batch axes; a leaf the ranks of ``model`` share but each use in part
+    (``sharding.partition``'s list) has its gradient summed over
+    ``model`` inside the backward.
     The metrics are global.  A mesh of one rank runs the unsharded
     arithmetic.  ``donate`` is accepted for the reference's signature —
     an eager step frees the old state as soon as the caller drops it."""
     del donate
     if mesh is None or rules is None:
         return make_step_fn(cfg, shape, opt_cfg)
-    if mesh.shape.get("model", 1) > 1 and cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over a model axis of "
-            f"{mesh.shape['model']} runs the dense decoders only; the other "
-            f"families' sharded step waits (ROADMAP A4)")
     specs = param_specs(cfg, rules)
-    loss_fn = loss_for(cfg, shape)
-    n_micro = max(shape.n_micro, 1)
-    acc_dtype = _acc_dtype(shape)
-    batch_axes = _axes(rules.logical["batch"])
+    grad_fn = build_grad_fn(cfg, shape, mesh, rules)
 
     def step(params, opt_state: OptState, batch):
-        rows = partition.batch_shardings(batch, mesh)
-        local = {k: partition.shard_leaf(v, rows[k], mesh)
-                 for k, v in batch.items()}
-        with partition.use_rules(rules, specs):
-            loss, grads = _accumulate(loss_fn, params, local, n_micro,
-                                      acc_dtype)
-        grads = tree_map(lambda g, s: _batch_mean(g, s, mesh, batch_axes),
-                         grads, specs)
-        loss = _batch_mean(loss, (), mesh, batch_axes)
+        loss, grads = grad_fn(params, batch)
         params, opt_state, metrics = adamw_update(
             opt_cfg, params, grads, opt_state, mesh=mesh, specs=specs)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return step
+
+
+def build_grad_fn(cfg: ArchConfig, shape: ShapeConfig,
+                  mesh: Optional[Mesh] = None,
+                  rules: Optional[Rules] = None):
+    """The step's first half, (params, batch) -> (loss, gradients): over
+    ``shape.n_micro`` microbatches, summed in the accumulation dtype; with
+    ``mesh`` and ``rules`` on this rank's shards (``build_train_step``),
+    the gradients reduced to their shards and averaged over the batch
+    axes, the loss the global batch's."""
+    loss_fn = loss_for(cfg, shape)
+    n_micro = max(shape.n_micro, 1)
+    acc_dtype = _acc_dtype(shape)
+    if mesh is None or rules is None:
+        return lambda params, batch: _accumulate(loss_fn, params, batch,
+                                                 n_micro, acc_dtype)
+    specs = param_specs(cfg, rules)
+    batch_axes = _axes(rules.logical["batch"])
+
+    def grads_of(params, batch):
+        rows = partition.batch_shardings(batch, mesh)
+        local = {k: partition.shard_leaf(v, rows[k], mesh)
+                 for k, v in batch.items()}
+        with partition.use_rules(rules, specs, rows["tokens"][0]):
+            loss, grads = _accumulate(loss_fn, params, local, n_micro,
+                                      acc_dtype)
+        grads = tree_map(lambda g, s: _batch_mean(g, s, mesh, batch_axes),
+                         grads, specs)
+        return _batch_mean(loss, (), mesh, batch_axes), grads
+
+    return grads_of
 
 
 def _axes(ax) -> Tuple[str, ...]:

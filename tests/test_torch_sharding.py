@@ -25,6 +25,7 @@ from repro.sharding import partition as ref_part
 from repro.sharding import pipeline as ref_pipe
 from repro.train import grad_compress as ref_gc
 from repro_torch.configs import base as pt_base
+from repro_torch.data.pipeline import with_frontend_inputs
 from repro_torch.launch import mesh as pt_mesh
 from repro_torch.models import model as pt_model
 from repro_torch.serve import engine as pt_engine
@@ -262,22 +263,31 @@ def test_step_on_one_rank_is_the_unsharded_step(arch):
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "recurrentgemma-9b",
                                   "mamba2-1.3b", "whisper-tiny",
-                                  "qwen2-vl-72b"])
+                                  "qwen2-vl-72b", "llama4-scout-17b-a16e"])
 def test_other_families_refuse_a_model_axis(arch):
+    """Every family beyond the dense one builds its sharded step at a
+    model axis above 1 (the 4-rank runs are ``test_torch_dist_families
+    .py``), and on a one-rank mesh the sharded step's gradients equal the
+    unsharded ones bit for bit."""
     cfg = pt_base.get_smoke_config(arch)
-    shape = pt_base.ShapeConfig(name="t", kind="train", seq_len=32,
-                                global_batch=4)
-    mesh = pt_mesh.Mesh((2, 2), ("data", "model"))
+    shape, params, batch = _smoke_step_inputs(cfg)
+    batch = {k: torch.from_numpy(v) for k, v in with_frontend_inputs(
+        {k: v.numpy() for k, v in batch.items()}, cfg,
+        n_vis=pt_model.n_vis(cfg, 32)).items()}
+    for grid in ((2, 2), (4, 1)):
+        mesh = pt_mesh.Mesh(grid, ("data", "model"))
+        pt_step.build_train_step(cfg, shape, AdamWConfig(), mesh,
+                                 pt_part.make_rules(mesh, kind="train",
+                                                    n_heads=cfg.n_heads,
+                                                    n_kv_heads=cfg.n_kv_heads))
+    mesh = pt_mesh.make_host_mesh(model=1)
     rules = pt_part.make_rules(mesh, kind="train", n_heads=cfg.n_heads,
                                n_kv_heads=cfg.n_kv_heads)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        pt_step.build_train_step(cfg, shape, AdamWConfig(), mesh, rules)
-    # a model axis of 1 (data parallelism) builds
-    mesh1 = pt_mesh.Mesh((4, 1), ("data", "model"))
-    pt_step.build_train_step(cfg, shape, AdamWConfig(), mesh1,
-                             pt_part.make_rules(mesh1, kind="train",
-                                                n_heads=cfg.n_heads,
-                                                n_kv_heads=cfg.n_kv_heads))
+    l0, g0 = pt_step.build_grad_fn(cfg, shape)(params, batch)
+    l1, g1 = pt_step.build_grad_fn(cfg, shape, mesh, rules)(params, batch)
+    assert torch.equal(l0, l1)
+    for a, b in zip(tree_leaves(g0), tree_leaves(g1)):
+        assert torch.equal(a, b)
 
 
 def test_production_meshes():

@@ -1,7 +1,8 @@
-"""The rank side of ``test_torch_dist.py`` and ``test_torch_dist_train.py``:
-functions that ``torch.multiprocessing`` starts on gloo ranks of one
-``FileStore``.  They import the port only (never JAX): the parent writes
-every input to ``inputs.pt`` and reads what rank 0 writes to ``out.pt``.
+"""The rank side of ``test_torch_dist.py``, ``test_torch_dist_train.py``
+and ``test_torch_dist_families.py``: functions that
+``torch.multiprocessing`` starts on gloo ranks of one ``FileStore``.
+They import the port only (never JAX): the parent writes every input to
+``inputs.pt`` and reads what rank 0 writes to ``out.pt``.
 """
 import datetime
 import os
@@ -234,3 +235,135 @@ def train_rank(rank, world, workdir):
     out["launcher"] = [r["loss"] for r in launch.main(inp["launcher"])]
     _finish(rank, workdir, out)
 
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism and the other families' sharded steps
+# (test_torch_dist_families.py)
+# ---------------------------------------------------------------------------
+
+def _exchange_case(a2a, rank):
+    """``collectives.all_to_all`` of this rank's x along each dim, and the
+    gradient of Σ y·c."""
+    from repro_torch.sharding import collectives
+    out = {}
+    for dim in (0, 1):
+        x = torch.from_numpy(a2a["x"][rank]).requires_grad_(True)
+        y = collectives.all_to_all(x, dist.group.WORLD, dim)
+        c = torch.from_numpy(a2a["c"][dim][rank])
+        (gx,) = torch.autograd.grad((y * c).sum(), x)
+        out[dim] = (_gathered(y.detach()), _gathered(gx))
+    return out
+
+
+def _fetch_case(fetch, rank):
+    """``collectives.fetch_columns`` of this rank's column block of the
+    whole leaf: the columns it fetched and its block's gradient of
+    Σ y·c."""
+    from repro_torch.sharding import collectives
+    w = torch.from_numpy(fetch["w"])
+    n = w.shape[-1] // dist.get_world_size()
+    x = w[:, rank * n:(rank + 1) * n].clone().requires_grad_(True)
+    want = [torch.from_numpy(c) for c in fetch["want"]]
+    y = collectives.fetch_columns(x, dist.group.WORLD, want)
+    (gx,) = torch.autograd.grad((y * torch.from_numpy(
+        fetch["c"][rank])).sum(), x)
+    ys = [None] * dist.get_world_size()      # one width a rank
+    dist.all_gather_object(ys, y.detach())
+    return ys, _gathered(gx)
+
+
+def _summed_over_batch(g, spec, mesh, rows):
+    """A gradient of this rank's rows summed over the batch axes its leaf
+    is not split on (those it is split on its FSDP gather summed); a
+    gradient of the whole batch (``rows`` None: every rank holds it) over
+    none, and its FSDP gather's sum divided out."""
+    from repro_torch.sharding import collectives
+    split = {a for ax in spec if ax is not None
+             for a in ((ax,) if isinstance(ax, str) else ax)}
+    if rows is None:
+        return g / mesh.axis_size(tuple(a for a in ("data",) if a in split))
+    return collectives.all_reduce(
+        g, mesh.group(tuple(a for a in ("data",) if a not in split)))
+
+
+def _moe_case(case):
+    """``apply_moe`` on this rank's shards under the rules: y, and the
+    gradients of Σ y·gy for every leaf and x, gathered whole.  The rows
+    of x are cut over ``data`` where it divides the batch, else whole on
+    every rank (``batch_shardings``' choice)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import collectives, partition
+    from repro_torch.train import train_step
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = case["cfg"]
+    mesh = Mesh(case["mesh"], ("data", "model"))
+    rules = partition.make_rules(mesh, kind="train", n_heads=cfg.n_heads,
+                                 n_kv_heads=cfg.n_kv_heads)
+    full = _params(case["params"])
+    specs = partition.partition_params(full, rules)
+    split = case["x"].shape[0] % mesh.shape["data"] == 0
+    rows = ("data" if split else None, None, None)
+    x, gy = (partition.shard_leaf(torch.from_numpy(case[k]), rows, mesh)
+             for k in ("x", "gy"))
+    tree = {"p": partition.shard_tree(full, specs, mesh), "x": x}
+    with partition.use_rules(rules, specs, rows[0]):
+        fn = partition.fsdp_gathered(moe.apply_moe, specs)
+        ep = moe._ep_applicable(cfg, x, rules)
+        y = fn(tree["p"], cfg, x)
+        _, g = train_step.value_and_grad(
+            lambda t, _: (fn(t["p"], cfg, t["x"]) * gy).sum(), tree, None)
+    gp = tree_map(lambda a, s: _summed_over_batch(a, s, mesh, rows[0]),
+                  g["p"], specs)
+    data = mesh.group("data") if split else None
+    return {"ep": ep, "y": collectives.gather_dim(y, data, 0),
+            "gx": collectives.gather_dim(g["x"], data, 0),
+            "gp": partition.gather_tree(gp, specs, mesh)}
+
+
+def _launcher_direct(argv):
+    """The launcher's run, and the same steps built directly: its config,
+    shape, optimizer and data through ``build_train_step`` on
+    ``make_host_mesh`` from ``init_params`` at its seed."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.sharding import partition
+    from repro_torch.train import train_step
+    from repro_torch.train.optimizer import init_opt_state
+
+    losses = [r["loss"] for r in launch.main(argv)]
+    args = launch.parse_args(argv)
+    trainer = launch.make_trainer(args)
+    mesh = make_host_mesh(model=args.model_shards)
+    cfg = trainer.cfg
+    rules = partition.make_rules(mesh, kind="train", n_heads=cfg.n_heads,
+                                 n_kv_heads=cfg.n_kv_heads)
+    step = train_step.build_train_step(cfg, trainer.shape, trainer.opt_cfg,
+                                       mesh, rules)
+    specs = train_step.param_specs(cfg, rules)
+    p = partition.shard_tree(model_lib.init_params(
+        cfg, torch.Generator().manual_seed(args.seed), dtype=torch.float32,
+        device="cpu"), specs, mesh)
+    st = init_opt_state(p)
+    direct = []
+    for _ in range(args.steps):
+        p, st, m = step(p, st, trainer._next_batch())
+        direct.append(float(m["loss"]))
+    return losses, direct
+
+
+def families_rank(rank, world, workdir):
+    inp = _init(rank, world, workdir)
+    out = {"a2a": _exchange_case(inp["a2a"], rank),
+           "fetch": _fetch_case(inp["fetch"], rank),
+           "moe": {k: _moe_case(c) for k, c in inp["moe"].items()},
+           "sharded": {}}
+    for arch in inp["train"]:
+        for mesh in inp["meshes"]:
+            out["sharded"][(arch, mesh)] = _sharded_steps(
+                inp, arch, (mesh, ("data", "model")))
+    out["launcher"] = _launcher_direct(inp["launcher"])
+    _finish(rank, workdir, out)
