@@ -12,8 +12,10 @@ Llama-4-Scout at published width and cut depth — through
 generator, block-magnitude-pruned at (256, 256) (Mamba2's are not: no
 plan reaches an SSM site), (phase 21) trains StableLM-1.6B at full
 width through ``repro_torch.launch.train`` and (phase 25) through the
-sharded train step on a one-rank NCCL group, and (phase 26) runs the
-expert-parallel MoE body and every other family's sharded step there:
+sharded train step on a one-rank NCCL group, (phase 26) runs the
+expert-parallel MoE body and every other family's sharded step there,
+and (phase 27) holds the sharded decode step and the dry-run's traced
+predictions against the card:
 
   1. the card (``torch.cuda``, ``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (nvcc),
@@ -470,6 +472,29 @@ expert-parallel MoE body and every other family's sharded step there:
      ``flash_backward`` must have launched.  The matmul and flash rows
      gain ``launches_phase26``; an ``expert_parallel`` JSON line holds
      the figures.
+ 27. the dry-run and roofline tooling (``run_tooling``), last, on a new
+     one-rank NCCL group, while (c) runs in three processes of its own:
+     (a) the sharded decode step (``serve.engine.build_serve_step`` under
+     decode rules on the one-rank mesh, the caches' rows cut over
+     ``model`` or not) of StableLM-1.6B at 4 layers, DeepSeek-MoE-16B
+     and Mamba2-1.3B at 2, RecurrentGemma-9B at 3 (its rolling window
+     wraps) and Whisper-tiny at 2, full width, bf16, the decode table,
+     8 steps of 4 rows at their own positions in a 32768-row cache filled
+     from a seed: logits at every step and the whole state bit-equal to
+     ``model.decode_step``, kernels launched; (b) StableLM-1.6B's train
+     (phase 21's cell), prefill (1 x 32768) and decode (decode_32k at
+     batch 4) cells on the one-card mesh: ``trace_cell`` on fake CUDA
+     tensors predicts peak, FLOPs and the H100 roofline bound, then the
+     step runs for real — the traced FLOPs must equal the real step's
+     (``FlopCounterMode`` plus the kernel wrappers' counters) and the
+     predicted peak / ``max_memory_allocated`` (after a reset, inputs
+     resident, less what was held before them) must lie in [0.85, 1.15];
+     the median of 3 warm calls against the bound is reported; (c)
+     ``python -m repro_torch.launch.dryrun`` for stablelm-1.6b@train_4k
+     (single) and deepseek-moe-16b@decode_32k (multi) and ``python -m
+     repro_torch.roofline.analysis`` for stablelm-1.6b@train_4k exit 0
+     (records under ``build/p27/``): GiB a rank, FLOPs, collective GiB,
+     dominant term, wall.  A ``tooling`` JSON line holds the figures.
 
 Exits non-zero on any failure, without a CUDA device, or outside a checkout
 of the repository.  The last line is the device JSON; the whole report
@@ -7673,6 +7698,389 @@ def run_expert_parallel(report, card):
     return {"ep": ep, "steps": steps, "launches": launches}, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the dry-run and roofline tooling against the card — the
+# sharded decode step at one NCCL rank bit-equal to the unsharded one,
+# each traced StableLM cell's FLOPs and peak against its real step, and the
+# CLIs
+# ---------------------------------------------------------------------------
+
+P27_CACHE = 32768        # decode_32k's cache rows
+P27_BATCH = 4            # decode_32k's batch (128) cut to 4
+P27_STEPS = 8
+# (arch, layers) of (a): StableLM at 4 layers, the other families at 1-3
+# (recurrentgemma's one group: two RG-LRU layers and its windowed attention)
+P27_DECODE = (("stablelm-1.6b", 4), ("deepseek-moe-16b", 2),
+              ("mamba2-1.3b", 2), ("recurrentgemma-9b", 3),
+              ("whisper-tiny", 2))
+P27_POS = (100, 5000, 20000, 32000)     # each row's first position
+P27_BAND = (0.85, 1.15)                 # predicted peak / measured peak
+P27_CLIS = (
+    ("dryrun stablelm-1.6b@train_4k single",
+     ["-m", "repro_torch.launch.dryrun", "--arch", "stablelm-1.6b",
+      "--shape", "train_4k", "--mesh", "single"]),
+    ("dryrun deepseek-moe-16b@decode_32k multi",
+     ["-m", "repro_torch.launch.dryrun", "--arch", "deepseek-moe-16b",
+      "--shape", "decode_32k", "--mesh", "multi"]),
+    ("roofline stablelm-1.6b@train_4k",
+     ["-m", "repro_torch.roofline.analysis", "--arch", "stablelm-1.6b",
+      "--shape", "train_4k"]),
+)
+
+
+def p27_start_clis(workdir):
+    """(c) Start the three CLIs, each in its own process (its own fake
+    process group of 256 or 512 ranks, away from this process's NCCL
+    group), writing under ``workdir``; ``p27_finish_clis`` joins them."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    procs = []
+    for i, (name, argv) in enumerate(P27_CLIS):
+        out = os.path.join(workdir, "dryrun" if "dryrun" in argv[1]
+                           else "roofline")
+        log = open(os.path.join(workdir, f"cli{i}.log"), "w")
+        proc = subprocess.Popen([sys.executable, *argv, "--out", out],
+                                cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+        procs.append((name, argv, out, proc, log, time.time()))
+    return procs
+
+
+def p27_finish_clis(procs, report, timeout=400.0) -> dict:
+    """Join the CLIs (killed after ``timeout`` s), require exit 0 and read
+    their records: GiB a rank, FLOPs, collective GiB, dominant term (the
+    H100 roofline of the record's own numbers), wall."""
+    from repro_torch.roofline.analysis import roofline_terms
+    deadline = time.time() + timeout
+    while (any(p[3].poll() is None for p in procs)
+           and time.time() < deadline):
+        time.sleep(0.2)
+    out = {}
+    try:
+        for name, argv, odir, proc, log, t0 in procs:
+            rc = proc.poll()
+            if rc is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+            # its log's last write: the process may have ended long before
+            wall = os.path.getmtime(log.name) - t0
+            with open(log.name) as f:
+                tail = f.read()[-1500:]
+            need(rc == 0, f"phase 27 (c): {name} exited {rc}: {tail}")
+            arch, shape = argv[argv.index("--arch") + 1], argv[
+                argv.index("--shape") + 1]
+            if "dryrun" in argv[1]:
+                mesh = argv[argv.index("--mesh") + 1]
+                with open(os.path.join(odir, mesh,
+                                       f"{arch}@{shape}.json")) as f:
+                    rec = json.load(f)
+                need(rec["ok"] and rec["fits_hbm"],
+                     f"phase 27 (c): {name}: record {rec.get('ok')}, fits "
+                     f"{rec.get('fits_hbm')}")
+                metrics = {"flops": rec["cost"]["flops"],
+                           "bytes": rec["cost"]["bytes accessed"],
+                           "coll_wire": rec["collectives"]["wire_bytes"]}
+                gib = rec["live_bytes_per_device"] / 2**30
+            else:
+                with open(os.path.join(odir, f"{arch}@{shape}.json")) as f:
+                    rec = json.load(f)
+                metrics = rec["metrics_per_device"]
+                gib = None
+            terms = roofline_terms(metrics)
+            dominant = max(terms, key=terms.get)
+            out[name] = {"gib_per_rank": gib, "flops": metrics["flops"],
+                         "coll_gib": metrics["coll_wire"] / 2**30,
+                         "dominant": dominant,
+                         "terms_ms": {k: v * 1e3 for k, v in terms.items()},
+                         "wall_s": round(wall, 1)}
+            report(f"  (c) {name}: exit 0, "
+                   + (f"{gib:.2f} GiB a rank, " if gib is not None else "")
+                   + f"{metrics['flops']:.4e} FLOPs, "
+                   f"{metrics['coll_wire'] / 2**30:.3f} collective GiB, "
+                   f"dominant {dominant} ({terms[dominant] * 1e3:.1f} ms), "
+                   f"wall {wall:.1f} s")
+    finally:
+        for *_, proc, log, _t in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return out
+
+
+def _p27_filled_state(cfg, dev, seed):
+    """A decode state of ``P27_BATCH`` rows and ``P27_CACHE`` positions with
+    every leaf drawn from N(0, 1) (a prefilled cache: caches, a Whisper
+    memory, SSM and RG-LRU states)."""
+    import torch
+    from repro_torch.core.sparsity import iter_leaves
+    from repro_torch.models import model as model_lib
+    st = model_lib.init_decode_state(cfg, P27_BATCH, P27_CACHE,
+                                     torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _, leaf in iter_leaves(st):
+        leaf.normal_(generator=gen)
+    return st
+
+
+def _launch_total() -> int:
+    from repro_torch.kernels import block_sparse as bs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flex_matmul as fm
+    return sum(sum(m.LAUNCHES.values()) for m in (fm, bs, fa))
+
+
+def p27_decode(report) -> dict:
+    """(a) Each ``P27_DECODE`` config at published width and cut depth,
+    bf16, the decode table's kernels: ``P27_STEPS`` steps of the serve
+    step under decode rules on the one-rank mesh, the caches' rows cut
+    over ``model`` (SP) or not, against ``model.decode_step`` from the same
+    weights and filled state — logits at every step and the whole state
+    after the last, bit for bit; the sharded side must launch kernels."""
+    import torch
+    from repro_torch.core.sparsity import iter_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import build_serve_step, decode_exec_config
+    from repro_torch.sharding import partition
+    from repro_torch.train.train_step import param_specs
+
+    dev = torch.device("cuda")
+    mesh = make_host_mesh(model=1)
+    pos0 = torch.tensor(P27_POS, device=dev)
+    out = {}
+    for arch, layers in P27_DECODE:
+        t0 = time.perf_counter()
+        cfg = cut_config(arch, layers)
+        params = model_lib.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(27),
+            dtype=torch.bfloat16, device=dev)
+        ec = decode_exec_config(cfg, P27_BATCH, use_kernels=True,
+                                device="cuda")
+        serve = build_serve_step(cfg)
+        gen = torch.Generator(device=dev).manual_seed(270)
+        tokens = torch.randint(0, cfg.vocab, (P27_STEPS, P27_BATCH, 1),
+                               generator=gen, device=dev)
+        for seq_shard in (False, True):
+            rules = partition.make_rules(
+                mesh, kind="decode", n_heads=cfg.n_heads,
+                n_kv_heads=cfg.n_kv_heads, seq_shard=seq_shard)
+            specs = param_specs(cfg, rules)
+            p = partition.shard_tree(params, specs, mesh)
+            st_a = _p27_filled_state(cfg, dev, 27)
+            st_b = _p27_filled_state(cfg, dev, 27)
+            st_specs = partition.batch_shardings({"state": st_a}, mesh,
+                                                 seq_shard=seq_shard)["state"]
+            cache = partition.cache_axis(st_specs)
+            rows = partition.batch_shardings({"tokens": tokens[0]},
+                                             mesh)["tokens"][0]
+            launched = 0
+            for t in range(P27_STEPS):
+                pos = pos0 + t
+                before = _launch_total()
+                with partition.use_rules(rules, specs, rows, cache), \
+                        ops.exec_config(ec):
+                    lg_a, st_a = serve(p, tokens[t], st_a, pos)
+                launched += _launch_total() - before
+                with ops.exec_config(ec):
+                    lg_b, st_b = model_lib.decode_step(params, cfg,
+                                                       tokens[t], st_b, pos)
+                need(torch.equal(lg_a, lg_b),
+                     f"phase 27 (a) {arch} seq_shard={seq_shard}: step {t}"
+                     f" logits differ from the unsharded step")
+                need(bool(torch.isfinite(lg_a).all()),
+                     f"phase 27 (a) {arch}: non-finite logits")
+            for (path, a), (_, b) in zip(iter_leaves(st_a),
+                                         iter_leaves(st_b)):
+                need(torch.equal(a, b), f"phase 27 (a) {arch} seq_shard="
+                                        f"{seq_shard}: state {path} differs")
+            need(launched > 0, f"phase 27 (a) {arch}: the sharded step "
+                               f"launched no kernel")
+            out[f"{arch}/{'sp' if seq_shard else 'tp'}"] = {
+                "launches_a_step": launched // P27_STEPS, "cache": cache}
+            del st_a, st_b, p
+        report(f"  (a) {arch} ({cfg.n_layers} layers): the one-rank serve "
+               f"step under decode rules == decode_step bit for bit, "
+               f"{P27_STEPS} steps x {P27_BATCH} rows at positions "
+               f"{P27_POS[0]}..{P27_POS[-1] + P27_STEPS - 1} of "
+               f"{P27_CACHE}, SP off and on "
+               f"({out[arch + '/tp']['launches_a_step']} launches a step); "
+               f"{time.perf_counter() - t0:.1f} s")
+        del params
+        free()
+    return out
+
+
+def p27_cells():
+    """(b) The three StableLM-1.6B cells cut to one card: phase 21's
+    train cell (4 x 4096 tokens in 2 microbatches, remat full), prefill
+    1 x 32768 tokens at ``cell_shape``'s chunks, decode_32k at batch 4."""
+    from repro_torch.configs.cells import cell_shape
+    return (("train_4k", train_shape()),
+            ("prefill_32k", dataclasses.replace(
+                cell_shape("stablelm-1.6b", "prefill_32k"), global_batch=1)),
+            ("decode_32k", dataclasses.replace(
+                cell_shape("stablelm-1.6b", "decode_32k"),
+                global_batch=P27_BATCH)))
+
+
+def _p27_args(step, dev):
+    """Real inputs of a StableLM cell step (one-rank mesh: blocks are the
+    whole leaves): weights from the port's init, AdamW's zero state,
+    token batches drawn from a seed, a zero decode state, the last
+    position of the cache."""
+    import torch
+    from repro_torch.models import model as model_lib
+    from repro_torch.train.optimizer import init_opt_state
+    cfg, shape = step.cfg, step.shape
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(27),
+        dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(271)
+
+    def tokens(*dims):
+        return torch.randint(0, cfg.vocab, dims, generator=gen, device=dev,
+                             dtype=torch.int32)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return (params, init_opt_state(params),
+                {"tokens": tokens(b, s), "labels": tokens(b, s)})
+    if shape.kind == "prefill":
+        return params, {"tokens": tokens(b, s)}
+    state = model_lib.init_decode_state(cfg, b, s, torch.bfloat16,
+                                        device=dev)
+    return (params, tokens(b, 1), state,
+            torch.tensor(s - 1, dtype=torch.int32, device=dev))
+
+
+def p27_predict(report) -> dict:
+    """(b) For each ``p27_cells`` cell: ``trace_cell`` on fake CUDA
+    tensors predicts the peak, the FLOPs and the roofline bound (H100
+    datasheet constants; no collectives on one rank); then the same step
+    runs for real from real inputs.  Gates: the traced FLOPs equal the
+    real step's (``FlopCounterMode`` plus the kernel wrappers' counters,
+    the same route), and predicted peak / measured peak lies in
+    ``P27_BAND`` — the measured peak is ``max_memory_allocated`` after a
+    reset, the inputs resident, less what the card held before the inputs
+    were made.  Reported: the median of 3 warm calls against the bound
+    (the fraction of the roofline reached)."""
+    import gc
+    import statistics
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import accounting
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.step_builders import build_cell_step, trace_cell
+    from repro_torch.roofline.analysis import roofline_terms
+
+    dev = torch.device("cuda")
+    mesh = make_host_mesh(model=1)
+    out = {}
+    for name, shape in p27_cells():
+        t0 = time.perf_counter()
+        step = build_cell_step("stablelm-1.6b", name, mesh, shape=shape)
+        tr = trace_cell(step)
+        t_trace = time.perf_counter() - t0
+        terms = roofline_terms({"flops": tr["flops"], "bytes": tr["bytes"],
+                                "coll_wire": 0.0})
+        dominant = max(terms, key=terms.get)
+        bound_ms = terms[dominant] * 1e3
+
+        free()
+        base = torch.cuda.memory_allocated()
+        base_req = torch.cuda.memory_stats().get(
+            "requested_bytes.all.current", 0)
+        args = _p27_args(step, dev)
+        accounting.reset()
+        with FlopCounterMode(display=False) as fc:
+            res = step.fn(*args)
+        torch.cuda.synchronize()
+        flops = float(fc.get_total_flops()) + accounting.totals()["flops"]
+        del res
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        res = step.fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        # the bytes asked for, before the allocator rounds them to blocks
+        requested = torch.cuda.memory_stats().get(
+            "requested_bytes.all.peak", 0) - base_req
+        del res
+        gc.collect()
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            res = step.fn(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            del res
+        ms = statistics.median(times)
+        predicted = tr["memory"]["peak_bytes"]
+        ratio = predicted / peak
+        report(f"  (b) stablelm-1.6b@{name} (B {shape.global_batch}, S "
+               f"{shape.seq_len}, n_micro {shape.n_micro}): traced in "
+               f"{t_trace:.1f} s; FLOPs traced {tr['flops']:.6e}, counted "
+               f"{flops:.6e}; peak predicted {predicted / 2**30:.3f} GiB, "
+               f"measured {peak / 2**30:.3f} GiB (ratio {ratio:.4f}; "
+               f"requested {requested / 2**30:.3f} GiB); "
+               f"bound {bound_ms:.3f} ms ({dominant}), median of 3 warm "
+               f"calls {ms:.3f} ms ({', '.join(f'{t:.1f}' for t in times)})"
+               f" -> {bound_ms / ms:.4f} of the roofline")
+        need(tr["flops"] == flops, f"phase 27 (b) {name}: traced FLOPs "
+             f"{tr['flops']} != counted {flops}")
+        need(P27_BAND[0] <= ratio <= P27_BAND[1],
+             f"phase 27 (b) {name}: predicted / measured peak {ratio:.4f} "
+             f"outside {P27_BAND}")
+        out[name] = {"flops": flops, "predicted_peak_gib": predicted / 2**30,
+                     "peak_gib": peak / 2**30, "peak_ratio": ratio,
+                     "requested_peak_gib": requested / 2**30,
+                     "bytes_upper": tr["bytes"], "bound_ms": bound_ms,
+                     "bound_by": dominant, "ms": ms, "ms_calls": times,
+                     "roofline_fraction": bound_ms / ms}
+        del args
+        free()
+    return out
+
+
+def run_tooling(report, card):
+    """Phase 27: the sharded decode step, the traces held against the card
+    and the CLIs (the module docstring); the CLIs run in their own
+    processes while (a) and the traces of (b) run here."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    free()
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "p27")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = p27_start_clis(work)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            decode = p27_decode(report)
+            report(f"[phase 27a: {time.perf_counter() - t0:.1f} s]")
+            predict = p27_predict(report)
+            report(f"[phase 27b: {time.perf_counter() - t0:.1f} s]")
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        clis = p27_finish_clis(procs, report)
+    report(f"[phase 27c: {time.perf_counter() - t0:.1f} s]")
+    torch.cuda.synchronize()
+    return {"card": card, "decode": decode, "predict": predict,
+            "clis": clis, "seconds": round(time.perf_counter() - t0, 1)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7995,6 +8403,13 @@ def main() -> int:
             if key in launches24:
                 row["launches_phase24"] = launches24[key]
         rows.append(flash24)
+        # phase 27: the dry-run and roofline tooling against the card
+        free()
+        report(f"memory before phase 27: "
+               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+        tooling = run_tooling(report, card)
+        done("phase 27")
         report(f"smoke wall time: {time.perf_counter() - t_start:.1f} s")
         for line in smi:
             report(line)
@@ -8007,6 +8422,7 @@ def main() -> int:
             "ep": {a: {k: v for k, v in r.items() if k != "launches"}
                    for a, r in expert_parallel["ep"].items()},
             "steps": expert_parallel["steps"]}}))
+        report(json.dumps({"tooling": tooling}))
         report(json.dumps({"kernels": rows}))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -7,9 +7,10 @@ config of the same family for CPU tests).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Optional, Sequence
 
 
 # ---------------------------------------------------------------------------
@@ -214,3 +215,48 @@ def get_config(arch_id: str) -> ArchConfig:
 def get_smoke_config(arch_id: str) -> ArchConfig:
     return importlib.import_module(_MODULES[arch_id]).smoke_config()
 
+
+
+# ---------------------------------------------------------------------------
+# Production cells (the dry-run and roofline grid)
+# ---------------------------------------------------------------------------
+
+# the reference's assigned architectures, in its order: the cell grid
+# (``cells``) walks them so; ``ARCH_IDS`` above keeps the port's registry
+# order and ``edge-tiny``, which has no production cell
+CELL_ARCH_IDS = [
+    "qwen2-vl-72b",
+    "yi-9b",
+    "gemma-2b",
+    "chatglm3-6b",
+    "stablelm-1.6b",
+    "whisper-tiny",
+    "deepseek-moe-16b",
+    "llama4-scout-17b-a16e",
+    "recurrentgemma-9b",
+    "mamba2-1.3b",
+]
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> bool:
+    """Whether an (arch, shape) cell is runnable: ``long_500k`` only for a
+    sub-quadratic architecture."""
+    if shape.name == "long_500k":
+        return cfg.subquadratic
+    return True
+
+
+def cells(include_skipped: bool = False):
+    """Yield every assigned (arch_id, shape_name) cell, in the reference's
+    order."""
+    for a in CELL_ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            if include_skipped or shape_applicable(cfg, s):
+                yield a, s.name
+
+
+def scaled_shape(shape: ShapeConfig, *, seq: Optional[int] = None,
+                 batch: Optional[int] = None, **kw) -> ShapeConfig:
+    return dataclasses.replace(shape, seq_len=seq or shape.seq_len,
+                               global_batch=batch or shape.global_batch, **kw)

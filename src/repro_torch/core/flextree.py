@@ -76,15 +76,18 @@ def reduce_psum(x: torch.Tensor, cfg: ReduceConfig, scatter_dim: int = 0,
     ``x``."""
     if cfg.ic_p <= 1:
         return x
+    from repro_torch.sharding.collectives import record
     if cfg.strategy == "allreduce":
         out = x.clone()
         dist.all_reduce(out, group=group)
+        record("all-reduce", out, group)
         return out
     if cfg.strategy == "scatter":
         front = x.movedim(scatter_dim, 0).contiguous()
         out = torch.empty((front.shape[0] // cfg.ic_p,) + front.shape[1:],
                           dtype=x.dtype, device=x.device)
         dist.reduce_scatter_tensor(out, front, group=group)
+        record("reduce-scatter", out, group)
         return out.movedim(0, scatter_dim)
     if cfg.strategy == "tree":
         return _tree_allreduce(x, group, cfg.ic_p)
@@ -97,9 +100,11 @@ def _tree_allreduce(x: torch.Tensor, group, size: int) -> torch.Tensor:
     adds — the adder-tree levels of Fig 7.  Partners add the same two
     values, so every rank ends with the same bits.  A size that is not a
     power of 2 falls back to ``all_reduce``, as in the reference."""
+    from repro_torch.sharding.collectives import record
     if size & (size - 1):
         out = x.clone()
         dist.all_reduce(out, group=group)
+        record("all-reduce", out, group)
         return out
     me = dist.get_rank(group)
     x = x.contiguous()
@@ -111,6 +116,7 @@ def _tree_allreduce(x: torch.Tensor, group, size: int) -> torch.Tensor:
                 [dist.P2POp(dist.isend, x, peer, group=group),
                  dist.P2POp(dist.irecv, buf, peer, group=group)]):
             req.wait()
+        record("collective-permute", buf, group)
         x = x + buf
     return x
 

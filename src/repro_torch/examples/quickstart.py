@@ -66,7 +66,7 @@ def two_sided(device) -> dict:
                                            build_block_sparse_meta,
                                            csb_popcount, prune_magnitude,
                                            zvc_decode, zvc_encode)
-    from repro_torch.kernels.block_sparse import block_sparse_matmul
+    from repro_torch.kernels import ops
 
     rng = np.random.default_rng(0)
     # element-wise magnitude pruning is the (1, 1)-block case
@@ -90,7 +90,8 @@ def two_sided(device) -> dict:
     a, b = a.to(device), b.to(device)
     meta = build_block_sparse_meta(block_bitmap(a, 64, 64),
                                    block_bitmap(b, 64, 64))
-    out = block_sparse_matmul(a, b, meta)
+    with ops.exec_config(ops.ExecConfig(use_kernels=True)):
+        out = ops.block_sparse_matmul(a, b, meta)
     exact = (a.double() @ b.double()).float()
     err = float((out - exact).abs().max())
     skip = 1.0 - int(meta.kcnt.sum()) / meta.kcnt.numel() / meta.max_nnz

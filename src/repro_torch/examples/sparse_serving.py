@@ -44,7 +44,7 @@ def two_sided(dev) -> dict:
                                            prune_magnitude,
                                            simulate_pe_cycles,
                                            zvc_compressed_bytes)
-    from repro_torch.kernels.block_sparse import block_sparse_matmul
+    from repro_torch.kernels import ops
     from repro_torch.kernels.ref import block_sparse_matmul_ref
 
     cfg = get_smoke_config("yi-9b")
@@ -73,7 +73,8 @@ def two_sided(dev) -> dict:
 
     # the combined (CSB) dispatch
     meta = build_block_sparse_meta(a_bitmap, w_bitmap)
-    out = block_sparse_matmul(x, w_in, meta)
+    with ops.exec_config(ops.ExecConfig(use_kernels=True)):
+        out = ops.block_sparse_matmul(x, w_in, meta)
     ref = block_sparse_matmul_ref(x, w_in, meta)
     err = float((out - ref).abs().max())
     exact = float((out - (x.double() @ w_in.double()).float()).abs().max())

@@ -22,7 +22,8 @@ the expert, where the reference unrolls E Pallas launches; each expert's
 result is bit-equal to its own launch.
 
 CPU tensors take the plain version (``ref.block_sparse_matmul_ref``); CUDA
-tensors launch a kernel or raise.
+tensors launch a kernel or raise, and fake ones (a trace) get the launch's
+allocations and no launch (``accounting``).
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 from repro_torch.kernels.flex_matmul import (OS_SKINNY_ROWS, count_launch,
                                              tensor_core_operands)
 from repro_torch.kernels.ref import (block_sparse_expert_matmul_ref,
@@ -117,11 +118,12 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
                              f"scale of shape {lead + (n,)} on A's device; "
                              f"got {scale.dtype} {tuple(scale.shape)} on "
                              f"{scale.device}, B on {b.device}")
-    if a.device.type == "cpu":
+    card = accounting.on_card(a)
+    if not card and a.device.type == "cpu":
         ref = (block_sparse_expert_matmul_ref if experts
                else block_sparse_matmul_ref)
         return ref(a, b, meta, scale).to(out_dtype)[..., :rows, :]
-    if a.device.type != "cuda":
+    if not card:
         raise ValueError(f"unsupported device {a.device}")
     if experts and (a.dtype != torch.bfloat16 or rows > OS_SKINNY_ROWS):
         # one product a launch: the wide regime, the scalar float32 kernel
@@ -154,6 +156,15 @@ def block_sparse_matmul(a: torch.Tensor, b: torch.Tensor, meta, *,
         args = (lda, ldb, bm, bn, bk, meta.max_nnz, plan.rows, plan.segment)
         strides = (a.shape[-2] * lda, b.shape[-2] * ldb)
     out = torch.empty(lead + (m_run, n), dtype=out_dtype, device=a.device)
+    e = lead[0] if experts else 1
+    # the dense product's work: how many blocks are live is the data's,
+    # read on the card only by a sync
+    accounting.count("block_sparse" if scale is None
+                     else "block_sparse_scaled", 2 * e * m_run * n * k,
+                     e * (m_run * k * a.element_size() + k * n
+                          * b.element_size()) + accounting.nbytes(out, scale))
+    if accounting.is_fake(a):
+        return out[..., :rows, :]
     lib = build.library("block_sparse")
     common = (out.data_ptr(), None if ws is None else ws.data_ptr(),
               kidx.data_ptr(), kcnt.data_ptr(), m_run, n, k, *args,

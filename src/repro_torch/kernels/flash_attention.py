@@ -14,7 +14,9 @@ kernel's blocks are fixed at (64, 64): Sq and Skv must be multiples of 64
 divisibility), Sq <= Skv (the last Sq positions query), hd 32, 64, 128 or 256.
 
 CPU tensors take the plain version in the kernel's order
-(``ref.flash_attention_plain``); CUDA tensors launch the kernel or raise.
+(``ref.flash_attention_plain``); CUDA tensors launch the kernel or raise,
+and fake ones (a trace) get the launch's allocations and no launch
+(``accounting``).
 
 The gradient (``flash_attention_backward``, the C entry ``fa_backward``)
 has no Pallas counterpart: the reference differentiates its XLA twin.  It
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 from repro_torch.kernels.ref import (flash_attention_backward_plain,
                                      flash_attention_plain)
 
@@ -68,6 +70,17 @@ def _check(q, k, v, window, head_dims=HEAD_DIMS):
     return code
 
 
+def _live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask keeps: the last ``sq`` of ``skv``
+    positions query; causal keeps keys at or before the query, a window
+    the last ``window`` of them."""
+    total = 0
+    for p in range(skv - sq, skv):
+        lo = max(0, p - window + 1) if window else 0
+        total += (p + 1 if causal else skv) - lo
+    return total
+
+
 def _contiguous(*ts) -> None:
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("operands must be contiguous")
@@ -82,13 +95,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = _check(q, k, v, window)
     bh, sq, hd = q.shape
     skv = k.shape[1]
-    if q.device.type == "cpu":
+    if not accounting.on_card(q):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      bq=BQ, bkv=BKV, return_lse=return_lse)
     _contiguous(q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    accounting.count("flash_attention",
+                     4 * bh * hd * _live_pairs(sq, skv, causal, window),
+                     accounting.nbytes(q, k, v, out, lse))
+    if accounting.is_fake(q):
+        return (out, lse) if return_lse else out
     err = build.library("flash_attention").fa_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), bh, sq, skv, hd,
@@ -118,12 +136,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                         f"lse {lse.dtype} float32")
     if not q.device == o.device == do.device == lse.device:
         raise ValueError("operands on different devices")
-    if q.device.type == "cpu":
+    if not accounting.on_card(q):
         return flash_attention_backward_plain(
             q, k, v, o, lse, do, causal=causal, window=window, bq=BQ,
             bkv=BKV)
     _contiguous(q, k, v, o, do, lse)
-    if any(t.data_ptr() % 16 for t in (q, k, v, o, do, lse)):
+    if not all(accounting.aligned16(t) for t in (q, k, v, o, do, lse)):
         raise ValueError("fa_backward reads 16-byte aligned rows (TMA): "
                          "an operand's storage offset is not")
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -131,6 +149,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dq = torch.empty((bh, sq, hd), **f32)
     dk = torch.empty((bh, skv, hd), **f32)
     dv = torch.empty((bh, skv, hd), **f32)
+    # five products a live (q, kv) pair: S = QKᵀ, dP = dO·Vᵀ, dV, dK, dQ
+    accounting.count("flash_backward",
+                     10 * bh * hd * _live_pairs(sq, skv, causal, window),
+                     accounting.nbytes(q, k, v, o, do, lse, dq, dk, dv))
+    if accounting.is_fake(q):
+        return dq, dk, dv
     err = build.library("flash_attention").fa_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),

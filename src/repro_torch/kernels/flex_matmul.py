@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core.scheduler import H100
 from repro_torch.core.stacks import pad_to_blocks
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 from repro_torch.kernels.ref import expert_matmul_ref, matmul_ref
 
 DEFAULT_BLOCKS = (128, 128, 128)
@@ -273,7 +273,7 @@ def aligned_rows(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
     *lead, cols = x.shape
     unit = 16 // x.element_size()
     ld = -(-cols // unit) * unit
-    if ld == cols and x.is_contiguous() and x.data_ptr() % 16 == 0:
+    if ld == cols and x.is_contiguous() and accounting.aligned16(x):
         return x, ld
     out = x.new_zeros((*lead, ld))
     out[..., :cols] = x
@@ -314,7 +314,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
             bn: int, bk: int, out_dtype, rows: int) -> torch.Tensor:
     """The kernel for padded operands; ``rows``: A's rows before padding.
     A leading expert axis reaches only bf16 output-stationary at rows <= 16
-    (one launch over the experts)."""
+    (one launch over the experts).  Fake operands (a trace) get the
+    launch's allocations and no launch (``accounting``)."""
     if not a.is_contiguous():
         raise ValueError("A must be row-major contiguous")
     b_trans = build.b_layout(b)
@@ -322,8 +323,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
     m, k = a.shape[-2:]
     n = b.shape[-1]
     tm, tn = m // bm, n // bn
-    lib = build.library("flex_matmul")
-    stream = build.stream_ptr(a.device)
+    fake = accounting.is_fake(a)
+    lib = None if fake else build.library("flex_matmul")
+    stream = None if fake else build.stream_ptr(a.device)
     code = build.dtype_code(a.dtype)
     second = None                 # the key of a second kernel's launch
     grid = None                   # the plan of a tensor-core launch
@@ -339,6 +341,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
             args = (lda, ldb, bm, bn, bk, grid.rows, grid.segment)
             strides = (a.shape[-2] * lda, b.shape[-2] * ldb)
         out = torch.empty(lead + (m, n), dtype=out_dtype, device=a.device)
+        if fake:
+            return out
         err = lib.fm_output(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                             None if ws is None else ws.data_ptr(), m, n, k,
                             *args, b_trans, code, build.dtype_code(out_dtype),
@@ -350,11 +354,17 @@ def _launch(a: torch.Tensor, b: torch.Tensor, stationarity: str, bm: int,
         out = torch.empty((m, n), dtype=torch.float32, device=a.device)
         if a.dtype == torch.bfloat16:
             plan = (weight_grid if weight else input_grid)(
-                m, n, k, bm, bn, bk, _sms(a.device), WORKSPACE_CAP)
+                m, n, k, bm, bn, bk,
+                accounting.H100_SMS if fake else _sms(a.device),
+                WORKSPACE_CAP)
             ws = None if plan.workspace is None else torch.empty(
                 plan.workspace, dtype=torch.float32, device=a.device)
+            if fake:
+                return out.to(out_dtype)
             args = (*plan.grid, int(plan.split), plan.rows)
             second = f"{stationarity}_sum" if plan.split else None
+        elif fake:
+            return out.to(out_dtype)
         else:
             own, other = (tn, tm) if weight else (tm, tn)
             ws, args = None, (own, _groups(own, other, a.device), 0, 0)
@@ -409,7 +419,8 @@ def flex_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule=None,
     n = b.shape[-1]
     bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
     out_dtype = out_dtype or a.dtype
-    if a.device.type == "cuda" and a.dim() == 3 and not (
+    card = accounting.on_card(a)
+    if card and a.dim() == 3 and not (
             stationarity == "output" and a.dtype == torch.bfloat16
             and m <= OS_SKINNY_ROWS):
         return torch.stack([flex_matmul(a[i], b[i], schedule=schedule,
@@ -417,14 +428,20 @@ def flex_matmul(a: torch.Tensor, b: torch.Tensor, *, schedule=None,
                             for i in range(a.shape[0])])
     ap = pad_to_blocks(a, bm, bk)
     bp = pad_to_blocks(b, bk, bn)
-    if a.device.type == "cpu":
+    if not card and a.device.type == "cpu":
         if stationarity not in STATIONARITIES:
             raise ValueError(f"unknown stationarity {stationarity!r}")
         # row-major B: the CPU library's order then does not depend on
         # B's layout, as the kernels' does not
         ref = expert_matmul_ref if a.dim() == 3 else matmul_ref
         out = ref(ap, bp.contiguous()).to(out_dtype)
-    elif a.device.type == "cuda":
+    elif card:
+        # the product's own work and operands: what the block padding adds
+        # depends on the blocks, not on the function
+        e = a.shape[0] if a.dim() == 3 else 1
+        accounting.count(f"flex_{stationarity}", 2 * e * m * n * k,
+                         e * (m * k + k * n) * a.element_size()
+                         + e * m * n * out_dtype.itemsize)
         out = _launch(ap, bp, stationarity, bm, bn, bk, out_dtype, m)
     else:
         raise ValueError(f"unsupported device {a.device}")

@@ -11,13 +11,15 @@ kernel and plan of the scaled block-sparse product, so the two agree bit
 for bit; a float32 activation runs scalar float32 FMAs.
 
 CPU tensors take the plain version in the kernel's order
-(``ref.int8_matmul_plain``); CUDA tensors launch the kernel or raise.
+(``ref.int8_matmul_plain``); CUDA tensors launch the kernel or raise, and
+fake ones (a trace) get the launch's allocations and no launch
+(``accounting``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 from repro_torch.kernels.flex_matmul import (count_launch, pad_to_blocks,
                                              tensor_core_operands)
 from repro_torch.kernels.ref import int8_matmul_plain
@@ -53,14 +55,15 @@ def int8_matmul(a: torch.Tensor, qw, *, bm: int = 128, bn: int = 128,
     n = q.shape[1]
     bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
     out_dtype = out_dtype or a.dtype
-    if a.device.type == "cuda" and a.dtype == torch.bfloat16:
+    card = accounting.on_card(a)
+    if card and a.dtype == torch.bfloat16:
         return _launch_mma(a, q, scale.contiguous(), (bm, bn, bk), out_dtype)
     ap = pad_to_blocks(a, bm, bk)
     qp = pad_to_blocks(q, bk, bn)
     sp = pad_to_blocks(scale[None], 1, bn)[0]
-    if a.device.type == "cpu":
+    if not card and a.device.type == "cpu":
         out = int8_matmul_plain(ap, qp, sp).to(out_dtype)
-    elif a.device.type == "cuda":
+    elif card:
         out = _launch(ap.contiguous(), qp, sp.contiguous(), bm, bn, bk,
                       out_dtype)
     else:
@@ -78,6 +81,10 @@ def _launch_mma(a, q, scale, blocks, out_dtype) -> torch.Tensor:
     n = q.shape[1]
     a, lda, q, ldq, plan, ws = tensor_core_operands(a.contiguous(), q, m)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    accounting.count("int8_matmul", 2 * m * n * k,
+                     accounting.nbytes(a[:, :k], q[:k, :n], scale, out))
+    if accounting.is_fake(a):
+        return out
     err = build.library("int8_matmul").i8_matmul(
         a.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(), m, n, k, lda, ldq, *blocks,
@@ -94,6 +101,10 @@ def _launch(a, q, scale, bm, bn, bk, out_dtype) -> torch.Tensor:
     n = q.shape[1]
     b_trans = build.b_layout(q)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    accounting.count("int8_matmul", 2 * m * n * k,
+                     accounting.nbytes(a, q, scale, out))
+    if accounting.is_fake(a):
+        return out
     err = build.library("int8_matmul").i8_matmul(
         a.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), None,
         m, n, k, k, k if b_trans else n, bm, bn, bk, 0, 0, b_trans,

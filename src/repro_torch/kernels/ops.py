@@ -108,7 +108,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flex_matmul as fm
 from repro_torch.kernels.flex_matmul import DEFAULT_BLOCKS, pad_to_blocks
 from repro_torch.kernels.int8_matmul import int8_matmul
-from repro_torch.kernels.ref import (flash_attention_backward_plain,
+from repro_torch.kernels.ref import (block_sparse_matmul_ref,
+                                     flash_attention_backward_plain,
                                      flash_attention_plain,
                                      windowed_attention)
 from repro_torch.quant.quantize import QuantizedLinear, dequantize_leaf
@@ -607,14 +608,19 @@ def _row_parallel(out: torch.Tensor, site: str) -> torch.Tensor:
     if tp is None:
         raise ValueError(f"{site}: a partial product needs a model axis "
                          f"above 1 (sharding.partition.use_rules)")
-    desc = _site_descriptor(site, _cfg())
+    cfg = _cfg()
+    desc = _site_descriptor(site, cfg)
     red = ReduceConfig(axis_name="model", ic_p=tp.size)
     if desc is not None:
-        if desc.reduce.ic_p != tp.size:
+        if cfg.model_shards != tp.size:
             raise ValueError(
-                f"{site}: the table was compiled for {desc.reduce.ic_p} "
+                f"{site}: the table was compiled for {cfg.model_shards} "
                 f"model shards, the mesh has {tp.size}")
-        red = desc.reduce
+        # a site the table does not count as K-sharded (the reference's
+        # rule takes ``*.out`` names only: ``moe.shared_out`` is not one)
+        # keeps the plain all-reduce
+        if desc.reduce.ic_p == tp.size:
+            red = desc.reduce
     return collectives.from_model(out, red, tp.group)
 
 
@@ -748,6 +754,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   q_chunk=bq)[:, :, 0, 0]
     return flash_attention_plain(q, k, v, causal=causal, window=window,
                                  bq=bq, bkv=bkv)
+
+
+def block_sparse_matmul(x: torch.Tensor, w: torch.Tensor, meta, *,
+                        site: str = "") -> torch.Tensor:
+    """Two-sided block-sparse matmul with *precomputed* metadata (a
+    ``core.sparsity.BlockSparseMeta`` over x's and w's block bitmaps; the
+    operands block multiples): with ``use_kernels`` the block-sparse
+    kernel (its plain version on CPU tensors), else the plain version
+    (``ref.block_sparse_matmul_ref``).  ``meta`` None falls back to the
+    descriptor-driven ``flex_matmul`` dispatch of ``site``."""
+    if meta is None:
+        return flex_matmul(x, w, site=site)
+    if _cfg().use_kernels:
+        return bs.block_sparse_matmul(x, w, meta)
+    return block_sparse_matmul_ref(x, w, meta).to(x.dtype)
 
 
 def head_matmul(x: torch.Tensor, head, *,

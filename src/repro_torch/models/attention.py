@@ -10,7 +10,23 @@ Under tensor parallelism (a model axis above 1) the full-sequence forward
 runs this rank's heads (``_local_heads``): a self-attention's, and a
 cross-attention's too — its queries from the decoder stream, its keys and
 values from the replicated encoder memory through this rank's ``wkv``
-columns, ``wo`` row-parallel with the combine."""
+columns, ``wo`` row-parallel with the combine.  Heads that do not split
+over the model axis (gemma-2b's 8, Llama-4's 40 or Whisper's 6 over 16)
+run whole on every model rank (``_replicated_heads``), as GSPMD keeps
+the reference's unsplit head axis.
+
+A decode step under tensor parallelism (``_decode_step_tp``) runs the
+same heads.  Its cache holds every kv head (``batch_shardings`` never
+splits the cache's head axis), so each rank writes every kv head's new
+K / V (its kv heads' gathered over the model axis).  Without SP the cache
+holds every row and a rank attends with its heads over it; under SP
+(``partition.cache_rows``: the rows cut over ``model``) each rank holds
+C / m rows of every kv head: the queries of every head are gathered, each
+rank takes its rows' share of the softmax and the shares are merged over
+the model axis (``_rows_attention``: the max, the sums of exponentials
+and the weighted values, each all-reduced), and this rank's heads go on
+to the row-parallel ``wo``; the new K / V is written only by the rank
+that holds row ``pos`` (the rolling slot of a windowed cache)."""
 from __future__ import annotations
 
 import dataclasses
@@ -79,6 +95,22 @@ def _local_heads(p: Params, cfg: ArchConfig, tp):
             dataclasses.replace(cfg, n_heads=h // m, n_kv_heads=1))
 
 
+def heads_split(cfg: ArchConfig, tp) -> bool:
+    """Whether the heads split over the model axis (``_local_heads``):
+    the q heads divide, and the kv heads divide or each is shared by
+    whole ranks."""
+    h, kvh, m = cfg.n_heads, cfg.n_kv_heads, tp.size
+    return h % m == 0 and (kvh % m == 0 or m % kvh == 0)
+
+
+def _replicated_heads(p: Params, tp) -> Params:
+    """The whole attention weights on every model rank (heads that do not
+    split over it): gathered where stored split, each rank's gradient
+    block taken back (``partition.model_replicated``)."""
+    return {name: partition.model_replicated(p, name, tp)
+            for name in ("wq", "wkv", "wo")}
+
+
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor]) -> torch.Tensor:
     """q (B,Sq,KVH,G,hd), k/v (B,Skv,KVH,hd), mask broadcastable to
@@ -144,6 +176,8 @@ def attention_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     ``mrope_positions`` (3,B,S) are M-RoPE's t/h/w streams (a
     ``rope="mrope"`` config; others ignore them, as the reference does)."""
     tp = partition.tensor_parallel()
+    if tp is not None and not heads_split(cfg, tp):
+        p, tp = _replicated_heads(p, tp), None    # every head, every rank
     if tp is not None:    # this rank's heads
         p, cfg = _local_heads(p, cfg, tp)
         x = collectives.to_model(x, tp.group)
@@ -207,6 +241,10 @@ def decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
     reference's, the inactive rows' too: a MoE layer routes all rows of
     the batch together, and an idle slot's filler row competes for expert
     capacity with the live ones."""
+    tp = partition.tensor_parallel()
+    if tp is not None:
+        return _decode_step_tp(p, cfg, x, cache, pos, tp, active=active,
+                               window=window)
     b = x.shape[0]
     hd = cfg.head_dim
     q, k_new, v_new = _project_qkv(p, cfg, x)
@@ -241,6 +279,135 @@ def decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor, cache: Params,
         cache[name][rows, slot] = val
     o = o.reshape(b, 1, cfg.n_heads * hd)
     return ops.flex_matmul(o, p["wo"], site="attn.out"), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode under tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _rank_heads(cfg: ArchConfig, tp):
+    """(first q head, q heads) this rank runs: its block where the heads
+    split, else all of them."""
+    if heads_split(cfg, tp):
+        n = cfg.n_heads // tp.size
+        return tp.index * n, n
+    return 0, cfg.n_heads
+
+
+def _rows_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor], group) -> torch.Tensor:
+    """``dense_attention`` over keys whose rows are cut over ``group``:
+    q (B,Sq,KVH,G,hd) the same on every rank, k / v (B,S/m,KVH,hd) this
+    rank's rows, ``mask`` for them.  The max, then the sum of
+    exponentials, then the weighted values (in float32) are all-reduced,
+    so every rank gets the softmax of the whole row and its output."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqkgh,bskh->bkgqs",
+                          *ops.common_dtype(q, k)).float() * (hd ** -0.5)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    mx = collectives.all_reduce(scores.amax(-1, keepdim=True), group,
+                                torch.distributed.ReduceOp.MAX)
+    e = torch.exp(scores - mx)
+    total = collectives.all_reduce(e.sum(-1, keepdim=True), group)
+    w = (e / total).to(q.dtype)
+    o = torch.einsum("bkgqs,bskh->bqkgh", w.float(), v.float())
+    return collectives.all_reduce(o, group).to(
+        torch.promote_types(w.dtype, v.dtype))
+
+
+def rank_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor], cfg: ArchConfig, tp
+                   ) -> torch.Tensor:
+    """One decode position's attention of this rank's heads under tensor
+    parallelism: q (B,1,h_n,hd) the heads ``_rank_heads`` names, k / v
+    (B,C',KVH,hd) every kv head of the cache (C' its rows on this rank:
+    all of them, or C / m under ``partition.cache_rows``), ``mask``
+    broadcastable to (B,KVH,G,1,C') → (B,1,h_n·hd)."""
+    b, _, h_n, hd = q.shape
+    h0, _ = _rank_heads(cfg, tp)
+    g = cfg.q_per_kv
+    if partition.cache_rows() is not None:        # SP: every head's q
+        if h_n < cfg.n_heads:
+            q = collectives.gather_dim(q.contiguous(), tp.group, 2)
+        o = _rows_attention(q.reshape(b, 1, cfg.n_kv_heads, g, hd), k, v,
+                            mask, tp.group)
+        return o.reshape(b, 1, cfg.n_heads, hd)[:, :, h0:h0 + h_n].reshape(
+            b, 1, h_n * hd)
+    if h_n % g == 0:        # whole kv groups: kv heads h0/g .. (h0+h_n)/g
+        kv0, kvn, gq = h0 // g, h_n // g, g
+    else:                   # part of one kv head's group
+        kv0, kvn, gq = h0 // g, 1, h_n
+    o = dense_attention(q.reshape(b, 1, kvn, gq, hd),
+                        k[:, :, kv0:kv0 + kvn], v[:, :, kv0:kv0 + kvn], mask)
+    return o.reshape(b, 1, h_n * hd)
+
+
+def _new_kv(p: Params, cfg: ArchConfig, x: torch.Tensor, tp):
+    """Every kv head's new k / v (B,1,KVH,hd) on every model rank: this
+    rank's kv heads projected and gathered where they split over the
+    model axis, else projected from the whole ``wkv``."""
+    b = x.shape[0]
+    hd, kvh = cfg.head_dim, cfg.n_kv_heads
+    split = partition.model_dim(p, "wkv") == p["wkv"].dim() - 1
+    if split and kvh % tp.size == 0 and heads_split(cfg, tp):
+        kv = ops.flex_matmul(x, p["wkv"], site="attn.kv").reshape(
+            b, 1, 2, kvh // tp.size, hd)
+        kv = collectives.gather_dim(kv.contiguous(), tp.group, 3)
+        return kv[:, :, 0], kv[:, :, 1]
+    wkv = partition.model_replicated(p, "wkv", tp)
+    kv = ops.flex_matmul(x, wkv, site="attn.kv").reshape(b, 1, 2, kvh, hd)
+    return kv[:, :, 0], kv[:, :, 1]
+
+
+def _decode_step_tp(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                    cache: Params, pos: torch.Tensor, tp, *,
+                    active: Optional[torch.Tensor], window: int
+                    ) -> Tuple[torch.Tensor, Params]:
+    """``decode_step`` on this rank's heads and cache shard (module
+    docstring); the state stays in its shards."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    split = heads_split(cfg, tp)
+    h0, h_n = _rank_heads(cfg, tp)
+    wq = p["wq"] if split else partition.model_replicated(p, "wq", tp)
+    wo = p["wo"] if split else partition.model_replicated(p, "wo", tp)
+    posb = pos[:, None]
+    q = ops.flex_matmul(x, wq, site="attn.q").reshape(b, 1, h_n, hd)
+    q = rope.apply_rope(q, posb, kind=cfg.rope, theta=cfg.rope_theta)
+    k_new, v_new = _new_kv(p, cfg, x, tp)
+    k_new = rope.apply_rope(k_new, posb, kind=cfg.rope, theta=cfg.rope_theta)
+
+    rows_here = cache["k"].shape[1]
+    sp = partition.cache_rows() is not None
+    size = rows_here * tp.size if sp else rows_here
+    lo = tp.index * rows_here if sp else 0
+    slot = (pos % size) if window > 0 else torch.clamp(pos, max=size - 1)
+    local = slot - lo
+    own = (local >= 0) & (local < rows_here)
+    local = torch.clamp(local, 0, rows_here - 1)
+    rows = torch.arange(b, device=x.device)
+    kept = {}
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        old = c[rows, local]
+        new = torch.where(own[:, None, None], new[:, 0].to(c.dtype), old)
+        if active is not None:
+            kept[name] = torch.where(active[:, None, None], new, old)
+        c[rows, local] = new
+
+    idx = lo + torch.arange(rows_here, device=x.device)[None]
+    posm = pos[:, None]
+    if window > 0:
+        age = posm - _slot_position(idx, posm, size)
+        valid = (age >= 0) & (age < torch.clamp(posm + 1, max=window))
+    else:
+        valid = idx <= posm
+    o = rank_attention(q, cache["k"], cache["v"],
+                       valid[:, None, None, None, :], cfg, tp)
+    for name, val in kept.items():       # inactive rows keep their slot
+        cache[name][rows, local] = val
+    return ops.flex_matmul(o, wo, site="attn.out", partial=split), cache
 
 
 def decode_window(p: Params, cfg: ArchConfig, x: torch.Tensor,

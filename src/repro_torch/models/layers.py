@@ -164,8 +164,15 @@ def embed(cfg: ArchConfig, emb: torch.Tensor,
 
 def logits_head(cfg: ArchConfig, head, x: torch.Tensor) -> torch.Tensor:
     """Full float32 logits for the decode position(s); the contraction is
-    the planned/dispatched ``lm_head`` site."""
+    the planned/dispatched ``lm_head`` site.  A ``head`` of this rank's
+    vocabulary rows (tensor parallelism) gives this rank's logits, which
+    are gathered over the model axis (no gradient)."""
     logits = ops.head_matmul(x, head, site="lm_head").float()
+    shard = (_vocab_shard(cfg, head) if isinstance(head, torch.Tensor)
+             else None)
+    if shard is not None:
+        logits = collectives.gather_dim(logits.contiguous(), shard[0].group,
+                                        -1)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits

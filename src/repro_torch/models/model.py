@@ -208,7 +208,8 @@ def prefill(p: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
         mem = transformer.encode(p["stack"], cfg, _frames(p, cfg, batch),
                                  q_chunk=q_chunk)
         return mem[:, -1:, :]
-    x = forward_hidden(p, cfg, batch, q_chunk=q_chunk)
+    p = partition.gather_top(p)
+    x = _forward_hidden(p, cfg, batch, remat="none", q_chunk=q_chunk)
     return logits_head(cfg, head_matrix(p, cfg), x[:, -1:, :])
 
 
@@ -255,7 +256,13 @@ def decode_step(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
     """One new token per sequence.  tokens (B, 1), ``pos`` (B,) → logits
     (B, 1, V) float32.  The state is updated in place at the ``active``
     rows (all rows when None).  ``with_logits=False`` skips the head (the
-    prefill feed discards it)."""
+    prefill feed discards it).
+
+    On local shards (``sharding.partition.use_rules`` with specs, as
+    ``serve.engine.build_serve_step`` installs them) the step runs on this
+    rank's batch rows, heads, channels and cache shards; the logits are
+    every vocabulary entry's and the state stays in its shards."""
+    p = partition.gather_top(p)
     x = embed(cfg, p["embed"], tokens)
     x, state = transformer.decode_stack(p["stack"], cfg, x, state, pos,
                                         active)
@@ -532,3 +539,41 @@ def prefill_into_slot(p: Params, cfg: ArchConfig, tokens, valid, slot,
         _, state = masked_decode_step(p, cfg, feed, state, ps, merge,
                                       with_logits=False)
     return state
+
+
+# ---------------------------------------------------------------------------
+# Input specs (stand-ins for the dry-run: shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape, *, device="meta",
+                dtype=torch.bfloat16) -> Dict[str, object]:
+    """Every model input of the (arch, shape) cell as empty tensors on
+    ``device`` (default ``meta``: no storage), with the reference's shapes
+    and dtypes: train {tokens, labels} (B, S) int32 (an encoder-decoder's
+    ``frames`` (B, S, D), a vision config's ``vis_embeds`` (B, n_vis, D)
+    and ``mrope_positions`` (3, B, S)); prefill {tokens} (an
+    encoder-decoder's {frames} only); decode {tokens (B, 1) int32, the
+    decode state of ``init_decode_state`` at seq_len positions, pos ()
+    int32}."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def empty(*dims, dt=dtype):
+        return torch.empty(dims, dtype=dt, device=device)
+
+    if shape.kind == "decode":
+        return {"tokens": empty(b, 1, dt=i32),
+                "state": transformer.init_decode_state(cfg, b, s, dtype,
+                                                       device),
+                "pos": empty(dt=i32)}
+    if shape.kind == "prefill" and cfg.encoder_decoder:
+        return {"frames": empty(b, s, cfg.d_model)}
+    specs = {"tokens": empty(b, s, dt=i32)}
+    if shape.kind == "train":
+        specs["labels"] = empty(b, s, dt=i32)
+        if cfg.encoder_decoder:
+            specs["frames"] = empty(b, s, cfg.d_model)
+    if cfg.frontend == "vision":
+        specs["vis_embeds"] = empty(b, n_vis(cfg, s), cfg.d_model)
+        specs["mrope_positions"] = empty(3, b, s, dt=i32)
+    return specs

@@ -354,6 +354,25 @@ def apply_moe(p: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def apply_moe_rows(p: Params, cfg: ArchConfig, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """``apply_moe`` of the global batch, for a decode step: where the
+    installed step cut its batch rows over mesh axes
+    (``partition.batch_rows``), this rank's rows are gathered over them
+    (no gradient), the layer routes them all — capacities are competed
+    for across the whole batch, as the reference's decode step routes
+    it — and this rank's rows of the result are taken back."""
+    rules, specs, rows, cache = partition.installed()
+    mesh = None if rules is None else rules.mesh
+    if mesh is None or rows is None or mesh.axis_size(rows) == 1:
+        return apply_moe(p, cfg, x)
+    full = collectives.gather_dim(x.contiguous(), mesh.group(rows), 0)
+    with partition.use_rules(rules, specs, None, cache):
+        y = apply_moe(p, cfg, full)
+    n = x.shape[0]
+    return y.narrow(0, mesh.axis_index(rows) * n, n)
+
+
 # ---------------------------------------------------------------------------
 # GShard one-hot oracle (smoke scale; the reference the sort-based path is
 # tested against)

@@ -158,16 +158,25 @@ def rglru_decode_step(p: Params, cfg: ArchConfig, x: torch.Tensor,
     place** at the ``active`` (B,) rows (every row when None); the other
     rows keep their state bit for bit.  The matmuls take the site names of
     the full-sequence path, so the descriptor table and the weight plan
-    apply to decode as well."""
+    apply to decode as well.  Under tensor parallelism on this rank's
+    channels, as ``rglru_forward``: its block of ``h`` and of the conv
+    window, the gates reading the conv'd x gathered over the model axis,
+    ``rglru.out`` row-parallel with the combine."""
+    tp = partition.tensor_parallel()
+    if tp is not None:
+        p = _local_params(cfg, p, tp)
     xb = ops.flex_matmul(x[:, 0], p["w_x"], site="rglru.in")
     gate = ops.flex_matmul(x[:, 0], p["w_gate"], site="rglru.gate")
     win = torch.cat([state["conv"], xb[:, None].to(state["conv"].dtype)],
                     dim=1)
     xc = (win * p["conv_w"][None]).sum(dim=1) + p["conv_b"]
-    a, gated = _gates(p, xc)
+    xg = (None if tp is None
+          else collectives.gather_dim(xc.contiguous(), tp.group, -1))
+    a, gated = _gates(p, xc, xg)
     h = a * state["h"] + gated
     y = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
-    out = ops.flex_matmul(y, p["w_out"], site="rglru.out")[:, None]
+    out = ops.flex_matmul(y, p["w_out"], site="rglru.out",
+                          partial=tp is not None)[:, None]
     conv = win[:, 1:]
     if active is not None:
         h = torch.where(active[:, None], h, state["h"])

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -108,21 +109,21 @@ def _local_params(cfg: ArchConfig, params: Params, tp) -> Params:
     gn2 = 2 * cfg.ssm.n_groups * cfg.ssm.d_state
     dev = params["in_proj"].device
 
-    def span(lo, n):
-        return torch.arange(lo, lo + n, device=dev)
+    def span(lo, n):                  # host indices: the plan needs no data
+        return np.arange(lo, lo + n)
 
     def conv(r):                                            # [x_r | B C]
-        return torch.cat([span(r * dl, dl), span(di, gn2)])
+        return np.concatenate([span(r * dl, dl), span(di, gn2)])
 
     def proj(r):                                  # [z_r | x_r | B C | dt_r]
-        return torch.cat([span(r * dl, dl), span(di + r * dl, dl),
-                          span(2 * di, gn2),
-                          span(2 * di + gn2 + r * hl, hl)])
+        return np.concatenate([span(r * dl, dl), span(di + r * dl, dl),
+                               span(2 * di, gn2),
+                               span(2 * di + gn2 + r * hl, hl)])
     block = partition.model_block
     out = {
         "in_proj": partition.model_columns(params, "in_proj", tp, proj),
         "conv_w": partition.model_whole(params, "conv_w", tp).index_select(
-            -1, conv(tp.index)),
+            -1, torch.as_tensor(conv(tp.index), device=dev)),
         "conv_b": partition.model_columns(params, "conv_b", tp, conv),
         "norm_scale": block(params, "norm_scale", tp, -1),
         "out_proj": block(params, "out_proj", tp, 0),
@@ -239,6 +240,11 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 # Decode
 # ---------------------------------------------------------------------------
 
+def conv_channels(cfg: ArchConfig) -> int:
+    """The channels of the SSD block's conv: [x | B | C]."""
+    return d_inner(cfg) + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+
+
 def init_ssm_state(cfg: ArchConfig, batch: int, device="cpu",
                    lead=()) -> Params:
     """{ssm (..., B, H, P, N), conv (..., B, K-1, C)}, both float32 (the
@@ -259,16 +265,39 @@ def ssd_decode_step(cfg: ArchConfig, params: Params, x_in: torch.Tensor,
                     ) -> Tuple[torch.Tensor, Params]:
     """x_in (B, 1, D); state {ssm (B,H,P,N), conv (B,K-1,C)}, updated **in
     place** at the ``active`` (B,) rows (every row when None); the other
-    rows keep their state bit for bit."""
+    rows keep their state bit for bit.
+
+    Under tensor parallelism the step runs this rank's SSD heads, as
+    ``ssd_forward`` does, on its block of the ``ssm`` state (split by
+    head) and of the ``conv`` window (a plain block of its C channels,
+    which cuts across [x | B C]): the window is gathered over the model
+    axis for the channels this rank convolves ([x_r | B C]), and each rank
+    writes its block of the shifted window from the new x columns of
+    every rank (gathered) and its own B C."""
     b = x_in.shape[0]
-    di, h = d_inner(cfg), n_ssd_heads(cfg)
+    tp = partition.tensor_parallel()
+    m = 1 if tp is None else tp.size
+    di, h = d_inner(cfg) // m, n_ssd_heads(cfg) // m
     g, n, p_hd = cfg.ssm.n_groups, cfg.ssm.d_state, cfg.ssm.head_dim
+    conv_state = state["conv"]
+    # the conv window's channels are whole on each rank where they do not
+    # split over the model axis (batch_shardings drops the axis there)
+    conv_split = (tp is not None
+                  and conv_state.shape[-1] * m == conv_channels(cfg))
+    if tp is not None:
+        params = _local_params(cfg, params, tp)
+        full = (collectives.gather_dim(conv_state.contiguous(), tp.group, -1)
+                if conv_split else conv_state)
+        cols = torch.cat([torch.arange(tp.index * di, (tp.index + 1) * di),
+                          torch.arange(d_inner(cfg), full.shape[-1])]
+                         ).to(full.device)
+        conv_state = full.index_select(-1, cols)
 
     zxbcdt = torch.matmul(x_in[:, 0], params["in_proj"])             # (B, ...)
-    z, xc, bc, dt = _split_proj(cfg, zxbcdt[:, None, :])
+    z, xc, bc, dt = _split_proj(cfg, zxbcdt[:, None, :], di)
     xbc_new = torch.cat([xc, bc], dim=-1)[:, 0]                      # (B, C)
     # float32, as the reference's concatenate with its float32 window gives
-    conv_win = torch.cat([state["conv"], xbc_new[:, None].float()], dim=1)
+    conv_win = torch.cat([conv_state, xbc_new[:, None].float()], dim=1)
     conv_out = (conv_win * params["conv_w"][None]).sum(dim=1) \
         + params["conv_b"]
     xbc = F.silu(conv_out)
@@ -289,9 +318,18 @@ def ssd_decode_step(cfg: ArchConfig, params: Params, x_in: torch.Tensor,
     y = torch.einsum("bhx,bhpx->bhp", Ch.float(), new_state)
     y = y + params["D"][None, :, None] * xh.float()
     y = y.reshape(b, 1, di).to(x_in.dtype)
-    y = _gated_norm(y, z, params["norm_scale"])
+    y = _gated_norm(y, z, params["norm_scale"], tp)
     out = torch.matmul(y, params["out_proj"])
     conv = conv_win[:, 1:]
+    if tp is not None:
+        out = collectives.from_model(out, ReduceConfig("model", tp.size),
+                                     tp.group)
+        xs = collectives.gather_dim(xc[:, 0].contiguous(), tp.group, -1)
+        new = torch.cat([xs, bc[:, 0]], dim=-1).float()      # every channel
+        c = state["conv"].shape[-1]
+        lo = tp.index * c if conv_split else 0
+        conv = torch.cat([state["conv"][:, 1:], new[:, None, lo:lo + c]],
+                         dim=1)
     if active is not None:
         new_state = torch.where(active[:, None, None, None], new_state,
                                 state["ssm"])

@@ -31,7 +31,8 @@ from repro_torch.models import rglru
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.rope import sinusoidal_positions
 from repro_torch.quant.quantize import QuantizedLinear
-from repro_torch.sharding import partition
+from repro_torch.core.flextree import ReduceConfig
+from repro_torch.sharding import collectives, partition
 from repro_torch.models.layers import (apply_mlp, apply_norm,
                                        apply_norm_per_position, init_mlp,
                                        init_norm)
@@ -120,12 +121,14 @@ def apply_moe_layer(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
 
 def decode_moe_layer(p: Params, cfg: ArchConfig, x, cache, pos, *,
                      active=None):
+    """One token through a MoE layer; the routing takes the global batch
+    (``moe.apply_moe_rows``), as the reference's decode step routes it."""
     h = apply_norm(p["ln1"], cfg, x)
     o, cache = attention.decode_step(p["attn"], cfg, h, cache, pos,
                                      active=active)
     x = x + o
     h = apply_norm(p["ln2"], cfg, x)
-    return x + moe_mod.apply_moe(p["moe"], cfg, h), cache
+    return x + moe_mod.apply_moe_rows(p["moe"], cfg, h), cache
 
 
 def init_ssm_layer(cfg: ArchConfig, gen: torch.Generator,
@@ -441,6 +444,60 @@ def _enc_layer(lp: Params, cfg: ArchConfig, h: torch.Tensor,
     return h + apply_mlp(lp["mlp"], cfg, y)
 
 
+def _cross_decode(p: Params, cfg: ArchConfig, y: torch.Tensor,
+                  mem_k: torch.Tensor, mem_v: torch.Tensor) -> torch.Tensor:
+    """A decoder layer's cross-attention at one position: the
+    reference's bare products on ``xattn``, unmasked over the memory; the
+    memory meets q in their promoted dtype.  Under tensor parallelism on
+    this rank's heads (``attention.rank_attention``, the memory's rows cut
+    over the model axis under SP), ``wo`` row-parallel with the combine;
+    heads that do not split run whole on every rank."""
+    b = y.shape[0]
+    kvh, g, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    tp = partition.tensor_parallel()
+    if tp is None:
+        q = (y @ p["wq"]).reshape(b, 1, kvh, g, hd)
+        dt = torch.promote_types(q.dtype, mem_k.dtype)
+        o = attention.dense_attention(q.to(dt), mem_k.to(dt), mem_v.to(dt),
+                                      None)
+        return o.reshape(b, 1, -1) @ p["wo"]
+    split = attention.heads_split(cfg, tp)
+    wq, wo = ((p["wq"], p["wo"]) if split else
+              (partition.model_replicated(p, "wq", tp),
+               partition.model_replicated(p, "wo", tp)))
+    q = (y @ wq).reshape(b, 1, -1, hd)
+    dt = torch.promote_types(q.dtype, mem_k.dtype)
+    o = attention.rank_attention(q.to(dt), mem_k.to(dt), mem_v.to(dt), None,
+                                 cfg, tp)
+    out = o @ wo
+    if not split:
+        return out
+    return collectives.from_model(out, ReduceConfig("model", tp.size),
+                                  tp.group)
+
+
+def _whisper_dec_step(lp: Params, cfg: ArchConfig, x: torch.Tensor,
+                      cache: Params, mem_k: torch.Tensor, mem_v: torch.Tensor,
+                      pos: torch.Tensor, active: Optional[torch.Tensor],
+                      i: int) -> torch.Tensor:
+    """One decoder layer at one position (``_decode_whisper``)."""
+    h = x
+    y = apply_norm(lp["ln1"], cfg, h)
+    o, _ = attention.decode_step(lp["attn"], cfg, y, cache, pos,
+                                 active=active)
+    h = h + o
+    y = apply_norm(lp["lnx"], cfg, h)
+    h = h + _cross_decode(lp["xattn"], cfg, y, mem_k, mem_v)
+    if h.dtype != x.dtype:
+        raise TypeError(
+            f"{cfg.name}: decoder layer {i} turns a {x.dtype} residual "
+            f"stream into {h.dtype} (cross-attention memory "
+            f"{mem_k.dtype}); the reference's scan over the decoder "
+            f"layers refuses a carry whose dtype changes")
+    y = apply_norm(lp["ln2"], cfg, h)
+    return h + apply_mlp(lp["mlp"], cfg, y)
+
+
 def _decode_whisper(p: Params, cfg: ArchConfig, x: torch.Tensor,
                     state: Params, pos: torch.Tensor,
                     active: Optional[torch.Tensor]
@@ -458,31 +515,12 @@ def _decode_whisper(p: Params, cfg: ArchConfig, x: torch.Tensor,
     and a scan refuses a carry whose dtype changes (an int8 plan's
     dequantized float32 weight promotes bf16 activations): the same
     raises ``TypeError`` here."""
-    b = x.shape[0]
-    kvh, g, hd = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
     caches, mem = state["self"], state["memory"]
+    layer = _layer(_whisper_dec_step, "decoder", "none")
     for i in range(cfg.n_layers):
-        lp = index_tree(p["decoder"], i)
-        h = x
-        y = apply_norm(lp["ln1"], cfg, h)
         cache = {"k": caches["k"][i], "v": caches["v"][i]}
-        o, _ = attention.decode_step(lp["attn"], cfg, y, cache, pos,
-                                     active=active)
-        h = h + o
-        y = apply_norm(lp["lnx"], cfg, h)
-        q = (y @ lp["xattn"]["wq"]).reshape(b, 1, kvh, g, hd)
-        dt = torch.promote_types(q.dtype, mem["k"].dtype)
-        o = attention.dense_attention(q.to(dt), mem["k"][i].to(dt),
-                                      mem["v"][i].to(dt), None)
-        h = h + o.reshape(b, 1, -1) @ lp["xattn"]["wo"]
-        if h.dtype != x.dtype:
-            raise TypeError(
-                f"{cfg.name}: decoder layer {i} turns a {x.dtype} residual "
-                f"stream into {h.dtype} (cross-attention memory "
-                f"{mem['k'].dtype}); the reference's scan over the decoder "
-                f"layers refuses a carry whose dtype changes")
-        y = apply_norm(lp["ln2"], cfg, h)
-        x = h + apply_mlp(lp["mlp"], cfg, y)
+        x = layer(index_tree(p["decoder"], i), cfg, x, cache, mem["k"][i],
+                  mem["v"][i], pos, active, i)
     return x, state
 
 
@@ -541,48 +579,56 @@ def decode_stack(p: Params, cfg: ArchConfig, x: torch.Tensor, state: Params,
                  ) -> Tuple[torch.Tensor, Params]:
     """One-token step through the stack.  x (B,1,D); ``pos`` (B,).  Each
     layer's cache is a view of the stacked state, updated in place at the
-    ``active`` rows.  A MoE stack runs its dense layers, then its MoE
-    layers, whose routing takes every row of the batch; a Griffin stack
-    its groups, then its trailing recurrent layers; an SSM stack its SSD
-    blocks; an encoder-decoder its decoder layers (``_decode_whisper``)."""
+    ``active`` rows.  On local shards (``sharding.partition.use_rules``
+    with specs) each layer gathers its FSDP shards first and runs on this
+    rank's heads, channels and cache shard (``attention``, ``ssm``,
+    ``rglru``, ``moe.apply_moe_rows``).  A MoE stack runs its dense
+    layers, then its MoE layers, whose routing takes every row of the
+    batch; a Griffin stack its groups, then its trailing recurrent
+    layers; an SSM stack its SSD blocks; an encoder-decoder its decoder
+    layers (``_decode_whisper``)."""
     if cfg.encoder_decoder:
         return _decode_whisper(p, cfg, x, state, pos, active)
     if cfg.ssm.enabled:
+        layer = _layer(decode_ssm_layer, "layers", "none")
         for i in range(cfg.n_layers):
-            x, _ = decode_ssm_layer(index_tree(p["layers"], i), cfg, x,
-                                    index_tree(state["layers"], i),
-                                    active=active)
+            x, _ = layer(index_tree(p["layers"], i), cfg, x,
+                         index_tree(state["layers"], i), active=active)
         return x, state
     if cfg.rglru.enabled:
         n_groups, n_trail = griffin_layout(cfg)
+        group = _layer(decode_griffin_group, "groups", "none")
         for i in range(n_groups):
-            x, _ = decode_griffin_group(index_tree(p["groups"], i), cfg, x,
-                                        index_tree(state["groups"], i), pos,
-                                        active=active)
-        for i in range(n_trail):
-            x, _ = decode_rec_layer(index_tree(p["trailing"], i), cfg, x,
-                                    index_tree(state["trailing"], i),
-                                    active=active)
+            x, _ = group(index_tree(p["groups"], i), cfg, x,
+                         index_tree(state["groups"], i), pos, active=active)
+        if n_trail:
+            rec = _layer(decode_rec_layer, "trailing", "none")
+            for i in range(n_trail):
+                x, _ = rec(index_tree(p["trailing"], i), cfg, x,
+                           index_tree(state["trailing"], i), active=active)
         return x, state
     if cfg.moe.enabled:
         n_dense, n_moe = _moe_layout(cfg)
         if n_dense:
             caches = state["dense_layers"]
+            dense = _layer(decode_dense_layer, "dense_layers", "none")
             for i in range(n_dense):
                 cache = {"k": caches["k"][i], "v": caches["v"][i]}
-                x, _ = decode_dense_layer(index_tree(p["dense_layers"], i),
-                                          cfg, x, cache, pos, active=active)
+                x, _ = dense(index_tree(p["dense_layers"], i), cfg, x, cache,
+                             pos, active=active)
         caches = state["layers"]
+        layer = _layer(decode_moe_layer, "layers", "none")
         for i in range(n_moe):
             cache = {"k": caches["k"][i], "v": caches["v"][i]}
-            x, _ = decode_moe_layer(index_tree(p["layers"], i), cfg, x,
-                                    cache, pos, active=active)
+            x, _ = layer(index_tree(p["layers"], i), cfg, x, cache, pos,
+                         active=active)
         return x, state
     layers, caches = p["layers"], state["layers"]
+    dense = _layer(decode_dense_layer, "layers", "none")
     for i in range(cfg.n_layers):
         cache = {"k": caches["k"][i], "v": caches["v"][i]}
-        x, _ = decode_dense_layer(index_tree(layers, i), cfg, x, cache, pos,
-                                  active=active, window=cfg.window)
+        x, _ = dense(index_tree(layers, i), cfg, x, cache, pos,
+                     active=active, window=cfg.window)
     return x, state
 
 

@@ -1513,3 +1513,17 @@ class ServeEngine:
                                       for s in self.slots):
                 break
         return results
+
+
+def build_serve_step(cfg: ArchConfig) -> Callable:
+    """The serving step of the dry-run's decode cells (the reference's
+    lowered serving step): (params, tokens (B, 1), state, pos) → (logits
+    (B, 1, V), state), ``pos`` a scalar — every row at one position, the
+    reference's lockstep — or (B,).  Under installed rules it runs on
+    local shards (``models.model.decode_step``)."""
+    def serve_step(params, tokens, state, pos):
+        if pos.dim() == 0:
+            pos = pos.expand(tokens.shape[0])
+        return model_lib.decode_step(params, cfg, tokens, state,
+                                     pos.to(torch.int64))
+    return serve_step

@@ -30,13 +30,118 @@ with its adjoint:
 
 A group of None (an axis of size 1) makes every one of them the identity,
 so a mesh of one rank runs the unsharded arithmetic.
+
+Counters.  Under ``counting()`` every collective that moves data —
+``gather_dim``, ``scatter_sum_dim``, ``exchange``, ``_exchange_parts``,
+``all_reduce`` and FlexTree's combines (``core.flextree.reduce_psum``) —
+appends a ``CollectiveOp`` (kind, result bytes, group size) to the
+``CollectiveSummary`` it yields; the operand and wire bytes follow the
+reference's conventions (``roofline/hlo.py``: per-rank bytes sent, ring
+algorithms).  The reference reads the same records out of XLA's
+post-SPMD HLO text (``parse_collectives``) and corrects an XLA:CPU
+float-normalisation artifact in it (``f32_upcast_bytes``); eager PyTorch
+issues each collective itself, so the counters see them where they run
+and there is no HLO, and no such artifact, to read.
 """
 from __future__ import annotations
 
+import contextlib
+from collections import defaultdict
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.flextree import ReduceConfig, reduce_psum
+
+
+@dataclass
+class CollectiveOp:
+    """One collective: per-rank bytes sent, by the reference's table
+
+      op                  operand            ring wire bytes
+      all-reduce          result             2·(g-1)/g · result
+      all-gather          result / g         (g-1)/g · result
+      reduce-scatter      result · g         (g-1) · result
+      all-to-all          result             (g-1)/g · result
+      collective-permute  result             result
+    """
+    kind: str
+    result_bytes: int
+    group_size: int
+
+    @property
+    def operand_bytes(self) -> float:
+        if self.kind == "all-gather":
+            return self.result_bytes / max(self.group_size, 1)
+        if self.kind == "reduce-scatter":
+            return self.result_bytes * self.group_size
+        return float(self.result_bytes)
+
+    @property
+    def wire_bytes(self) -> float:
+        """Per-rank ring traffic."""
+        g = max(self.group_size, 1)
+        if g == 1:
+            return 0.0
+        if self.kind == "all-reduce":
+            return 2.0 * self.result_bytes * (g - 1) / g
+        if self.kind == "all-gather":
+            return self.result_bytes * (g - 1) / g
+        if self.kind == "reduce-scatter":
+            return self.result_bytes * (g - 1)      # operand·(g-1)/g
+        if self.kind == "all-to-all":
+            return self.result_bytes * (g - 1) / g
+        return float(self.result_bytes)             # permute: one hop
+
+
+@dataclass
+class CollectiveSummary:
+    ops: List[CollectiveOp] = field(default_factory=list)
+
+    @property
+    def operand_bytes(self) -> float:
+        return sum(o.operand_bytes for o in self.ops)
+
+    @property
+    def wire_bytes(self) -> float:
+        return sum(o.wire_bytes for o in self.ops)
+
+    def by_kind(self) -> Dict[str, Dict[str, float]]:
+        out: Dict[str, Dict[str, float]] = defaultdict(
+            lambda: {"count": 0, "operand_bytes": 0.0, "wire_bytes": 0.0})
+        for o in self.ops:
+            d = out[o.kind]
+            d["count"] += 1
+            d["operand_bytes"] += o.operand_bytes
+            d["wire_bytes"] += o.wire_bytes
+        return dict(out)
+
+
+_summaries: List[CollectiveSummary] = []
+
+
+@contextlib.contextmanager
+def counting():
+    """Record every collective issued inside into the yielded summary."""
+    summary = CollectiveSummary()
+    _summaries.append(summary)
+    try:
+        yield summary
+    finally:
+        _summaries.remove(summary)
+
+
+def record(kind: str, result: torch.Tensor, group) -> None:
+    """Count one collective of ``kind`` whose result (on this rank) is
+    ``result``, over ``group``."""
+    if _summaries:
+        op = CollectiveOp(kind, result.numel() * result.element_size(),
+                          group_size(group))
+        for summary in _summaries:
+            summary.ops.append(op)
 
 
 def group_size(group) -> int:
@@ -45,7 +150,9 @@ def group_size(group) -> int:
 
 def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The group's ``x`` concatenated along ``dim`` in group-rank order (no
-    gradient)."""
+    gradient), contiguous: the kernels take a weight row-major or as the
+    transposed view of a row-major matrix, never a gathered dim's
+    interleaved strides."""
     n = group_size(group)
     if n == 1:
         return x
@@ -53,7 +160,8 @@ def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     out = torch.empty((n * front.shape[0],) + front.shape[1:],
                       dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, front, group=group)
-    return out.movedim(0, dim)
+    record("all-gather", out, group)
+    return out.movedim(0, dim).contiguous()
 
 
 def scatter_sum_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -66,6 +174,7 @@ def scatter_sum_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     out = torch.empty((front.shape[0] // n,) + front.shape[1:],
                       dtype=x.dtype, device=x.device)
     dist.reduce_scatter_tensor(out, front, group=group)
+    record("reduce-scatter", out, group)
     return out.movedim(0, dim)
 
 
@@ -78,6 +187,7 @@ def exchange(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     front = x.movedim(dim, 0).contiguous()
     out = torch.empty_like(front)
     dist.all_to_all_single(out, front, group=group)
+    record("all-to-all", out, group)
     return out.movedim(0, dim)
 
 
@@ -87,10 +197,19 @@ def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return x.narrow(dim, dist.get_rank(group) * n, n)
 
 
+def _host_indices(w) -> np.ndarray:
+    """Column indices as a host int64 array (a plan is worked out on the
+    host, so it needs no device data — a trace has none)."""
+    if isinstance(w, torch.Tensor):
+        w = w.cpu().numpy()
+    return np.asarray(w, dtype=np.int64)
+
+
 def _column_plan(want, n: int, rank: int):
     """For ``fetch_columns``: this rank's block [rank·n, rank·n + n) of
     the columns, the local indices it sends to each rank (in that rank's
-    order) and the count it receives from each."""
+    order, host arrays) and the count it receives from each."""
+    want = [_host_indices(w) for w in want]
     lo = rank * n
     send = [w[(w >= lo) & (w < lo + n)] - lo for w in want]
     mine = want[rank]
@@ -106,6 +225,7 @@ def _exchange_parts(x: torch.Tensor, send_sizes, recv_sizes, group):
     out = x.new_empty((sum(recv_sizes),) + x.shape[1:])
     dist.all_to_all_single(out, x.contiguous(), list(recv_sizes),
                            list(send_sizes), group=group)
+    record("all-to-all", out, group)
     return out
 
 
@@ -116,6 +236,7 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM
         return x
     out = x.clone()
     dist.all_reduce(out, op=op, group=group)
+    record("all-reduce", out, group)
     return out
 
 
@@ -200,6 +321,7 @@ class _FetchColumns(torch.autograd.Function):
     def forward(ctx, x, group, want):
         n = x.shape[-1]
         send, recv = _column_plan(want, n, dist.get_rank(group))
+        send = [torch.as_tensor(i, device=x.device) for i in send]
         ctx.group, ctx.n, ctx.send, ctx.recv = group, n, send, recv
         rows = x.movedim(-1, 0)
         parts = torch.cat([rows.index_select(0, i) for i in send])
@@ -268,9 +390,10 @@ def sp_out(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 def fetch_columns(x: torch.Tensor, group, want) -> torch.Tensor:
     """``x``: this rank's block of a leaf's last dim, cut in equal blocks
     over ``group``; ``want[r]``: the ascending column indices (of the
-    whole leaf) that rank r uses, the same list on every rank.  Returns
-    this rank's columns, in their order, each sent by the rank that holds
-    it."""
+    whole leaf) that rank r uses, the same list on every rank (tensors or
+    host arrays).  Returns this rank's columns, in their order, each sent
+    by the rank that holds it."""
     if group_size(group) == 1:
-        return x.index_select(-1, want[0])
+        return x.index_select(-1, torch.as_tensor(_host_indices(want[0]),
+                                                  device=x.device))
     return _FetchColumns.apply(x, group, list(want))

@@ -113,23 +113,35 @@ def batch_rows() -> MeshAxes:
     return getattr(_state, "batch", None)
 
 
+def cache_rows() -> MeshAxes:
+    """The mesh axis the installed decode step's KV caches (and a
+    cross-attention's memory) cut their rows over (``batch_shardings``'
+    ``cache_seq``: "model" under SP), None where each rank holds every
+    row."""
+    return getattr(_state, "cache", None)
+
+
 def installed():
     """What ``use_rules`` installed, as its arguments: (rules, specs,
-    batch)."""
-    return current_rules(), current_specs(), batch_rows()
+    batch, cache)."""
+    return current_rules(), current_specs(), batch_rows(), cache_rows()
 
 
 @contextlib.contextmanager
-def use_rules(rules: Optional[Rules], specs=None, batch: MeshAxes = None):
+def use_rules(rules: Optional[Rules], specs=None, batch: MeshAxes = None,
+              cache: MeshAxes = None):
     """Install ``rules`` and, for a step on local shards, the spec tree of
-    the parameters (``partition_params``) the model gathers by and the
-    axes its batch rows are cut over."""
+    the parameters (``partition_params``) the model gathers by, the axes
+    its batch rows are cut over and, for a decode step, the axis its
+    caches' rows are cut over (``cache_rows``)."""
     prev = installed()
-    _state.rules, _state.specs, _state.batch = rules, specs, batch
+    _state.rules, _state.specs, _state.batch, _state.cache = (
+        rules, specs, batch, cache)
     try:
         yield rules
     finally:
-        _state.rules, _state.specs, _state.batch = prev
+        (_state.rules, _state.specs, _state.batch,
+         _state.cache) = prev
 
 
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
@@ -332,6 +344,26 @@ def batch_shardings(specs, mesh: Mesh, *, seq_shard: bool = False):
                 return resolve(full, shape)
         return resolve((), shape)
     return _map_paths(assign, specs)
+
+
+def cache_axis(state_specs) -> MeshAxes:
+    """The mesh axis the KV caches of a decode state's specs
+    (``batch_shardings``) cut their rows over — the row dim of every k / v
+    leaf (L, B, C, KVH, hd) — or None; caches cut differently raise."""
+    axes = {spec[2] for path, spec in tree_paths(state_specs).items()
+            if path.split("/")[-1] in ("k", "v")}
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"decode caches cut over {sorted(map(str, axes))}")
+    return axes.pop() if axes else None
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh: Mesh
+                ) -> Tuple[int, ...]:
+    """The shape of one rank's block of a leaf of ``shape`` under
+    ``spec``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d // _axis_size(mesh, ax) for d, ax in zip(shape, spec))
 
 
 # ---------------------------------------------------------------------------
@@ -557,6 +589,25 @@ def model_whole(p, name: str, tp: TensorParallel) -> torch.Tensor:
     return collectives.all_gather(p[name], tp.group, dim)
 
 
+def model_replicated(p, name: str, tp: TensorParallel) -> torch.Tensor:
+    """The whole leaf ``p[name]`` for a use that is the same on every
+    model rank (each runs the whole computation, as where a layer's heads
+    do not split over ``model``): gathered where it is stored split over
+    ``model`` — a ``wkv`` back in its [K | V] layout — with this rank's
+    block of the gradient taken back (``collectives.sp_out``), else the
+    leaf itself."""
+    x = p[name]
+    dim = model_dim(p, name)
+    if dim is None:
+        return x
+    full = collectives.sp_out(x, tp.group, dim)
+    if name == "wkv" and dim == x.dim() - 1:
+        c = x.shape[-1] // 2
+        full = full.unflatten(-1, (tp.size, 2, c)).transpose(
+            -3, -2).flatten(-3)
+    return full
+
+
 def model_block(p, name: str, tp: TensorParallel, dim: int) -> torch.Tensor:
     """This rank's block of the leaf ``p[name]`` along ``dim``: the stored
     block where the leaf is split so, else cut from ``model_whole``."""
@@ -577,4 +628,5 @@ def model_columns(p, name: str, tp: TensorParallel, cols) -> torch.Tensor:
     if model_dim(p, name) == x.dim() - 1:
         return collectives.fetch_columns(
             x, tp.group, [cols(r) for r in range(tp.size)])
-    return model_whole(p, name, tp).index_select(-1, cols(tp.index))
+    idx = torch.as_tensor(cols(tp.index), device=x.device)
+    return model_whole(p, name, tp).index_select(-1, idx)

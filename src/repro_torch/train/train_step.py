@@ -53,14 +53,17 @@ def _microbatch(batch: Dict, n_micro: int) -> Dict:
 
 
 def _unflatten(like, leaves: List[torch.Tensor]):
-    """``leaves`` (in ``tree_leaves`` order) back into ``like``'s dicts."""
-    it = iter(leaves)
+    """``leaves`` (in ``tree_leaves`` order) back into ``like``'s dicts.
+    No closure refers to itself here: a recursive inner function is a
+    reference cycle, which would hold ``leaves`` (a step's gradients)
+    until the garbage collector runs."""
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(like)
+
+def _build(t, it):
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def value_and_grad(loss_fn, params, batch) -> Tuple[torch.Tensor, Dict]:
@@ -144,7 +147,7 @@ def _batch_mean(g: torch.Tensor, spec, mesh: Mesh, batch_axes) -> torch.Tensor:
 def build_train_step(cfg: ArchConfig, shape: ShapeConfig,
                      opt_cfg: AdamWConfig, mesh: Optional[Mesh] = None,
                      rules: Optional[Rules] = None, *,
-                     donate: bool = True):
+                     donate: bool = True, batch_specs=None):
     """The train step.  Without a mesh, the step on one device.
 
     With ``mesh`` and ``rules`` (the reference's pjit step) the parameters
@@ -162,12 +165,15 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig,
     ``model`` inside the backward.
     The metrics are global.  A mesh of one rank runs the unsharded
     arithmetic.  ``donate`` is accepted for the reference's signature —
-    an eager step frees the old state as soon as the caller drops it."""
+    an eager step frees the old state as soon as the caller drops it.
+    ``batch_specs`` (``batch_shardings`` over the global batch's shapes):
+    the caller hands each rank its own rows of the batch already, cut
+    under them (the dry-run's traced step)."""
     del donate
     if mesh is None or rules is None:
         return make_step_fn(cfg, shape, opt_cfg)
     specs = param_specs(cfg, rules)
-    grad_fn = build_grad_fn(cfg, shape, mesh, rules)
+    grad_fn = build_grad_fn(cfg, shape, mesh, rules, batch_specs)
 
     def step(params, opt_state: OptState, batch):
         loss, grads = grad_fn(params, batch)
@@ -181,12 +187,12 @@ def build_train_step(cfg: ArchConfig, shape: ShapeConfig,
 
 def build_grad_fn(cfg: ArchConfig, shape: ShapeConfig,
                   mesh: Optional[Mesh] = None,
-                  rules: Optional[Rules] = None):
+                  rules: Optional[Rules] = None, batch_specs=None):
     """The step's first half, (params, batch) -> (loss, gradients): over
     ``shape.n_micro`` microbatches, summed in the accumulation dtype; with
-    ``mesh`` and ``rules`` on this rank's shards (``build_train_step``),
-    the gradients reduced to their shards and averaged over the batch
-    axes, the loss the global batch's."""
+    ``mesh`` and ``rules`` on this rank's shards (``build_train_step``,
+    whose ``batch_specs`` it takes), the gradients reduced to their shards
+    and averaged over the batch axes, the loss the global batch's."""
     loss_fn = loss_for(cfg, shape)
     n_micro = max(shape.n_micro, 1)
     acc_dtype = _acc_dtype(shape)
@@ -197,9 +203,12 @@ def build_grad_fn(cfg: ArchConfig, shape: ShapeConfig,
     batch_axes = _axes(rules.logical["batch"])
 
     def grads_of(params, batch):
-        rows = partition.batch_shardings(batch, mesh)
-        local = {k: partition.shard_leaf(v, rows[k], mesh)
-                 for k, v in batch.items()}
+        if batch_specs is None:
+            rows = partition.batch_shardings(batch, mesh)
+            local = {k: partition.shard_leaf(v, rows[k], mesh)
+                     for k, v in batch.items()}
+        else:
+            rows, local = batch_specs, batch
         with partition.use_rules(rules, specs, rows["tokens"][0]):
             loss, grads = _accumulate(loss_fn, params, local, n_micro,
                                       acc_dtype)

@@ -1,7 +1,9 @@
 """``ExecConfig.sparse_dispatch`` in the port against the JAX package's: with
 the switch off a ``PlannedWeight`` takes its dense fallback, no descriptor
 routes a site to the block-sparse path, no activation popcount is recorded,
-and the dense fallback keeps the site's scheduled stationarity.
+and the dense fallback keeps the site's scheduled stationarity.  The
+public two-sided entry point ``ops.block_sparse_matmul`` (precomputed
+metadata, or None for the site's dispatch) equals the reference's.
 
 Tolerances: float32 products that the two sides sum in another order,
 rtol = 2e-5 / atol = 2e-4 against the dense product (the reference tests'
@@ -240,3 +242,31 @@ def test_engine_switch_off_equals_reference_engine():
     assert dens[0] == {}
     assert set(dens[1]) == {s for s, d in pec.schedules.sites.items()
                             if d.sparsity_mode == "two_sided"}
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["plain", "kernels"])
+@pytest.mark.parametrize("with_meta", [True, False], ids=["meta", "none"])
+def test_public_block_sparse_matmul_equals_reference(use_kernels, with_meta):
+    """``ops.block_sparse_matmul``, the reference's public two-sided entry
+    point: with precomputed metadata (dead blocks on both sides) and with
+    None (the site's ``flex_matmul`` dispatch), against the reference's
+    and against the dense product."""
+    rng = np.random.default_rng(3)
+    bm = bk = bn = 16
+    x = rng.standard_normal((32, 64)).astype(np.float32)
+    x[:16, :32] = 0.0
+    w = rng.standard_normal((64, 48)).astype(np.float32)
+    w[16:32] = 0.0
+    ref_meta = (ref_sp.build_block_sparse_meta(x, w, bm, bk, bn)
+                if with_meta else None)
+    want = np.asarray(ref_ops.block_sparse_matmul(
+        jnp.asarray(x), jnp.asarray(w), ref_meta, site=SITE))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    meta = (pt_sp.build_block_sparse_meta(pt_sp.block_bitmap(xt, bm, bk),
+                                          pt_sp.block_bitmap(wt, bk, bn))
+            if with_meta else None)
+    with pt_ops.exec_config(pt_ops.ExecConfig(use_kernels=use_kernels)):
+        got = pt_ops.block_sparse_matmul(xt, wt, meta, site=SITE).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, x @ w, **DENSE_TOL)

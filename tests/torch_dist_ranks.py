@@ -367,3 +367,58 @@ def families_rank(rank, world, workdir):
                 inp, arch, (mesh, ("data", "model")))
     out["launcher"] = _launcher_direct(inp["launcher"])
     _finish(rank, workdir, out)
+
+
+# ---------------------------------------------------------------------------
+# the sharded decode step of every family (test_torch_dist_decode.py)
+# ---------------------------------------------------------------------------
+
+def _sharded_decode(case, mesh_shape, seq_shard):
+    """``case["steps"]`` decode steps of the sharded serve step from the
+    parent's weights and state: every step's logits (all rows) and the
+    gathered state after the last."""
+    from repro_torch.configs.cells import cell_flags
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.serve.engine import build_serve_step
+    from repro_torch.sharding import partition
+    from repro_torch.train.train_step import param_specs
+
+    cfg = case["cfg"]
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    flags = cell_flags(case["arch"], "decode_32k")
+    rules = partition.make_rules(mesh, kind="decode", n_heads=cfg.n_heads,
+                                 n_kv_heads=cfg.n_kv_heads,
+                                 seq_shard=seq_shard, fsdp=flags.fsdp)
+    specs = param_specs(cfg, rules)
+    p = partition.shard_tree(_params(case["params"]), specs, mesh)
+    state = _params(case["state"])
+    st_specs = partition.batch_shardings({"state": state}, mesh,
+                                         seq_shard=seq_shard)["state"]
+    st = partition.shard_tree(state, st_specs, mesh)
+    cache = partition.cache_axis(st_specs)
+    serve = build_serve_step(cfg)
+    rows = partition.batch_shardings(
+        {"tokens": torch.from_numpy(case["tokens"][0])}, mesh)["tokens"]
+    logits = []
+    for t in range(case["tokens"].shape[0]):
+        tok = partition.shard_leaf(torch.from_numpy(case["tokens"][t]),
+                                   rows, mesh)
+        pos = partition.shard_leaf(torch.from_numpy(case["pos"] + t),
+                                   rows[:1], mesh)
+        with partition.use_rules(rules, specs, rows[0], cache):
+            lg, st = serve(p, tok, st, pos)
+        logits.append(partition.gather_leaf(lg, rows + (None,), mesh))
+    return {"logits": logits,
+            "state": partition.gather_tree(st, st_specs, mesh),
+            "cache": cache}
+
+
+def decode_rank(rank, world, workdir):
+    inp = _init(rank, world, workdir)
+    out = {}
+    for arch, case in inp["cases"].items():
+        for mesh in inp["meshes"]:
+            for seq_shard in (False, True):
+                out[(arch, mesh, seq_shard)] = _sharded_decode(
+                    case, mesh, seq_shard)
+    _finish(rank, workdir, out)
